@@ -1,0 +1,42 @@
+"""Carry the JAX reference's data and state into the port.
+
+The arguments are numpy arrays (``np.asarray`` of the reference's leaves,
+and ``jax.random.key_data`` for a key), so this module needs no JAX.  The
+tests use it to run both packages from the same state.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.flecs import FlecsState
+from repro_torch.data.logreg import FederatedLogReg
+from repro_torch.device import resolve_device
+
+
+def key_from_reference(key_data, device=None) -> torch.Tensor:
+    """A reference key's uint32 words (``jax.random.key_data(key)``, shape
+    [..., 2]) as the port's int64 key tensor."""
+    words = np.asarray(key_data, dtype=np.uint32).astype(np.int64)
+    return torch.as_tensor(words, device=resolve_device(device))
+
+
+def problem_from_reference(A, b, mu, device=None) -> FederatedLogReg:
+    """``FederatedLogReg`` from the reference problem's A [n, r, d],
+    b [n, r] and mu."""
+    dev = resolve_device(device)
+    return FederatedLogReg(
+        torch.as_tensor(np.array(A, np.float32), device=dev),
+        torch.as_tensor(np.array(b, np.float32), device=dev), float(mu))
+
+
+def state_from_reference(w, h, B, k, bits_per_node,
+                         device=None) -> FlecsState:
+    """``FlecsState`` from the reference ``FlecsState``'s leaves."""
+    dev = resolve_device(device)
+
+    def tensor(a):
+        return torch.as_tensor(np.array(a, np.float32), device=dev)
+
+    return FlecsState(tensor(w), tensor(h), tensor(B), int(np.asarray(k)),
+                      tensor(bits_per_node))

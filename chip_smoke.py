@@ -6,12 +6,18 @@
 Phases (any failure stops the script with a non-zero exit; nothing falls
 back to the CPU):
 
-1. Build the compressor kernels from ``src/repro_torch/kernels/compressor/
-   csrc`` with nvcc for sm_90a; print the compiler's register report and
-   the card's name and power limit.
-2. Hold every kernel on the card against its plain PyTorch version on a CPU
-   copy of the same inputs, at the main path's row shapes and on edge rows:
-   the results must be bit-identical.
+1. Build both kernel libraries from their sources (``src/repro_torch/
+   kernels/*/csrc``) with nvcc for sm_90a, the two compilers started
+   together; print the compiler's register report and the card's name and
+   power limit.
+2. Hold every compressor kernel on the card against its plain PyTorch
+   version on a CPU copy of the same inputs, at the main path's row shapes
+   and on edge rows: the results must be bit-identical.  Hold the
+   flash-attention kernel against its plain version on the card, on the
+   same inputs: the reference's test shapes in float32 and bfloat16, a
+   ragged length (S = 200) and the serving shape (B=8, H=32, KV=4, S=1024,
+   D=64); rtol = atol = 2e-5 in float32, 2e-2 in bfloat16 (the reference's
+   own kernel test).
 3. Quickstart (d=123, n=20, r=64, m=4, seed 0): 201 rounds with
    dither64/dither64 and 50 with a topk0.1 Hessian compressor, on the card
    and in the port on the CPU.  Ledgers must be equal every round, the
@@ -21,9 +27,20 @@ back to the CPU):
 4. Gisette width (d=5000, n=20, r=300, m=4): 10 rounds with each Hessian
    compressor on the card, with exact ledgers; the dither run's objective
    against the port on this machine's CPU; round time and peak memory.
-5. A profile of a few rounds at both sizes, then each kernel's time by CUDA
-   events beside its plain version, its bound and (top-k) ``torch.topk``.
-6. Print the kernels line, then the device line as the last line.
+5. Serving, tinyllama-1.1b at full width and depth 2 (float32 weights
+   built on the card from seed 0, then copied to the CPU): prefill of one
+   256-token prompt and 8 greedy decode steps on both devices, the CPU fed
+   the card's tokens; logits within max |Δ| <= 1e-4 · max |logits|, greedy
+   ids equal wherever the CPU's top-2 margin exceeds that bound.
+6. Serving, tinyllama-1.1b at full width and all 22 layers (float32): batch
+   8, prompt 1024, 64 greedy decode steps through ``launch/serve.py``'s own
+   functions; the flash-attention count, set to 0 just before, must be 22
+   after the prefill; finite logits; prefill ms, decode ms per step, tokens
+   per second, peak memory; then profiles of one prefill and of 4 steps.
+7. A profile of a few Algorithm 1 rounds at both sizes, then each kernel's
+   time by CUDA events beside its plain version, its bound and the library
+   call (``torch.topk``; ``scaled_dot_product_attention``, timed only).
+8. Print the kernels line, then the device line as the last line.
 """
 from __future__ import annotations
 
@@ -31,6 +48,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -45,8 +63,20 @@ REPLACES = {
     "dither_bits": "src/repro/kernels/compressor/compressor.py:161",
     "topk_bits": "src/repro/kernels/compressor/compressor.py:165",
 }
+FLASH_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
+                "flash_attention.cu")
+FLASH_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:28"
 QUICK = dict(d=123, n_workers=20, r=64, m=4, seed=0)
 GISETTE = dict(d=5000, n_workers=20, r=300, m=4, seed=0)
+# the shapes of tests/test_kernels.py's flash test, a ragged length, and the
+# serving shape (tinyllama-1.1b, batch 8, prompt 1024): B, H, KV, S, D,
+# window, cap
+FLASH_SHAPES = [(1, 4, 2, 256, 64, 0, 0.0), (2, 4, 4, 128, 32, 0, 50.0),
+                (1, 8, 2, 512, 64, 128, 0.0), (2, 2, 1, 256, 128, 64, 30.0),
+                (1, 2, 2, 384, 64, 0, 0.0), (1, 4, 2, 200, 64, 0, 0.0),
+                (2, 4, 1, 200, 32, 70, 20.0)]
+SERVE_SHAPE = (8, 32, 4, 1024, 64, 0, 0.0)
+TINYLLAMA = "tinyllama-1.1b"
 
 
 def log(*args):
@@ -168,6 +198,191 @@ def phase_kernels(dev, ops, ref, random):
     return err
 
 
+def flash_inputs(shape, dtype, dev, seed=0):
+    import torch
+    B, H, KV, S, D, _, _ = shape
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return [torch.randn(s, generator=g).to(dev, dtype)
+            for s in ((B, H, S, D), (B, KV, S, D), (B, KV, S, D))]
+
+
+def phase_flash_kernel(dev, fa_ops, fa_ref):
+    """Phase 2, flash attention: the kernel against its plain version on
+    the card, on the same inputs; returns the largest |Δ| per dtype."""
+    import torch
+    err = {}
+    for shape in FLASH_SHAPES + [SERVE_SHAPE]:
+        dtypes = ((torch.float32,) if shape == SERVE_SHAPE
+                  else (torch.float32, torch.bfloat16))
+        for dtype in dtypes:
+            q, k, v = flash_inputs(shape, dtype, dev)
+            window, cap = shape[5], shape[6]
+            got = fa_ops.flash_attention(q, k, v, window, cap)
+            torch.cuda.synchronize()
+            want = fa_ref.attention_ref(q, k, v, window, cap)
+            tol = 2e-5 if dtype == torch.float32 else 2e-2
+            check(got.dtype == dtype, f"flash_attention returned {got.dtype}")
+            got, want = got.float(), want.float()
+            ok = bool(((got - want).abs() <= tol + tol * want.abs()).all())
+            e = max_abs_err(got, want)
+            check(ok,
+                  f"flash_attention differs from its plain version at "
+                  f"{shape} {dtype}: max |Δ| {e!r} beyond rtol=atol={tol}")
+            name = str(dtype).replace("torch.", "")
+            err[name] = max(err.get(name, 0.0), e)
+            log(f"phase 2: flash_attention {shape} {name}: max |Δ| {e!r}")
+            del q, k, v, got, want
+    torch.cuda.empty_cache()
+    return err
+
+
+def to_cpu(tree):
+    from repro_torch.models.model import tree_map
+    return tree_map(lambda t: t.cpu(), tree)
+
+
+def phase_serve_depth2(serve):
+    """Phase 5: tinyllama-1.1b at full width, depth 2, on the card against
+    the port on this machine's CPU (weights built once, on the card)."""
+    import torch
+    cfg, params, tokens = serve.setup(TINYLLAMA, smoke=False, batch=1,
+                                      prompt_len=256, device="cuda",
+                                      n_layers=2)
+    card = serve.generate(cfg, params, tokens, gen=8)
+    cpu = serve.generate(cfg, to_cpu(params), tokens.cpu(), gen=8,
+                         feed=card["generated"].cpu())
+    got, want = card["logits"].cpu(), cpu["logits"]
+    bound = 1e-4 * float(want.abs().max())
+    err = float((got - want).abs().max())
+    check(bool(torch.isfinite(got).all()), "depth 2: logits not finite")
+    check(err <= bound, f"depth 2: card logits {err!r} from the CPU's, "
+          f"beyond 1e-4 · max |logits| = {bound!r}")
+    top2 = want.topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > bound
+    ids_card, ids_cpu = got.argmax(-1), want.argmax(-1)
+    check(bool((ids_card == ids_cpu)[sure].all()),
+          "depth 2: greedy ids differ where the top-2 margin is clear")
+    log(f"phase 5: tinyllama depth 2, prompt 256, 8 steps: logits max |Δ| "
+        f"card-CPU {err!r} (bound {bound!r}); greedy ids equal at "
+        f"{int(sure.sum())} of {sure.numel()} positions with a clear margin; "
+        f"ids {ids_card[:, 0].tolist()}")
+    del params
+    torch.cuda.empty_cache()
+    return dict(max_abs_logit_diff=err, bound=bound,
+                clear_margin_positions=int(sure.sum()))
+
+
+def device_rows(prof):
+    """(device µs, count, name) of the device-side events of a profile
+    (kernels, copies): the operator events that launched them carry the
+    same time again."""
+    return [(e.self_device_time_total, e.count, e.key)
+            for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")]
+
+
+def phase_serve_full(serve, fa_ops):
+    """Phase 6: tinyllama-1.1b, all 22 layers, float32: batch 8, prompt
+    1024, 64 greedy steps (after a short warm-up run), then a profile."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    cfg, params, tokens = serve.setup(TINYLLAMA, smoke=False, batch=8,
+                                      prompt_len=1024, device="cuda")
+    n_layers = cfg.n_layers
+    serve.generate(cfg, params, tokens, gen=4)                  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa_ops.reset_launches()
+    out = serve.generate(cfg, params, tokens, gen=64)
+    launches = fa_ops.launches["flash_attention"]
+    peak = torch.cuda.max_memory_allocated()
+    check(out["prefill_flash_launches"] == n_layers == launches,
+          f"full depth: flash_attention launched {launches} times "
+          f"({out['prefill_flash_launches']} in the prefill), expected "
+          f"{n_layers}")
+    check(bool(torch.isfinite(out["logits"]).all()),
+          "full depth: logits not finite")
+    res = dict(prefill_ms=out["prefill_ms"], decode_ms=out["decode_ms"],
+               tokens_per_s=out["tokens_per_s"], peak_gib=peak / 2**30,
+               launches=launches)
+    log(f"phase 6: {TINYLLAMA} x{n_layers} f32, batch 8, prompt 1024, 64 "
+        f"steps: prefill {out['prefill_ms']!r} ms, decode "
+        f"{out['decode_ms']!r} ms/step, {out['tokens_per_s']!r} tokens/s, "
+        f"peak memory {peak / 2**30!r} GiB; flash_attention launches "
+        f"{launches}; row 0 ids {out['generated'][0, :16].tolist()}")
+    # profiles of serve.generate itself: a prefill and 1 step, then a
+    # prefill and 9 steps; their difference over 8 is one decode step
+    windows = {}
+    for gen in (1, 9):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            serve.generate(cfg, params, tokens, gen=gen)
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+        rows = {}
+        for t, count, name in device_rows(prof):
+            t0_, c0 = rows.get(name, (0.0, 0))
+            rows[name] = (t0_ + t, c0 + count)
+        windows[gen] = (wall_us, rows)
+    (wall1, rows1), (wall9, rows9) = windows[1], windows[9]
+    step = {name: ((t - rows1.get(name, (0.0, 0))[0]) / 8,
+                   (c - rows1.get(name, (0.0, 0))[1]) / 8)
+            for name, (t, c) in rows9.items()}
+    res["profile"] = {}
+    for label, wall_us, rows in (("prefill + 1 step", wall1, rows1),
+                                 ("decode step", (wall9 - wall1) / 8, step)):
+        busy = sum(t for t, _ in rows.values())
+        n_kernels = sum(c for _, c in rows.values())
+        flash_us = sum(t for name, (t, _) in rows.items()
+                       if "flash_kernel" in name)
+        top = sorted(((t, c, name) for name, (t, c) in rows.items()),
+                     reverse=True)[:10]
+        log(f"profile serve {label} (profiled): wall {wall_us / 1e3!r} ms, "
+            f"device busy {busy / 1e3!r} ms ({100 * busy / wall_us:.1f}% "
+            f"of wall), {n_kernels:g} device kernels and copies, "
+            f"flash_attention {flash_us / 1e3!r} ms")
+        for t, count, name in top:
+            log(f"  {t / 1e3:10.4f} ms  x{count:7.1f}  {name[:80]}")
+        res["profile"][label] = dict(
+            wall_ms=wall_us / 1e3, busy_ms=busy / 1e3, kernels=n_kernels,
+            flash_ms=flash_us / 1e3,
+            top=[[t / 1e3, c, name[:80]] for t, c, name in top])
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_flash_timing(dev, fa_ops, fa_ref):
+    """The flash kernel at the serving shape by CUDA events, beside its
+    plain version, the library call (SDPA, timed only) and its bound."""
+    import torch
+    import torch.nn.functional as F
+    B, H, KV, S, D, _, _ = SERVE_SHAPE
+    q, k, v = flash_inputs(SERVE_SHAPE, torch.float32, dev, seed=1)
+    res = dict(ms=cuda_ms(lambda: fa_ops.flash_attention(q, k, v), 20),
+               plain_ms=cuda_ms(lambda: fa_ref.attention_ref(q, k, v), 5))
+    try:
+        res["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 20)
+    except (TypeError, RuntimeError) as exc:       # no enable_gqa here
+        log(f"timing: scaled_dot_product_attention unavailable: {exc}")
+        res["library_ms"] = None
+    ops = 4 * B * H * S * S * D / 2                  # causal half
+    nbytes = 4 * (2 * B * H * S * D + 2 * B * KV * S * D)
+    t_ops, t_bytes = 1e3 * ops / F32_OPS_PER_S, 1e3 * nbytes / HBM_BYTES_PER_S
+    res.update(bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               ops=ops, bytes=nbytes)
+    log(f"timing flash_attention {list(SERVE_SHAPE[:5])} f32: {res['ms']!r} "
+        f"ms (plain {res['plain_ms']!r} ms, SDPA {res['library_ms']!r} ms, "
+        f"bound {res['bound_ms']!r} ms by {res['bound_by']}: {ops:.4g} "
+        f"operations, {nbytes:.4g} bytes); {ops / res['ms'] / 1e9!r} "
+        f"TFLOP/s")
+    return res
+
+
 def drive(quickstart, ops, counts_total, expect, label, iters, **kw):
     """One main-path run on the card, through the quickstart's pieces:
     the counters are set to 0 just before the recorded run and read just
@@ -282,11 +497,11 @@ def phase_gisette(quickstart, ops, counts_total):
 
 
 def phase_profile(quickstart):
-    """Where a round's device time goes: torch.profiler over 10 quickstart
-    rounds and 3 gisette rounds; the top kernels by device time, each
-    compressor kernel's device time per launch, and the device's busy share
-    of the profiled window's wall time (the profiler slows the host, so the
-    window is longer than an unprofiled round)."""
+    """Phase 7: where a round's device time goes: torch.profiler over 10
+    quickstart rounds and 3 gisette rounds; the top kernels by device time,
+    each compressor kernel's device time per launch, and the device's busy
+    share of the profiled window's wall time (the profiler slows the host,
+    so the window is longer than an unprofiled round)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.driver import run_experiment
@@ -302,11 +517,7 @@ def phase_profile(quickstart):
             run_experiment(step, state, key, iters)
             torch.cuda.synchronize()
             wall_us = 1e6 * (time.perf_counter() - t0)
-        # device-side events only (kernels, copies): the operator events
-        # that launched them carry the same time again
-        rows = [(e.self_device_time_total, e.count, e.key)
-                for e in prof.key_averages()
-                if str(e.device_type).endswith("CUDA")]
+        rows = device_rows(prof)
         for name in REPLACES:
             mine = [r for r in rows if f"{name}_kernel" in r[2]]
             t = sum(r[0] for r in mine)
@@ -384,6 +595,10 @@ def main():
         fail("torch.cuda.is_available() is false; this script needs a card")
     from repro_torch import quickstart, random
     from repro_torch.kernels.compressor import build, ops, ref
+    from repro_torch.kernels.flash_attention import build as fa_build
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.launch import serve
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -392,24 +607,31 @@ def main():
         sys.version.split()[0])
 
     t0 = time.perf_counter()
-    build.build()
-    log(f"phase 1: built {build.library_path().name} in "
+    with ThreadPoolExecutor(2) as pool:       # one nvcc per source, together
+        built = list(pool.map(lambda b: b.build(), (build, fa_build)))
+    log(f"phase 1: built {[p.name for p in built]} in "
         f"{time.perf_counter() - t0:.1f} s")
-    for line in build.build_log().splitlines():
-        if "registers" in line or "Compiling entry" in line or "spill" in line:
-            log("  ptxas:", line.strip())
+    for lib in (build, fa_build):
+        for line in lib.build_log().splitlines():
+            if ("registers" in line or "Compiling entry" in line
+                    or "spill" in line):
+                log("  ptxas:", line.strip())
     card = card_line()
     log(card)
 
     err = phase_kernels(dev, ops, ref, random)
+    flash_err = phase_flash_kernel(dev, fa_ops, fa_ref)
     counts = {name: 0 for name in REPLACES}
     quick = phase_quickstart(quickstart, ops, counts)
     gis = phase_gisette(quickstart, ops, counts)
     for name, n in counts.items():
         check(n > 0, f"{name} was never launched on the main path")
     log(f"main-path launches (sum of the four runs above): {counts}")
+    depth2 = phase_serve_depth2(serve)
+    full = phase_serve_full(serve, fa_ops)
     prof = phase_profile(quickstart)
     timing = phase_timing(dev, ops, ref, random)
+    flash = phase_flash_timing(dev, fa_ops, fa_ref)
 
     kernels = []
     for name in REPLACES:
@@ -425,7 +647,15 @@ def main():
             entry["ms_by_shape"] = {f"[20,{Ls}]": timing[(name, Ls)]["ms"]
                                     for Ls in (5000, 20000)}
         kernels.append(entry)
-    log(json.dumps({"quickstart": quick, "gisette": gis, "profile": prof}))
+    kernels.append({
+        "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
+        "replaces": FLASH_REPLACES, "launches": full["launches"],
+        "max_abs_err": max(flash_err.values()), "ms": flash["ms"],
+        "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
+        "bound_by": flash["bound_by"], "library_ms": flash["library_ms"],
+        "max_abs_err_by_dtype": flash_err, "shape": list(SERVE_SHAPE[:5])})
+    log(json.dumps({"quickstart": quick, "gisette": gis, "profile": prof,
+                    "serve_depth2": depth2, "serve": full}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

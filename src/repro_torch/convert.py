@@ -30,6 +30,25 @@ def problem_from_reference(A, b, mu, device=None) -> FederatedLogReg:
         torch.as_tensor(np.array(b, np.float32), device=dev), float(mu))
 
 
+def _leaf(a, dev) -> torch.Tensor:
+    a = np.array(a)                     # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":      # ml_dtypes' bfloat16: carry the bits
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(a).to(dev)
+
+
+def params_from_reference(tree, device=None):
+    """The reference's parameter pytree (nested dicts and lists of numpy
+    arrays, e.g. ``jax.tree.map(np.asarray, params)``) as the port's: the
+    same structure, shapes and dtypes, on ``device``."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: params_from_reference(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_from_reference(v, dev) for v in tree]
+    return _leaf(tree, dev)
+
+
 def state_from_reference(w, h, B, k, bits_per_node,
                          device=None) -> FlecsState:
     """``FlecsState`` from the reference ``FlecsState``'s leaves."""

@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.compressor import ref
-from repro_torch.kernels.compressor.build import library
+from repro_torch.kernels.compressor.build import LIBRARY
 
 #: Kernel launches since the last :func:`reset_launches`, per kernel.
 launches = {"fused_dither": 0, "fused_topk": 0, "dither_bits": 0,
@@ -51,13 +51,10 @@ def _check_rows(name: str, *tensors: torch.Tensor) -> None:
 
 
 def _launch(name: str, entry: str, device: torch.device, *args) -> None:
-    lib = library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, entry)(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name}: launch failed with CUDA error {rc} "
-                           f"({lib.repro_error_string(rc).decode()})")
+        rc = getattr(LIBRARY.load(), entry)(*args, stream)
+    LIBRARY.check(name, rc)
     launches[name] += 1
 
 

@@ -1,0 +1,88 @@
+"""Shared building blocks (counterpart of ``repro.models.layers``).
+
+Parameters are plain dictionaries of tensors with the reference's keys and
+shapes.  ``causal_conv1d`` (SSM and RG-LRU mixers) comes with those layer
+kinds in a later slice.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch import random
+
+
+def rms_norm(x, scale, eps=1e-6):
+    """RMS norm with the reference's ``(1 + scale)`` gain (zero-initialised
+    scales are the identity), computed in float32."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return ((1.0 + scale.float()) * out).to(x.dtype)
+
+
+def softcap(x, cap):
+    if not cap:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+def act_fn(name):
+    return {"silu": F.silu,
+            "gelu": lambda v: F.gelu(v, approximate="tanh")}[name]
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, base: float):
+    """Inverse frequencies in numpy float32, as the reference builds them."""
+    half = head_dim // 2
+    return 1.0 / (base ** (np.arange(0, half, dtype=np.float32) * 2.0
+                           / head_dim))
+
+
+@functools.lru_cache(maxsize=None)
+def _inv_freqs(head_dim: int, base: float, device: torch.device):
+    """``rope_freqs`` on ``device``, copied there once: a copy from pageable
+    host memory synchronises the stream, which at two a layer would stall
+    every decode step."""
+    return torch.as_tensor(rope_freqs(head_dim, base), device=device)
+
+
+def apply_rope(x, positions, base: float):
+    """x: [..., S, H, dh]; positions: int tensor broadcastable to [..., S]."""
+    inv = _inv_freqs(x.shape[-1], base, x.device)
+    ang = positions[..., :, None].float() * inv           # [..., S, half]
+    cos = torch.cos(ang)[..., :, None, :]                 # [..., S, 1, half]
+    sin = torch.sin(ang)[..., :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Dense (gated) FFN
+# ---------------------------------------------------------------------------
+
+def init_ffn(key, d_model, d_ff, dtype):
+    """The reference's ``init_ffn`` key tree (``split(key, 3)``) through
+    :func:`repro_torch.random.normal`."""
+    k1, k2, k3 = random.split(key, 3)
+    s_in = np.float32(1.0 / np.sqrt(d_model))
+    s_out = np.float32(1.0 / np.sqrt(d_ff))
+    return {
+        "w_gate": (random.normal(k1, (d_model, d_ff)) * s_in).to(dtype),
+        "w_up": (random.normal(k2, (d_model, d_ff)) * s_in).to(dtype),
+        "w_down": (random.normal(k3, (d_ff, d_model)) * s_out).to(dtype),
+    }
+
+
+def ffn(params, x, act: str):
+    g = act_fn(act)(x @ params["w_gate"])
+    u = x @ params["w_up"]
+    return (g * u) @ params["w_down"]

@@ -1,0 +1,285 @@
+"""LM assembler (counterpart of ``repro.models.model``) for the layer kinds
+of this slice: global and local (sliding-window) GQA attention with dense
+FFNs — tinyllama, yi, gemma2/3, and llava's text path.
+
+Parameters keep the reference's pytree: ``{"embed", "blocks", "final_norm",
+"head"?}`` where ``blocks`` holds one entry per layer group
+(``cfg.layer_groups()``), a list over the group's block plan of dictionaries
+whose leaves are stacked ``[reps, ...]``.  Weights therefore carry across
+leaf for leaf (``convert.params_from_reference``).  The reference's
+``lax.scan`` over a group becomes a Python loop over the reps.  There is no
+mesh yet, so the reference's ``ctx`` argument is dropped; it returns with
+the sharded slice.
+
+Three entry points, as in the reference:
+  * ``forward``      — full-sequence hidden states;
+  * ``prefill``      — full sequence plus populated decode caches;
+  * ``decode_step``  — one token against the caches, which it updates in
+    place (the reference returns updated copies).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch import random
+from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, FFN_DENSE,
+                                      ModelConfig)
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.layers import ffn, init_ffn, rms_norm, softcap
+
+#: Where the layer kinds this slice lacks come from (ROADMAP.md).
+_LATER = "slice 4 (the other model families: MLA, MoE, SSM, RG-LRU, VLM " \
+         "image embeds, audio codebooks)"
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a layer kind outside this slice."""
+    for mixer, ffnk in cfg.layer_plan:
+        if mixer not in (ATTN_GLOBAL, ATTN_LOCAL):
+            raise NotImplementedError(
+                f"{cfg.arch_id}: mixer {mixer!r} is not ported yet; it comes "
+                f"with {_LATER}")
+        if ffnk != FFN_DENSE:
+            raise NotImplementedError(
+                f"{cfg.arch_id}: FFN {ffnk!r} is not ported yet; it comes "
+                f"with {_LATER}")
+    if cfg.n_codebooks:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: audio codebooks are not ported yet; they come "
+            f"with {_LATER}")
+
+
+def tree_map(fn, *trees):
+    """Map over nested dicts and lists of tensors (the params/cache trees)."""
+    t = trees[0]
+    if isinstance(t, dict):
+        return {k: tree_map(fn, *(x[k] for x in trees)) for k in t}
+    if isinstance(t, (list, tuple)):
+        return [tree_map(fn, *xs) for xs in zip(*trees)]
+    return fn(*trees)
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def _init_sublayer(key, cfg: ModelConfig, dtype):
+    ks = random.split(key, 3)
+    zeros = lambda: torch.zeros(cfg.d_model, dtype=dtype,          # noqa: E731
+                                device=key.device)
+    p: Dict[str, Any] = {"pre_norm": zeros(),
+                         "mixer": attn_mod.init_attn(ks[0], cfg, dtype)}
+    if cfg.use_post_norms:
+        p["post_mixer_norm"] = zeros()
+    p["ffn_norm"] = zeros()
+    p["ffn"] = init_ffn(ks[1], cfg.d_model, cfg.d_ff, dtype)
+    if cfg.use_post_norms:
+        p["post_ffn_norm"] = zeros()
+    return p
+
+
+def _normal_table(key, shape, D, dtype):
+    return (random.normal(key, shape)
+            / torch.tensor(np.sqrt(D), dtype=torch.float32)).to(dtype)
+
+
+def init_params(cfg: ModelConfig, key, dtype=torch.bfloat16):
+    """The reference's ``init_params`` key tree — ``split(key, 4 + groups)``,
+    ``split(ks[2 + gi], reps)``, ``split(rep_key, len(plan))``, then each
+    sublayer's — drawn with :func:`repro_torch.random.normal`, on the key's
+    device.  Equal to the reference's weights to the tolerance of
+    ``normal`` (a few ulps)."""
+    check_supported(cfg)
+    groups_plan = cfg.layer_groups()
+    ks = random.split(key, 4 + len(groups_plan))
+    D, V = cfg.d_model, cfg.vocab
+    params: Dict[str, Any] = {"embed": _normal_table(ks[0], (V, D), D, dtype)}
+    groups = []
+    for gi, (block_plan, reps) in enumerate(groups_plan):
+        gk = random.split(ks[2 + gi], reps)
+        reps_params = []
+        for r in range(reps):
+            sks = random.split(gk[r], len(block_plan))
+            reps_params.append([_init_sublayer(sks[i], cfg, dtype)
+                                for i in range(len(block_plan))])
+        groups.append(tree_map(lambda *xs: torch.stack(xs), *reps_params))
+    params["blocks"] = groups
+    params["final_norm"] = torch.zeros(D, dtype=dtype, device=key.device)
+    if not cfg.tie_embeddings:
+        params["head"] = _normal_table(ks[1], (D, V), D, dtype)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Embedding / head
+# ---------------------------------------------------------------------------
+
+def embed_inputs(params, batch, cfg: ModelConfig):
+    """batch: {"tokens": [B, S] int}."""
+    if "image_embeds" in batch:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: VLM image embeds are not ported yet; they come "
+            f"with {_LATER}")
+    x = params["embed"][batch["tokens"]]
+    if cfg.use_post_norms or cfg.tie_embeddings:   # gemma-style scaling
+        x = x * float(np.sqrt(cfg.d_model))
+    return x
+
+
+def head_logits(params, hidden, cfg: ModelConfig):
+    """hidden: [..., D] -> float32 logits [..., V]."""
+    h = rms_norm(hidden, params["final_norm"], cfg.norm_eps)
+    if cfg.tie_embeddings:
+        logits = h @ params["embed"].T
+    else:
+        logits = h @ params["head"]
+    return softcap(logits.float(), cfg.logit_softcap)
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+def _finish_block(p, x, out, cfg):
+    """The residual add of the mixer's output, then the dense FFN, with the
+    gemma-style post-norms where the config has them."""
+    if cfg.use_post_norms:
+        out = rms_norm(out, p["post_mixer_norm"], cfg.norm_eps)
+    x = x + out
+    h = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
+    out = ffn(p["ffn"], h, cfg.act)
+    if cfg.use_post_norms:
+        out = rms_norm(out, p["post_ffn_norm"], cfg.norm_eps)
+    return x + out
+
+
+def _window(mixer, cfg):
+    return cfg.window if mixer == ATTN_LOCAL else 0
+
+
+def apply_block(p, x, mixer, cfg, positions):
+    """One transformer block (full sequence).  Returns (x, aux); aux is the
+    MoE router loss in the reference, zero for dense FFNs."""
+    h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
+    out, _, _ = attn_mod.attn_forward(p["mixer"], h, cfg,
+                                      window=_window(mixer, cfg),
+                                      positions=positions)
+    return _finish_block(p, x, out, cfg), torch.zeros((), device=x.device)
+
+
+def _layers(params, cfg):
+    """(group index, rep, sublayer index, params of that layer, mixer) over
+    every layer, in order (the FFN is dense: ``check_supported``)."""
+    for gi, ((block_plan, reps), gp) in enumerate(zip(cfg.layer_groups(),
+                                                      params["blocks"])):
+        for r in range(reps):
+            for i, (m, _) in enumerate(block_plan):
+                yield gi, r, i, tree_map(lambda a: a[r], gp[i]), m
+
+
+def forward(params, batch, cfg: ModelConfig):
+    """Full-sequence forward.  Returns (hidden [B, S, D], aux scalar)."""
+    check_supported(cfg)
+    x = embed_inputs(params, batch, cfg)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    aux = torch.zeros((), device=x.device)
+    for _, _, _, sp, m in _layers(params, cfg):
+        x, a = apply_block(sp, x, m, cfg, positions)
+        aux = aux + a
+    return x, aux
+
+
+# ---------------------------------------------------------------------------
+# Caches
+# ---------------------------------------------------------------------------
+
+def _cache_len(mixer, cfg, max_len):
+    if mixer == ATTN_LOCAL and cfg.window:
+        return min(cfg.window, max_len)
+    return max_len
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device=None):
+    """Zero caches mirroring ``params["blocks"]``: per group, a list over
+    the block plan of {"k", "v": [reps, B, S, KV, Dh]} (S = window for
+    local layers)."""
+    check_supported(cfg)
+    groups = []
+    for block_plan, reps in cfg.layer_groups():
+        groups.append([
+            {name: torch.zeros((reps, batch, _cache_len(m, cfg, max_len),
+                                cfg.n_kv_heads, cfg.head_dim), dtype=dtype,
+                               device=device) for name in ("k", "v")}
+            for m, _ in block_plan])
+    return groups
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+def decode_block(p, c, x, mixer, cfg, pos: int):
+    h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
+    out, c = attn_mod.attn_decode(p["mixer"], h, c, pos, cfg,
+                                  window=_window(mixer, cfg))
+    return _finish_block(p, x, out, cfg), c
+
+
+def decode_step(params, cache, batch, pos: int, cfg: ModelConfig):
+    """One-token decode.  batch["tokens"]: [B, 1].  Returns (logits
+    [B, 1, V], cache); the cache is updated in place (each layer's slice of
+    the stacked ``[reps, ...]`` leaves is a view)."""
+    check_supported(cfg)
+    x = embed_inputs(params, batch, cfg)
+    for gi, r, i, sp, m in _layers(params, cfg):
+        sc = tree_map(lambda a: a[r], cache[gi][i])
+        x, _ = decode_block(sp, sc, x, m, cfg, pos)
+    return head_logits(params, x, cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# Prefill (full sequence, returns caches for subsequent decode)
+# ---------------------------------------------------------------------------
+
+def _prefill_block(p, x, mixer, cfg, positions, max_len):
+    """Like ``apply_block`` but also returns the layer's decode cache."""
+    B, S, _ = x.shape
+    h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
+    window = _window(mixer, cfg)
+    out, k, v = attn_mod.attn_forward(p["mixer"], h, cfg, window=window,
+                                      positions=positions)
+    W = _cache_len(mixer, cfg, max_len)
+    c = {name: torch.zeros((B, W) + t.shape[2:], dtype=x.dtype,
+                           device=x.device) for name, t in (("k", k),
+                                                            ("v", v))}
+    if window and S >= W:
+        # keep only the trailing window, at its ring slots
+        slots = (S - W + torch.arange(W, device=x.device)) % W
+        c["k"][:, slots] = k[:, S - W:].to(x.dtype)
+        c["v"][:, slots] = v[:, S - W:].to(x.dtype)
+    else:
+        c["k"][:, :S] = k
+        c["v"][:, :S] = v
+    return _finish_block(p, x, out, cfg), c
+
+
+def prefill(params, batch, cfg: ModelConfig, max_len: int = 0):
+    """Full-sequence forward that also populates the decode caches.
+    Returns (last logits [B, 1, V], cache); max_len defaults to S."""
+    check_supported(cfg)
+    x = embed_inputs(params, batch, cfg)
+    S = x.shape[1]
+    max_len = max_len or S
+    positions = torch.arange(S, device=x.device)[None, :]
+    per_layer: Dict[tuple, list] = {}
+    for gi, r, i, sp, m in _layers(params, cfg):
+        x, c = _prefill_block(sp, x, m, cfg, positions, max_len)
+        per_layer.setdefault((gi, i), []).append(c)
+    cache = [[tree_map(lambda *cs: torch.stack(cs), *per_layer[(gi, i)])
+              for i in range(len(block_plan))]
+             for gi, (block_plan, _) in enumerate(cfg.layer_groups())]
+    return head_logits(params, x[:, -1:], cfg), cache

@@ -1,0 +1,151 @@
+"""repro_torch.kernels.flash_attention against the JAX package, on the CPU.
+
+The port's plain version (``ref.attention_ref``, the CPU path of ``ops``) is
+held to the Pallas kernel in interpret mode, to the reference's own oracle
+(``repro.kernels.flash_attention.ref.attention_ref``) and to the model's
+``chunked_attention`` (its dense branch, and its chunked branches at
+S = 1024), on the same numpy inputs.
+
+Tolerances are those of the reference's kernel test (tests/test_kernels.py):
+rtol = atol = 2e-5 in float32 (sums taken in another order), 2e-2 in
+bfloat16 (one bf16 ulp of the output, rounded from float32 results that
+differ in the last bits).  The card's kernel is held to the same plain
+version in tests/test_torch_gpu.py and chip_smoke.py.
+"""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.flash_attention import \
+    flash_attention as pallas_flash
+from repro.kernels.flash_attention.ref import attention_ref as jax_ref
+from repro.models.attention import chunked_attention
+from repro_torch.kernels.flash_attention import ops, ref
+
+# the shapes of tests/test_kernels.py's flash-attention test
+SHAPES = [
+    (1, 4, 2, 256, 64, 0, 0.0),
+    (2, 4, 4, 128, 32, 0, 50.0),
+    (1, 8, 2, 512, 64, 128, 0.0),
+    (2, 2, 1, 256, 128, 64, 30.0),
+    (1, 2, 2, 384, 64, 0, 0.0),
+]
+DTYPES = {"f32": (jnp.float32, torch.float32, 2e-5),
+          "bf16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+
+
+def _inputs(B, H, KV, S, D, seed=0, layout="kernel"):
+    g = np.random.default_rng(seed)
+    if layout == "kernel":
+        shapes = ((B, H, S, D), (B, KV, S, D), (B, KV, S, D))
+    else:
+        shapes = ((B, S, H, D), (B, S, KV, D), (B, S, KV, D))
+    return [g.normal(size=s).astype(np.float32) for s in shapes]
+
+
+def _port(arrays, tdtype):
+    return [torch.as_tensor(a).to(tdtype) for a in arrays]
+
+
+def _jax(arrays, jdtype):
+    return [jnp.asarray(a, jdtype) for a in arrays]
+
+
+@functools.lru_cache(maxsize=None)
+def _jitted(window, cap):
+    """The reference's two oracles, each compiled as one program (eager
+    JAX compiles every primitive at every new shape, which costs seconds)."""
+    oracle = jax.jit(functools.partial(jax_ref, window=window, cap=cap))
+    chunked = jax.jit(functools.partial(chunked_attention, window=window,
+                                        cap=cap))
+    return oracle, chunked
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("B,H,KV,S,D,window,cap", [
+    (1, 2, 1, 128, 32, 0, 0.0),
+    (1, 4, 2, 128, 64, 48, 30.0),
+])
+def test_plain_version_matches_pallas_interpret(B, H, KV, S, D, window, cap):
+    arrays = _inputs(B, H, KV, S, D, seed=1)
+    want = pallas_flash(*_jax(arrays, jnp.float32), window=window, cap=cap,
+                        block_q=64, block_k=64, interpret=True)
+    got = ops.flash_attention(*_port(arrays, torch.float32), window=window,
+                              cap=cap)
+    _close(got, want, 2e-5)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("B,H,KV,S,D,window,cap", SHAPES)
+def test_plain_version_matches_reference_oracles(B, H, KV, S, D, window, cap,
+                                                 dtype):
+    jdtype, tdtype, tol = DTYPES[dtype]
+    arrays = _inputs(B, H, KV, S, D)
+    got = ref.attention_ref(*_port(arrays, tdtype), window=window, cap=cap)
+    assert got.dtype == tdtype and got.shape == (B, H, S, D)
+    oracle, chunked = _jitted(window, cap)
+    jq, jk, jv = _jax(arrays, jdtype)
+    _close(got, oracle(jq, jk, jv), tol)
+    # the model's attention in model layout ([B, S, H, D]); S <= 512 takes
+    # its dense branch
+    want = chunked(*(jnp.swapaxes(t, 1, 2) for t in (jq, jk, jv)))
+    _close(got.transpose(1, 2), want, tol)
+
+
+@pytest.mark.parametrize("window,cap", [(0, 0.0), (300, 20.0)])
+def test_plain_version_matches_chunked_branches(window, cap):
+    """S = 1024 takes chunked_attention's chunked branches: the KV scan
+    (no window) and the banded gather (window < S)."""
+    B, H, KV, S, D = 1, 2, 1, 1024, 32
+    arrays = _inputs(B, H, KV, S, D, seed=2, layout="model")
+    want = _jitted(window, cap)[1](*_jax(arrays, jnp.float32))
+    got = ops.attention(*_port(arrays, torch.float32), window=window, cap=cap)
+    _close(got, want, 2e-5)
+
+
+def test_model_layout_on_cpu_tensors():
+    B, H, KV, S, D = 2, 4, 2, 96, 64
+    q, k, v = _port(_inputs(B, H, KV, S, D, seed=3, layout="model"),
+                    torch.float32)
+    ops.reset_launches()
+    out = ops.attention(q, k, v, window=40, cap=10.0)
+    assert out.shape == (B, S, H, D)
+    want = ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), 40, 10.0).transpose(1, 2)
+    assert torch.equal(out, want)
+    # the CPU path takes the plain version: no launch is counted
+    assert ops.launches == {"flash_attention": 0}
+
+
+def test_ragged_length_and_fully_masked_rows():
+    """Any S (the Pallas wrapper needs S % 128 == 0); every output row is
+    finite, including rows whose window leaves a whole tile masked."""
+    q, k, v = _port(_inputs(1, 2, 1, 200, 32, seed=4), torch.float32)
+    out = ops.flash_attention(q, k, v, window=7)
+    assert torch.isfinite(out).all()
+    # row 0 sees only key 0
+    assert torch.equal(out[:, :, 0], v[:, [0, 0], 0])
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    q, k, v = _port(_inputs(1, 4, 2, 64, 64), torch.float32)
+    with pytest.raises(ValueError, match="Sq == Sk"):
+        ops.flash_attention(q, k[:, :, :32], v[:, :, :32])
+    q48, k48, v48 = _port(_inputs(1, 4, 2, 64, 48), torch.float32)
+    with pytest.raises(ValueError, match="head dim 48"):
+        ops.flash_attention(q48, k48, v48)
+    with pytest.raises(ValueError, match="multiple of KV"):
+        ops.flash_attention(q[:, :3], k, v)
+    with pytest.raises(TypeError):
+        ops.flash_attention(q.double(), k.double(), v.double())
+    with pytest.raises(TypeError):
+        ops.flash_attention(q, k.bfloat16(), v)

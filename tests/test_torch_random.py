@@ -63,3 +63,26 @@ def test_key_rejects_out_of_range_seed():
         tr.key(-1, device="cpu")
     with pytest.raises(ValueError):
         tr.key(2**32, device="cpu")
+
+
+@pytest.mark.parametrize("seed", SEEDS[::2])
+@pytest.mark.parametrize("shape", SHAPES + [(20000,)])
+def test_normal(seed, shape):
+    """``normal`` draws the reference's uniforms bit for bit; its erfinv is
+    XLA's float32 polynomial with torch's log1p, so it is held to within a
+    few ulps (rtol 1e-6, atol 1e-7), not bit for bit."""
+    k, t = jax.random.key(seed), tr.key(seed, device="cpu")
+    want = np.asarray(jax.random.normal(k, shape))
+    got = tr.normal(t, shape).numpy()
+    assert got.dtype == np.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+    ulps = np.abs(got.view(np.int32).astype(np.int64) - want.view(np.int32))
+    assert ulps.max() <= 4
+
+
+def test_normal_batched_keys():
+    ks = jax.random.split(jax.random.key(11), 5)
+    want = jax.vmap(lambda kk: jax.random.normal(kk, (3, 4)))(ks)
+    got = tr.normal(torch.as_tensor(_data(ks)), (3, 4))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-7)

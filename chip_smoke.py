@@ -6,10 +6,10 @@
 Phases (any failure stops the script with a non-zero exit; nothing falls
 back to the CPU):
 
-1. Build both kernel libraries from their sources (``src/repro_torch/
-   kernels/*/csrc``) with nvcc for sm_90a, the two compilers started
-   together; print the compiler's register report and the card's name and
-   power limit.
+1. Build the three kernel libraries from their sources
+   (``src/repro_torch/kernels/*/csrc``) with nvcc for sm_90a, the three
+   compilers started together; print the compiler's register report and the
+   card's name and power limit.
 2. Hold every compressor kernel on the card against its plain PyTorch
    version on a CPU copy of the same inputs, at the main path's row shapes
    and on edge rows: the results must be bit-identical.  Hold the
@@ -17,7 +17,16 @@ back to the CPU):
    same inputs: the reference's test shapes in float32 and bfloat16, a
    ragged length (S = 200) and the serving shape (B=8, H=32, KV=4, S=1024,
    D=64); rtol = atol = 2e-5 in float32, 2e-2 in bfloat16 (the reference's
-   own kernel test).
+   own kernel test).  Hold the int8 dither codec's encode and decode
+   kernels against their plain versions, bit for bit: the reference test's
+   shapes in float32 and bfloat16, zero/inf/NaN rows, s = 255, whole
+   trainer leaves ([22·2048, 5632] and [32000, 2048]) as one block, and
+   ``quantize``'s layout.  Hold the flash-attention backward (dq, dk, dv)
+   against the plain version's autograd on the card: the reference's five
+   shapes, S = 1, 200 (window 7; cap 50), 333 and the training shape, in
+   float32 and bfloat16, max |Δ| <= 1e-5 (f32) / 1e-2 (bf16) · max |grad|;
+   the forward's output must be bitwise the same with and without its
+   log-sum-exp output.
 3. Quickstart (d=123, n=20, r=64, m=4, seed 0): 201 rounds with
    dither64/dither64 and 50 with a topk0.1 Hessian compressor, on the card
    and in the port on the CPU.  Ledgers must be equal every round, the
@@ -40,11 +49,28 @@ back to the CPU):
 7. A profile of a few Algorithm 1 rounds at both sizes, then each kernel's
    time by CUDA events beside its plain version, its bound and the library
    call (``torch.topk``; ``scaled_dot_product_attention``, timed only).
-8. Print the kernels line, then the device line as the last line.
+8. Training, tinyllama-1.1b at full width and depth 2, batch 2 x 256, on
+   the card against this machine's CPU: first-step gradients per leaf
+   within 1e-4 · max |g|, the first FLECS-CGD step's int8 levels at no more
+   than 1e-3 of the elements and by one level at most; then 3 adam steps
+   and 3 FLECS-CGD steps from the same weights: losses within rtol 1e-4,
+   ``uplink_mbits`` equal.
+9. Training, tinyllama-1.1b at full width, all 22 layers (float32, remat),
+   batch 8 x 1024: 5 adam steps and 5 FLECS-CGD steps on one batch through
+   ``launch/train.py``'s functions, the counters set to 0 just before each
+   run and read after it: flash_attention 44 a step (remat recomputes it),
+   flash_attention_backward 22, and on FLECS steps dither_encode,
+   dither_decode and dither_bits once per parameter leaf; finite losses,
+   adam's falling; step ms and peak memory; a profile of one step of each
+   mode; then the codec and backward kernels timed by CUDA events beside
+   their plain versions, bounds and SDPA's backward (timed only).
+10. Print the kernels line (eight kernels), then the device line as the
+   last line.
 """
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -66,6 +92,11 @@ REPLACES = {
 FLASH_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
                 "flash_attention.cu")
 FLASH_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:28"
+DITHER_SOURCE = "src/repro_torch/kernels/dither/csrc/dither.cu"
+DITHER_REPLACES = {"dither_encode": "src/repro/kernels/dither/dither.py:25",
+                   "dither_decode": "src/repro/kernels/dither/dither.py:62"}
+# no Pallas kernel: the reference differentiates chunked_attention in XLA
+BWD_REPLACES = "src/repro/models/attention.py:38"
 QUICK = dict(d=123, n_workers=20, r=64, m=4, seed=0)
 GISETTE = dict(d=5000, n_workers=20, r=300, m=4, seed=0)
 # the shapes of tests/test_kernels.py's flash test, a ragged length, and the
@@ -77,6 +108,11 @@ FLASH_SHAPES = [(1, 4, 2, 256, 64, 0, 0.0), (2, 4, 4, 128, 32, 0, 50.0),
                 (2, 4, 1, 200, 32, 70, 20.0)]
 SERVE_SHAPE = (8, 32, 4, 1024, 64, 0, 0.0)
 TINYLLAMA = "tinyllama-1.1b"
+# tinyllama-1.1b training: batch 8 x 1024 at full width (the attention shape
+# is SERVE_SHAPE's), and its two largest parameter leaves, the stacked FFN
+# weights [22, 2048, 5632] and the embedding, each quantized as one block
+TRAIN_BATCH = (8, 1024)
+LEAF_SHAPES = ((22 * 2048, 5632), (32000, 2048))
 
 
 def log(*args):
@@ -237,7 +273,7 @@ def phase_flash_kernel(dev, fa_ops, fa_ref):
 
 
 def to_cpu(tree):
-    from repro_torch.models.model import tree_map
+    from repro_torch.tree import tree_map
     return tree_map(lambda t: t.cpu(), tree)
 
 
@@ -589,6 +625,408 @@ def phase_timing(dev, ops, ref, random):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Slice 3: the int8 dither codec, the flash-attention backward, training
+# ---------------------------------------------------------------------------
+
+def same_bits(a, b) -> bool:
+    """Equal element for element on any device (NaN matching NaN, any
+    payload), dtype and shape too."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    b = b.to(a.device)
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    na, nb = torch.isnan(a), torch.isnan(b)
+    if not torch.equal(na, nb):
+        return False
+    word = torch.int32 if a.element_size() == 4 else torch.int16
+    return bool(((a.view(word) == b.view(word)) | na).all())
+
+
+def abs_err(a, b) -> float:
+    """max |a - b| over the positions where b is not NaN (0.0 if none)."""
+    import torch
+    a, b = a.double(), b.to(a.device).double()
+    d = (a - b).abs()
+    d = torch.where(torch.isnan(b), torch.zeros_like(d), d)
+    return float(d.max()) if d.numel() else 0.0
+
+
+def phase_dither_kernels(dev, d_ops, d_ref, random):
+    """Phase 2, the int8 dither codec: the encode and decode kernels on the
+    card against their plain versions on the same inputs, bit for bit."""
+    import numpy as np
+    import torch
+    err = {"dither_encode": 0.0, "dither_decode": 0.0}
+    rng = np.random.default_rng(4)
+    n = 0
+
+    def compare(x, u, s, br, what):
+        nonlocal n
+        lv, sc = d_ops.dither_encode(x.to(dev), u.to(dev), s=s,
+                                     block_rows=br)
+        out = d_ops.dither_decode(lv, sc, block_rows=br)
+        want_lv, want_sc = d_ref.dither_encode_ref(x, u, s, br)
+        want = d_ref.dither_decode_ref(want_lv, want_sc, br)
+        check(same_bits(lv, want_lv.to(dev)) and same_bits(sc, want_sc),
+              f"dither_encode differs from its plain version on {what}")
+        check(same_bits(out, want.to(dev)),
+              f"dither_decode differs from its plain version on {what}")
+        err["dither_encode"] = max(err["dither_encode"], abs_err(
+            lv, want_lv), abs_err(sc, want_sc))
+        err["dither_decode"] = max(err["dither_decode"], abs_err(out, want))
+        n += 1
+
+    # tests/test_kernels.py's shapes (R, C, block_rows, s), f32 and bf16
+    for R, C, br, s in ((16, 128, 8, 127), (32, 256, 8, 63), (8, 512, 4, 15),
+                        (64, 128, 16, 127), (64, 512, 8, 255)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.as_tensor((rng.normal(size=(R, C)) * 10).astype(
+                np.float32)).to(dtype)
+            u = torch.as_tensor(rng.random((R, C), dtype=np.float32))
+            compare(x, u, s, br, f"[{R},{C}] br={br} s={s} {dtype}")
+    # zero, -0, ±inf and NaN blocks; s = 255 saturates past 127
+    inf, nan = float("inf"), float("nan")
+    x = torch.tensor([[0.0] * 4, [-0.0] * 4,
+                      [1.0, inf, 3.0, -2.0], [0.5, -inf, 0.0, 7.0],
+                      [1.0, nan, 3.0, -2.0], [-0.0, 0.5, 2.0, 1.0],
+                      [4.0, -4.0, 3.9, -3.9], [1e-3, 2e-3, -4.0, 0.25]])
+    u = torch.as_tensor(rng.random(x.shape, dtype=np.float32))
+    for s in (15, 127, 255):
+        compare(x, u, s, 2, f"edge rows s={s}")
+    # whole trainer leaves as one block (the FLECS-CGD path's shapes):
+    # inputs made on the card, the plain version run there too
+    g = torch.Generator(device=dev).manual_seed(5)
+    for R, C in LEAF_SHAPES:
+        x = torch.randn((R, C), generator=g, device=dev) * 1e-3
+        u = torch.rand((R, C), generator=g, device=dev)
+        compare(x, u, 127.0, R, f"leaf [{R},{C}] as one block")
+        del x, u
+    # quantize's layout and draw, card against CPU
+    for shape in ((1000,), (33, 77), (4, 5, 6), (128, 512)):
+        x = torch.as_tensor(rng.normal(size=shape).astype(np.float32))
+        got = d_ops.quantize(random.key(1, dev), x.to(dev), s=63)
+        want = d_ops.quantize(random.key(1, "cpu"), x, s=63)
+        check(same_bits(got[0], want[0].to(dev))
+              and same_bits(got[1], want[1]) and got[2] == want[2],
+              f"quantize differs from its plain version on {shape}")
+        check(same_bits(d_ops.dequantize(*got), d_ops.dequantize(*want)),
+              f"dequantize differs from its plain version on {shape}")
+        n += 1
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"phase 2: dither codec, {n} cases bit-identical to the plain "
+        f"versions; max_abs_err {err}")
+    return err
+
+
+# the reference's five test shapes, S = 1, S = 200 with a window of 7 and
+# with a cap of 50, S = 333, and the training shape (tinyllama-1.1b, batch
+# 8 x 1024): B, H, KV, S, D, window, cap
+BWD_SHAPES = FLASH_SHAPES[:5] + [(1, 2, 1, 1, 128, 0, 0.0),
+                                 (1, 4, 2, 200, 64, 7, 0.0),
+                                 (2, 4, 1, 200, 32, 0, 50.0),
+                                 (1, 2, 2, 333, 64, 5, 0.0), SERVE_SHAPE]
+#: Flash backward against the plain version under autograd on the card:
+#: max |Δ| <= BWD_REL · max |grad| (max over dq, dk, dv), per dtype.
+BWD_REL = {"float32": 1e-5, "bfloat16": 1e-2}
+
+
+def phase_flash_backward(dev, fa_ops, fa_ref):
+    """Phase 2, flash-attention backward: dq, dk, dv of the kernels against
+    the plain version's autograd on the card, same inputs and output
+    gradient; and the forward's output bitwise the same with and without
+    its log-sum-exp output."""
+    import torch
+    err, rel_worst = {}, {}
+    for shape in BWD_SHAPES:
+        window, cap = shape[5], shape[6]
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).replace("torch.", "")
+            q, k, v = flash_inputs(shape, dtype, dev, seed=2)
+            gen = torch.Generator(device="cpu").manual_seed(3)
+            dout = torch.randn(q.shape, generator=gen).to(dev, dtype)
+
+            def grads(fn):
+                leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+                out = fn(*leaves, window, cap)
+                return out.detach(), torch.autograd.grad(out, leaves, dout)
+
+            out, got = grads(fa_ops.flash_attention)
+            with torch.no_grad():
+                plain_fwd = fa_ops.flash_attention(q, k, v, window, cap)
+            check(same_bits(out, plain_fwd),
+                  f"flash_attention's output changes with the LSE output at "
+                  f"{shape} {name}")
+            _, want = grads(fa_ref.attention_ref)
+            scale = max(float(w.float().abs().max()) for w in want)
+            e = max(abs_err(a.float(), w.float()) for a, w in zip(got, want))
+            check(all(a.dtype == dtype for a in got),
+                  f"flash backward returned {[a.dtype for a in got]}")
+            check(e <= BWD_REL[name] * scale,
+                  f"flash backward differs from the plain autograd at "
+                  f"{shape} {name}: max |Δ| {e!r} beyond "
+                  f"{BWD_REL[name]} · {scale!r}")
+            err[name] = max(err.get(name, 0.0), e)
+            rel_worst[name] = max(rel_worst.get(name, 0.0),
+                                  e / scale if scale else 0.0)
+            log(f"phase 2: flash backward {shape} {name}: max |Δ| {e!r} "
+                f"({e / scale if scale else 0.0!r} of max |grad| {scale!r})")
+            del q, k, v, dout, out, got, want, plain_fwd
+    torch.cuda.empty_cache()
+    return err, rel_worst
+
+
+def train_counters(fa_ops, d_ops, ops):
+    return {**fa_ops.launches, **d_ops.launches,
+            "dither_bits": ops.launches["dither_bits"]}
+
+
+def reset_train_counters(fa_ops, d_ops, ops):
+    fa_ops.reset_launches()
+    d_ops.reset_launches()
+    ops.reset_launches()
+
+
+#: Depth-2 training, card against this machine's CPU: losses within
+#: LOSS_REL of each other every step; first-step gradients per leaf within
+#: GRAD_REL · max |g|; the first FLECS step's int8 levels at no more than
+#: LEVEL_SHARE of the elements, by one level at most; uplink_mbits equal.
+LOSS_REL, GRAD_REL, LEVEL_SHARE = 1e-5, 1e-4, 1e-3
+
+
+def phase_train_depth2(train, value_and_grad, compressors, random, tree):
+    """Phase 8: tinyllama-1.1b at full width and depth 2, batch 2 x 256:
+    first-step gradients and int8 levels, then 3 adam steps and 3 FLECS-CGD
+    steps from the same weights, on the card and on this machine's CPU."""
+    import torch
+    cfg, params = train.setup(TINYLLAMA, smoke=False, device="cuda",
+                              n_layers=2)
+    cpu_params = to_cpu(params)
+    batch = next(train.token_batches(cfg, 2, 256, params["embed"].device))
+    cpu_batch = to_cpu(batch)
+    loss_g, g_card = value_and_grad(params, batch, cfg, remat=True)
+    loss_c, g_cpu = value_and_grad(cpu_params, cpu_batch, cfg, remat=True)
+    check(abs(float(loss_g) - float(loss_c)) <= LOSS_REL * abs(float(loss_c)),
+          f"depth 2: first loss {float(loss_g)!r} on the card, "
+          f"{float(loss_c)!r} on the CPU")
+    worst, flips, total, max_flip = 0.0, 0, 0, 0
+    s = compressors.psum_level_cap(127, 1)
+    key0 = random.fold_in(random.key(29, "cpu"), 0)
+    for i, (a, b) in enumerate(zip(tree.tree_leaves(g_card),
+                                   tree.tree_leaves(g_cpu))):
+        e = abs_err(a, b) / max(float(b.abs().max()), 1e-30)
+        worst = max(worst, e)
+        check(e <= GRAD_REL, f"depth 2: gradient leaf {i} {tuple(b.shape)} "
+              f"differs by {e!r} of max |g|, beyond {GRAD_REL}")
+        key = random.fold_in(key0, i)
+        lv_a, _ = compressors.shared_scale_levels(key.to(a.device), a, s)
+        lv_b, _ = compressors.shared_scale_levels(key, b, s)
+        d = (lv_a.cpu().int() - lv_b.int()).abs()
+        flips += int((d > 0).sum())
+        total += d.numel()
+        max_flip = max(max_flip, int(d.max()))
+    check(max_flip <= 1 and flips <= LEVEL_SHARE * total,
+          f"depth 2: first-step levels differ at {flips} of {total} "
+          f"elements, by up to {max_flip}")
+    log(f"phase 8: depth 2 first step: loss card {float(loss_g)!r} cpu "
+        f"{float(loss_c)!r}; gradients within {worst!r} of max |g| per leaf"
+        f" (bound {GRAD_REL}); int8 levels differ at {flips} of {total} "
+        f"elements, by at most {max_flip}")
+    del g_card, g_cpu
+    runs = {}
+    for mode in ("adam", "flecs"):
+        for name, p, dev in (("cuda", params, batch["tokens"].device),
+                             ("cpu", cpu_params, torch.device("cpu"))):
+            batches = train.token_batches(cfg, 2, 256, dev)
+            out = train.train(cfg, p, batches, 3, flecs=mode == "flecs")
+            runs[(mode, name)] = out["metrics"]
+            del out
+        for a, b in zip(runs[(mode, "cuda")], runs[(mode, "cpu")]):
+            check(abs(a["loss"] - b["loss"]) <= LOSS_REL * abs(b["loss"]),
+                  f"depth 2 {mode}: losses {a['loss']!r} (card) and "
+                  f"{b['loss']!r} (CPU) beyond rtol {LOSS_REL}")
+            if mode == "flecs":
+                check(a["uplink_mbits"] == b["uplink_mbits"],
+                      f"depth 2 flecs: uplink {a['uplink_mbits']!r} (card) "
+                      f"and {b['uplink_mbits']!r} (CPU)")
+        log(f"phase 8: depth 2 {mode} x3: losses card "
+            f"{[m['loss'] for m in runs[(mode, 'cuda')]]} cpu "
+            f"{[m['loss'] for m in runs[(mode, 'cpu')]]}")
+    del params, cpu_params
+    torch.cuda.empty_cache()
+    return dict(grad_rel_worst=worst, level_flips=flips, level_total=total,
+                losses={f"{m}_{d}": [x["loss"] for x in r]
+                        for (m, d), r in runs.items()},
+                uplink_mbits=runs[("flecs", "cuda")][0]["uplink_mbits"])
+
+
+def phase_train_full(train, fa_ops, d_ops, ops, tree):
+    """Phase 9: tinyllama-1.1b at full width (22 layers, float32, remat),
+    batch 8 x 1024, 5 adam steps and 5 FLECS-CGD steps (alpha = 30 · lr)
+    on one batch through ``launch/train.py``'s own functions; the counters
+    are set to 0 just before each run and read just after.  Then a profile
+    of one step of each mode."""
+    import itertools
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    cfg, params = train.setup(TINYLLAMA, smoke=False, device="cuda")
+    batch = next(train.token_batches(cfg, *TRAIN_BATCH,
+                                     params["embed"].device))
+    L = cfg.n_layers
+    n_leaves = len(tree.tree_leaves(params))
+    steps = 5
+    res = {}
+    for mode in ("adam", "flecs"):
+        flecs = mode == "flecs"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_train_counters(fa_ops, d_ops, ops)
+        out = train.train(cfg, params, itertools.repeat(batch), steps,
+                          flecs=flecs, log=lambda s: log(f"  {mode} {s}"))
+        torch.cuda.synchronize()
+        counts = train_counters(fa_ops, d_ops, ops)
+        peak = torch.cuda.max_memory_allocated()
+        losses = [m["loss"] for m in out["metrics"]]
+        per_leaf = n_leaves if flecs else 0
+        expect = {"flash_attention": 2 * L * steps,
+                  "flash_attention_backward": L * steps,
+                  "dither_encode": per_leaf * steps,
+                  "dither_decode": per_leaf * steps,
+                  "dither_bits": per_leaf * steps}
+        for name, n in expect.items():
+            check(counts[name] == n, f"full-width {mode}: {name} launched "
+                  f"{counts[name]} times in {steps} steps, expected {n}")
+        check(all(map(math.isfinite, losses)),
+              f"full-width {mode}: losses not finite: {losses}")
+        if not flecs:
+            check(losses[-1] < losses[0],
+                  f"full-width adam: loss did not fall: {losses}")
+        res[mode] = dict(
+            losses=losses, grad_norm=[m["grad_norm"] for m in out["metrics"]],
+            step_ms=out["step_ms"], peak_gib=peak / 2**30,
+            launches=counts, launches_per_step={
+                k: v / steps for k, v in counts.items()})
+        if flecs:
+            res[mode]["uplink_mbits"] = out["metrics"][-1]["uplink_mbits"]
+        log(f"phase 9: {TINYLLAMA} x{L} f32 remat, batch 8 x 1024, {mode} "
+            f"x{steps}: losses {losses}; step ms {out['step_ms']}; peak "
+            f"memory {peak / 2**30!r} GiB; launches per step "
+            f"{res[mode]['launches_per_step']}")
+        del out
+        torch.cuda.empty_cache()
+    # one profiled step of each mode
+    res["profile"] = {}
+    for mode in ("adam", "flecs"):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = train.train(cfg, params, itertools.repeat(batch), 1,
+                              flecs=mode == "flecs")
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+        del out
+        rows = {}
+        for t, count, name in device_rows(prof):
+            t0_, c0 = rows.get(name, (0.0, 0))
+            rows[name] = (t0_ + t, c0 + count)
+        busy = sum(t for t, _ in rows.values())
+        n_kernels = sum(c for _, c in rows.values())
+        top = sorted(((t, c, name) for name, (t, c) in rows.items()),
+                     reverse=True)[:15]
+        mine = {k: sum(t for name, (t, _) in rows.items() if k in name) / 1e3
+                for k in ("flash_kernel", "flash_bwd", "absmax_kernel",
+                          "encode_kernel", "decode_kernel")}
+        log(f"profile train {mode} step (profiled): wall "
+            f"{wall_us / 1e3!r} ms, device busy {busy / 1e3!r} ms "
+            f"({100 * busy / wall_us:.1f}% of wall), {n_kernels} device "
+            f"kernels and copies; ours (ms) {mine}")
+        for t, count, name in top:
+            log(f"  {t / 1e3:10.4f} ms  x{count:6d}  {name[:80]}")
+        res["profile"][mode] = dict(
+            wall_ms=wall_us / 1e3, busy_ms=busy / 1e3, kernels=n_kernels,
+            ours_ms=mine, top=[[t / 1e3, c, name[:80]] for t, c, name in top])
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_train_kernel_timing(dev, d_ops, d_ref, fa_ops, fa_ref):
+    """The codec kernels at the trainer's leaf shapes (one block) and the
+    flash backward at the training shape, by CUDA events, beside their
+    plain versions, their bounds and, for the backward, SDPA's backward
+    (timed only)."""
+    import torch
+    import torch.nn.functional as F
+    res = {}
+    g = torch.Generator(device=dev).manual_seed(6)
+    for R, C in LEAF_SHAPES:
+        N = R * C
+        x = torch.randn((R, C), generator=g, device=dev) * 1e-3
+        u = torch.rand((R, C), generator=g, device=dev)
+        lv, sc = d_ops.dither_encode(x, u, s=127.0, block_rows=R)
+        res[("dither_encode", (R, C))] = dict(
+            ms=cuda_ms(lambda: d_ops.dither_encode(x, u, s=127.0,
+                                                   block_rows=R), 20),
+            plain_ms=cuda_ms(lambda: d_ref.dither_encode_ref(x, u, 127.0, R),
+                             3),
+            library_ms=None, bytes=9 * N + 4, ops=8 * N)
+        res[("dither_decode", (R, C))] = dict(
+            ms=cuda_ms(lambda: d_ops.dither_decode(lv, sc, block_rows=R), 20),
+            plain_ms=cuda_ms(lambda: d_ref.dither_decode_ref(lv, sc, R), 3),
+            library_ms=None, bytes=5 * N + 4, ops=N)
+        del x, u, lv, sc
+        torch.cuda.empty_cache()
+    B, H, KV, S, D, _, _ = SERVE_SHAPE
+    q, k, v = flash_inputs(SERVE_SHAPE, torch.float32, dev, seed=1)
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+    fa_ops._launch(q, k, v, out, 0, 0.0, lse)
+    dout = torch.randn(q.shape, generator=g, device=dev)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+
+    def fwd_bwd(fn):
+        def run():
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            o = fn(*leaves)
+            torch.autograd.grad(o, leaves, dout)
+        return run
+
+    def sdpa(qq, kk, vv):
+        return F.scaled_dot_product_attention(qq, kk, vv, is_causal=True,
+                                              enable_gqa=True)
+
+    bwd = dict(ms=cuda_ms(lambda: fa_ops._launch_backward(
+        q, k, v, out, dout, lse, dq, dk, dv, 0, 0.0), 10))
+    bwd["plain_ms"] = (cuda_ms(fwd_bwd(fa_ref.attention_ref), 3)
+                       - cuda_ms(lambda: fa_ref.attention_ref(q, k, v), 3))
+    try:
+        bwd["library_ms"] = (cuda_ms(fwd_bwd(sdpa), 10)
+                             - cuda_ms(lambda: sdpa(q, k, v), 10))
+    except (TypeError, RuntimeError) as exc:       # no enable_gqa here
+        log(f"timing: scaled_dot_product_attention unavailable: {exc}")
+        bwd["library_ms"] = None
+    bwd.update(ops=5 * 2 * B * H * S * S * D / 2,
+               bytes=4 * (4 * B * H * S * D + 4 * B * KV * S * D + B * H * S))
+    res[("flash_attention_backward", SERVE_SHAPE[:5])] = bwd
+    for r in res.values():
+        t_bytes = 1e3 * r["bytes"] / HBM_BYTES_PER_S
+        t_ops = 1e3 * r["ops"] / F32_OPS_PER_S
+        r["bound_ms"] = max(t_bytes, t_ops)
+        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    for (name, shape), r in res.items():
+        log(f"timing {name} {list(shape)}: {r['ms']!r} ms (plain "
+            f"{r['plain_ms']!r} ms, library {r['library_ms']!r} ms, bound "
+            f"{r['bound_ms']!r} ms by {r['bound_by']})")
+    del q, k, v, out, lse, dout, dq, dk, dv
+    torch.cuda.empty_cache()
+    return res
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -598,7 +1036,14 @@ def main():
     from repro_torch.kernels.flash_attention import build as fa_build
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.dither import build as d_build
+    from repro_torch.kernels.dither import ops as d_ops
+    from repro_torch.kernels.dither import ref as d_ref
+    from repro_torch import tree
+    from repro_torch.core import compressors
     from repro_torch.launch import serve
+    from repro_torch.launch import train
+    from repro_torch.train.step import value_and_grad
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -607,11 +1052,12 @@ def main():
         sys.version.split()[0])
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:       # one nvcc per source, together
-        built = list(pool.map(lambda b: b.build(), (build, fa_build)))
+    libraries = (build, fa_build, d_build)
+    with ThreadPoolExecutor(len(libraries)) as pool:   # one nvcc per source
+        built = list(pool.map(lambda b: b.build(), libraries))
     log(f"phase 1: built {[p.name for p in built]} in "
         f"{time.perf_counter() - t0:.1f} s")
-    for lib in (build, fa_build):
+    for lib in libraries:
         for line in lib.build_log().splitlines():
             if ("registers" in line or "Compiling entry" in line
                     or "spill" in line):
@@ -621,6 +1067,8 @@ def main():
 
     err = phase_kernels(dev, ops, ref, random)
     flash_err = phase_flash_kernel(dev, fa_ops, fa_ref)
+    dither_err = phase_dither_kernels(dev, d_ops, d_ref, random)
+    bwd_err, bwd_rel = phase_flash_backward(dev, fa_ops, fa_ref)
     counts = {name: 0 for name in REPLACES}
     quick = phase_quickstart(quickstart, ops, counts)
     gis = phase_gisette(quickstart, ops, counts)
@@ -629,9 +1077,13 @@ def main():
     log(f"main-path launches (sum of the four runs above): {counts}")
     depth2 = phase_serve_depth2(serve)
     full = phase_serve_full(serve, fa_ops)
+    train2 = phase_train_depth2(train, value_and_grad, compressors, random,
+                                tree)
+    trained = phase_train_full(train, fa_ops, d_ops, ops, tree)
     prof = phase_profile(quickstart)
     timing = phase_timing(dev, ops, ref, random)
     flash = phase_flash_timing(dev, fa_ops, fa_ref)
+    ttiming = phase_train_kernel_timing(dev, d_ops, d_ref, fa_ops, fa_ref)
 
     kernels = []
     for name in REPLACES:
@@ -647,15 +1099,49 @@ def main():
             entry["ms_by_shape"] = {f"[20,{Ls}]": timing[(name, Ls)]["ms"]
                                     for Ls in (5000, 20000)}
         kernels.append(entry)
+    by_path = {"serve prefill": full["launches"],
+               "train adam x5": trained["adam"]["launches"],
+               "train flecs x5": trained["flecs"]["launches"]}
     kernels.append({
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
-        "replaces": FLASH_REPLACES, "launches": full["launches"],
+        "replaces": FLASH_REPLACES,
+        "launches": full["launches"]
+        + trained["adam"]["launches"]["flash_attention"]
+        + trained["flecs"]["launches"]["flash_attention"],
+        "launches_by_path": {k: (v if isinstance(v, int)
+                                 else v["flash_attention"])
+                             for k, v in by_path.items()},
         "max_abs_err": max(flash_err.values()), "ms": flash["ms"],
         "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
         "bound_by": flash["bound_by"], "library_ms": flash["library_ms"],
         "max_abs_err_by_dtype": flash_err, "shape": list(SERVE_SHAPE[:5])})
+    leaf = LEAF_SHAPES[0]
+    for name in DITHER_REPLACES:
+        r = ttiming[(name, leaf)]
+        kernels.append({
+            "name": name, "route": "cuda", "source": DITHER_SOURCE,
+            "replaces": DITHER_REPLACES[name],
+            "launches": trained["flecs"]["launches"][name],
+            "max_abs_err": dither_err[name], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "shape": list(leaf), "ms_by_shape": {
+                str(list(sh)): ttiming[(name, sh)]["ms"]
+                for (n, sh) in ttiming if n == name}})
+    r = ttiming[("flash_attention_backward", SERVE_SHAPE[:5])]
+    kernels.append({
+        "name": "flash_attention_backward", "route": "cuda",
+        "source": FLASH_SOURCE, "replaces": BWD_REPLACES,
+        "launches": trained["adam"]["launches"]["flash_attention_backward"]
+        + trained["flecs"]["launches"]["flash_attention_backward"],
+        "max_abs_err": max(bwd_err.values()), "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "max_abs_err_by_dtype": bwd_err, "rel_err_by_dtype": bwd_rel,
+        "shape": list(SERVE_SHAPE[:5])})
     log(json.dumps({"quickstart": quick, "gisette": gis, "profile": prof,
-                    "serve_depth2": depth2, "serve": full}))
+                    "serve_depth2": depth2, "serve": full,
+                    "train_depth2": train2, "train": trained}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

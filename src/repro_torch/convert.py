@@ -37,16 +37,28 @@ def _leaf(a, dev) -> torch.Tensor:
     return torch.from_numpy(a).to(dev)
 
 
-def params_from_reference(tree, device=None):
-    """The reference's parameter pytree (nested dicts and lists of numpy
-    arrays, e.g. ``jax.tree.map(np.asarray, params)``) as the port's: the
-    same structure, shapes and dtypes, on ``device``."""
-    dev = resolve_device(device)
+def _tree(tree, dev):
     if isinstance(tree, dict):
-        return {k: params_from_reference(v, dev) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [params_from_reference(v, dev) for v in tree]
+        return {k: _tree(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree(v, dev) for v in tree]
+    if isinstance(tree, tuple):
+        return tuple(_tree(v, dev) for v in tree)
     return _leaf(tree, dev)
+
+
+def params_from_reference(tree, device=None):
+    """A reference pytree (nested dicts, lists and tuples of numpy arrays,
+    e.g. ``jax.tree.map(np.asarray, params)``) as the port keeps it: the
+    same structure, shapes and dtypes (bf16 bits carried), on ``device``.
+    The parameters, an optimizer's state (adam's {"m", "v", "t"}, sgd's
+    ()) and the FLECS-CGD shifts ({"own", "mean"}) all convert so."""
+    return _tree(tree, resolve_device(device))
+
+
+#: The same conversion, named for the optimizer state and the shifts.
+opt_state_from_reference = params_from_reference
+shifts_from_reference = params_from_reference
 
 
 def state_from_reference(w, h, B, k, bits_per_node,

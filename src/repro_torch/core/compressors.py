@@ -8,6 +8,10 @@ the family is a concrete Python int, so the entry points dispatch in Python
                                    worker message, one key per row)
     spec_bits(spec, d, device)   — exact uplink payload bits of a d-element
                                    message, a float32 0-d tensor
+    shared_scale_levels(key, x, s) / decode_int8(levels, scale)
+                                 — the int8 wire format of the deep-learning
+                                   trainer (``core/dl_flecs.py``), through
+                                   the dither codec kernels
 
 Dither and top-k run through the fused kernels of
 ``repro_torch.kernels.compressor`` on a CUDA tensor and through their plain
@@ -28,6 +32,7 @@ import torch
 
 from repro_torch import random
 from repro_torch.kernels.compressor import ops
+from repro_torch.kernels.dither import ops as dither_ops
 
 # Family ids, the reference's (natural = 2, count_sketch = 4 and minmax = 5
 # are not ported)
@@ -170,3 +175,46 @@ def spec_bits(spec: CompressorSpec, d: int,
     raise NotImplementedError(
         f"compressor family {spec.family} is not ported yet (ROADMAP.md, "
         "queue 1: 'other compressor families')")
+
+
+# ---------------------------------------------------------------------------
+# int8 wire format of the deep-learning trainer (one worker)
+# ---------------------------------------------------------------------------
+
+def psum_level_cap(s_levels, n_workers: int) -> float:
+    """Dithering-level cap of the int8 collective: min(s, 2047 // n),
+    clipped to at least 1, as a float32 value (the reference's lax-side
+    clip; n workers' level sums stay exact in an f16 accumulation)."""
+    cap = np.float32(max(1, 2047 // n_workers))
+    return float(np.clip(np.float32(s_levels), np.float32(1.0), cap))
+
+
+def _leaf_rows(x: torch.Tensor) -> torch.Tensor:
+    """A tensor as the rows of one block: [numel / last dim, last dim]."""
+    return x.reshape(-1, x.shape[-1])
+
+
+def shared_scale_levels(key, x: torch.Tensor, s):
+    """int8 dithering levels of x with one ∞-norm scale over the whole
+    tensor: (levels int8 of x's shape, scale float32 0-d).
+
+    The reference agrees the norm across the workers with a ``pmax``; on
+    one worker that is the identity, so this is ``dither_encode`` over x
+    as a single block, with the uniforms ``uniform(key, x.shape)`` of the
+    reference, bit for bit.  On a CUDA tensor it runs the encode kernel; a
+    later sharded slice puts an all-reduce of the norm between its two
+    passes."""
+    rows = _leaf_rows(x)
+    u = random.uniform(key, tuple(rows.shape))
+    levels, scale = dither_ops.dither_encode(rows.contiguous(), u, s=s,
+                                             block_rows=rows.shape[0])
+    return levels.reshape(x.shape), scale[0]
+
+
+def decode_int8(levels: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``levels · scale`` in float32 (the reference's ``decode_int8``), by
+    the decode kernel over the tensor as a single block."""
+    rows = _leaf_rows(levels)
+    out = dither_ops.dither_decode(rows.contiguous(), scale.reshape(1),
+                                   block_rows=rows.shape[0])
+    return out.reshape(levels.shape)

@@ -1,0 +1,28 @@
+"""Build and load the int8 dither codec (``csrc/dither.cu``) through
+:class:`repro_torch.kernels.nvcc.CudaLibrary`: nvcc into ``_build/`` beside
+this file at first use, loaded with ``ctypes``."""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+from repro_torch.kernels.nvcc import CudaLibrary
+
+_P, _F, _I, _L = ctypes.c_void_p, ctypes.c_float, ctypes.c_int, \
+    ctypes.c_longlong
+
+#: -fmad=false: no multiply-add is contracted into an FMA, so the levels
+#: round exactly as the reference's separate operations do.
+LIBRARY = CudaLibrary(
+    Path(__file__).resolve().parent / "csrc" / "dither.cu",
+    flags=("-fmad=false",),
+    signatures={
+        # x, dtype, u, s, rows, cols, block_rows, norm_bits, levels, scale,
+        # stream
+        "repro_dither_encode": (_P, _I, _P, _F, _L, _L, _L, _P, _P, _P, _P),
+        # levels, scale, rows, cols, block_rows, out, stream
+        "repro_dither_decode": (_P, _P, _L, _L, _L, _P, _P),
+    })
+
+build = LIBRARY.build
+build_log = LIBRARY.build_log

@@ -1,0 +1,141 @@
+"""Entry points of the int8 dither codec (counterpart of
+``repro.kernels.dither.ops`` and of the Pallas wrappers ``dither_encode`` /
+``dither_decode`` in ``repro.kernels.dither.dither``).
+
+Dispatch is by the tensor's device and nothing else: a CUDA tensor launches
+the kernel of ``csrc/dither.cu`` (or the wrapper raises), a CPU tensor
+takes the plain version in ``ref.py``.  There is no fallback from the card
+to the plain version.  The Pallas wrappers' ``interpret`` flag has no
+counterpart, and the kernel takes any C (the Pallas one needs
+C % 128 == 0).
+
+``quantize`` / ``dequantize`` keep the reference's layout: the tensor is
+flattened and zero-padded into rows of ``cols``, rows are padded to a
+multiple of ``rb = min(block_rows, rows)``, and the uniforms are the
+reference's own draw, ``uniform(key, padded_shape)``, so the levels compare
+bit for bit.
+
+Every launch adds one to ``launches[name]``.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch import random
+from repro_torch.kernels.dither import ref
+from repro_torch.kernels.dither.build import LIBRARY
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: Kernel launches since the last :func:`reset_launches`.
+launches = {"dither_encode": 0, "dither_decode": 0}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"dither kernels run on cuda or cpu, got {t.device}")
+
+
+def _check_blocks(name, t, block_rows) -> None:
+    if t.dim() != 2 or t.shape[0] < 1 or t.shape[1] < 1:
+        raise ValueError(f"{name}: [R >= 1, C >= 1] required, got "
+                         f"{tuple(t.shape)}")
+    if block_rows < 1 or t.shape[0] % block_rows:
+        raise ValueError(f"{name}: R = {t.shape[0]} is not a multiple of "
+                         f"block_rows = {block_rows}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: contiguous operands required")
+
+
+def _launch(name, entry, device, *args) -> None:
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(LIBRARY.load(), entry)(*args, stream)
+    LIBRARY.check(name, rc)
+    launches[name] += 1
+
+
+def dither_encode(x, u, *, s=127, block_rows: int = 256):
+    """x [R, C] float32 or bfloat16, u [R, C] float32 uniforms, R a
+    multiple of block_rows.  Returns (levels int8 [R, C], scale float32
+    [R // block_rows])."""
+    _check_blocks("dither_encode", x, block_rows)
+    if x.dtype not in _DTYPES or u.dtype != torch.float32:
+        raise TypeError(f"dither_encode: x float32 or bfloat16 and u float32"
+                        f" required, got {x.dtype}, {u.dtype}")
+    if u.shape != x.shape or u.device != x.device or not u.is_contiguous():
+        raise ValueError("dither_encode: u must be contiguous, and of x's "
+                         "shape and device")
+    if not _on_card(x):
+        return ref.dither_encode_ref(x, u, s, block_rows)
+    R, C = x.shape
+    nb = R // block_rows
+    levels = torch.empty((R, C), dtype=torch.int8, device=x.device)
+    scale = torch.empty(nb, dtype=torch.float32, device=x.device)
+    norm_bits = torch.empty(nb, dtype=torch.int32, device=x.device)
+    _launch("dither_encode", "repro_dither_encode", x.device, x.data_ptr(),
+            _DTYPES[x.dtype], u.data_ptr(), float(s), R, C, block_rows,
+            norm_bits.data_ptr(), levels.data_ptr(), scale.data_ptr())
+    return levels, scale
+
+
+def dither_decode(levels, scale, *, block_rows: int = 256):
+    """levels int8 [R, C], scale float32 [R // block_rows] -> float32
+    [R, C], ``levels · scale`` of each element's block."""
+    _check_blocks("dither_decode", levels, block_rows)
+    nb = levels.shape[0] // block_rows
+    if levels.dtype != torch.int8 or scale.dtype != torch.float32:
+        raise TypeError(f"dither_decode: int8 levels and float32 scales "
+                        f"required, got {levels.dtype}, {scale.dtype}")
+    if scale.shape != (nb,) or scale.device != levels.device:
+        raise ValueError(f"dither_decode: scale [{nb}] on the levels' device"
+                         f" required, got {tuple(scale.shape)} on "
+                         f"{scale.device}")
+    if not _on_card(levels):
+        return ref.dither_decode_ref(levels, scale, block_rows)
+    if levels.data_ptr() % 16:
+        raise ValueError("dither_decode: the levels must be 16-byte aligned "
+                         "(the kernel loads 16 at a time)")
+    R, C = levels.shape
+    out = torch.empty((R, C), dtype=torch.float32, device=levels.device)
+    _launch("dither_decode", "repro_dither_decode", levels.device,
+            levels.data_ptr(), scale.contiguous().data_ptr(), R, C,
+            block_rows, out.data_ptr())
+    return out
+
+
+def _to_2d(x, cols: int):
+    n = x.numel()
+    rows = -(-n // cols)
+    flat = F.pad(x.reshape(-1), (0, rows * cols - n))
+    return flat.reshape(rows, cols), n
+
+
+def quantize(key, x, *, s=127, block_rows: int = 8, cols: int = 512):
+    """Random-dithering quantize a tensor of any shape.  Returns (levels
+    int8 [rows, cols], scales float32 [rows / rb], meta); decode with
+    :func:`dequantize`."""
+    x2, n = _to_2d(x.float(), cols)
+    rows = x2.shape[0]
+    rb = min(block_rows, rows)
+    pad_rows = (-rows) % rb
+    if pad_rows:
+        x2 = F.pad(x2, (0, 0, 0, pad_rows))
+    u = random.uniform(key, tuple(x2.shape))
+    levels, scales = dither_encode(x2, u, s=s, block_rows=rb)
+    return levels, scales, (tuple(x.shape), n, rb)
+
+
+def dequantize(levels, scales, meta):
+    shape, n, rb = meta
+    out = dither_decode(levels, scales, block_rows=rb)
+    return out.reshape(-1)[:n].reshape(shape)

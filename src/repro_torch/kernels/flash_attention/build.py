@@ -1,4 +1,4 @@
-"""Build and load the flash-attention kernel (``csrc/flash_attention.cu``)
+"""Build and load the flash-attention kernels (``csrc/flash_attention.cu``)
 through :class:`repro_torch.kernels.nvcc.CudaLibrary`: nvcc into ``_build/``
 beside this file at first use, loaded with ``ctypes``."""
 from __future__ import annotations
@@ -13,9 +13,14 @@ _P, _F, _I = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
 LIBRARY = CudaLibrary(
     Path(__file__).resolve().parent / "csrc" / "flash_attention.cu",
     signatures={
-        # q, k, v, o, dtype, B, H, KV, S, D, window, cap, strides, stream
-        "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                  _I, _F, _P, _P),
+        # q, k, v, o, lse, dtype, B, H, KV, S, D, window, cap, strides,
+        # stream
+        "repro_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                  _I, _I, _F, _P, _P),
+        # q, k, v, o, dout, lse, delta, dq, dk, dv, dtype, B, H, KV, S, D,
+        # window, cap, strides, stream
+        "repro_flash_attention_backward": (_P,) * 10 + (_I,) * 7 + (
+            _F, _P, _P),
     })
 
 build = LIBRARY.build

@@ -12,13 +12,22 @@ its code aligns them to the start, and the two agree only when Sq == Sk,
 the only case prefill uses.  Any S >= 1 is taken (the kernel masks the
 ragged last tile; the Pallas wrapper asserts S % 128 == 0).
 
-Every launch adds one to ``launches["flash_attention"]``.
+Gradients: where an operand requires grad (the training path), the call
+goes through ``FlashAttention``, a ``torch.autograd.Function`` whose forward
+launches the kernel with its log-sum-exp output and whose backward launches
+the backward kernels (dQ, dK, dV).  Otherwise the forward kernel runs alone,
+as the serving path calls it.  On the CPU the plain version runs under
+autograd, and is the counterpart the card's backward is held to.
+
+Every forward launch adds one to ``launches["flash_attention"]``, every
+backward one to ``launches["flash_attention_backward"]``.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels.flash_attention import ref
 from repro_torch.kernels.flash_attention.build import LIBRARY
@@ -28,11 +37,12 @@ HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: Kernel launches since the last :func:`reset_launches`.
-launches = {"flash_attention": 0}
+launches = {"flash_attention": 0, "flash_attention_backward": 0}
 
 
 def reset_launches() -> None:
-    launches["flash_attention"] = 0
+    for name in launches:
+        launches[name] = 0
 
 
 def _check(q, k, v, window, cap) -> None:
@@ -65,24 +75,90 @@ def _check(q, k, v, window, cap) -> None:
                          f"required, got {window}, {cap}")
 
 
-def _launch(q, k, v, out, window, cap) -> None:
-    """The kernel on views of any batch/head/sequence strides whose head
-    dimension is contiguous; writes ``out`` (q's shape and type)."""
-    for t in (q, k, v, out):
+def _strides(*tensors):
+    """Batch, head and sequence strides of [B, H, S, D] views whose head
+    dimension is contiguous, as the kernels' int64 array."""
+    for t in tensors:
         if t.stride(-1) != 1:
             raise ValueError("flash_attention: the head dimension must be "
                              "contiguous")
+    return (ctypes.c_longlong * (3 * len(tensors)))(
+        *(t.stride(i) for t in tensors for i in range(3)))
+
+
+def _launch(q, k, v, out, window, cap, lse=None) -> None:
+    """The forward kernel on [B, H, S, D] views of any batch/head/sequence
+    strides; writes ``out`` (q's shape and type) and, if given, ``lse``
+    (float32 [B, H, S], contiguous)."""
+    strides = _strides(q, k, v, out)
     B, H, S, D = q.shape
-    strides = (ctypes.c_longlong * 12)(*(t.stride(i) for t in (q, k, v, out)
-                                         for i in range(3)))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = LIBRARY.load().repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], B, H, k.shape[1], S, D, int(window),
-            float(cap), ctypes.addressof(strides), stream)
+            None if lse is None else lse.data_ptr(), _DTYPES[q.dtype], B, H,
+            k.shape[1], S, D, int(window), float(cap),
+            ctypes.addressof(strides), stream)
     LIBRARY.check("flash_attention", rc)
     launches["flash_attention"] += 1
+
+
+def _launch_backward(q, k, v, out, dout, lse, dq, dk, dv, window,
+                     cap) -> None:
+    """The backward kernels on [B, H, S, D] views (k, v, dk, dv with KV
+    heads): write dq, dk and dv from the forward's out and lse."""
+    strides = _strides(q, k, v, out, dout, dq, dk, dv)
+    B, H, S, D = q.shape
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = LIBRARY.load().repro_flash_attention_backward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype], B, H, k.shape[1],
+            S, D, int(window), float(cap), ctypes.addressof(strides), stream)
+    LIBRARY.check("flash_attention_backward", rc)
+    launches["flash_attention_backward"] += 1
+
+
+def _kernel_layout(t, model_layout: bool):
+    return t.transpose(1, 2) if model_layout else t
+
+
+class FlashAttention(torch.autograd.Function):
+    """The kernel with a backward kernel: ``apply(q, k, v, window, cap,
+    model_layout)``, operands in the model layout [B, S, H, D] or, with
+    ``model_layout`` False, the kernel layout [B, H, S, D].  Saves q, k, v,
+    the output and the float32 log-sum-exp; CUDA tensors only."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, cap, model_layout):
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        qt = _kernel_layout(q, model_layout)
+        lse = torch.empty(qt.shape[:3], dtype=torch.float32, device=q.device)
+        _launch(qt, *(_kernel_layout(t, model_layout) for t in (k, v, out)),
+                window, cap, lse)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.window, ctx.cap, ctx.model_layout = window, cap, model_layout
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_out):
+        q, k, v, out, lse = ctx.saved_tensors
+        grad_out = grad_out.to(q.dtype)
+        if grad_out.stride(-1) != 1:
+            grad_out = grad_out.contiguous()
+        dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                      for t in (q, k, v))
+        views = [_kernel_layout(t, ctx.model_layout)
+                 for t in (q, k, v, out, grad_out, dq, dk, dv)]
+        _launch_backward(*views[:5], lse, *views[5:], ctx.window, ctx.cap)
+        return dq, dk, dv, None, None, None
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def flash_attention(q, k, v, window: int = 0, cap: float = 0.0):
@@ -92,6 +168,8 @@ def flash_attention(q, k, v, window: int = 0, cap: float = 0.0):
     _check(q, k, v, window, cap)
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, window, cap)
+    if _needs_grad(q, k, v):
+        return FlashAttention.apply(q, k, v, window, cap, False)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch(q, k, v, out, window, cap)
     return out
@@ -105,6 +183,8 @@ def attention(q, k, v, window: int = 0, cap: float = 0.0):
     _check(qt, kt, vt, window, cap)
     if q.device.type == "cpu":
         return ref.attention_ref(qt, kt, vt, window, cap).transpose(1, 2)
+    if _needs_grad(q, k, v):
+        return FlashAttention.apply(q, k, v, window, cap, True)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch(qt, kt, vt, out.transpose(1, 2), window, cap)
     return out

@@ -12,7 +12,8 @@ mesh yet, so the reference's ``ctx`` argument is dropped; it returns with
 the sharded slice.
 
 Three entry points, as in the reference:
-  * ``forward``      — full-sequence hidden states;
+  * ``forward``      — full-sequence hidden states (``remat=True`` recomputes
+    each layer's activations in the backward, as ``jax.checkpoint`` does);
   * ``prefill``      — full sequence plus populated decode caches;
   * ``decode_step``  — one token against the caches, which it updates in
     place (the reference returns updated copies).
@@ -23,12 +24,14 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import random
 from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, FFN_DENSE,
                                       ModelConfig)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.layers import ffn, init_ffn, rms_norm, softcap
+from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 #: Where the layer kinds this slice lacks come from (ROADMAP.md).
 _LATER = "slice 4 (the other model families: MLA, MoE, SSM, RG-LRU, VLM " \
@@ -50,16 +53,6 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.arch_id}: audio codebooks are not ported yet; they come "
             f"with {_LATER}")
-
-
-def tree_map(fn, *trees):
-    """Map over nested dicts and lists of tensors (the params/cache trees)."""
-    t = trees[0]
-    if isinstance(t, dict):
-        return {k: tree_map(fn, *(x[k] for x in trees)) for k in t}
-    if isinstance(t, (list, tuple)):
-        return [tree_map(fn, *xs) for xs in zip(*trees)]
-    return fn(*trees)
 
 
 # ---------------------------------------------------------------------------
@@ -170,24 +163,49 @@ def apply_block(p, x, mixer, cfg, positions):
     return _finish_block(p, x, out, cfg), torch.zeros((), device=x.device)
 
 
-def _layers(params, cfg):
+def _unstack(tree, reps):
+    """The ``reps`` per-layer trees of a tree of stacked ``[reps, ...]``
+    leaves, each leaf split by one ``unbind``: under autograd the backward
+    of an unbind stacks the layers' gradients once, where taking ``a[r]``
+    of each leaf would add a full-size zero tensor per layer."""
+    leaves, treedef = tree_flatten(tree)
+    split = [leaf.unbind(0) for leaf in leaves]
+    return [tree_unflatten(treedef, [s[r] for s in split])
+            for r in range(reps)]
+
+
+def _layers(params, cfg, unbind: bool = False):
     """(group index, rep, sublayer index, params of that layer, mixer) over
-    every layer, in order (the FFN is dense: ``check_supported``)."""
+    every layer, in order (the FFN is dense: ``check_supported``).  Each
+    layer's leaves are ``a[r]`` views of the stacked leaves, or, with
+    ``unbind`` (for autograd), taken by ``_unstack``."""
     for gi, ((block_plan, reps), gp) in enumerate(zip(cfg.layer_groups(),
                                                       params["blocks"])):
+        per_rep = [_unstack(sub, reps) for sub in gp] if unbind else None
         for r in range(reps):
             for i, (m, _) in enumerate(block_plan):
-                yield gi, r, i, tree_map(lambda a: a[r], gp[i]), m
+                sp = (per_rep[i][r] if unbind
+                      else tree_map(lambda a: a[r], gp[i]))
+                yield gi, r, i, sp, m
 
 
-def forward(params, batch, cfg: ModelConfig):
-    """Full-sequence forward.  Returns (hidden [B, S, D], aux scalar)."""
+def forward(params, batch, cfg: ModelConfig, remat: bool = False):
+    """Full-sequence forward.  Returns (hidden [B, S, D], aux scalar).
+
+    ``remat`` checkpoints each layer (``torch.utils.checkpoint``,
+    non-reentrant): the backward recomputes the layer's activations from
+    its input, as the reference's ``jax.checkpoint`` of each scanned block
+    does, so only the layers' inputs are kept."""
     check_supported(cfg)
     x = embed_inputs(params, batch, cfg)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux = torch.zeros((), device=x.device)
-    for _, _, _, sp, m in _layers(params, cfg):
-        x, a = apply_block(sp, x, m, cfg, positions)
+    for _, _, _, sp, m in _layers(params, cfg, unbind=True):
+        if remat:
+            x, a = checkpoint(apply_block, sp, x, m, cfg, positions,
+                              use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, a = apply_block(sp, x, m, cfg, positions)
         aux = aux + a
     return x, aux
 

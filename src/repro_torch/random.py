@@ -39,23 +39,24 @@ _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
 
 
-def _rotl(x, r: int):
-    return ((x << r) & _MASK) | (x >> (32 - r))
-
-
 def threefry2x32(k0, k1, x0, x1):
     """Threefry-2x32 with 20 rounds (Salmon et al. 2011), as ``jax.random``
     runs it.  All arguments are int64 tensors of uint32 values that
-    broadcast together; returns the two output words."""
+    broadcast together; returns the two output words (new tensors: the
+    rounds run in place on copies of x0 and x1)."""
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
-    x0 = (x0 + ks[0]) & _MASK
-    x1 = (x1 + ks[1]) & _MASK
+    x0 = (x0 + ks[0]).bitwise_and_(_MASK)
+    x1 = (x1 + ks[1]).bitwise_and_(_MASK)
+    if x0.shape != x1.shape:
+        x0, x1 = (t.contiguous() for t in torch.broadcast_tensors(x0, x1))
     for i in range(5):
         for r in _ROTATIONS[i % 2]:
-            x0 = (x0 + x1) & _MASK
-            x1 = _rotl(x1, r) ^ x0
-        x0 = (x0 + ks[(i + 1) % 3]) & _MASK
-        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _MASK
+            x0.add_(x1).bitwise_and_(_MASK)
+            high = x1 >> (32 - r)                     # x1 = rotl(x1, r) ^ x0
+            x1.bitwise_left_shift_(r).bitwise_and_(_MASK)
+            x1.bitwise_or_(high).bitwise_xor_(x0)
+        x0.add_(ks[(i + 1) % 3]).bitwise_and_(_MASK)
+        x1.add_(ks[(i + 2) % 3] + (i + 1)).bitwise_and_(_MASK)
     return x0, x1
 
 
@@ -67,17 +68,37 @@ def key(seed: int, device=None) -> torch.Tensor:
                         device=resolve_device(device))
 
 
-def _counters(key: torch.Tensor, count: int):
-    """Threefry over the flat counters 0..count-1 for every key row:
-    returns (y0, y1) of shape ``key.shape[:-1] + (count,)``."""
-    idx = torch.arange(count, dtype=torch.int64, device=key.device)
+#: Counters drawn per pass of :func:`_draw`, by device type: the int64
+#: temporaries of a pass stay in the CPU's caches, and on the card a pass
+#: over a 254 M-element leaf holds 0.1 GB a temporary instead of 2 GB.
+_CHUNK = {"cpu": 1 << 20, "cuda": 1 << 24}
+
+
+def _counters(key: torch.Tensor, lo: int, hi: int):
+    """Threefry over the flat counters lo..hi-1 for every key row: returns
+    (y0, y1) of shape ``key.shape[:-1] + (hi - lo,)``."""
+    idx = torch.arange(lo, hi, dtype=torch.int64, device=key.device)
     return threefry2x32(key[..., 0:1], key[..., 1:2], idx >> 32,
                         idx & _MASK)
 
 
+def _draw(key: torch.Tensor, count: int, dtype, finish) -> torch.Tensor:
+    """``finish(y0 ^ y1)`` over the flat counters 0..count-1 of every key
+    row, as a ``key.shape[:-1] + (count,)`` tensor of ``dtype``, computed
+    in passes of ``_CHUNK`` counters (the result does not depend on it)."""
+    out = torch.empty(key.shape[:-1] + (count,), dtype=dtype,
+                      device=key.device)
+    step = _CHUNK[key.device.type]
+    for lo in range(0, count, step):
+        hi = min(count, lo + step)
+        y0, y1 = _counters(key, lo, hi)
+        out[..., lo:hi] = finish(y0.bitwise_xor_(y1))
+    return out
+
+
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split``: ``[..., 2]`` -> ``[..., num, 2]``."""
-    y0, y1 = _counters(key, num)
+    y0, y1 = _counters(key, 0, num)
     return torch.stack((y0, y1), dim=-1)
 
 
@@ -93,14 +114,20 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
 def bits(key: torch.Tensor, shape=()) -> torch.Tensor:
     """``jax.random.bits`` (uint32): int64 ``key.shape[:-1] + shape``."""
     shape = tuple(shape)
-    y0, y1 = _counters(key, math.prod(shape))
-    return (y0 ^ y1).reshape(key.shape[:-1] + shape)
+    out = _draw(key, math.prod(shape), torch.int64, lambda b: b)
+    return out.reshape(key.shape[:-1] + shape)
 
 
 def uniform(key: torch.Tensor, shape=()) -> torch.Tensor:
     """``jax.random.uniform`` on [0, 1), float32."""
-    mant = (bits(key, shape) >> 9) | 0x3F800000
-    return mant.to(torch.int32).view(torch.float32) - 1.0
+    shape = tuple(shape)
+
+    def finish(b):
+        mant = b.bitwise_right_shift_(9).bitwise_or_(0x3F800000)
+        return mant.to(torch.int32).view(torch.float32) - 1.0
+
+    out = _draw(key, math.prod(shape), torch.float32, finish)
+    return out.reshape(key.shape[:-1] + shape)
 
 
 #: Giles' single-precision erfinv ("Approximating the erfinv function",

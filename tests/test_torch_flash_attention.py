@@ -123,7 +123,8 @@ def test_model_layout_on_cpu_tensors():
                              v.transpose(1, 2), 40, 10.0).transpose(1, 2)
     assert torch.equal(out, want)
     # the CPU path takes the plain version: no launch is counted
-    assert ops.launches == {"flash_attention": 0}
+    assert ops.launches == {"flash_attention": 0,
+                            "flash_attention_backward": 0}
 
 
 def test_ragged_length_and_fully_masked_rows():
@@ -149,3 +150,37 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         ops.flash_attention(q.double(), k.double(), v.double())
     with pytest.raises(TypeError):
         ops.flash_attention(q, k.bfloat16(), v)
+
+
+@functools.lru_cache(maxsize=None)
+def _jitted_grad(window, cap):
+    """jax.grad of <chunked_attention(q, k, v), g> by q, k and v."""
+    def f(q, k, v, g):
+        out = chunked_attention(q, k, v, window=window, cap=cap)
+        return jnp.sum(out.astype(jnp.float32) * g)
+
+    return jax.jit(jax.grad(f, argnums=(0, 1, 2)))
+
+
+@pytest.mark.parametrize("B,H,KV,S,D,window,cap", [
+    (1, 4, 2, 64, 32, 0, 0.0),
+    (2, 4, 1, 48, 32, 16, 30.0),
+    (1, 2, 2, 96, 64, 7, 0.0),
+    (1, 2, 1, 1024, 32, 300, 20.0),      # the banded chunked branch
+])
+def test_plain_version_gradients_match_jax_grad(B, H, KV, S, D, window, cap):
+    """The counterpart of the card's backward kernel: the plain version
+    under autograd against jax.grad of the model's chunked_attention, in
+    model layout; max |Δ| <= 1e-5 · max |grad| over dq, dk and dv (float32
+    sums in another order)."""
+    arrays = _inputs(B, H, KV, S, D, seed=6, layout="model")
+    g = np.random.default_rng(7).normal(size=(B, S, H, D)).astype(np.float32)
+    want = _jitted_grad(window, cap)(*_jax(arrays, jnp.float32),
+                                     jnp.asarray(g))
+    qkv = [t.requires_grad_(True) for t in _port(arrays, torch.float32)]
+    out = ops.attention(*qkv, window=window, cap=cap)
+    got = torch.autograd.grad(out, qkv, torch.as_tensor(g))
+    bound = 1e-5 * max(float(np.abs(np.asarray(w)).max()) for w in want)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        assert float(np.abs(a.numpy() - np.asarray(b)).max()) <= bound

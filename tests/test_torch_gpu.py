@@ -1,5 +1,5 @@
 """The port's kernels on the card against their plain versions, and the
-serving path on the card against the port on the CPU.
+serving and training paths on the card against the port on the CPU.
 
 These tests need an NVIDIA card and nvcc; they skip without them (the
 decision is taken in a fixture, never at import).  Run them on a machine
@@ -13,18 +13,32 @@ Tolerances:
 * flash attention: rtol = atol = 2e-5 in float32 and 2e-2 in bfloat16, the
   reference's own kernel test's (sums in another order; one bf16 ulp);
 * serving (smoke config): logits max |Δ| <= 1e-4 · max |logits| between
-  the card and the CPU (float32 matmuls of cuBLAS against the CPU's).
+  the card and the CPU (float32 matmuls of cuBLAS against the CPU's);
+* dither codec kernels: none — bit-identical to the plain versions, as the
+  compressor kernels;
+* flash-attention backward against the plain version under autograd on the
+  same card: max |Δ| <= 1e-5 · max |grad| in float32 (sums in another
+  order; max over dq, dk and dv), 1e-2 · max |grad| in bfloat16 (gradients
+  rounded to bf16 from float32 results that differ in the last bits: one
+  bf16 ulp is 2^-8 of the value);
+* training (smoke config): gradients on the card within 1e-4 · max |g| of
+  the CPU's per leaf, losses within 1e-5 relative, ``uplink_mbits`` equal.
 This file imports no JAX (the card's machine has none).
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch import random
 from repro_torch.kernels.compressor import ops, ref
+from repro_torch.kernels.dither import ops as d_ops
+from repro_torch.kernels.dither import ref as d_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.launch import serve
-from repro_torch.models.model import tree_map
+from repro_torch.launch import train as train_launch
+from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.train.step import value_and_grad
 
 pytestmark = pytest.mark.gpu
 
@@ -134,7 +148,8 @@ def test_flash_attention_matches_plain_version(cuda, B, H, KV, S, D, window,
         cuda, dtype) for s in ((B, H, S, D), (B, KV, S, D), (B, KV, S, D)))
     fa_ops.reset_launches()
     got = fa_ops.flash_attention(q, k, v, window=window, cap=cap)
-    assert fa_ops.launches == {"flash_attention": 1}
+    assert fa_ops.launches == {"flash_attention": 1,
+                               "flash_attention_backward": 0}
     want = fa_ref.attention_ref(q, k, v, window, cap)
     assert got.dtype == dtype and got.shape == (B, H, S, D)
     tol = 2e-5 if dtype == torch.float32 else 2e-2
@@ -173,3 +188,162 @@ def test_serve_on_the_card_matches_the_cpu(cuda, arch):
     got, want = out["logits"].cpu(), cpu["logits"]
     assert torch.isfinite(got).all()
     assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+def _same_exact(a, b):
+    """Equal element for element, NaN matching NaN, any dtype."""
+    a, b = a.cpu(), b.cpu()
+    assert a.dtype == b.dtype and a.shape == b.shape
+    if a.is_floating_point():
+        _same(a.float(), b.float())
+    else:
+        assert torch.equal(a, b)
+
+
+# the shapes of tests/test_kernels.py's dither test, and a block larger
+# than one CTA's chunk (the two-pass path)
+DITHER_SHAPES = [(16, 128, 8, 127), (32, 256, 8, 63), (8, 512, 4, 15),
+                 (64, 128, 16, 127), (300, 1000, 300, 127),
+                 (24, 77, 3, 255)]
+
+
+@pytest.mark.parametrize("R,C,br,s", DITHER_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dither_codec_bit_identical(cuda, R, C, br, s, dtype):
+    g = np.random.default_rng(R + C)
+    x = torch.as_tensor((g.normal(size=(R, C)) * 10).astype(np.float32)).to(
+        dtype)
+    u = random.uniform(random.key(0, "cpu"), (R, C))
+    d_ops.reset_launches()
+    lv, sc = d_ops.dither_encode(x.to(cuda), u.to(cuda), s=s, block_rows=br)
+    out = d_ops.dither_decode(lv, sc, block_rows=br)
+    assert d_ops.launches == {"dither_encode": 1, "dither_decode": 1}
+    want_lv, want_sc = d_ref.dither_encode_ref(x, u, s, br)
+    _same_exact(lv, want_lv)
+    _same_exact(sc, want_sc)
+    _same_exact(out, d_ref.dither_decode_ref(want_lv, want_sc, br))
+
+
+def test_dither_codec_edge_rows(cuda):
+    """Zero, ±inf and NaN blocks, and s = 255 (levels past 127 saturate)."""
+    inf, nan = float("inf"), float("nan")
+    x = torch.tensor([[0.0] * 4, [-0.0] * 4,
+                      [1.0, inf, 3.0, -2.0], [0.5, -inf, 0.0, 7.0],
+                      [1.0, nan, 3.0, -2.0], [-0.0, 0.5, 2.0, 1.0],
+                      [4.0, -4.0, 3.9, -3.9], [1e-3, 2e-3, -4.0, 0.25]])
+    u = torch.as_tensor(np.random.default_rng(3).random(x.shape, np.float32))
+    for s in (15, 127, 255):
+        lv, sc = d_ops.dither_encode(x.to(cuda), u.to(cuda), s=s,
+                                     block_rows=2)
+        want_lv, want_sc = d_ref.dither_encode_ref(x, u, s, 2)
+        _same_exact(lv, want_lv)
+        _same_exact(sc, want_sc)
+        _same_exact(d_ops.dither_decode(lv, sc, block_rows=2),
+                    d_ref.dither_decode_ref(want_lv, want_sc, 2))
+
+
+@pytest.mark.parametrize("shape", [(1000,), (33, 77), (4, 5, 6), (128, 512)])
+def test_quantize_bit_identical(cuda, shape):
+    x = torch.as_tensor(np.random.default_rng(1).normal(size=shape).astype(
+        np.float32))
+    got = d_ops.quantize(random.key(1, cuda), x.to(cuda), s=63)
+    want = d_ops.quantize(random.key(1, "cpu"), x, s=63)
+    for a, b in zip(got[:2], want[:2]):
+        _same_exact(a, b)
+    assert got[2] == want[2]
+    _same_exact(d_ops.dequantize(*got), d_ops.dequantize(*want))
+
+
+def test_dither_inputs_checked(cuda):
+    x = torch.ones((8, 16), device=cuda)
+    with pytest.raises(ValueError, match="multiple"):
+        d_ops.dither_encode(x, torch.zeros_like(x), block_rows=3)
+    with pytest.raises(TypeError):
+        d_ops.dither_encode(x.double(), torch.zeros_like(x), block_rows=8)
+    with pytest.raises(ValueError):
+        d_ops.dither_encode(x.T, torch.zeros_like(x.T), block_rows=1)
+    lv, sc = d_ops.dither_encode(x, torch.zeros_like(x), block_rows=8)
+    with pytest.raises(ValueError, match="aligned"):
+        d_ops.dither_decode(lv.reshape(-1)[1:17].reshape(1, 16), sc,
+                            block_rows=1)
+    torch.cuda.synchronize()
+
+
+def _grads(fn, tensors):
+    leaves = [t.detach().requires_grad_(True) for t in tensors]
+    out = fn(*leaves)
+    g_out = torch.as_tensor(np.random.default_rng(7).normal(
+        size=tuple(out.shape)).astype(np.float32)).to(out.device, out.dtype)
+    return out, torch.autograd.grad(out, leaves, g_out)
+
+
+@pytest.mark.parametrize("B,H,KV,S,D,window,cap", FLASH_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_backward_matches_plain_version(
+        cuda, B, H, KV, S, D, window, cap, dtype):
+    g = np.random.default_rng(S + D + 1)
+    qkv = [torch.as_tensor(g.normal(size=s).astype(np.float32)).to(
+        cuda, dtype) for s in ((B, H, S, D), (B, KV, S, D), (B, KV, S, D))]
+    fa_ops.reset_launches()
+    out, got = _grads(lambda q, k, v: fa_ops.flash_attention(
+        q, k, v, window=window, cap=cap), qkv)
+    assert fa_ops.launches == {"flash_attention": 1,
+                               "flash_attention_backward": 1}
+    # the forward is the same with and without the log-sum-exp output
+    with torch.no_grad():
+        _same(out.float(), fa_ops.flash_attention(*qkv, window=window,
+                                                  cap=cap).float())
+    _, want = _grads(lambda q, k, v: fa_ref.attention_ref(q, k, v, window,
+                                                          cap), qkv)
+    # max |grad| over dq, dk and dv: at S = 1 dq is 0 in exact arithmetic
+    # (dS = P (dP - Delta) with P = 1 and dP = Delta) and rounding residue
+    # on either side is measured against the gradients' scale
+    rel = 1e-5 if dtype == torch.float32 else 1e-2
+    bound = rel * max(float(b.float().abs().max()) for b in want)
+    for name, a, b in zip("qkv", got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= bound, (name, err, bound)
+
+
+def test_attention_weights_get_gradients_on_the_card(cuda):
+    """The attention projections' gradients exist on the card and equal the
+    port's on the CPU (a forward kernel alone would leave wq, wk and wv
+    without gradients)."""
+    cfg, params = train_launch.setup("tinyllama-1.1b", smoke=True,
+                                     device=cuda)
+    batch = next(train_launch.token_batches(cfg, 2, 48, cuda))
+    fa_ops.reset_launches()
+    loss, grads = value_and_grad(params, batch, cfg, remat=True)
+    n_attn = cfg.n_layers
+    assert fa_ops.launches == {"flash_attention": 2 * n_attn,
+                               "flash_attention_backward": n_attn}
+    cpu_loss, cpu_grads = value_and_grad(
+        tree_map(lambda t: t.cpu(), params),
+        tree_map(lambda t: t.cpu(), batch), cfg, remat=True)
+    assert abs(float(loss) - float(cpu_loss)) <= 1e-5 * abs(float(cpu_loss))
+    mixer = grads["blocks"][0][0]["mixer"]
+    for name in ("wq", "wk", "wv"):
+        assert float(mixer[name].abs().max()) > 0, name
+    for a, b in zip(tree_leaves(grads), tree_leaves(cpu_grads)):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(
+            b.abs().max())
+
+
+@pytest.mark.parametrize("flecs", [False, True])
+def test_train_on_the_card_matches_the_cpu(cuda, flecs):
+    cfg, params = train_launch.setup("tinyllama-1.1b", smoke=True,
+                                     device=cuda)
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        p = tree_map(lambda t: t.to(dev), params)
+        batches = train_launch.token_batches(cfg, 4, 32, dev)
+        d_ops.reset_launches()
+        runs[dev.type] = train_launch.train(cfg, p, batches, 3, flecs=flecs)
+        if flecs:
+            n = len(tree_leaves(params)) * 3 if dev.type == "cuda" else 0
+            assert d_ops.launches == {"dither_encode": n, "dither_decode": n}
+    for a, b in zip(runs["cuda"]["metrics"], runs["cpu"]["metrics"]):
+        assert abs(a["loss"] - b["loss"]) <= 1e-5 * abs(b["loss"])
+        if flecs:
+            assert a["uplink_mbits"] == b["uplink_mbits"]

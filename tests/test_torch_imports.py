@@ -35,3 +35,12 @@ def test_no_jax_or_reference_import(path):
     bad = [m for m in _imported(tree)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.name} imports {bad}"
+
+
+@pytest.mark.parametrize("module", [
+    "tree.py", "kernels/dither/ops.py", "kernels/dither/ref.py",
+    "kernels/dither/build.py", "models/loss.py", "optim/optimizers.py",
+    "core/dl_flecs.py", "launch/train.py"])
+def test_training_slice_modules_are_checked(module):
+    """The training slice's modules are among the files held above."""
+    assert ROOT / "src" / "repro_torch" / module in FILES

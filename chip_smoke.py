@@ -12,21 +12,24 @@ back to the CPU):
    card's name and power limit.
 2. Hold every compressor kernel on the card against its plain PyTorch
    version on a CPU copy of the same inputs, at the main path's row shapes
-   and on edge rows: the results must be bit-identical.  Hold the
-   flash-attention kernel against its plain version on the card, on the
-   same inputs: the reference's test shapes in float32 and bfloat16, a
-   ragged length (S = 200) and the serving shape (B=8, H=32, KV=4, S=1024,
-   D=64); rtol = atol = 2e-5 in float32, 2e-2 in bfloat16 (the reference's
-   own kernel test).  Hold the int8 dither codec's encode and decode
-   kernels against their plain versions, bit for bit: the reference test's
-   shapes in float32 and bfloat16, zero/inf/NaN rows, s = 255, whole
+   and on edge rows: the results must be bit-identical.  fused_topk also on
+   1, 40 and 200 rows (cluster sizes 8, 2 and 1), rows whose ties straddle
+   the shares of a cluster, an all-equal row, denormals, and single rows of
+   300,000 and 3,000,000 elements (shares in shared memory; streamed).
+   Hold the flash-attention kernel against its plain version on the card,
+   on the same inputs: the reference's test shapes in float32 and bfloat16,
+   a ragged length (S = 200) and the serving shape (B=8, H=32, KV=4,
+   S=1024, D=64); rtol = atol = 2e-5 in float32, 2e-2 in bfloat16 (the
+   reference's own kernel test).  Hold the int8 dither codec's encode and
+   decode kernels against their plain versions, bit for bit: the reference
+   test's shapes in float32 and bfloat16, zero/inf/NaN rows, s = 255, whole
    trainer leaves ([22·2048, 5632] and [32000, 2048]) as one block, and
    ``quantize``'s layout.  Hold the flash-attention backward (dq, dk, dv)
    against the plain version's autograd on the card: the reference's five
    shapes, S = 1, 200 (window 7; cap 50), 333 and the training shape, in
-   float32 and bfloat16, max |Δ| <= 1e-5 (f32) / 1e-2 (bf16) · max |grad|;
-   the forward's output must be bitwise the same with and without its
-   log-sum-exp output.
+   float32 and bfloat16, max |Δ| <= 1e-5 (f32) / 1e-2 (bf16) · max |grad|,
+   and bitwise the same over two runs; the forward's output must be bitwise
+   the same with and without its log-sum-exp output.
 3. Quickstart (d=123, n=20, r=64, m=4, seed 0): 201 rounds with
    dither64/dither64 and 50 with a topk0.1 Hessian compressor, on the card
    and in the port on the CPU.  Ledgers must be equal every round, the
@@ -63,7 +66,8 @@ back to the CPU):
    dither_decode and dither_bits once per parameter leaf; finite losses,
    adam's falling; step ms and peak memory; a profile of one step of each
    mode; then the codec and backward kernels timed by CUDA events beside
-   their plain versions, bounds and SDPA's backward (timed only).
+   their plain versions, bounds and SDPA's backward (timed only); the
+   backward in float32 (bound: 3xTF32 on the tensor cores) and bfloat16.
 10. Print the kernels line (eight kernels), then the device line as the
    last line.
 """
@@ -82,6 +86,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 F32_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
+TF32_OPS_PER_S = 495e12         # H100 SXM TF32 on the tensor cores (dense)
+BF16_OPS_PER_S = 989e12         # H100 SXM bf16 on the tensor cores (dense)
 SOURCE = "src/repro_torch/kernels/compressor/csrc/compressor.cu"
 REPLACES = {
     "fused_dither": "src/repro/kernels/compressor/compressor.py:71",
@@ -232,6 +238,60 @@ def phase_kernels(dev, ops, ref, random):
     log(f"phase 2: {len(cases)} row sets, every kernel bit-identical to its "
         f"plain version; max_abs_err {err}")
     return err
+
+
+def topk_rows():
+    """fused_topk's cluster cases, (what, rows): 1, 40 and 200 rows of
+    20,000 and 20,037 (8, 2 and 1 CTAs a row on 132 SMs; 20 rows, 4 CTAs,
+    are phase 2's main cases), rows of 16,384 split 8 ways with ties
+    straddling the share boundaries, an all-equal row, denormals, and one
+    row of 300,000 (shares held in shared memory) and of 3,000,000 (shares
+    streamed from device memory on every pass)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(10)
+    cases = []
+    for n in (1, 40, 200):
+        for L in (20000, 20037):
+            cases.append((f"[{n},{L}]", (rng.normal(size=(n, L)) * 10)))
+            cases.append((f"[{n},{L}] ties", rng.integers(-3, 4, (n, L))))
+    L = 16384
+    straddle = rng.normal(size=L) * 1e-3
+    for c in range(1, 8):
+        straddle[c * 2048 - 40:c * 2048 + 40] = 5.0
+    straddle[rng.integers(0, L, 30)] = 9.0
+    denormal = rng.normal(size=L) * 1e-41
+    denormal[::7] = 0.0
+    denormal[::11] = -0.0
+    cases += [("straddling ties", straddle[None]),
+              ("all-equal row", np.full((1, L), -2.5)),
+              ("denormals", denormal[None])]
+    for L in (300_000, 3_000_000):
+        cases.append((f"[1,{L}]", rng.normal(size=(1, L))))
+        cases.append((f"[1,{L}] ties", rng.integers(-50, 51, (1, L))))
+    return [(what, torch.as_tensor(np.asarray(x, np.float32)))
+            for what, x in cases]
+
+
+def phase_topk_cluster(dev, ops, ref, err):
+    """Phase 2, fused_topk across the cluster sizes and staging modes, bit
+    for bit against its plain version; updates err["fused_topk"]."""
+    import torch
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sizes = set()
+    for what, x in topk_rows():
+        sizes.add(ops.topk_cluster(*x.shape, sms))
+        for frac in (1e-4, 0.01, 0.1, 0.5):
+            out, bits = ops.fused_topk(x.to(dev), frac)
+            want, want_bits = ref.fused_topk_ref(x, frac)
+            check(bit_identical(out, want) and bit_identical(bits, want_bits),
+                  f"fused_topk differs from its plain version on {what} "
+                  f"frac={frac}")
+            err["fused_topk"] = max(err["fused_topk"], max_abs_err(out, want))
+    torch.cuda.synchronize()
+    sizes |= {ops.topk_cluster(20, L, sms) for L in (123, 492, 5000, 20000)}
+    log(f"phase 2: fused_topk bit-identical on the cluster cases; cluster "
+        f"sizes taken in phase 2 {sorted(sizes)} on {sms} SMs")
 
 
 def flash_inputs(shape, dtype, dev, seed=0):
@@ -575,33 +635,39 @@ def phase_profile(quickstart):
     return out
 
 
+#: Row lengths each row kernel is timed at: gisette's (d = 5000, its
+#: Hessian rows m*d = 20000) and, for top-k, the quickstart's topk0.1
+#: Hessian rows (m*d = 492), where 50 of its 60 main-path launches run.
+TIMED_L = {"fused_dither": (5000, 20000), "fused_topk": (492, 20000)}
+
+
 def phase_timing(dev, ops, ref, random):
-    """Per-kernel device times at the gisette shapes, beside the plain
-    version, the library call (top-k) and the bound."""
+    """Per-kernel device times at the main path's shapes (TIMED_L), beside
+    the plain version, the library call (top-k) and the bound."""
     import torch
     g = torch.Generator(device="cpu").manual_seed(0)
     n = 20
     rows = {L: torch.randn((n, L), generator=g).to(dev)
-            for L in (5000, 20000)}
+            for L in sorted(set(sum(TIMED_L.values(), ())))}
     us = {L: random.uniform(random.split(random.key(3, dev), n), (L,))
           for L in rows}
     res = {}
-    for L, x in rows.items():
-        u = us[L]
-        elems = n * L
-        k = ref.topk_keep_count(0.1, L)
+    for L in TIMED_L["fused_dither"]:
+        x, u = rows[L], us[L]
         dither = lambda: ops.fused_dither(x, u, 64.0)       # noqa: E731
-        topk = lambda: ops.fused_topk(x, 0.1)                # noqa: E731
         res[("fused_dither", L)] = dict(
             ms=cuda_ms(dither, 200), host_ms=cuda_ms(dither, 200, False),
             plain_ms=cuda_ms(lambda: ref.fused_dither_ref(x, u, 64.0), 20),
             library_ms=None,
-            bytes=12 * elems + 4 * n, ops=10 * elems)
+            bytes=12 * n * L + 4 * n, ops=10 * n * L)
+    for L in TIMED_L["fused_topk"]:
+        x, k = rows[L], ref.topk_keep_count(0.1, L)
+        topk = lambda: ops.fused_topk(x, 0.1)                # noqa: E731
         res[("fused_topk", L)] = dict(
             ms=cuda_ms(topk, 200), host_ms=cuda_ms(topk, 200, False),
             plain_ms=cuda_ms(lambda: ref.fused_topk_ref(x, 0.1), 20),
             library_ms=cuda_ms(lambda: torch.topk(x.abs(), k, dim=1), 100),
-            bytes=8 * elems + 4 * n, ops=34 * elems)
+            bytes=8 * n * L + 4 * n, ops=34 * n * L)
     for name, fn, plain in (
             ("dither_bits", lambda: ops.dither_bits(64.0, 20000, dev),
              lambda: ref.dither_bits_ref(64.0, 20000, dev)),
@@ -622,6 +688,18 @@ def phase_timing(dev, ops, ref, random):
             f"Python {r['host_ms']!r} ms; plain "
             f"{r['plain_ms']!r} ms, library {r['library_ms']!r} ms, bound "
             f"{r['bound_ms']!r} ms by {r['bound_by']})")
+    # one long row (off the main path): 8 CTAs whose shares are streamed
+    # from device memory on every pass
+    L = 3_000_000
+    x = torch.randn((1, L), generator=g).to(dev)
+    long_row = dict(ms=cuda_ms(lambda: ops.fused_topk(x, 0.1), 20),
+                    library_ms=cuda_ms(lambda: torch.topk(
+                        x.abs(), ref.topk_keep_count(0.1, L), dim=1), 20),
+                    bound_ms=1e3 * (8 * L + 4) / HBM_BYTES_PER_S)
+    log(f"timing fused_topk [1,{L}] (streamed shares): {long_row['ms']!r} ms "
+        f"(torch.topk {long_row['library_ms']!r} ms, bound "
+        f"{long_row['bound_ms']!r} ms by bytes)")
+    res["fused_topk_long_row"] = long_row
     return res
 
 
@@ -755,6 +833,10 @@ def phase_flash_backward(dev, fa_ops, fa_ref):
                 return out.detach(), torch.autograd.grad(out, leaves, dout)
 
             out, got = grads(fa_ops.flash_attention)
+            _, again = grads(fa_ops.flash_attention)
+            check(all(same_bits(a, b) for a, b in zip(got, again)),
+                  f"flash backward differs between two runs at {shape} "
+                  f"{name}")
             with torch.no_grad():
                 plain_fwd = fa_ops.flash_attention(q, k, v, window, cap)
             check(same_bits(out, plain_fwd),
@@ -774,7 +856,7 @@ def phase_flash_backward(dev, fa_ops, fa_ref):
                                   e / scale if scale else 0.0)
             log(f"phase 2: flash backward {shape} {name}: max |Δ| {e!r} "
                 f"({e / scale if scale else 0.0!r} of max |grad| {scale!r})")
-            del q, k, v, dout, out, got, want, plain_fwd
+            del q, k, v, dout, out, got, again, want, plain_fwd
     torch.cuda.empty_cache()
     return err, rel_worst
 
@@ -955,13 +1037,74 @@ def phase_train_full(train, fa_ops, d_ops, ops, tree):
     return res
 
 
-def phase_train_kernel_timing(dev, d_ops, d_ref, fa_ops, fa_ref):
-    """The codec kernels at the trainer's leaf shapes (one block) and the
-    flash backward at the training shape, by CUDA events, beside their
-    plain versions, their bounds and, for the backward, SDPA's backward
-    (timed only)."""
+def flash_backward_timing(dev, dtype, fa_ops, fa_ref, g):
+    """The flash backward kernels at the training shape by CUDA events,
+    beside the plain version's autograd and SDPA's backward (each fwd+bwd
+    less its forward; SDPA timed only) and the bound at the arithmetic the
+    kernel uses: float32 as 3xTF32 (three TF32 products a product), bf16
+    on the bf16 tensor cores.  The float32 CUDA-core bound is logged too."""
     import torch
     import torch.nn.functional as F
+    B, H, KV, S, D, _, _ = SERVE_SHAPE
+    q, k, v = flash_inputs(SERVE_SHAPE, dtype, dev, seed=1)
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+    fa_ops._launch(q, k, v, out, 0, 0.0, lse)
+    dout = torch.randn(q.shape, generator=g, device=dev).to(dtype)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+
+    def fwd_bwd(fn):
+        def run():
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            o = fn(*leaves)
+            torch.autograd.grad(o, leaves, dout)
+        return run
+
+    def sdpa(qq, kk, vv):
+        return F.scaled_dot_product_attention(qq, kk, vv, is_causal=True,
+                                              enable_gqa=True)
+
+    r = dict(ms=cuda_ms(lambda: fa_ops._launch_backward(
+        q, k, v, out, dout, lse, dq, dk, dv, 0, 0.0), 10))
+    r["plain_ms"] = (cuda_ms(fwd_bwd(fa_ref.attention_ref), 3)
+                     - cuda_ms(lambda: fa_ref.attention_ref(q, k, v), 3))
+    try:
+        r["library_ms"] = (cuda_ms(fwd_bwd(sdpa), 10)
+                           - cuda_ms(lambda: sdpa(q, k, v), 10))
+    except (TypeError, RuntimeError) as exc:       # no enable_gqa here
+        log(f"timing: scaled_dot_product_attention unavailable: {exc}")
+        r["library_ms"] = None
+    size = q.element_size()
+    ops = 5 * 2 * B * H * S * S * D / 2              # five causal products
+    nbytes = (size * (4 * B * H * S * D + 4 * B * KV * S * D)
+              + 4 * B * H * S)                       # + the float32 lse
+    tensor_ops, rate = ((3 * ops, TF32_OPS_PER_S) if dtype == torch.float32
+                        else (ops, BF16_OPS_PER_S))
+    t_ops, t_bytes = 1e3 * tensor_ops / rate, 1e3 * nbytes / HBM_BYTES_PER_S
+    r.update(ops=ops, tensor_ops=tensor_ops, bytes=nbytes,
+             bound_ms=max(t_ops, t_bytes),
+             bound_by="operations" if t_ops >= t_bytes else "bytes",
+             cuda_core_bound_ms=1e3 * ops / F32_OPS_PER_S,
+             tflops=ops / r["ms"] / 1e9)
+    name = str(dtype).replace("torch.", "")
+    log(f"timing flash_attention_backward {list(SERVE_SHAPE[:5])} {name}: "
+        f"{r['ms']!r} ms (plain {r['plain_ms']!r} ms, SDPA "
+        f"{r['library_ms']!r} ms; bound {r['bound_ms']!r} ms by "
+        f"{r['bound_by']}: {tensor_ops:.4g} tensor-core operations at "
+        f"{rate / 1e12:g} TFLOP/s, {nbytes:.4g} bytes; float32 CUDA-core "
+        f"bound {r['cuda_core_bound_ms']!r} ms); {r['tflops']!r} TFLOP/s "
+        f"of the five products")
+    del q, k, v, out, lse, dout, dq, dk, dv
+    torch.cuda.empty_cache()
+    return r
+
+
+def phase_train_kernel_timing(dev, d_ops, d_ref, fa_ops, fa_ref):
+    """The codec kernels at the trainer's leaf shapes (one block) and the
+    flash backward at the training shape in float32 and bfloat16, by CUDA
+    events, beside their plain versions, their bounds and, for the
+    backward, SDPA's backward (timed only)."""
+    import torch
     res = {}
     g = torch.Generator(device=dev).manual_seed(6)
     for R, C in LEAF_SHAPES:
@@ -981,49 +1124,19 @@ def phase_train_kernel_timing(dev, d_ops, d_ref, fa_ops, fa_ref):
             library_ms=None, bytes=5 * N + 4, ops=N)
         del x, u, lv, sc
         torch.cuda.empty_cache()
-    B, H, KV, S, D, _, _ = SERVE_SHAPE
-    q, k, v = flash_inputs(SERVE_SHAPE, torch.float32, dev, seed=1)
-    out = torch.empty_like(q)
-    lse = torch.empty((B, H, S), dtype=torch.float32, device=dev)
-    fa_ops._launch(q, k, v, out, 0, 0.0, lse)
-    dout = torch.randn(q.shape, generator=g, device=dev)
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-
-    def fwd_bwd(fn):
-        def run():
-            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-            o = fn(*leaves)
-            torch.autograd.grad(o, leaves, dout)
-        return run
-
-    def sdpa(qq, kk, vv):
-        return F.scaled_dot_product_attention(qq, kk, vv, is_causal=True,
-                                              enable_gqa=True)
-
-    bwd = dict(ms=cuda_ms(lambda: fa_ops._launch_backward(
-        q, k, v, out, dout, lse, dq, dk, dv, 0, 0.0), 10))
-    bwd["plain_ms"] = (cuda_ms(fwd_bwd(fa_ref.attention_ref), 3)
-                       - cuda_ms(lambda: fa_ref.attention_ref(q, k, v), 3))
-    try:
-        bwd["library_ms"] = (cuda_ms(fwd_bwd(sdpa), 10)
-                             - cuda_ms(lambda: sdpa(q, k, v), 10))
-    except (TypeError, RuntimeError) as exc:       # no enable_gqa here
-        log(f"timing: scaled_dot_product_attention unavailable: {exc}")
-        bwd["library_ms"] = None
-    bwd.update(ops=5 * 2 * B * H * S * S * D / 2,
-               bytes=4 * (4 * B * H * S * D + 4 * B * KV * S * D + B * H * S))
-    res[("flash_attention_backward", SERVE_SHAPE[:5])] = bwd
     for r in res.values():
         t_bytes = 1e3 * r["bytes"] / HBM_BYTES_PER_S
         t_ops = 1e3 * r["ops"] / F32_OPS_PER_S
         r["bound_ms"] = max(t_bytes, t_ops)
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    for dtype in (torch.float32, torch.bfloat16):
+        res[("flash_attention_backward", dtype)] = flash_backward_timing(
+            dev, dtype, fa_ops, fa_ref, g)
     for (name, shape), r in res.items():
-        log(f"timing {name} {list(shape)}: {r['ms']!r} ms (plain "
-            f"{r['plain_ms']!r} ms, library {r['library_ms']!r} ms, bound "
-            f"{r['bound_ms']!r} ms by {r['bound_by']})")
-    del q, k, v, out, lse, dout, dq, dk, dv
-    torch.cuda.empty_cache()
+        if name.startswith("dither"):
+            log(f"timing {name} {list(shape)}: {r['ms']!r} ms (plain "
+                f"{r['plain_ms']!r} ms, library {r['library_ms']!r} ms, "
+                f"bound {r['bound_ms']!r} ms by {r['bound_by']})")
     return res
 
 
@@ -1066,6 +1179,7 @@ def main():
     log(card)
 
     err = phase_kernels(dev, ops, ref, random)
+    phase_topk_cluster(dev, ops, ref, err)
     flash_err = phase_flash_kernel(dev, fa_ops, fa_ref)
     dither_err = phase_dither_kernels(dev, d_ops, d_ref, random)
     bwd_err, bwd_rel = phase_flash_backward(dev, fa_ops, fa_ref)
@@ -1097,7 +1211,15 @@ def main():
                  "host_ms": r["host_ms"], "shape": [20, L] if L > 1 else []}
         if name.startswith("fused"):
             entry["ms_by_shape"] = {f"[20,{Ls}]": timing[(name, Ls)]["ms"]
-                                    for Ls in (5000, 20000)}
+                                    for Ls in TIMED_L[name]}
+        if name == "fused_topk":
+            long_row = timing["fused_topk_long_row"]
+            entry["ms_by_shape"]["[1,3000000]"] = long_row["ms"]
+            entry["library_ms_by_shape"] = {
+                f"[20,{Ls}]": timing[(name, Ls)]["library_ms"]
+                for Ls in TIMED_L[name]}
+            entry["library_ms_by_shape"]["[1,3000000]"] = long_row[
+                "library_ms"]
         kernels.append(entry)
     by_path = {"serve prefill": full["launches"],
                "train adam x5": trained["adam"]["launches"],
@@ -1128,7 +1250,8 @@ def main():
             "shape": list(leaf), "ms_by_shape": {
                 str(list(sh)): ttiming[(name, sh)]["ms"]
                 for (n, sh) in ttiming if n == name}})
-    r = ttiming[("flash_attention_backward", SERVE_SHAPE[:5])]
+    r = ttiming[("flash_attention_backward", torch.float32)]
+    r16 = ttiming[("flash_attention_backward", torch.bfloat16)]
     kernels.append({
         "name": "flash_attention_backward", "route": "cuda",
         "source": FLASH_SOURCE, "replaces": BWD_REPLACES,
@@ -1138,6 +1261,8 @@ def main():
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         "max_abs_err_by_dtype": bwd_err, "rel_err_by_dtype": bwd_rel,
+        "bf16": {key: r16[key] for key in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
         "shape": list(SERVE_SHAPE[:5])})
     log(json.dumps({"quickstart": quick, "gisette": gis, "profile": prof,
                     "serve_depth2": depth2, "serve": full,

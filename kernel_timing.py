@@ -1,0 +1,80 @@
+"""Time kernels of one checkout on one card, to compare versions in one call.
+
+    python3 kernel_timing.py compressor [--root DIR]
+    python3 kernel_timing.py flash-backward [--root DIR] [-D NAME=VALUE ...]
+
+``--root`` names the checkout whose ``src/repro_torch`` is timed (default:
+this one), so that a parent unpacked with ``git archive`` beside a change is
+timed by the same code: run parent, change, change, parent in one call.
+
+``compressor`` times the compressor kernels at the main path's shapes beside
+their plain versions and ``torch.topk`` (``chip_smoke.phase_timing``).
+
+``flash-backward`` builds the flash-attention library with the extra nvcc
+``-D`` flags given (the backward's step tiles ``REPRO_BWD_DKDV_BQ`` and
+``REPRO_BWD_DQ_BK``, see ``flash_attention.cu``), holds its backward against
+the plain autograd at every ``chip_smoke.BWD_SHAPES`` shape, and times it at
+the training shape in float32 and bfloat16 beside the plain autograd and
+SDPA (``chip_smoke.flash_backward_timing``).
+
+Each prints the card's name and power limit, the timing lines, and as its
+last line one JSON object of the times.  Needs one card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+import chip_smoke
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(
+        description="Time one checkout's kernels on the card.")
+    parser.add_argument("what", choices=("compressor", "flash-backward"))
+    parser.add_argument("--root", type=Path, default=chip_smoke.ROOT,
+                        help="checkout whose src/repro_torch is timed")
+    parser.add_argument("-D", dest="defines", action="append", default=[],
+                        metavar="NAME=VALUE",
+                        help="extra nvcc -D flag for the flash library")
+    args = parser.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_timing: no CUDA device")
+    sys.path.insert(0, str(args.root.resolve() / "src"))
+    dev = torch.device("cuda")
+    chip_smoke.log(chip_smoke.card_line())
+    out = {"root": str(args.root), "what": args.what,
+           "defines": args.defines}
+    if args.what == "compressor":
+        from repro_torch import random
+        from repro_torch.kernels.compressor import ops, ref
+        res = chip_smoke.phase_timing(dev, ops, ref, random)
+        out["times"] = {
+            (f"{key[0]} [20,{key[1]}]" if isinstance(key, tuple) else key):
+            {k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")
+             if k in r} for key, r in res.items()}
+    else:
+        from repro_torch.kernels.flash_attention import build, ops, ref
+        from repro_torch.kernels.nvcc import CudaLibrary
+        if args.defines:
+            ops.LIBRARY = CudaLibrary(
+                build.LIBRARY.source,
+                flags=tuple(f"-D{d}" for d in args.defines),
+                signatures=build.LIBRARY.signatures)
+        _, rel = chip_smoke.phase_flash_backward(dev, ops, ref)
+        g = torch.Generator(device=dev).manual_seed(6)
+        out["rel_err_by_dtype"] = rel
+        out["times"] = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            r = chip_smoke.flash_backward_timing(dev, dtype, ops, ref, g)
+            out["times"][str(dtype).replace("torch.", "")] = {
+                k: r[k] for k in ("ms", "plain_ms", "library_ms",
+                                  "bound_ms")}
+    print(json.dumps(out), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -18,7 +18,7 @@ LIBRARY = CudaLibrary(
     flags=("-fmad=false",),
     signatures={
         "repro_fused_dither": (_P, _P, _F, _P, _P, _I, _I, _P),
-        "repro_fused_topk": (_P, _F, _P, _P, _I, _I, _P),
+        "repro_fused_topk": (_P, _F, _P, _P, _I, _I, _I, _P),
         "repro_dither_bits": (_F, _F, _P, _P),
         "repro_topk_bits": (_F, _F, _P, _P),
     })

@@ -10,7 +10,8 @@
 // Layout: x is [n, L] float32, row-major and contiguous; one row is one
 // worker's whole message (a gradient difference, L = d, or a flattened
 // [d, m] Hessian-sketch difference, L = d*m).  The infinity norm and the
-// top-k threshold are taken over the whole row.  One CTA handles one row.
+// top-k threshold are taken over the whole row.  fused_dither takes one CTA
+// a row; fused_topk a thread-block cluster of C CTAs a row (below).
 //
 // Exactness: every kernel evaluates the reference expressions of
 // repro.core.compressors in the same order with round-to-nearest
@@ -22,15 +23,22 @@
 // Bounds on the H100: both fused kernels move their bytes once from device
 // memory (dither reads x and u and writes out, 12 B per element; top-k
 // reads x and writes out, 8 B per element) and do a few operations per
-// byte, so memory bounds them.  This first version takes one CTA per row,
-// which leaves most of the 132 SMs idle at the path's n = 20 rows, and the
-// top-k threshold search re-reads the row (from L2) once per bit.  A
-// split-row design over a thread-block cluster, radix select in shared
-// memory, and drawing the dither uniforms in registers are later work
+// byte, so memory bounds them.  fused_topk finds the k-th largest |x| by a
+// radix select (four 8-bit digits of the uint32 pattern, histograms in
+// shared memory), each CTA holding its share of the row in shared memory
+// when it fits (one read of the row from device memory), and splits the row
+// over a cluster of C in {1, 2, 4, 8} CTAs (chosen by the wrapper from n,
+// so that n * C approaches the SM count) whose histograms and counts are
+// summed through distributed shared memory.  Still to do: fused_dither
+// takes one CTA a row (20 of 132 SMs at the path's n = 20) and reads its
+// uniforms from device memory; drawing them in registers is the next step
 // (ROADMAP.md).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -119,47 +127,135 @@ fused_dither_kernel(const float* __restrict__ x, const float* __restrict__ u,
   if (threadIdx.x == 0) bits[blockIdx.x] = dither_bits_f(s, (float)L);
 }
 
-// One CTA per row: keep the k = clip(ceil(frac*L), 1, L) largest |x| with
-// the lowest-index ties, zero the rest.  The k-th largest magnitude is found
-// without a sort: bitcast(|x|, int32) orders non-negative floats (and puts
-// NaN above inf), so a 31-step MSB-first search keeps a candidate bit iff at
-// least k patterns still compare >= the candidate.  Ties are then ranked in
-// row order, tile by tile, with warp ballots and a scan over the warps.
-__global__ void __launch_bounds__(kMaxThreads)
+constexpr int kTopkThreads = 512;
+// Floats of a row's share that a CTA holds in shared memory; a longer share
+// is read from device memory on every pass instead.
+constexpr int kTopkMaxStaged = 48 * 1024;
+
+// A cluster of C CTAs per row (blockIdx.x / C), CTA r holding elements
+// [r * share, (r + 1) * share): keep the k = clip(ceil(frac*L), 1, L) largest
+// |x| of the row with the lowest-index ties, zero the rest.
+//
+// The k-th largest magnitude is found by a radix select on
+// bitcast(|x|, uint32), which orders non-negative floats (and puts NaN above
+// inf), as the reference's sort does: four passes over 8-bit digits, most
+// significant first; each pass counts the digits of the elements that match
+// the digits fixed so far into a shared histogram (integer atomics: exact,
+// and faster here than first merging a warp's equal digits), the C
+// histograms are summed through distributed shared memory, and every CTA
+// fixes the same digit, the one where the count from the top reaches k.
+// Then each CTA counts its elements above the threshold and equal to it; a
+// tie's rank in row order is its rank within its CTA (tile by tile, with
+// warp ballots) plus the ties of the CTAs before it in the cluster.
+// kStaged: the share sits in shared memory (one read of the row); else
+// every pass streams it from device memory (six reads instead of the 33 of
+// a bit-by-bit search).
+template <bool kStaged>
+__global__ void __launch_bounds__(kTopkThreads)
 fused_topk_kernel(const float* __restrict__ x, float frac,
-                  float* __restrict__ out, float* __restrict__ bits, int L) {
+                  float* __restrict__ out, float* __restrict__ bits, int L,
+                  int share) {
+  extern __shared__ float staged[];
+  __shared__ unsigned hist[4][256];
+  __shared__ unsigned tot[256];
+  __shared__ unsigned pick[2];
   __shared__ int red[32];
   __shared__ int warp_ties[32];
-  const size_t off = (size_t)blockIdx.x * (size_t)L;
-  const float* xr = x + off;
-  float* outr = out + off;
+  __shared__ int counts[2];
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned C = cluster.num_blocks(), rank = cluster.block_rank();
+  const size_t row = blockIdx.x / C;
+  const int lo = (int)min((long long)rank * share, (long long)L);
+  const int m = (int)min((long long)share, (long long)(L - lo));
+  const float* xr = x + row * (size_t)L + lo;
+  float* outr = out + row * (size_t)L + lo;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+
+  for (int i = threadIdx.x; i < 4 * 256; i += blockDim.x)
+    hist[i / 256][i % 256] = 0;
+  if (kStaged)
+    for (int i = threadIdx.x; i < m; i += blockDim.x) staged[i] = xr[i];
+  __syncthreads();
+  auto value = [&](int i) { return kStaged ? staged[i] : xr[i]; };
 
   int k = (int)ceilf(__fmul_rn(frac, (float)L));
   k = min(max(k, 1), L);
 
-  int pat = 0;
-  for (int j = 0; j < 31; ++j) {
-    const int cand = pat | (1 << (30 - j));
-    int c = 0;
-    for (int i = threadIdx.x; i < L; i += blockDim.x)
-      c += __float_as_int(fabsf(xr[i])) >= cand;
-    if (block_sum(c, red) >= k) pat = cand;
+  unsigned want = (unsigned)k;   // rank from the top among the matches
+  unsigned prefix = 0, mask = 0;
+  for (int pass = 0; pass < 4; ++pass) {
+    const int shift = 24 - 8 * pass;
+    for (int i = threadIdx.x; i < m; i += blockDim.x) {
+      const unsigned p = __float_as_uint(fabsf(value(i)));
+      if ((p & mask) == prefix)
+        atomicAdd(&hist[pass][(p >> shift) & 255u], 1u);
+    }
+    cluster.sync();   // every CTA's histogram of this pass is complete
+    for (int d = threadIdx.x; d < 256; d += blockDim.x) {
+      unsigned sum = 0;
+      for (unsigned r = 0; r < C; ++r)
+        sum += cluster.map_shared_rank(&hist[pass][0], r)[d];
+      tot[d] = sum;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      // lane l holds digits 255 - 8l down to 248 - 8l; the count above its
+      // digits is an exclusive scan over the lanes
+      unsigned mine = 0;
+      for (int j = 0; j < 8; ++j) mine += tot[255 - 8 * lane - j];
+      unsigned incl = mine;
+      for (int o = 1; o < 32; o <<= 1) {
+        const unsigned up = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += up;
+      }
+      unsigned above = incl - mine;
+      if (above < want && want <= incl) {
+        for (int j = 0; j < 8; ++j) {
+          const unsigned d = 255 - 8 * lane - j;
+          if (above + tot[d] >= want) {
+            pick[0] = d;
+            pick[1] = above;
+            break;
+          }
+          above += tot[d];
+        }
+      }
+    }
+    __syncthreads();
+    want -= pick[1];
+    prefix |= pick[0] << shift;
+    mask |= 255u << shift;
   }
-  const float thresh = __int_as_float(pat);
+  const float thresh = __uint_as_float(prefix);   // the k-th largest |x|
 
-  int c = 0;
-  for (int i = threadIdx.x; i < L; i += blockDim.x)
-    c += fabsf(xr[i]) > thresh;
-  const int budget = k - block_sum(c, red);   // ties that may still be kept
+  int n_above = 0, n_ties = 0;
+  for (int i = threadIdx.x; i < m; i += blockDim.x) {
+    const float ax = fabsf(value(i));
+    n_above += ax > thresh;
+    n_ties += ax == thresh;
+  }
+  n_above = block_sum(n_above, red);
+  n_ties = block_sum(n_ties, red);
+  if (threadIdx.x == 0) {
+    counts[0] = n_above;
+    counts[1] = n_ties;
+  }
+  cluster.sync();
+  int total_above = 0, seen = 0;               // seen: ties in earlier CTAs
+  for (unsigned r = 0; r < C; ++r) {
+    const int* rc = cluster.map_shared_rank(counts, r);
+    total_above += rc[0];
+    if (r < rank) seen += rc[1];
+  }
+  cluster.sync();   // no CTA leaves while another still reads its counts
+  const int budget = k - total_above;          // ties that may still be kept
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int n_warps = blockDim.x >> 5;
-  int seen = 0;                                // ties in earlier tiles
-  for (int tile = 0; tile < L; tile += blockDim.x) {
+  for (int tile = 0; tile < m; tile += blockDim.x) {
     const int i = tile + threadIdx.x;
-    const float xv = i < L ? xr[i] : 0.0f;
+    const float xv = i < m ? value(i) : 0.0f;
     const float ax = fabsf(xv);
-    const bool tie = i < L && ax == thresh;
+    const bool tie = i < m && ax == thresh;
     const unsigned ballot = __ballot_sync(0xffffffffu, tie);
     if (lane == 0) warp_ties[warp] = __popc(ballot);
     __syncthreads();
@@ -169,12 +265,12 @@ fused_topk_kernel(const float* __restrict__ x, float frac,
       total += warp_ties[w];
     }
     // 1-based rank of this tie in row order
-    const int rank = seen + before + __popc(ballot & ((1u << lane) - 1u)) + 1;
-    if (i < L) outr[i] = (ax > thresh || (tie && rank <= budget)) ? xv : 0.0f;
+    const int r = seen + before + __popc(ballot & ((1u << lane) - 1u)) + 1;
+    if (i < m) outr[i] = (ax > thresh || (tie && r <= budget)) ? xv : 0.0f;
     seen += total;
     __syncthreads();
   }
-  if (threadIdx.x == 0) bits[blockIdx.x] = topk_bits_f(frac, (float)L);
+  if (rank == 0 && threadIdx.x == 0) bits[row] = topk_bits_f(frac, (float)L);
 }
 
 __global__ void dither_bits_kernel(float s, float d, float* out) {
@@ -203,10 +299,41 @@ extern "C" int repro_fused_dither(const float* x, const float* u, float s,
   return (int)cudaGetLastError();
 }
 
+// cluster: CTAs a row, 1, 2, 4 or 8 (a cluster of that size).
 extern "C" int repro_fused_topk(const float* x, float frac, float* out,
-                                float* bits, int n, int L, void* stream) {
-  fused_topk_kernel<<<n, threads_for(L), 0, (cudaStream_t)stream>>>(
-      x, frac, out, bits, L);
+                                float* bits, int n, int L, int cluster,
+                                void* stream) {
+  if (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8)
+    return (int)cudaErrorInvalidValue;
+  const int share = (int)((L + (long long)cluster - 1) / cluster);
+  const bool staged = share <= kTopkMaxStaged;
+  const size_t bytes = staged ? (size_t)share * sizeof(float) : 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)n * (unsigned)cluster);
+  cfg.blockDim = dim3(kTopkThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  cudaError_t err;
+  if (staged) {
+    // above 48 KB a launch is refused unless the kernel is allowed more
+    err = cudaFuncSetAttribute(fused_topk_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)bytes);
+    if (err == cudaSuccess)
+      err = cudaLaunchKernelEx(&cfg, fused_topk_kernel<true>, x, frac, out,
+                               bits, L, share);
+  } else {
+    err = cudaLaunchKernelEx(&cfg, fused_topk_kernel<false>, x, frac, out,
+                             bits, L, share);
+  }
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

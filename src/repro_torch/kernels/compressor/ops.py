@@ -73,6 +73,20 @@ def fused_dither(x: torch.Tensor, u: torch.Tensor, s):
     return out, bits
 
 
+#: fused_topk splits a row over a cluster only where each CTA gets at
+#: least this many elements.
+TOPK_MIN_SHARE = 1024
+
+
+def topk_cluster(n: int, L: int, sms: int) -> int:
+    """CTAs per row of ``fused_topk``: the largest C in {8, 4, 2, 1} with
+    n·C <= sms (the card's SM count) and L >= C·TOPK_MIN_SHARE."""
+    c = 8
+    while c > 1 and (n * c > sms or L < c * TOPK_MIN_SHARE):
+        c //= 2
+    return c
+
+
 def fused_topk(x: torch.Tensor, frac):
     """Keep the ⌈frac·L⌉ largest magnitudes of each row of x [n, L] (ties
     to the lowest index): returns (top-k(x) [n, L], payload bits [n])."""
@@ -82,8 +96,10 @@ def fused_topk(x: torch.Tensor, frac):
     n, L = x.shape
     out = torch.empty_like(x)
     bits = torch.empty(n, dtype=torch.float32, device=x.device)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     _launch("fused_topk", "repro_fused_topk", x.device, x.data_ptr(),
-            float(frac), out.data_ptr(), bits.data_ptr(), n, L)
+            float(frac), out.data_ptr(), bits.data_ptr(), n, L,
+            topk_cluster(n, L, sms))
     return out, bits
 
 

@@ -1,5 +1,6 @@
-// Causal GQA flash attention for Hopper (sm_90a), float32 arithmetic:
-// the forward kernel and, below it, the backward kernels.
+// Causal GQA flash attention for Hopper (sm_90a): the forward kernel
+// (float32 arithmetic on the CUDA cores) and, below it, the backward
+// kernels (the tensor cores, 3xTF32 for float32 inputs).
 //
 // Replaces the Pallas TPU kernel `_kernel` of
 // src/repro/kernels/flash_attention/flash_attention.py:28 (`flash_attention`):
@@ -272,121 +273,394 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
 
 
 // ---------------------------------------------------------------------------
-// Backward (no Pallas counterpart: the reference differentiates attention
-// through XLA).  FA2-style: the probabilities are recomputed from the
-// forward's log-sum-exp, P = exp(x - lse) with masked entries exactly 0, in
-// float32 on the CUDA cores from shared memory:
+// Backward.  Replaces what the reference leaves to XLA: jax.grad of the
+// model's chunked_attention (src/repro/models/attention.py:38); the Pallas
+// kernel has no backward.  FA2-style: the probabilities are recomputed from
+// the forward's log-sum-exp, P = exp(x - lse) with masked entries exactly 0:
 //   Delta_i = rowsum(dO o O),  dV = P^T dO,  dP = dO V^T,
 //   dS = P o (dP - Delta),  with a soft-cap dS *= 1 - tanh^2(s_raw / cap),
 //   dQ = dS K * scale,  dK = dS^T Q * scale.
-// Three kernels: Delta (one warp a row); dK and dV, one CTA per (KV tile,
-// KV head, batch) that loops over the group's H / KV query heads and the q
-// tiles that see its keys, so the GQA sum over the group stays in registers
-// and no float atomics are used (runs repeat bit for bit, and remat's
-// recomputation sees the same numbers); dQ, one CTA per (q tile, head,
-// batch) over the KV tiles the forward visits.  The scores are recomputed
-// with the forward's own loop, so they equal the forward's bit for bit.
+//
+// The products run on the tensor cores with mma.sync, accumulating in
+// float32:
+//   * float32 inputs as 3xTF32: each operand is split a = a_hi + a_lo with
+//     a_hi = rna_tf32(a), a_lo = a - a_hi (passed as it is: the tensor
+//     core reads its top 19 bits), and a.b ~ a_hi.b_lo + a_lo.b_hi +
+//     a_hi.b_hi on m16n8k8 TF32 (the register-resident P and dS are split
+//     the same way); rna_tf32 is cvt.rna.tf32.f32's rounding written as two
+//     integer operations.  Rounding a_lo as well adds two integer
+//     operations an element and gains no accuracy: 3.41-3.43 ms against
+//     3.06-3.07 ms at the training shape below, 3.4e-6 of max |grad| either
+//     way (kernel_timing.py flash-backward; H100 80GB HBM3, 700 W).  One
+//     TF32 product keeps a 10-bit mantissa, 50x outside the float32
+//     tolerance the port holds the gradients to (1e-5 of max |grad|); the
+//     three keep about float32's accuracy.  TF32 stays off for every
+//     other product of the port (device.py); nothing here reads that
+//     switch.
+//   * bfloat16 inputs on m16n8k16 bf16; P and dS are rounded to bf16 as
+//     A operands, as FA2 does.
+// Each step's products are summed in an accumulator of their own and added
+// to the running dK, dV or dQ in float32 (add_to): a chain of thousands of
+// mma.sync on one accumulator is not a float32 sum.
+// mma.sync and not wgmma: wgmma takes TF32 operands only K-major, and three
+// of the five products (dV = P^T dO, dK = dS^T Q, dQ = dS K) read an [S, D]
+// operand along S, so dO, Q and K would each need a transposed copy in
+// shared memory.  mma.sync fragments are gathered per thread, so either
+// layout is read as it lies.  The wgmma + TMA + warp-specialised version is
+// the next redesign (ROADMAP.md).
+//
+// Three kernels, no float atomics (two runs give the same bits, and remat's
+// recomputation sees the same numbers):
+//   * Delta, one warp a row;
+//   * dK and dV: one CTA of four warps per (64-key tile, KV head, batch);
+//     each warp owns 16 keys and computes S^T = K Q^T and dP^T = V dO^T in
+//     registers, so P^T and dS^T are the A operands of dV and dK straight
+//     from the accumulators (for TF32 the k index is permuted to match the
+//     accumulator layout, and the B operand is read with the same
+//     permutation).  The CTA loops over the group's H / KV query heads and
+//     the q tiles that see its keys, so the GQA sum stays in registers;
+//   * dQ: one CTA of four warps per (64-row q tile, head, batch), each warp
+//     16 rows, over the KV tiles the forward visits.
+// Both grids are linear with the tile index slowest, so the CTAs with the
+// most steps (key tile 0, the last q tile) start first for every head and
+// batch.  The streamed tiles (Q, dO, lse and Delta in the dK/dV kernel; K
+// and V in the dQ kernel) are double-buffered with cp.async, so step it+1
+// loads while step it computes.  Shared rows are padded by 16 bytes (4
+// floats, 8 bf16): every fragment load, along a row (a row g, column t
+// pattern) or across rows (rows 2t and 2t+1, column g), then touches 32
+// distinct banks.
+// Tiles, chosen by timing 64 and 32 for each kernel at B=8, H=32, KV=4,
+// S=1024, D=64, float32, on the same card (kernel_timing.py
+// flash-backward, -D REPRO_BWD_DKDV_BQ=32 or -D REPRO_BWD_DQ_BK=64): dK/dV
+// 64 keys x 64 q rows a step (105 KB of shared memory in float32, two CTAs
+// an SM; 32 q rows: 3.19 ms), dQ 64 q rows x 32 keys a step (70 KB, three
+// CTAs an SM; 64 keys: 3.31 ms); for D = 128 the dK/dV step takes 32 q
+// rows.
 //
 // What bounds it: operations.  The five causal products (QK^T, dV, dP, dQ,
-// dK) are 5 * 2*B*H*S^2*D/2 = 8.6e10 float32 operations at B=8, H=32,
-// S=1024, D=64, 1.28 ms at 67 TFLOP/s; this version computes seven (the
-// score and dP tiles in both kernels) on the CUDA cores, limited, like the
-// forward, by shared-memory reads.
+// dK) are 5 * 2*B*H*S^2*D/2 = 8.6e10 operations at B=8, H=32, S=1024,
+// D=64; as 3xTF32 they are three times that at 495 TFLOP/s, 0.52 ms (the
+// bytes: 0.3 GB, 0.09 ms); in bf16 0.087 ms at 989 TFLOP/s.  This version
+// computes seven products (the score and dP tiles in both kernels), and in
+// float32 the instruction issue bounds it: each operand element costs three
+// integer and float operations to split beside its share of three mma.sync.
 // ---------------------------------------------------------------------------
 
 struct BwdStrides {            // in elements; batch, head, sequence
   long long q[3], k[3], v[3], o[3], dout[3], dq[3], dk[3], dv[3];
 };
 
-// One score tile s[i][j] = Q[ty + 16 i] . K[tx + 16 j], as the forward
-// sums it.
+// The two step tiles may be set with -D to time other choices.
+#ifndef REPRO_BWD_DKDV_BQ
+#define REPRO_BWD_DKDV_BQ 64
+#endif
+#ifndef REPRO_BWD_DQ_BK
+#define REPRO_BWD_DQ_BK 32
+#endif
+
+constexpr int BWD_THREADS = 128;   // four warps, 16 rows of a tile each
+constexpr int BWD_BK = 64;         // keys per dK/dV CTA
+constexpr int BWD_BQ = 64;         // query rows per dQ CTA
+constexpr int BWD_DQ_BK = REPRO_BWD_DQ_BK;   // keys a step of the dQ kernel
+
+// q rows a step of the dK/dV kernel
 template <int D>
-__device__ __forceinline__ void score_tile(const float* Qs, const float* Ks,
-                                           int ty, int tx, float s[4][4]) {
-  constexpr int DP = D + 1;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    float qv[4], kv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty + 16 * i) * DP + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * DP + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-  }
+__host__ __device__ constexpr int dkdv_bq() {
+  return D <= 64 ? REPRO_BWD_DKDV_BQ : 32;
 }
-
-// P and, where the scores are soft-capped, 1 - tanh^2 (else 1), from the
-// raw score tile; masked entries (causal, window, past S) get P = 0.
-__device__ __forceinline__ void probabilities(
-    float s[4][4], float dcap[4][4], const float* lse_s, int ty, int tx,
-    int q_lo, int k_lo, int S, int window, float cap, float scale) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = ty + 16 * i, c = tx + 16 * j;
-      float x = s[i][j] * scale;
-      dcap[i][j] = 1.f;
-      if (cap != 0.f) {
-        const float t = tanhf(x / cap);
-        x = cap * t;
-        dcap[i][j] = 1.f - t * t;
-      }
-      const int qpos = q_lo + r, kpos = k_lo + c;
-      bool keep = qpos >= kpos && qpos < S && kpos < S;
-      if (window) keep = keep && (qpos - kpos) < window;
-      s[i][j] = keep ? expf(x - lse_s[r]) : 0.f;
-    }
-  }
-}
-
-// dP tile: dp[i][j] = dO[ty + 16 i] . V[tx + 16 j].
-template <int D>
-__device__ __forceinline__ void dp_tile(const float* dOs, const float* Vs,
-                                        int ty, int tx, float dp[4][4]) {
-  constexpr int DP = D + 1;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dp[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    float ov[4], vv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) ov[i] = dOs[(ty + 16 * i) * DP + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) vv[j] = Vs[(tx + 16 * j) * DP + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
-  }
-}
-
-// BQ x D rows of a [.., S, D] operand into padded shared memory (zeros past
-// S).
+// padded row length of a staged [rows, D] tile: 16 more bytes
 template <typename T, int D>
-__device__ __forceinline__ void load_rows(float* dst, const T* src,
-                                          long long row_stride, int lo,
-                                          int S, int tid) {
-  constexpr int DP = D + 1;
-  for (int idx = tid; idx < BQ * D; idx += THREADS) {
-    const int r = idx / D, c = idx % D, row = lo + r;
-    dst[r * DP + c] = row < S ? to_f32(src[row * row_stride + c]) : 0.f;
+__host__ __device__ constexpr int row_ld() { return D + 16 / (int)sizeof(T); }
+
+template <typename T, int D>
+constexpr size_t dkdv_smem_bytes() {
+  // K, V; Q and dO twice; lse and Delta twice
+  return (size_t)(2 * BWD_BK + 4 * dkdv_bq<D>()) * row_ld<T, D>() * sizeof(T)
+         + 4 * dkdv_bq<D>() * sizeof(float);
+}
+
+template <typename T, int D>
+constexpr size_t dq_smem_bytes() {
+  // Q, dO; K and V twice
+  return (size_t)(2 * BWD_BQ + 4 * BWD_DQ_BK) * row_ld<T, D>() * sizeof(T);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zeros where !in.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(in ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(in ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most one committed group is still in flight.
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// R rows of a [.., S, D] operand (row `lo` on) into a padded [R][ld] tile,
+// zeros past S.  Every row start is 16-byte aligned (the wrapper copies
+// an operand whose rows are not).
+template <typename T, int D, int R>
+__device__ __forceinline__ void stage_rows(T* dst, const T* src,
+                                           long long stride, int lo, int S) {
+  constexpr int E = 16 / (int)sizeof(T), CPR = D / E, LD = row_ld<T, D>();
+  for (int c = threadIdx.x; c < R * CPR; c += BWD_THREADS) {
+    const int r = c / CPR, col = (c % CPR) * E, row = lo + r;
+    const bool in = row < S;
+    cp_async16(dst + r * LD + col, in ? src + row * stride + col : src, in);
   }
 }
 
-template <int D>
-constexpr size_t bwd_smem_floats() {
-  // four padded [64][D + 1] tiles, the P / dS tile, lse and Delta rows
-  return 4 * BQ * (D + 1) + BQ * PS + 2 * BQ;
+// R floats of a row vector (element `lo` on), zeros past S.
+template <int R>
+__device__ __forceinline__ void stage_vec(float* dst, const float* src,
+                                          int lo, int S) {
+  for (int r = threadIdx.x; r < R; r += BWD_THREADS) {
+    const bool in = lo + r < S;
+    cp_async4(dst + r, in ? src + lo + r : src, in);
+  }
+}
+
+// cvt.rna.tf32.f32 (round to a 10-bit mantissa, ties away from zero) as
+// two integer operations: the same bits for every finite x (cvt.rna also
+// keeps a NaN a NaN; here a NaN turns into inf, and its product is NaN all
+// the same).  The instruction itself compiles to four (a finite check, a
+// select, an add, a mask), and the splits bound the float32 kernel.
+__device__ __forceinline__ unsigned to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void mma_tf32(float c[4], const unsigned a[4],
+                                         const unsigned b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_bf16(float c[4], const unsigned a[4],
+                                         const unsigned b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Fragments of one tensor-core step for element type T.  Lane = 4 g + t.
+// An accumulator tile (16 x 8, float) holds c[0], c[1] at row g, columns
+// 2t, 2t + 1 and c[2], c[3] at row g + 8.  Shared tiles are row-major with
+// row length ld.  load_a: A[16 x KS] = s[m.., k..]; load_b_nk: B[KS x 8]
+// with B[kk][nn] = s[n + nn][k + kk]; load_b_kn: B[kk][nn] = s[k + kk][n +
+// nn] (k permuted as a_from_acc permutes it); a_from_acc: A from
+// accumulator tiles (their columns are A's k).
+template <typename T>
+struct Tc;
+
+// float32 as 3xTF32 on m16n8k8.
+template <>
+struct Tc<float> {
+  static constexpr int KS = 8;
+  struct A { unsigned hi[4], lo[4]; };
+  struct B { unsigned hi[2], lo[2]; };
+
+  static __device__ __forceinline__ void split(float x, unsigned& hi,
+                                               unsigned& lo) {
+    hi = to_tf32(x);
+    lo = __float_as_uint(x - __uint_as_float(hi));
+  }
+  // a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
+  static __device__ __forceinline__ A a_of(float a0, float a1, float a2,
+                                           float a3) {
+    A f;
+    split(a0, f.hi[0], f.lo[0]);
+    split(a1, f.hi[1], f.lo[1]);
+    split(a2, f.hi[2], f.lo[2]);
+    split(a3, f.hi[3], f.lo[3]);
+    return f;
+  }
+  // b0 (k = t, n = g), b1 (k = t + 4, n = g)
+  static __device__ __forceinline__ B b_of(float b0, float b1) {
+    B f;
+    split(b0, f.hi[0], f.lo[0]);
+    split(b1, f.hi[1], f.lo[1]);
+    return f;
+  }
+  static __device__ __forceinline__ A load_a(const float* s, int ld, int m,
+                                             int k, int g, int t) {
+    const float* p = s + (m + g) * ld + k + t;
+    return a_of(p[0], p[8 * ld], p[4], p[8 * ld + 4]);
+  }
+  static __device__ __forceinline__ B load_b_nk(const float* s, int ld,
+                                                int n, int k, int g, int t) {
+    const float* p = s + (n + g) * ld + k + t;
+    return b_of(p[0], p[4]);
+  }
+  // k slot t is row k + 2t, slot t + 4 is row k + 2t + 1
+  static __device__ __forceinline__ B load_b_kn(const float* s, int ld,
+                                                int k, int n, int g, int t) {
+    const float* p = s + (k + 2 * t) * ld + n + g;
+    return b_of(p[0], p[ld]);
+  }
+  // k step i is accumulator tile i: slot t is its column 2t, slot t + 4
+  // its column 2t + 1 (the permutation load_b_kn reads)
+  template <int N>
+  static __device__ __forceinline__ A a_from_acc(const float (&c)[N][4],
+                                                 int i) {
+    return a_of(c[i][0], c[i][2], c[i][1], c[i][3]);
+  }
+  // the small terms first
+  static __device__ __forceinline__ void mma(float c[4], const A& a,
+                                             const B& b) {
+    mma_tf32(c, a.hi, b.lo);
+    mma_tf32(c, a.lo, b.hi);
+    mma_tf32(c, a.hi, b.hi);
+  }
+};
+
+// bfloat16 on m16n8k16; a register holds two values, the lower column (or
+// k) in its low half.
+template <>
+struct Tc<__nv_bfloat16> {
+  using T = __nv_bfloat16;
+  static constexpr int KS = 16;
+  struct A { unsigned r[4]; };
+  struct B { unsigned r[2]; };
+
+  static __device__ __forceinline__ unsigned pair(const T* p) {
+    return *reinterpret_cast<const unsigned*>(p);
+  }
+  static __device__ __forceinline__ unsigned pack(T lo, T hi) {
+    return (unsigned)__bfloat16_as_ushort(lo)
+           | ((unsigned)__bfloat16_as_ushort(hi) << 16);
+  }
+  static __device__ __forceinline__ unsigned pack(float lo, float hi) {
+    return pack(__float2bfloat16_rn(lo), __float2bfloat16_rn(hi));
+  }
+  // a0 (g, 2t..2t+1), a1 (g + 8, ..), a2 (g, 2t+8..2t+9), a3 (g + 8, ..)
+  static __device__ __forceinline__ A load_a(const T* s, int ld, int m,
+                                             int k, int g, int t) {
+    const T* p = s + (m + g) * ld + k + 2 * t;
+    return {{pair(p), pair(p + 8 * ld), pair(p + 8), pair(p + 8 * ld + 8)}};
+  }
+  // b0 (k = 2t..2t+1, n = g), b1 (k = 2t+8..2t+9, n = g)
+  static __device__ __forceinline__ B load_b_nk(const T* s, int ld, int n,
+                                                int k, int g, int t) {
+    const T* p = s + (n + g) * ld + k + 2 * t;
+    return {{pair(p), pair(p + 8)}};
+  }
+  static __device__ __forceinline__ B load_b_kn(const T* s, int ld, int k,
+                                                int n, int g, int t) {
+    const T* p = s + (k + 2 * t) * ld + n + g;
+    return {{pack(p[0], p[ld]), pack(p[8 * ld], p[9 * ld])}};
+  }
+  // k step i is accumulator tiles 2i and 2i + 1
+  template <int N>
+  static __device__ __forceinline__ A a_from_acc(const float (&c)[N][4],
+                                                 int i) {
+    const float(&x)[4] = c[2 * i];
+    const float(&y)[4] = c[2 * i + 1];
+    return {{pack(x[0], x[1]), pack(x[2], x[3]), pack(y[0], y[1]),
+             pack(y[2], y[3])}};
+  }
+  static __device__ __forceinline__ void mma(float c[4], const A& a,
+                                             const B& b) {
+    mma_bf16(c, a.r, b.r);
+  }
+};
+
+// acc[j] += A B_j (j < NT): A = the 16 rows m.. of As (KD columns), B_j =
+// the transpose of rows 8j.. of Bs (their KD columns).
+template <typename T, int KD, int NT>
+__device__ __forceinline__ void gemm_nt(float (&acc)[NT][4], const T* As,
+                                        const T* Bs, int ld, int m, int g,
+                                        int t) {
+  using O = Tc<T>;
+#pragma unroll
+  for (int k = 0; k < KD; k += O::KS) {
+    const typename O::A a = O::load_a(As, ld, m, k, g, t);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      O::mma(acc[j], a, O::load_b_nk(Bs, ld, 8 * j, k, g, t));
+  }
+}
+
+// acc[j] += A B_j (j < NT): A = the accumulator tiles a (16 rows, NA * 8
+// columns), B_j = columns 8j.. of the NA * 8 rows of Bs.
+template <typename T, int NT, int NA>
+__device__ __forceinline__ void gemm_rn(float (&acc)[NT][4],
+                                        const float (&a)[NA][4], const T* Bs,
+                                        int ld, int g, int t) {
+  using O = Tc<T>;
+#pragma unroll
+  for (int k = 0; k < NA * 8; k += O::KS) {
+    const typename O::A af = O::a_from_acc(a, k / O::KS);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      O::mma(acc[j], af, O::load_b_kn(Bs, ld, k, 8 * j, g, t));
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&c)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
+}
+
+// acc += part, rounded to nearest.  mma.sync does not add its products
+// into a float32 accumulator as a float32 add would: a chain of thousands
+// of them on one accumulator (the 8,192 terms of a dK or dV entry at B=8,
+// H=32, KV=4, S=1024, D=64) drifted beyond the float32 tolerance (1e-5 of
+// max |grad|) on an H100; with each step's tile (24 mma.sync at most)
+// summed apart and added here, it stays well inside it.
+template <int N>
+__device__ __forceinline__ void add_to(float (&acc)[N][4],
+                                       const float (&part)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] += part[j][e];
+}
+
+__device__ __forceinline__ bool visible(int qpos, int kpos, int S,
+                                        int window) {
+  bool keep = qpos >= kpos && qpos < S;
+  if (window) keep = keep && (qpos - kpos) < window;
+  return keep;
+}
+
+// From the raw score s and dP: s becomes P (0 where masked), dp becomes dS.
+__device__ __forceinline__ void p_and_ds(float& s, float& dp, float lse,
+                                         float dl, bool keep, float cap,
+                                         float scale) {
+  float x = s * scale, dcap = 1.f;
+  if (cap != 0.f) {
+    const float th = tanhf(x / cap);
+    x = cap * th;
+    dcap = 1.f - th * th;
+  }
+  const float p = keep ? expf(x - lse) : 0.f;
+  s = p;
+  dp = p * (dp - dl) * dcap;
 }
 
 // Delta[b, h, s] = sum_d dO * O, one warp a row.
@@ -410,224 +684,215 @@ flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
   if (lane == 0) delta[w] = sum;
 }
 
-// dK and dV of one KV tile of one KV head, summed over the group's heads.
+// dK and dV of one 64-key tile of one KV head, summed over the group's
+// heads.  Warp w owns keys 16w..16w+15 of the tile.
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(BWD_THREADS)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dout,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta, T* __restrict__ dk,
                       T* __restrict__ dv, int H, int KV, int S, int window,
                       float cap, float scale, BwdStrides st) {
-  extern __shared__ float smem[];
-  constexpr int DP = D + 1;
-  constexpr int RD = D / 16;
-  float* Ks = smem;                   // [BK][DP]
-  float* Vs = Ks + BK * DP;           // [BK][DP]
-  float* Qs = Vs + BK * DP;           // [BQ][DP]
-  float* dOs = Qs + BQ * DP;          // [BQ][DP]
-  float* Ps = dOs + BQ * DP;          // [BQ][PS]: P, then dS
-  float* lse_s = Ps + BQ * PS;        // [BQ]
-  float* dl_s = lse_s + BQ;           // [BQ]
+  constexpr int BQ = dkdv_bq<D>(), BK = BWD_BK, LD = row_ld<T, D>();
+  constexpr int NQ = BQ / 8, ND = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Ks = reinterpret_cast<T*>(smem_raw);   // [BK][LD]
+  T* Vs = Ks + BK * LD;                     // [BK][LD]
+  T* Qs = Vs + BK * LD;                     // [2][BQ][LD]
+  T* dOs = Qs + 2 * BQ * LD;                // [2][BQ][LD]
+  float* lse_s = reinterpret_cast<float*>(dOs + 2 * BQ * LD);   // [2][BQ]
+  float* dl_s = lse_s + 2 * BQ;                                 // [2][BQ]
 
-  const int k_lo = blockIdx.x * BK;   // tile 0, which every q tile sees, first
-  const int kvh = blockIdx.y, b = blockIdx.z;
+  // one linear grid, key tile slowest: the tiles that the most q tiles
+  // see (tile 0 first) start first, for every head and batch
+  const int nb = gridDim.x / (((S + BK - 1) / BK) * KV);   // batch size
+  const int k_lo = (blockIdx.x / (KV * nb)) * BK;
+  const int kvh = blockIdx.x % KV, b = (blockIdx.x / KV) % nb;
   const int G = H / KV;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-
-  load_rows<T, D>(Ks, k + b * st.k[0] + kvh * st.k[1], st.k[2], k_lo, S, tid);
-  load_rows<T, D>(Vs, v + b * st.v[0] + kvh * st.v[1], st.v[2], k_lo, S, tid);
-
-  float dk_acc[4][RD], dv_acc[4][RD];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < RD; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4, m = 16 * warp;
 
   // q tiles that see a key of this tile: from the one holding row k_lo to
-  // the one holding the last row the window lets see the tile's last key.
+  // the one holding the last row the window lets see the tile's last key;
+  // steps run over (head of the group, q tile)
   const int nq = (S + BQ - 1) / BQ;
   const int k_hi = min(k_lo + BK - 1, S - 1);
   const int i_lo = k_lo / BQ;
   const int i_hi = window ? min(nq - 1, (k_hi + window - 1) / BQ) : nq - 1;
+  const int n_it = i_hi - i_lo + 1, steps = G * n_it;
 
-  for (int g = 0; g < G; ++g) {
-    const int h = kvh * G + g;
-    const T* qb = q + b * st.q[0] + h * st.q[1];
-    const T* gb = dout + b * st.dout[0] + h * st.dout[1];
-    const float* lse_b = lse + ((long long)b * H + h) * S;
-    const float* dl_b = delta + ((long long)b * H + h) * S;
-    for (int it = i_lo; it <= i_hi; ++it) {
-      const int q_lo = it * BQ;
-      __syncthreads();   // the previous tile's readers are done
-      load_rows<T, D>(Qs, qb, st.q[2], q_lo, S, tid);
-      load_rows<T, D>(dOs, gb, st.dout[2], q_lo, S, tid);
-      if (tid < BQ) {
-        const int row = q_lo + tid;
-        lse_s[tid] = row < S ? lse_b[row] : 0.f;
-        dl_s[tid] = row < S ? dl_b[row] : 0.f;
+  auto stage = [&](int step) {
+    const int h = kvh * G + step / n_it, q_lo = (i_lo + step % n_it) * BQ;
+    const int buf = step & 1;
+    stage_rows<T, D, BQ>(Qs + buf * BQ * LD, q + b * st.q[0] + h * st.q[1],
+                         st.q[2], q_lo, S);
+    stage_rows<T, D, BQ>(dOs + buf * BQ * LD,
+                         dout + b * st.dout[0] + h * st.dout[1], st.dout[2],
+                         q_lo, S);
+    const long long off = ((long long)b * H + h) * S;
+    stage_vec<BQ>(lse_s + buf * BQ, lse + off, q_lo, S);
+    stage_vec<BQ>(dl_s + buf * BQ, delta + off, q_lo, S);
+  };
+  stage_rows<T, D, BK>(Ks, k + b * st.k[0] + kvh * st.k[1], st.k[2], k_lo,
+                       S);
+  stage_rows<T, D, BK>(Vs, v + b * st.v[0] + kvh * st.v[1], st.v[2], k_lo,
+                       S);
+  stage(0);
+  cp_async_commit();
+
+  float dk_acc[ND][4], dv_acc[ND][4];
+  zero(dk_acc);
+  zero(dv_acc);
+
+  for (int step = 0; step < steps; ++step) {
+    if (step + 1 < steps) stage(step + 1);
+    cp_async_commit();
+    cp_async_wait_one();   // this step's tiles have landed
+    __syncthreads();
+    const int buf = step & 1, q_lo = (i_lo + step % n_it) * BQ;
+    const T* Qb = Qs + buf * BQ * LD;
+    const T* dOb = dOs + buf * BQ * LD;
+    const float* lb = lse_s + buf * BQ;
+    const float* db = dl_s + buf * BQ;
+
+    float s[NQ][4], dp[NQ][4];
+    zero(s);
+    zero(dp);
+    gemm_nt<T, D, NQ>(s, Ks, Qb, LD, m, g, t);     // S^T = K Q^T
+    gemm_nt<T, D, NQ>(dp, Vs, dOb, LD, m, g, t);   // dP^T = V dO^T
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kpos = k_lo + m + g + (e & 2 ? 8 : 0);
+        const int c = 8 * j + 2 * t + (e & 1);     // q row in the tile
+        p_and_ds(s[j][e], dp[j][e], lb[c], db[c],
+                 visible(q_lo + c, kpos, S, window), cap, scale);
       }
-      __syncthreads();
-
-      float p[4][4], dcap[4][4], dp[4][4];
-      score_tile<D>(Qs, Ks, ty, tx, p);
-      probabilities(p, dcap, lse_s, ty, tx, q_lo, k_lo, S, window, cap,
-                    scale);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          Ps[(ty + 16 * i) * PS + tx + 16 * j] = p[i][j];
-      __syncthreads();
-
-      // dV[key ty + 16 i][tx + 16 j] += sum_r P[r][key] dO[r][.]
-#pragma unroll 4
-      for (int r = 0; r < BQ; ++r) {
-        float pv[4], gv[RD];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) pv[i] = Ps[r * PS + ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < RD; ++j) gv[j] = dOs[r * DP + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < RD; ++j)
-            dv_acc[i][j] = fmaf(pv[i], gv[j], dv_acc[i][j]);
-      }
-      dp_tile<D>(dOs, Vs, ty, tx, dp);
-      __syncthreads();   // every reader of P is done: P becomes dS
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int r = ty + 16 * i;
-          Ps[r * PS + tx + 16 * j] =
-              p[i][j] * (dp[i][j] - dl_s[r]) * dcap[i][j];
-        }
-      __syncthreads();
-
-      // dK[key ty + 16 i][tx + 16 j] += sum_r dS[r][key] Q[r][.]
-#pragma unroll 4
-      for (int r = 0; r < BQ; ++r) {
-        float sv[4], qv[RD];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) sv[i] = Ps[r * PS + ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < RD; ++j) qv[j] = Qs[r * DP + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < RD; ++j)
-            dk_acc[i][j] = fmaf(sv[i], qv[j], dk_acc[i][j]);
-      }
-    }
+    // dV += P^T dO, then dK += dS^T Q, each step's product summed apart
+    float part[ND][4];
+    zero(part);
+    gemm_rn<T, ND, NQ>(part, s, dOb, LD, g, t);
+    add_to(dv_acc, part);
+    zero(part);
+    gemm_rn<T, ND, NQ>(part, dp, Qb, LD, g, t);
+    add_to(dk_acc, part);
+    __syncthreads();   // every warp is done with this buffer: it refills
   }
 
   T* dkb = dk + b * st.dk[0] + kvh * st.dk[1];
   T* dvb = dv + b * st.dv[0] + kvh * st.dv[1];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k_lo + ty + 16 * i;
-    if (key >= S) continue;
+  for (int j = 0; j < ND; ++j)
 #pragma unroll
-    for (int j = 0; j < RD; ++j) {
-      store(&dkb[key * st.dk[2] + tx + 16 * j], dk_acc[i][j] * scale);
-      store(&dvb[key * st.dv[2] + tx + 16 * j], dv_acc[i][j]);
+    for (int e = 0; e < 4; ++e) {
+      const int key = k_lo + m + g + (e & 2 ? 8 : 0);
+      const int c = 8 * j + 2 * t + (e & 1);
+      if (key < S) {
+        store(&dkb[key * st.dk[2] + c], dk_acc[j][e] * scale);
+        store(&dvb[key * st.dv[2] + c], dv_acc[j][e]);
+      }
     }
-  }
 }
 
-// dQ of one q tile of one head, over the KV tiles the forward visits.
+// dQ of one 64-row q tile of one head, over the KV tiles the forward
+// visits.  Warp w owns rows 16w..16w+15 of the tile.
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(BWD_THREADS)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
                     int H, int KV, int S, int window, float cap, float scale,
                     BwdStrides st) {
-  extern __shared__ float smem[];
-  constexpr int DP = D + 1;
-  constexpr int RD = D / 16;
-  float* Qs = smem;                   // [BQ][DP]
-  float* dOs = Qs + BQ * DP;          // [BQ][DP]
-  float* Ks = dOs + BQ * DP;          // [BK][DP]
-  float* Vs = Ks + BK * DP;           // [BK][DP]
-  float* Ps = Vs + BK * DP;           // [BQ][PS]: dS
-  float* lse_s = Ps + BQ * PS;        // [BQ]
-  float* dl_s = lse_s + BQ;           // [BQ]
+  constexpr int BQ = BWD_BQ, BK = BWD_DQ_BK, LD = row_ld<T, D>();
+  constexpr int NK = BK / 8, ND = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);   // [BQ][LD]
+  T* dOs = Qs + BQ * LD;                    // [BQ][LD]
+  T* Ks = dOs + BQ * LD;                    // [2][BK][LD]
+  T* Vs = Ks + 2 * BK * LD;                 // [2][BK][LD]
 
   const int nq = (S + BQ - 1) / BQ;
-  const int q_lo = (nq - 1 - (int)blockIdx.x) * BQ;   // heaviest first
-  const int h = blockIdx.y, b = blockIdx.z;
+  // one linear grid, q tile slowest: the last q tiles (the most KV tiles)
+  // start first, for every head and batch
+  const int nb = gridDim.x / (nq * H);                       // batch size
+  const int q_lo = (nq - 1 - (int)(blockIdx.x / (H * nb))) * BQ;
+  const int h = blockIdx.x % H, b = (blockIdx.x / H) % nb;
   const int kvh = h / (H / KV);
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4, m = 16 * warp;
 
-  load_rows<T, D>(Qs, q + b * st.q[0] + h * st.q[1], st.q[2], q_lo, S, tid);
-  load_rows<T, D>(dOs, dout + b * st.dout[0] + h * st.dout[1], st.dout[2],
-                  q_lo, S, tid);
-  if (tid < BQ) {
-    const int row = q_lo + tid;
-    const long long off = ((long long)b * H + h) * S + row;
-    lse_s[tid] = row < S ? lse[off] : 0.f;
-    dl_s[tid] = row < S ? delta[off] : 0.f;
-  }
   const T* kb = k + b * st.k[0] + kvh * st.k[1];
   const T* vb = v + b * st.v[0] + kvh * st.v[1];
-
-  float acc[4][RD];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < RD; ++j) acc[i][j] = 0.f;
-
   const int q_hi = min(q_lo + BQ - 1, S - 1);
   const int j_lo = window ? max(0, q_lo - window + 1) / BK : 0;
   const int j_hi = q_hi / BK;
+  auto stage = [&](int jt) {
+    const int buf = (jt - j_lo) & 1;
+    stage_rows<T, D, BK>(Ks + buf * BK * LD, kb, st.k[2], jt * BK, S);
+    stage_rows<T, D, BK>(Vs + buf * BK * LD, vb, st.v[2], jt * BK, S);
+  };
+  stage_rows<T, D, BQ>(Qs, q + b * st.q[0] + h * st.q[1], st.q[2], q_lo, S);
+  stage_rows<T, D, BQ>(dOs, dout + b * st.dout[0] + h * st.dout[1],
+                       st.dout[2], q_lo, S);
+  stage(j_lo);
+  cp_async_commit();
+
+  // this thread's rows: g and g + 8 of the warp's 16
+  float lse_r[2], dl_r[2];
+  const long long off = ((long long)b * H + h) * S;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q_lo + m + g + 8 * r;
+    lse_r[r] = row < S ? lse[off + row] : 0.f;
+    dl_r[r] = row < S ? delta[off + row] : 0.f;
+  }
+
+  float acc[ND][4];
+  zero(acc);
+
   for (int jt = j_lo; jt <= j_hi; ++jt) {
-    const int k_lo = jt * BK;
-    __syncthreads();   // the previous tile's readers are done
-    load_rows<T, D>(Ks, kb, st.k[2], k_lo, S, tid);
-    load_rows<T, D>(Vs, vb, st.v[2], k_lo, S, tid);
+    if (jt < j_hi) stage(jt + 1);
+    cp_async_commit();
+    cp_async_wait_one();   // this step's tiles (and Q, dO) have landed
     __syncthreads();
+    const int buf = (jt - j_lo) & 1, k_lo = jt * BK;
+    const T* Kb = Ks + buf * BK * LD;
+    const T* Vb = Vs + buf * BK * LD;
 
-    float p[4][4], dcap[4][4], dp[4][4];
-    score_tile<D>(Qs, Ks, ty, tx, p);
-    probabilities(p, dcap, lse_s, ty, tx, q_lo, k_lo, S, window, cap, scale);
-    dp_tile<D>(dOs, Vs, ty, tx, dp);
+    float s[NK][4], dp[NK][4];
+    zero(s);
+    zero(dp);
+    gemm_nt<T, D, NK>(s, Qs, Kb, LD, m, g, t);     // S = Q K^T
+    gemm_nt<T, D, NK>(dp, dOs, Vb, LD, m, g, t);   // dP = dO V^T
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < NK; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = ty + 16 * i;
-        Ps[r * PS + tx + 16 * j] = p[i][j] * (dp[i][j] - dl_s[r]) * dcap[i][j];
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const int kpos = k_lo + 8 * j + 2 * t + (e & 1);
+        p_and_ds(s[j][e], dp[j][e], lse_r[r], dl_r[r],
+                 visible(q_lo + m + g + 8 * r, kpos, S, window), cap, scale);
       }
-    __syncthreads();
-
-    // dQ[ty + 16 i][tx + 16 j] += sum_c dS[.][c] K[c][.]
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float sv[4], kv[RD];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sv[i] = Ps[(ty + 16 * i) * PS + c];
-#pragma unroll
-      for (int j = 0; j < RD; ++j) kv[j] = Ks[c * DP + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < RD; ++j) acc[i][j] = fmaf(sv[i], kv[j], acc[i][j]);
-    }
+    float part[ND][4];                          // dQ += dS K
+    zero(part);
+    gemm_rn<T, ND, NK>(part, dp, Kb, LD, g, t);
+    add_to(acc, part);
+    __syncthreads();   // every warp is done with this buffer: it refills
   }
 
   T* dqb = dq + b * st.dq[0] + h * st.dq[1];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q_lo + ty + 16 * i;
-    if (row >= S) continue;
+  for (int j = 0; j < ND; ++j)
 #pragma unroll
-    for (int j = 0; j < RD; ++j)
-      store(&dqb[row * st.dq[2] + tx + 16 * j], acc[i][j] * scale);
-  }
+    for (int e = 0; e < 4; ++e) {
+      const int row = q_lo + m + g + (e & 2 ? 8 : 0);
+      if (row < S)
+        store(&dqb[row * st.dq[2] + 8 * j + 2 * t + (e & 1)],
+              acc[j][e] * scale);
+    }
 }
 
 template <typename T, int D>
@@ -646,25 +911,27 @@ cudaError_t launch_backward(const void* q, const void* k, const void* v,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  const size_t bytes = bwd_smem_floats<D>() * sizeof(float);
+  const size_t kv_bytes = dkdv_smem_bytes<T, D>();
+  const size_t q_bytes = dq_smem_bytes<T, D>();
   auto dkdv = flash_bwd_dkdv_kernel<T, D>;
   auto dqk = flash_bwd_dq_kernel<T, D>;
   err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)bytes);
+                             (int)kv_bytes);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)bytes);
+                             (int)q_bytes);
   if (err != cudaSuccess) return err;
   const float scale = (float)(1.0 / sqrt((double)D));
-  const int ntiles = (S + BQ - 1) / BQ;
-  dkdv<<<dim3(ntiles, KV, B), THREADS, bytes, stream>>>(
+  const unsigned kv_ctas = (S + BWD_BK - 1) / BWD_BK * KV * B;
+  const unsigned q_ctas = (S + BWD_BQ - 1) / BWD_BQ * H * B;
+  dkdv<<<kv_ctas, BWD_THREADS, kv_bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
       static_cast<T*>(dk), static_cast<T*>(dv), H, KV, S, window, cap, scale,
       st);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dqk<<<dim3(ntiles, H, B), THREADS, bytes, stream>>>(
+  dqk<<<q_ctas, BWD_THREADS, q_bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
       static_cast<T*>(dq), H, KV, S, window, cap, scale, st);

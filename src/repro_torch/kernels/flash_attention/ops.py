@@ -103,10 +103,22 @@ def _launch(q, k, v, out, window, cap, lse=None) -> None:
     launches["flash_attention"] += 1
 
 
+def _rows_aligned(t):
+    """t if each of its [B, H, S] rows starts on 16 bytes (the backward
+    stages q, k, v and dout with 16-byte asynchronous copies), else a
+    contiguous copy, whose rows do."""
+    size = t.element_size()
+    if t.data_ptr() % 16 == 0 and all(
+            t.stride(i) * size % 16 == 0 for i in range(3) if t.shape[i] > 1):
+        return t
+    return t.contiguous()
+
+
 def _launch_backward(q, k, v, out, dout, lse, dq, dk, dv, window,
                      cap) -> None:
     """The backward kernels on [B, H, S, D] views (k, v, dk, dv with KV
     heads): write dq, dk and dv from the forward's out and lse."""
+    q, k, v, dout = map(_rows_aligned, (q, k, v, dout))
     strides = _strides(q, k, v, out, dout, dq, dk, dv)
     B, H, S, D = q.shape
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)

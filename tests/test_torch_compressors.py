@@ -206,3 +206,51 @@ def test_wrappers_dispatch_on_device_only():
     before = dict(tops.launches)
     tops.fused_topk(torch.ones((2, 8)), 0.5)
     assert tops.launches == before          # the plain version launches none
+
+
+@pytest.mark.parametrize("n,L,C", [(1, 20000, 8), (20, 20000, 4),
+                                   (40, 20000, 2), (200, 20000, 1),
+                                   (20, 5000, 4), (20, 492, 1),
+                                   (1, 3000, 2)])
+def test_topk_cluster_size_rule(n, L, C):
+    """fused_topk's CTAs per row on 132 SMs: n·C <= 132 and at least
+    TOPK_MIN_SHARE elements a CTA."""
+    assert tops.topk_cluster(n, L, 132) == C
+
+
+@pytest.mark.parametrize("frac", [0.001, 0.01, 0.5])
+def test_topk_rows_the_cluster_splits(rng, frac):
+    """The card's kernel splits a long row over a cluster; the plain version
+    it is held to matches the reference on the rows that split hardest:
+    ties straddling the share boundaries, an all-equal row, and signed
+    zeros among small values."""
+    L = 4096
+    straddle = (rng.normal(size=L) * 1e-3).astype(np.float32)
+    for c in range(1, 8):
+        straddle[c * 512 - 20:c * 512 + 20] = 5.0
+    straddle[rng.integers(0, L, 10)] = 9.0
+    equal = np.full(L, -2.5, np.float32)
+    zeros = (rng.normal(size=L) * 1e-30).astype(np.float32)
+    zeros[::7] = 0.0
+    zeros[::11] = -0.0
+    _check_topk(np.stack([straddle, equal, zeros]), frac, kernel=False)
+
+
+@pytest.mark.parametrize("frac", [0.001, 0.01, 0.5])
+def test_topk_subnormal_rows_keep_ieee_order(rng, frac):
+    """Subnormal magnitudes: the plain version (and the card's kernel, held
+    to it bit for bit) orders them as IEEE floats and keeps exactly the k
+    largest, lowest index first among ties.  The reference under XLA on
+    the CPU treats subnormals as zero in its comparisons, so it keeps
+    fewer of such a row (recorded in ROADMAP.md, section 3)."""
+    L = 4096
+    x = (rng.normal(size=(1, L)) * 1e-41).astype(np.float32)
+    x[0, ::7] = 0.0
+    x[0, ::11] = -0.0
+    out, _ = tops.fused_topk(torch.as_tensor(x), frac)
+    k = tref.topk_keep_count(frac, L)
+    mag = np.abs(x[0])
+    order = np.lexsort((np.arange(L), -mag))      # largest first, then index
+    want = np.zeros_like(x[0])
+    want[order[:k]] = x[0, order[:k]]
+    _rows_equal(out.numpy()[0], want)

@@ -184,3 +184,120 @@ def test_plain_version_gradients_match_jax_grad(B, H, KV, S, D, window, cap):
     for a, b in zip(got, want):
         assert a.shape == b.shape
         assert float(np.abs(a.numpy() - np.asarray(b)).max()) <= bound
+
+
+def _tf32(x):
+    """cvt.rna.tf32.f32: float32 rounded to a 10-bit mantissa, ties away
+    from zero (add half of the dropped 13 bits to the pattern, clear
+    them; the sign bit is not touched)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_read(x):
+    """A float32 operand as the TF32 tensor core reads it: its low 13
+    mantissa bits dropped."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as the backward kernel computes it for float32 inputs: each
+    operand split x = hi + lo, hi = tf32(x), lo = x - hi passed as it is
+    (the tensor core reads its top 19 bits), and a_hi b_lo + a_lo b_hi +
+    a_hi b_hi summed in float32."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32_read(a - a_hi), _tf32_read(b - b_hi)
+    return a_hi @ b_lo + a_lo @ b_hi + a_hi @ b_hi
+
+
+def _mm_tf32(a, b):
+    """a @ b with each operand rounded to TF32 once (one mma.sync)."""
+    return _tf32(a) @ _tf32(b)
+
+
+def _backward_by_products(q, k, v, dout, window, cap, mm):
+    """The backward kernels' arithmetic in the kernel layout, each of the
+    five products by ``mm``: P from the plain forward's log-sum-exp, masked
+    entries 0; dV = P^T dO, dP = dO V^T, dS = P (dP - Delta) (1 - tanh^2
+    under a cap), dQ = dS K scale, dK = dS^T Q scale (P and dS split like
+    any operand), the GQA sum over each group."""
+    B, H, S, D = q.shape
+    KV = k.shape[1]
+    G = H // KV
+    scale = float(np.float32(1.0 / np.sqrt(D)))
+    kk, vv = (t.repeat_interleave(G, dim=1) for t in (k, v))
+    pos = torch.arange(S)
+    mask = pos[:, None] >= pos[None, :]
+    if window:
+        mask &= (pos[:, None] - pos[None, :]) < window
+
+    def capped(s):
+        if not cap:
+            return s, torch.ones_like(s)
+        th = torch.tanh(s / cap)
+        return cap * th, 1.0 - th * th
+
+    lse = torch.logsumexp(torch.where(mask, capped((q @ kk.transpose(
+        -1, -2)) * scale)[0], ref.NEG), dim=-1, keepdim=True)
+    x, dcap = capped(mm(q, kk.transpose(-1, -2)) * scale)
+    p = torch.where(mask, torch.exp(x - lse), 0.0)
+    out = ref.attention_ref(q, k, v, window, cap)
+    delta = (dout * out).sum(-1, keepdim=True)
+    dv = mm(p.transpose(-1, -2), dout)
+    ds = p * (mm(dout, vv.transpose(-1, -2)) - delta) * dcap
+    dq = mm(ds, kk) * scale
+    dk = mm(ds.transpose(-1, -2), q) * scale
+    return (dq, dk.reshape(B, KV, G, S, D).sum(2),
+            dv.reshape(B, KV, G, S, D).sum(2))
+
+
+@pytest.mark.parametrize("B,H,KV,S,D,window,cap", SHAPES[:4])
+def test_3xtf32_backward_plan_within_float32_tolerance(B, H, KV, S, D,
+                                                       window, cap):
+    """The backward kernel computes float32 products as 3xTF32 on the
+    tensor cores.  Emulated here (cvt.rna.tf32 in PyTorch), its gradients
+    stay within the float32 tolerance, 1e-5 · max |grad| over dq, dk and
+    dv, of the plain version's autograd and of jax.grad of the model's
+    chunked_attention; one TF32 product a step does worse (its error is
+    printed for the record)."""
+    arrays = _inputs(B, H, KV, S, D, seed=8)
+    g = np.random.default_rng(9).normal(size=(B, H, S, D)).astype(np.float32)
+    q, k, v = _port(arrays, torch.float32)
+    dout = torch.as_tensor(g)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    plain = torch.autograd.grad(ref.attention_ref(*leaves, window, cap),
+                                leaves, dout)
+    want_jax = [np.swapaxes(np.asarray(w), 1, 2) for w in _jitted_grad(
+        window, cap)(*(jnp.swapaxes(t, 1, 2) for t in _jax(arrays,
+                                                           jnp.float32)),
+                     jnp.swapaxes(jnp.asarray(g), 1, 2))]
+    three = _backward_by_products(q, k, v, dout, window, cap, _mm_3xtf32)
+    one = _backward_by_products(q, k, v, dout, window, cap, _mm_tf32)
+
+    def worst(got, want):
+        return max(float(np.abs(a.numpy() - np.asarray(b)).max())
+                   for a, b in zip(got, want))
+
+    scale = max(float(w.abs().max()) for w in plain)
+    err3, err1 = worst(three, plain), worst(one, plain)
+    err3_jax = worst(three, want_jax)
+    print(f"3xTF32 backward at {(B, H, KV, S, D, window, cap)}: "
+          f"{err3 / scale:.3e} of max |grad| against autograd, "
+          f"{err3_jax / scale:.3e} against jax.grad; one TF32 product: "
+          f"{err1 / scale:.3e}")
+    assert err3 <= 1e-5 * scale
+    assert err3_jax <= 1e-5 * scale
+    assert err3 < err1
+
+
+def test_backward_copies_rows_that_are_not_16_byte_aligned():
+    """The backward stages q, k, v and dout with 16-byte copies: a view
+    whose rows do not start on 16 bytes is copied, an aligned one (the
+    model layout's transposed view too) is passed as it is."""
+    odd = torch.zeros(2, 3, 5, 65)[..., :64]      # rows 260 bytes apart
+    copy = ops._rows_aligned(odd)
+    assert copy is not odd and copy.is_contiguous()
+    assert torch.equal(copy, odd)
+    for t in (torch.zeros(2, 3, 5, 64), torch.zeros(2, 5, 3, 32).transpose(
+            1, 2), torch.zeros(1, 3, 1, 64, dtype=torch.bfloat16)):
+        assert ops._rows_aligned(t) is t

@@ -17,10 +17,11 @@ Tolerances:
 * dither codec kernels: none — bit-identical to the plain versions, as the
   compressor kernels;
 * flash-attention backward against the plain version under autograd on the
-  same card: max |Δ| <= 1e-5 · max |grad| in float32 (sums in another
-  order; max over dq, dk and dv), 1e-2 · max |grad| in bfloat16 (gradients
+  same card: max |Δ| <= 1e-5 · max |grad| in float32 (the kernel's
+  products are 3xTF32, about float32's accuracy, summed in another order;
+  max over dq, dk and dv), 1e-2 · max |grad| in bfloat16 (gradients
   rounded to bf16 from float32 results that differ in the last bits: one
-  bf16 ulp is 2^-8 of the value);
+  bf16 ulp is 2^-8 of the value); two backward runs give the same bits;
 * training (smoke config): gradients on the card within 1e-4 · max |g| of
   the CPU's per leaf, losses within 1e-5 relative, ``uplink_mbits`` equal.
 This file imports no JAX (the card's machine has none).
@@ -101,6 +102,71 @@ def test_edge_rows(cuda):
     for frac in (1 / 6, 0.5, 1.0):
         _same(ops.fused_topk(rows.to(cuda), frac)[0],
               ref.fused_topk_ref(rows, frac)[0])
+
+
+@pytest.mark.parametrize("n,C", [(1, 8), (20, 4), (40, 2), (200, 1)])
+@pytest.mark.parametrize("kind", ["normal", "ties"])
+def test_fused_topk_cluster_sizes(cuda, n, C, kind):
+    """Every cluster size: n rows of 20,000 take C CTAs a row on 132 SMs
+    (20,037 makes the shares ragged)."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    if sms == 132:
+        assert ops.topk_cluster(n, 20000, sms) == C
+    for L in (20000, 20037):
+        x = _rows((n, L), n, kind)
+        for frac in (0.001, 0.1, 0.5):
+            out, bits = ops.fused_topk(x.to(cuda), frac)
+            want, want_bits = ref.fused_topk_ref(x, frac)
+            _same(out, want)
+            _same(bits, want_bits)
+
+
+def _split_rows():
+    """Rows that cross the shares of a cluster: ties straddling the CTA
+    boundaries of a 16,384-element row split 8 ways (shares of 2,048), an
+    all-equal row, denormals, and a mix."""
+    g = np.random.default_rng(9)
+    L = 16384
+    straddle = (g.normal(size=L) * 1e-3).astype(np.float32)
+    for c in range(1, 8):                       # ties around each boundary
+        straddle[c * 2048 - 40:c * 2048 + 40] = 5.0
+    straddle[g.integers(0, L, 30)] = 9.0        # a few above the ties
+    equal = np.full(L, -2.5, np.float32)
+    denormal = (g.normal(size=L) * 1e-41).astype(np.float32)
+    denormal[::7] = 0.0
+    denormal[::11] = -0.0
+    mixed = (g.integers(-3, 4, size=L) * np.float32(1e-40)).astype(np.float32)
+    mixed[::13] = g.normal(size=mixed[::13].shape)
+    return torch.as_tensor(np.stack([straddle, equal, denormal, mixed]))
+
+
+@pytest.mark.parametrize("frac", [0.001, 0.01, 0.5, 1.0])
+def test_fused_topk_rows_across_the_cluster(cuda, frac):
+    rows = _split_rows()
+    for r in range(rows.shape[0]):
+        x = rows[r:r + 1]                       # one row: 8 CTAs
+        out, bits = ops.fused_topk(x.to(cuda), frac)
+        want, want_bits = ref.fused_topk_ref(x, frac)
+        _same(out, want)
+        _same(bits, want_bits)
+    out, _ = ops.fused_topk(rows.to(cuda), frac)   # four rows: 8 CTAs each
+    _same(out, ref.fused_topk_ref(rows, frac)[0])
+
+
+@pytest.mark.parametrize("L", [300_000, 3_000_000])
+def test_fused_topk_long_rows(cuda, L):
+    """One row: 8 shares of 37,500 (held in shared memory) and of 375,000
+    (streamed from device memory on every pass)."""
+    g = np.random.default_rng(L)
+    x = torch.as_tensor(g.normal(size=(1, L)).astype(np.float32))
+    ties = torch.as_tensor(g.integers(-50, 51, size=(1, L)).astype(
+        np.float32))
+    for row in (x, ties):
+        for frac in (1e-4, 0.1):
+            out, bits = ops.fused_topk(row.to(cuda), frac)
+            want, want_bits = ref.fused_topk_ref(row, frac)
+            _same(out, want)
+            _same(bits, want_bits)
 
 
 @pytest.mark.parametrize("d", [1, 2, 123, 128, 129, 492, 4096, 5000, 20000])
@@ -304,6 +370,37 @@ def test_flash_attention_backward_matches_plain_version(
         assert a.dtype == dtype and a.shape == b.shape
         err = float((a.float() - b.float()).abs().max())
         assert err <= bound, (name, err, bound)
+
+
+@pytest.mark.parametrize("B,H,KV,S,D,window,cap", [
+    (1, 4, 2, 200, 64, 0, 0.0), (2, 4, 1, 200, 32, 70, 20.0),
+    (2, 2, 1, 256, 128, 64, 30.0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_backward_is_deterministic(cuda, B, H, KV, S, D,
+                                                   window, cap, dtype):
+    """No float atomics: two backward runs give the same bits."""
+    g = np.random.default_rng(S + D + 2)
+    qkv = [torch.as_tensor(g.normal(size=s).astype(np.float32)).to(
+        cuda, dtype) for s in ((B, H, S, D), (B, KV, S, D), (B, KV, S, D))]
+    fn = lambda q, k, v: fa_ops.flash_attention(      # noqa: E731
+        q, k, v, window=window, cap=cap)
+    _, first = _grads(fn, qkv)
+    _, second = _grads(fn, qkv)
+    for a, b in zip(first, second):
+        _same_exact(a, b)
+
+
+def test_flash_attention_backward_unaligned_rows(cuda):
+    """Operands whose rows do not start on 16 bytes (a view of every 65th
+    float) are copied before the backward stages them."""
+    g = np.random.default_rng(11)
+    qkv = [torch.as_tensor(g.normal(size=s).astype(np.float32)).to(cuda)[
+        ..., :64] for s in ((1, 4, 100, 65), (1, 2, 100, 65), (1, 2, 100, 65))]
+    _, got = _grads(lambda q, k, v: fa_ops.flash_attention(q, k, v), qkv)
+    _, want = _grads(lambda q, k, v: fa_ref.attention_ref(q, k, v), qkv)
+    bound = 1e-5 * max(float(b.abs().max()) for b in want)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= bound
 
 
 def test_attention_weights_get_gradients_on_the_card(cuda):

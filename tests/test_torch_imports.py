@@ -1,6 +1,6 @@
-"""The port stands alone: no module of src/repro_torch/, and not
-chip_smoke.py, imports jax or the JAX package ``repro`` (only the tests
-import both)."""
+"""The port stands alone: no module of src/repro_torch/, and neither
+chip_smoke.py nor kernel_timing.py, imports jax or the JAX package
+``repro`` (only the tests import both)."""
 import ast
 from pathlib import Path
 
@@ -8,7 +8,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "kernel_timing.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

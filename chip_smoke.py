@@ -20,16 +20,20 @@ back to the CPU):
    on the same inputs: the reference's test shapes in float32 and bfloat16,
    a ragged length (S = 200) and the serving shape (B=8, H=32, KV=4,
    S=1024, D=64); rtol = atol = 2e-5 in float32, 2e-2 in bfloat16 (the
-   reference's own kernel test).  Hold the int8 dither codec's encode and
-   decode kernels against their plain versions, bit for bit: the reference
-   test's shapes in float32 and bfloat16, zero/inf/NaN rows, s = 255, whole
-   trainer leaves ([22·2048, 5632] and [32000, 2048]) as one block, and
-   ``quantize``'s layout.  Hold the flash-attention backward (dq, dk, dv)
-   against the plain version's autograd on the card: the reference's five
-   shapes, S = 1, 200 (window 7; cap 50), 333 and the training shape, in
-   float32 and bfloat16, max |Δ| <= 1e-5 (f32) / 1e-2 (bf16) · max |grad|,
-   and bitwise the same over two runs; the forward's output must be bitwise
-   the same with and without its log-sum-exp output.
+   reference's own kernel test), and bitwise the same over two runs.  Hold
+   the int8 dither codec's encode (u-taking and keyed) and decode kernels
+   against their plain versions, bit for bit: the reference test's shapes
+   in float32 and bfloat16, zero/inf/NaN rows, s = 255, whole trainer
+   leaves ([22·2048, 5632] and [32000, 2048]) as one block, and
+   ``quantize``'s layout; the keyed encode also on lengths that are not a
+   multiple of 4, an x that is not 16-byte aligned, and against the
+   u-taking kernel fed ``random.uniform(key, shape)``.  Hold the
+   flash-attention backward (dq, dk, dv) against the plain version's
+   autograd on the card: the reference's five shapes, S = 1, 200 (window
+   7; cap 50), 333 and the training shape, in float32 and bfloat16,
+   max |Δ| <= 1e-5 (f32) / 1e-2 (bf16) · max |grad|, and bitwise the same
+   over two runs; the forward's output must be bitwise the same with and
+   without its log-sum-exp output.
 3. Quickstart (d=123, n=20, r=64, m=4, seed 0): 201 rounds with
    dither64/dither64 and 50 with a topk0.1 Hessian compressor, on the card
    and in the port on the CPU.  Ledgers must be equal every round, the
@@ -51,7 +55,8 @@ back to the CPU):
    per second, peak memory; then profiles of one prefill and of 4 steps.
 7. A profile of a few Algorithm 1 rounds at both sizes, then each kernel's
    time by CUDA events beside its plain version, its bound and the library
-   call (``torch.topk``; ``scaled_dot_product_attention``, timed only).
+   call (``torch.topk``; ``scaled_dot_product_attention``, timed only); the
+   flash forward in float32 (bound: 3xTF32) and bfloat16.
 8. Training, tinyllama-1.1b at full width and depth 2, batch 2 x 256, on
    the card against this machine's CPU: first-step gradients per leaf
    within 1e-4 · max |g|, the first FLECS-CGD step's int8 levels at no more
@@ -62,13 +67,18 @@ back to the CPU):
    batch 8 x 1024: 5 adam steps and 5 FLECS-CGD steps on one batch through
    ``launch/train.py``'s functions, the counters set to 0 just before each
    run and read after it: flash_attention 44 a step (remat recomputes it),
-   flash_attention_backward 22, and on FLECS steps dither_encode,
-   dither_decode and dither_bits once per parameter leaf; finite losses,
-   adam's falling; step ms and peak memory; a profile of one step of each
-   mode; then the codec and backward kernels timed by CUDA events beside
-   their plain versions, bounds and SDPA's backward (timed only); the
-   backward in float32 (bound: 3xTF32 on the tensor cores) and bfloat16.
-10. Print the kernels line (eight kernels), then the device line as the
+   flash_attention_backward 22, and on FLECS steps dither_encode_keyed,
+   dither_decode and dither_bits once per parameter leaf and the u-taking
+   dither_encode never; finite losses, adam's falling; step ms and peak
+   memory; a profile of one step of each mode (the FLECS step's int64
+   elementwise passes must take under 50 ms: its uniforms are drawn inside
+   the keyed encode); then the codec and backward kernels timed by CUDA
+   events beside their plain versions, bounds (the keyed encode's from
+   the instructions of its main loop on the busiest pipe, read with
+   cuobjdump from the SASS of the library built) and SDPA's backward
+   (timed only); the backward in float32 (bound: 3xTF32 on the tensor cores) and
+   bfloat16.
+10. Print the kernels line (nine kernels), then the device line as the
    last line.
 """
 from __future__ import annotations
@@ -88,6 +98,24 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 F32_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
 TF32_OPS_PER_S = 495e12         # H100 SXM TF32 on the tensor cores (dense)
 BF16_OPS_PER_S = 989e12         # H100 SXM bf16 on the tensor cores (dense)
+# clocks a second of the H100 SXM's 132 SMs at its 1.98 GHz boost clock
+SM_CLOCKS_PER_S = 132 * 1.98e9
+#: Thread-instructions an sm_90 SM completes a clock on each pipe, and the
+#: SASS opcodes each pipe takes (Nsight Compute's pipe names): the integer
+#: and logic ALU; the FMA pipe's heavy half, which alone takes integer
+#: multiply-adds (the compiler moves integer adds there as IMAD.IADD and
+#: VIADD); the whole FMA pipe, which also takes float32 adds and products;
+#: the transcendental and conversion unit; and the four schedulers' issue
+#: slots, which every instruction takes.
+SASS_PIPES = {
+    "alu": (64, {"IADD3", "LOP3", "SHF", "LEA", "ISETP", "PRMT", "SEL",
+                 "FSEL", "FSET", "FSETP", "FMNMX", "IMNMX", "MOV", "PLOP3",
+                 "FCHK"}),
+    "fma_int": (64, {"IMAD", "IMUL", "VIADD"}),
+    "fma": (128, {"IMAD", "IMUL", "VIADD", "FFMA", "FADD", "FMUL"}),
+    "xu": (16, {"MUFU", "FRND", "F2I", "I2F", "F2F"}),
+    "issue": (128, None),
+}
 SOURCE = "src/repro_torch/kernels/compressor/csrc/compressor.cu"
 REPLACES = {
     "fused_dither": "src/repro/kernels/compressor/compressor.py:71",
@@ -99,8 +127,11 @@ FLASH_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
                 "flash_attention.cu")
 FLASH_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:28"
 DITHER_SOURCE = "src/repro_torch/kernels/dither/csrc/dither.cu"
-DITHER_REPLACES = {"dither_encode": "src/repro/kernels/dither/dither.py:25",
-                   "dither_decode": "src/repro/kernels/dither/dither.py:62"}
+# the u-taking and the keyed encode both replace the Pallas encode
+DITHER_REPLACES = {
+    "dither_encode": "src/repro/kernels/dither/dither.py:25",
+    "dither_encode_keyed": "src/repro/kernels/dither/dither.py:25",
+    "dither_decode": "src/repro/kernels/dither/dither.py:62"}
 # no Pallas kernel: the reference differentiates chunked_attention in XLA
 BWD_REPLACES = "src/repro/models/attention.py:38"
 QUICK = dict(d=123, n_workers=20, r=64, m=4, seed=0)
@@ -140,6 +171,103 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def sass_functions(lib: Path) -> dict:
+    """The SASS of every kernel in a built library (``cuobjdump -sass``, from
+    the toolkit that holds nvcc), as ``parse_sass`` gives it."""
+    from repro_torch.kernels.nvcc import nvcc
+    tool = Path(nvcc()).parent / "cuobjdump"
+    return parse_sass(subprocess.run(
+        [str(tool), "-sass", str(lib)], capture_output=True, text=True,
+        check=True, timeout=300).stdout)
+
+
+def parse_sass(text: str) -> dict:
+    """``cuobjdump -sass`` output -> {mangled name: [(address, predicate,
+    opcode, operands), ...]}."""
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            cur = funcs.setdefault(line.split("Function :")[1].strip(), [])
+            continue
+        head = line.split(";")[0].strip()
+        if cur is None or not head.startswith("/*") or "*/" not in head:
+            continue
+        addr, _, body = head[2:].partition("*/")
+        words = body.split()
+        if not words:
+            continue
+        pred = words.pop(0) if words[0].startswith("@") else None
+        cur.append((int(addr, 16), pred, words[0], " ".join(words[1:])))
+    return funcs
+
+
+def loop_issue_per_element(code) -> tuple:
+    """Per-pipe thread-instructions an element costs in a kernel's main loop
+    on its common path, read from its SASS (``sass_functions``): the loop is
+    the widest backward branch; a forward branch out of it (the loop's
+    break) is not taken, and one that jumps over a CALL (the slow path of a
+    correctly rounded division) is.  Elements per trip: the instructions
+    that set the exponent bits 0x3f800000 of a uniform, one an element.
+    Returns ({pipe: instructions per element}, elements per trip)."""
+    at = {a: i for i, (a, _, _, _) in enumerate(code)}
+
+    def target(ops):
+        return int(ops.split()[-1].rstrip(";").split(",")[-1].strip(), 16)
+
+    loops = [(target(o), a) for a, _, op, o in code
+             if op == "BRA" and target(o) < a]
+    if not loops:
+        raise ValueError("no loop in the kernel's SASS")
+    start, end = max(loops, key=lambda lo_hi: lo_hi[1] - lo_hi[0])
+    counts = {name: 0 for name in SASS_PIPES}
+    elems, i = 0, at[start]
+    while True:
+        a, pred, op, ops = code[i]
+        base = op.split(".")[0]
+        for name, (_, opcodes) in SASS_PIPES.items():
+            if opcodes is None or base in opcodes:
+                counts[name] += 1
+        elems += "0x3f800000" in ops
+        if a == end:
+            break
+        if base == "BRA":
+            t = target(ops)
+            if pred is None:
+                i = at[t]
+                continue
+            if t > end:                       # the loop's break
+                i += 1
+                continue
+            if any(c[2].startswith("CALL") for c in code[i + 1:at[t]]):
+                i = at[t]                     # over the division's slow path
+                continue
+            raise ValueError(f"branch at {a:#x} of unknown kind")
+        i += 1
+    if elems == 0:
+        raise ValueError("no uniform drawn in the loop")
+    return {k: v / elems for k, v in counts.items()}, elems
+
+
+def keyed_encode_clocks_per_element(lib: Path) -> tuple:
+    """SM clocks an element of the keyed encode takes at the least: its main
+    loop's instructions on each pipe (``loop_issue_per_element`` on the
+    SASS of ``encode_keyed_kernel<float, true>``) over that pipe's rate, the
+    busiest pipe.  Returns (clocks, that pipe, per-pipe counts, elements per
+    trip)."""
+    return keyed_encode_clocks_from(sass_functions(lib))
+
+
+def keyed_encode_clocks_from(funcs: dict) -> tuple:
+    """``keyed_encode_clocks_per_element`` on parsed SASS."""
+    names = [n for n in funcs if "encode_keyed_kernelIfLb1E" in n]
+    if len(names) != 1:
+        raise ValueError(f"encode_keyed_kernel<float, true>: {names}")
+    per, elems = loop_issue_per_element(funcs[names[0]])
+    clocks = {k: per[k] / SASS_PIPES[k][0] for k in per}
+    pipe = max(clocks, key=clocks.get)
+    return clocks[pipe], pipe, per, elems
 
 
 def cuda_ms(fn, reps: int, backlog: bool = True) -> float:
@@ -304,7 +432,8 @@ def flash_inputs(shape, dtype, dev, seed=0):
 
 def phase_flash_kernel(dev, fa_ops, fa_ref):
     """Phase 2, flash attention: the kernel against its plain version on
-    the card, on the same inputs; returns the largest |Δ| per dtype."""
+    the card, on the same inputs, and bitwise equal over two runs; returns
+    the largest |Δ| per dtype."""
     import torch
     err = {}
     for shape in FLASH_SHAPES + [SERVE_SHAPE]:
@@ -314,7 +443,10 @@ def phase_flash_kernel(dev, fa_ops, fa_ref):
             q, k, v = flash_inputs(shape, dtype, dev)
             window, cap = shape[5], shape[6]
             got = fa_ops.flash_attention(q, k, v, window, cap)
+            again = fa_ops.flash_attention(q, k, v, window, cap)
             torch.cuda.synchronize()
+            check(same_bits(got, again), f"flash_attention differs between "
+                  f"two runs at {shape} {dtype}")
             want = fa_ref.attention_ref(q, k, v, window, cap)
             tol = 2e-5 if dtype == torch.float32 else 2e-2
             check(got.dtype == dtype, f"flash_attention returned {got.dtype}")
@@ -326,8 +458,9 @@ def phase_flash_kernel(dev, fa_ops, fa_ref):
                   f"{shape} {dtype}: max |Δ| {e!r} beyond rtol=atol={tol}")
             name = str(dtype).replace("torch.", "")
             err[name] = max(err.get(name, 0.0), e)
-            log(f"phase 2: flash_attention {shape} {name}: max |Δ| {e!r}")
-            del q, k, v, got, want
+            log(f"phase 2: flash_attention {shape} {name}: max |Δ| {e!r}; "
+                f"bitwise equal over two runs")
+            del q, k, v, got, again, want
     torch.cuda.empty_cache()
     return err
 
@@ -432,7 +565,7 @@ def phase_serve_full(serve, fa_ops):
         busy = sum(t for t, _ in rows.values())
         n_kernels = sum(c for _, c in rows.values())
         flash_us = sum(t for name, (t, _) in rows.items()
-                       if "flash_kernel" in name)
+                       if "flash_fwd" in name)
         top = sorted(((t, c, name) for name, (t, c) in rows.items()),
                      reverse=True)[:10]
         log(f"profile serve {label} (profiled): wall {wall_us / 1e3!r} ms, "
@@ -451,31 +584,49 @@ def phase_serve_full(serve, fa_ops):
 
 
 def phase_flash_timing(dev, fa_ops, fa_ref):
-    """The flash kernel at the serving shape by CUDA events, beside its
-    plain version, the library call (SDPA, timed only) and its bound."""
+    """The flash forward at the serving shape by CUDA events, in float32
+    and bfloat16, beside its plain version, the library call (SDPA in the
+    same dtype, timed only) and its bound at the arithmetic the kernel
+    uses: float32 as 3xTF32 (three TF32 products a product), bf16 on the
+    bf16 tensor cores.  The float32 CUDA-core bound is logged too."""
     import torch
     import torch.nn.functional as F
     B, H, KV, S, D, _, _ = SERVE_SHAPE
-    q, k, v = flash_inputs(SERVE_SHAPE, torch.float32, dev, seed=1)
-    res = dict(ms=cuda_ms(lambda: fa_ops.flash_attention(q, k, v), 20),
-               plain_ms=cuda_ms(lambda: fa_ref.attention_ref(q, k, v), 5))
-    try:
-        res["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), 20)
-    except (TypeError, RuntimeError) as exc:       # no enable_gqa here
-        log(f"timing: scaled_dot_product_attention unavailable: {exc}")
-        res["library_ms"] = None
-    ops = 4 * B * H * S * S * D / 2                  # causal half
-    nbytes = 4 * (2 * B * H * S * D + 2 * B * KV * S * D)
-    t_ops, t_bytes = 1e3 * ops / F32_OPS_PER_S, 1e3 * nbytes / HBM_BYTES_PER_S
-    res.update(bound_ms=max(t_ops, t_bytes),
-               bound_by="operations" if t_ops >= t_bytes else "bytes",
-               ops=ops, bytes=nbytes)
-    log(f"timing flash_attention {list(SERVE_SHAPE[:5])} f32: {res['ms']!r} "
-        f"ms (plain {res['plain_ms']!r} ms, SDPA {res['library_ms']!r} ms, "
-        f"bound {res['bound_ms']!r} ms by {res['bound_by']}: {ops:.4g} "
-        f"operations, {nbytes:.4g} bytes); {ops / res['ms'] / 1e9!r} "
-        f"TFLOP/s")
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = flash_inputs(SERVE_SHAPE, dtype, dev, seed=1)
+        r = dict(ms=cuda_ms(lambda: fa_ops.flash_attention(q, k, v), 20),
+                 plain_ms=cuda_ms(lambda: fa_ref.attention_ref(q, k, v), 5))
+        try:
+            r["library_ms"] = cuda_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True), 20)
+        except (TypeError, RuntimeError) as exc:       # no enable_gqa here
+            log(f"timing: scaled_dot_product_attention unavailable: {exc}")
+            r["library_ms"] = None
+        ops = 4 * B * H * S * S * D / 2                  # causal half
+        nbytes = q.element_size() * (2 * B * H * S * D + 2 * B * KV * S * D)
+        tensor_ops, rate = ((3 * ops, TF32_OPS_PER_S)
+                            if dtype == torch.float32
+                            else (ops, BF16_OPS_PER_S))
+        t_ops = 1e3 * tensor_ops / rate
+        t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+        r.update(bound_ms=max(t_ops, t_bytes),
+                 bound_by="operations" if t_ops >= t_bytes else "bytes",
+                 ops=ops, tensor_ops=tensor_ops, bytes=nbytes,
+                 cuda_core_bound_ms=1e3 * ops / F32_OPS_PER_S,
+                 tflops=ops / r["ms"] / 1e9)
+        name = str(dtype).replace("torch.", "")
+        log(f"timing flash_attention {list(SERVE_SHAPE[:5])} {name}: "
+            f"{r['ms']!r} ms (plain {r['plain_ms']!r} ms, SDPA "
+            f"{r['library_ms']!r} ms; bound {r['bound_ms']!r} ms by "
+            f"{r['bound_by']}: {tensor_ops:.4g} tensor-core operations at "
+            f"{rate / 1e12:g} TFLOP/s, {nbytes:.4g} bytes; float32 "
+            f"CUDA-core bound {r['cuda_core_bound_ms']!r} ms); "
+            f"{r['tflops']!r} TFLOP/s of the function's products")
+        res[name] = r
+        del q, k, v
+    torch.cuda.empty_cache()
     return res
 
 
@@ -733,13 +884,37 @@ def abs_err(a, b) -> float:
 
 
 def phase_dither_kernels(dev, d_ops, d_ref, random):
-    """Phase 2, the int8 dither codec: the encode and decode kernels on the
-    card against their plain versions on the same inputs, bit for bit."""
+    """Phase 2, the int8 dither codec: the encode (u-taking and keyed) and
+    decode kernels on the card against their plain versions on the same
+    inputs, bit for bit."""
     import numpy as np
     import torch
-    err = {"dither_encode": 0.0, "dither_decode": 0.0}
+    err = {"dither_encode": 0.0, "dither_encode_keyed": 0.0,
+           "dither_decode": 0.0}
     rng = np.random.default_rng(4)
     n = 0
+
+    def compare_keyed(x, key, s, br, what):
+        """The keyed encode against its plain version (uniform(key, shape),
+        then the plain encode, on x's device) and against the u-taking
+        kernel fed the same uniforms drawn on the card."""
+        nonlocal n
+        lv, sc = d_ops.dither_encode_keyed(x.to(dev), key.to(dev), s=s,
+                                           block_rows=br)
+        want_lv, want_sc = d_ref.dither_encode_keyed_ref(
+            x, key.to(x.device), s, br)
+        check(same_bits(lv, want_lv.to(dev)) and same_bits(sc, want_sc),
+              f"dither_encode_keyed differs from its plain version on "
+              f"{what}")
+        u = random.uniform(key.to(dev), tuple(x.shape))
+        u_lv, u_sc = d_ops.dither_encode(x.to(dev), u, s=s, block_rows=br)
+        check(same_bits(lv, u_lv) and same_bits(sc, u_sc),
+              f"dither_encode_keyed differs from dither_encode on the same "
+              f"uniforms on {what}")
+        err["dither_encode_keyed"] = max(err["dither_encode_keyed"],
+                                         abs_err(lv, want_lv),
+                                         abs_err(sc, want_sc))
+        n += 1
 
     def compare(x, u, s, br, what):
         nonlocal n
@@ -765,6 +940,18 @@ def phase_dither_kernels(dev, d_ops, d_ref, random):
                 np.float32)).to(dtype)
             u = torch.as_tensor(rng.random((R, C), dtype=np.float32))
             compare(x, u, s, br, f"[{R},{C}] br={br} s={s} {dtype}")
+            compare_keyed(x, random.fold_in(random.key(R, "cpu"), C), s, br,
+                          f"[{R},{C}] br={br} s={s} {dtype} (keyed)")
+    # lengths that are not a multiple of 4, and an x that is not 16-byte
+    # aligned: the keyed pass's scalar path
+    for R, C, br, s in ((24, 77, 3, 255), (1, 4099, 1, 127)):
+        x = torch.as_tensor((rng.normal(size=(R, C)) * 10).astype(
+            np.float32))
+        compare_keyed(x, random.key(C, "cpu"), s, br, f"[{R},{C}] (keyed)")
+    x = torch.as_tensor(rng.normal(size=64 * 128 + 1).astype(
+        np.float32)).to(dev)[1:].view(64, 128)
+    compare_keyed(x, random.key(2, "cpu"), 127, 16,
+                  "x not 16-byte aligned (keyed)")
     # zero, -0, ±inf and NaN blocks; s = 255 saturates past 127
     inf, nan = float("inf"), float("nan")
     x = torch.tensor([[0.0] * 4, [-0.0] * 4,
@@ -774,14 +961,20 @@ def phase_dither_kernels(dev, d_ops, d_ref, random):
     u = torch.as_tensor(rng.random(x.shape, dtype=np.float32))
     for s in (15, 127, 255):
         compare(x, u, s, 2, f"edge rows s={s}")
+        compare_keyed(x, random.key(s, "cpu"), s, 2,
+                      f"edge rows s={s} (keyed)")
     # whole trainer leaves as one block (the FLECS-CGD path's shapes):
     # inputs made on the card, the plain version run there too
     g = torch.Generator(device=dev).manual_seed(5)
-    for R, C in LEAF_SHAPES:
+    for i, (R, C) in enumerate(LEAF_SHAPES):
         x = torch.randn((R, C), generator=g, device=dev) * 1e-3
         u = torch.rand((R, C), generator=g, device=dev)
         compare(x, u, 127.0, R, f"leaf [{R},{C}] as one block")
-        del x, u
+        del u
+        compare_keyed(x, random.fold_in(random.key(29, "cpu"), i), 127.0, R,
+                      f"leaf [{R},{C}] as one block (keyed)")
+        del x
+        torch.cuda.empty_cache()
     # quantize's layout and draw, card against CPU
     for shape in ((1000,), (33, 77), (4, 5, 6), (128, 512)):
         x = torch.as_tensor(rng.normal(size=shape).astype(np.float32))
@@ -975,7 +1168,8 @@ def phase_train_full(train, fa_ops, d_ops, ops, tree):
         per_leaf = n_leaves if flecs else 0
         expect = {"flash_attention": 2 * L * steps,
                   "flash_attention_backward": L * steps,
-                  "dither_encode": per_leaf * steps,
+                  "dither_encode": 0,
+                  "dither_encode_keyed": per_leaf * steps,
                   "dither_decode": per_leaf * steps,
                   "dither_bits": per_leaf * steps}
         for name, n in expect.items():
@@ -1020,17 +1214,31 @@ def phase_train_full(train, fa_ops, d_ops, ops, tree):
         top = sorted(((t, c, name) for name, (t, c) in rows.items()),
                      reverse=True)[:15]
         mine = {k: sum(t for name, (t, _) in rows.items() if k in name) / 1e3
-                for k in ("flash_kernel", "flash_bwd", "absmax_kernel",
-                          "encode_kernel", "decode_kernel")}
+                for k in ("flash_fwd", "flash_bwd", "absmax_kernel",
+                          "encode_keyed_kernel", "encode_kernel",
+                          "decode_kernel")}
+        # the int64 elementwise passes (threefry in tensor ops, fold_in)
+        int64 = [(t, c) for name, (t, c) in rows.items()
+                 if "elementwise" in name and ("long" in name
+                                               or "int64" in name)]
+        int64_ms = sum(t for t, _ in int64) / 1e3
+        int64_n = sum(c for _, c in int64)
         log(f"profile train {mode} step (profiled): wall "
             f"{wall_us / 1e3!r} ms, device busy {busy / 1e3!r} ms "
             f"({100 * busy / wall_us:.1f}% of wall), {n_kernels} device "
-            f"kernels and copies; ours (ms) {mine}")
+            f"kernels and copies; ours (ms) {mine}; int64 elementwise "
+            f"{int64_ms!r} ms in {int64_n} launches")
         for t, count, name in top:
             log(f"  {t / 1e3:10.4f} ms  x{count:6d}  {name[:80]}")
         res["profile"][mode] = dict(
             wall_ms=wall_us / 1e3, busy_ms=busy / 1e3, kernels=n_kernels,
-            ours_ms=mine, top=[[t / 1e3, c, name[:80]] for t, c, name in top])
+            ours_ms=mine, int64_elementwise_ms=int64_ms,
+            int64_elementwise_launches=int64_n,
+            top=[[t / 1e3, c, name[:80]] for t, c, name in top])
+        if mode == "flecs":
+            check(int64_ms < 50.0, f"full-width flecs: {int64_ms!r} ms of "
+                  f"int64 elementwise kernels a step, expected < 50 (the "
+                  f"uniforms are drawn inside the keyed encode)")
         torch.cuda.empty_cache()
     del params
     torch.cuda.empty_cache()
@@ -1099,14 +1307,23 @@ def flash_backward_timing(dev, dtype, fa_ops, fa_ref, g):
     return r
 
 
-def phase_train_kernel_timing(dev, d_ops, d_ref, fa_ops, fa_ref):
-    """The codec kernels at the trainer's leaf shapes (one block) and the
-    flash backward at the training shape in float32 and bfloat16, by CUDA
-    events, beside their plain versions, their bounds and, for the
-    backward, SDPA's backward (timed only)."""
+def dither_timing(dev, d_ops, d_ref, random):
+    """The codec kernels at the trainer's leaf shapes (one block) by CUDA
+    events, beside their plain versions and bounds: the u-taking encode
+    (bytes: x and u read, levels written, 9 B an element), the keyed encode
+    (5 B an element, but bound by the instructions of its main loop on the
+    busiest pipe, read from the SASS of the library it runs:
+    ``keyed_encode_clocks_per_element``) with the draw it replaces
+    (``random.uniform``, timed alone), and the decode (5 B an element)."""
     import torch
     res = {}
     g = torch.Generator(device=dev).manual_seed(6)
+    clocks, pipe, per, elems = keyed_encode_clocks_per_element(
+        d_ops.LIBRARY.build())
+    log(f"encode_keyed_kernel<float, true> main loop, {elems} elements a "
+        f"trip, thread-instructions an element by pipe (SASS): "
+        + ", ".join(f"{k} {v!r}" for k, v in per.items())
+        + f"; bound {clocks!r} SM clocks an element on the {pipe} pipe")
     for R, C in LEAF_SHAPES:
         N = R * C
         x = torch.randn((R, C), generator=g, device=dev) * 1e-3
@@ -1117,26 +1334,50 @@ def phase_train_kernel_timing(dev, d_ops, d_ref, fa_ops, fa_ref):
                                                    block_rows=R), 20),
             plain_ms=cuda_ms(lambda: d_ref.dither_encode_ref(x, u, 127.0, R),
                              3),
-            library_ms=None, bytes=9 * N + 4, ops=8 * N)
+            library_ms=None, bytes=9 * N + 4, ops=8 * N, rate=F32_OPS_PER_S)
+        del u
+        key = random.fold_in(random.key(29, dev), 3)
+        res[("dither_encode_keyed", (R, C))] = dict(
+            ms=cuda_ms(lambda: d_ops.dither_encode_keyed(
+                x, key, s=127.0, block_rows=R), 20),
+            plain_ms=cuda_ms(lambda: d_ref.dither_encode_keyed_ref(
+                x, key, 127.0, R), 3),
+            draw_ms=cuda_ms(lambda: random.uniform(key, (R, C)), 3),
+            library_ms=None, bytes=5 * N + 4 + 16,
+            ops=clocks * N, rate=SM_CLOCKS_PER_S, pipe=pipe)
         res[("dither_decode", (R, C))] = dict(
             ms=cuda_ms(lambda: d_ops.dither_decode(lv, sc, block_rows=R), 20),
             plain_ms=cuda_ms(lambda: d_ref.dither_decode_ref(lv, sc, R), 3),
-            library_ms=None, bytes=5 * N + 4, ops=N)
-        del x, u, lv, sc
+            library_ms=None, bytes=5 * N + 4, ops=N, rate=F32_OPS_PER_S)
+        del x, lv, sc
         torch.cuda.empty_cache()
-    for r in res.values():
+    for (name, shape), r in res.items():
         t_bytes = 1e3 * r["bytes"] / HBM_BYTES_PER_S
-        t_ops = 1e3 * r["ops"] / F32_OPS_PER_S
+        t_ops = 1e3 * r.pop("ops") / r.pop("rate")
         r["bound_ms"] = max(t_bytes, t_ops)
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        pipe = r.pop("pipe", None)
+        ops_what = (f"{pipe}-pipe SM clocks" if pipe else "operations")
+        draw = (f", the u draw alone {r['draw_ms']!r} ms" if "draw_ms" in r
+                else "")
+        log(f"timing {name} {list(shape)}: {r['ms']!r} ms (plain "
+            f"{r['plain_ms']!r} ms{draw}, library {r['library_ms']!r} ms, "
+            f"bound {r['bound_ms']!r} ms by {r['bound_by']}: bytes "
+            f"{t_bytes!r} ms, {ops_what} {t_ops!r} ms)")
+    return res
+
+
+def phase_train_kernel_timing(dev, d_ops, d_ref, fa_ops, fa_ref, random):
+    """The codec kernels at the trainer's leaf shapes (``dither_timing``)
+    and the flash backward at the training shape in float32 and bfloat16,
+    by CUDA events, beside their plain versions, their bounds and, for the
+    backward, SDPA's backward (timed only)."""
+    import torch
+    res = dither_timing(dev, d_ops, d_ref, random)
+    g = torch.Generator(device=dev).manual_seed(6)
     for dtype in (torch.float32, torch.bfloat16):
         res[("flash_attention_backward", dtype)] = flash_backward_timing(
             dev, dtype, fa_ops, fa_ref, g)
-    for (name, shape), r in res.items():
-        if name.startswith("dither"):
-            log(f"timing {name} {list(shape)}: {r['ms']!r} ms (plain "
-                f"{r['plain_ms']!r} ms, library {r['library_ms']!r} ms, "
-                f"bound {r['bound_ms']!r} ms by {r['bound_by']})")
     return res
 
 
@@ -1197,7 +1438,8 @@ def main():
     prof = phase_profile(quickstart)
     timing = phase_timing(dev, ops, ref, random)
     flash = phase_flash_timing(dev, fa_ops, fa_ref)
-    ttiming = phase_train_kernel_timing(dev, d_ops, d_ref, fa_ops, fa_ref)
+    ttiming = phase_train_kernel_timing(dev, d_ops, d_ref, fa_ops, fa_ref,
+                                        random)
 
     kernels = []
     for name in REPLACES:
@@ -1233,10 +1475,15 @@ def main():
         "launches_by_path": {k: (v if isinstance(v, int)
                                  else v["flash_attention"])
                              for k, v in by_path.items()},
-        "max_abs_err": max(flash_err.values()), "ms": flash["ms"],
-        "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
-        "bound_by": flash["bound_by"], "library_ms": flash["library_ms"],
-        "max_abs_err_by_dtype": flash_err, "shape": list(SERVE_SHAPE[:5])})
+        "max_abs_err": max(flash_err.values()), "ms": flash["float32"]["ms"],
+        "plain_ms": flash["float32"]["plain_ms"],
+        "bound_ms": flash["float32"]["bound_ms"],
+        "bound_by": flash["float32"]["bound_by"],
+        "library_ms": flash["float32"]["library_ms"],
+        "max_abs_err_by_dtype": flash_err,
+        "bf16": {key: flash["bfloat16"][key] for key in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+        "shape": list(SERVE_SHAPE[:5])})
     leaf = LEAF_SHAPES[0]
     for name in DITHER_REPLACES:
         r = ttiming[(name, leaf)]
@@ -1250,6 +1497,8 @@ def main():
             "shape": list(leaf), "ms_by_shape": {
                 str(list(sh)): ttiming[(name, sh)]["ms"]
                 for (n, sh) in ttiming if n == name}})
+        if "draw_ms" in r:
+            kernels[-1]["draw_ms"] = r["draw_ms"]
     r = ttiming[("flash_attention_backward", torch.float32)]
     r16 = ttiming[("flash_attention_backward", torch.bfloat16)]
     kernels.append({

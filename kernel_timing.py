@@ -1,7 +1,9 @@
 """Time kernels of one checkout on one card, to compare versions in one call.
 
     python3 kernel_timing.py compressor [--root DIR]
+    python3 kernel_timing.py flash-forward [--root DIR] [-D NAME=VALUE ...]
     python3 kernel_timing.py flash-backward [--root DIR] [-D NAME=VALUE ...]
+    python3 kernel_timing.py dither [--root DIR]
 
 ``--root`` names the checkout whose ``src/repro_torch`` is timed (default:
 this one), so that a parent unpacked with ``git archive`` beside a change is
@@ -10,12 +12,26 @@ timed by the same code: run parent, change, change, parent in one call.
 ``compressor`` times the compressor kernels at the main path's shapes beside
 their plain versions and ``torch.topk`` (``chip_smoke.phase_timing``).
 
+``flash-forward`` builds the flash-attention library with the extra nvcc
+``-D`` flags given (the forward's KV tile ``REPRO_FWD_BK``, see
+``flash_attention.cu``), holds the forward against its plain
+version at every ``chip_smoke.FLASH_SHAPES`` shape and the serving shape
+(and bitwise over two runs), and times it at the serving shape in float32
+and bfloat16 beside the plain version, SDPA and the bound
+(``chip_smoke.phase_flash_timing``).
+
 ``flash-backward`` builds the flash-attention library with the extra nvcc
 ``-D`` flags given (the backward's step tiles ``REPRO_BWD_DKDV_BQ`` and
 ``REPRO_BWD_DQ_BK``, see ``flash_attention.cu``), holds its backward against
 the plain autograd at every ``chip_smoke.BWD_SHAPES`` shape, and times it at
 the training shape in float32 and bfloat16 beside the plain autograd and
 SDPA (``chip_smoke.flash_backward_timing``).
+
+``dither`` times the codec kernels at the trainer's leaf shapes
+(``chip_smoke.LEAF_SHAPES``): the u-taking encode, the keyed encode beside
+the draw it replaces, and the decode (``chip_smoke.dither_timing``).  It
+prints the keyed encode's main-loop instructions an element on each pipe,
+read from the SASS of the library it times, from which that bound comes.
 
 Each prints the card's name and power limit, the timing lines, and as its
 last line one JSON object of the times.  Needs one card.
@@ -33,7 +49,8 @@ import chip_smoke
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(
         description="Time one checkout's kernels on the card.")
-    parser.add_argument("what", choices=("compressor", "flash-backward"))
+    parser.add_argument("what", choices=("compressor", "flash-forward",
+                                         "flash-backward", "dither"))
     parser.add_argument("--root", type=Path, default=chip_smoke.ROOT,
                         help="checkout whose src/repro_torch is timed")
     parser.add_argument("-D", dest="defines", action="append", default=[],
@@ -56,6 +73,14 @@ def main(argv=None) -> None:
             (f"{key[0]} [20,{key[1]}]" if isinstance(key, tuple) else key):
             {k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")
              if k in r} for key, r in res.items()}
+    elif args.what == "dither":
+        from repro_torch import random
+        from repro_torch.kernels.dither import ops, ref
+        res = chip_smoke.dither_timing(dev, ops, ref, random)
+        out["times"] = {
+            f"{name} {list(shape)}": {k: r[k] for k in (
+                "ms", "plain_ms", "bound_ms", "draw_ms") if k in r}
+            for (name, shape), r in res.items()}
     else:
         from repro_torch.kernels.flash_attention import build, ops, ref
         from repro_torch.kernels.nvcc import CudaLibrary
@@ -64,15 +89,23 @@ def main(argv=None) -> None:
                 build.LIBRARY.source,
                 flags=tuple(f"-D{d}" for d in args.defines),
                 signatures=build.LIBRARY.signatures)
-        _, rel = chip_smoke.phase_flash_backward(dev, ops, ref)
-        g = torch.Generator(device=dev).manual_seed(6)
-        out["rel_err_by_dtype"] = rel
         out["times"] = {}
-        for dtype in (torch.float32, torch.bfloat16):
-            r = chip_smoke.flash_backward_timing(dev, dtype, ops, ref, g)
-            out["times"][str(dtype).replace("torch.", "")] = {
-                k: r[k] for k in ("ms", "plain_ms", "library_ms",
-                                  "bound_ms")}
+        if args.what == "flash-forward":
+            out["max_abs_err_by_dtype"] = chip_smoke.phase_flash_kernel(
+                dev, ops, ref)
+            for name, r in chip_smoke.phase_flash_timing(dev, ops,
+                                                         ref).items():
+                out["times"][name] = {k: r[k] for k in (
+                    "ms", "plain_ms", "library_ms", "bound_ms")}
+        else:
+            _, rel = chip_smoke.phase_flash_backward(dev, ops, ref)
+            g = torch.Generator(device=dev).manual_seed(6)
+            out["rel_err_by_dtype"] = rel
+            for dtype in (torch.float32, torch.bfloat16):
+                r = chip_smoke.flash_backward_timing(dev, dtype, ops, ref, g)
+                out["times"][str(dtype).replace("torch.", "")] = {
+                    k: r[k] for k in ("ms", "plain_ms", "library_ms",
+                                      "bound_ms")}
     print(json.dumps(out), flush=True)
 
 

@@ -201,13 +201,12 @@ def shared_scale_levels(key, x: torch.Tensor, s):
     The reference agrees the norm across the workers with a ``pmax``; on
     one worker that is the identity, so this is ``dither_encode`` over x
     as a single block, with the uniforms ``uniform(key, x.shape)`` of the
-    reference, bit for bit.  On a CUDA tensor it runs the encode kernel; a
-    later sharded slice puts an all-reduce of the norm between its two
-    passes."""
+    reference, bit for bit.  On a CUDA tensor the keyed encode kernel draws
+    them in registers (``dither_encode_keyed``); a later sharded slice puts
+    an all-reduce of the norm between its two passes."""
     rows = _leaf_rows(x)
-    u = random.uniform(key, tuple(rows.shape))
-    levels, scale = dither_ops.dither_encode(rows.contiguous(), u, s=s,
-                                             block_rows=rows.shape[0])
+    levels, scale = dither_ops.dither_encode_keyed(
+        rows.contiguous(), key, s=s, block_rows=rows.shape[0])
     return levels.reshape(x.shape), scale[0]
 
 

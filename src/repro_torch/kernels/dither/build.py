@@ -11,15 +11,22 @@ from repro_torch.kernels.nvcc import CudaLibrary
 _P, _F, _I, _L = ctypes.c_void_p, ctypes.c_float, ctypes.c_int, \
     ctypes.c_longlong
 
+_HERE = Path(__file__).resolve().parent
+
 #: -fmad=false: no multiply-add is contracted into an FMA, so the levels
 #: round exactly as the reference's separate operations do.
 LIBRARY = CudaLibrary(
-    Path(__file__).resolve().parent / "csrc" / "dither.cu",
+    _HERE / "csrc" / "dither.cu",
+    headers=(_HERE.parent / "csrc" / "threefry.cuh",),
     flags=("-fmad=false",),
     signatures={
         # x, dtype, u, s, rows, cols, block_rows, norm_bits, levels, scale,
         # stream
         "repro_dither_encode": (_P, _I, _P, _F, _L, _L, _L, _P, _P, _P, _P),
+        # x, dtype, key, s, rows, cols, block_rows, norm_bits, levels,
+        # scale, stream
+        "repro_dither_encode_keyed": (_P, _I, _P, _F, _L, _L, _L, _P, _P, _P,
+                                      _P),
         # levels, scale, rows, cols, block_rows, out, stream
         "repro_dither_decode": (_P, _P, _L, _L, _L, _P, _P),
     })

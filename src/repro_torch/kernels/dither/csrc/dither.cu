@@ -7,6 +7,11 @@
 //           over the block (0 -> 1), y = x / norm * s, lo = floor(y),
 //           level = lo + (u < y - lo) as int8, and scale = norm / s;
 //   decode: out = float(level) * scale[block].
+// The encode has two entries: one reads the uniforms u [R, C] from device
+// memory (the counterpart of the Pallas wrapper), the keyed one draws them
+// in registers, u[i] = uniform(key, (R, C))[i] from the flat index i
+// (threefry.cuh; bit for bit repro_torch.random.uniform, which is
+// jax.random's), so no uniform ever reaches device memory.
 //
 // Bit identity with the plain version (kernels/dither/ref.py) and the
 // reference: the expressions are evaluated in the reference's order with
@@ -25,19 +30,41 @@
 //      independent of order for non-negative floats; a NaN's sign-cleared
 //      bits sort above +inf, so a NaN propagates as jnp.max propagates it;
 //   2. each CTA reads its block's norm and writes its chunk's levels; the
-//      CTA of chunk 0 writes the block's scale.
+//      CTA of chunk 0 writes the block's scale.  The keyed pass reads x in
+//      vectors of four (16 bytes of float32) and stores four levels at once
+//      where the block's length and x's address allow it.
 // A small block (the 8 x 512 default of `quantize`) is one chunk: one CTA
 // per block in each pass.
 //
-// What bounds it on this card: bytes.  The encode must read x and u and
-// write the levels, 9 B an element for float32 x (7 B for bfloat16); this
-// version reads x twice (13 B), because a block does not fit on chip.  The
-// decode reads 1 B and writes 4 B an element, with 16-byte vector loads of
-// the levels and 16-byte stores.
+// What bounds it on this card.  The u-taking encode: bytes; it must read x
+// and u and write the levels, 9 B an element for float32 x (7 B for
+// bfloat16); it reads x twice (13 B), because a block does not fit on
+// chip.  The keyed encode must move 5 B an element (x once, the levels),
+// and reads x twice (9 B); but its threefry and level take more issue
+// than that.  Its main loop, read from the SASS of
+// encode_keyed_kernel<float, true> (cuobjdump -sass; eight elements a
+// trip, the division's slow path not taken), spends an element 58.25
+// instructions on the integer and logic ALU (the 20 rounds' funnel shifts
+// and xors, three-input adds, compares, byte packing), 23.25 on the FMA
+// pipe's integer half (adds moved there as IMAD.IADD, which issue beside
+// the ALU), 9 float32 adds and products, 3 on the conversion unit and
+// 97.875 in all.  An sm_90 SM takes 64 a clock on the ALU and on the FMA
+// pipe's integer half, 128 float32 operations, 16 conversions and 128
+// issue slots: the ALU is the busiest, 0.910 clocks an element, 0.884 ms
+// at the FFN leaf [45056, 5632] at 1.98 GHz on 132 SMs, against 0.38 ms
+// for 5 B an element, so its bound is the ALU's instructions
+// (chip_smoke.keyed_encode_clocks_per_element counts them from the
+// library it runs).  Measured there: 1.328 ms, 67% of that bound, against
+// 1.370 ms for the u-taking encode and 283 ms for the draw of u in int64
+// tensor ops that it replaces (kernel_timing.py dither; NVIDIA H100 80GB
+// HBM3, 700 W).  The decode reads 1 B and writes 4 B an element, with
+// 16-byte vector loads of the levels and 16-byte stores.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "../../csrc/threefry.cuh"
 
 namespace {
 
@@ -55,6 +82,15 @@ __device__ __forceinline__ int8_t to_int8(float v) {
   if (isnan(v)) return 0;
   v = fminf(fmaxf(v, -128.f), 127.f);
   return static_cast<int8_t>(__float2int_rz(v));
+}
+
+// One element's level from x, its uniform and the block's norm.
+__device__ __forceinline__ int8_t level(float xv, float u, float norm,
+                                        float s) {
+  const float y = __fmul_rn(__fdiv_rn(xv, norm), s);
+  const float fl = floorf(y);
+  const float up = u < __fsub_rn(y, fl) ? 1.f : 0.f;
+  return to_int8(__fadd_rn(fl, up));
 }
 
 // Pass 1: norm_bits[block] = max over the block of the bits of |x|.
@@ -104,10 +140,72 @@ encode_kernel(const T* __restrict__ x, const float* __restrict__ u, float s,
   for (int i = 0; i < PER_THREAD; ++i) {
     const long long e = lo + i * THREADS + threadIdx.x;
     if (e >= block_elems) break;
-    const float y = __fmul_rn(__fdiv_rn(to_f32(x[base + e]), norm), s);
-    const float fl = floorf(y);
-    const float up = u[base + e] < __fsub_rn(y, fl) ? 1.f : 0.f;
-    levels[base + e] = to_int8(__fadd_rn(fl, up));
+    levels[base + e] = level(to_f32(x[base + e]), u[base + e], norm, s);
+  }
+  if (chunk == 0 && threadIdx.x == 0) scale[blk] = __fdiv_rn(norm, s);
+}
+
+// Four consecutive elements of x (n of them inside the block) as float32;
+// VEC: one 16-byte (float32) or 8-byte (bfloat16) load.
+template <typename T, bool VEC>
+__device__ __forceinline__ void load4(const T* p, int n, float (&out)[4]) {
+  if constexpr (!VEC) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) out[j] = j < n ? to_f32(p[j]) : 0.f;
+  } else if constexpr (sizeof(T) == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+  } else {                     // bfloat16 is the top half of a float32
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    out[0] = __uint_as_float(v.x << 16);
+    out[1] = __uint_as_float(v.x & 0xffff0000u);
+    out[2] = __uint_as_float(v.y << 16);
+    out[3] = __uint_as_float(v.y & 0xffff0000u);
+  }
+}
+
+// Pass 2 of the keyed encode: as encode_kernel, with u[i] drawn in
+// registers from the key's two words (the int64 [2] tensor of
+// repro_torch.random, read on the device) and the flat index i.  A thread
+// takes four vectors of four consecutive elements, a warp's vectors
+// adjacent.  VEC: the block's length is a multiple of 4 and x is aligned,
+// so every vector is whole and aligned.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(THREADS)
+encode_keyed_kernel(const T* __restrict__ x,
+                    const long long* __restrict__ key, float s,
+                    long long block_elems, int chunks,
+                    const unsigned* __restrict__ norm_bits,
+                    int8_t* __restrict__ levels, float* __restrict__ scale) {
+  const long long blk = blockIdx.x / chunks;
+  const int chunk = blockIdx.x % chunks;
+  const long long lo = chunk * CHUNK;
+  float norm = __uint_as_float(norm_bits[blk]);
+  if (norm == 0.f) norm = 1.f;
+  const uint32_t k0 = static_cast<uint32_t>(key[0]);
+  const uint32_t k1 = static_cast<uint32_t>(key[1]);
+  const long long base = blk * block_elems;
+#pragma unroll 2
+  for (int i = 0; i < PER_THREAD / 4; ++i) {
+    const long long e = lo + 4 * (i * THREADS + threadIdx.x);
+    if (e >= block_elems) break;
+    const long long left = block_elems - e;
+    const int n = left < 4 ? static_cast<int>(left) : 4;
+    float xv[4];
+    load4<T, VEC>(x + base + e, n, xv);
+    int8_t lv[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      lv[j] = level(xv[j], repro_threefry::uniform_at(
+                               k0, k1, static_cast<unsigned long long>(
+                                           base + e + j)),
+                    norm, s);
+    if constexpr (VEC) {
+      *reinterpret_cast<char4*>(levels + base + e) =
+          make_char4(lv[0], lv[1], lv[2], lv[3]);
+    } else {
+      for (int j = 0; j < n; ++j) levels[base + e + j] = lv[j];
+    }
   }
   if (chunk == 0 && threadIdx.x == 0) scale[blk] = __fdiv_rn(norm, s);
 }
@@ -147,10 +245,12 @@ decode_kernel(const int8_t* __restrict__ levels,
     out[t] = __fmul_rn(static_cast<float>(levels[t]), scale[t / block_elems]);
 }
 
+// Both encodes: pass 1, then pass 2 from u (key null) or drawn from key.
 template <typename T>
-cudaError_t encode(const void* x, const void* u, float s, long long rows,
-                   long long cols, long long block_rows, unsigned* norm_bits,
-                   void* levels, void* scale, cudaStream_t stream) {
+cudaError_t encode(const void* x, const void* u, const void* key, float s,
+                   long long rows, long long cols, long long block_rows,
+                   unsigned* norm_bits, void* levels, void* scale,
+                   cudaStream_t stream) {
   const long long nb = rows / block_rows;
   const long long block_elems = block_rows * cols;
   const long long chunks = (block_elems + CHUNK - 1) / CHUNK;
@@ -159,15 +259,30 @@ cudaError_t encode(const void* x, const void* u, float s, long long rows,
       cudaMemsetAsync(norm_bits, 0, nb * sizeof(unsigned), stream);
   if (err != cudaSuccess) return err;
   const unsigned grid = static_cast<unsigned>(nb * chunks);
+  const T* xt = static_cast<const T*>(x);
   absmax_kernel<T><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(x), block_elems, static_cast<int>(chunks),
-      norm_bits);
+      xt, block_elems, static_cast<int>(chunks), norm_bits);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  encode_kernel<T><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(u), s, block_elems,
-      static_cast<int>(chunks), norm_bits, static_cast<int8_t*>(levels),
-      static_cast<float*>(scale));
+  int8_t* lv = static_cast<int8_t*>(levels);
+  float* sc = static_cast<float*>(scale);
+  const int c = static_cast<int>(chunks);
+  if (key == nullptr) {
+    encode_kernel<T><<<grid, THREADS, 0, stream>>>(
+        xt, static_cast<const float*>(u), s, block_elems, c, norm_bits, lv,
+        sc);
+  } else {
+    const long long* k = static_cast<const long long*>(key);
+    const bool vec = block_elems % 4 == 0
+                     && reinterpret_cast<uintptr_t>(x) % (4 * sizeof(T)) == 0
+                     && reinterpret_cast<uintptr_t>(levels) % 4 == 0;
+    if (vec)
+      encode_keyed_kernel<T, true><<<grid, THREADS, 0, stream>>>(
+          xt, k, s, block_elems, c, norm_bits, lv, sc);
+    else
+      encode_keyed_kernel<T, false><<<grid, THREADS, 0, stream>>>(
+          xt, k, s, block_elems, c, norm_bits, lv, sc);
+  }
   return cudaGetLastError();
 }
 
@@ -186,10 +301,31 @@ int repro_dither_encode(const void* x, int dtype, const void* u, float s,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   unsigned* nbits = static_cast<unsigned*>(norm_bits);
   cudaError_t err =
-      dtype == 0 ? encode<float>(x, u, s, rows, cols, block_rows, nbits,
-                                 levels, scale, st)
-      : dtype == 1 ? encode<__nv_bfloat16>(x, u, s, rows, cols, block_rows,
-                                           nbits, levels, scale, st)
+      dtype == 0 ? encode<float>(x, u, nullptr, s, rows, cols, block_rows,
+                                 nbits, levels, scale, st)
+      : dtype == 1 ? encode<__nv_bfloat16>(x, u, nullptr, s, rows, cols,
+                                           block_rows, nbits, levels, scale,
+                                           st)
+                   : cudaErrorInvalidValue;
+  return static_cast<int>(err);
+}
+
+// As repro_dither_encode, with u = uniform(key, (rows, cols)) drawn in
+// registers: key is the int64 [2] device tensor of repro_torch.random (two
+// uint32 words), read by the kernel.
+int repro_dither_encode_keyed(const void* x, int dtype, const void* key,
+                              float s, long long rows, long long cols,
+                              long long block_rows, void* norm_bits,
+                              void* levels, void* scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  unsigned* nbits = static_cast<unsigned*>(norm_bits);
+  if (key == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err =
+      dtype == 0 ? encode<float>(x, nullptr, key, s, rows, cols, block_rows,
+                                 nbits, levels, scale, st)
+      : dtype == 1 ? encode<__nv_bfloat16>(x, nullptr, key, s, rows, cols,
+                                           block_rows, nbits, levels, scale,
+                                           st)
                    : cudaErrorInvalidValue;
   return static_cast<int>(err);
 }

@@ -4,16 +4,19 @@
 
 Dispatch is by the tensor's device and nothing else: a CUDA tensor launches
 the kernel of ``csrc/dither.cu`` (or the wrapper raises), a CPU tensor
-takes the plain version in ``ref.py``.  There is no fallback from the card
-to the plain version.  The Pallas wrappers' ``interpret`` flag has no
-counterpart, and the kernel takes any C (the Pallas one needs
+takes the plain version in ``ref.py``.  ``dither_encode`` takes the
+uniforms as a tensor, as the Pallas wrapper does; ``dither_encode_keyed``
+takes a key and draws them in the kernel, ``random.uniform(key, x.shape)``
+bit for bit, so they never reach device memory.  There is no fallback
+from the card to the plain version.  The Pallas wrappers' ``interpret``
+flag has no counterpart, and the kernel takes any C (the Pallas one needs
 C % 128 == 0).
 
 ``quantize`` / ``dequantize`` keep the reference's layout: the tensor is
 flattened and zero-padded into rows of ``cols``, rows are padded to a
 multiple of ``rb = min(block_rows, rows)``, and the uniforms are the
-reference's own draw, ``uniform(key, padded_shape)``, so the levels compare
-bit for bit.
+reference's own draw, ``uniform(key, padded_shape)`` (drawn by the keyed
+encode), so the levels compare bit for bit.
 
 Every launch adds one to ``launches[name]``.
 """
@@ -22,14 +25,14 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch import random
 from repro_torch.kernels.dither import ref
 from repro_torch.kernels.dither.build import LIBRARY
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: Kernel launches since the last :func:`reset_launches`.
-launches = {"dither_encode": 0, "dither_decode": 0}
+launches = {"dither_encode": 0, "dither_encode_keyed": 0,
+            "dither_decode": 0}
 
 
 def reset_launches() -> None:
@@ -64,6 +67,20 @@ def _launch(name, entry, device, *args) -> None:
     launches[name] += 1
 
 
+def _encode(name, entry, x, operand, s, block_rows):
+    """Launch an encode entry point on x [R, C] and its uniforms or key:
+    (levels int8 [R, C], scale float32 [R // block_rows])."""
+    R, C = x.shape
+    nb = R // block_rows
+    levels = torch.empty((R, C), dtype=torch.int8, device=x.device)
+    scale = torch.empty(nb, dtype=torch.float32, device=x.device)
+    norm_bits = torch.empty(nb, dtype=torch.int32, device=x.device)
+    _launch(name, entry, x.device, x.data_ptr(), _DTYPES[x.dtype],
+            operand.data_ptr(), float(s), R, C, block_rows,
+            norm_bits.data_ptr(), levels.data_ptr(), scale.data_ptr())
+    return levels, scale
+
+
 def dither_encode(x, u, *, s=127, block_rows: int = 256):
     """x [R, C] float32 or bfloat16, u [R, C] float32 uniforms, R a
     multiple of block_rows.  Returns (levels int8 [R, C], scale float32
@@ -77,15 +94,28 @@ def dither_encode(x, u, *, s=127, block_rows: int = 256):
                          "shape and device")
     if not _on_card(x):
         return ref.dither_encode_ref(x, u, s, block_rows)
-    R, C = x.shape
-    nb = R // block_rows
-    levels = torch.empty((R, C), dtype=torch.int8, device=x.device)
-    scale = torch.empty(nb, dtype=torch.float32, device=x.device)
-    norm_bits = torch.empty(nb, dtype=torch.int32, device=x.device)
-    _launch("dither_encode", "repro_dither_encode", x.device, x.data_ptr(),
-            _DTYPES[x.dtype], u.data_ptr(), float(s), R, C, block_rows,
-            norm_bits.data_ptr(), levels.data_ptr(), scale.data_ptr())
-    return levels, scale
+    return _encode("dither_encode", "repro_dither_encode", x, u, s,
+                   block_rows)
+
+
+def dither_encode_keyed(x, key, *, s=127, block_rows: int = 256):
+    """``dither_encode(x, random.uniform(key, x.shape), s=s,
+    block_rows=block_rows)``, bit for bit, with the uniforms drawn inside
+    the kernel.  key: the int64 [2] key data of ``repro_torch.random`` on
+    x's device (the kernel reads it there: no host synchronisation)."""
+    _check_blocks("dither_encode_keyed", x, block_rows)
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"dither_encode_keyed: x float32 or bfloat16 "
+                        f"required, got {x.dtype}")
+    if (key.dtype != torch.int64 or tuple(key.shape) != (2,)
+            or key.device != x.device):
+        raise ValueError(f"dither_encode_keyed: an int64 [2] key on x's "
+                         f"device required, got {key.dtype} "
+                         f"{tuple(key.shape)} on {key.device}")
+    if not _on_card(x):
+        return ref.dither_encode_keyed_ref(x, key, s, block_rows)
+    return _encode("dither_encode_keyed", "repro_dither_encode_keyed", x,
+                   key.contiguous(), s, block_rows)
 
 
 def dither_decode(levels, scale, *, block_rows: int = 256):
@@ -130,8 +160,7 @@ def quantize(key, x, *, s=127, block_rows: int = 8, cols: int = 512):
     pad_rows = (-rows) % rb
     if pad_rows:
         x2 = F.pad(x2, (0, 0, 0, pad_rows))
-    u = random.uniform(key, tuple(x2.shape))
-    levels, scales = dither_encode(x2, u, s=s, block_rows=rb)
+    levels, scales = dither_encode_keyed(x2, key, s=s, block_rows=rb)
     return levels, scales, (tuple(x.shape), n, rb)
 
 

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import random
+
 
 def to_int8(v: torch.Tensor) -> torch.Tensor:
     """XLA's float -> int8 conversion, which the reference's
@@ -33,6 +35,13 @@ def dither_encode_ref(x, u, s, block_rows: int):
     ub = u.reshape(nb, block_rows, C)
     levels = to_int8(lo + (ub < (y - lo)).float())
     return levels.reshape(R, C), (norm / s).float()
+
+
+def dither_encode_keyed_ref(x, key, s, block_rows: int):
+    """``dither_encode_ref`` with the uniforms ``random.uniform(key,
+    x.shape)``: what the keyed kernel draws in registers."""
+    return dither_encode_ref(x, random.uniform(key, tuple(x.shape)), s,
+                             block_rows)
 
 
 def dither_decode_ref(levels, scale, block_rows: int):

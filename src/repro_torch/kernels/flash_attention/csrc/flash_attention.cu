@@ -1,6 +1,6 @@
-// Causal GQA flash attention for Hopper (sm_90a): the forward kernel
-// (float32 arithmetic on the CUDA cores) and, below it, the backward
-// kernels (the tensor cores, 3xTF32 for float32 inputs).
+// Causal GQA flash attention for Hopper (sm_90a): the forward kernel and,
+// below it, the backward kernels, all on the tensor cores with mma.sync
+// (float32 as 3xTF32, bfloat16 as bf16).
 //
 // Replaces the Pallas TPU kernel `_kernel` of
 // src/repro/kernels/flash_attention/flash_attention.py:28 (`flash_attention`):
@@ -17,40 +17,65 @@
 //   * GQA: query head h reads KV head h / (H / KV);
 //   * query i sits at key position i (Sq == Sk; the wrapper checks it).
 //
-// Design (first version: simple and right).  One block of 256 threads per
-// (q tile of 64 rows, head, batch); a loop over the KV tiles of 64 keys from
-// the first one the window lets in to the diagonal one takes the place of
-// the Pallas grid's sequential fourth axis.  Q, K, V and the score tile are
-// staged in shared memory as float32 (inputs are float32 or bfloat16); the
-// running max m and sum l live in shared memory, the accumulator in
-// registers (a 4 x D/16 micro-tile per thread).  The last q tile may be
-// ragged: rows and keys past S are zero-filled and never stored, so any
-// sequence length is taken.  Tiles are visited heaviest first (the q tiles
-// near the end of the sequence have the most live KV tiles).
+// Forward design.  One CTA of four warps per (64-row q tile, head, batch),
+// each warp 16 query rows, looping over the live KV tiles from the first
+// one the window lets in to the diagonal one (the Pallas grid's sequential
+// fourth axis); one linear grid with the q tile slowest, so the q tiles
+// with the most KV tiles start first.  Per KV tile, in registers:
+//   S = Q K^T on mma.sync (K as it lies is the `col` B operand), scaled,
+//   capped and masked (a warp whose 16 rows see the whole tile skips the
+//   mask: every tile but the diagonal one and the window's edge); the
+//   online softmax across the four lanes that share an accumulator row
+//   (quad shuffles); then O = O * corr + P V, with P the A operand
+//   straight from the S accumulators (a_from_acc) and V read across rows
+//   (load_b_kn; ldmatrix.trans in bf16).  Each tile's P V is summed in an
+//   accumulator of its own and added to the rescaled O in float32
+//   (add_to): long mma.sync chains are not float32 sums (see add_to).  K
+//   and V tiles are double-buffered with cp.async; shared rows are padded
+//   by 16 bytes, so both fragment patterns are conflict-free.  The last q
+//   tile may be ragged: rows and keys past S are zero-filled and never
+//   stored.  No float atomics: two runs give the same bits.
+//   * float32: 3xTF32 (a.b ~ a_hi.b_lo + a_lo.b_hi + a_hi.b_hi, as the
+//     backward below); Q is split once, into registers, at the CTA's start
+//     (at D = 128 its fragments would take 128 registers: there it is split
+//     at each load).  K and V are split at each fragment load: each of the
+//     four warps splits every K and V element again, but splitting each
+//     staged tile once (hi in place, lo in a tile of its own: a second
+//     shared load an operand and 40% more shared memory) was slower at the
+//     serving shape below, f32: 64-key tiles 0.789 ms split at load, 1.349
+//     ms split staged (122 KB, one CTA an SM); 32-key tiles 0.817 and 0.933
+//     ms (kernel_timing.py flash-forward, -D REPRO_FWD_BK=32; NVIDIA H100
+//     80GB HBM3, 700 W).  The staged split was a variant of this kernel
+//     behind -D REPRO_FWD_SPLIT_STAGED=1, removed once it lost: it is not
+//     in this source, so its two times cannot be taken again from the
+//     tree (PERF.md keeps them).  So 64-key tiles, split at load: 87 KB,
+//     two CTAs an SM.
+//   * bfloat16: m16n8k16, P rounded to bf16 as the A operand (as FA2 does);
+//     the row sums l are taken from the float32 P.
+// The optional float32 log-sum-exp output m + log(l) ([B, H, S]) feeds the
+// backward; given a null pointer the forward writes nothing else.
 //
-// What bounds it on this card: at the serving shape (B=8, H=32, S=1024,
-// D=64) the causal work is 4*B*H*S^2*D/2 = 3.4e10 float32 operations against
-// 0.15 GB of inputs and output, so the floor is the operations: 0.51 ms at
-// 67 TFLOP/s (float32 outside the tensor cores) against 0.045 ms for the
-// bytes.  This version runs on the CUDA cores from shared memory, and each
-// multiply-add reads one operand from shared memory (a 4 x 4 register tile
-// per thread, 8 loads per 16 FMAs), so shared-memory bandwidth, not the FMA
-// rate, is its limit.  The tensor cores (TF32 or bf16 wgmma), TMA loads and
-// warp specialisation are the later steps.
-//
-// The forward optionally writes each row's log-sum-exp m + log(l) (float32
-// [B, H, S]) for the backward; given a null pointer it writes nothing, so
-// the serving path's work is unchanged.
+// What bounds the forward on this card: operations.  At the serving shape
+// (B=8, H=32, KV=4, S=1024, D=64) the causal work is 4*B*H*S^2*D/2 =
+// 3.4e10 operations against 0.15 GB of inputs and output (0.045 ms): as
+// 3xTF32, three times the operations at 495 TFLOP/s, 0.208 ms; in bf16
+// 0.035 ms at 989 TFLOP/s.  In float32 the split instructions (three
+// integer and float operations an operand element beside its share of
+// three mma.sync) compete with the mma.sync for issue slots, and at 240
+// registers a thread two CTAs (eight warps) an SM hide little latency:
+// 0.781 ms, 3.75x the bound (SDPA in float32: 5.21 ms).  bf16: 0.290 ms
+// with V's B fragments loaded by ldmatrix.trans, 0.335 ms with 16-bit
+// loads, against SDPA's bf16 0.106 ms (kernel_timing.py flash-forward, the
+// two versions in turns in one call; NVIDIA H100 80GB HBM3, 700 W).  wgmma
+// and TMA are the next step.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int BQ = 64;         // query rows per block
-constexpr int BK = 64;         // keys per KV tile
-constexpr int THREADS = 256;   // a 16 x 16 grid of threads
-constexpr int PS = BK + 1;     // padded row stride of the score tile
+constexpr int THREADS = 256;     // the Delta kernel: eight rows a block
+constexpr int TC_THREADS = 128;  // four warps, 16 rows of a tile each
 constexpr float NEG = -1e30f;
 
 struct Strides {               // in elements; the head dimension has stride 1
@@ -66,324 +91,9 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
-template <int D>
-constexpr size_t smem_floats() {
-  // Q and K padded to D + 1 (conflict-free column reads), V, scores, and
-  // three per-row arrays (corr, m, l).
-  return 2 * BQ * (D + 1) + BK * D + BQ * PS + 3 * BQ;
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o,
-             float* __restrict__ lse, int H, int KV, int S, int window,
-             float cap, float scale, Strides st) {
-  extern __shared__ float smem[];
-  constexpr int DP = D + 1;
-  constexpr int RD = D / 16;          // accumulator columns per thread
-  float* Qs = smem;                   // [BQ][DP]
-  float* Ks = Qs + BQ * DP;           // [BK][DP]
-  float* Vs = Ks + BK * DP;           // [BK][D]
-  float* Ps = Vs + BK * D;            // [BQ][PS]
-  float* corr_s = Ps + BQ * PS;       // [BQ]
-  float* m_s = corr_s + BQ;           // [BQ]
-  float* l_s = m_s + BQ;              // [BQ]
-
-  const int nq = (S + BQ - 1) / BQ;
-  const int q_lo = (nq - 1 - (int)blockIdx.x) * BQ;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / KV);
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int warp = tid / 32, lane = tid % 32;
-
-  const T* qb = q + b * st.q[0] + h * st.q[1];
-  const T* kb = k + b * st.k[0] + kvh * st.k[1];
-  const T* vb = v + b * st.v[0] + kvh * st.v[1];
-  T* ob = o + b * st.o[0] + h * st.o[1];
-
-  for (int idx = tid; idx < BQ * D; idx += THREADS) {
-    const int r = idx / D, c = idx % D, row = q_lo + r;
-    Qs[r * DP + c] = row < S ? to_f32(qb[row * st.q[2] + c]) : 0.f;
-  }
-  if (tid < BQ) {
-    m_s[tid] = NEG;
-    l_s[tid] = 0.f;
-  }
-
-  float acc[4][RD];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < RD; ++j) acc[i][j] = 0.f;
-
-  // Live KV tiles: from the one holding the first key that row q_lo may
-  // see (q_lo - window + 1) to the one holding the last row's own key.
-  const int q_hi = min(q_lo + BQ - 1, S - 1);
-  const int j_lo = window ? max(0, q_lo - window + 1) / BK : 0;
-  const int j_hi = q_hi / BK;
-
-  for (int jt = j_lo; jt <= j_hi; ++jt) {
-    const int k_lo = jt * BK;
-    __syncthreads();   // the previous tile's readers of Ks, Vs, Ps are done
-    for (int idx = tid; idx < BK * D; idx += THREADS) {
-      const int r = idx / D, c = idx % D, key = k_lo + r;
-      const bool in = key < S;
-      Ks[r * DP + c] = in ? to_f32(kb[key * st.k[2] + c]) : 0.f;
-      Vs[r * D + c] = in ? to_f32(vb[key * st.v[2] + c]) : 0.f;
-    }
-    __syncthreads();
-
-    // Scores: this thread's rows ty + 16 i and columns tx + 16 j.
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty + 16 * i) * DP + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * DP + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = ty + 16 * i, c = tx + 16 * j;
-        float x = s[i][j] * scale;
-        if (cap != 0.f) x = cap * tanhf(x / cap);
-        const int qpos = q_lo + r, kpos = k_lo + c;
-        bool keep = qpos >= kpos;
-        if (window) keep = keep && (qpos - kpos) < window;
-        Ps[r * PS + c] = keep ? x : NEG;
-      }
-    }
-    __syncthreads();
-
-    // Online softmax: each warp takes 8 rows, each lane two columns.
-    for (int rr = 0; rr < BQ / 8; ++rr) {
-      const int r = warp * (BQ / 8) + rr;
-      const float a = Ps[r * PS + lane], c = Ps[r * PS + lane + 32];
-      float mx = fmaxf(a, c);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mx);
-      const float pa = expf(a - m_new), pc = expf(c - m_new);
-      Ps[r * PS + lane] = pa;
-      Ps[r * PS + lane + 32] = pc;
-      float sum = pa + pc;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (lane == 0) {
-        const float corr = expf(m_prev - m_new);
-        corr_s[r] = corr;
-        l_s[r] = l_s[r] * corr + sum;
-        m_s[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * corr + P V
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float corr = corr_s[ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < RD; ++j) acc[i][j] *= corr;
-    }
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float pv[4], vv[RD];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty + 16 * i) * PS + kk];
-#pragma unroll
-      for (int j = 0; j < RD; ++j) vv[j] = Vs[kk * D + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < RD; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
-    }
-  }
-  __syncthreads();   // l_s holds every row's final sum
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i, row = q_lo + r;
-    if (row >= S) continue;
-    float l = l_s[r];
-    if (l == 0.f) l = 1.f;
-#pragma unroll
-    for (int j = 0; j < RD; ++j)
-      store(&ob[row * st.o[2] + tx + 16 * j], acc[i][j] / l);
-  }
-  if (lse != nullptr && tid < BQ && q_lo + tid < S) {
-    const float l = l_s[tid] == 0.f ? 1.f : l_s[tid];
-    lse[((long long)b * H + h) * S + q_lo + tid] = m_s[tid] + logf(l);
-  }
-}
-
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   float* lse, int B, int H, int KV, int S, int window,
-                   float cap, const Strides& st, cudaStream_t stream) {
-  const size_t bytes = smem_floats<D>() * sizeof(float);
-  auto kernel = flash_kernel<T, D>;
-  // Above 48 KB of shared memory a launch is refused unless the kernel is
-  // allowed more; D = 64 takes 67 KB, D = 128 116 KB.
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
-  const float scale = (float)(1.0 / sqrt((double)D));
-  const dim3 grid((S + BQ - 1) / BQ, H, B);
-  kernel<<<grid, THREADS, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, H, KV, S, window,
-      cap, scale, st);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
-                     void* o, float* lse, int B, int H, int KV, int S,
-                     int window, float cap, const Strides& st,
-                     cudaStream_t stream) {
-  switch (D) {
-    case 32:
-      return launch<T, 32>(q, k, v, o, lse, B, H, KV, S, window, cap, st,
-                           stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, lse, B, H, KV, S, window, cap, st,
-                           stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, lse, B, H, KV, S, window, cap, st,
-                            stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-
-// ---------------------------------------------------------------------------
-// Backward.  Replaces what the reference leaves to XLA: jax.grad of the
-// model's chunked_attention (src/repro/models/attention.py:38); the Pallas
-// kernel has no backward.  FA2-style: the probabilities are recomputed from
-// the forward's log-sum-exp, P = exp(x - lse) with masked entries exactly 0:
-//   Delta_i = rowsum(dO o O),  dV = P^T dO,  dP = dO V^T,
-//   dS = P o (dP - Delta),  with a soft-cap dS *= 1 - tanh^2(s_raw / cap),
-//   dQ = dS K * scale,  dK = dS^T Q * scale.
-//
-// The products run on the tensor cores with mma.sync, accumulating in
-// float32:
-//   * float32 inputs as 3xTF32: each operand is split a = a_hi + a_lo with
-//     a_hi = rna_tf32(a), a_lo = a - a_hi (passed as it is: the tensor
-//     core reads its top 19 bits), and a.b ~ a_hi.b_lo + a_lo.b_hi +
-//     a_hi.b_hi on m16n8k8 TF32 (the register-resident P and dS are split
-//     the same way); rna_tf32 is cvt.rna.tf32.f32's rounding written as two
-//     integer operations.  Rounding a_lo as well adds two integer
-//     operations an element and gains no accuracy: 3.41-3.43 ms against
-//     3.06-3.07 ms at the training shape below, 3.4e-6 of max |grad| either
-//     way (kernel_timing.py flash-backward; H100 80GB HBM3, 700 W).  One
-//     TF32 product keeps a 10-bit mantissa, 50x outside the float32
-//     tolerance the port holds the gradients to (1e-5 of max |grad|); the
-//     three keep about float32's accuracy.  TF32 stays off for every
-//     other product of the port (device.py); nothing here reads that
-//     switch.
-//   * bfloat16 inputs on m16n8k16 bf16; P and dS are rounded to bf16 as
-//     A operands, as FA2 does.
-// Each step's products are summed in an accumulator of their own and added
-// to the running dK, dV or dQ in float32 (add_to): a chain of thousands of
-// mma.sync on one accumulator is not a float32 sum.
-// mma.sync and not wgmma: wgmma takes TF32 operands only K-major, and three
-// of the five products (dV = P^T dO, dK = dS^T Q, dQ = dS K) read an [S, D]
-// operand along S, so dO, Q and K would each need a transposed copy in
-// shared memory.  mma.sync fragments are gathered per thread, so either
-// layout is read as it lies.  The wgmma + TMA + warp-specialised version is
-// the next redesign (ROADMAP.md).
-//
-// Three kernels, no float atomics (two runs give the same bits, and remat's
-// recomputation sees the same numbers):
-//   * Delta, one warp a row;
-//   * dK and dV: one CTA of four warps per (64-key tile, KV head, batch);
-//     each warp owns 16 keys and computes S^T = K Q^T and dP^T = V dO^T in
-//     registers, so P^T and dS^T are the A operands of dV and dK straight
-//     from the accumulators (for TF32 the k index is permuted to match the
-//     accumulator layout, and the B operand is read with the same
-//     permutation).  The CTA loops over the group's H / KV query heads and
-//     the q tiles that see its keys, so the GQA sum stays in registers;
-//   * dQ: one CTA of four warps per (64-row q tile, head, batch), each warp
-//     16 rows, over the KV tiles the forward visits.
-// Both grids are linear with the tile index slowest, so the CTAs with the
-// most steps (key tile 0, the last q tile) start first for every head and
-// batch.  The streamed tiles (Q, dO, lse and Delta in the dK/dV kernel; K
-// and V in the dQ kernel) are double-buffered with cp.async, so step it+1
-// loads while step it computes.  Shared rows are padded by 16 bytes (4
-// floats, 8 bf16): every fragment load, along a row (a row g, column t
-// pattern) or across rows (rows 2t and 2t+1, column g), then touches 32
-// distinct banks.
-// Tiles, chosen by timing 64 and 32 for each kernel at B=8, H=32, KV=4,
-// S=1024, D=64, float32, on the same card (kernel_timing.py
-// flash-backward, -D REPRO_BWD_DKDV_BQ=32 or -D REPRO_BWD_DQ_BK=64): dK/dV
-// 64 keys x 64 q rows a step (105 KB of shared memory in float32, two CTAs
-// an SM; 32 q rows: 3.19 ms), dQ 64 q rows x 32 keys a step (70 KB, three
-// CTAs an SM; 64 keys: 3.31 ms); for D = 128 the dK/dV step takes 32 q
-// rows.
-//
-// What bounds it: operations.  The five causal products (QK^T, dV, dP, dQ,
-// dK) are 5 * 2*B*H*S^2*D/2 = 8.6e10 operations at B=8, H=32, S=1024,
-// D=64; as 3xTF32 they are three times that at 495 TFLOP/s, 0.52 ms (the
-// bytes: 0.3 GB, 0.09 ms); in bf16 0.087 ms at 989 TFLOP/s.  This version
-// computes seven products (the score and dP tiles in both kernels), and in
-// float32 the instruction issue bounds it: each operand element costs three
-// integer and float operations to split beside its share of three mma.sync.
-// ---------------------------------------------------------------------------
-
-struct BwdStrides {            // in elements; batch, head, sequence
-  long long q[3], k[3], v[3], o[3], dout[3], dq[3], dk[3], dv[3];
-};
-
-// The two step tiles may be set with -D to time other choices.
-#ifndef REPRO_BWD_DKDV_BQ
-#define REPRO_BWD_DKDV_BQ 64
-#endif
-#ifndef REPRO_BWD_DQ_BK
-#define REPRO_BWD_DQ_BK 32
-#endif
-
-constexpr int BWD_THREADS = 128;   // four warps, 16 rows of a tile each
-constexpr int BWD_BK = 64;         // keys per dK/dV CTA
-constexpr int BWD_BQ = 64;         // query rows per dQ CTA
-constexpr int BWD_DQ_BK = REPRO_BWD_DQ_BK;   // keys a step of the dQ kernel
-
-// q rows a step of the dK/dV kernel
-template <int D>
-__host__ __device__ constexpr int dkdv_bq() {
-  return D <= 64 ? REPRO_BWD_DKDV_BQ : 32;
-}
 // padded row length of a staged [rows, D] tile: 16 more bytes
 template <typename T, int D>
 __host__ __device__ constexpr int row_ld() { return D + 16 / (int)sizeof(T); }
-
-template <typename T, int D>
-constexpr size_t dkdv_smem_bytes() {
-  // K, V; Q and dO twice; lse and Delta twice
-  return (size_t)(2 * BWD_BK + 4 * dkdv_bq<D>()) * row_ld<T, D>() * sizeof(T)
-         + 4 * dkdv_bq<D>() * sizeof(float);
-}
-
-template <typename T, int D>
-constexpr size_t dq_smem_bytes() {
-  // Q, dO; K and V twice
-  return (size_t)(2 * BWD_BQ + 4 * BWD_DQ_BK) * row_ld<T, D>() * sizeof(T);
-}
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -420,7 +130,7 @@ template <typename T, int D, int R>
 __device__ __forceinline__ void stage_rows(T* dst, const T* src,
                                            long long stride, int lo, int S) {
   constexpr int E = 16 / (int)sizeof(T), CPR = D / E, LD = row_ld<T, D>();
-  for (int c = threadIdx.x; c < R * CPR; c += BWD_THREADS) {
+  for (int c = threadIdx.x; c < R * CPR; c += TC_THREADS) {
     const int r = c / CPR, col = (c % CPR) * E, row = lo + r;
     const bool in = row < S;
     cp_async16(dst + r * LD + col, in ? src + row * stride + col : src, in);
@@ -431,7 +141,7 @@ __device__ __forceinline__ void stage_rows(T* dst, const T* src,
 template <int R>
 __device__ __forceinline__ void stage_vec(float* dst, const float* src,
                                           int lo, int S) {
-  for (int r = threadIdx.x; r < R; r += BWD_THREADS) {
+  for (int r = threadIdx.x; r < R; r += TC_THREADS) {
     const bool in = lo + r < S;
     cp_async4(dst + r, in ? src + lo + r : src, in);
   }
@@ -571,6 +281,20 @@ struct Tc<__nv_bfloat16> {
     const T* p = s + (k + 2 * t) * ld + n + g;
     return {{pack(p[0], p[ld]), pack(p[8 * ld], p[9 * ld])}};
   }
+  // load_b_kn of columns n.. (b0) and n + 8.. (b1) with one ldmatrix
+  // .x4.trans: lane L gives the address of row k + L % 8 (+ 8 for the odd
+  // matrices), column n (+ 8 for matrices 2 and 3); every row starts on
+  // 16 bytes
+  static __device__ __forceinline__ void load_b_kn2(const T* s, int ld,
+                                                    int k, int n, int lane,
+                                                    B& b0, B& b1) {
+    const T* p = s + (k + lane % 8 + (lane & 8)) * ld + n + (lane & 16) / 2;
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+        "{%0,%1,%2,%3}, [%4];\n"
+        : "=r"(b0.r[0]), "=r"(b0.r[1]), "=r"(b1.r[0]), "=r"(b1.r[1])
+        : "r"(smem_addr(p)));
+  }
   // k step i is accumulator tiles 2i and 2i + 1
   template <int N>
   static __device__ __forceinline__ A a_from_acc(const float (&c)[N][4],
@@ -648,6 +372,355 @@ __device__ __forceinline__ bool visible(int qpos, int kpos, int S,
   return keep;
 }
 
+
+// ---------------------------------------------------------------------------
+// Forward (design in the header above).
+// ---------------------------------------------------------------------------
+
+// The KV tile at D <= 64 may be set with -D to time other choices
+// (kernel_timing.py flash-forward).
+#ifndef REPRO_FWD_BK
+#define REPRO_FWD_BK 64
+#endif
+
+constexpr int FWD_BQ = 64;     // query rows per CTA
+
+// keys a KV tile
+template <int D>
+__host__ __device__ constexpr int fwd_bk() {
+  return D <= 64 ? REPRO_FWD_BK : 32;
+}
+
+// Q's A fragments held in registers across the KV loop
+template <typename T, int D>
+__host__ __device__ constexpr bool fwd_q_regs() {
+  return sizeof(T) == 2 || D <= 64;
+}
+
+template <typename T, int D>
+constexpr size_t fwd_smem_bytes() {
+  // Q; K and V twice
+  return (size_t)(FWD_BQ + 4 * fwd_bk<D>()) * row_ld<T, D>() * sizeof(T);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(TC_THREADS)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int H, int KV, int S, int window,
+                 float cap, float scale, Strides st) {
+  using O = Tc<T>;
+  constexpr int BQ = FWD_BQ, BK = fwd_bk<D>(), LD = row_ld<T, D>();
+  constexpr int NK = BK / 8, ND = D / 8, NS = D / O::KS;
+  constexpr bool QREG = fwd_q_regs<T, D>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);   // [BQ][LD]
+  T* Ks = Qs + BQ * LD;                     // [2][BK][LD]
+  T* Vs = Ks + 2 * BK * LD;                 // [2][BK][LD]
+
+  const int nq = (S + BQ - 1) / BQ;
+  const int nb = gridDim.x / (nq * H);                       // batch size
+  const int q_lo = (nq - 1 - (int)(blockIdx.x / (H * nb))) * BQ;
+  const int h = blockIdx.x % H, b = (blockIdx.x / H) % nb;
+  const int kvh = h / (H / KV);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4, m = 16 * warp;
+
+  const T* kb = k + b * st.k[0] + kvh * st.k[1];
+  const T* vb = v + b * st.v[0] + kvh * st.v[1];
+  // live KV tiles: from the one holding the first key that row q_lo may
+  // see (q_lo - window + 1) to the one holding the last row's own key
+  const int q_hi = min(q_lo + BQ - 1, S - 1);
+  const int j_lo = window ? max(0, q_lo - window + 1) / BK : 0;
+  const int j_hi = q_hi / BK;
+  auto stage = [&](int jt) {
+    const int buf = (jt - j_lo) & 1;
+    stage_rows<T, D, BK>(Ks + buf * BK * LD, kb, st.k[2], jt * BK, S);
+    stage_rows<T, D, BK>(Vs + buf * BK * LD, vb, st.v[2], jt * BK, S);
+  };
+  stage_rows<T, D, BQ>(Qs, q + b * st.q[0] + h * st.q[1], st.q[2], q_lo, S);
+  stage(j_lo);
+  cp_async_commit();
+
+  // this thread's rows g and g + 8 of the warp's 16: running max and sum
+  float m_r[2] = {NEG, NEG}, l_r[2] = {0.f, 0.f};
+  float acc[ND][4];
+  zero(acc);
+  typename O::A qf[QREG ? NS : 1];
+
+  for (int jt = j_lo; jt <= j_hi; ++jt) {
+    if (jt < j_hi) stage(jt + 1);
+    cp_async_commit();
+    cp_async_wait_one();   // this step's tiles (and Q) have landed
+    __syncthreads();
+    const int buf = (jt - j_lo) & 1, k_lo = jt * BK;
+    const T* Kb = Ks + buf * BK * LD;
+    const T* Vb = Vs + buf * BK * LD;
+    if constexpr (QREG) {
+      if (jt == j_lo) {
+#pragma unroll
+        for (int i = 0; i < NS; ++i)
+          qf[i] = O::load_a(Qs, LD, m, i * O::KS, g, t);
+      }
+    }
+
+    float s[NK][4];                                  // S = Q K^T
+    zero(s);
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      typename O::A a;
+      if constexpr (QREG) a = qf[i];
+      else a = O::load_a(Qs, LD, m, i * O::KS, g, t);
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+        O::mma(s[j], a, O::load_b_nk(Kb, LD, 8 * j, i * O::KS, g, t));
+    }
+
+    // scale, cap, mask (only where the warp's 16 rows do not see the whole
+    // tile); the tile's row max over the quad
+    const bool seen = k_lo + BK - 1 <= q_lo + m
+                      && (!window || q_lo + m + 15 - k_lo < window);
+    float mx[2] = {NEG, NEG};
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        float x = s[j][e] * scale;
+        if (cap != 0.f) x = cap * tanhf(x / cap);
+        if (!seen) {
+          const int qpos = q_lo + m + g + 8 * r;
+          const int kpos = k_lo + 8 * j + 2 * t + (e & 1);
+          bool keep = qpos >= kpos;
+          if (window) keep = keep && (qpos - kpos) < window;
+          x = keep ? x : NEG;
+        }
+        s[j][e] = x;
+        mx[r] = fmaxf(mx[r], x);
+      }
+    float corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_r[r], mx[r]);
+      corr[r] = expf(m_r[r] - m_new);
+      m_r[r] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = expf(s[j][e] - m_r[e >> 1]);
+        sum[e >> 1] += s[j][e];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+      l_r[r] = l_r[r] * corr[r] + sum[r];
+    }
+
+    // O = O * corr + P V, the tile's P V summed apart
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] *= corr[e >> 1];
+    float part[ND][4];
+    zero(part);
+#pragma unroll
+    for (int i = 0; i < BK; i += O::KS) {
+      const typename O::A a = O::a_from_acc(s, i / O::KS);
+      if constexpr (sizeof(T) == 2) {       // two n-tiles an ldmatrix
+#pragma unroll
+        for (int j = 0; j < ND; j += 2) {
+          typename O::B b0, b1;
+          O::load_b_kn2(Vb, LD, i, 8 * j, lane, b0, b1);
+          O::mma(part[j], a, b0);
+          O::mma(part[j + 1], a, b1);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < ND; ++j)
+          O::mma(part[j], a, O::load_b_kn(Vb, LD, i, 8 * j, g, t));
+      }
+    }
+    add_to(acc, part);
+    __syncthreads();   // every warp is done with this buffer: it refills
+  }
+
+  T* ob = o + b * st.o[0] + h * st.o[1];
+  float l[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l_r[r] == 0.f ? 1.f : l_r[r];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = q_lo + m + g + (e & 2 ? 8 : 0);
+      if (row < S)
+        store(&ob[row * st.o[2] + 8 * j + 2 * t + (e & 1)],
+              acc[j][e] / l[e >> 1]);
+    }
+  if (lse != nullptr && t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q_lo + m + g + 8 * r;
+      if (row < S)
+        lse[((long long)b * H + h) * S + row] = m_r[r] + logf(l[r]);
+    }
+  }
+}
+
+template <typename T, int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   float* lse, int B, int H, int KV, int S, int window,
+                   float cap, const Strides& st, cudaStream_t stream) {
+  const size_t bytes = fwd_smem_bytes<T, D>();
+  auto kernel = flash_fwd_kernel<T, D>;
+  // above 48 KB of shared memory a launch is refused unless allowed more
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  const float scale = (float)(1.0 / sqrt((double)D));
+  const unsigned ctas = (S + FWD_BQ - 1) / FWD_BQ * H * B;
+  kernel<<<ctas, TC_THREADS, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), lse, H, KV, S, window,
+      cap, scale, st);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
+                     void* o, float* lse, int B, int H, int KV, int S,
+                     int window, float cap, const Strides& st,
+                     cudaStream_t stream) {
+  switch (D) {
+    case 32:
+      return launch<T, 32>(q, k, v, o, lse, B, H, KV, S, window, cap, st,
+                           stream);
+    case 64:
+      return launch<T, 64>(q, k, v, o, lse, B, H, KV, S, window, cap, st,
+                           stream);
+    case 128:
+      return launch<T, 128>(q, k, v, o, lse, B, H, KV, S, window, cap, st,
+                            stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+
+// ---------------------------------------------------------------------------
+// Backward.  Replaces what the reference leaves to XLA: jax.grad of the
+// model's chunked_attention (src/repro/models/attention.py:38); the Pallas
+// kernel has no backward.  FA2-style: the probabilities are recomputed from
+// the forward's log-sum-exp, P = exp(x - lse) with masked entries exactly 0:
+//   Delta_i = rowsum(dO o O),  dV = P^T dO,  dP = dO V^T,
+//   dS = P o (dP - Delta),  with a soft-cap dS *= 1 - tanh^2(s_raw / cap),
+//   dQ = dS K * scale,  dK = dS^T Q * scale.
+//
+// The products run on the tensor cores with mma.sync, accumulating in
+// float32:
+//   * float32 inputs as 3xTF32: each operand is split a = a_hi + a_lo with
+//     a_hi = rna_tf32(a), a_lo = a - a_hi (passed as it is: the tensor
+//     core reads its top 19 bits), and a.b ~ a_hi.b_lo + a_lo.b_hi +
+//     a_hi.b_hi on m16n8k8 TF32 (the register-resident P and dS are split
+//     the same way); rna_tf32 is cvt.rna.tf32.f32's rounding written as two
+//     integer operations.  Rounding a_lo as well adds two integer
+//     operations an element and gains no accuracy: 3.41-3.43 ms against
+//     3.06-3.07 ms at the training shape below, 3.4e-6 of max |grad| either
+//     way (kernel_timing.py flash-backward; H100 80GB HBM3, 700 W).  One
+//     TF32 product keeps a 10-bit mantissa, 50x outside the float32
+//     tolerance the port holds the gradients to (1e-5 of max |grad|); the
+//     three keep about float32's accuracy.  TF32 stays off for every
+//     other product of the port (device.py); nothing here reads that
+//     switch.
+//   * bfloat16 inputs on m16n8k16 bf16; P and dS are rounded to bf16 as
+//     A operands, as FA2 does.
+// Each step's products are summed in an accumulator of their own and added
+// to the running dK, dV or dQ in float32 (add_to): a chain of thousands of
+// mma.sync on one accumulator is not a float32 sum.
+// mma.sync and not wgmma: wgmma takes TF32 operands only K-major, and three
+// of the five products (dV = P^T dO, dK = dS^T Q, dQ = dS K) read an [S, D]
+// operand along S, so dO, Q and K would each need a transposed copy in
+// shared memory.  mma.sync fragments are gathered per thread, so either
+// layout is read as it lies.  The wgmma + TMA + warp-specialised version is
+// the next redesign (ROADMAP.md).
+//
+// Three kernels, no float atomics (two runs give the same bits, and remat's
+// recomputation sees the same numbers):
+//   * Delta, one warp a row;
+//   * dK and dV: one CTA of four warps per (64-key tile, KV head, batch);
+//     each warp owns 16 keys and computes S^T = K Q^T and dP^T = V dO^T in
+//     registers, so P^T and dS^T are the A operands of dV and dK straight
+//     from the accumulators (for TF32 the k index is permuted to match the
+//     accumulator layout, and the B operand is read with the same
+//     permutation).  The CTA loops over the group's H / KV query heads and
+//     the q tiles that see its keys, so the GQA sum stays in registers;
+//   * dQ: one CTA of four warps per (64-row q tile, head, batch), each warp
+//     16 rows, over the KV tiles the forward visits.
+// Both grids are linear with the tile index slowest, so the CTAs with the
+// most steps (key tile 0, the last q tile) start first for every head and
+// batch.  The streamed tiles (Q, dO, lse and Delta in the dK/dV kernel; K
+// and V in the dQ kernel) are double-buffered with cp.async, so step it+1
+// loads while step it computes.  Shared rows are padded by 16 bytes (4
+// floats, 8 bf16): every fragment load, along a row (a row g, column t
+// pattern) or across rows (rows 2t and 2t+1, column g), then touches 32
+// distinct banks.
+// Tiles, chosen by timing 64 and 32 for each kernel at B=8, H=32, KV=4,
+// S=1024, D=64, float32, on the same card (kernel_timing.py
+// flash-backward, -D REPRO_BWD_DKDV_BQ=32 or -D REPRO_BWD_DQ_BK=64): dK/dV
+// 64 keys x 64 q rows a step (105 KB of shared memory in float32, two CTAs
+// an SM; 32 q rows: 3.19 ms), dQ 64 q rows x 32 keys a step (70 KB, three
+// CTAs an SM; 64 keys: 3.31 ms); for D = 128 the dK/dV step takes 32 q
+// rows.
+//
+// What bounds it: operations.  The five causal products (QK^T, dV, dP, dQ,
+// dK) are 5 * 2*B*H*S^2*D/2 = 8.6e10 operations at B=8, H=32, S=1024,
+// D=64; as 3xTF32 they are three times that at 495 TFLOP/s, 0.52 ms (the
+// bytes: 0.3 GB, 0.09 ms); in bf16 0.087 ms at 989 TFLOP/s.  This version
+// computes seven products (the score and dP tiles in both kernels), and in
+// float32 the instruction issue bounds it: each operand element costs three
+// integer and float operations to split beside its share of three mma.sync.
+// ---------------------------------------------------------------------------
+
+struct BwdStrides {            // in elements; batch, head, sequence
+  long long q[3], k[3], v[3], o[3], dout[3], dq[3], dk[3], dv[3];
+};
+
+// The two step tiles may be set with -D to time other choices.
+#ifndef REPRO_BWD_DKDV_BQ
+#define REPRO_BWD_DKDV_BQ 64
+#endif
+#ifndef REPRO_BWD_DQ_BK
+#define REPRO_BWD_DQ_BK 32
+#endif
+
+constexpr int BWD_BK = 64;         // keys per dK/dV CTA
+constexpr int BWD_BQ = 64;         // query rows per dQ CTA
+constexpr int BWD_DQ_BK = REPRO_BWD_DQ_BK;   // keys a step of the dQ kernel
+
+// q rows a step of the dK/dV kernel
+template <int D>
+__host__ __device__ constexpr int dkdv_bq() {
+  return D <= 64 ? REPRO_BWD_DKDV_BQ : 32;
+}
+
+template <typename T, int D>
+constexpr size_t dkdv_smem_bytes() {
+  // K, V; Q and dO twice; lse and Delta twice
+  return (size_t)(2 * BWD_BK + 4 * dkdv_bq<D>()) * row_ld<T, D>() * sizeof(T)
+         + 4 * dkdv_bq<D>() * sizeof(float);
+}
+
+template <typename T, int D>
+constexpr size_t dq_smem_bytes() {
+  // Q, dO; K and V twice
+  return (size_t)(2 * BWD_BQ + 4 * BWD_DQ_BK) * row_ld<T, D>() * sizeof(T);
+}
+
 // From the raw score s and dP: s becomes P (0 where masked), dp becomes dS.
 __device__ __forceinline__ void p_and_ds(float& s, float& dp, float lse,
                                          float dl, bool keep, float cap,
@@ -687,7 +760,7 @@ flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
 // dK and dV of one 64-key tile of one KV head, summed over the group's
 // heads.  Warp w owns keys 16w..16w+15 of the tile.
 template <typename T, int D>
-__global__ void __launch_bounds__(BWD_THREADS)
+__global__ void __launch_bounds__(TC_THREADS)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dout,
                       const float* __restrict__ lse,
@@ -799,7 +872,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // dQ of one 64-row q tile of one head, over the KV tiles the forward
 // visits.  Warp w owns rows 16w..16w+15 of the tile.
 template <typename T, int D>
-__global__ void __launch_bounds__(BWD_THREADS)
+__global__ void __launch_bounds__(TC_THREADS)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
@@ -924,14 +997,14 @@ cudaError_t launch_backward(const void* q, const void* k, const void* v,
   const float scale = (float)(1.0 / sqrt((double)D));
   const unsigned kv_ctas = (S + BWD_BK - 1) / BWD_BK * KV * B;
   const unsigned q_ctas = (S + BWD_BQ - 1) / BWD_BQ * H * B;
-  dkdv<<<kv_ctas, BWD_THREADS, kv_bytes, stream>>>(
+  dkdv<<<kv_ctas, TC_THREADS, kv_bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
       static_cast<T*>(dk), static_cast<T*>(dv), H, KV, S, window, cap, scale,
       st);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dqk<<<q_ctas, BWD_THREADS, q_bytes, stream>>>(
+  dqk<<<q_ctas, TC_THREADS, q_bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
       static_cast<T*>(dq), H, KV, S, window, cap, scale, st);

@@ -86,10 +86,26 @@ def _strides(*tensors):
         *(t.stride(i) for t in tensors for i in range(3)))
 
 
+def _rows_aligned(t):
+    """t if each of its [B, H, S] rows starts on 16 bytes (the forward
+    stages q, k and v, the backward also dout, with 16-byte asynchronous
+    copies), else a contiguous copy, whose rows do.  A view whose head
+    dimension is strided is returned as it is, for ``_strides`` to
+    reject."""
+    size = t.element_size()
+    if t.stride(-1) != 1:
+        return t
+    if t.data_ptr() % 16 == 0 and all(
+            t.stride(i) * size % 16 == 0 for i in range(3) if t.shape[i] > 1):
+        return t
+    return t.contiguous()
+
+
 def _launch(q, k, v, out, window, cap, lse=None) -> None:
     """The forward kernel on [B, H, S, D] views of any batch/head/sequence
     strides; writes ``out`` (q's shape and type) and, if given, ``lse``
     (float32 [B, H, S], contiguous)."""
+    q, k, v = map(_rows_aligned, (q, k, v))
     strides = _strides(q, k, v, out)
     B, H, S, D = q.shape
     with torch.cuda.device(q.device):
@@ -101,17 +117,6 @@ def _launch(q, k, v, out, window, cap, lse=None) -> None:
             ctypes.addressof(strides), stream)
     LIBRARY.check("flash_attention", rc)
     launches["flash_attention"] += 1
-
-
-def _rows_aligned(t):
-    """t if each of its [B, H, S] rows starts on 16 bytes (the backward
-    stages q, k, v and dout with 16-byte asynchronous copies), else a
-    contiguous copy, whose rows do."""
-    size = t.element_size()
-    if t.data_ptr() % 16 == 0 and all(
-            t.stride(i) * size % 16 == 0 for i in range(3) if t.shape[i] > 1):
-        return t
-    return t.contiguous()
 
 
 def _launch_backward(q, k, v, out, dout, lse, dq, dk, dv, window,

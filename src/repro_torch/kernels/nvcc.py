@@ -3,10 +3,11 @@ a shared library with a plain C interface, loaded with ``ctypes``.
 
 No PyTorch headers are involved, so a build takes seconds.  The library
 lands in ``_build/`` beside its family's package (listed in
-``.gitignore``), named by a hash of the source and the flags; it is built at
-first use only, and a process that finds it built loads it as it is.  Every
-C entry point takes pointers and the stream as ``void*``, returns
-``cudaGetLastError()``, and each library exports ``repro_error_string``.
+``.gitignore``), named by a hash of the source, the headers it includes
+and the flags; it is built at first use only, and a process that finds it
+built loads it as it is.  Every C entry point takes pointers and the
+stream as ``void*``, returns ``cudaGetLastError()``, and each library
+exports ``repro_error_string``.
 """
 from __future__ import annotations
 
@@ -40,20 +41,22 @@ def nvcc() -> str:
 
 
 class CudaLibrary:
-    """One kernel library: ``source`` (a ``.cu`` file under ``csrc/``),
-    extra nvcc ``flags``, and the C ``signatures`` (name -> argtypes, every
-    entry point returning int)."""
+    """One kernel library: ``source`` (a ``.cu`` file under ``csrc/``), the
+    ``headers`` it includes from the repo, extra nvcc ``flags``, and the C
+    ``signatures`` (name -> argtypes, every entry point returning int)."""
 
-    def __init__(self, source: Path, flags=(), signatures=None):
+    def __init__(self, source: Path, flags=(), signatures=None, headers=()):
         self.source = Path(source)
+        self.headers = tuple(Path(h) for h in headers)
         self.flags = BASE_FLAGS + tuple(flags)
         self.signatures = dict(signatures or {})
         self.build_dir = self.source.parent.parent / "_build"
         self._lib = None
 
     def path(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes()
-                                + " ".join(self.flags).encode()).hexdigest()
+        text = b"".join(p.read_bytes() for p in (self.source, *self.headers))
+        digest = hashlib.sha256(text + " ".join(self.flags).encode()
+                                ).hexdigest()
         return self.build_dir / f"lib{self.source.stem}_{digest[:16]}.so"
 
     def build(self) -> Path:

@@ -107,6 +107,62 @@ def test_edge_blocks_bit_identical(s, dtype):
         assert int(lv.max()) == 127 and int(lv.min()) == -128
 
 
+# keyed encode: R, C, block_rows, s (C not a multiple of 4 takes the
+# kernel's scalar path on the card; the Pallas kernel needs C % 128 == 0)
+KEYED_SHAPES = SHAPES + [(300, 1000, 300, 127), (24, 77, 3, 255),
+                         (6, 5, 6, 2047)]
+
+
+def _port_key(key):
+    return convert.key_from_reference(jax.random.key_data(key), "cpu")
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("R,C,br,s", KEYED_SHAPES)
+def test_encode_keyed_bit_identical(R, C, br, s, dtype):
+    """dither_encode_keyed draws uniform(key, x.shape) itself: the
+    reference's plain encode on jax.random.uniform(key, shape), bit for
+    bit; the Pallas kernel (interpret mode) on the same uniforms: levels
+    bit for bit, scales within its rtol 1e-6."""
+    jdtype, tdtype = DTYPES[dtype]
+    x = _inputs(R, C, R * C)[0]
+    key = jax.random.fold_in(jax.random.key(R + C), s)
+    lv, sc = ops.dither_encode_keyed(torch.as_tensor(x).to(tdtype),
+                                     _port_key(key), s=s, block_rows=br)
+    u = jax.random.uniform(key, (R, C), jnp.float32)
+    want_lv, want_sc = dither_encode_ref(jnp.asarray(x, jdtype), u, s, br)
+    _same(lv, want_lv)
+    _same(sc, want_sc)
+    if C % 128 == 0:
+        k_lv, k_sc = pallas_encode(jnp.asarray(x, jdtype), u, s=s,
+                                   block_rows=br, interpret=True)
+        _same(lv, k_lv)
+        np.testing.assert_allclose(sc.numpy(), np.asarray(k_sc), rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("s", [15, 127, 255])
+def test_encode_keyed_edge_blocks_bit_identical(s, dtype):
+    """Zero, -0, ±inf and NaN blocks, and s > 127, through the keyed
+    entry, against the reference's plain encode on jax's uniforms."""
+    jdtype, tdtype = DTYPES[dtype]
+    inf, nan = np.inf, np.nan
+    x = np.array([[0.0] * 4, [-0.0] * 4,
+                  [1.0, inf, 3.0, -2.0], [0.5, -inf, 0.0, 7.0],
+                  [1.0, nan, 3.0, -2.0], [-0.0, 0.5, 2.0, 1.0],
+                  [4.0, -4.0, 3.9, -3.9], [1e-3, 2e-3, -4.0, 0.25]],
+                 np.float32)
+    key = jax.random.key(s)
+    lv, sc = ops.dither_encode_keyed(torch.as_tensor(x).to(tdtype),
+                                     _port_key(key), s=s, block_rows=2)
+    want_lv, want_sc = dither_encode_ref(
+        jnp.asarray(x, jdtype), jax.random.uniform(key, x.shape), s, 2)
+    _same(lv, want_lv)
+    _same(sc, want_sc)
+    if s == 255:
+        assert int(lv.max()) == 127 and int(lv.min()) == -128
+
+
 @pytest.mark.parametrize("shape", [(1000,), (33, 77), (4, 5, 6), (128, 512)])
 def test_quantize_bit_identical(shape):
     x = np.random.default_rng(1).normal(size=shape).astype(np.float32)
@@ -149,9 +205,20 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     lv, sc = ops.dither_encode(x, torch.zeros_like(x), block_rows=8)
     with pytest.raises(ValueError, match="scale"):
         ops.dither_decode(lv, torch.ones(2), block_rows=8)
+    key = random.key(0, "cpu")
+    with pytest.raises(ValueError, match="key"):
+        ops.dither_encode_keyed(x, key.int(), block_rows=8)
+    with pytest.raises(ValueError, match="key"):
+        ops.dither_encode_keyed(x, key[None], block_rows=8)
+    with pytest.raises(TypeError):
+        ops.dither_encode_keyed(x.double(), key, block_rows=8)
+    with pytest.raises(ValueError, match="multiple"):
+        ops.dither_encode_keyed(x, key, block_rows=3)
     ops.reset_launches()
     ops.dither_decode(lv, sc, block_rows=8)
-    assert ops.launches == {"dither_encode": 0, "dither_decode": 0}
+    ops.dither_encode_keyed(x, key, block_rows=8)
+    assert ops.launches == {"dither_encode": 0, "dither_encode_keyed": 0,
+                            "dither_decode": 0}
 
 
 @pytest.mark.parametrize("s", [1, 15, 127, 255, 4000])

@@ -290,6 +290,68 @@ def test_3xtf32_backward_plan_within_float32_tolerance(B, H, KV, S, D,
     assert err3 < err1
 
 
+def _forward_by_tiles(q, k, v, window, cap, mm, bk=64):
+    """The forward kernel's arithmetic in the kernel layout: for each KV
+    tile of ``bk`` keys, S = mm(Q, K^T) scaled, capped and masked (NEG),
+    the online softmax (running max m and sum l, corr = exp(m - m_new)),
+    and O = O * corr + mm(P, V), each tile's P V summed apart and added in
+    float32; O / l at the end (l == 0 -> 1).  Tiles the kernel skips (all
+    masked for a q tile) change nothing here: their p is 0 after a real
+    score, and corr = 0 wipes them before one."""
+    B, H, S, D = q.shape
+    G = H // k.shape[1]
+    scale = float(np.float32(1.0 / np.sqrt(D)))
+    kk, vv = (t.repeat_interleave(G, dim=1) for t in (k, v))
+    pos = torch.arange(S)
+    m = torch.full((B, H, S, 1), ref.NEG)
+    l = torch.zeros((B, H, S, 1))
+    acc = torch.zeros((B, H, S, D))
+    for lo in range(0, S, bk):
+        hi = min(S, lo + bk)
+        x = mm(q, kk[:, :, lo:hi].transpose(-1, -2)) * scale
+        if cap:
+            x = cap * torch.tanh(x / cap)
+        keep = pos[:, None] >= pos[None, lo:hi]
+        if window:
+            keep &= (pos[:, None] - pos[None, lo:hi]) < window
+        x = torch.where(keep, x, ref.NEG)
+        m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(x - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + mm(p, vv[:, :, lo:hi])
+        m = m_new
+    return acc / torch.where(l == 0, 1.0, l)
+
+
+@pytest.mark.parametrize("B,H,KV,S,D,window,cap", SHAPES + [
+    (1, 4, 2, 200, 64, 0, 0.0), (2, 4, 1, 200, 32, 70, 20.0)])
+def test_3xtf32_forward_plan_within_float32_tolerance(B, H, KV, S, D, window,
+                                                      cap):
+    """The forward kernel computes float32 products as 3xTF32 on the
+    tensor cores (S = Q K^T and each tile's P V).  Emulated here, its
+    output stays within the float32 tolerance (rtol = atol = 2e-5) of the
+    plain version and, where S % 128 == 0, of the Pallas kernel in
+    interpret mode; one TF32 product each falls outside it (its error is
+    printed for the record)."""
+    arrays = _inputs(B, H, KV, S, D, seed=10)
+    q, k, v = _port(arrays, torch.float32)
+    want = ref.attention_ref(q, k, v, window, cap)
+    three = _forward_by_tiles(q, k, v, window, cap, _mm_3xtf32)
+    one = _forward_by_tiles(q, k, v, window, cap, _mm_tf32)
+    err3 = float((three - want).abs().max())
+    err1 = float((one - want).abs().max())
+    print(f"3xTF32 forward at {(B, H, KV, S, D, window, cap)}: max |Δ| "
+          f"{err3:.3e}; one TF32 product: {err1:.3e}")
+    _close(three, want.numpy(), 2e-5)
+    if S % 128 == 0:
+        pallas = pallas_flash(*_jax(arrays, jnp.float32), window=window,
+                              cap=cap, block_q=64, block_k=64,
+                              interpret=True)
+        _close(three, pallas, 2e-5)
+    assert not torch.allclose(one, want, rtol=2e-5, atol=2e-5)
+
+
 def test_backward_copies_rows_that_are_not_16_byte_aligned():
     """The backward stages q, k, v and dout with 16-byte copies: a view
     whose rows do not start on 16 bytes is copied, an aligned one (the

@@ -222,6 +222,37 @@ def test_flash_attention_matches_plain_version(cuda, B, H, KV, S, D, window,
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("B,H,KV,S,D,window,cap", FLASH_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_forward_is_deterministic_with_lse(
+        cuda, B, H, KV, S, D, window, cap, dtype):
+    """No float atomics: two forward runs give the same bits, the output
+    and the log-sum-exp; the log-sum-exp equals the plain version's
+    logsumexp of the scaled, capped, masked scores (float32 tolerance, the
+    scores of bf16 inputs being exact products summed in float32)."""
+    g = np.random.default_rng(S + D + 3)
+    q, k, v = (torch.as_tensor(g.normal(size=s).astype(np.float32)).to(
+        cuda, dtype) for s in ((B, H, S, D), (B, KV, S, D), (B, KV, S, D)))
+    runs = []
+    for _ in range(2):
+        out = torch.empty_like(q)
+        lse = torch.empty((B, H, S), dtype=torch.float32, device=cuda)
+        fa_ops._launch(q, k, v, out, window, cap, lse)
+        runs.append((out, lse))
+    for a, b in zip(*runs):
+        _same_exact(a, b)
+    qf, kf = q.float(), k.float().repeat_interleave(H // KV, dim=1)
+    s = qf @ kf.transpose(-1, -2) / float(np.sqrt(D))
+    if cap:
+        s = cap * torch.tanh(s / cap)
+    pos = torch.arange(S, device=cuda)
+    mask = pos[:, None] >= pos[None, :]
+    if window:
+        mask &= (pos[:, None] - pos[None, :]) < window
+    want = torch.logsumexp(torch.where(mask, s, fa_ref.NEG), dim=-1)
+    torch.testing.assert_close(runs[0][1], want, rtol=2e-5, atol=2e-5)
+
+
 def test_flash_attention_model_layout_strides(cuda):
     """ops.attention reads and writes [B, S, H, D] through strides."""
     g = np.random.default_rng(5)
@@ -283,7 +314,8 @@ def test_dither_codec_bit_identical(cuda, R, C, br, s, dtype):
     d_ops.reset_launches()
     lv, sc = d_ops.dither_encode(x.to(cuda), u.to(cuda), s=s, block_rows=br)
     out = d_ops.dither_decode(lv, sc, block_rows=br)
-    assert d_ops.launches == {"dither_encode": 1, "dither_decode": 1}
+    assert d_ops.launches == {"dither_encode": 1, "dither_encode_keyed": 0,
+                              "dither_decode": 1}
     want_lv, want_sc = d_ref.dither_encode_ref(x, u, s, br)
     _same_exact(lv, want_lv)
     _same_exact(sc, want_sc)
@@ -328,11 +360,78 @@ def test_dither_inputs_checked(cuda):
         d_ops.dither_encode(x.double(), torch.zeros_like(x), block_rows=8)
     with pytest.raises(ValueError):
         d_ops.dither_encode(x.T, torch.zeros_like(x.T), block_rows=1)
+    with pytest.raises(ValueError, match="key"):
+        d_ops.dither_encode_keyed(x, random.key(0, "cpu"), block_rows=8)
     lv, sc = d_ops.dither_encode(x, torch.zeros_like(x), block_rows=8)
     with pytest.raises(ValueError, match="aligned"):
         d_ops.dither_decode(lv.reshape(-1)[1:17].reshape(1, 16), sc,
                             block_rows=1)
     torch.cuda.synchronize()
+
+
+def _keyed_against_plain(cuda, x, s, br, seed):
+    """The keyed encode on the card against its plain version on the CPU
+    (uniform(key, x.shape), then the plain encode), and against the
+    u-taking kernel fed the same uniforms drawn on the card: bit for bit."""
+    key = random.fold_in(random.key(seed, "cpu"), 3)
+    d_ops.reset_launches()
+    lv, sc = d_ops.dither_encode_keyed(x.to(cuda), key.to(cuda), s=s,
+                                       block_rows=br)
+    assert d_ops.launches == {"dither_encode": 0, "dither_encode_keyed": 1,
+                              "dither_decode": 0}
+    want_lv, want_sc = d_ref.dither_encode_keyed_ref(x, key, s, br)
+    _same_exact(lv, want_lv)
+    _same_exact(sc, want_sc)
+    u = random.uniform(key.to(cuda), tuple(x.shape))
+    u_lv, u_sc = d_ops.dither_encode(x.to(cuda), u, s=s, block_rows=br)
+    _same_exact(lv, u_lv)
+    _same_exact(sc, u_sc)
+
+
+@pytest.mark.parametrize("R,C,br,s", DITHER_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dither_encode_keyed_bit_identical(cuda, R, C, br, s, dtype):
+    g = np.random.default_rng(R * C)
+    x = torch.as_tensor((g.normal(size=(R, C)) * 10).astype(np.float32)).to(
+        dtype)
+    _keyed_against_plain(cuda, x, s, br, R + C)
+
+
+@pytest.mark.parametrize("R,C", [(64, 2048), (1, 4099), (513, 77),
+                                 (3, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dither_encode_keyed_one_block_leaves(cuda, R, C, dtype):
+    """A whole tensor as one block (the trainer's leaves), including
+    lengths that are not a multiple of 4 (the scalar path)."""
+    g = np.random.default_rng(R + 7 * C)
+    x = torch.as_tensor((g.normal(size=(R, C)) * 1e-3).astype(
+        np.float32)).to(dtype)
+    _keyed_against_plain(cuda, x, 127, R, C)
+
+
+@pytest.mark.parametrize("s", [15, 127, 255])
+def test_dither_encode_keyed_edge_rows(cuda, s):
+    """Zero, ±inf and NaN blocks, and s = 255, through the keyed entry."""
+    inf, nan = float("inf"), float("nan")
+    x = torch.tensor([[0.0] * 4, [-0.0] * 4,
+                      [1.0, inf, 3.0, -2.0], [0.5, -inf, 0.0, 7.0],
+                      [1.0, nan, 3.0, -2.0], [-0.0, 0.5, 2.0, 1.0],
+                      [4.0, -4.0, 3.9, -3.9], [1e-3, 2e-3, -4.0, 0.25]])
+    _keyed_against_plain(cuda, x, s, 2, s)
+
+
+def test_dither_encode_keyed_unaligned_x(cuda):
+    """x whose start is not 16-byte aligned takes the scalar path."""
+    g = np.random.default_rng(12)
+    buf = torch.as_tensor(g.normal(size=64 * 128 + 1).astype(np.float32))
+    x = buf.to(cuda)[1:].view(64, 128)
+    assert x.data_ptr() % 16
+    key = random.key(9, "cpu")
+    lv, sc = d_ops.dither_encode_keyed(x, key.to(cuda), s=127,
+                                       block_rows=16)
+    want_lv, want_sc = d_ref.dither_encode_keyed_ref(x.cpu(), key, 127, 16)
+    _same_exact(lv, want_lv)
+    _same_exact(sc, want_sc)
 
 
 def _grads(fn, tensors):
@@ -439,7 +538,9 @@ def test_train_on_the_card_matches_the_cpu(cuda, flecs):
         runs[dev.type] = train_launch.train(cfg, p, batches, 3, flecs=flecs)
         if flecs:
             n = len(tree_leaves(params)) * 3 if dev.type == "cuda" else 0
-            assert d_ops.launches == {"dither_encode": n, "dither_decode": n}
+            assert d_ops.launches == {"dither_encode": 0,
+                                      "dither_encode_keyed": n,
+                                      "dither_decode": n}
     for a, b in zip(runs["cuda"]["metrics"], runs["cpu"]["metrics"]):
         assert abs(a["loss"] - b["loss"]) <= 1e-5 * abs(b["loss"])
         if flecs:

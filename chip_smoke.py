@@ -12,7 +12,11 @@ back to the CPU):
    card's name and power limit.
 2. Hold every compressor kernel on the card against its plain PyTorch
    version on a CPU copy of the same inputs, at the main path's row shapes
-   and on edge rows: the results must be bit-identical.  fused_topk also on
+   and on edge rows: the results must be bit-identical.  The keyed
+   fused_dither (row keys and uniforms drawn in the kernel) also against
+   the u-taking kernel fed ``random.uniform(random.split(key, n), (L,))``,
+   at n = 1, 20, 40, 200 rows of L = 1 ... 20,001 (every cluster size) and
+   on zero, -0 and NaN rows.  fused_topk also on
    1, 40 and 200 rows (cluster sizes 8, 2 and 1), rows whose ties straddle
    the shares of a cluster, an all-equal row, denormals, and single rows of
    300,000 and 3,000,000 elements (shares in shared memory; streamed).
@@ -27,7 +31,8 @@ back to the CPU):
    leaves ([22·2048, 5632] and [32000, 2048]) as one block, and
    ``quantize``'s layout; the keyed encode also on lengths that are not a
    multiple of 4, an x that is not 16-byte aligned, and against the
-   u-taking kernel fed ``random.uniform(key, shape)``.  Hold the
+   u-taking kernel fed ``random.uniform(key, shape)``; the decode also on
+   ragged blocks and on levels 1 and 4 bytes past an aligned address.  Hold the
    flash-attention backward (dq, dk, dv) against the plain version's
    autograd on the card: the reference's five shapes, S = 1, 200 (window
    7; cap 50), 333 and the training shape, in float32 and bfloat16,
@@ -39,7 +44,9 @@ back to the CPU):
    and in the port on the CPU.  Ledgers must be equal every round, the
    dither run's final objective within rtol 1e-4 of the CPU run, and the
    launch counters (set to 0 before each run, read after it) must show
-   that the card run went through the kernels.
+   that the card run went through the kernels: fused_dither_keyed and
+   dither_bits twice a round less the top-k rounds, the u-taking
+   fused_dither never.
 4. Gisette width (d=5000, n=20, r=300, m=4): 10 rounds with each Hessian
    compressor on the card, with exact ledgers; the dither run's objective
    against the port on this machine's CPU; round time and peak memory.
@@ -53,9 +60,12 @@ back to the CPU):
    functions; the flash-attention count, set to 0 just before, must be 22
    after the prefill; finite logits; prefill ms, decode ms per step, tokens
    per second, peak memory; then profiles of one prefill and of 4 steps.
-7. A profile of a few Algorithm 1 rounds at both sizes, then each kernel's
-   time by CUDA events beside its plain version, its bound and the library
-   call (``torch.topk``; ``scaled_dot_product_attention``, timed only); the
+7. A profile of a few Algorithm 1 rounds at both sizes (device kernels a
+   round, int64 elementwise launches a round, busy share), then each
+   kernel's time by CUDA events beside its plain version, its bound (the
+   keyed dither's from the instructions of its main loop on the busiest
+   pipe, read from the SASS of the library built) and the library call
+   (``torch.topk``; ``scaled_dot_product_attention``, timed only); the
    flash forward in float32 (bound: 3xTF32) and bfloat16.
 8. Training, tinyllama-1.1b at full width and depth 2, batch 2 x 256, on
    the card against this machine's CPU: first-step gradients per leaf
@@ -75,10 +85,10 @@ back to the CPU):
    the keyed encode); then the codec and backward kernels timed by CUDA
    events beside their plain versions, bounds (the keyed encode's from
    the instructions of its main loop on the busiest pipe, read with
-   cuobjdump from the SASS of the library built) and SDPA's backward
-   (timed only); the backward in float32 (bound: 3xTF32 on the tensor cores) and
-   bfloat16.
-10. Print the kernels line (nine kernels), then the device line as the
+   cuobjdump from the SASS of the library built), SDPA's backward and,
+   for the decode, ``torch.mul`` (both timed only); the backward in
+   float32 (bound: 3xTF32 on the tensor cores) and bfloat16.
+10. Print the kernels line (ten kernels), then the device line as the
    last line.
 """
 from __future__ import annotations
@@ -117,8 +127,10 @@ SASS_PIPES = {
     "issue": (128, None),
 }
 SOURCE = "src/repro_torch/kernels/compressor/csrc/compressor.cu"
+# the u-taking and the keyed dither both replace the Pallas dither kernel
 REPLACES = {
     "fused_dither": "src/repro/kernels/compressor/compressor.py:71",
+    "fused_dither_keyed": "src/repro/kernels/compressor/compressor.py:71",
     "fused_topk": "src/repro/kernels/compressor/compressor.py:105",
     "dither_bits": "src/repro/kernels/compressor/compressor.py:161",
     "topk_bits": "src/repro/kernels/compressor/compressor.py:165",
@@ -250,20 +262,27 @@ def loop_issue_per_element(code) -> tuple:
     return {k: v / elems for k, v in counts.items()}, elems
 
 
-def keyed_encode_clocks_per_element(lib: Path) -> tuple:
-    """SM clocks an element of the keyed encode takes at the least: its main
-    loop's instructions on each pipe (``loop_issue_per_element`` on the
-    SASS of ``encode_keyed_kernel<float, true>``) over that pipe's rate, the
-    busiest pipe.  Returns (clocks, that pipe, per-pipe counts, elements per
-    trip)."""
-    return keyed_encode_clocks_from(sass_functions(lib))
+#: Mangled-name fragments of the kernels whose bound is read from their
+#: SASS: encode_keyed_kernel<float, true> (dither library) and
+#: fused_dither_keyed_kernel (compressor library).
+KEYED_ENCODE_SASS = "encode_keyed_kernelIfLb1E"
+KEYED_DITHER_SASS = "fused_dither_keyed_kernel"
 
 
-def keyed_encode_clocks_from(funcs: dict) -> tuple:
-    """``keyed_encode_clocks_per_element`` on parsed SASS."""
-    names = [n for n in funcs if "encode_keyed_kernelIfLb1E" in n]
+def loop_clocks_per_element(lib: Path, kernel: str) -> tuple:
+    """SM clocks an element of a kernel takes at the least: its main loop's
+    instructions on each pipe (``loop_issue_per_element`` on the SASS of
+    the one kernel of the library ``lib`` whose mangled name holds
+    ``kernel``) over that pipe's rate, the busiest pipe.  Returns (clocks,
+    that pipe, per-pipe counts, elements per trip)."""
+    return loop_clocks_from(sass_functions(lib), kernel)
+
+
+def loop_clocks_from(funcs: dict, kernel: str) -> tuple:
+    """``loop_clocks_per_element`` on parsed SASS."""
+    names = [n for n in funcs if kernel in n]
     if len(names) != 1:
-        raise ValueError(f"encode_keyed_kernel<float, true>: {names}")
+        raise ValueError(f"{kernel}: {names}")
     per, elems = loop_issue_per_element(funcs[names[0]])
     clocks = {k: per[k] / SASS_PIPES[k][0] for k in per}
     pipe = max(clocks, key=clocks.get)
@@ -350,6 +369,8 @@ def phase_kernels(dev, ops, ref, random):
         want, want_bits = ref.fused_dither_ref(x, u, 64.0)
         compare("fused_dither", out, want, what)
         compare("fused_dither", bits, want_bits, what + " (bits)")
+        compare_keyed(ops, ref, random, x, random.key(len(what), "cpu"),
+                      64.0, dev, compare, what)
         for frac in (0.1, 0.5):
             out, bits = ops.fused_topk(x.to(dev), frac)
             want, want_bits = ref.fused_topk_ref(x, frac)
@@ -366,6 +387,67 @@ def phase_kernels(dev, ops, ref, random):
     log(f"phase 2: {len(cases)} row sets, every kernel bit-identical to its "
         f"plain version; max_abs_err {err}")
     return err
+
+
+def compare_keyed(ops, ref, random, x, key, s, dev, compare, what):
+    """fused_dither_keyed on the card against its plain version on the CPU
+    (``random.split``, ``random.uniform``, then the plain dither) and
+    against the u-taking kernel fed the same uniforms drawn on the card."""
+    out, bits = ops.fused_dither_keyed(x.to(dev), key.to(dev), s)
+    want, want_bits = ref.fused_dither_keyed_ref(x, key, s)
+    compare("fused_dither_keyed", out, want, what)
+    compare("fused_dither_keyed", bits, want_bits, what + " (bits)")
+    u = random.uniform(random.split(key.to(dev), x.shape[0]), (x.shape[1],))
+    check(bit_identical(out, ops.fused_dither(x.to(dev), u, s)[0]),
+          f"fused_dither_keyed differs from fused_dither on the same "
+          f"uniforms on {what}")
+
+
+#: fused_dither_keyed's cluster cases: n rows of L (n = 1, 20, 40, 200 take
+#: 8, 4, 2, 1 CTAs a row on 132 SMs where L allows it).
+DITHER_CLUSTER_N = (1, 20, 40, 200)
+DITHER_CLUSTER_L = (1, 123, 492, 5000, 20000, 20001)
+
+
+def phase_dither_cluster(dev, ops, ref, random, err):
+    """Phase 2, fused_dither_keyed at every cluster size, and on zero, ±0
+    and NaN rows, bit for bit; updates err["fused_dither_keyed"]."""
+    import numpy as np
+    import torch
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rng = np.random.default_rng(11)
+
+    def compare(name, got, want, what):
+        check(bit_identical(got, want), f"{name} differs from its plain "
+              f"version on {what}")
+        err[name] = max(err[name], max_abs_err(got, want))
+
+    sizes = set()
+    for n in DITHER_CLUSTER_N:
+        for L in DITHER_CLUSTER_L:
+            x = torch.as_tensor((rng.normal(size=(n, L)) * 10).astype(
+                np.float32))
+            x[0, :L // 2] = 0.0        # shares whose maximum is 0
+            compare_keyed(ops, ref, random, x, random.key(n * L, "cpu"),
+                          64.0, dev, compare, f"[{n},{L}]")
+            sizes.add(ops.dither_cluster(n, L, sms))
+    nan, zero = float("nan"), torch.zeros(3, 20000)
+    zero[1] = -0.0
+    zero[2, ::3] = -0.0
+    special = torch.as_tensor(rng.normal(size=(4, 20000)).astype(np.float32))
+    special[1, 7777] = nan
+    special[2, 19999] = nan
+    special[3, ::5] = -0.0
+    for what, x in (("zero and -0 rows", zero), ("NaN rows", special)):
+        for s in (1.0, 64.0):
+            compare_keyed(ops, ref, random, x, random.key(5, "cpu"), s, dev,
+                          compare, f"{what} s={s}")
+    torch.cuda.synchronize()
+    log(f"phase 2: fused_dither_keyed bit-identical to its plain version and "
+        f"to fused_dither on the cluster cases; cluster sizes taken "
+        f"{sorted(sizes)} on {sms} SMs")
+    check(sms != 132 or sizes == {1, 2, 4, 8},
+          f"fused_dither_keyed took cluster sizes {sorted(sizes)}")
 
 
 def topk_rows():
@@ -686,8 +768,8 @@ def phase_quickstart(quickstart, ops, counts_total):
     for hess, iters, per_round in (("dither64", 201, 5432),
                                    ("topk0.1", 50, 3546)):
         n_top = iters if hess.startswith("topk") else 0
-        expect = {"fused_dither": 2 * iters - n_top,
-                  "dither_bits": 2 * iters - n_top,
+        expect = {"fused_dither_keyed": 2 * iters - n_top,
+                  "fused_dither": 0, "dither_bits": 2 * iters - n_top,
                   "fused_topk": n_top, "topk_bits": n_top}
         label = f"quickstart {hess} x{iters}"
         _, gpu, round_ms, _ = drive(quickstart, ops, counts_total, expect,
@@ -713,7 +795,8 @@ def phase_gisette(quickstart, ops, counts_total):
     out = {}
     for hess, per_round in (("dither64", 200_512), ("topk0.1", 134_512)):
         n_top = 10 if hess.startswith("topk") else 0
-        expect = {"fused_dither": 20 - n_top, "dither_bits": 20 - n_top,
+        expect = {"fused_dither_keyed": 20 - n_top, "fused_dither": 0,
+                  "dither_bits": 20 - n_top,
                   "fused_topk": n_top, "topk_bits": n_top}
         label = f"gisette {hess} x10"
         _, gpu, round_ms, peak = drive(quickstart, ops, counts_total, expect,
@@ -743,28 +826,44 @@ def phase_gisette(quickstart, ops, counts_total):
     return out
 
 
-def phase_profile(quickstart):
-    """Phase 7: where a round's device time goes: torch.profiler over 10
-    quickstart rounds and 3 gisette rounds; the top kernels by device time,
-    each compressor kernel's device time per launch, and the device's busy
-    share of the profiled window's wall time (the profiler slows the host,
-    so the window is longer than an unprofiled round)."""
+def profile_rounds(quickstart, iters, **kw):
+    """torch.profiler over ``iters`` rounds of the quickstart's pieces
+    (``kw``: setup keywords) on the card, after one round: (profiled wall
+    µs, device rows as ``device_rows`` gives them)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.driver import run_experiment
+    _, step, state, key = quickstart.setup(device="cuda", **kw)
+    run_experiment(step, state, key, 1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_experiment(step, state, key, iters)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    return wall_us, device_rows(prof)
+
+
+def int64_elementwise(rows) -> tuple:
+    """(device µs, launches) of the int64 elementwise kernels among a
+    profile's device rows: threefry in tensor ops (``random.py``)."""
+    mine = [(t, c) for t, c, name in rows
+            if "elementwise" in name and ("long" in name or "int64" in name)]
+    return sum(t for t, _ in mine), sum(c for _, c in mine)
+
+
+def phase_profile(quickstart):
+    """Phase 7: where a round's device time goes: torch.profiler over 10
+    quickstart rounds and 3 gisette rounds; the device kernels a round and
+    the int64 elementwise launches among them, the top kernels by device
+    time, each compressor kernel's device time per launch, and the
+    device's busy share of the profiled window's wall time (the profiler
+    slows the host, so the window is longer than an unprofiled round)."""
     out = {}
     for label, iters, kw in (("quickstart", 10, QUICK),
                              ("gisette", 3, GISETTE)):
-        _, step, state, key = quickstart.setup(device="cuda", **kw)
-        run_experiment(step, state, key, 1)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run_experiment(step, state, key, iters)
-            torch.cuda.synchronize()
-            wall_us = 1e6 * (time.perf_counter() - t0)
-        rows = device_rows(prof)
+        wall_us, rows = profile_rounds(quickstart, iters, **kw)
         for name in REPLACES:
             mine = [r for r in rows if f"{name}_kernel" in r[2]]
             t = sum(r[0] for r in mine)
@@ -774,35 +873,105 @@ def phase_profile(quickstart):
             out.setdefault(f"{label}_kernel_ms", {})[name] = (
                 t / max(n, 1) / 1e3)
         busy = sum(r[0] for r in rows)
+        kernels = sum(r[1] for r in rows) / iters
+        i64_us, i64_n = int64_elementwise(rows)
         rows.sort(reverse=True)
         log(f"profile {label} x{iters}: wall {wall_us / iters / 1e3!r} "
             f"ms/round, device busy {busy / iters / 1e3!r} ms/round "
-            f"({100 * busy / wall_us:.1f}% of wall)")
+            f"({100 * busy / wall_us:.1f}% of wall); {kernels:g} device "
+            f"kernels and copies a round, of which {i64_n / iters:g} int64 "
+            f"elementwise ({i64_us / iters / 1e3!r} ms)")
         for t, count, name in rows[:12]:
             log(f"  {t / iters / 1e3:10.4f} ms/round  x{count / iters:6.1f}"
                 f"  {name[:70]}")
         out[label] = dict(wall_ms=wall_us / iters / 1e3,
-                          busy_ms=busy / iters / 1e3)
+                          busy_ms=busy / iters / 1e3,
+                          kernels_per_round=kernels,
+                          int64_launches_per_round=i64_n / iters,
+                          int64_ms_per_round=i64_us / iters / 1e3)
+    return out
+
+
+#: The rounds ``kernel_timing.py quickstart`` times: (label, rounds timed,
+#: setup keywords).
+ROUND_CELLS = (("quickstart dither64/dither64", 50, dict(QUICK)),
+               ("quickstart dither64/topk0.1", 50,
+                dict(QUICK, hess="topk0.1")),
+               ("gisette dither64/dither64", 10, dict(GISETTE)),
+               ("gisette dither64/topk0.1", 10,
+                dict(GISETTE, hess="topk0.1")))
+
+
+def round_timing(quickstart) -> dict:
+    """Each ROUND_CELLS cell on the card: round ms (host clock around
+    rounds that end in a synchronize, after a warm-up run), then device
+    kernels a round and int64 elementwise launches a round (a profile of
+    3 rounds)."""
+    import torch
+    from repro_torch.core.driver import run_experiment
+    out = {}
+    for label, iters, kw in ROUND_CELLS:
+        _, step, state, key = quickstart.setup(device="cuda", **kw)
+        run_experiment(step, state, key, 2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_experiment(step, state, key, iters)
+        torch.cuda.synchronize()
+        round_ms = 1e3 * (time.perf_counter() - t0) / iters
+        _, rows = profile_rounds(quickstart, 3, **kw)
+        _, i64_n = int64_elementwise(rows)
+        r = dict(round_ms=round_ms,
+                 kernels_per_round=sum(c for _, c, _ in rows) / 3,
+                 int64_launches_per_round=i64_n / 3,
+                 busy_ms_per_round=sum(t for t, _, _ in rows) / 3e3)
+        log(f"rounds {label}: {round_ms!r} ms a round over {iters}; "
+            f"{r['kernels_per_round']:g} device kernels and copies a round, "
+            f"{r['int64_launches_per_round']:g} int64 elementwise; device "
+            f"busy {r['busy_ms_per_round']!r} ms a round")
+        out[label] = r
+        torch.cuda.empty_cache()
     return out
 
 
 #: Row lengths each row kernel is timed at: gisette's (d = 5000, its
-#: Hessian rows m*d = 20000) and, for top-k, the quickstart's topk0.1
-#: Hessian rows (m*d = 492), where 50 of its 60 main-path launches run.
-TIMED_L = {"fused_dither": (5000, 20000), "fused_topk": (492, 20000)}
+#: Hessian rows m*d = 20000) and the quickstart's (d = 123, m*d = 492),
+#: where 462 of the keyed dither's 482 main-path launches and 50 of
+#: top-k's 60 run.
+TIMED_L = {"fused_dither": (5000, 20000),
+           "fused_dither_keyed": (123, 492, 5000, 20000),
+           "fused_topk": (492, 20000)}
 
 
-def phase_timing(dev, ops, ref, random):
+def phase_timing(dev, ops, ref, random, library):
     """Per-kernel device times at the main path's shapes (TIMED_L), beside
-    the plain version, the library call (top-k) and the bound."""
+    the plain version, the library call (top-k) and the bound.  The keyed
+    dither's bound is the larger of its bytes and its main loop's
+    instructions on the busiest pipe, read from the SASS of ``library``
+    (the built compressor library; ``loop_clocks_per_element``)."""
     import torch
     g = torch.Generator(device="cpu").manual_seed(0)
     n = 20
     rows = {L: torch.randn((n, L), generator=g).to(dev)
             for L in sorted(set(sum(TIMED_L.values(), ())))}
-    us = {L: random.uniform(random.split(random.key(3, dev), n), (L,))
-          for L in rows}
+    key = random.key(3, dev)
+    us = {L: random.uniform(random.split(key, n), (L,)) for L in rows}
     res = {}
+    clocks, pipe, per, elems = loop_clocks_per_element(library,
+                                                       KEYED_DITHER_SASS)
+    log(f"fused_dither_keyed_kernel main loop, {elems} elements a trip, "
+        f"thread-instructions an element by pipe (SASS): "
+        + ", ".join(f"{k} {v!r}" for k, v in per.items())
+        + f"; bound {clocks!r} SM clocks an element on the {pipe} pipe")
+    for L in TIMED_L["fused_dither_keyed"]:
+        x = rows[L]
+        keyed = lambda: ops.fused_dither_keyed(x, key, 64.0)  # noqa: E731
+        res[("fused_dither_keyed", L)] = dict(
+            ms=cuda_ms(keyed, 200), host_ms=cuda_ms(keyed, 200, False),
+            plain_ms=cuda_ms(lambda: ref.fused_dither_keyed_ref(
+                x, key, 64.0), 20),
+            library_ms=None, bytes=8 * n * L + 4 * n + 16,
+            ops=clocks * n * L, rate=SM_CLOCKS_PER_S, pipe=pipe,
+            clocks_per_element=clocks)
     for L in TIMED_L["fused_dither"]:
         x, u = rows[L], us[L]
         dither = lambda: ops.fused_dither(x, u, 64.0)       # noqa: E731
@@ -830,15 +999,16 @@ def phase_timing(dev, ops, ref, random):
                               bytes=4, ops=12)
     for r in res.values():
         t_bytes = 1e3 * r["bytes"] / HBM_BYTES_PER_S
-        t_ops = 1e3 * r["ops"] / F32_OPS_PER_S
+        t_ops = 1e3 * r["ops"] / r.pop("rate", F32_OPS_PER_S)
         r["bound_ms"] = max(t_bytes, t_ops)
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     for (name, L), r in res.items():
         shape = f"[{n},{L}]" if L > 1 else "(scalar)"
+        pipe = f" ({r['pipe']} pipe)" if "pipe" in r else ""
         log(f"timing {name} {shape}: {r['ms']!r} ms (as issued from "
             f"Python {r['host_ms']!r} ms; plain "
             f"{r['plain_ms']!r} ms, library {r['library_ms']!r} ms, bound "
-            f"{r['bound_ms']!r} ms by {r['bound_by']})")
+            f"{r['bound_ms']!r} ms by {r['bound_by']}{pipe})")
     # one long row (off the main path): 8 CTAs whose shares are streamed
     # from device memory on every pass
     L = 3_000_000
@@ -975,6 +1145,24 @@ def phase_dither_kernels(dev, d_ops, d_ref, random):
                       f"leaf [{R},{C}] as one block (keyed)")
         del x
         torch.cuda.empty_cache()
+    # the decode alone: multi-block, ragged blocks (the scalar kernel), and
+    # levels that start 1 byte (scalar) or 4 bytes (vector loads; 4- but
+    # not 16-byte aligned) into an allocation
+    for R, C, br, offset in ((64, 128, 16, 0), (300, 1000, 300, 0),
+                             (24, 77, 3, 0), (7, 5, 7, 0), (64, 128, 16, 1),
+                             (64, 128, 16, 4), (33, 12, 11, 4)):
+        buf = torch.as_tensor(rng.integers(-128, 128, size=R * C + offset,
+                                           dtype=np.int8))
+        lv = buf.to(dev)[offset:].view(R, C)
+        sc = torch.as_tensor(rng.random(R // br, dtype=np.float32) + 0.5)
+        check(lv.data_ptr() % 16 == offset,
+              "decode case not at the intended alignment")
+        got = d_ops.dither_decode(lv, sc.to(dev), block_rows=br)
+        want = d_ref.dither_decode_ref(lv.cpu(), sc, br)
+        check(same_bits(got, want.to(dev)), f"dither_decode differs from its "
+              f"plain version on [{R},{C}] br={br} offset {offset}")
+        err["dither_decode"] = max(err["dither_decode"], abs_err(got, want))
+        n += 1
     # quantize's layout and draw, card against CPU
     for shape in ((1000,), (33, 77), (4, 5, 6), (128, 512)):
         x = torch.as_tensor(rng.normal(size=shape).astype(np.float32))
@@ -1313,13 +1501,15 @@ def dither_timing(dev, d_ops, d_ref, random):
     (bytes: x and u read, levels written, 9 B an element), the keyed encode
     (5 B an element, but bound by the instructions of its main loop on the
     busiest pipe, read from the SASS of the library it runs:
-    ``keyed_encode_clocks_per_element``) with the draw it replaces
-    (``random.uniform``, timed alone), and the decode (5 B an element)."""
+    ``loop_clocks_per_element``) with the draw it replaces
+    (``random.uniform``, timed alone), and the decode (5 B an element)
+    beside ``torch.mul(levels.view(nb, -1), scale[:, None])``, one PyTorch
+    call of the same function (timed only)."""
     import torch
     res = {}
     g = torch.Generator(device=dev).manual_seed(6)
-    clocks, pipe, per, elems = keyed_encode_clocks_per_element(
-        d_ops.LIBRARY.build())
+    clocks, pipe, per, elems = loop_clocks_per_element(
+        d_ops.LIBRARY.build(), KEYED_ENCODE_SASS)
     log(f"encode_keyed_kernel<float, true> main loop, {elems} elements a "
         f"trip, thread-instructions an element by pipe (SASS): "
         + ", ".join(f"{k} {v!r}" for k, v in per.items())
@@ -1348,7 +1538,10 @@ def dither_timing(dev, d_ops, d_ref, random):
         res[("dither_decode", (R, C))] = dict(
             ms=cuda_ms(lambda: d_ops.dither_decode(lv, sc, block_rows=R), 20),
             plain_ms=cuda_ms(lambda: d_ref.dither_decode_ref(lv, sc, R), 3),
-            library_ms=None, bytes=5 * N + 4, ops=N, rate=F32_OPS_PER_S)
+            # one PyTorch call of the same function (timed only)
+            library_ms=cuda_ms(lambda: torch.mul(lv.view(1, -1),
+                                                 sc[:, None]), 20),
+            bytes=5 * N + 4, ops=N, rate=F32_OPS_PER_S)
         del x, lv, sc
         torch.cuda.empty_cache()
     for (name, shape), r in res.items():
@@ -1420,6 +1613,7 @@ def main():
     log(card)
 
     err = phase_kernels(dev, ops, ref, random)
+    phase_dither_cluster(dev, ops, ref, random, err)
     phase_topk_cluster(dev, ops, ref, err)
     flash_err = phase_flash_kernel(dev, fa_ops, fa_ref)
     dither_err = phase_dither_kernels(dev, d_ops, d_ref, random)
@@ -1428,7 +1622,9 @@ def main():
     quick = phase_quickstart(quickstart, ops, counts)
     gis = phase_gisette(quickstart, ops, counts)
     for name, n in counts.items():
-        check(n > 0, f"{name} was never launched on the main path")
+        # the u-taking dither is off the path: the round takes the keyed one
+        check((n == 0) == (name == "fused_dither"),
+              f"{name} launched {n} times on the main path")
     log(f"main-path launches (sum of the four runs above): {counts}")
     depth2 = phase_serve_depth2(serve)
     full = phase_serve_full(serve, fa_ops)
@@ -1436,7 +1632,7 @@ def main():
                                 tree)
     trained = phase_train_full(train, fa_ops, d_ops, ops, tree)
     prof = phase_profile(quickstart)
-    timing = phase_timing(dev, ops, ref, random)
+    timing = phase_timing(dev, ops, ref, random, library=built[0])
     flash = phase_flash_timing(dev, fa_ops, fa_ref)
     ttiming = phase_train_kernel_timing(dev, d_ops, d_ref, fa_ops, fa_ref,
                                         random)
@@ -1454,6 +1650,12 @@ def main():
         if name.startswith("fused"):
             entry["ms_by_shape"] = {f"[20,{Ls}]": timing[(name, Ls)]["ms"]
                                     for Ls in TIMED_L[name]}
+            entry["bound_ms_by_shape"] = {
+                f"[20,{Ls}]": timing[(name, Ls)]["bound_ms"]
+                for Ls in TIMED_L[name]}
+        if name == "fused_dither_keyed":
+            entry["bound_pipe"] = r["pipe"]
+            entry["clocks_per_element"] = r["clocks_per_element"]
         if name == "fused_topk":
             long_row = timing["fused_topk_long_row"]
             entry["ms_by_shape"]["[1,3000000]"] = long_row["ms"]

@@ -4,13 +4,15 @@
     python3 kernel_timing.py flash-forward [--root DIR] [-D NAME=VALUE ...]
     python3 kernel_timing.py flash-backward [--root DIR] [-D NAME=VALUE ...]
     python3 kernel_timing.py dither [--root DIR]
+    python3 kernel_timing.py quickstart [--root DIR]
 
 ``--root`` names the checkout whose ``src/repro_torch`` is timed (default:
 this one), so that a parent unpacked with ``git archive`` beside a change is
 timed by the same code: run parent, change, change, parent in one call.
 
 ``compressor`` times the compressor kernels at the main path's shapes beside
-their plain versions and ``torch.topk`` (``chip_smoke.phase_timing``).
+their plain versions and ``torch.topk`` (``chip_smoke.phase_timing``), the
+keyed dither with its bound read from the SASS of the library it times.
 
 ``flash-forward`` builds the flash-attention library with the extra nvcc
 ``-D`` flags given (the forward's KV tile ``REPRO_FWD_BK``, see
@@ -29,9 +31,17 @@ SDPA (``chip_smoke.flash_backward_timing``).
 
 ``dither`` times the codec kernels at the trainer's leaf shapes
 (``chip_smoke.LEAF_SHAPES``): the u-taking encode, the keyed encode beside
-the draw it replaces, and the decode (``chip_smoke.dither_timing``).  It
+the draw it replaces, and the decode beside ``torch.mul`` of the levels
+and their scale (``chip_smoke.dither_timing``).  It
 prints the keyed encode's main-loop instructions an element on each pipe,
 read from the SASS of the library it times, from which that bound comes.
+
+``quickstart`` runs Algorithm 1's rounds at quickstart size (d = 123) and
+gisette width (d = 5000), with a dither64 and a topk0.1 Hessian
+compressor: round ms by the host clock around rounds that end in a
+synchronize, and device kernels and int64 elementwise launches a round from
+a profile (``chip_smoke.round_timing``).  The rounds are host-bound and
+vary between calls; compare two checkouts only within one call.
 
 Each prints the card's name and power limit, the timing lines, and as its
 last line one JSON object of the times.  Needs one card.
@@ -50,7 +60,8 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(
         description="Time one checkout's kernels on the card.")
     parser.add_argument("what", choices=("compressor", "flash-forward",
-                                         "flash-backward", "dither"))
+                                         "flash-backward", "dither",
+                                         "quickstart"))
     parser.add_argument("--root", type=Path, default=chip_smoke.ROOT,
                         help="checkout whose src/repro_torch is timed")
     parser.add_argument("-D", dest="defines", action="append", default=[],
@@ -67,19 +78,25 @@ def main(argv=None) -> None:
            "defines": args.defines}
     if args.what == "compressor":
         from repro_torch import random
-        from repro_torch.kernels.compressor import ops, ref
-        res = chip_smoke.phase_timing(dev, ops, ref, random)
+        from repro_torch.kernels.compressor import build, ops, ref
+        res = chip_smoke.phase_timing(dev, ops, ref, random,
+                                      library=build.LIBRARY.build())
         out["times"] = {
             (f"{key[0]} [20,{key[1]}]" if isinstance(key, tuple) else key):
-            {k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")
-             if k in r} for key, r in res.items()}
+            {k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                               "bound_by") if k in r}
+            for key, r in res.items()}
+    elif args.what == "quickstart":
+        from repro_torch import quickstart
+        out["rounds"] = chip_smoke.round_timing(quickstart)
     elif args.what == "dither":
         from repro_torch import random
         from repro_torch.kernels.dither import ops, ref
         res = chip_smoke.dither_timing(dev, ops, ref, random)
         out["times"] = {
             f"{name} {list(shape)}": {k: r[k] for k in (
-                "ms", "plain_ms", "bound_ms", "draw_ms") if k in r}
+                "ms", "plain_ms", "library_ms", "bound_ms", "draw_ms")
+                if k in r}
             for (name, shape), r in res.items()}
     else:
         from repro_torch.kernels.flash_attention import build, ops, ref

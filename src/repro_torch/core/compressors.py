@@ -6,6 +6,8 @@ the family is a concrete Python int, so the entry points dispatch in Python
 
     compress(spec, keys, x)      — apply Q to each row of x (one row per
                                    worker message, one key per row)
+    compress_split(spec, key, x) — compress(spec, random.split(key, n), x)
+                                   for n rows: the round's call
     spec_bits(spec, d, device)   — exact uplink payload bits of a d-element
                                    message, a float32 0-d tensor
     shared_scale_levels(key, x, s) / decode_int8(levels, scale)
@@ -16,8 +18,12 @@ the family is a concrete Python int, so the entry points dispatch in Python
 Dither and top-k run through the fused kernels of
 ``repro_torch.kernels.compressor`` on a CUDA tensor and through their plain
 versions on a CPU tensor; both equal the reference bit for bit.  The dither
-uniforms are the reference's own draws, ``uniform(key, message.shape)``
-(``repro_torch.random``), so outputs compare element for element.
+uniforms are the reference's own, ``uniform(key, message.shape)`` with each
+worker's key ``split(k, n)[i]`` (``repro_torch.random``), so outputs compare
+element for element.  ``compress`` draws them with ``random.uniform`` from
+the keys it is given; ``compress_split`` on a CUDA tensor hands the parent
+key to ``fused_dither_keyed``, which derives the workers' keys and their
+uniforms in registers, so no key or uniform reaches device memory.
 
 Families ported: identity (32·d bits), dither<s> (⌈log2(2s+1)⌉·d bits) and
 topk<frac> (⌈frac·d⌉·(32 + ⌈log2 d⌉) bits).  natural, count_sketch and
@@ -155,6 +161,21 @@ def compress(spec: CompressorSpec, keys: torch.Tensor,
             f"compressor family {spec.family} is not ported yet "
             "(ROADMAP.md, queue 1: 'other compressor families')")
     return out.reshape(x.shape)
+
+
+def compress_split(spec: CompressorSpec, key: torch.Tensor,
+                   x: torch.Tensor) -> torch.Tensor:
+    """``compress(spec, random.split(key, n), x)`` for x ``[n, ...]``: row
+    i is compressed with the i-th key split from ``key`` (``[2]``).  On a
+    CUDA tensor the dither family launches the keyed kernel, which splits
+    the key and draws the uniforms itself; on the CPU this is exactly that
+    call.  The other families use no key, so they never split one."""
+    if spec.family != FAMILY_DITHER:
+        return compress(spec, None, x)
+    if x.device.type == "cuda":
+        rows = x.reshape(x.shape[0], -1).contiguous()
+        return ops.fused_dither_keyed(rows, key, spec.s)[0].reshape(x.shape)
+    return compress(spec, random.split(key, x.shape[0]), x)
 
 
 def spec_bits(spec: CompressorSpec, d: int,

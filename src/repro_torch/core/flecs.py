@@ -15,7 +15,9 @@ its key into ``k_g, k_h, k_q, k_c, k_p``, and worker i compresses with
 ``split(k_q, n)[i]`` and ``split(k_c, n)[i]``, so masks, sketches and
 compressor outputs match the reference element for element; the bit
 ledgers match exactly.  On a CUDA device the compressors and the ledger
-run through the kernels of ``repro_torch.kernels.compressor``.
+run through the kernels of ``repro_torch.kernels.compressor``; the dither
+kernel splits ``k_q`` and ``k_c`` and draws its uniforms itself
+(``compressors.compress_split``).
 
 Communication accounting (per participating worker per round, bits;
 ``FlecsState.bits_per_node`` is [n]):
@@ -31,7 +33,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from repro_torch import random
-from repro_torch.core.compressors import (CompressorSpec, compress,
+from repro_torch.core.compressors import (CompressorSpec, compress_split,
                                           make_spec, spec_bits)
 from repro_torch.core.directions import (fedsonia_direction,
                                          truncated_inverse_direction,
@@ -127,13 +129,12 @@ def _worker_messages(local_grad: Callable, local_hvp: Callable,
     Returns (c [n,d], M [n,m,m], C [n,d,m], BS [n,d,m]): the compressed
     gradient differences, the exact Grams SᵀY, the compressed
     Hessian-sketch differences and B S, at the iterate ``w``."""
-    n = h.shape[0]
     g = local_grad(w)                                   # [n, d]
     Y = local_hvp(w, S)                                 # [n, d, m]
     M = S.mT @ Y                                        # [n, m, m] (exact)
-    c = compress(grad_spec, random.split(k_q, n), g - h)
+    c = compress_split(grad_spec, k_q, g - h)
     BS = B @ S
-    Cm = compress(hess_spec, random.split(k_c, n), Y - BS)
+    Cm = compress_split(hess_spec, k_c, Y - BS)
     return c, M, Cm, BS
 
 

@@ -20,6 +20,6 @@ def sketch(kind: str, d: int, m: int, k: int, device) -> torch.Tensor:
     if kind in ("gaussian", "coordinate"):
         raise NotImplementedError(
             f"sketch_kind={kind!r} is not ported yet (ROADMAP.md, queue 1: "
-            "'other sketches': Gaussian needs random.normal, coordinate "
-            "needs random.choice)")
+            "'other sketches': Gaussian needs only the sketch itself, "
+            "coordinate needs random.choice)")
     raise ValueError(kind)

@@ -10,14 +10,19 @@ from repro_torch.kernels.nvcc import CudaLibrary
 
 _P, _F, _I = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
 
+_HERE = Path(__file__).resolve().parent
+
 #: -fmad=false: no multiply-add is contracted into an FMA, so the kernels
 #: round exactly as the reference's separate operations do (see the source
 #: note).
 LIBRARY = CudaLibrary(
-    Path(__file__).resolve().parent / "csrc" / "compressor.cu",
+    _HERE / "csrc" / "compressor.cu",
+    headers=(_HERE.parent / "csrc" / "threefry.cuh",),
     flags=("-fmad=false",),
     signatures={
         "repro_fused_dither": (_P, _P, _F, _P, _P, _I, _I, _P),
+        # x, key, s, out, bits, n, L, cluster, stream
+        "repro_fused_dither_keyed": (_P, _P, _F, _P, _P, _I, _I, _I, _P),
         "repro_fused_topk": (_P, _F, _P, _P, _I, _I, _I, _P),
         "repro_dither_bits": (_F, _F, _P, _P),
         "repro_topk_bits": (_F, _F, _P, _P),

@@ -2,16 +2,19 @@
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/compressor/
 // compressor.py:
-//   fused_dither_kernel  <- _fused_dither_kernel  (compressor.py:71)
-//   fused_topk_kernel    <- _fused_topk_kernel    (compressor.py:105)
-//   dither_bits_kernel   <- _dither_bits_kernel   (compressor.py:161)
-//   topk_bits_kernel     <- _topk_bits_kernel     (compressor.py:165)
+//   fused_dither_kernel        <- _fused_dither_kernel  (compressor.py:71)
+//   fused_dither_keyed_kernel  <- the same, with the per-worker keys and the
+//                                 uniforms drawn in the kernel
+//   fused_topk_kernel          <- _fused_topk_kernel    (compressor.py:105)
+//   dither_bits_kernel         <- _dither_bits_kernel   (compressor.py:161)
+//   topk_bits_kernel           <- _topk_bits_kernel     (compressor.py:165)
 //
 // Layout: x is [n, L] float32, row-major and contiguous; one row is one
 // worker's whole message (a gradient difference, L = d, or a flattened
 // [d, m] Hessian-sketch difference, L = d*m).  The infinity norm and the
-// top-k threshold are taken over the whole row.  fused_dither takes one CTA
-// a row; fused_topk a thread-block cluster of C CTAs a row (below).
+// top-k threshold are taken over the whole row.  The u-taking fused_dither
+// takes one CTA a row; fused_dither_keyed and fused_topk a thread-block
+// cluster of C CTAs a row (below).
 //
 // Exactness: every kernel evaluates the reference expressions of
 // repro.core.compressors in the same order with round-to-nearest
@@ -20,23 +23,45 @@
 // would move p by an ulp and flip u < p).  The results equal the plain
 // PyTorch versions (ref.py) bit for bit.
 //
-// Bounds on the H100: both fused kernels move their bytes once from device
-// memory (dither reads x and u and writes out, 12 B per element; top-k
-// reads x and writes out, 8 B per element) and do a few operations per
-// byte, so memory bounds them.  fused_topk finds the k-th largest |x| by a
-// radix select (four 8-bit digits of the uint32 pattern, histograms in
-// shared memory), each CTA holding its share of the row in shared memory
-// when it fits (one read of the row from device memory), and splits the row
-// over a cluster of C in {1, 2, 4, 8} CTAs (chosen by the wrapper from n,
-// so that n * C approaches the SM count) whose histograms and counts are
-// summed through distributed shared memory.  Still to do: fused_dither
-// takes one CTA a row (20 of 132 SMs at the path's n = 20) and reads its
-// uniforms from device memory; drawing them in registers is the next step
-// (ROADMAP.md).
+// The keyed dither.  Algorithm 1 compresses worker i's message with key
+// split(k, n)[i] = threefry2x32(k, (0, i)) and its uniforms
+// uniform(split(k, n)[i], (L,)) (repro_torch.random, which is jax.random).
+// fused_dither_keyed reads the parent key k (int64 [2], on the device: no
+// host synchronisation), derives row i's key and element j's uniform
+// uniform_at(row key, j) in registers (threefry.cuh), so neither the keys
+// nor the uniforms are ever written to device memory and the int64 tensor
+// passes that drew them are gone (710 of the quickstart round's 1,502
+// kernels on an NVIDIA H100 80GB HBM3 at 700 W; kernel_timing.py
+// quickstart).  A row
+// is split over a cluster of C in {8, 4, 2, 1} CTAs (ops.dither_cluster: a
+// sibling of fused_topk's rule, with its own minimum share
+// DITHER_MIN_SHARE): each CTA reduces the max |x| of its share, the C
+// maxima are merged through distributed shared memory, and each CTA then
+// quantizes its share.
+//
+// Bounds on the H100: the u-taking dither moves 12 B an element (x and u
+// read, out written) and does a few operations each: memory bounds it.
+// The keyed dither must move 8 B an element (x once, out once), but its
+// threefry (20 rounds of adds, funnel shifts and xors) takes ~60 integer
+// instructions an element, so its bound is its main loop's instructions on
+// the busiest pipe, read from the SASS of the library it runs
+// (chip_smoke.loop_clocks_per_element): 63 ALU instructions of 115 an
+// element, 0.0015 ms at [20, 20000].  Measured there: 0.0100 ms, against
+// 0.0149 ms for the u-taking kernel, one CTA a row (NVIDIA H100 80GB HBM3,
+// 700 W; chip_smoke.py).  fused_topk reads x and writes out,
+// 8 B an element; it finds the k-th largest |x| by a radix select (four
+// 8-bit digits of the uint32 pattern, histograms in shared memory), each
+// CTA holding its share of the row in shared memory when it fits (one read
+// of the row from device memory), and splits the row over a cluster of C
+// in {1, 2, 4, 8} CTAs (chosen by the wrapper from n, so that n * C
+// approaches the SM count) whose histograms and counts are summed through
+// distributed shared memory.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "../../csrc/threefry.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -95,9 +120,21 @@ __device__ int block_sum(int v, int* red) {
   return r;
 }
 
+// One element of the stochastic rounding, the reference's expressions in
+// its order: sign(x) * (floor(|x|/norm*s) + [u < frac]) * norm / s.
+__device__ __forceinline__ float dither_value(float xv, float u, float norm,
+                                              float s) {
+  const float y = __fmul_rn(__fdiv_rn(fabsf(xv), norm), s);  // in [0, s]
+  const float lo = floorf(y);
+  const float p = __fsub_rn(y, lo);                          // P(round up)
+  const float level = __fadd_rn(lo, u < p ? 1.0f : 0.0f);
+  // jnp.sign: +-1, and x itself for +-0 and NaN
+  const float sg = xv > 0.0f ? 1.0f : (xv < 0.0f ? -1.0f : xv);
+  return __fdiv_rn(__fmul_rn(__fmul_rn(sg, level), norm), s);
+}
+
 // One CTA per row: the NaN-propagating infinity norm (0 -> 1), then the
-// stochastic rounding sign(x) * (floor(|x|/norm*s) + [u < frac]) * norm / s
-// with the uniforms u read from device memory.
+// stochastic rounding with the uniforms u read from device memory.
 __global__ void __launch_bounds__(kMaxThreads)
 fused_dither_kernel(const float* __restrict__ x, const float* __restrict__ u,
                     float s, float* __restrict__ out,
@@ -114,17 +151,56 @@ fused_dither_kernel(const float* __restrict__ x, const float* __restrict__ u,
   m = block_max(m, red);
   const float norm = (m == 0.0f) ? 1.0f : m;
 
-  for (int i = threadIdx.x; i < L; i += blockDim.x) {
-    const float xv = xr[i];
-    const float y = __fmul_rn(__fdiv_rn(fabsf(xv), norm), s);  // in [0, s]
-    const float lo = floorf(y);
-    const float p = __fsub_rn(y, lo);                          // P(round up)
-    const float level = __fadd_rn(lo, ur[i] < p ? 1.0f : 0.0f);
-    // jnp.sign: +-1, and x itself for +-0 and NaN
-    const float sg = xv > 0.0f ? 1.0f : (xv < 0.0f ? -1.0f : xv);
-    outr[i] = __fdiv_rn(__fmul_rn(__fmul_rn(sg, level), norm), s);
-  }
+  for (int i = threadIdx.x; i < L; i += blockDim.x)
+    outr[i] = dither_value(xr[i], ur[i], norm, s);
   if (threadIdx.x == 0) bits[blockIdx.x] = dither_bits_f(s, (float)L);
+}
+
+// A cluster of C CTAs per row (blockIdx.x / C), CTA r holding elements
+// [r * share, (r + 1) * share): the row's key threefry2x32(key, (0, row))
+// (= split(key, n)[row]), the NaN-propagating infinity norm of the row
+// (each CTA's share reduced, the C maxima merged through distributed shared
+// memory; 0 -> 1), then each element's uniform uniform_at(row key, j) and
+// its stochastic rounding.
+__global__ void __launch_bounds__(kMaxThreads)
+fused_dither_keyed_kernel(const float* __restrict__ x,
+                          const long long* __restrict__ key, float s,
+                          float* __restrict__ out, float* __restrict__ bits,
+                          int L, int share) {
+  __shared__ float red[32];
+  __shared__ float share_max;
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned C = cluster.num_blocks(), rank = cluster.block_rank();
+  const unsigned row = blockIdx.x / C;
+  const int lo = (int)min((long long)rank * share, (long long)L);
+  const int m = (int)min((long long)share, (long long)(L - lo));
+  const float* xr = x + row * (size_t)L + lo;
+  float* outr = out + row * (size_t)L + lo;
+
+  uint32_t rk0 = 0u, rk1 = row;
+  repro_threefry::threefry2x32(static_cast<uint32_t>(key[0]),
+                               static_cast<uint32_t>(key[1]), rk0, rk1);
+
+  float mx = 0.0f;
+  for (int i = threadIdx.x; i < m; i += blockDim.x)
+    mx = nan_max(mx, fabsf(xr[i]));
+  mx = block_max(mx, red);
+  if (threadIdx.x == 0) share_max = mx;
+  cluster.sync();                  // every CTA's share maximum is written
+  float norm = 0.0f;
+  for (unsigned r = 0; r < C; ++r)
+    norm = nan_max(norm, *cluster.map_shared_rank(&share_max, r));
+  cluster.sync();   // no CTA leaves while another still reads its maximum
+  if (norm == 0.0f) norm = 1.0f;
+
+#pragma unroll 4
+  for (int i = threadIdx.x; i < m; i += blockDim.x) {
+    const float u = repro_threefry::uniform_at(
+        rk0, rk1, static_cast<unsigned long long>(static_cast<unsigned>(
+                      lo + i)));
+    outr[i] = dither_value(xr[i], u, norm, s);
+  }
+  if (rank == 0 && threadIdx.x == 0) bits[row] = dither_bits_f(s, (float)L);
 }
 
 constexpr int kTopkThreads = 512;
@@ -299,27 +375,59 @@ extern "C" int repro_fused_dither(const float* x, const float* u, float s,
   return (int)cudaGetLastError();
 }
 
+namespace {
+
+// A launch of C CTAs a row over n rows, as a cluster of C.
+cudaLaunchConfig_t cluster_config(int n, int cluster, int threads,
+                                  size_t smem, void* stream,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)n * (unsigned)cluster);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+bool valid_cluster(int c) { return c == 1 || c == 2 || c == 4 || c == 8; }
+
+}  // namespace
+
+// key: int64 [2] on the device (repro_torch.random's key data); cluster:
+// CTAs a row, 1, 2, 4 or 8 (a cluster of that size).
+extern "C" int repro_fused_dither_keyed(const float* x, const long long* key,
+                                        float s, float* out, float* bits,
+                                        int n, int L, int cluster,
+                                        void* stream) {
+  if (!valid_cluster(cluster) || key == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const int share = (int)((L + (long long)cluster - 1) / cluster);
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = cluster_config(n, cluster, threads_for(share), 0,
+                                          stream, &attr);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, fused_dither_keyed_kernel, x, key, s, out, bits, L, share);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 // cluster: CTAs a row, 1, 2, 4 or 8 (a cluster of that size).
 extern "C" int repro_fused_topk(const float* x, float frac, float* out,
                                 float* bits, int n, int L, int cluster,
                                 void* stream) {
-  if (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8)
-    return (int)cudaErrorInvalidValue;
+  if (!valid_cluster(cluster)) return (int)cudaErrorInvalidValue;
   const int share = (int)((L + (long long)cluster - 1) / cluster);
   const bool staged = share <= kTopkMaxStaged;
   const size_t bytes = staged ? (size_t)share * sizeof(float) : 0;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)n * (unsigned)cluster);
-  cfg.blockDim = dim3(kTopkThreads);
-  cfg.dynamicSmemBytes = bytes;
-  cfg.stream = (cudaStream_t)stream;
   cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = cluster;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
+  cudaLaunchConfig_t cfg = cluster_config(n, cluster, kTopkThreads, bytes,
+                                          stream, &attr);
   cudaError_t err;
   if (staged) {
     // above 48 KB a launch is refused unless the kernel is allowed more

@@ -5,7 +5,10 @@ Dispatch is by the tensor's device and nothing else: a CUDA tensor launches
 the kernel of ``csrc/compressor.cu`` (or the wrapper raises), a CPU tensor
 takes the plain version in ``ref.py``.  There is no size gate and no
 fallback from the card to the plain version.  Rows may have any length
-L >= 1: the kernels need no padding.
+L >= 1: the kernels need no padding.  ``fused_dither`` takes the uniforms
+as a tensor, as the Pallas wrapper does; ``fused_dither_keyed`` takes the
+parent key of the n workers' keys and draws the keys and the uniforms in
+the kernel, bit for bit ``random.uniform(random.split(key, n), (L,))``.
 
 Every launch adds one to ``launches[name]``, so a run can show which
 kernels its path went through.
@@ -18,8 +21,8 @@ from repro_torch.kernels.compressor import ref
 from repro_torch.kernels.compressor.build import LIBRARY
 
 #: Kernel launches since the last :func:`reset_launches`, per kernel.
-launches = {"fused_dither": 0, "fused_topk": 0, "dither_bits": 0,
-            "topk_bits": 0}
+launches = {"fused_dither": 0, "fused_dither_keyed": 0, "fused_topk": 0,
+            "dither_bits": 0, "topk_bits": 0}
 
 
 def reset_launches() -> None:
@@ -76,15 +79,56 @@ def fused_dither(x: torch.Tensor, u: torch.Tensor, s):
 #: fused_topk splits a row over a cluster only where each CTA gets at
 #: least this many elements.
 TOPK_MIN_SHARE = 1024
+#: fused_dither_keyed's: its threefry makes each element some sixty integer
+#: instructions, so a smaller share than top-k's keeps a CTA busy.
+DITHER_MIN_SHARE = 256
+
+
+def _cluster(n: int, L: int, sms: int, min_share: int) -> int:
+    """The largest C in {8, 4, 2, 1} with n·C <= sms and L >= C·min_share."""
+    c = 8
+    while c > 1 and (n * c > sms or L < c * min_share):
+        c //= 2
+    return c
 
 
 def topk_cluster(n: int, L: int, sms: int) -> int:
     """CTAs per row of ``fused_topk``: the largest C in {8, 4, 2, 1} with
     n·C <= sms (the card's SM count) and L >= C·TOPK_MIN_SHARE."""
-    c = 8
-    while c > 1 and (n * c > sms or L < c * TOPK_MIN_SHARE):
-        c //= 2
-    return c
+    return _cluster(n, L, sms, TOPK_MIN_SHARE)
+
+
+def dither_cluster(n: int, L: int, sms: int) -> int:
+    """CTAs per row of ``fused_dither_keyed``: ``topk_cluster``'s rule with
+    DITHER_MIN_SHARE."""
+    return _cluster(n, L, sms, DITHER_MIN_SHARE)
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def fused_dither_keyed(x: torch.Tensor, key: torch.Tensor, s):
+    """``fused_dither(x, random.uniform(random.split(key, n), (L,)), s)``
+    bit for bit, with row i's key and its uniforms drawn inside the kernel.
+    key: the int64 [2] key data of ``repro_torch.random`` on x's device
+    (the kernel reads it there: no host synchronisation)."""
+    _check_rows("fused_dither_keyed", x)
+    if (key.dtype != torch.int64 or tuple(key.shape) != (2,)
+            or key.device != x.device):
+        raise ValueError(f"fused_dither_keyed: an int64 [2] key on x's "
+                         f"device required, got {key.dtype} "
+                         f"{tuple(key.shape)} on {key.device}")
+    if not _on_card(x.device):
+        return ref.fused_dither_keyed_ref(x, key, s)
+    n, L = x.shape
+    out = torch.empty_like(x)
+    bits = torch.empty(n, dtype=torch.float32, device=x.device)
+    key = key.contiguous()
+    _launch("fused_dither_keyed", "repro_fused_dither_keyed", x.device,
+            x.data_ptr(), key.data_ptr(), float(s), out.data_ptr(),
+            bits.data_ptr(), n, L, dither_cluster(n, L, _sms(x.device)))
+    return out, bits
 
 
 def fused_topk(x: torch.Tensor, frac):
@@ -96,10 +140,9 @@ def fused_topk(x: torch.Tensor, frac):
     n, L = x.shape
     out = torch.empty_like(x)
     bits = torch.empty(n, dtype=torch.float32, device=x.device)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     _launch("fused_topk", "repro_fused_topk", x.device, x.data_ptr(),
             float(frac), out.data_ptr(), bits.data_ptr(), n, L,
-            topk_cluster(n, L, sms))
+            topk_cluster(n, L, _sms(x.device)))
     return out, bits
 
 

@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import random
+
 
 def _f32(v, device) -> torch.Tensor:
     return torch.tensor(v, dtype=torch.float32, device=device)
@@ -62,6 +64,14 @@ def fused_dither_ref(x: torch.Tensor, u: torch.Tensor, s):
     out = sign(x) * level * norm / s_t
     bits = dither_bits_ref(s, x.shape[1], x.device).expand(x.shape[0])
     return out, bits.clone()
+
+
+def fused_dither_keyed_ref(x: torch.Tensor, key: torch.Tensor, s):
+    """``fused_dither_ref`` with row i's uniforms drawn from
+    ``random.split(key, n)[i]``: what the keyed kernel draws in
+    registers."""
+    keys = random.split(key, x.shape[0])
+    return fused_dither_ref(x, random.uniform(keys, (x.shape[1],)), s)
 
 
 def fused_topk_ref(x: torch.Tensor, frac):

@@ -57,8 +57,14 @@
 // library it runs).  Measured there: 1.328 ms, 67% of that bound, against
 // 1.370 ms for the u-taking encode and 283 ms for the draw of u in int64
 // tensor ops that it replaces (kernel_timing.py dither; NVIDIA H100 80GB
-// HBM3, 700 W).  The decode reads 1 B and writes 4 B an element, with
-// 16-byte vector loads of the levels and 16-byte stores.
+// HBM3, 700 W).  The decode must read 1 B and write 4 B an element: bytes
+// bound it.  A thread loads 4 levels (4 bytes) and stores one float4, so a
+// warp's load and store are each one contiguous run (128 B, 512 B), with
+// four such vectors a thread in flight: 0.470 ms at the FFN leaf, 81% of
+// its 0.379 ms bound, against 0.789 ms with 16 levels a thread (a warp's
+// float4 store then spans 2 KB at a 64-byte stride) and 0.882 ms for
+// torch.mul(levels.view(1, -1), scale[:, None]) (kernel_timing.py dither;
+// NVIDIA H100 80GB HBM3, 700 W).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -210,39 +216,76 @@ encode_keyed_kernel(const T* __restrict__ x,
   if (chunk == 0 && threadIdx.x == 0) scale[blk] = __fdiv_rn(norm, s);
 }
 
-// out = float(level) * scale[block]; 16 levels a thread (one 16-byte load,
-// four 16-byte stores), the last n % 16 one a thread.
+// Vectors of four levels a decode thread keeps in flight: their loads are
+// all issued before the first store.
+constexpr int DECODE_VECS = 4;
+
+// out = float(level) * scale[block], four levels a vector: one 4-byte load
+// (a warp reads 128 contiguous bytes) and one 16-byte store (a warp writes
+// 512 contiguous bytes) a vector, DECODE_VECS vectors a thread in flight,
+// strided by the grid's width.  Needs block_elems % 4 == 0 (a vector never
+// crosses a block), levels 4-byte and out 16-byte aligned.  Indices are
+// 64-bit (a tensor may hold more than 2^31 levels).  Each vector's block
+// is carried from trip to trip as a quotient and remainder advanced by the
+// trip's step, so the loop divides nothing: a 64-bit division a vector
+// took 0.501 ms at [45056, 5632], against 0.470 carried and 0.473 for a
+// 32-bit division (kernel_timing.py dither; NVIDIA H100 80GB HBM3, 700 W).
+using Idx = unsigned long long;
 __global__ void __launch_bounds__(THREADS)
 decode_kernel(const int8_t* __restrict__ levels,
-              const float* __restrict__ scale, long long n,
-              long long block_elems, float* __restrict__ out) {
-  const long long nvec = n / 16;
-  const long long first = blockIdx.x * (long long)THREADS + threadIdx.x;
-  for (long long v = first; v < nvec; v += (long long)gridDim.x * THREADS) {
-    const long long i0 = v * 16;
-    const int4 raw = reinterpret_cast<const int4*>(levels)[v];
-    const int8_t* lv = reinterpret_cast<const int8_t*>(&raw);
-    long long blk = i0 / block_elems;
-    long long next = (blk + 1) * block_elems;
-    float sc = scale[blk];
-    float r[16];
+              const float* __restrict__ scale, Idx nvec, Idx block_vecs,
+              float* __restrict__ out) {
+  const char4* lv = reinterpret_cast<const char4*>(levels);
+  float4* o = reinterpret_cast<float4*>(out);
+  const Idx stride = static_cast<Idx>(gridDim.x) * THREADS;
+  const Idx step = DECODE_VECS * stride;
+  const Idx step_q = step / block_vecs, step_r = step % block_vecs;
+  Idx v0 = static_cast<Idx>(blockIdx.x) * THREADS + threadIdx.x;
+  Idx q[DECODE_VECS], r[DECODE_VECS];
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      if (i0 + j == next) {          // the vector crosses into a new block
-        ++blk;
-        next += block_elems;
-        sc = scale[blk];
-      }
-      r[j] = __fmul_rn(static_cast<float>(lv[j]), sc);
-    }
-    float4* o = reinterpret_cast<float4*>(out + i0);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      o[j] = make_float4(r[4 * j], r[4 * j + 1], r[4 * j + 2], r[4 * j + 3]);
+  for (int j = 0; j < DECODE_VECS; ++j) {
+    q[j] = (v0 + j * stride) / block_vecs;
+    r[j] = (v0 + j * stride) - q[j] * block_vecs;
   }
-  const long long t = nvec * 16 + first;
-  if (first < 16 && t < n)
-    out[t] = __fmul_rn(static_cast<float>(levels[t]), scale[t / block_elems]);
+  for (; v0 < nvec; v0 += step) {
+    char4 raw[DECODE_VECS];
+#pragma unroll
+    for (int j = 0; j < DECODE_VECS; ++j) {
+      const Idx v = v0 + j * stride;
+      if (v < nvec) raw[j] = lv[v];
+    }
+#pragma unroll
+    for (int j = 0; j < DECODE_VECS; ++j) {
+      const Idx v = v0 + j * stride;
+      if (v < nvec) {
+        const float sc = __ldg(scale + q[j]);
+        o[v] = make_float4(__fmul_rn(static_cast<float>(raw[j].x), sc),
+                           __fmul_rn(static_cast<float>(raw[j].y), sc),
+                           __fmul_rn(static_cast<float>(raw[j].z), sc),
+                           __fmul_rn(static_cast<float>(raw[j].w), sc));
+      }
+      q[j] += step_q;
+      r[j] += step_r;
+      if (r[j] >= block_vecs) {
+        r[j] -= block_vecs;
+        ++q[j];
+      }
+    }
+  }
+}
+
+// The scalar decode: one level a thread at a time, for blocks whose length
+// is not a multiple of 4 and unaligned operands.
+__global__ void __launch_bounds__(THREADS)
+decode_scalar_kernel(const int8_t* __restrict__ levels,
+                     const float* __restrict__ scale, long long n,
+                     long long block_elems, float* __restrict__ out) {
+  const long long stride = static_cast<long long>(gridDim.x) * THREADS;
+  for (long long i = blockIdx.x * static_cast<long long>(THREADS)
+                     + threadIdx.x;
+       i < n; i += stride)
+    out[i] = __fmul_rn(static_cast<float>(levels[i]),
+                       __ldg(scale + i / block_elems));
 }
 
 // Both encodes: pass 1, then pass 2 from u (key null) or drawn from key.
@@ -330,21 +373,45 @@ int repro_dither_encode_keyed(const void* x, int dtype, const void* key,
   return static_cast<int>(err);
 }
 
-// levels int8 [rows, cols] (16-byte aligned), scale float32
-// [rows / block_rows] -> out float32 [rows, cols] (16-byte aligned).
+// levels int8 [rows, cols], scale float32 [rows / block_rows] -> out
+// float32 [rows, cols], any alignment: the vector kernel where the block
+// length is a multiple of 4, levels are 4-byte and out 16-byte aligned,
+// else the scalar kernel.
 int repro_dither_decode(const void* levels, const void* scale, long long rows,
                         long long cols, long long block_rows, void* out,
                         void* stream) {
   const long long n = rows * cols;
   const long long block_elems = block_rows * cols;
-  if (block_elems < 1) return static_cast<int>(cudaErrorInvalidValue);
-  long long blocks = (n / 16 + THREADS - 1) / THREADS;
-  if (blocks < 1) blocks = 1;
-  if (blocks > 132 * 32) blocks = 132 * 32;     // grid-stride beyond this
-  decode_kernel<<<static_cast<unsigned>(blocks), THREADS, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(levels), static_cast<const float*>(scale), n,
-      block_elems, static_cast<float*>(out));
+  if (block_elems < 1 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // eight CTAs of 256 threads an SM fill it; the grid strides beyond that
+  const long long most = 8LL * sms;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int8_t* lv = static_cast<const int8_t*>(levels);
+  const float* sc = static_cast<const float*>(scale);
+  float* o = static_cast<float*>(out);
+  const bool vec = block_elems % 4 == 0
+                   && reinterpret_cast<uintptr_t>(levels) % 4 == 0
+                   && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  auto grid_for = [most](long long items, long long per_cta) {
+    const long long g = (items + per_cta - 1) / per_cta;
+    return static_cast<unsigned>(g < most ? g : most);
+  };
+  if (vec) {
+    // a block of a multiple of 4 elements makes n one too: no tail
+    const long long nvec = n / 4;
+    const unsigned grid = grid_for(nvec, THREADS * DECODE_VECS);
+    decode_kernel<<<grid, THREADS, 0, st>>>(lv, sc, nvec, block_elems / 4,
+                                            o);
+  } else {
+    decode_scalar_kernel<<<grid_for(n, THREADS), THREADS, 0, st>>>(
+        lv, sc, n, block_elems, o);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

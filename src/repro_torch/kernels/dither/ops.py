@@ -120,7 +120,10 @@ def dither_encode_keyed(x, key, *, s=127, block_rows: int = 256):
 
 def dither_decode(levels, scale, *, block_rows: int = 256):
     """levels int8 [R, C], scale float32 [R // block_rows] -> float32
-    [R, C], ``levels · scale`` of each element's block."""
+    [R, C], ``levels · scale`` of each element's block.  The levels may
+    start at any address: the kernel loads four at a time where they are
+    4-byte aligned and the block's length is a multiple of 4, one at a time
+    otherwise."""
     _check_blocks("dither_decode", levels, block_rows)
     nb = levels.shape[0] // block_rows
     if levels.dtype != torch.int8 or scale.dtype != torch.float32:
@@ -132,9 +135,6 @@ def dither_decode(levels, scale, *, block_rows: int = 256):
                          f"{scale.device}")
     if not _on_card(levels):
         return ref.dither_decode_ref(levels, scale, block_rows)
-    if levels.data_ptr() % 16:
-        raise ValueError("dither_decode: the levels must be 16-byte aligned "
-                         "(the kernel loads 16 at a time)")
     R, C = levels.shape
     out = torch.empty((R, C), dtype=torch.float32, device=levels.device)
     _launch("dither_decode", "repro_dither_decode", levels.device,

@@ -17,6 +17,7 @@ import torch
 
 from repro.core import compressors as jc
 from repro.kernels.compressor import ops as jops
+from repro_torch import random as tr
 from repro_torch.convert import key_from_reference
 from repro_torch.core import compressors as tc
 from repro_torch.kernels.compressor import ops as tops
@@ -254,3 +255,87 @@ def test_topk_subnormal_rows_keep_ieee_order(rng, frac):
     want = np.zeros_like(x[0])
     want[order[:k]] = x[0, order[:k]]
     _rows_equal(out.numpy()[0], want)
+
+
+# ---------------------------------------------------------------------------
+# The keyed dither and compress_split: a parent key, split per worker
+# ---------------------------------------------------------------------------
+
+_messages_ref = jax.jit(
+    lambda spec, k, x: jax.vmap(lambda kk, r: jc.compress(spec, kk, r))(
+        jax.random.split(k, x.shape[0]), x))
+
+
+def _keyed_rows(rng, n, L, kind):
+    """n rows of L: normal values, rows of zeros and signed zeros, or rows
+    with a NaN (the whole row's output is NaN)."""
+    x = (rng.normal(size=(n, L)) * 10).astype(np.float32)
+    if kind == "zeros":
+        x[::2] = 0.0
+        x[1::2] = -0.0
+        x[-1, ::3] = 5.0 if n > 1 else -0.0
+    elif kind == "nan":
+        x[0, L // 2] = np.nan
+        x[-1, ::4] = -0.0
+    return x
+
+
+@pytest.mark.parametrize("n", [1, 4, 20])
+@pytest.mark.parametrize("L", [1, 123, 492])
+@pytest.mark.parametrize("kind", ["normal", "zeros", "nan"])
+def test_keyed_dither_matches_reference_worker_messages(rng, n, L, kind):
+    """The keyed dither's plain version (and the wrapper and compress_split
+    on the CPU) against the reference's per-worker messages: the rows of x
+    compressed with ``jax.random.split(k, n)``, bit for bit."""
+    x = _keyed_rows(rng, n, L, kind)
+    jkey = jax.random.key(n * 1000 + L)
+    key = key_from_reference(jax.random.key_data(jkey), device="cpu")
+    spec = jc.make_spec("dither64")
+    want = _messages_ref(spec, jkey, jnp.asarray(x))
+    got, bits = tref.fused_dither_keyed_ref(torch.as_tensor(x), key, 64.0)
+    _rows_equal(got.numpy(), want)
+    assert bits.tolist() == [float(_spec_bits_ref(spec, L))] * n
+    _rows_equal(tops.fused_dither_keyed(torch.as_tensor(x), key, 64.0)[0]
+                .numpy(), want)
+    _rows_equal(tc.compress_split(tc.dither_spec(64), key,
+                                  torch.as_tensor(x)).numpy(), want)
+
+
+@pytest.mark.parametrize("name", ["dither64", "dither1", "topk0.1",
+                                  "identity"])
+@pytest.mark.parametrize("shape", [(1, 7), (4, 123), (20, 123, 4)])
+def test_compress_split_equals_compress_with_split_keys(rng, name, shape):
+    """compress_split(spec, key, x) is compress(spec, split(key, n), x)."""
+    x = torch.as_tensor((rng.normal(size=shape) * 3).astype(np.float32))
+    key = tr.fold_in(tr.key(17, "cpu"), shape[-1])
+    spec = tc.make_spec(name)
+    got = tc.compress_split(spec, key, x)
+    want = tc.compress(spec, tr.split(key, shape[0]), x)
+    assert got.shape == x.shape
+    _rows_equal(got.numpy(), want.numpy())
+
+
+def test_keyed_wrapper_checks_its_key():
+    """The key must be an int64 [2] on x's device; a CPU tensor takes the
+    plain version, which launches nothing."""
+    x = torch.ones((3, 8))
+    with pytest.raises(ValueError, match="key"):
+        tops.fused_dither_keyed(x, torch.zeros(2, dtype=torch.int32), 8.0)
+    with pytest.raises(ValueError, match="key"):
+        tops.fused_dither_keyed(x, tr.split(tr.key(0, "cpu"), 3), 8.0)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tops.fused_dither_keyed(x.to("meta"), tr.key(0, "cpu").to("meta"),
+                                8.0)
+    before = dict(tops.launches)
+    tops.fused_dither_keyed(x, tr.key(0, "cpu"), 8.0)
+    assert tops.launches == before
+
+
+@pytest.mark.parametrize("n,L,C", [(1, 20000, 8), (20, 20000, 4),
+                                   (40, 20000, 2), (200, 20000, 1),
+                                   (20, 5000, 4), (20, 492, 1),
+                                   (1, 492, 1), (1, 512, 2), (1, 1, 1)])
+def test_dither_cluster_size_rule(n, L, C):
+    """fused_dither_keyed's CTAs per row on 132 SMs: n·C <= 132 and at
+    least DITHER_MIN_SHARE elements a CTA."""
+    assert tops.dither_cluster(n, L, 132) == C

@@ -184,16 +184,93 @@ def test_launches_counted_and_inputs_checked(cuda):
     x = torch.ones((4, 33), device=cuda)
     ops.fused_topk(x, 0.5)
     ops.fused_dither(x, torch.zeros_like(x), 8.0)
+    ops.fused_dither_keyed(x, random.key(0, cuda), 8.0)
     ops.dither_bits(8.0, 33, cuda)
-    assert ops.launches == {"fused_dither": 1, "fused_topk": 1,
-                            "dither_bits": 1, "topk_bits": 0}
+    assert ops.launches == {"fused_dither": 1, "fused_dither_keyed": 1,
+                            "fused_topk": 1, "dither_bits": 1,
+                            "topk_bits": 0}
     with pytest.raises(TypeError):
         ops.fused_topk(x.double(), 0.5)
     with pytest.raises(ValueError):
         ops.fused_topk(x.T, 0.5)
     with pytest.raises(ValueError):
         ops.fused_dither(x, torch.zeros_like(x).cpu(), 8.0)
+    with pytest.raises(ValueError, match="key"):
+        ops.fused_dither_keyed(x, random.key(0, "cpu"), 8.0)
     torch.cuda.synchronize()
+
+
+def _keyed_dither_against_plain(cuda, x, key, s):
+    """fused_dither_keyed on the card against its plain version on the CPU
+    and against the u-taking kernel fed the same uniforms drawn on the
+    card, bit for bit; the keyed counter moves, the u-taking one does
+    not."""
+    ops.reset_launches()
+    out, bits = ops.fused_dither_keyed(x.to(cuda), key.to(cuda), s)
+    assert ops.launches["fused_dither_keyed"] == 1
+    assert ops.launches["fused_dither"] == 0
+    want, want_bits = ref.fused_dither_keyed_ref(x, key, s)
+    _same(out, want)
+    _same(bits, want_bits)
+    u = random.uniform(random.split(key.to(cuda), x.shape[0]),
+                       (x.shape[1],))
+    _same(out, ops.fused_dither(x.to(cuda), u, s)[0])
+
+
+@pytest.mark.parametrize("n,C", [(1, 8), (20, 4), (40, 2), (200, 1)])
+@pytest.mark.parametrize("L", [1, 123, 492, 5000, 20000, 20001])
+def test_fused_dither_keyed_bit_identical(cuda, n, C, L):
+    """Every cluster size: n rows of 20,000 take C CTAs a row on 132 SMs
+    (shorter rows fewer; 20,001 makes the shares ragged).  Row 0's first
+    half is zero, so some shares' maxima are 0."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    if sms == 132 and L >= 20000:
+        assert ops.dither_cluster(n, L, sms) == C
+    x = _rows((n, L), n + L)
+    x[0, :L // 2] = 0.0
+    _keyed_dither_against_plain(cuda, x, random.key(n * L, "cpu"), 64.0)
+
+
+@pytest.mark.parametrize("s", [1.0, 15.0, 64.0])
+def test_fused_dither_keyed_edge_rows(cuda, s):
+    """Zero, -0, ±inf and NaN rows, one row of each through an 8-CTA
+    cluster and all of them as 8 rows."""
+    L = 20000
+    g = np.random.default_rng(4)
+    rows = torch.as_tensor(g.normal(size=(8, L)).astype(np.float32))
+    rows[0] = 0.0
+    rows[1] = -0.0
+    rows[2, ::3] = -0.0
+    rows[3, 12345] = float("inf")
+    rows[4, 19999] = -float("inf")
+    rows[5, 3] = float("nan")
+    rows[6, ::2] = 0.0
+    key = random.fold_in(random.key(8, "cpu"), int(s))
+    for r in range(rows.shape[0]):
+        _keyed_dither_against_plain(cuda, rows[r:r + 1], key, s)
+    _keyed_dither_against_plain(cuda, rows, key, s)
+
+
+def test_round_launches_the_keyed_dither(cuda):
+    """Algorithm 1's round on the card compresses through the keyed kernel
+    only (twice a round with dither on both messages), with the CPU's
+    ledgers and objective (rtol 1e-4, as chip_smoke.py's quickstart)."""
+    from repro_torch import quickstart
+    from repro_torch.core.driver import run_experiment
+    kw = dict(d=24, n_workers=4, r=24, m=2, seed=3)
+    traces = {}
+    for dev in (cuda, torch.device("cpu")):
+        prob, step, state, key = quickstart.setup(device=dev, **kw)
+        ops.reset_launches()
+        state, traces[dev.type] = run_experiment(
+            step, state, key, 3, record=lambda st: prob.metrics(st.w))
+        if dev.type == "cuda":
+            assert ops.launches["fused_dither_keyed"] == 6
+            assert ops.launches["fused_dither"] == 0
+    assert torch.equal(traces["cuda"]["bits_per_node"].cpu(),
+                       traces["cpu"]["bits_per_node"])
+    torch.testing.assert_close(traces["cuda"]["F"].cpu(), traces["cpu"]["F"],
+                               rtol=1e-4, atol=0)
 
 
 # the shapes of tests/test_kernels.py's flash-attention test, a ragged
@@ -363,10 +440,54 @@ def test_dither_inputs_checked(cuda):
     with pytest.raises(ValueError, match="key"):
         d_ops.dither_encode_keyed(x, random.key(0, "cpu"), block_rows=8)
     lv, sc = d_ops.dither_encode(x, torch.zeros_like(x), block_rows=8)
-    with pytest.raises(ValueError, match="aligned"):
-        d_ops.dither_decode(lv.reshape(-1)[1:17].reshape(1, 16), sc,
-                            block_rows=1)
+    # levels at any address decode (the kernel's scalar path)
+    odd = lv.reshape(-1)[1:17].reshape(1, 16)
+    _same_exact(d_ops.dither_decode(odd, sc[:1], block_rows=1),
+                d_ref.dither_decode_ref(odd.cpu(), sc[:1].cpu(), 1))
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("R,C,br,offset", [
+    (64, 128, 16, 0), (300, 1000, 300, 0), (45056 // 64, 5632, 704, 0),
+    (24, 77, 3, 0), (7, 5, 7, 0), (64, 128, 16, 1), (64, 128, 16, 4),
+    (64, 128, 16, 8), (33, 12, 11, 4), (5, 3, 5, 2)])
+def test_dither_decode_layouts(cuda, R, C, br, offset):
+    """The decode on multi-block levels, ragged blocks (length not a
+    multiple of 4: the scalar kernel), and levels that start 1, 2, 4 or 8
+    bytes past an aligned address (4-aligned but not 16-aligned takes the
+    vector kernel), bit for bit against the plain version."""
+    g = np.random.default_rng(R * C + offset)
+    buf = torch.as_tensor(g.integers(-128, 128, size=R * C + offset,
+                                     dtype=np.int8))
+    lv = buf.to(cuda)[offset:].view(R, C)
+    assert lv.data_ptr() % 16 == offset
+    sc = torch.as_tensor(g.random(R // br, dtype=np.float32) + 0.5)
+    d_ops.reset_launches()
+    got = d_ops.dither_decode(lv, sc.to(cuda), block_rows=br)
+    assert d_ops.launches["dither_decode"] == 1
+    _same_exact(got, d_ref.dither_decode_ref(lv.cpu(), sc, br))
+
+
+@pytest.mark.parametrize("R,C,br", [(40000, 54000, 5000),
+                                    (40008, 53999, 5001)])
+def test_dither_decode_beyond_2_31_levels(cuda, R, C, br):
+    """The decode of more than 2^31 levels (2.2 GB of int8, 8.6 GB out):
+    the vector kernel (blocks of a multiple of 4) and the scalar kernel
+    (odd blocks) index past 32 bits, bit for bit against the plain version
+    on the card."""
+    assert R * C > 2 ** 31
+    g = torch.Generator(device=cuda).manual_seed(R)
+    lv = torch.randint(-128, 128, (R, C), generator=g, dtype=torch.int8,
+                       device=cuda)
+    sc = torch.rand(R // br, generator=g, device=cuda) + 0.5
+    d_ops.reset_launches()
+    got = d_ops.dither_decode(lv, sc, block_rows=br)
+    assert d_ops.launches["dither_decode"] == 1
+    want = d_ref.dither_decode_ref(lv, sc, br)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got, want)
+    del lv, got, want
+    torch.cuda.empty_cache()
 
 
 def _keyed_against_plain(cuda, x, s, br, seed):

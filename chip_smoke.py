@@ -32,7 +32,12 @@ back to the CPU):
    ``quantize``'s layout; the keyed encode also on lengths that are not a
    multiple of 4, an x that is not 16-byte aligned, and against the
    u-taking kernel fed ``random.uniform(key, shape)``; the decode also on
-   ragged blocks and on levels 1 and 4 bytes past an aligned address.  Hold the
+   ragged blocks and on levels 1 and 4 bytes past an aligned address.  Hold
+   the grouped compressor entries (one launch for a grid of G points)
+   against their plain versions and against G launches of the scalar
+   entries, bit for bit: G = 1, 3, 8 (every cluster size of both row
+   kernels), a grid spec mixing families, and fused_topk_grouped on
+   [60, 25,000,000] (row offsets past 2^32 bytes).  Hold the
    flash-attention backward (dq, dk, dv) against the plain version's
    autograd on the card: the reference's five shapes, S = 1, 200 (window
    7; cap 50), 333 and the training shape, in float32 and bfloat16,
@@ -44,12 +49,26 @@ back to the CPU):
    and in the port on the CPU.  Ledgers must be equal every round, the
    dither run's final objective within rtol 1e-4 of the CPU run, and the
    launch counters (set to 0 before each run, read after it) must show
-   that the card run went through the kernels: fused_dither_keyed and
-   dither_bits twice a round less the top-k rounds, the u-taking
-   fused_dither never.
+   that the card run went through the kernels: the round is the sweep
+   step's [1] grid, so fused_dither_keyed_grouped and dither_bits_grouped
+   twice a round less the top-k rounds, fused_topk_grouped and
+   topk_bits_grouped once a top-k round, and the scalar entries and the
+   u-taking fused_dither never.
+3b. Plans at quickstart size (d=123, n=20, r=64, seed 0): budget_fair_plan
+   (five methods × 3 budgets), baselines_plan and fig1_plan on the card
+   against the port on this machine's CPU: ledgers, activity counts,
+   round counters, scan lengths and budget rounds equal, final F within
+   rtol 1e-4, frozen tails bit-stable; only grouped entries launched.
 4. Gisette width (d=5000, n=20, r=300, m=4): 10 rounds with each Hessian
    compressor on the card, with exact ledgers; the dither run's objective
    against the port on this machine's CPU; round time and peak memory.
+4b. baselines_plan at gisette width, 10 rounds a method (the cut): ms and
+   device kernels a round without the run's setup (10-round minus 1-round
+   runs, 3-round minus 1-round profiles; FedNL's kernels in linalg_eigh
+   apart), peak memory, exact ledgers, FedNL's fused_topk_grouped on
+   [20, 25,000,000] rows once a round; fused_topk on [20, 25e6] and the
+   grouped entry on [20, 25e6] and [60, 25e6] beside torch.topk; one eigh
+   of 5000 × 5000.
 5. Serving, tinyllama-1.1b at full width and depth 2 (float32 weights
    built on the card from seed 0, then copied to the CPU): prefill of one
    256-token prompt and 8 greedy decode steps on both devices, the CPU fed
@@ -88,13 +107,14 @@ back to the CPU):
    cuobjdump from the SASS of the library built), SDPA's backward and,
    for the decode, ``torch.mul`` (both timed only); the backward in
    float32 (bound: 3xTF32 on the tensor cores) and bfloat16.
-10. Print the kernels line (ten kernels), then the device line as the
-   last line.
+10. Print the kernels line (fourteen kernels: the ten of slices 1–6 and
+   the four grouped entries), then the device line as the last line.
 """
 from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -732,8 +752,8 @@ def drive(quickstart, ops, counts_total, expect, label, iters, **kw):
     for name, n in expect.items():
         check(counts[name] == n, f"{label}: {name} launched {counts[name]} "
               f"times, expected {n}")
-    for name, n in counts.items():
-        counts_total[name] += n
+    for name in counts_total:
+        counts_total[name] += counts[name]
     t0 = time.perf_counter()
     run_experiment(step, state, key, iters)
     torch.cuda.synchronize()
@@ -761,6 +781,18 @@ def compare_ledgers_and_F(label, gpu, cpu, per_round, n_workers=20):
     return F_g, rel
 
 
+def main_path_expect(n_dither: int, n_top: int) -> dict:
+    """Launches of a main-path run with ``n_dither`` dithered and ``n_top``
+    top-k messages: the round is the sweep step's [1] grid, so every
+    message and ledger takes a grouped entry, and the scalar entries and
+    the u-taking dither are never launched."""
+    return {"fused_dither_keyed_grouped": n_dither,
+            "dither_bits_grouped": n_dither,
+            "fused_topk_grouped": n_top, "topk_bits_grouped": n_top,
+            "fused_dither": 0, "fused_dither_keyed": 0, "dither_bits": 0,
+            "fused_topk": 0, "topk_bits": 0}
+
+
 def phase_quickstart(quickstart, ops, counts_total):
     """Phase 3: the quickstart on the card against the port on the CPU."""
     import numpy as np
@@ -768,9 +800,7 @@ def phase_quickstart(quickstart, ops, counts_total):
     for hess, iters, per_round in (("dither64", 201, 5432),
                                    ("topk0.1", 50, 3546)):
         n_top = iters if hess.startswith("topk") else 0
-        expect = {"fused_dither_keyed": 2 * iters - n_top,
-                  "fused_dither": 0, "dither_bits": 2 * iters - n_top,
-                  "fused_topk": n_top, "topk_bits": n_top}
+        expect = main_path_expect(2 * iters - n_top, n_top)
         label = f"quickstart {hess} x{iters}"
         _, gpu, round_ms, _ = drive(quickstart, ops, counts_total, expect,
                                     label, iters, hess=hess, **QUICK)
@@ -795,9 +825,7 @@ def phase_gisette(quickstart, ops, counts_total):
     out = {}
     for hess, per_round in (("dither64", 200_512), ("topk0.1", 134_512)):
         n_top = 10 if hess.startswith("topk") else 0
-        expect = {"fused_dither_keyed": 20 - n_top, "fused_dither": 0,
-                  "dither_bits": 20 - n_top,
-                  "fused_topk": n_top, "topk_bits": n_top}
+        expect = main_path_expect(20 - n_top, n_top)
         label = f"gisette {hess} x10"
         _, gpu, round_ms, peak = drive(quickstart, ops, counts_total, expect,
                                        label, 10, hess=hess, **GISETTE)
@@ -853,6 +881,21 @@ def int64_elementwise(rows) -> tuple:
     return sum(t for t, _ in mine), sum(c for _, c in mine)
 
 
+#: Each compressor entry's kernel, as the profiler names it (a name may
+#: end another: dither_bits_kernel and grouped_dither_bits_kernel).
+KERNEL_SYMBOLS = {
+    "fused_dither": "fused_dither_kernel",
+    "fused_dither_keyed": "fused_dither_keyed_kernel",
+    "fused_topk": "fused_topk_kernel",
+    "dither_bits": "dither_bits_kernel",
+    "topk_bits": "topk_bits_kernel",
+    "fused_dither_keyed_grouped": "grouped_dither_keyed_kernel",
+    "fused_topk_grouped": "grouped_topk_kernel",
+    "dither_bits_grouped": "grouped_dither_bits_kernel",
+    "topk_bits_grouped": "grouped_topk_bits_kernel",
+}
+
+
 def phase_profile(quickstart):
     """Phase 7: where a round's device time goes: torch.profiler over 10
     quickstart rounds and 3 gisette rounds; the device kernels a round and
@@ -864,8 +907,9 @@ def phase_profile(quickstart):
     for label, iters, kw in (("quickstart", 10, QUICK),
                              ("gisette", 3, GISETTE)):
         wall_us, rows = profile_rounds(quickstart, iters, **kw)
-        for name in REPLACES:
-            mine = [r for r in rows if f"{name}_kernel" in r[2]]
+        for name, symbol in KERNEL_SYMBOLS.items():
+            mine = [r for r in rows
+                    if re.search(rf"(?<!\w){symbol}(?!\w)", r[2])]
             t = sum(r[0] for r in mine)
             n = sum(r[1] for r in mine)
             log(f"profile {label}: {name} {n / iters:g} launches/round, "
@@ -1022,6 +1066,428 @@ def phase_timing(dev, ops, ref, random, library):
         f"{long_row['bound_ms']!r} ms by bytes)")
     res["fused_topk_long_row"] = long_row
     return res
+
+
+# ---------------------------------------------------------------------------
+# Slice 7: the comparison set (DIANA, FedNL, GD), [G] sweeps, ExperimentPlan
+# ---------------------------------------------------------------------------
+
+#: The grouped entries (one launch for a grid of G points) replace the same
+#: Pallas kernels as their scalar entries.
+GROUPED_REPLACES = {
+    "fused_dither_keyed_grouped": REPLACES["fused_dither_keyed"],
+    "fused_topk_grouped": REPLACES["fused_topk"],
+    "dither_bits_grouped": REPLACES["dither_bits"],
+    "topk_bits_grouped": REPLACES["topk_bits"],
+}
+#: Rows a grid point of phase 2's grouped cases holds: n, L (G·n rows in
+#: all; with G = 1, 3, 8 they take every cluster size of both row kernels).
+GROUPED_ROWS = ((20, 123), (20, 492), (20, 5000), (5, 300), (2, 20001),
+                (1, 20000))
+#: FedNL's Hessian-difference rows at gisette width: d² = 25,000,000.
+LONG_L = 25_000_000
+PLAN_PROBLEM = dict(d=123, n_workers=20, r=64, mu=1e-3, seed=0)
+GISETTE_PROBLEM = dict(d=5000, n_workers=20, r=300, mu=1e-3, seed=0)
+
+
+def phase_grouped_kernels(dev, ops, ref, random, compressors):
+    """Phase 2, the grouped entries: each against its plain version on a CPU
+    copy and against G launches of its scalar entry on the card, bit for
+    bit, at G = 1, 3, 8 (every cluster size); a grid spec mixing families
+    through ``compress_split`` and ``spec_bits_many`` against the CPU; and
+    fused_topk_grouped on [60, 25,000,000] (1.5 G elements, past 2^32
+    bytes) against fused_topk and the plain version on the card, per
+    point."""
+    import numpy as np
+    import torch
+    err = {name: 0.0 for name in GROUPED_REPLACES}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rng = np.random.default_rng(17)
+    f32 = np.float32
+
+    def plain(name, got, want, what):
+        check(bit_identical(got, want), f"{name} differs from its plain "
+              f"version on {what}")
+        err[name] = max(err[name], max_abs_err(got, want))
+
+    def scalar(name, got, want, what):
+        check(bit_identical(got, want), f"{name} differs from its scalar "
+              f"entry on {what}")
+
+    sizes = {"dither": set(), "topk": set()}
+    for G in (1, 3, 8):
+        s = torch.as_tensor(rng.choice([1.0, 4.0, 16.0, 64.0, 127.0],
+                                       G).astype(f32))
+        frac = torch.as_tensor(rng.choice([1e-4, 0.01, 0.1, 0.25, 1.0],
+                                          G).astype(f32))
+        keys = random.split(random.key(100 + G, "cpu"), G)
+        sd, fd, kd = s.to(dev), frac.to(dev), keys.to(dev)
+        for n, L in GROUPED_ROWS:
+            x = torch.as_tensor((rng.normal(size=(G * n, L)) * 10)
+                                .astype(f32))
+            x[0, :L // 2] = 0.0              # shares whose maximum is 0
+            xd = x.to(dev)
+            what = f"G={G} [{G * n},{L}]"
+            out, bits = ops.fused_dither_keyed_grouped(xd, kd, sd)
+            want, want_bits = ref.fused_dither_keyed_grouped_ref(x, keys, s)
+            plain("fused_dither_keyed_grouped", out, want, what)
+            plain("fused_dither_keyed_grouped", bits, want_bits, what)
+            tout, tbits = ops.fused_topk_grouped(xd, fd)
+            want, want_bits = ref.fused_topk_grouped_ref(x, frac)
+            plain("fused_topk_grouped", tout, want, what)
+            plain("fused_topk_grouped", tbits, want_bits, what)
+            for g in range(G):
+                rows = slice(g * n, (g + 1) * n)
+                o, b = ops.fused_dither_keyed(xd[rows], kd[g], float(s[g]))
+                scalar("fused_dither_keyed_grouped", out[rows], o, what)
+                scalar("fused_dither_keyed_grouped", bits[rows], b, what)
+                o, b = ops.fused_topk(xd[rows], float(frac[g]))
+                scalar("fused_topk_grouped", tout[rows], o, what)
+                scalar("fused_topk_grouped", tbits[rows], b, what)
+            sizes["dither"].add(ops.dither_cluster(G * n, L, sms))
+            sizes["topk"].add(ops.topk_cluster(G * n, L, sms))
+        for d in (1, 123, 492, 5000, 20000, LONG_L):
+            for name, grouped, fn_ref, fn_scalar, p in (
+                    ("dither_bits_grouped", ops.dither_bits_grouped,
+                     ref.dither_bits_grouped_ref, ops.dither_bits, s),
+                    ("topk_bits_grouped", ops.topk_bits_grouped,
+                     ref.topk_bits_grouped_ref, ops.topk_bits, frac)):
+                got = grouped(p.to(dev), d)
+                plain(name, got, fn_ref(p, d), f"G={G} d={d}")
+                scalar(name, got, torch.stack([
+                    fn_scalar(float(v), d, dev) for v in p]), f"d={d}")
+    torch.cuda.synchronize()
+    check(sms != 132 or sizes["dither"] == sizes["topk"] == {1, 2, 4, 8},
+          f"grouped cluster sizes taken {sizes}")
+    # a grid mixing families, one of them not a run of points
+    names = ("identity", "dither64", "topk0.25", "dither16", "identity",
+             "topk0.01", "dither64")
+    spec = compressors.stack_specs(*names)
+    G = len(names)
+    x = torch.as_tensor(rng.normal(size=(G, 20, 492)).astype(f32))
+    keys = random.split(random.key(7, "cpu"), G)
+    got = compressors.compress_split(compressors.spec_to(spec, dev),
+                                     keys.to(dev), x.to(dev))
+    want = compressors.compress_split(spec, keys, x)
+    check(bit_identical(got, want), "mixed-family compress_split differs "
+          "from the CPU's")
+    for d in (123, 492, LONG_L):
+        check(bit_identical(compressors.spec_bits_many(
+            compressors.spec_to(spec, dev), d),
+            compressors.spec_bits_many(spec, d)),
+            f"mixed-family spec_bits_many differs from the CPU's at d={d}")
+    # FedNL's rows at gisette width, three points of 20 rows
+    frac = (0.25, 0.1, 0.25)
+    x = torch.randn((60, LONG_L), generator=torch.Generator(
+        device=dev).manual_seed(5), device=dev)
+    out, bits = ops.fused_topk_grouped(
+        x, torch.tensor(frac, dtype=torch.float32, device=dev))
+    for g, f in enumerate(frac):
+        rows = slice(20 * g, 20 * (g + 1))
+        o, b = ops.fused_topk(x[rows], f)
+        scalar("fused_topk_grouped", out[rows], o, "[60,25000000]")
+        del o
+        want, want_bits = ref.fused_topk_ref(x[rows], f)
+        plain("fused_topk_grouped", out[rows], want, "[60,25000000]")
+        plain("fused_topk_grouped", bits[rows], want_bits, "[60,25000000]")
+        del want
+        torch.cuda.empty_cache()
+    del x, out
+    torch.cuda.empty_cache()
+    log(f"phase 2: the grouped entries bit-identical to their plain versions "
+        f"and to G launches of the scalar entries at G = 1, 3, 8 "
+        f"(cluster sizes {sizes}), on a mixed-family grid and on "
+        f"[60,{LONG_L}]; max_abs_err {err}")
+    return err
+
+
+def _plan_launches(api, plan, ops):
+    """Run a plan on the card with the launch counters set to 0 just
+    before and read just after: (result, launches)."""
+    import torch
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    res = api.run_plan(plan)
+    torch.cuda.synchronize()
+    return res, dict(ops.launches)
+
+
+def phase_plans(api, experiments, make_problem, ops, counts):
+    """Phase 3b: ``budget_fair_plan`` (five methods × 3 budgets),
+    ``baselines_plan`` and ``fig1_plan`` at quickstart size on the card,
+    against the port on this machine's CPU: bit ledgers, activity counts,
+    round counters and scan lengths equal, every grid point's final F
+    within rtol 1e-4, budget rounds equal and every frozen tail bit-stable
+    (``experiments.budget_fair_rows``)."""
+    import numpy as np
+    gpu = make_problem(**PLAN_PROBLEM, device="cuda")
+    cpu = make_problem(**PLAN_PROBLEM, device="cpu")
+    out = {}
+    for name, make in (("budget_fair", experiments.budget_fair_plan),
+                       ("baselines", experiments.baselines_plan),
+                       ("fig1", experiments.fig1_plan)):
+        res, launched = _plan_launches(api, make(gpu), ops)
+        for k, v in launched.items():
+            counts[k] += v
+        want = api.run_plan(make(cpu))
+        check(res.labels == want.labels, f"{name}: labels differ")
+        rel_final, rounds, rels = 0.0, 0, {}
+        for lab in res.labels:
+            (st, tr), (wst, wtr) = res[lab], want[lab]
+            for key in ("bits_per_node", "n_active"):
+                check(np.array_equal(tr[key].cpu().numpy(),
+                                     wtr[key].numpy()),
+                      f"{name} {lab}: {key} differs from the CPU's")
+            check(np.array_equal(st.k.cpu().numpy(), wst.k.numpy()),
+                  f"{name} {lab}: round counters differ")
+            F = tr["F"].cpu().numpy().astype(np.float64)
+            Fc = wtr["F"].numpy().astype(np.float64)
+            check(F.shape == Fc.shape and np.isfinite(F).all(),
+                  f"{name} {lab}: F not finite or of another length")
+            rels[lab] = float(np.abs(F[:, -1] / Fc[:, -1] - 1).max())
+            rel_final = max(rel_final, rels[lab])
+            rounds += F.shape[0] * F.shape[1]
+        log(f"phase 3b: {name}_plan final F, card against CPU, largest "
+            f"relative difference by run: {rels}")
+        check(rel_final <= 1e-4, f"{name}: final F beyond rtol 1e-4 of the "
+              "CPU's")
+        if name == "budget_fair":
+            budgets = experiments.budget_fair_budgets(gpu)
+            rows = experiments.budget_fair_rows(res, budgets)
+            check([(r["bits_per_node"], r["rounds"]) for r in rows]
+                  == [(r["bits_per_node"], r["rounds"]) for r in
+                      experiments.budget_fair_rows(want, budgets)],
+                  "budget_fair: rounds or final ledgers differ")
+            out["budget_fair_rows"] = rows
+        grouped = {k: v for k, v in launched.items() if "grouped" in k}
+        log(f"phase 3b: {name}_plan on the card: {len(res.labels)} runs, "
+            f"{rounds} point-rounds in {res.seconds!r} s; ledgers, counts "
+            f"and scan lengths equal to the CPU's, final F within "
+            f"{rel_final!r} of it; launches {launched}")
+        out[name] = dict(seconds=res.seconds, rel_final=rel_final,
+                         launches=launched, grouped=grouped)
+    return out
+
+
+def device_split(prof, op: str) -> dict:
+    """Device events (kernels, copies, sets) of a profile split into those
+    launched from inside the CPU operator ``op`` and the rest: {"op":
+    (count, µs), "rest": (count, µs)}.  A device event's launch call (CUDA
+    runtime or driver) carries its correlation id in the profile's trace;
+    it belongs to ``op`` when that call lies inside one of the op's spans."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "cpu_op" and e.get("name") == op]
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "correlation" in e.get("args", {})}
+    out = {"op": [0, 0.0], "rest": [0, 0.0]}
+    for e in events:
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        ts = launch_ts.get(e.get("args", {}).get("correlation"))
+        side = "op" if ts is not None and any(
+            a <= ts <= b for a, b in spans) else "rest"
+        out[side][0] += 1
+        out[side][1] += e["dur"]
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def phase_gisette_baselines(api, experiments, make_problem, ops, ref,
+                            counts):
+    """Phase 4b: ``baselines_plan`` at gisette width (d=5000, n=20, r=300;
+    10 rounds a method, the cut is rounds): per method the round time and
+    the device kernels a round, each the difference of a 10-round and a
+    1-round run (10 rounds timed by the host clock around runs that end in
+    a synchronize, after a 1-round warm-up; kernels from profiles of 3 and
+    1 rounds), so the run's setup (initial state, keys, pricing) is not in
+    them; FedNL's kernels split into those of ``aten::linalg_eigh`` and
+    the rest; peak memory and exact ledgers; FedNL's fused_topk_grouped on
+    its [20, 25,000,000] rows; then fused_topk and fused_topk_grouped on
+    [20, 25e6], fused_topk_grouped on [60, 25e6] beside torch.topk, and
+    one eigh of 5000 × 5000."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.driver import grid1
+    prob = make_problem(**GISETTE_PROBLEM, device="cuda")
+    plan = experiments.baselines_plan(prob, iters=10)
+    out = {}
+
+    def profiled(plan_):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            api.run_plan(plan_)
+            torch.cuda.synchronize()
+        return prof
+
+    for run in plan.runs:
+        def one(iters):
+            return dataclasses.replace(plan, runs=(dataclasses.replace(
+                run, iters=iters),))
+        api.run_plan(one(1))
+        torch.cuda.synchronize()
+        t1 = api.run_plan(one(1)).seconds
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        res, launched = _plan_launches(api, one(10), ops)
+        peak = torch.cuda.max_memory_allocated()
+        for k, v in launched.items():
+            counts[k] += v
+        st, tr = res[run.label]
+        spec = api.get_method(run.method)
+        price = np.float32(spec.round_bits(prob, run.cfg, grid1(
+            spec.from_config(run.cfg)))[0])
+        # the ledger adds the price once a round, in float32
+        want = np.cumsum(np.full(10, price, np.float32), dtype=np.float32)
+        bits = tr["bits_per_node"].cpu().numpy()
+        check(np.array_equal(bits, np.broadcast_to(want[None, :, None],
+                                                   bits.shape)),
+              f"gisette {run.label}: ledger is not {price} a round")
+        price = float(price)
+        split = {n: device_split(profiled(one(n)), "aten::linalg_eigh")
+                 for n in (1, 3)}
+        per_round = {side: ((split[3][side][0] - split[1][side][0]) / 2,
+                            (split[3][side][1] - split[1][side][1]) / 2e3)
+                     for side in ("op", "rest")}
+        r = dict(round_ms=1e3 * (res.seconds - t1) / 9,
+                 setup_ms=1e3 * t1 - 1e3 * (res.seconds - t1) / 9,
+                 kernels_per_round=per_round["op"][0]
+                 + per_round["rest"][0],
+                 busy_ms_per_round=per_round["op"][1] + per_round["rest"][1],
+                 eigh_kernels_per_round=per_round["op"][0],
+                 eigh_busy_ms_per_round=per_round["op"][1],
+                 peak_gib=peak / 2**30, launches=launched,
+                 F=tr["F"][0].tolist(), bits_per_round=price)
+        log(f"phase 4b: gisette {run.label} x10: {r['round_ms']!r} ms a "
+            f"round (setup {r['setup_ms']!r} ms), "
+            f"{r['kernels_per_round']:g} device kernels and copies a round "
+            f"({r['eigh_kernels_per_round']:g} of them in linalg_eigh), "
+            f"device busy {r['busy_ms_per_round']!r} ms a round "
+            f"({r['eigh_busy_ms_per_round']!r} in linalg_eigh), peak "
+            f"{r['peak_gib']!r} GiB, {price:.0f} bits a round; F {r['F']}; "
+            f"launches {launched}")
+        out[run.label] = r
+        del res, st, tr
+        torch.cuda.empty_cache()
+    check(out["FedNL"]["launches"]["fused_topk_grouped"] == 10,
+          "gisette FedNL: fused_topk_grouped not launched once a round")
+    g = torch.Generator(device="cuda").manual_seed(9)
+    x = torch.randn((20, LONG_L), generator=g, device="cuda")
+    k = ref.topk_keep_count(0.25, LONG_L)
+    frac1 = torch.full((1,), 0.25, dtype=torch.float32, device="cuda")
+    long = {"[20,25000000]": dict(
+        ms=cuda_ms(lambda: ops.fused_topk(x, 0.25), 3),
+        grouped_ms=cuda_ms(lambda: ops.fused_topk_grouped(x, frac1), 3),
+        library_ms=cuda_ms(lambda: torch.topk(x.abs(), k, dim=1), 3),
+        bound_ms=1e3 * (8 * x.numel() + 80) / HBM_BYTES_PER_S,
+        cluster=ops.topk_cluster(20, LONG_L, 132))}
+    del x
+    torch.cuda.empty_cache()
+    x = torch.randn((60, LONG_L), generator=g, device="cuda")
+    frac = torch.full((3,), 0.25, dtype=torch.float32, device="cuda")
+    long["[60,25000000]"] = dict(
+        ms=cuda_ms(lambda: ops.fused_topk_grouped(x, frac), 3),
+        library_ms=cuda_ms(lambda: torch.topk(x.abs(), k, dim=1), 3),
+        bound_ms=1e3 * (8 * x.numel() + 252) / HBM_BYTES_PER_S,
+        cluster=ops.topk_cluster(60, LONG_L, 132))
+    del x
+    torch.cuda.empty_cache()
+    for shape, r in long.items():
+        log(f"timing fused_topk {shape} (FedNL's rows at gisette width, "
+            f"{r['cluster']} CTAs a row, streamed shares): {r['ms']!r} ms "
+            + (f"(the grouped entry at G = 1 {r['grouped_ms']!r} ms) "
+               if "grouped_ms" in r else "")
+            + f"(torch.topk {r['library_ms']!r} ms, bound {r['bound_ms']!r} "
+            f"ms by bytes)")
+    A = torch.randn((5000, 5000), generator=g, device="cuda")
+    A = A @ A.mT / 5000 + torch.eye(5000, device="cuda")
+    eigh_ms = cuda_ms(lambda: torch.linalg.eigh(A), 3, backlog=False)
+    log(f"timing torch.linalg.eigh 5000 x 5000 (FedNL's direction, once a "
+        f"round and point): {eigh_ms!r} ms")
+    del A
+    torch.cuda.empty_cache()
+    out["fused_topk_long"] = long
+    out["eigh_ms"] = eigh_ms
+    return out
+
+
+def grouped_timing(dev, ops, ref, random, library):
+    """The grouped entries at the plans' shapes (three points of 20 rows:
+    ``budget_fair_plan``'s runs at quickstart size), by CUDA events beside
+    their plain versions, G = 3 launches of the scalar entries, the library
+    call (top-k) and the bound (the grouped keyed dither's from the SASS of
+    its main loop, as the scalar one's)."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(4)
+    G, n = 3, 20
+    keys = random.split(random.key(12, dev), G)
+    s = torch.tensor([64.0] * G, device=dev)
+    frac = torch.tensor([0.25] * G, device=dev)
+    clocks, pipe, per, elems = loop_clocks_per_element(
+        library, "grouped_dither_keyed_kernel")
+    log(f"grouped_dither_keyed_kernel main loop, {elems} elements a trip, "
+        f"thread-instructions an element by pipe (SASS): "
+        + ", ".join(f"{k} {v!r}" for k, v in per.items())
+        + f"; bound {clocks!r} SM clocks an element on the {pipe} pipe")
+    res = {}
+    L = 123
+    x = torch.randn((G * n, L), generator=g).to(dev)
+    res["fused_dither_keyed_grouped"] = dict(
+        shape=[G * n, L],
+        ms=cuda_ms(lambda: ops.fused_dither_keyed_grouped(x, keys, s), 200),
+        scalar_ms=cuda_ms(lambda: [ops.fused_dither_keyed(
+            x[i * n:(i + 1) * n], keys[i], 64.0) for i in range(G)], 200),
+        plain_ms=cuda_ms(lambda: ref.fused_dither_keyed_grouped_ref(
+            x, keys, s), 20),
+        library_ms=None, bytes=8 * G * n * L + 4 * G * n + 20 * G,
+        ops=clocks * G * n * L, rate=SM_CLOCKS_PER_S)
+    L = 123 * 123                          # FedNL's d² rows at d = 123
+    x = torch.randn((G * n, L), generator=g).to(dev)
+    k = ref.topk_keep_count(0.25, L)
+    res["fused_topk_grouped"] = dict(
+        shape=[G * n, L],
+        ms=cuda_ms(lambda: ops.fused_topk_grouped(x, frac), 200),
+        scalar_ms=cuda_ms(lambda: [ops.fused_topk(
+            x[i * n:(i + 1) * n], 0.25) for i in range(G)], 200),
+        plain_ms=cuda_ms(lambda: ref.fused_topk_grouped_ref(x, frac), 10),
+        library_ms=cuda_ms(lambda: torch.topk(x.abs(), k, dim=1), 100),
+        bytes=8 * G * n * L + 4 * G * n + 4 * G, ops=34 * G * n * L,
+        rate=F32_OPS_PER_S)
+    for name, fn, scal, plain, p, v in (
+            ("dither_bits_grouped", ops.dither_bits_grouped, ops.dither_bits,
+             ref.dither_bits_grouped_ref, s, 64.0),
+            ("topk_bits_grouped", ops.topk_bits_grouped, ops.topk_bits,
+             ref.topk_bits_grouped_ref, frac, 0.25)):
+        res[name] = dict(
+            shape=[G], ms=cuda_ms(lambda: fn(p, 123), 200),
+            scalar_ms=cuda_ms(lambda: [scal(v, 123, dev)
+                                       for _ in range(G)], 200),
+            plain_ms=cuda_ms(lambda: plain(p, 123), 20), library_ms=None,
+            bytes=8 * G, ops=12 * G, rate=F32_OPS_PER_S)
+    for name, r in res.items():
+        t_bytes = 1e3 * r.pop("bytes") / HBM_BYTES_PER_S
+        t_ops = 1e3 * r.pop("ops") / r.pop("rate")
+        r["bound_ms"] = max(t_bytes, t_ops)
+        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        log(f"timing {name} {r['shape']}: {r['ms']!r} ms ({G} launches of "
+            f"the scalar entry {r['scalar_ms']!r} ms; plain "
+            f"{r['plain_ms']!r} ms, library {r['library_ms']!r} ms, bound "
+            f"{r['bound_ms']!r} ms by {r['bound_by']})")
+    return res
+
+
+def empty_launch_ms() -> float:
+    """One launch of a kernel that does nothing (``torch.cuda._sleep(0)``),
+    timed back to back behind a spin: the least any kernel takes on this
+    card, the floor of the ledger kernels' time."""
+    import torch
+    return cuda_ms(lambda: torch.cuda._sleep(0), 200)
 
 
 # ---------------------------------------------------------------------------
@@ -1578,7 +2044,9 @@ def main():
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false; this script needs a card")
-    from repro_torch import quickstart, random
+    from repro_torch import experiments, quickstart, random
+    from repro_torch.core import api
+    from repro_torch.data.logreg import make_problem
     from repro_torch.kernels.compressor import build, ops, ref
     from repro_torch.kernels.flash_attention import build as fa_build
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -1615,17 +2083,26 @@ def main():
     err = phase_kernels(dev, ops, ref, random)
     phase_dither_cluster(dev, ops, ref, random, err)
     phase_topk_cluster(dev, ops, ref, err)
+    grouped_err = phase_grouped_kernels(dev, ops, ref, random, compressors)
     flash_err = phase_flash_kernel(dev, fa_ops, fa_ref)
     dither_err = phase_dither_kernels(dev, d_ops, d_ref, random)
     bwd_err, bwd_rel = phase_flash_backward(dev, fa_ops, fa_ref)
-    counts = {name: 0 for name in REPLACES}
+    counts = {name: 0 for name in ops.launches}
     quick = phase_quickstart(quickstart, ops, counts)
     gis = phase_gisette(quickstart, ops, counts)
     for name, n in counts.items():
-        # the u-taking dither is off the path: the round takes the keyed one
-        check((n == 0) == (name == "fused_dither"),
+        # the round takes the grouped entries; the scalar ones are off it
+        check((n > 0) == (name in GROUPED_REPLACES),
               f"{name} launched {n} times on the main path")
     log(f"main-path launches (sum of the four runs above): {counts}")
+    plan_counts = {name: 0 for name in ops.launches}
+    plans = phase_plans(api, experiments, make_problem, ops, plan_counts)
+    gis_base = phase_gisette_baselines(api, experiments, make_problem, ops,
+                                       ref, plan_counts)
+    for name, n in plan_counts.items():
+        check((n > 0) == (name in GROUPED_REPLACES),
+              f"{name} launched {n} times by the plans")
+    log(f"plan launches (sum of phases 3b and 4b): {plan_counts}")
     depth2 = phase_serve_depth2(serve)
     full = phase_serve_full(serve, fa_ops)
     train2 = phase_train_depth2(train, value_and_grad, compressors, random,
@@ -1633,6 +2110,10 @@ def main():
     trained = phase_train_full(train, fa_ops, d_ops, ops, tree)
     prof = phase_profile(quickstart)
     timing = phase_timing(dev, ops, ref, random, library=built[0])
+    gtiming = grouped_timing(dev, ops, ref, random, library=built[0])
+    floor_ms = empty_launch_ms()
+    log(f"timing an empty kernel (torch.cuda._sleep(0)) back to back: "
+        f"{floor_ms!r} ms a launch")
     flash = phase_flash_timing(dev, fa_ops, fa_ref)
     ttiming = phase_train_kernel_timing(dev, d_ops, d_ref, fa_ops, fa_ref,
                                         random)
@@ -1642,7 +2123,14 @@ def main():
         L = 20000 if name.startswith("fused") else 1
         r = timing[(name, L)]
         entry = {"name": name, "route": "cuda", "source": SOURCE,
-                 "replaces": REPLACES[name], "launches": counts[name],
+                 "replaces": REPLACES[name],
+                 "launches": counts[name] + plan_counts[name]
+                 + trained["flecs"]["launches"].get(name, 0),
+                 "launches_by_path": {
+                     "quickstart, gisette": counts[name],
+                     "plans": plan_counts[name],
+                     "train flecs x5": trained["flecs"]["launches"].get(
+                         name, 0)},
                  "max_abs_err": err[name], "ms": r["ms"],
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                  "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -1653,6 +2141,8 @@ def main():
             entry["bound_ms_by_shape"] = {
                 f"[20,{Ls}]": timing[(name, Ls)]["bound_ms"]
                 for Ls in TIMED_L[name]}
+        if name in ("dither_bits", "topk_bits"):
+            entry["launch_floor_ms"] = floor_ms
         if name == "fused_dither_keyed":
             entry["bound_pipe"] = r["pipe"]
             entry["clocks_per_element"] = r["clocks_per_element"]
@@ -1664,6 +2154,32 @@ def main():
                 for Ls in TIMED_L[name]}
             entry["library_ms_by_shape"]["[1,3000000]"] = long_row[
                 "library_ms"]
+            for shape, r in gis_base["fused_topk_long"].items():
+                entry["ms_by_shape"][shape] = r["ms"]
+                entry["library_ms_by_shape"][shape] = r["library_ms"]
+                entry["bound_ms_by_shape"][shape] = r["bound_ms"]
+        kernels.append(entry)
+    for name, r in gtiming.items():
+        entry = {"name": name, "route": "cuda", "source": SOURCE,
+                 "replaces": GROUPED_REPLACES[name],
+                 "launches": counts[name] + plan_counts[name],
+                 "launches_by_path": {"quickstart, gisette": counts[name],
+                                      "plans": plan_counts[name]},
+                 "max_abs_err": grouped_err[name], "ms": r["ms"],
+                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                 "scalar_entry_ms": r["scalar_ms"], "shape": r["shape"]}
+        if name.endswith("bits_grouped"):
+            entry["launch_floor_ms"] = floor_ms
+        if name == "fused_topk_grouped":
+            long = gis_base["fused_topk_long"]
+            entry["ms_by_shape"] = {
+                "[20,25000000]": long["[20,25000000]"]["grouped_ms"],
+                "[60,25000000]": long["[60,25000000]"]["ms"]}
+            entry["library_ms_by_shape"] = {
+                shape: r["library_ms"] for shape, r in long.items()}
+            entry["bound_ms_by_shape"] = {
+                shape: r["bound_ms"] for shape, r in long.items()}
         kernels.append(entry)
     by_path = {"serve prefill": full["launches"],
                "train adam x5": trained["adam"]["launches"],
@@ -1715,6 +2231,7 @@ def main():
         "bf16": {key: r16[key] for key in (
             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
         "shape": list(SERVE_SHAPE[:5])})
+    log(json.dumps({"plans": plans, "gisette_baselines": gis_base}))
     log(json.dumps({"quickstart": quick, "gisette": gis, "profile": prof,
                     "serve_depth2": depth2, "serve": full,
                     "train_depth2": train2, "train": trained}))

@@ -2,16 +2,20 @@
 
 The arguments are numpy arrays (``np.asarray`` of the reference's leaves,
 and ``jax.random.key_data`` for a key), so this module needs no JAX.  The
-tests use it to run both packages from the same state.
+tests use it to run both packages from the same state.  A state whose
+``k`` has a leading [G] axis (a reference sweep's) converts to the port's
+batched state (``driver.batch_state``'s layout).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core.compressors import CompressorSpec, grid_spec
 from repro_torch.core.flecs import FlecsState
 from repro_torch.data.logreg import FederatedLogReg
 from repro_torch.device import resolve_device
+from repro_torch.optim.baselines import DianaState, FedNLState, GDState
 
 
 def key_from_reference(key_data, device=None) -> torch.Tensor:
@@ -61,13 +65,77 @@ opt_state_from_reference = params_from_reference
 shifts_from_reference = params_from_reference
 
 
+def _state(cls, leaves: dict, k, device):
+    """``cls`` from float32 leaves and the counter k: an int, or for a
+    batched state an int32 [G] tensor (and ``t``, the round of the live
+    points, where the state has one)."""
+    dev = resolve_device(device)
+    fields = {name: torch.as_tensor(np.array(a, np.float32), device=dev)
+              for name, a in leaves.items()}
+    k = np.asarray(k)
+    if k.ndim == 0:
+        fields["k"] = int(k)
+    else:
+        fields["k"] = torch.as_tensor(k.astype(np.int32), device=dev)
+        if "t" in cls._fields:
+            fields["t"] = int(k.max())
+    return cls(**fields)
+
+
 def state_from_reference(w, h, B, k, bits_per_node,
                          device=None) -> FlecsState:
     """``FlecsState`` from the reference ``FlecsState``'s leaves."""
+    return _state(FlecsState, dict(w=w, h=h, B=B,
+                                   bits_per_node=bits_per_node), k, device)
+
+
+def diana_state_from_reference(w, h, k, bits_per_node,
+                               device=None) -> DianaState:
+    """``DianaState`` from the reference ``DianaState``'s leaves."""
+    return _state(DianaState, dict(w=w, h=h, bits_per_node=bits_per_node),
+                  k, device)
+
+
+def fednl_state_from_reference(w, H, k, bits_per_node,
+                               device=None) -> FedNLState:
+    """``FedNLState`` from the reference ``FedNLState``'s leaves."""
+    return _state(FedNLState, dict(w=w, H=H, bits_per_node=bits_per_node),
+                  k, device)
+
+
+def gd_state_from_reference(w, k, bits_per_node, device=None) -> GDState:
+    """``GDState`` from the reference ``GDState``'s leaves."""
+    return _state(GDState, dict(w=w, bits_per_node=bits_per_node), k,
+                  device)
+
+
+def spec_from_reference(spec, device=None) -> CompressorSpec:
+    """A reference ``CompressorSpec`` (numpy leaves: family, s, frac; the
+    sketch params are not ported): a scalar spec, or a grid spec for [G]
+    leaves."""
+    family = np.asarray(spec.family)
+    if family.ndim == 0:
+        return CompressorSpec(int(family), float(np.float32(spec.s)),
+                              float(np.float32(spec.frac)))
+    return grid_spec(family.tolist(), np.asarray(spec.s, np.float32),
+                     np.asarray(spec.frac, np.float32),
+                     resolve_device(device))
+
+
+def hparams_from_reference(cls, hp, device=None):
+    """The port's hparams ``cls`` (``FlecsHParams``, ``DianaHParams``, ...)
+    from a reference hparams tuple of numpy leaves: each field of ``cls``
+    read by name, specs through :func:`spec_from_reference`, [G] leaves as
+    float32 tensors, scalars as floats."""
     dev = resolve_device(device)
 
-    def tensor(a):
-        return torch.as_tensor(np.array(a, np.float32), device=dev)
+    def leaf(v):
+        if v is None:
+            return None
+        if hasattr(v, "family"):
+            return spec_from_reference(v, dev)
+        a = np.asarray(v, np.float32)
+        return float(a) if a.ndim == 0 else torch.as_tensor(a, device=dev)
 
-    return FlecsState(tensor(w), tensor(h), tensor(B), int(np.asarray(k)),
-                      tensor(bits_per_node))
+    return cls(**{name: leaf(getattr(hp, name, None))
+                  for name in cls._fields})

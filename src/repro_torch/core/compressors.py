@@ -1,15 +1,25 @@
 """Compressors of the main path (counterpart of ``repro.core.compressors``).
 
-A :class:`CompressorSpec` names a family and its parameters.  In this slice
-the family is a concrete Python int, so the entry points dispatch in Python
-(the reference's traced ``lax.switch`` over family axes comes with sweeps):
+A :class:`CompressorSpec` names a family and its parameters.  A scalar spec
+holds a Python int family and float parameters.  A grid spec (a sweep's [G]
+axis, :func:`stack_specs`) holds the families as a host tuple, known when
+the grid is built, and s and frac as float32 [G] tensors beside their host
+numpy copies (which price the grid without reading the device).  The entry
+points dispatch on the families in Python, where the reference's traced
+``lax.switch`` selects per grid point:
 
     compress(spec, keys, x)      — apply Q to each row of x (one row per
                                    worker message, one key per row)
     compress_split(spec, key, x) — compress(spec, random.split(key, n), x)
-                                   for n rows: the round's call
+                                   for n rows: the round's call; a grid spec
+                                   takes keys [G, 2] and x [G, n, ...] and
+                                   launches once per family of the grid
     spec_bits(spec, d, device)   — exact uplink payload bits of a d-element
                                    message, a float32 0-d tensor
+    spec_bits_many(spec, d)      — the same for each point of a grid spec
+                                   ([G], one ledger launch per family)
+    spec_bits_host(spec, d)      — the same in numpy, priced on the CPU
+                                   from the host copies
     shared_scale_levels(key, x, s) / decode_int8(levels, scale)
                                  — the int8 wire format of the deep-learning
                                    trainer (``core/dl_flecs.py``), through
@@ -31,7 +41,8 @@ minmax raise ``NotImplementedError`` (ROADMAP.md).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Union
+import functools
+from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -54,10 +65,16 @@ def _f32(v) -> float:
 class CompressorSpec(NamedTuple):
     """(family, s, frac): the family id (FAMILY_*), the dithering level
     count s (FAMILY_DITHER) and the kept fraction frac (FAMILY_TOPK), both
-    rounded to float32 as the reference holds them."""
-    family: int
-    s: float
-    frac: float
+    rounded to float32 as the reference holds them.
+
+    A grid spec ([G] points, :func:`stack_specs`, :func:`grid_spec`) holds
+    ``family`` as a tuple of G ids, ``s`` and ``frac`` as float32 [G]
+    tensors, and ``s_host`` / ``frac_host``, their numpy copies."""
+    family: Union[int, Tuple[int, ...]]
+    s: Union[float, torch.Tensor]
+    frac: Union[float, torch.Tensor]
+    s_host: Optional[np.ndarray] = None
+    frac_host: Optional[np.ndarray] = None
 
 
 def identity_spec() -> CompressorSpec:
@@ -143,6 +160,135 @@ def make_spec(name_or_spec: Union[str, CompressorSpec],
     return ctor()
 
 
+# ---------------------------------------------------------------------------
+# Grid specs: a sweep's [G] axis of compressors
+# ---------------------------------------------------------------------------
+
+def is_grid(spec: CompressorSpec) -> bool:
+    return isinstance(spec.family, tuple)
+
+
+def grid_spec(family, s, frac, device="cpu") -> CompressorSpec:
+    """A [G] grid spec from G family ids and G levels and fractions
+    (rounded to float32), the tensors on ``device``."""
+    s_host = np.asarray(s, np.float32).reshape(-1).copy()
+    frac_host = np.asarray(frac, np.float32).reshape(-1).copy()
+    family = tuple(int(f) for f in family)
+    if not len(family) == s_host.shape[0] == frac_host.shape[0] >= 1:
+        raise ValueError(f"grid spec: {len(family)} families, "
+                         f"{s_host.shape[0]} levels, {frac_host.shape[0]} "
+                         "fractions")
+    return CompressorSpec(family, torch.as_tensor(s_host, device=device),
+                          torch.as_tensor(frac_host, device=device),
+                          s_host, frac_host)
+
+
+def stack_specs(*specs) -> CompressorSpec:
+    """Stack scalar specs (names or specs) into one [G] grid spec whose
+    axis may vary the family itself: ``stack_specs("identity", "dither64")``
+    is the FLECS-vs-FLECS-CGD comparison as one grid axis."""
+    scal = [make_spec(sp) for sp in specs]
+    if not scal or any(is_grid(sp) for sp in scal):
+        raise ValueError("stack_specs takes one or more scalar specs")
+    return grid_spec([sp.family for sp in scal], [sp.s for sp in scal],
+                     [sp.frac for sp in scal])
+
+
+def as_grid(spec: CompressorSpec, G: int) -> CompressorSpec:
+    """A scalar spec broadcast to a [G] grid spec; a grid spec of G points
+    as it is."""
+    if is_grid(spec):
+        if len(spec.family) != G:
+            raise ValueError(f"grid spec of {len(spec.family)} points, "
+                             f"expected {G}")
+        return spec
+    return grid_spec((spec.family,) * G, [spec.s] * G, [spec.frac] * G)
+
+
+def tile_spec(spec: CompressorSpec, reps: int) -> CompressorSpec:
+    """A grid spec's points repeated ``reps`` times (point b·G + g is
+    point g): ``jnp.tile`` of every leaf."""
+    return grid_spec(spec.family * reps, np.tile(spec.s_host, reps),
+                     np.tile(spec.frac_host, reps), spec.s.device)
+
+
+def spec_point(spec: CompressorSpec, g: int) -> CompressorSpec:
+    """Point g of a grid spec as a scalar spec (from the host copies)."""
+    return CompressorSpec(spec.family[g], float(spec.s_host[g]),
+                          float(spec.frac_host[g]))
+
+
+def spec_to(spec: CompressorSpec, device) -> CompressorSpec:
+    """A grid spec with its tensors on ``device`` (scalar specs hold no
+    tensor)."""
+    if not is_grid(spec):
+        return spec
+    return spec._replace(s=spec.s.to(device), frac=spec.frac.to(device))
+
+
+@functools.lru_cache(maxsize=64)
+def _groups(family: tuple, device: torch.device):
+    """[(family id, the points of that family)] of a grid: a slice where
+    the points are one run, else an index tensor on ``device`` (built once
+    per grid and device: the round reads no host value)."""
+    out = []
+    for fam in sorted(set(family)):
+        idx = [g for g, f in enumerate(family) if f == fam]
+        if idx == list(range(idx[0], idx[-1] + 1)):
+            out.append((fam, slice(idx[0], idx[-1] + 1)))
+        else:
+            out.append((fam, torch.tensor(idx, dtype=torch.int64,
+                                          device=device)))
+    return tuple(out)
+
+
+def _unported(family) -> NotImplementedError:
+    return NotImplementedError(
+        f"compressor family {family} is not ported yet (ROADMAP.md, queue "
+        "1: 'other compressor families')")
+
+
+def _compress_grid_rows(family: int, rows, keys, s, frac):
+    """One family's points: rows [P·n, L] of P points, their keys [P, 2]
+    and parameters [P] — one grouped launch on the card."""
+    if family == FAMILY_IDENTITY:
+        return rows
+    if family == FAMILY_DITHER:
+        return ops.fused_dither_keyed_grouped(rows, keys, s)[0]
+    if family == FAMILY_TOPK:
+        return ops.fused_topk_grouped(rows, frac)[0]
+    raise _unported(family)
+
+
+def _compress_split_grid(spec: CompressorSpec, keys: torch.Tensor,
+                         x: torch.Tensor) -> torch.Tensor:
+    """compress_split of each grid point: x [G, n, ...], keys [G, 2]."""
+    G, n = x.shape[0], x.shape[1]
+    if keys.shape != (G, 2):
+        raise ValueError(f"grid compress_split: keys [{G}, 2] required, got "
+                         f"{tuple(keys.shape)}")
+    rows = x.reshape(G * n, -1).contiguous()
+    groups = _groups(spec.family, x.device)
+    if len(groups) == 1:
+        out = _compress_grid_rows(groups[0][0], rows, keys.contiguous(),
+                                  spec.s, spec.frac)
+        return out.reshape(x.shape)
+    L = rows.shape[1]
+    out = rows.clone() if FAMILY_IDENTITY in spec.family else \
+        torch.empty_like(rows)
+    view = out.view(G, n, L)
+    for fam, sel in groups:
+        if fam == FAMILY_IDENTITY:
+            continue
+        sub = rows.view(G, n, L)[sel]
+        res = _compress_grid_rows(fam, sub.reshape(-1, L).contiguous(),
+                                  keys[sel].contiguous(),
+                                  spec.s[sel].contiguous(),
+                                  spec.frac[sel].contiguous())
+        view[sel] = res.view(-1, n, L)
+    return out.reshape(x.shape)
+
+
 def compress(spec: CompressorSpec, keys: torch.Tensor,
              x: torch.Tensor) -> torch.Tensor:
     """Q(x) for each row of x ``[n, ...]``: row i is one whole message,
@@ -169,7 +315,14 @@ def compress_split(spec: CompressorSpec, key: torch.Tensor,
     i is compressed with the i-th key split from ``key`` (``[2]``).  On a
     CUDA tensor the dither family launches the keyed kernel, which splits
     the key and draws the uniforms itself; on the CPU this is exactly that
-    call.  The other families use no key, so they never split one."""
+    call.  The other families use no key, so they never split one.
+
+    A grid spec of G points takes keys [G, 2] and x [G, n, ...]: point g's
+    rows are compressed with ``split(keys[g], n)`` at its own parameters,
+    one grouped launch per family of the grid, G = 1 included (identity
+    points pass through)."""
+    if is_grid(spec):
+        return _compress_split_grid(spec, key, x)
     if spec.family != FAMILY_DITHER:
         return compress(spec, None, x)
     if x.device.type == "cuda":
@@ -193,9 +346,48 @@ def spec_bits(spec: CompressorSpec, d: int,
         return ops.dither_bits(spec.s, d, device)
     if spec.family == FAMILY_TOPK:
         return ops.topk_bits(spec.frac, d, device)
-    raise NotImplementedError(
-        f"compressor family {spec.family} is not ported yet (ROADMAP.md, "
-        "queue 1: 'other compressor families')")
+    raise _unported(spec.family)
+
+
+def _bits_grid(family: int, s, frac, d, device) -> torch.Tensor:
+    if family == FAMILY_IDENTITY:
+        return torch.full(s.shape, 32.0 * float(np.float32(d)),
+                          dtype=torch.float32, device=device)
+    if family == FAMILY_DITHER:
+        return ops.dither_bits_grouped(s, d)
+    if family == FAMILY_TOPK:
+        return ops.topk_bits_grouped(frac, d)
+    raise _unported(family)
+
+
+def spec_bits_many(spec: CompressorSpec, d, device=None) -> torch.Tensor:
+    """:func:`spec_bits` of each point of a grid spec: float32 [G] on the
+    spec's device, one grouped ledger launch per family of the grid, G = 1
+    included.  A scalar spec passes straight through to :func:`spec_bits`
+    on ``device``."""
+    if not is_grid(spec):
+        return spec_bits(spec, d, device)
+    dev = spec.s.device
+    G = len(spec.family)
+    groups = _groups(spec.family, dev)
+    if len(groups) == 1:
+        return _bits_grid(groups[0][0], spec.s, spec.frac, d, dev)
+    out = torch.empty(G, dtype=torch.float32, device=dev)
+    for fam, sel in groups:
+        out[sel] = _bits_grid(fam, spec.s[sel].contiguous(),
+                              spec.frac[sel].contiguous(), d, dev)
+    return out
+
+
+def spec_bits_host(spec: CompressorSpec, d) -> np.ndarray:
+    """:func:`spec_bits` (or :func:`spec_bits_many`) priced on the host:
+    the plain ledger versions on CPU tensors built from the spec's host
+    values, so no device value is read.  float32 [G] for a grid spec, 0-d
+    for a scalar one.  Budget scan lengths are priced so."""
+    if not is_grid(spec):
+        return spec_bits(spec, d, "cpu").numpy()
+    return spec_bits_many(grid_spec(spec.family, spec.s_host,
+                                     spec.frac_host), d).numpy()
 
 
 # ---------------------------------------------------------------------------

@@ -4,12 +4,19 @@
 Truncated inverse (Alg 4) needs an O(d³) eigendecomposition of the averaged
 d×d approximation.  FedSONIA (Alg 5) works from the current sketch (Ỹ, M)
 alone: O(d m² + m³).  Both produce p = -A g with μ₁ I ⪯ A ⪯ μ₂ I (Lemma 9).
+Every argument may lead with a grid axis [G] (g [G, d], B [G, d, d], ...).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.linalg import eigh, pinv
+
+
+def inverse_apply(V, scale, grad):
+    """V diag(1/scale) Vᵀ g for g [..., d]."""
+    coef = V.mT @ grad.unsqueeze(-1)
+    return (V @ (coef / scale.unsqueeze(-1))).squeeze(-1)
 
 
 def truncate_eigs(lam, omega: float, Omega: float):
@@ -28,14 +35,14 @@ def truncated_inverse_direction_floored(B, grad, omega, Omega, floor):
     a = torch.abs(lam)
     lam_t = torch.where(a >= floor, torch.clamp(a, omega, Omega),
                         torch.full_like(a, Omega))
-    return -(V @ ((V.mT @ grad) / lam_t))
+    return -inverse_apply(V, lam_t, grad)
 
 
 def truncated_inverse_direction(B, grad, omega: float, Omega: float):
-    """Alg 4: p = -(|B|_ω^Ω)^{-1} ∇F.  B: [d,d] symmetric."""
+    """Alg 4: p = -(|B|_ω^Ω)^{-1} ∇F.  B: [..., d, d] symmetric."""
     lam, V = eigh(0.5 * (B + B.mT))
     lam_t = truncate_eigs(lam, omega, Omega)
-    return -(V @ ((V.mT @ grad) / lam_t))
+    return -inverse_apply(V, lam_t, grad)
 
 
 def fedsonia_direction(Y_tilde, M, grad, omega: float, Omega: float,
@@ -51,7 +58,8 @@ def fedsonia_direction(Y_tilde, M, grad, omega: float, Omega: float,
     lam, V = eigh(0.5 * (core + core.mT))
     lam_t = truncate_eigs(lam, omega, Omega)
     Vq = Q @ V                                          # d x m orthonormal
-    coef = Vq.mT @ grad                                 # m
-    g_par = Vq @ coef
+    coef = Vq.mT @ grad.unsqueeze(-1)                   # m x 1
+    g_par = (Vq @ coef).squeeze(-1)
     g_perp = grad - g_par
-    return -(Vq @ (coef / lam_t)) - rho * g_perp
+    return (-(Vq @ (coef / lam_t.unsqueeze(-1))).squeeze(-1)
+            - rho * g_perp)

@@ -1,4 +1,5 @@
-"""Synchronous experiment driver (counterpart of ``repro.core.driver``).
+"""Synchronous experiment driver and sweep engine (counterpart of
+``repro.core.driver``).
 
 Every experiment drives a step of the uniform shape
 
@@ -8,14 +9,34 @@ The reference scans the step in one compiled ``lax.scan`` program; here
 :func:`run_experiment` is a Python loop over the same key stream,
 ``split(key, iters)``.  Per-round traces stay on the device and are stacked
 at the end, so the loop never waits for the device between rounds.
+
+Sweeps.  The reference ``jax.vmap``s a sweep step over a [G] grid of
+hparams.  Here a grid is a leading [G] dimension of the state, the hparams
+and the round's keys, and one round steps every point at once
+(``sweep_step(hp, state, keys [G, 2])``): G points cost about what one
+costs on a host-bound card, where a loop over points would cost G times as
+much.  :func:`run_sweep` / :func:`sweep_program` run such a step with the
+reference's per-point key streams (:func:`sweep_keys`), so row g of a sweep
+is the standalone run on ``split(key, G)[g]``.
+
+A batched state has the unbatched state's fields with a leading [G] axis on
+every tensor; its ``k`` is an int32 [G] tensor (or None where the caller
+counts rounds on the host: :func:`specialize`), and a ``FlecsState``'s
+``t`` is the round every live point has reached (a host int, which seeds
+the sketch).  Hparams carrying a ``bit_budget`` run in the budget-freeze
+mode (:func:`freeze_on_bit_budget`): a ``torch.where`` over every state
+leaf with a [G] mask, on the device, no value read back in a round.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch import random
+from repro_torch.core.compressors import (CompressorSpec, as_grid, is_grid,
+                                          spec_to, tile_spec)
 
 
 def bits_dtype():
@@ -26,8 +47,8 @@ def bits_dtype():
 
 def participation_mask(key: torch.Tensor, n: int, p: float = 1.0,
                        kind: str = "bernoulli") -> torch.Tensor:
-    """Per-round client-sampling mask [n], float32 in {0, 1}, on the key's
-    device.
+    """Per-round client-sampling mask [n] (or [G, n] for keys [G, 2]),
+    float32 in {0, 1}, on the key's device.
 
     p >= 1 returns all ones (the key is unused).  kind="bernoulli": each
     worker participates independently w.p. p — the reference's
@@ -39,7 +60,8 @@ def participation_mask(key: torch.Tensor, n: int, p: float = 1.0,
     if p <= 0:
         raise ValueError(f"participation p must be > 0, got {p}")
     if p >= 1.0:
-        return torch.ones(n, dtype=torch.float32, device=key.device)
+        return torch.ones(key.shape[:-1] + (n,), dtype=torch.float32,
+                          device=key.device)
     if kind == "bernoulli":
         if p * n < 1.0:
             raise ValueError(
@@ -56,21 +78,57 @@ def participation_mask(key: torch.Tensor, n: int, p: float = 1.0,
     raise ValueError(f"unknown sampling kind: {kind!r}")
 
 
+def validate_ps(ps) -> None:
+    """Grid-construction guard for a participation axis: every p > 0."""
+    if ps is not None and any(p <= 0 for p in ps):
+        raise ValueError(f"participation ps must be > 0, got {list(ps)}")
+
+
+def resolve_participation(key: torch.Tensor, n: int, cfg_p, kind: str,
+                          hp_p: Optional[torch.Tensor] = None):
+    """The sweep steps' mask: the grid's Bernoulli probabilities ``hp_p``
+    ([G], on the device) override the static config ``cfg_p``.  Point g's
+    mask is ``uniform(keys[g], (n,)) < hp_p[g]``, the reference's traced
+    draw, draw for draw.  'choice' sampling has no such form."""
+    if hp_p is None:
+        return participation_mask(key, n, cfg_p, kind)
+    if kind != "bernoulli":
+        raise ValueError(
+            "traced participation p requires sampling='bernoulli'; "
+            f"sampling={kind!r} resolves its worker count statically — drop "
+            "the p axis or switch the config to bernoulli")
+    return (random.uniform(key, (n,)) < hp_p.unsqueeze(-1)).to(torch.float32)
+
+
 def masked_sum(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Sum of x over the workers (leading axis) with mask == 1."""
-    shape = (-1,) + (1,) * (x.dim() - 1)
-    return torch.sum(mask.reshape(shape) * x, dim=0)
+    """Sum of x over the workers with mask == 1: mask [n] (workers the
+    leading axis of x) or [G, n] (x [G, n, ...])."""
+    shape = mask.shape + (1,) * (x.dim() - mask.dim())
+    return torch.sum(mask.reshape(shape) * x, dim=mask.dim() - 1)
 
 
 def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Mean of x over the sampled workers; an all-zero mask gives zeros."""
-    denom = torch.clamp(torch.sum(mask), min=1.0)
-    return masked_sum(x, mask) / denom
+    denom = torch.clamp(torch.sum(mask, dim=-1), min=1.0)
+    return masked_sum(x, mask) / denom.reshape(
+        denom.shape + (1,) * (x.dim() - mask.dim()))
+
+
+#: Trace keys never cast by ``trace_dtype``: the bit ledgers stay in
+#: ``bits_dtype()``.
+TRACE_KEEP_DTYPE: Sequence[str] = ("bits_per_node", "edge_bits")
+
+
+def _cast_traces(aux: dict, trace_dtype, keep=TRACE_KEEP_DTYPE) -> dict:
+    if trace_dtype is None:
+        return aux
+    return {k: (v if k in keep or not v.is_floating_point()
+                else v.to(trace_dtype)) for k, v in aux.items()}
 
 
 def run_experiment(step: Callable, state, key: torch.Tensor, iters: int,
                    record: Optional[Callable] = None,
-                   record_every: int = 1):
+                   record_every: int = 1, trace_dtype=None):
     """Run ``step`` for ``iters`` rounds on the keys ``split(key, iters)``.
 
     record: optional (state) -> dict of extra trace entries (e.g. the
@@ -78,6 +136,8 @@ def run_experiment(step: Callable, state, key: torch.Tensor, iters: int,
             aux; its keys shadow aux keys.
     record_every: keep only every E-th round's entries (rows E-1, 2E-1,
             ...); E must divide iters.
+    trace_dtype: optional dtype the float trace entries are cast to; the
+            bit ledgers (``TRACE_KEEP_DTYPE``) keep ``bits_dtype()``.
     Returns (final_state, traces): each trace entry stacked to
     ``[iters // record_every, ...]`` on the device.
     """
@@ -91,7 +151,242 @@ def run_experiment(step: Callable, state, key: torch.Tensor, iters: int,
         if (t + 1) % record_every == 0:
             if record is not None:
                 aux = {**aux, **record(state)}
-            rows.append(aux)
+            rows.append(_cast_traces(aux, trace_dtype))
     traces = {name: torch.stack([row[name] for row in rows])
               for name in rows[0]} if rows else {}
     return state, traces
+
+
+# ---------------------------------------------------------------------------
+# Hparam grids and batched states
+# ---------------------------------------------------------------------------
+
+def map_hparams(hp, tensor_fn: Callable, spec_fn: Callable):
+    """Rebuild an hparam tree (NamedTuples of tensors, grid specs and None)
+    with ``tensor_fn`` on every tensor and ``spec_fn`` on every spec."""
+    if hp is None:
+        return None
+    if isinstance(hp, CompressorSpec):
+        return spec_fn(hp)
+    if isinstance(hp, torch.Tensor):
+        return tensor_fn(hp)
+    if isinstance(hp, tuple) and hasattr(hp, "_fields"):
+        return type(hp)(*(map_hparams(v, tensor_fn, spec_fn) for v in hp))
+    raise TypeError(f"hparam leaf of type {type(hp).__name__}")
+
+
+def grid_size(hp) -> int:
+    """G of an hparam grid; every leaf must agree."""
+    sizes = set()
+    map_hparams(hp, lambda t: sizes.add(t.shape[0]),
+                lambda sp: sizes.add(len(sp.family) if is_grid(sp) else -1))
+    if len(sizes) != 1 or -1 in sizes:
+        raise ValueError(f"hparam leaves disagree on the grid axis: sizes "
+                         f"{sorted(sizes)}")
+    return sizes.pop()
+
+
+def hparams_to(hp, device):
+    """An hparam grid with every tensor on ``device`` (one copy a run)."""
+    return map_hparams(hp, lambda t: t.to(device),
+                       lambda sp: spec_to(sp, device))
+
+
+def grid1(hp):
+    """A scalar hparams point (floats and scalar specs) as a [1] grid."""
+    def leaf(v):
+        if v is None:
+            return None
+        if isinstance(v, CompressorSpec):
+            return as_grid(v, 1)
+        if isinstance(v, torch.Tensor):
+            return v.reshape(1).to(torch.float32)
+        return torch.tensor([float(v)], dtype=torch.float32)
+    return type(hp)(*(leaf(v) for v in hp))
+
+
+def tile_hparams(hp, reps: int):
+    """Every grid leaf repeated ``reps`` times (point b·G + g is point g)."""
+    return map_hparams(hp, lambda t: t.repeat(reps),
+                       lambda sp: tile_spec(sp, reps))
+
+
+def _state_device(state) -> torch.device:
+    return next(v for v in state if isinstance(v, torch.Tensor)).device
+
+
+def batch_state(state, G: int, count: bool = True):
+    """A single (unbatched) state shared by G grid points: every tensor
+    broadcast to a leading [G] axis (a view), ``k`` as an int32 [G] tensor
+    (None unless ``count``), ``t`` (where the state has one) = k."""
+    dev = _state_device(state)
+    fields = {}
+    for name, v in zip(state._fields, state):
+        if name == "k":
+            fields[name] = (torch.full((G,), int(v), dtype=torch.int32,
+                                       device=dev) if count else None)
+        elif name == "t":
+            fields[name] = int(state.k)
+        elif isinstance(v, torch.Tensor):
+            fields[name] = v.unsqueeze(0).expand((G,) + v.shape)
+        else:
+            fields[name] = v
+    return type(state)(**fields)
+
+
+def point_state(state, g: int, k: int):
+    """Grid point g of a batched state as an unbatched state at round
+    ``k``."""
+    fields = {}
+    for name, v in zip(state._fields, state):
+        if name in ("k", "t"):
+            fields[name] = k
+        elif isinstance(v, torch.Tensor):
+            fields[name] = v[g]
+        else:
+            fields[name] = v
+    return type(state)(**fields)
+
+
+def specialize(sweep_step: Callable, hp) -> Callable:
+    """The sweep step at one hparams point: ``step(state, key)`` on an
+    unbatched state, run as the [1] grid of that point (the reference's
+    legacy ``make_*_step``).  ``hp`` is a scalar point; its [1] grid is
+    moved to each device once."""
+    hp1 = grid1(hp)
+    on = {}
+
+    def step(state, key):
+        dev = key.device
+        if dev not in on:
+            on[dev] = hparams_to(hp1, dev)
+        new, aux = sweep_step(on[dev], batch_state(state, 1, count=False),
+                              key.unsqueeze(0))
+        return point_state(new, 0, state.k + 1), {k: v[0]
+                                                  for k, v in aux.items()}
+
+    return step
+
+
+def sweep_keys(key: torch.Tensor, G: int, iters: int) -> torch.Tensor:
+    """[G, iters, 2] per-point key streams: point g steps with
+    ``split(split(key, G)[g], iters)``, the stream a standalone
+    ``run_experiment(step_g, state, split(key, G)[g], iters)`` uses."""
+    return random.split(random.split(key, G), iters)
+
+
+# ---------------------------------------------------------------------------
+# Bit budgets: the budget-freeze mode
+# ---------------------------------------------------------------------------
+
+def hparams_bit_budget(hp):
+    """The per-point bit budget an hparam grid carries ([G]), or None."""
+    return getattr(hp, "bit_budget", None)
+
+
+#: Aux entries zeroed on frozen rounds: nothing is sent or moves.
+_FROZEN_ZERO_KEYS: Sequence[str] = ("n_active", "n_arrived", "flushed",
+                                    "staleness_mean", "g_tilde_norm",
+                                    "dir_norm")
+
+
+def _where(active: torch.Tensor, new: torch.Tensor,
+           old: torch.Tensor) -> torch.Tensor:
+    return torch.where(active.reshape((-1,) + (1,) * (new.dim() - 1)), new,
+                       old)
+
+
+def freeze_on_bit_budget(sweep_step: Callable) -> Callable:
+    """Budget-freeze mode: once a grid point's cumulative per-node bits
+    (``max_i bits_per_node[g, i]``) reach its ``bit_budget[g]``, its whole
+    state is held at the previous round's (``torch.where`` over every
+    state leaf with the [G] mask) and nothing more is charged; a T-round
+    budget run is the truncated run padded with bit-stable rows.  The mask
+    stays on the device.  Hparams without a budget pass through."""
+    def step(hp, state, key):
+        budget = hparams_bit_budget(hp)
+        if budget is None:
+            return sweep_step(hp, state, key)
+        active = torch.amax(state.bits_per_node, dim=-1) < budget
+        new_state, aux = sweep_step(hp, state, key)
+        frozen = type(state)(*(
+            _where(active, new, old) if isinstance(new, torch.Tensor)
+            else new for new, old in zip(new_state, state)))
+        aux = dict(aux)
+        if "bits_per_node" in aux:
+            aux["bits_per_node"] = frozen.bits_per_node
+        for name in _FROZEN_ZERO_KEYS:
+            if name in aux:
+                aux[name] = _where(active, aux[name],
+                                   torch.zeros_like(aux[name]))
+        return frozen, aux
+
+    return step
+
+
+def iters_for_bit_budget(budget, bits_per_round) -> int:
+    """Upper-bound scan length of a budget run: the smallest round count
+    whose cumulative per-node bits reach ``budget``, maxed over a grid (the
+    reference's bound and checks; host numbers)."""
+    budget = np.asarray(budget, dtype=float)
+    price = np.asarray(bits_per_round, dtype=float)
+    if budget.size == 0 or price.size == 0:
+        raise ValueError("empty bit-budget/price grid")
+    if not np.all(np.isfinite(budget)):
+        raise ValueError(
+            f"bit budgets must be finite, got {budget}: an inf/nan budget "
+            "has no derivable scan length — pin run.iters explicitly for "
+            "unbounded runs instead")
+    if np.any(price <= 0) or not np.all(np.isfinite(price)):
+        raise ValueError(
+            f"bits_per_round must be finite and > 0, got {price}")
+    return max(1, int(np.ceil(np.max(budget / price))))
+
+
+# ---------------------------------------------------------------------------
+# Sweeps
+# ---------------------------------------------------------------------------
+
+def sweep_program(sweep_step: Callable, iters: int,
+                  record: Optional[Callable] = None,
+                  record_every: int = 1, trace_dtype=None) -> Callable:
+    """fn(hparams, state, keys) -> (final states, traces): ``iters``
+    rounds of ``sweep_step`` over the [G] grid, keys [G, iters, 2] from
+    :func:`sweep_keys`, ``state`` one unbatched initial state shared by the
+    grid, hparams on the state's device.  Budget-carrying hparams run in
+    the budget-freeze mode.  Traces are [G, iters // record_every, ...];
+    ``record(batched state)`` gives [G]-leading entries."""
+    if record_every < 1 or iters % record_every:
+        raise ValueError(
+            f"record_every={record_every} must divide iters={iters}")
+    step = freeze_on_bit_budget(sweep_step)
+
+    def fn(hp, state, keys):
+        st = batch_state(state, keys.shape[0])
+        per_round = keys.transpose(0, 1).contiguous()       # [iters, G, 2]
+        rows = []
+        for t in range(iters):
+            st, aux = step(hp, st, per_round[t])
+            if (t + 1) % record_every == 0:
+                if record is not None:
+                    aux = {**aux, **record(st)}
+                rows.append(_cast_traces(aux, trace_dtype))
+        return st, {name: torch.stack([row[name] for row in rows], dim=1)
+                    for name in rows[0]}
+
+    return fn
+
+
+def run_sweep(sweep_step: Callable, hparams, state, key: torch.Tensor,
+              iters: int, record: Optional[Callable] = None,
+              record_every: int = 1, trace_dtype=None):
+    """A grid of runs as one batched program: ``hparams`` a [G] grid (built
+    on any device; moved to the state's once), ``state`` one unbatched
+    initial state shared by every point.  Returns (final states [G, ...],
+    traces [G, iters // record_every, ...]); row g is the standalone run
+    on ``split(key, G)[g]``."""
+    G = grid_size(hparams)
+    hp = hparams_to(hparams, _state_device(state))
+    fn = sweep_program(sweep_step, iters, record=record,
+                       record_every=record_every, trace_dtype=trace_dtype)
+    return fn(hp, state, sweep_keys(key, G, iters))

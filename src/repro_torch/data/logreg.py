@@ -3,15 +3,17 @@
 
 ``make_problem`` is a copy of the reference's numpy generator, so the port's
 data is identical by construction.  The worker oracles are batched over all
-workers at once and closed-form:
+workers at once, and over a grid of iterates w [G, d] where a sweep runs
+(the results then lead with [G]), and closed-form:
 
     z_i = b_i ⊙ A_i w
     g_i = -(1/r) A_iᵀ (b_i ⊙ σ(-z_i)) + μ w
     Y_i = (1/r) A_iᵀ (σ(z_i) σ(-z_i) ⊙ A_i S) + μ S
+    H_i = (1/r) A_iᵀ diag(σ(z_i) σ(-z_i)) A_i + μ I      (FedNL)
 
-The reference differentiates the same loss per worker with ``jax.grad`` and
-``jax.jvp``: the formulas agree, the rounding does not (the tests state the
-tolerance).
+The reference differentiates the same loss per worker with ``jax.grad``,
+``jax.jvp`` and ``jax.hessian``: the formulas agree, the rounding does not
+(the tests state the tolerance).
 
 Loss (paper §5):  F(w) = (1/n) Σ_i (1/r) Σ_j log(1+exp(-b_ij a_ijᵀ w))
                   + (μ/2)||w||².
@@ -41,45 +43,62 @@ class FederatedLogReg:
         return self.A.shape[2]
 
     def _margins(self, w):
-        return self.b * torch.einsum("nrd,d->nr", self.A, w)
+        """z [..., n, r] for w [..., d]."""
+        return self.b * torch.einsum("nrd,...d->...nr", self.A, w)
 
     def global_loss(self, w):
+        """F(w) for w [d] (0-d) or a grid w [G, d] ([G])."""
         z = self._margins(w)
-        return (torch.mean(torch.logaddexp(torch.zeros_like(z), -z))
-                + 0.5 * self.mu * (w @ w))
+        return (torch.mean(torch.logaddexp(torch.zeros_like(z), -z),
+                           dim=(-2, -1))
+                + 0.5 * self.mu * torch.sum(w * w, dim=-1))
 
     def global_grad(self, w):
         z = self._margins(w)
-        coef = -self.b * torch.sigmoid(-z) / z.numel()
-        return torch.einsum("nrd,nr->d", self.A, coef) + self.mu * w
+        coef = -self.b * torch.sigmoid(-z) / (z.shape[-1] * z.shape[-2])
+        return (torch.einsum("nrd,...nr->...d", self.A, coef)
+                + self.mu * w)
 
     def metrics(self, w):
-        """Trace entries for ``driver.run_experiment(record=)``: the global
-        objective and the squared gradient norm, left on the device."""
+        """Trace entries for ``driver.run_experiment(record=)`` (w [d]) and
+        the sweeps (w [G, d]): the global objective and the squared
+        gradient norm, left on the device."""
         return {"F": self.global_loss(w),
-                "grad_sq": torch.sum(torch.square(self.global_grad(w)))}
+                "grad_sq": torch.sum(torch.square(self.global_grad(w)),
+                                     dim=-1)}
 
     def make_oracles(self):
-        """Returns ``(local_grad(w) -> [n, d], local_hvp(w, S) -> [n, d, m])``:
-        full local gradients and Hessian-sketch products of every worker.
+        """Returns ``(local_grad(w) -> [..., n, d], local_hvp(w, S) ->
+        [..., n, d, m])`` for w [..., d]: full local gradients and
+        Hessian-sketch products of every worker (of every grid point).
         (Minibatch oracles are a later slice of the port.)"""
         r = self.A.shape[1]
 
         def local_grad(w):
             z = self._margins(w)
             coef = self.b * torch.sigmoid(-z)
-            return (-torch.einsum("nrd,nr->nd", self.A, coef) / r
-                    + self.mu * w)
+            return (-torch.einsum("nrd,...nr->...nd", self.A, coef) / r
+                    + self.mu * w.unsqueeze(-2))
 
         def local_hvp(w, S):
             z = self._margins(w)
-            wgt = torch.sigmoid(z) * torch.sigmoid(-z)          # [n, r]
+            wgt = torch.sigmoid(z) * torch.sigmoid(-z)          # [..., n, r]
             AS = torch.matmul(self.A, S)                        # [n, r, m]
             return (torch.matmul(self.A.transpose(1, 2),
                                  wgt[..., None] * AS) / r
                     + self.mu * S)
 
         return local_grad, local_hvp
+
+    def local_hessian(self, w):
+        """Every worker's Hessian of its local loss at w [..., d]:
+        ``A_iᵀ diag(σ(z_i) σ(-z_i)) A_i / r + μ I``, [..., n, d, d] (the
+        reference takes ``jax.hessian`` of ``local_loss``)."""
+        r, d = self.A.shape[1], self.A.shape[2]
+        z = self._margins(w)
+        wgt = torch.sigmoid(z) * torch.sigmoid(-z)              # [..., n, r]
+        H = torch.matmul(self.A.transpose(1, 2), wgt[..., None] * self.A) / r
+        return H + self.mu * torch.eye(d, dtype=H.dtype, device=H.device)
 
 
 def make_problem(d: int = 123, n_workers: int = 20, r: int = 64,

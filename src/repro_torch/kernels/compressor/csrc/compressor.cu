@@ -8,6 +8,8 @@
 //   fused_topk_kernel          <- _fused_topk_kernel    (compressor.py:105)
 //   dither_bits_kernel         <- _dither_bits_kernel   (compressor.py:161)
 //   topk_bits_kernel           <- _topk_bits_kernel     (compressor.py:165)
+//   grouped_*_kernel           <- the same four, over a grid of G points in
+//                                 one launch (below)
 //
 // Layout: x is [n, L] float32, row-major and contiguous; one row is one
 // worker's whole message (a gradient difference, L = d, or a flattened
@@ -56,6 +58,17 @@
 // in {1, 2, 4, 8} CTAs (chosen by the wrapper from n, so that n * C
 // approaches the SM count) whose histograms and counts are summed through
 // distributed shared memory.
+//
+// Grouped entries.  A sweep runs G grid points of one federation at once:
+// rows [G*n, L], point g owning rows [g*n, (g+1)*n), each point with its own
+// parameters, as the Pallas kernels read s, frac and d from refs under vmap.
+// grouped_dither_keyed_kernel reads the G parent keys [G, 2] and the levels
+// s [G] on the device, and row r = g*n + i uses the key
+// threefry2x32(keys[g], (0, i)) (= split(keys[g], n)[i]) and level s[g];
+// grouped_topk_kernel keeps ceil(frac[g]*L) of row r; the grouped ledger
+// kernels price G points in one launch.  Each is the scalar kernel's body
+// with the point's parameters read from device memory, so at G = 1 the
+// results are bit-identical to the scalar entries'.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -161,25 +174,32 @@ fused_dither_kernel(const float* __restrict__ x, const float* __restrict__ u,
 // (= split(key, n)[row]), the NaN-propagating infinity norm of the row
 // (each CTA's share reduced, the C maxima merged through distributed shared
 // memory; 0 -> 1), then each element's uniform uniform_at(row key, j) and
-// its stochastic rounding.
-__global__ void __launch_bounds__(kMaxThreads)
-fused_dither_keyed_kernel(const float* __restrict__ x,
-                          const long long* __restrict__ key, float s,
-                          float* __restrict__ out, float* __restrict__ bits,
-                          int L, int share) {
+// its stochastic rounding.  kGrouped: row r belongs to point g = r / n_group
+// and is that point's row i = r % n_group, with key threefry2x32(keys[g],
+// (0, i)) and level s_group[g].
+template <bool kGrouped>
+__device__ __forceinline__ void dither_keyed_rows(
+    const float* __restrict__ x, const long long* __restrict__ key,
+    float s_scalar, const float* __restrict__ s_group,
+    float* __restrict__ out, float* __restrict__ bits, int L, int share,
+    unsigned n_group) {
   __shared__ float red[32];
   __shared__ float share_max;
   cg::cluster_group cluster = cg::this_cluster();
   const unsigned C = cluster.num_blocks(), rank = cluster.block_rank();
   const unsigned row = blockIdx.x / C;
+  const unsigned g = kGrouped ? row / n_group : 0u;
+  const unsigned i_row = kGrouped ? row - g * n_group : row;
+  const float s = kGrouped ? s_group[g] : s_scalar;
   const int lo = (int)min((long long)rank * share, (long long)L);
   const int m = (int)min((long long)share, (long long)(L - lo));
   const float* xr = x + row * (size_t)L + lo;
   float* outr = out + row * (size_t)L + lo;
 
-  uint32_t rk0 = 0u, rk1 = row;
-  repro_threefry::threefry2x32(static_cast<uint32_t>(key[0]),
-                               static_cast<uint32_t>(key[1]), rk0, rk1);
+  uint32_t rk0 = 0u, rk1 = i_row;
+  repro_threefry::threefry2x32(static_cast<uint32_t>(key[2 * g]),
+                               static_cast<uint32_t>(key[2 * g + 1]), rk0,
+                               rk1);
 
   float mx = 0.0f;
   for (int i = threadIdx.x; i < m; i += blockDim.x)
@@ -201,6 +221,24 @@ fused_dither_keyed_kernel(const float* __restrict__ x,
     outr[i] = dither_value(xr[i], u, norm, s);
   }
   if (rank == 0 && threadIdx.x == 0) bits[row] = dither_bits_f(s, (float)L);
+}
+
+__global__ void __launch_bounds__(kMaxThreads)
+fused_dither_keyed_kernel(const float* __restrict__ x,
+                          const long long* __restrict__ key, float s,
+                          float* __restrict__ out, float* __restrict__ bits,
+                          int L, int share) {
+  dither_keyed_rows<false>(x, key, s, nullptr, out, bits, L, share, 0u);
+}
+
+__global__ void __launch_bounds__(kMaxThreads)
+grouped_dither_keyed_kernel(const float* __restrict__ x,
+                            const long long* __restrict__ keys,
+                            const float* __restrict__ s,
+                            float* __restrict__ out,
+                            float* __restrict__ bits, int L, int share,
+                            unsigned n_group) {
+  dither_keyed_rows<true>(x, keys, 0.0f, s, out, bits, L, share, n_group);
 }
 
 constexpr int kTopkThreads = 512;
@@ -225,12 +263,15 @@ constexpr int kTopkMaxStaged = 48 * 1024;
 // warp ballots) plus the ties of the CTAs before it in the cluster.
 // kStaged: the share sits in shared memory (one read of the row); else
 // every pass streams it from device memory (six reads instead of the 33 of
-// a bit-by-bit search).
-template <bool kStaged>
-__global__ void __launch_bounds__(kTopkThreads)
-fused_topk_kernel(const float* __restrict__ x, float frac,
-                  float* __restrict__ out, float* __restrict__ bits, int L,
-                  int share) {
+// a bit-by-bit search).  kGrouped: row r keeps ceil(frac_group[r / n_group]
+// * L) values.
+template <bool kStaged, bool kGrouped>
+__device__ __forceinline__ void topk_rows(const float* __restrict__ x,
+                                          float frac_scalar,
+                                          const float* __restrict__ frac_group,
+                                          float* __restrict__ out,
+                                          float* __restrict__ bits, int L,
+                                          int share, unsigned n_group) {
   extern __shared__ float staged[];
   __shared__ unsigned hist[4][256];
   __shared__ unsigned tot[256];
@@ -241,6 +282,8 @@ fused_topk_kernel(const float* __restrict__ x, float frac,
   cg::cluster_group cluster = cg::this_cluster();
   const unsigned C = cluster.num_blocks(), rank = cluster.block_rank();
   const size_t row = blockIdx.x / C;
+  const float frac =
+      kGrouped ? frac_group[(unsigned)row / n_group] : frac_scalar;
   const int lo = (int)min((long long)rank * share, (long long)L);
   const int m = (int)min((long long)share, (long long)(L - lo));
   const float* xr = x + row * (size_t)L + lo;
@@ -349,12 +392,35 @@ fused_topk_kernel(const float* __restrict__ x, float frac,
   if (rank == 0 && threadIdx.x == 0) bits[row] = topk_bits_f(frac, (float)L);
 }
 
+template <bool kStaged>
+__global__ void __launch_bounds__(kTopkThreads)
+fused_topk_kernel(const float* __restrict__ x, float frac,
+                  float* __restrict__ out, float* __restrict__ bits, int L,
+                  int share) {
+  topk_rows<kStaged, false>(x, frac, nullptr, out, bits, L, share, 0u);
+}
+
 __global__ void dither_bits_kernel(float s, float d, float* out) {
   *out = dither_bits_f(s, d);
 }
 
 __global__ void topk_bits_kernel(float frac, float d, float* out) {
   *out = topk_bits_f(frac, d);
+}
+
+// One thread a grid point.
+__global__ void grouped_dither_bits_kernel(const float* __restrict__ s,
+                                           float d, float* __restrict__ out,
+                                           int G) {
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  if (g < G) out[g] = dither_bits_f(s[g], d);
+}
+
+__global__ void grouped_topk_bits_kernel(const float* __restrict__ frac,
+                                         float d, float* __restrict__ out,
+                                         int G) {
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  if (g < G) out[g] = topk_bits_f(frac[g], d);
 }
 
 int threads_for(int L) {
@@ -417,32 +483,43 @@ extern "C" int repro_fused_dither_keyed(const float* x, const long long* key,
   return (int)cudaGetLastError();
 }
 
-// cluster: CTAs a row, 1, 2, 4 or 8 (a cluster of that size).
-extern "C" int repro_fused_topk(const float* x, float frac, float* out,
-                                float* bits, int n, int L, int cluster,
-                                void* stream) {
+namespace {
+
+// Launch top-k over rows of L, C CTAs a row: the staged instance when a
+// share fits in shared memory, else the streaming one.
+template <typename Staged, typename Streamed, typename... Args>
+int launch_topk(Staged staged_kernel, Streamed streamed_kernel, int rows,
+                int L, int cluster, void* stream, Args... args) {
   if (!valid_cluster(cluster)) return (int)cudaErrorInvalidValue;
   const int share = (int)((L + (long long)cluster - 1) / cluster);
   const bool staged = share <= kTopkMaxStaged;
   const size_t bytes = staged ? (size_t)share * sizeof(float) : 0;
   cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg = cluster_config(n, cluster, kTopkThreads, bytes,
+  cudaLaunchConfig_t cfg = cluster_config(rows, cluster, kTopkThreads, bytes,
                                           stream, &attr);
   cudaError_t err;
   if (staged) {
     // above 48 KB a launch is refused unless the kernel is allowed more
-    err = cudaFuncSetAttribute(fused_topk_kernel<true>,
+    err = cudaFuncSetAttribute(staged_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)bytes);
     if (err == cudaSuccess)
-      err = cudaLaunchKernelEx(&cfg, fused_topk_kernel<true>, x, frac, out,
-                               bits, L, share);
+      err = cudaLaunchKernelEx(&cfg, staged_kernel, args..., L, share);
   } else {
-    err = cudaLaunchKernelEx(&cfg, fused_topk_kernel<false>, x, frac, out,
-                             bits, L, share);
+    err = cudaLaunchKernelEx(&cfg, streamed_kernel, args..., L, share);
   }
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// cluster: CTAs a row, 1, 2, 4 or 8 (a cluster of that size).
+extern "C" int repro_fused_topk(const float* x, float frac, float* out,
+                                float* bits, int n, int L, int cluster,
+                                void* stream) {
+  return launch_topk(fused_topk_kernel<true>, fused_topk_kernel<false>, n, L,
+                     cluster, stream, x, frac, out, bits);
 }
 
 extern "C" int repro_dither_bits(float s, float d, float* out,
@@ -454,6 +531,67 @@ extern "C" int repro_dither_bits(float s, float d, float* out,
 extern "C" int repro_topk_bits(float frac, float d, float* out,
                                void* stream) {
   topk_bits_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(frac, d, out);
+  return (int)cudaGetLastError();
+}
+
+// Grouped entries: rows = G * n_group rows of L, point g owning rows
+// [g * n_group, (g + 1) * n_group); keys int64 [G, 2], s and frac float32
+// [G], all on the device.
+extern "C" int repro_fused_dither_keyed_grouped(const float* x,
+                                                const long long* keys,
+                                                const float* s, float* out,
+                                                float* bits, int rows, int L,
+                                                int n_group, int cluster,
+                                                void* stream) {
+  if (!valid_cluster(cluster) || keys == nullptr || s == nullptr ||
+      n_group < 1 || rows % n_group)
+    return (int)cudaErrorInvalidValue;
+  const int share = (int)((L + (long long)cluster - 1) / cluster);
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = cluster_config(rows, cluster, threads_for(share),
+                                          0, stream, &attr);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, grouped_dither_keyed_kernel, x, keys, s, out, bits, L, share,
+      (unsigned)n_group);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+namespace {
+
+template <bool kStaged>
+__global__ void __launch_bounds__(kTopkThreads)
+grouped_topk_kernel(const float* __restrict__ x,
+                    const float* __restrict__ frac, float* __restrict__ out,
+                    float* __restrict__ bits, unsigned n_group, int L,
+                    int share) {
+  topk_rows<kStaged, true>(x, 0.0f, frac, out, bits, L, share, n_group);
+}
+
+}  // namespace
+
+extern "C" int repro_fused_topk_grouped(const float* x, const float* frac,
+                                        float* out, float* bits, int rows,
+                                        int L, int n_group, int cluster,
+                                        void* stream) {
+  if (frac == nullptr || n_group < 1 || rows % n_group)
+    return (int)cudaErrorInvalidValue;
+  return launch_topk(grouped_topk_kernel<true>, grouped_topk_kernel<false>,
+                     rows, L, cluster, stream, x, frac, out, bits,
+                     (unsigned)n_group);
+}
+
+extern "C" int repro_dither_bits_grouped(const float* s, float d, float* out,
+                                         int G, void* stream) {
+  grouped_dither_bits_kernel<<<(G + 255) / 256, 256, 0,
+                               (cudaStream_t)stream>>>(s, d, out, G);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int repro_topk_bits_grouped(const float* frac, float d,
+                                       float* out, int G, void* stream) {
+  grouped_topk_bits_kernel<<<(G + 255) / 256, 256, 0,
+                             (cudaStream_t)stream>>>(frac, d, out, G);
   return (int)cudaGetLastError();
 }
 

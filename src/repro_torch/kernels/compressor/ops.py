@@ -10,6 +10,12 @@ as a tensor, as the Pallas wrapper does; ``fused_dither_keyed`` takes the
 parent key of the n workers' keys and draws the keys and the uniforms in
 the kernel, bit for bit ``random.uniform(random.split(key, n), (L,))``.
 
+The grouped entries serve a sweep of G grid points at once: rows
+[G·n, L], point g owning rows [g·n, (g+1)·n), each point's parameters (its
+parent key, level s, fraction frac) read from [G] tensors on the device,
+one launch for the whole grid and no host synchronisation.  At G = 1 each
+is bit-identical to its scalar entry.
+
 Every launch adds one to ``launches[name]``, so a run can show which
 kernels its path went through.
 """
@@ -22,7 +28,9 @@ from repro_torch.kernels.compressor.build import LIBRARY
 
 #: Kernel launches since the last :func:`reset_launches`, per kernel.
 launches = {"fused_dither": 0, "fused_dither_keyed": 0, "fused_topk": 0,
-            "dither_bits": 0, "topk_bits": 0}
+            "dither_bits": 0, "topk_bits": 0,
+            "fused_dither_keyed_grouped": 0, "fused_topk_grouped": 0,
+            "dither_bits_grouped": 0, "topk_bits_grouped": 0}
 
 
 def reset_launches() -> None:
@@ -164,3 +172,92 @@ def topk_bits(frac, d, device: torch.device) -> torch.Tensor:
     _launch("topk_bits", "repro_topk_bits", device, float(frac), float(d),
             out.data_ptr())
     return out
+
+
+def _check_params(name: str, device, G: int, **params) -> None:
+    for pname, t in params.items():
+        if (t.dtype != torch.float32 or tuple(t.shape) != (G,)
+                or t.device != device or not t.is_contiguous()):
+            raise ValueError(f"{name}: {pname} must be a contiguous float32 "
+                             f"[{G}] tensor on {device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+
+
+def _groups(name: str, x: torch.Tensor, G: int) -> int:
+    if G < 1 or x.shape[0] % G:
+        raise ValueError(f"{name}: {x.shape[0]} rows do not split into "
+                         f"{G} grid points")
+    return x.shape[0] // G
+
+
+def fused_dither_keyed_grouped(x: torch.Tensor, keys: torch.Tensor,
+                               s: torch.Tensor):
+    """``fused_dither_keyed`` of each grid point's rows: x [G·n, L], keys
+    the int64 [G, 2] parent keys, s float32 [G] levels, all on one device.
+    Row i of point g is dithered to s[g] levels with the key
+    ``random.split(keys[g], n)[i]``; returns (Q(x) [G·n, L], bits [G·n])."""
+    _check_rows("fused_dither_keyed_grouped", x)
+    if (keys.dtype != torch.int64 or keys.dim() != 2 or keys.shape[1] != 2
+            or keys.device != x.device or not keys.is_contiguous()):
+        raise ValueError(f"fused_dither_keyed_grouped: contiguous int64 "
+                         f"[G, 2] keys on x's device required, got "
+                         f"{keys.dtype} {tuple(keys.shape)} on {keys.device}")
+    G = keys.shape[0]
+    n = _groups("fused_dither_keyed_grouped", x, G)
+    _check_params("fused_dither_keyed_grouped", x.device, G, s=s)
+    if not _on_card(x.device):
+        return ref.fused_dither_keyed_grouped_ref(x, keys, s)
+    rows, L = x.shape
+    out = torch.empty_like(x)
+    bits = torch.empty(rows, dtype=torch.float32, device=x.device)
+    _launch("fused_dither_keyed_grouped", "repro_fused_dither_keyed_grouped",
+            x.device, x.data_ptr(), keys.data_ptr(), s.data_ptr(),
+            out.data_ptr(), bits.data_ptr(), rows, L, n,
+            dither_cluster(rows, L, _sms(x.device)))
+    return out, bits
+
+
+def fused_topk_grouped(x: torch.Tensor, frac: torch.Tensor):
+    """``fused_topk`` of each grid point's rows: x [G·n, L], frac float32
+    [G] on x's device; the rows of point g keep ⌈frac[g]·L⌉ values.
+    Returns (top-k(x) [G·n, L], bits [G·n])."""
+    _check_rows("fused_topk_grouped", x)
+    G = frac.shape[0] if frac.dim() == 1 else 0
+    n = _groups("fused_topk_grouped", x, G)
+    _check_params("fused_topk_grouped", x.device, G, frac=frac)
+    if not _on_card(x.device):
+        return ref.fused_topk_grouped_ref(x, frac)
+    rows, L = x.shape
+    out = torch.empty_like(x)
+    bits = torch.empty(rows, dtype=torch.float32, device=x.device)
+    _launch("fused_topk_grouped", "repro_fused_topk_grouped", x.device,
+            x.data_ptr(), frac.data_ptr(), out.data_ptr(), bits.data_ptr(),
+            rows, L, n, topk_cluster(rows, L, _sms(x.device)))
+    return out, bits
+
+
+def _ledger_grouped(name: str, entry: str, fn_ref, param: torch.Tensor, d):
+    if param.dim() != 1 or param.shape[0] < 1:
+        raise ValueError(f"{name}: a float32 [G] tensor required, got shape "
+                         f"{tuple(param.shape)}")
+    _check_params(name, param.device, param.shape[0], param=param)
+    if not _on_card(param.device):
+        return fn_ref(param, d)
+    out = torch.empty_like(param)
+    _launch(name, entry, param.device, param.data_ptr(), float(d),
+            out.data_ptr(), param.shape[0])
+    return out
+
+
+def dither_bits_grouped(s: torch.Tensor, d) -> torch.Tensor:
+    """Ledger query for G grid points in one launch: the dither payload
+    bits of a d-value message at each level of s [G] (float32 [G])."""
+    return _ledger_grouped("dither_bits_grouped", "repro_dither_bits_grouped",
+                           ref.dither_bits_grouped_ref, s, d)
+
+
+def topk_bits_grouped(frac: torch.Tensor, d) -> torch.Tensor:
+    """Ledger query for G grid points in one launch: the top-k payload bits
+    of a d-value message at each fraction of frac [G] (float32 [G])."""
+    return _ledger_grouped("topk_bits_grouped", "repro_topk_bits_grouped",
+                           ref.topk_bits_grouped_ref, frac, d)

@@ -36,6 +36,11 @@ def dither_bits_ref(s, d, device) -> torch.Tensor:
     return ceil_log2(2.0 * _f32(s, device) + 1.0) * _f32(d, device)
 
 
+def dither_bits_grouped_ref(s: torch.Tensor, d) -> torch.Tensor:
+    """``dither_bits_ref`` of each level of s [G] (float32 [G])."""
+    return ceil_log2(2.0 * s + 1.0) * _f32(d, s.device)
+
+
 def topk_bits_ref(frac, d, device) -> torch.Tensor:
     """clip(⌈frac·d⌉, 1, d)·(32 + ⌈log2 max(d, 1)⌉) payload bits."""
     d_t = _f32(d, device)
@@ -45,15 +50,22 @@ def topk_bits_ref(frac, d, device) -> torch.Tensor:
     return kept * (32.0 + ceil_log2(torch.maximum(d_t, one)))
 
 
+def topk_bits_grouped_ref(frac: torch.Tensor, d) -> torch.Tensor:
+    """``topk_bits_ref`` of each fraction of frac [G] (float32 [G])."""
+    d_t = _f32(d, frac.device)
+    one = _f32(1.0, frac.device)
+    kept = torch.minimum(torch.maximum(torch.ceil(frac * d_t), one), d_t)
+    return kept * (32.0 + ceil_log2(torch.maximum(d_t, one)))
+
+
 def topk_keep_count(frac, L: int) -> int:
     """k = clip(⌈frac·L⌉, 1, L), with frac·L rounded in float32."""
     return int(np.clip(np.ceil(np.float32(frac) * np.float32(L)), 1, L))
 
 
-def fused_dither_ref(x: torch.Tensor, u: torch.Tensor, s):
-    """Random ∞-norm dithering of each row of x [n, L] with uniforms u:
-    returns (out [n, L], payload bits [n])."""
-    s_t = _f32(s, x.device)
+def _dither_rows(x: torch.Tensor, u: torch.Tensor, s_t: torch.Tensor):
+    """The stochastic rounding of each row of x with uniforms u to s_t
+    levels (a 0-d tensor, or [n, 1]: one level a row)."""
     ax = x.abs()
     norm = ax.amax(dim=1, keepdim=True)
     norm = torch.where(norm == 0, 1.0, norm)
@@ -61,7 +73,13 @@ def fused_dither_ref(x: torch.Tensor, u: torch.Tensor, s):
     lo = torch.floor(y)
     p = y - lo                                   # P(round up)
     level = lo + (u < p).to(torch.float32)
-    out = sign(x) * level * norm / s_t
+    return sign(x) * level * norm / s_t
+
+
+def fused_dither_ref(x: torch.Tensor, u: torch.Tensor, s):
+    """Random ∞-norm dithering of each row of x [n, L] with uniforms u:
+    returns (out [n, L], payload bits [n])."""
+    out = _dither_rows(x, u, _f32(s, x.device))
     bits = dither_bits_ref(s, x.shape[1], x.device).expand(x.shape[0])
     return out, bits.clone()
 
@@ -72,6 +90,29 @@ def fused_dither_keyed_ref(x: torch.Tensor, key: torch.Tensor, s):
     registers."""
     keys = random.split(key, x.shape[0])
     return fused_dither_ref(x, random.uniform(keys, (x.shape[1],)), s)
+
+
+def fused_dither_keyed_grouped_ref(x: torch.Tensor, keys: torch.Tensor,
+                                   s: torch.Tensor):
+    """Grid point g of G owns rows [g·n, (g+1)·n) of x [G·n, L]: its row i
+    is dithered to s[g] levels with the uniforms of
+    ``random.split(keys[g], n)[i]``; returns (out, payload bits [G·n])."""
+    G = keys.shape[0]
+    n = x.shape[0] // G
+    row_keys = random.split(keys, n).reshape(G * n, 2)
+    u = random.uniform(row_keys, (x.shape[1],))
+    out = _dither_rows(x, u, s.repeat_interleave(n)[:, None])
+    bits = dither_bits_grouped_ref(s, x.shape[1]).repeat_interleave(n)
+    return out, bits
+
+
+def fused_topk_grouped_ref(x: torch.Tensor, frac: torch.Tensor):
+    """Grid point g of G keeps ⌈frac[g]·L⌉ values of each of its rows
+    [g·n, (g+1)·n) of x [G·n, L]; returns (out, payload bits [G·n])."""
+    n = x.shape[0] // frac.shape[0]
+    outs, bits = zip(*(fused_topk_ref(x[g * n:(g + 1) * n], f)
+                       for g, f in enumerate(frac.tolist())))
+    return torch.cat(outs), torch.cat(bits)
 
 
 def fused_topk_ref(x: torch.Tensor, frac):

@@ -128,7 +128,8 @@ def test_truncated_inverse_w_gap_is_conditioning(monkeypatch):
         return orig(B, g, omega, Omega)
 
     def record_port(B, g, omega, Omega):
-        seen_port.update(B=B.numpy().copy(), g=g.numpy().copy())
+        # make_flecs_step runs the sweep round on a [1] grid
+        seen_port.update(B=B[0].numpy().copy(), g=g[0].numpy().copy())
         return orig_port(B, g, omega, Omega)
 
     monkeypatch.setattr(jf, "truncated_inverse_direction", record)

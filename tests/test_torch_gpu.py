@@ -23,7 +23,11 @@ Tolerances:
   rounded to bf16 from float32 results that differ in the last bits: one
   bf16 ulp is 2^-8 of the value); two backward runs give the same bits;
 * training (smoke config): gradients on the card within 1e-4 · max |g| of
-  the CPU's per leaf, losses within 1e-5 relative, ``uplink_mbits`` equal.
+  the CPU's per leaf, losses within 1e-5 relative, ``uplink_mbits`` equal;
+* grouped compressor entries: none — bit-identical to their plain versions
+  and to G launches of the scalar entries;
+* plans (budget-fair, small): ledgers, counts and budget rounds equal to
+  the CPU's, final objectives within rtol 1e-4.
 This file imports no JAX (the card's machine has none).
 """
 import numpy as np
@@ -188,7 +192,10 @@ def test_launches_counted_and_inputs_checked(cuda):
     ops.dither_bits(8.0, 33, cuda)
     assert ops.launches == {"fused_dither": 1, "fused_dither_keyed": 1,
                             "fused_topk": 1, "dither_bits": 1,
-                            "topk_bits": 0}
+                            "topk_bits": 0, "fused_dither_keyed_grouped": 0,
+                            "fused_topk_grouped": 0,
+                            "dither_bits_grouped": 0,
+                            "topk_bits_grouped": 0}
     with pytest.raises(TypeError):
         ops.fused_topk(x.double(), 0.5)
     with pytest.raises(ValueError):
@@ -253,8 +260,10 @@ def test_fused_dither_keyed_edge_rows(cuda, s):
 
 def test_round_launches_the_keyed_dither(cuda):
     """Algorithm 1's round on the card compresses through the keyed kernel
-    only (twice a round with dither on both messages), with the CPU's
-    ledgers and objective (rtol 1e-4, as chip_smoke.py's quickstart)."""
+    only, as the grouped entry of the sweep step's [1] grid (twice a round
+    with dither on both messages; the scalar and u-taking entries never),
+    with the CPU's ledgers and objective (rtol 1e-4, as chip_smoke.py's
+    quickstart)."""
     from repro_torch import quickstart
     from repro_torch.core.driver import run_experiment
     kw = dict(d=24, n_workers=4, r=24, m=2, seed=3)
@@ -265,7 +274,8 @@ def test_round_launches_the_keyed_dither(cuda):
         state, traces[dev.type] = run_experiment(
             step, state, key, 3, record=lambda st: prob.metrics(st.w))
         if dev.type == "cuda":
-            assert ops.launches["fused_dither_keyed"] == 6
+            assert ops.launches["fused_dither_keyed_grouped"] == 6
+            assert ops.launches["fused_dither_keyed"] == 0
             assert ops.launches["fused_dither"] == 0
     assert torch.equal(traces["cuda"]["bits_per_node"].cpu(),
                        traces["cpu"]["bits_per_node"])
@@ -666,3 +676,158 @@ def test_train_on_the_card_matches_the_cpu(cuda, flecs):
         assert abs(a["loss"] - b["loss"]) <= 1e-5 * abs(b["loss"])
         if flecs:
             assert a["uplink_mbits"] == b["uplink_mbits"]
+
+
+# ---------------------------------------------------------------------------
+# Grouped entries: a grid of G points in one launch
+# ---------------------------------------------------------------------------
+
+GROUPED_CASES = [(1, 20, 123), (3, 20, 123), (8, 20, 492), (3, 4, 5000),
+                 (1, 1, 20000), (3, 2, 20001), (8, 1, 300)]
+
+
+def _grid(G, n, L, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor((rng.normal(size=(G * n, L)) * 10).astype(
+        np.float32))
+    x[0, :L // 2] = 0.0
+    s = torch.as_tensor(rng.choice([1.0, 15.0, 64.0, 127.0], G).astype(
+        np.float32))
+    frac = torch.as_tensor(rng.choice([1e-4, 0.01, 0.25, 1.0], G).astype(
+        np.float32))
+    return x, random.split(random.key(seed, "cpu"), G), s, frac
+
+
+@pytest.mark.parametrize("G,n,L", GROUPED_CASES)
+def test_grouped_dither_keyed_bit_identical(cuda, G, n, L):
+    """One launch for the grid, bit for bit its plain version on the CPU
+    and G launches of the scalar entry (G = 1: today's call)."""
+    x, keys, s, _ = _grid(G, n, L, G * L)
+    ops.reset_launches()
+    out, bits = ops.fused_dither_keyed_grouped(x.to(cuda), keys.to(cuda),
+                                               s.to(cuda))
+    assert ops.launches["fused_dither_keyed_grouped"] == 1
+    want, want_bits = ref.fused_dither_keyed_grouped_ref(x, keys, s)
+    _same(out, want)
+    _same(bits, want_bits)
+    for g in range(G):
+        rows = slice(g * n, (g + 1) * n)
+        o, b = ops.fused_dither_keyed(x[rows].to(cuda), keys[g].to(cuda),
+                                      float(s[g]))
+        _same(out[rows], o)
+        _same(bits[rows], b)
+
+
+@pytest.mark.parametrize("G,n,L", GROUPED_CASES)
+@pytest.mark.parametrize("kind", ["normal", "ties"])
+def test_grouped_topk_bit_identical(cuda, G, n, L, kind):
+    x, _, _, frac = _grid(G, n, L, 7 * G + L)
+    if kind == "ties":
+        x = torch.round(x / 5)
+    ops.reset_launches()
+    out, bits = ops.fused_topk_grouped(x.to(cuda), frac.to(cuda))
+    assert ops.launches["fused_topk_grouped"] == 1
+    want, want_bits = ref.fused_topk_grouped_ref(x, frac)
+    _same(out, want)
+    _same(bits, want_bits)
+    for g in range(G):
+        rows = slice(g * n, (g + 1) * n)
+        o, b = ops.fused_topk(x[rows].to(cuda), float(frac[g]))
+        _same(out[rows], o)
+        _same(bits[rows], b)
+
+
+@pytest.mark.parametrize("G", [1, 3, 8, 300])
+@pytest.mark.parametrize("d", [1, 123, 5000, 25_000_000])
+def test_grouped_ledgers_bit_identical(cuda, G, d):
+    _, _, s, frac = _grid(G, 1, 1, G)
+    for grouped, plain, scalar, p in (
+            (ops.dither_bits_grouped, ref.dither_bits_grouped_ref,
+             ops.dither_bits, s),
+            (ops.topk_bits_grouped, ref.topk_bits_grouped_ref,
+             ops.topk_bits, frac)):
+        got = grouped(p.to(cuda), d)
+        _same(got, plain(p, d))
+        _same(got, torch.stack([scalar(float(v), d, cuda) for v in p]))
+
+
+def test_grouped_topk_at_60_by_25e6_rows(cuda):
+    """FedNL's d² rows at gisette width, three points of 20 rows: 1.5 G
+    elements, 6 GB — row offsets past 2^32 bytes.  Each point's rows
+    against the scalar entry and the plain version, on the card."""
+    L = 25_000_000
+    x = torch.randn((60, L), generator=torch.Generator(
+        device=cuda).manual_seed(3), device=cuda)
+    frac = (0.25, 0.1, 0.25)
+    out, bits = ops.fused_topk_grouped(
+        x, torch.tensor(frac, dtype=torch.float32, device=cuda))
+    for g, f in enumerate(frac):
+        rows = slice(20 * g, 20 * (g + 1))
+        _same(out[rows], ops.fused_topk(x[rows], f)[0])
+        want, want_bits = ref.fused_topk_ref(x[rows], f)
+        _same(out[rows], want)
+        _same(bits[rows], want_bits)
+        del want
+    del x, out
+    torch.cuda.empty_cache()
+
+
+#: The budget-fair plan's sizes on the card: the small size of the CPU
+#: tests and the quickstart's.
+PLAN_SIZES = [dict(d=24, n_workers=4, r=24), dict(d=123, n_workers=20, r=64)]
+
+
+@pytest.mark.parametrize("size", PLAN_SIZES,
+                         ids=lambda kw: f"d{kw['d']}")
+def test_budget_fair_plan_on_the_card_matches_the_cpu(cuda, size):
+    """The budget-fair plan (five methods × 3 budgets, grouped entries on
+    every [3] grid): ledgers, counts, scan lengths and budget rounds equal
+    to the CPU's, final F within rtol 1e-4 (as chip_smoke.py's plans);
+    every grouped entry launched."""
+    from repro_torch import experiments
+    from repro_torch.core import api
+    from repro_torch.data.logreg import make_problem
+    kw = dict(**size, mu=1e-3, seed=0)
+    res = {}
+    for dev in (cuda, torch.device("cpu")):
+        prob = make_problem(**kw, device=dev)
+        ops.reset_launches()
+        res[dev.type] = api.run_plan(experiments.budget_fair_plan(prob))
+        if dev.type == "cuda":
+            for name in ("fused_dither_keyed_grouped", "fused_topk_grouped",
+                         "dither_bits_grouped", "topk_bits_grouped"):
+                assert ops.launches[name] > 0, name
+    got, want = res["cuda"], res["cpu"]
+    for lab in want.labels:
+        for key in ("bits_per_node", "n_active"):
+            assert torch.equal(got.traces[lab][key].cpu(),
+                               want.traces[lab][key])
+        torch.testing.assert_close(got.traces[lab]["F"][:, -1].cpu(),
+                                   want.traces[lab]["F"][:, -1],
+                                   rtol=1e-4, atol=0)
+    budgets = experiments.budget_fair_budgets(prob)
+    assert (experiments.budget_fair_rows(got, budgets)[0]["rounds"]
+            == experiments.budget_fair_rows(want, budgets)[0]["rounds"])
+
+
+def test_budget_fair_card_drift_is_a_level_flip(cuda):
+    """At d = 24 the card and the CPU part in the budget-fair plan: every
+    point whose final F differs by more than 1e-6 has a first differing
+    message, and a rounding decision explains it (a dither level whose
+    uniform u lies between the two sides' fractional parts p, or a top-k
+    selection within the row's input gap of its threshold); F agreed
+    within 1e-6 up to that round (``plan_drift``)."""
+    from repro_torch import plan_drift
+    from repro_torch.data.logreg import make_problem
+    sides = [make_problem(d=24, n_workers=4, r=24, mu=1e-3, seed=0,
+                          device=dev) for dev in (cuda, "cpu")]
+    out = plan_drift.compare(*(plan_drift.PLANS["budget_fair"](p)
+                               for p in sides))
+    for lab, reports in out.items():
+        for r in reports:
+            if r["final_rel_gap"] <= 1e-6:
+                continue
+            diff = r.get("first_difference")
+            assert diff is not None, (lab, r)
+            assert diff["rel_gap_before"] <= 1e-6, (lab, r)
+            assert diff["explained"], (lab, r)

@@ -18,8 +18,14 @@ back to the CPU):
    at n = 1, 20, 40, 200 rows of L = 1 ... 20,001 (every cluster size) and
    on zero, -0 and NaN rows.  fused_topk also on
    1, 40 and 200 rows (cluster sizes 8, 2 and 1), rows whose ties straddle
-   the shares of a cluster, an all-equal row, denormals, and single rows of
-   300,000 and 3,000,000 elements (shares in shared memory; streamed).
+   the shares of a cluster, an all-equal row, denormals, and, through its
+   grid-wide instance (rows of at least ops.TOPK_GRID_MIN_L), single rows
+   of 300,000 and 3,000,000 elements, rows of odd length whose ties
+   straddle the chunks, an all-equal row (the candidate buffer overflows),
+   integer ties and NaN/inf/-0 rows, each case through the instance
+   ``topk_plan`` names (per-instance launch counts), the grid-wide ones
+   also through the grouped entry with a mixed frac and bitwise over two
+   runs.
    Hold the flash-attention kernel against its plain version on the card,
    on the same inputs: the reference's test shapes in float32 and bfloat16,
    a ragged length (S = 200) and the serving shape (B=8, H=32, KV=4,
@@ -43,7 +49,8 @@ back to the CPU):
    7; cap 50), 333 and the training shape, in float32 and bfloat16,
    max |Δ| <= 1e-5 (f32) / 1e-2 (bf16) · max |grad|, and bitwise the same
    over two runs; the forward's output must be bitwise the same with and
-   without its log-sum-exp output.
+   without its log-sum-exp output; the bf16 backward's six wgmma kernels
+   must hold HGMMA in the SASS of the library built.
 3. Quickstart (d=123, n=20, r=64, m=4, seed 0): 201 rounds with
    dither64/dither64 and 50 with a topk0.1 Hessian compressor, on the card
    and in the port on the CPU.  Ledgers must be equal every round, the
@@ -66,9 +73,9 @@ back to the CPU):
    device kernels a round without the run's setup (10-round minus 1-round
    runs, 3-round minus 1-round profiles; FedNL's kernels in linalg_eigh
    apart), peak memory, exact ledgers, FedNL's fused_topk_grouped on
-   [20, 25,000,000] rows once a round; fused_topk on [20, 25e6] and the
-   grouped entry on [20, 25e6] and [60, 25e6] beside torch.topk; one eigh
-   of 5000 × 5000.
+   [20, 25,000,000] rows once a round through the grid-wide instance;
+   fused_topk on [20, 25e6] and the grouped entry on [20, 25e6] and
+   [60, 25e6] beside torch.topk; one eigh of 5000 × 5000.
 5. Serving, tinyllama-1.1b at full width and depth 2 (float32 weights
    built on the card from seed 0, then copied to the CPU): prefill of one
    256-token prompt and 8 greedy decode steps on both devices, the CPU fed
@@ -84,8 +91,11 @@ back to the CPU):
    kernel's time by CUDA events beside its plain version, its bound (the
    keyed dither's from the instructions of its main loop on the busiest
    pipe, read from the SASS of the library built) and the library call
-   (``torch.topk``; ``scaled_dot_product_attention``, timed only); the
-   flash forward in float32 (bound: 3xTF32) and bfloat16.
+   (``torch.topk``; ``scaled_dot_product_attention``, timed only); then
+   fused_topk at the seven shapes of ``TOPK_TIMED`` (quickstart and plan
+   shapes, [1, 3e6], FedNL's rows), each instance forced beside the one
+   the plan takes; the flash forward in float32 (bound: 3xTF32) and
+   bfloat16.
 8. Training, tinyllama-1.1b at full width and depth 2, batch 2 x 256, on
    the card against this machine's CPU: first-step gradients per leaf
    within 1e-4 · max |g|, the first FLECS-CGD step's int8 levels at no more
@@ -106,7 +116,8 @@ back to the CPU):
    the instructions of its main loop on the busiest pipe, read with
    cuobjdump from the SASS of the library built), SDPA's backward and,
    for the decode, ``torch.mul`` (both timed only); the backward in
-   float32 (bound: 3xTF32 on the tensor cores) and bfloat16.
+   float32 (bound: 3xTF32 on the tensor cores) and bfloat16 (wgmma; its
+   HGMMA count read from the SASS).
 10. Print the kernels line (fourteen kernels: the ten of slices 1–6 and
    the four grouped entries), then the device line as the last line.
 """
@@ -333,6 +344,84 @@ def cuda_ms(fn, reps: int, backlog: bool = True) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _sms(dev) -> int:
+    import torch
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+#: fused_topk's timed shapes: rows, L, frac.  The quickstart and plan
+#: shapes (the cluster instance), rows about the crossover
+#: (ops.TOPK_GRID_MIN_L), single long rows, and FedNL's Hessian
+#: differences at gisette width (d² = 25e6; 60 rows: a grid of 3 points).
+TOPK_TIMED = ((20, 492, 0.1), (20, 20000, 0.1), (60, 15129, 0.25),
+              (1, 65_536, 0.1), (1, 131_072, 0.1), (20, 131_072, 0.1),
+              (1, 300_000, 0.1), (1, 3_000_000, 0.1),
+              (20, 25_000_000, 0.25), (60, 25_000_000, 0.25))
+
+
+def topk_shape_timing(dev, ops, ref, shapes=TOPK_TIMED) -> dict:
+    """fused_topk by CUDA events at each (rows, L, frac) of ``shapes`` (60
+    rows through the grouped entry, three points of 20), beside torch.topk
+    of |x| and the byte bound (x read once, out written once).  Where the
+    checkout has both instances (``ops.topk_plan``), each is also timed
+    forced, so one call sets the crossover; ``instance`` is the one the
+    plan takes."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(21)
+    res = {}
+    plan = getattr(ops, "topk_plan", None)
+    for rows, L, frac in shapes:
+        x = torch.randn((rows, L), generator=g, device=dev)
+        fg = torch.full((rows // 20,), frac, dtype=torch.float32,
+                        device=dev) if rows == 60 else None
+        reps = 200 if L < 100_000 else (20 if L < 10_000_000 else 3)
+
+        def call():
+            return (ops.fused_topk(x, frac) if fg is None
+                    else ops.fused_topk_grouped(x, fg))
+
+        r = dict(ms=cuda_ms(call, reps),
+                 library_ms=cuda_ms(lambda: torch.topk(
+                     x.abs(), ref.topk_keep_count(frac, L), dim=1), reps),
+                 bound_ms=1e3 * (8 * rows * L + 4 * rows) / HBM_BYTES_PER_S,
+                 bound_by="bytes", frac=frac)
+        if plan is not None:
+            r["instance"] = plan(rows, L, _sms(dev))[0]
+            try:
+                for kind in ("cluster", "grid"):
+                    ops.topk_plan = (
+                        (lambda n, m, sms: ("cluster",
+                                            ops.topk_cluster(n, m, sms)))
+                        if kind == "cluster"
+                        else (lambda n, m, sms: ("grid",
+                                                 ops.topk_chunk(n, m, sms))))
+                    r[f"{kind}_ms"] = cuda_ms(call, reps)
+            finally:
+                ops.topk_plan = plan
+        log(f"timing fused_topk [{rows},{L}] frac={frac}: {r['ms']!r} ms"
+            + (f" ({r['instance']} instance; cluster {r['cluster_ms']!r} ms,"
+               f" grid {r['grid_ms']!r} ms)" if plan else "")
+            + f"; torch.topk {r['library_ms']!r} ms, bound "
+            f"{r['bound_ms']!r} ms by bytes")
+        res[f"[{rows},{L}]"] = r
+        del x
+        torch.cuda.empty_cache()
+    return res
+
+
+def opcode_counts(funcs: dict, fragment: str, prefix: str) -> dict:
+    """Instructions whose opcode starts with ``prefix`` in each function of
+    parsed SASS (``sass_functions``) whose mangled name holds
+    ``fragment``: {name: count}."""
+    return {name: sum(op.startswith(prefix) for _, _, op, _ in code)
+            for name, code in funcs.items() if fragment in name}
+
+
+#: Mangled-name fragment of the bf16 backward's wgmma kernels
+#: (flash_attention.cu, namespace wg).
+WGMMA_BWD_SASS = "2wg"
+
+
 def max_abs_err(a, b) -> float:
     """Largest |a - b| over positions where neither is NaN (0.0 when the two
     are bit-identical there); NaN positions must agree."""
@@ -475,8 +564,10 @@ def topk_rows():
     20,000 and 20,037 (8, 2 and 1 CTAs a row on 132 SMs; 20 rows, 4 CTAs,
     are phase 2's main cases), rows of 16,384 split 8 ways with ties
     straddling the share boundaries, an all-equal row, denormals, and one
-    row of 300,000 (shares held in shared memory) and of 3,000,000 (shares
-    streamed from device memory on every pass)."""
+    row of 300,000 and of 3,000,000; and for the grid-wide instance (rows
+    of at least ``ops.TOPK_GRID_MIN_L``): rows of odd length whose ties
+    straddle the chunks, an all-equal row, integer ties and
+    NaN/inf/-0 rows."""
     import numpy as np
     import torch
     rng = np.random.default_rng(10)
@@ -499,29 +590,76 @@ def topk_rows():
     for L in (300_000, 3_000_000):
         cases.append((f"[1,{L}]", rng.normal(size=(1, L))))
         cases.append((f"[1,{L}] ties", rng.integers(-50, 51, (1, L))))
+    # the grid-wide instance: odd L (rows start unaligned), ties across the
+    # chunk edges, the all-equal row (the candidates overflow, its ties are
+    # ranked), more ties than the budget, NaN/inf/-0
+    L = 200_003
+    edges = rng.normal(size=(3, L)) * 1e-3
+    for c in range(1, L // 4096 + 1):          # ops.topk_chunk(3, L, 132)
+        edges[:, c * 4096 - 50:c * 4096 + 50] = 5.0
+    edges[:, rng.integers(0, L, 40)] = 9.0
+    special = rng.normal(size=(2, 150_001))
+    special[:, ::97] = np.nan
+    special[:, 5::89] = np.inf
+    special[:, 7::83] = -np.inf
+    special[:, ::13] = -0.0
+    cases += [(f"[3,{L}] chunk-edge ties", edges),
+              ("[1,300001] all-equal", np.full((1, 300_001), -2.5)),
+              ("[2,150001] integer ties", rng.integers(-3, 4, (2, 150_001))),
+              ("[2,150001] nan inf -0", special)]
     return [(what, torch.as_tensor(np.asarray(x, np.float32)))
             for what, x in cases]
 
 
 def phase_topk_cluster(dev, ops, ref, err):
-    """Phase 2, fused_topk across the cluster sizes and staging modes, bit
-    for bit against its plain version; updates err["fused_topk"]."""
+    """Phase 2, fused_topk across both instances, the cluster sizes and
+    staging modes, bit for bit against its plain version, each case through
+    the instance ``topk_plan`` names (by the per-instance launch counts);
+    the grid-wide rows also through the grouped entry with a mixed frac
+    [G], and the same bits over two runs; updates err["fused_topk"]."""
     import torch
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    sizes = set()
+    sizes, kinds = set(), set()
     for what, x in topk_rows():
-        sizes.add(ops.topk_cluster(*x.shape, sms))
+        kind, size = ops.topk_plan(*x.shape, sms)
+        kinds.add(kind)
+        if kind == "cluster":
+            sizes.add(size)
+        xd = x.to(dev)
         for frac in (1e-4, 0.01, 0.1, 0.5):
-            out, bits = ops.fused_topk(x.to(dev), frac)
+            ops.reset_launches()
+            out, bits = ops.fused_topk(xd, frac)
+            check(ops.topk_instances["fused_topk"][kind] == 1,
+                  f"fused_topk on {what} did not take the {kind} instance: "
+                  f"{ops.topk_instances}")
             want, want_bits = ref.fused_topk_ref(x, frac)
             check(bit_identical(out, want) and bit_identical(bits, want_bits),
                   f"fused_topk differs from its plain version on {what} "
                   f"frac={frac}")
             err["fused_topk"] = max(err["fused_topk"], max_abs_err(out, want))
+            if kind == "grid":
+                check(same_bits(out, ops.fused_topk(xd, frac)[0]),
+                      f"fused_topk's grid instance differs between two runs "
+                      f"on {what} frac={frac}")
+        if kind == "grid":
+            G = x.shape[0]
+            frac = torch.tensor([0.01, 0.25, 1e-4][:G], dtype=torch.float32)
+            ops.reset_launches()
+            out, bits = ops.fused_topk_grouped(xd, frac.to(dev))
+            check(ops.topk_instances["fused_topk_grouped"]["grid"] == 1,
+                  f"fused_topk_grouped on {what}: {ops.topk_instances}")
+            want, want_bits = ref.fused_topk_grouped_ref(x, frac)
+            check(bit_identical(out, want) and bit_identical(bits, want_bits),
+                  f"fused_topk_grouped differs from its plain version on "
+                  f"{what} frac={frac.tolist()}")
+        del xd
     torch.cuda.synchronize()
     sizes |= {ops.topk_cluster(20, L, sms) for L in (123, 492, 5000, 20000)}
-    log(f"phase 2: fused_topk bit-identical on the cluster cases; cluster "
-        f"sizes taken in phase 2 {sorted(sizes)} on {sms} SMs")
+    check(kinds == {"cluster", "grid"}, f"instances taken: {kinds}")
+    log(f"phase 2: fused_topk bit-identical on the cluster and grid-wide "
+        f"cases (and fused_topk_grouped on the grid-wide ones); cluster "
+        f"sizes taken in phase 2 {sorted(sizes)} on {sms} SMs; the grid "
+        f"instance from L >= {ops.TOPK_GRID_MIN_L}")
 
 
 def flash_inputs(shape, dtype, dev, seed=0):
@@ -1053,18 +1191,6 @@ def phase_timing(dev, ops, ref, random, library):
             f"Python {r['host_ms']!r} ms; plain "
             f"{r['plain_ms']!r} ms, library {r['library_ms']!r} ms, bound "
             f"{r['bound_ms']!r} ms by {r['bound_by']}{pipe})")
-    # one long row (off the main path): 8 CTAs whose shares are streamed
-    # from device memory on every pass
-    L = 3_000_000
-    x = torch.randn((1, L), generator=g).to(dev)
-    long_row = dict(ms=cuda_ms(lambda: ops.fused_topk(x, 0.1), 20),
-                    library_ms=cuda_ms(lambda: torch.topk(
-                        x.abs(), ref.topk_keep_count(0.1, L), dim=1), 20),
-                    bound_ms=1e3 * (8 * L + 4) / HBM_BYTES_PER_S)
-    log(f"timing fused_topk [1,{L}] (streamed shares): {long_row['ms']!r} ms "
-        f"(torch.topk {long_row['library_ms']!r} ms, bound "
-        f"{long_row['bound_ms']!r} ms by bytes)")
-    res["fused_topk_long_row"] = long_row
     return res
 
 
@@ -1336,6 +1462,7 @@ def phase_gisette_baselines(api, experiments, make_problem, ops, ref,
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         res, launched = _plan_launches(api, one(10), ops)
+        instances = {k: dict(v) for k, v in ops.topk_instances.items()}
         peak = torch.cuda.max_memory_allocated()
         for k, v in launched.items():
             counts[k] += v
@@ -1363,6 +1490,7 @@ def phase_gisette_baselines(api, experiments, make_problem, ops, ref,
                  eigh_kernels_per_round=per_round["op"][0],
                  eigh_busy_ms_per_round=per_round["op"][1],
                  peak_gib=peak / 2**30, launches=launched,
+                 topk_instances=instances,
                  F=tr["F"][0].tolist(), bits_per_round=price)
         log(f"phase 4b: gisette {run.label} x10: {r['round_ms']!r} ms a "
             f"round (setup {r['setup_ms']!r} ms), "
@@ -1371,12 +1499,15 @@ def phase_gisette_baselines(api, experiments, make_problem, ops, ref,
             f"device busy {r['busy_ms_per_round']!r} ms a round "
             f"({r['eigh_busy_ms_per_round']!r} in linalg_eigh), peak "
             f"{r['peak_gib']!r} GiB, {price:.0f} bits a round; F {r['F']}; "
-            f"launches {launched}")
+            f"launches {launched}; top-k instances {instances}")
         out[run.label] = r
         del res, st, tr
         torch.cuda.empty_cache()
     check(out["FedNL"]["launches"]["fused_topk_grouped"] == 10,
           "gisette FedNL: fused_topk_grouped not launched once a round")
+    check(out["FedNL"]["topk_instances"]["fused_topk_grouped"]["grid"] == 10,
+          f"gisette FedNL: fused_topk_grouped not launched through the "
+          f"grid-wide instance: {out['FedNL']['topk_instances']}")
     g = torch.Generator(device="cuda").manual_seed(9)
     x = torch.randn((20, LONG_L), generator=g, device="cuda")
     k = ref.topk_keep_count(0.25, LONG_L)
@@ -1386,7 +1517,7 @@ def phase_gisette_baselines(api, experiments, make_problem, ops, ref,
         grouped_ms=cuda_ms(lambda: ops.fused_topk_grouped(x, frac1), 3),
         library_ms=cuda_ms(lambda: torch.topk(x.abs(), k, dim=1), 3),
         bound_ms=1e3 * (8 * x.numel() + 80) / HBM_BYTES_PER_S,
-        cluster=ops.topk_cluster(20, LONG_L, 132))}
+        instance=ops.topk_plan(20, LONG_L, _sms("cuda"))[0])}
     del x
     torch.cuda.empty_cache()
     x = torch.randn((60, LONG_L), generator=g, device="cuda")
@@ -1395,12 +1526,12 @@ def phase_gisette_baselines(api, experiments, make_problem, ops, ref,
         ms=cuda_ms(lambda: ops.fused_topk_grouped(x, frac), 3),
         library_ms=cuda_ms(lambda: torch.topk(x.abs(), k, dim=1), 3),
         bound_ms=1e3 * (8 * x.numel() + 252) / HBM_BYTES_PER_S,
-        cluster=ops.topk_cluster(60, LONG_L, 132))
+        instance=ops.topk_plan(60, LONG_L, _sms("cuda"))[0])
     del x
     torch.cuda.empty_cache()
     for shape, r in long.items():
         log(f"timing fused_topk {shape} (FedNL's rows at gisette width, "
-            f"{r['cluster']} CTAs a row, streamed shares): {r['ms']!r} ms "
+            f"{r['instance']} instance): {r['ms']!r} ms "
             + (f"(the grouped entry at G = 1 {r['grouped_ms']!r} ms) "
                if "grouped_ms" in r else "")
             + f"(torch.topk {r['library_ms']!r} ms, bound {r['bound_ms']!r} "
@@ -1414,6 +1545,32 @@ def phase_gisette_baselines(api, experiments, make_problem, ops, ref,
     torch.cuda.empty_cache()
     out["fused_topk_long"] = long
     out["eigh_ms"] = eigh_ms
+    return out
+
+
+def fednl_round_ms(api, experiments, make_problem, reps=3) -> list:
+    """FedNL's round at gisette width (``baselines_plan``'s FedNL run): ms
+    a round as phase 4b takes it, a 10-round run less a 1-round run by the
+    host clock around runs that end in a synchronize, ``reps`` times after
+    a warm-up.  For ``kernel_timing.py fednl``, to compare checkouts."""
+    import dataclasses
+    import torch
+    prob = make_problem(**GISETTE_PROBLEM, device="cuda")
+    plan = experiments.baselines_plan(prob, iters=10)
+    run = next(r for r in plan.runs if r.label == "FedNL")
+
+    def seconds(iters):
+        res = api.run_plan(dataclasses.replace(plan, runs=(
+            dataclasses.replace(run, iters=iters),)))
+        torch.cuda.synchronize()
+        return res.seconds
+
+    seconds(1)
+    out = []
+    for _ in range(reps):
+        t1 = seconds(1)
+        out.append(1e3 * (seconds(10) - t1) / 9)
+    log(f"timing FedNL gisette round: {out} ms")
     return out
 
 
@@ -1659,12 +1816,28 @@ BWD_SHAPES = FLASH_SHAPES[:5] + [(1, 2, 1, 1, 128, 0, 0.0),
 BWD_REL = {"float32": 1e-5, "bfloat16": 1e-2}
 
 
-def phase_flash_backward(dev, fa_ops, fa_ref):
+def bwd_wgmma_sass(fa_ops, required=True) -> dict:
+    """HGMMA instructions in the SASS of each of the bf16 backward's wgmma
+    kernels (dK/dV and dQ at D = 32, 64, 128), read with cuobjdump from the
+    flash library built; ``required``: fail unless all six hold some, so a
+    fall back to HMMA cannot pass unseen."""
+    counts = opcode_counts(sass_functions(fa_ops.LIBRARY.build()),
+                           WGMMA_BWD_SASS, "HGMMA")
+    check(not required or (len(counts) == 6 and all(counts.values())),
+          f"the bf16 backward's wgmma kernels hold no HGMMA: {counts}")
+    return counts
+
+
+def phase_flash_backward(dev, fa_ops, fa_ref, need_wgmma=True):
     """Phase 2, flash-attention backward: dq, dk, dv of the kernels against
     the plain version's autograd on the card, same inputs and output
     gradient; and the forward's output bitwise the same with and without
-    its log-sum-exp output."""
+    its log-sum-exp output.  With ``need_wgmma`` the bf16 kernels' SASS
+    must hold HGMMA (an earlier checkout timed beside this one has none)."""
     import torch
+    hgmma = bwd_wgmma_sass(fa_ops, need_wgmma)
+    log(f"phase 2: HGMMA instructions of the bf16 backward kernels (SASS): "
+        f"{hgmma}")
     err, rel_worst = {}, {}
     for shape in BWD_SHAPES:
         window, cap = shape[5], shape[6]
@@ -1949,13 +2122,16 @@ def flash_backward_timing(dev, dtype, fa_ops, fa_ref, g):
              cuda_core_bound_ms=1e3 * ops / F32_OPS_PER_S,
              tflops=ops / r["ms"] / 1e9)
     name = str(dtype).replace("torch.", "")
+    if dtype == torch.bfloat16:
+        r["hgmma"] = bwd_wgmma_sass(fa_ops, required=False)
     log(f"timing flash_attention_backward {list(SERVE_SHAPE[:5])} {name}: "
         f"{r['ms']!r} ms (plain {r['plain_ms']!r} ms, SDPA "
         f"{r['library_ms']!r} ms; bound {r['bound_ms']!r} ms by "
         f"{r['bound_by']}: {tensor_ops:.4g} tensor-core operations at "
         f"{rate / 1e12:g} TFLOP/s, {nbytes:.4g} bytes; float32 CUDA-core "
         f"bound {r['cuda_core_bound_ms']!r} ms); {r['tflops']!r} TFLOP/s "
-        f"of the five products")
+        f"of the five products"
+        + (f"; HGMMA in the SASS {r['hgmma']}" if "hgmma" in r else ""))
     del q, k, v, out, lse, dout, dq, dk, dv
     torch.cuda.empty_cache()
     return r
@@ -2040,6 +2216,22 @@ def phase_train_kernel_timing(dev, d_ops, d_ref, fa_ops, fa_ref, random):
     return res
 
 
+def topk_entry(entry, ttopk, rows_of) -> None:
+    """Add topk_shape_timing's shapes whose row count ``rows_of`` takes to a
+    kernels-line entry: times, library times, bounds, the instance each
+    shape takes and both instances' times."""
+    for shape, r in ttopk.items():
+        if not rows_of(int(shape[1:].split(",")[0])):
+            continue
+        for key, field in (("ms_by_shape", "ms"),
+                           ("library_ms_by_shape", "library_ms"),
+                           ("bound_ms_by_shape", "bound_ms"),
+                           ("instance_by_shape", "instance"),
+                           ("cluster_ms_by_shape", "cluster_ms"),
+                           ("grid_ms_by_shape", "grid_ms")):
+            entry.setdefault(key, {})[shape] = r[field]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2110,6 +2302,7 @@ def main():
     trained = phase_train_full(train, fa_ops, d_ops, ops, tree)
     prof = phase_profile(quickstart)
     timing = phase_timing(dev, ops, ref, random, library=built[0])
+    ttopk = topk_shape_timing(dev, ops, ref)
     gtiming = grouped_timing(dev, ops, ref, random, library=built[0])
     floor_ms = empty_launch_ms()
     log(f"timing an empty kernel (torch.cuda._sleep(0)) back to back: "
@@ -2147,17 +2340,12 @@ def main():
             entry["bound_pipe"] = r["pipe"]
             entry["clocks_per_element"] = r["clocks_per_element"]
         if name == "fused_topk":
-            long_row = timing["fused_topk_long_row"]
-            entry["ms_by_shape"]["[1,3000000]"] = long_row["ms"]
             entry["library_ms_by_shape"] = {
                 f"[20,{Ls}]": timing[(name, Ls)]["library_ms"]
                 for Ls in TIMED_L[name]}
-            entry["library_ms_by_shape"]["[1,3000000]"] = long_row[
-                "library_ms"]
-            for shape, r in gis_base["fused_topk_long"].items():
-                entry["ms_by_shape"][shape] = r["ms"]
-                entry["library_ms_by_shape"][shape] = r["library_ms"]
-                entry["bound_ms_by_shape"][shape] = r["bound_ms"]
+            topk_entry(entry, ttopk, lambda rows: rows != 60)
+            entry["ms_by_shape"]["[20,25000000] (phase 4b)"] = gis_base[
+                "fused_topk_long"]["[20,25000000]"]["ms"]
         kernels.append(entry)
     for name, r in gtiming.items():
         entry = {"name": name, "route": "cuda", "source": SOURCE,
@@ -2174,12 +2362,17 @@ def main():
         if name == "fused_topk_grouped":
             long = gis_base["fused_topk_long"]
             entry["ms_by_shape"] = {
-                "[20,25000000]": long["[20,25000000]"]["grouped_ms"],
-                "[60,25000000]": long["[60,25000000]"]["ms"]}
+                "[20,25000000] (phase 4b)": long["[20,25000000]"][
+                    "grouped_ms"],
+                "[60,25000000] (phase 4b)": long["[60,25000000]"]["ms"]}
             entry["library_ms_by_shape"] = {
-                shape: r["library_ms"] for shape, r in long.items()}
-            entry["bound_ms_by_shape"] = {
-                shape: r["bound_ms"] for shape, r in long.items()}
+                f"{shape} (phase 4b)": r["library_ms"]
+                for shape, r in long.items()}
+            entry["bound_ms_by_shape"] = {}
+            topk_entry(entry, ttopk, lambda rows: rows == 60)
+            entry["launches_by_instance"] = {
+                "gisette FedNL x10": gis_base["FedNL"]["topk_instances"][
+                    name]}
         kernels.append(entry)
     by_path = {"serve prefill": full["launches"],
                "train adam x5": trained["adam"]["launches"],
@@ -2229,7 +2422,8 @@ def main():
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         "max_abs_err_by_dtype": bwd_err, "rel_err_by_dtype": bwd_rel,
         "bf16": {key: r16[key] for key in (
-            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "hgmma")},
         "shape": list(SERVE_SHAPE[:5])})
     log(json.dumps({"plans": plans, "gisette_baselines": gis_base}))
     log(json.dumps({"quickstart": quick, "gisette": gis, "profile": prof,

@@ -1,8 +1,10 @@
 """Time kernels of one checkout on one card, to compare versions in one call.
 
-    python3 kernel_timing.py compressor [--root DIR]
+    python3 kernel_timing.py compressor [--root DIR] [--topk-chunk N]
     python3 kernel_timing.py flash-forward [--root DIR] [-D NAME=VALUE ...]
     python3 kernel_timing.py flash-backward [--root DIR] [-D NAME=VALUE ...]
+    python3 kernel_timing.py topk [--root DIR] [--topk-chunk N]
+    python3 kernel_timing.py fednl [--root DIR]
     python3 kernel_timing.py dither [--root DIR]
     python3 kernel_timing.py quickstart [--root DIR]
 
@@ -12,7 +14,17 @@ timed by the same code: run parent, change, change, parent in one call.
 
 ``compressor`` times the compressor kernels at the main path's shapes beside
 their plain versions and ``torch.topk`` (``chip_smoke.phase_timing``), the
-keyed dither with its bound read from the SASS of the library it times.
+keyed dither with its bound read from the SASS of the library it times;
+then fused_topk at ``chip_smoke.TOPK_TIMED``, the quickstart and plan shapes
+and the long rows up to FedNL's [60, 25e6], each instance forced where the
+checkout has two (``chip_smoke.topk_shape_timing``), beside torch.topk.
+``--topk-chunk`` fixes the grid instance's chunk (``ops.topk_chunk``'s
+bounds were set by timing 4,096 to 32,768).
+
+``topk`` is ``compressor``'s fused_topk part alone.  ``fednl`` times
+FedNL's round at gisette width (d = 5000, rows of d² = 25e6 through
+``fused_topk_grouped`` once a round), 10-round minus 1-round runs, three
+times (``chip_smoke.fednl_round_ms``).
 
 ``flash-forward`` builds the flash-attention library with the extra nvcc
 ``-D`` flags given (the forward's KV tile ``REPRO_FWD_BK``, see
@@ -59,14 +71,16 @@ import chip_smoke
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(
         description="Time one checkout's kernels on the card.")
-    parser.add_argument("what", choices=("compressor", "flash-forward",
-                                         "flash-backward", "dither",
-                                         "quickstart"))
+    parser.add_argument("what", choices=("compressor", "topk", "fednl",
+                                         "flash-forward", "flash-backward",
+                                         "dither", "quickstart"))
     parser.add_argument("--root", type=Path, default=chip_smoke.ROOT,
                         help="checkout whose src/repro_torch is timed")
     parser.add_argument("-D", dest="defines", action="append", default=[],
                         metavar="NAME=VALUE",
                         help="extra nvcc -D flag for the flash library")
+    parser.add_argument("--topk-chunk", type=int, default=None,
+                        help="elements a CTA of the grid-wide top-k reads")
     args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -76,16 +90,27 @@ def main(argv=None) -> None:
     chip_smoke.log(chip_smoke.card_line())
     out = {"root": str(args.root), "what": args.what,
            "defines": args.defines}
-    if args.what == "compressor":
+    if args.what in ("compressor", "topk"):
         from repro_torch import random
         from repro_torch.kernels.compressor import build, ops, ref
-        res = chip_smoke.phase_timing(dev, ops, ref, random,
-                                      library=build.LIBRARY.build())
-        out["times"] = {
-            (f"{key[0]} [20,{key[1]}]" if isinstance(key, tuple) else key):
-            {k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                               "bound_by") if k in r}
-            for key, r in res.items()}
+        if args.topk_chunk:
+            ops.TOPK_CHUNK_MIN = ops.TOPK_CHUNK_MAX = args.topk_chunk
+        if args.what == "compressor":
+            res = chip_smoke.phase_timing(dev, ops, ref, random,
+                                          library=build.LIBRARY.build())
+            out["times"] = {
+                (f"{key[0]} [20,{key[1]}]" if isinstance(key, tuple)
+                 else key):
+                {k: r[k] for k in ("ms", "plain_ms", "library_ms",
+                                   "bound_ms", "bound_by") if k in r}
+                for key, r in res.items()}
+        out["topk"] = chip_smoke.topk_shape_timing(dev, ops, ref)
+    elif args.what == "fednl":
+        from repro_torch import experiments
+        from repro_torch.core import api
+        from repro_torch.data.logreg import make_problem
+        out["round_ms"] = chip_smoke.fednl_round_ms(api, experiments,
+                                                    make_problem)
     elif args.what == "quickstart":
         from repro_torch import quickstart
         out["rounds"] = chip_smoke.round_timing(quickstart)
@@ -115,7 +140,8 @@ def main(argv=None) -> None:
                 out["times"][name] = {k: r[k] for k in (
                     "ms", "plain_ms", "library_ms", "bound_ms")}
         else:
-            _, rel = chip_smoke.phase_flash_backward(dev, ops, ref)
+            _, rel = chip_smoke.phase_flash_backward(dev, ops, ref,
+                                                     need_wgmma=False)
             g = torch.Generator(device=dev).manual_seed(6)
             out["rel_err_by_dtype"] = rel
             for dtype in (torch.float32, torch.bfloat16):

@@ -31,6 +31,10 @@ LIBRARY = CudaLibrary(
                                              _I, _P),
         # x, frac, out, bits, rows, L, n_group, cluster, stream
         "repro_fused_topk_grouped": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+        # x, frac, frac[G] or null, out, bits, ws, cand, rows, L, n_group,
+        # chunk, ws_stride, cap, stream
+        "repro_fused_topk_grid": (_P, _F, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _I, _I, _P),
         # s (or frac), d, out, G, stream
         "repro_dither_bits_grouped": (_P, _F, _P, _I, _P),
         "repro_topk_bits_grouped": (_P, _F, _P, _I, _P),

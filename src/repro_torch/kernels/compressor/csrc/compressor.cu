@@ -595,6 +595,430 @@ extern "C" int repro_topk_bits_grouped(const float* frac, float d,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// fused_topk, the grid-wide instance (rows too long for one cluster).
+//
+// The cluster instance above puts at most 8 CTAs on a row, so a few long
+// rows leave most SMs idle (20 rows of 25,000,000: 80 CTAs of 132 SMs) and
+// its streamed shares are read from device memory six times.  Here, in the
+// manner of AIR top-k (Zhang et al., SC'23), every CTA owns a fixed chunk of
+// one row (the grid is chunks x rows: ~15,000 CTAs at [20, 25e6]), and the
+// radix select runs over the whole grid, one kernel a digit:
+//   pass 0  histograms digit 0 (bits 31-21 of bitcast(|x|): the exponent and
+//           the top two mantissa bits) of its chunk in shared memory, and
+//           counts the NaNs;
+//   pass 1  histograms digit 1 (bits 20-10) of the elements whose digit 0 is
+//           the chosen one, and appends those elements' bit patterns to the
+//           row's candidate buffer when they fit (their count is pass 0's
+//           chosen bin, known before the pass: a deterministic choice);
+//   pass 2  histograms digit 2 (bits 9-0) over the candidates, or over x
+//           again when they did not fit;
+// each CTA adds its histogram into the row's histogram in device memory
+// with integer atomics (exact in any order), and the last CTA of the row
+// (an atomic ticket after a __threadfence) picks the digit and the rank
+// that remains, so the host reads nothing between passes.  After pass 2
+// the row's threshold, the count above it and its ties are known.  The
+// keep rule is the reference's, in float compares: |x| > thresh (a NaN
+// threshold keeps nothing; NaNs sort above inf but are never "above"),
+// plus the lowest-index ties up to budget = k - above.  A row whose ties
+// all fit keeps them all; otherwise a counting pass writes each chunk's
+// ties, and a chunk sums the counts of the chunks before it, so only the
+// chunk where the budget runs out ranks its ties (tile by tile, with a
+// block scan).  Then one pass writes the output.
+//
+// Bytes: x is read three times (passes 0 and 1 and the output pass; pass 2
+// reads the candidates) and out written once, ~16 B an element, against
+// the 8 B of the bound.  Chunks: a power of two from 4,096 to 32,768
+// elements, the smallest that keeps the grid within 8 CTAs an SM
+// (ops.topk_chunk); timed at 4,096-32,768 at every shape of
+// chip_smoke.TOPK_TIMED: 4,096 is best up to [1, 3e6] (0.041 ms; 32,768:
+// 0.069), 32,768 at [20, 25e6] (3.40 ms; 4,096: 4.82) and [60, 25e6]
+// (10.02; 14.43) (kernel_timing.py topk --topk-chunk; NVIDIA H100 80GB
+// HBM3, 700 W).  Loads and stores are 16 bytes a thread from the
+// first 16-byte aligned element of the row on (rows of odd L start
+// unaligned: chunk 0 takes the head, the last chunk the tail).  The
+// wrapper allocates the workspace (histograms, the row's state, the chunk
+// tie counts: zeroed) and the candidate buffer (L / 8 words a row).
+// ---------------------------------------------------------------------------
+
+namespace {
+
+constexpr int kGridThreads = 256;
+// Workspace words a row: the three histograms, the state, then one tie
+// count a chunk (ops.TOPK_GRID_WS_WORDS mirrors kChunkTies).
+constexpr int kStateOff = 5120;   // after histograms of 2048, 2048, 1024
+enum : int {
+  kTicket = 0,        // three tickets, one a pass
+  kNan = 3,           // NaNs of the row
+  kCandCount = 4,     // candidates appended so far
+  kWant = 5,          // rank still sought among the matches
+  kPrefix = 6,        // digits fixed so far (the threshold at the end)
+  kAbove = 7,         // elements whose pattern is above the prefix
+  kMatch = 8,         // elements matching digit 0 (pass 0's chosen bin)
+  kTies = 9,          // ties of the threshold (float compare)
+  kK = 10,            // k
+  kBudget = 11,       // ties that may still be kept: k - above
+  kMode = 12,         // 1: the ties do not all fit, rank them
+  kStateWords = 16
+};
+constexpr int kChunkTies = kStateOff + kStateWords;
+
+__device__ __forceinline__ int topk_k(float frac, int L) {
+  int k = (int)ceilf(__fmul_rn(frac, (float)L));
+  return min(max(k, 1), L);
+}
+
+// Chunk c of a row of L (xr, its first element), in row order, a tile at a
+// time: every thread calls f(n, e, v) once a tile, holding the n (0..4)
+// consecutive elements v[0..n) that start at element e.  The vector part
+// starts at the row's first 16-byte aligned element (`head` elements in),
+// chunk 0 also takes the head and chunk nc - 1 the tail (< 4 elements).
+// The trip count is the same for every thread of the block, so f may
+// synchronise the block.
+template <typename F>
+__device__ __forceinline__ void chunk_tiles(const float* __restrict__ xr,
+                                            int L, int c, int nc,
+                                            int chunk, F&& f) {
+  const int head = min(
+      (int)(((16u - (unsigned)(reinterpret_cast<uintptr_t>(xr) & 15u)) & 15u)
+            >> 2), L);
+  const int vend = head + ((L - head) & ~3);
+  float v[4];
+  if (c == 0 && head > 0) {
+    const int e = threadIdx.x;
+    const int n = e < head ? 1 : 0;
+    if (n) v[0] = xr[e];
+    f(n, e, v);
+  }
+  const int lo = (int)min((long long)head + (long long)c * chunk,
+                          (long long)vend);
+  const int hi = (int)min((long long)lo + chunk, (long long)vend);
+  // two tiles an iteration, both loads issued before either is used
+  for (int b = lo; b < hi; b += 8 * kGridThreads) {
+    const int e0 = b + 4 * threadIdx.x, e1 = e0 + 4 * kGridThreads;
+    float4 q0 = {}, q1 = {};
+    if (e0 < hi) q0 = *reinterpret_cast<const float4*>(xr + e0);
+    if (e1 < hi) q1 = *reinterpret_cast<const float4*>(xr + e1);
+    v[0] = q0.x;
+    v[1] = q0.y;
+    v[2] = q0.z;
+    v[3] = q0.w;
+    f(e0 < hi ? 4 : 0, e0, v);
+    v[0] = q1.x;
+    v[1] = q1.y;
+    v[2] = q1.z;
+    v[3] = q1.w;
+    f(e1 < hi ? 4 : 0, e1, v);
+  }
+  if (c == nc - 1 && vend < L) {
+    const int e = vend + threadIdx.x;
+    const int n = e < L ? 1 : 0;
+    if (n) v[0] = xr[e];
+    f(n, e, v);
+  }
+}
+
+// Block-wide exclusive scan of v (threads in order); *total gets the sum.
+// red holds one partial a warp.
+__device__ __forceinline__ unsigned block_scan(unsigned v, unsigned* red,
+                                               unsigned* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned incl = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned up = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += up;
+  }
+  if (lane == 31) red[warp] = incl;
+  __syncthreads();
+  unsigned before = 0, sum = 0;
+  for (int w = 0; w < kGridThreads / 32; ++w) {
+    before += w < warp ? red[w] : 0u;
+    sum += red[w];
+  }
+  __syncthreads();
+  *total = sum;
+  return before + incl - v;
+}
+
+// Count one digit into the shared histogram (key ~0u: no element).  Pass 0
+// puts most elements of Gaussian-like rows into a few bins, yet merging a
+// warp's equal digits first (__match_any_sync, one atomic a distinct digit)
+// was slower than these plain shared-memory atomics: 5.10 against 3.49 ms
+// at [20, 25e6], 14.69 against 9.91 at [60, 25e6] (kernel_timing.py
+// compressor, one call, 32,768-element chunks; NVIDIA H100 80GB HBM3,
+// 700 W).  That variant is not in this source (PERF.md keeps its times).
+__device__ __forceinline__ void hist_add(unsigned* hist, unsigned key) {
+  if (key != ~0u) atomicAdd(&hist[key], 1u);
+}
+
+// The last CTA of a row: the digit where the count from the top of the
+// row's histogram gh (kBins bins, in device memory) reaches want.
+// out: digit, count above it, count in it.
+template <int kBins>
+__device__ __forceinline__ void pick_digit(const unsigned* gh, unsigned want,
+                                           unsigned* out, unsigned* red) {
+  constexpr int P = kBins / kGridThreads;
+  const int top = kBins - 1 - P * (int)threadIdx.x;
+  unsigned v[P], mine = 0;
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    v[j] = __ldcg(gh + top - j);
+    mine += v[j];
+  }
+  unsigned total;
+  unsigned above = block_scan(mine, red, &total);
+  if (above < want && want <= above + mine) {
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      if (above + v[j] >= want) {
+        out[0] = (unsigned)(top - j);
+        out[1] = above;
+        out[2] = v[j];
+        break;
+      }
+      above += v[j];
+    }
+  }
+  __syncthreads();
+}
+
+// One radix pass of the grid-wide select (design above); grid (nc, rows).
+template <int kPass>
+__global__ void __launch_bounds__(kGridThreads)
+topk_grid_hist_kernel(const float* __restrict__ x, float frac_scalar,
+                      const float* __restrict__ frac_group,
+                      unsigned* __restrict__ ws, unsigned* __restrict__ cand,
+                      int L, int chunk, int ws_stride, int cap,
+                      unsigned n_group) {
+  constexpr int kShift = kPass == 0 ? 21 : (kPass == 1 ? 10 : 0);
+  constexpr int kBins = kPass == 2 ? 1024 : 2048;
+  constexpr unsigned kFixed =
+      kPass == 0 ? 0u : (kPass == 1 ? 0xffe00000u : 0xfffffc00u);
+  __shared__ unsigned hist[kBins];
+  __shared__ unsigned red[32];
+  __shared__ unsigned pick[3];
+  __shared__ unsigned s_base, s_last;
+  const unsigned row = blockIdx.y;
+  const int c = blockIdx.x, nc = gridDim.x;
+  unsigned* w = ws + (size_t)row * ws_stride;
+  unsigned* st = w + kStateOff;
+  const float* xr = x + (size_t)row * L;
+  unsigned* cr = cand + (size_t)row * cap;
+  for (int i = threadIdx.x; i < kBins; i += kGridThreads) hist[i] = 0;
+  __syncthreads();
+  const unsigned prefix = kPass ? st[kPrefix] : 0u;
+  const bool fits = kPass && st[kMatch] <= (unsigned)cap;
+  unsigned nan = 0;
+
+  if (kPass == 2 && fits) {
+    // the candidates, split evenly over the row's CTAs
+    const int n = (int)st[kMatch];
+    const int per = (n + nc - 1) / nc;
+    const int lo = min(c * per, n), hi = min(lo + per, n);
+    for (int b = lo; b < hi; b += kGridThreads) {
+      const int i = b + threadIdx.x;
+      const unsigned p = i < hi ? cr[i] : 0u;
+      hist_add(hist, i < hi && (p & kFixed) == prefix ? (p & 1023u) : ~0u);
+    }
+  } else {
+    chunk_tiles(xr, L, c, nc, chunk, [&](int n, int, const float* v) {
+      unsigned p[4];
+      int m = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        p[j] = j < n ? (__float_as_uint(v[j]) & 0x7fffffffu) : 0u;
+        const bool match = j < n && (p[j] & kFixed) == prefix;
+        if (kPass == 0) nan += j < n && p[j] > 0x7f800000u;
+        hist_add(hist, match ? ((p[j] >> kShift) & (kBins - 1)) : ~0u);
+        m += match;
+      }
+      if (kPass == 1 && fits) {          // append the matches, in a block
+        unsigned total;
+        const unsigned off = block_scan((unsigned)m, red, &total);
+        if (threadIdx.x == 0 && total)
+          s_base = atomicAdd(&st[kCandCount], total);
+        __syncthreads();
+        unsigned at = s_base + off;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (j < n && (p[j] & kFixed) == prefix) cr[at++] = p[j];
+        __syncthreads();                 // s_base is read before reuse
+      }
+    });
+  }
+  __syncthreads();
+  unsigned* gh = w + (kPass == 0 ? 0 : (kPass == 1 ? 2048 : 4096));
+  for (int i = threadIdx.x; i < kBins; i += kGridThreads)
+    if (hist[i]) atomicAdd(&gh[i], hist[i]);
+  if (kPass == 0) {
+    unsigned total;
+    block_scan(nan, red, &total);
+    if (threadIdx.x == 0 && total) atomicAdd(&st[kNan], total);
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    s_last = atomicAdd(&st[kTicket + kPass], 1u) == (unsigned)nc - 1u;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();          // every CTA's histogram of the row has landed
+
+  const float frac = frac_group ? frac_group[row / n_group] : frac_scalar;
+  const int k = topk_k(frac, L);
+  const unsigned want = kPass ? __ldcg(st + kWant) : (unsigned)k;
+  pick_digit<kBins>(gh, want, pick, red);
+  if (threadIdx.x == 0) {
+    const unsigned d = pick[0], above = pick[1], count = pick[2];
+    const unsigned pre = prefix | (d << kShift);
+    const unsigned above_all = (kPass ? __ldcg(st + kAbove) : 0u) + above;
+    st[kPrefix] = pre;
+    st[kAbove] = above_all;
+    st[kWant] = want - above;
+    if (kPass == 0) {
+      st[kMatch] = count;
+      st[kK] = (unsigned)k;
+    }
+    if (kPass == 2) {
+      // pre is the k-th largest pattern; the reference compares floats
+      const bool nan_th = pre > 0x7f800000u;
+      const unsigned n_above = nan_th ? 0u : above_all - __ldcg(st + kNan);
+      const unsigned n_ties = nan_th ? 0u : count;
+      const unsigned budget = (unsigned)k - n_above;
+      st[kTies] = n_ties;
+      st[kBudget] = budget;
+      st[kMode] = n_ties > budget ? 1u : 0u;
+    }
+  }
+}
+
+// Rows that rank their ties: each chunk's count of |x| == thresh.
+__global__ void __launch_bounds__(kGridThreads)
+topk_grid_ties_kernel(const float* __restrict__ x, unsigned* __restrict__ ws,
+                      int L, int chunk, int ws_stride) {
+  __shared__ unsigned red[32];
+  const unsigned row = blockIdx.y;
+  const int c = blockIdx.x, nc = gridDim.x;
+  unsigned* w = ws + (size_t)row * ws_stride;
+  if (w[kStateOff + kMode] == 0u) return;
+  const float th = __uint_as_float(w[kStateOff + kPrefix]);
+  unsigned ties = 0;
+  chunk_tiles(x + (size_t)row * L, L, c, nc, chunk,
+              [&](int n, int, const float* v) {
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+                  ties += j < n && fabsf(v[j]) == th;
+              });
+  unsigned total;
+  block_scan(ties, red, &total);
+  if (threadIdx.x == 0) w[kChunkTies + c] = total;
+}
+
+// The output: everything above the threshold and the ties the budget
+// keeps, the lowest-index first; the row's payload bits.
+__global__ void __launch_bounds__(kGridThreads)
+topk_grid_out_kernel(const float* __restrict__ x, float frac_scalar,
+                     const float* __restrict__ frac_group,
+                     const unsigned* __restrict__ ws, float* __restrict__ out,
+                     float* __restrict__ bits, int L, int chunk,
+                     int ws_stride, unsigned n_group) {
+  __shared__ unsigned red[32];
+  const unsigned row = blockIdx.y;
+  const int c = blockIdx.x, nc = gridDim.x;
+  const unsigned* w = ws + (size_t)row * ws_stride;
+  const unsigned* st = w + kStateOff;
+  const float th = __uint_as_float(st[kPrefix]);
+  const unsigned budget = st[kBudget];
+  const float* xr = x + (size_t)row * L;
+  float* outr = out + (size_t)row * L;
+  // 16-byte stores where out's row has x's alignment
+  const bool vec_out = ((reinterpret_cast<uintptr_t>(outr)
+                         - reinterpret_cast<uintptr_t>(xr)) & 15u) == 0;
+  bool keep_ties = true, rank = false;
+  unsigned seen = 0;                     // ties of the chunks before this
+  if (st[kMode]) {
+    unsigned part = 0;
+    for (int i = threadIdx.x; i < c; i += kGridThreads)
+      part += w[kChunkTies + i];
+    unsigned total;
+    block_scan(part, red, &total);
+    seen = total;
+    const unsigned mine = w[kChunkTies + c];
+    keep_ties = seen + mine <= budget;
+    rank = seen < budget && !keep_ties;
+  }
+  chunk_tiles(xr, L, c, nc, chunk, [&](int n, int e, const float* v) {
+    bool keep[4];
+    unsigned t = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float ax = fabsf(v[j]);
+      keep[j] = j < n && (ax > th || (keep_ties && ax == th));
+      t += j < n && ax == th;
+    }
+    if (rank) {                          // block-uniform
+      unsigned total;
+      unsigned r = seen + block_scan(t, red, &total);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (j < n && fabsf(v[j]) == th) keep[j] = ++r <= budget;
+      seen += total;
+    }
+    float o[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) o[j] = keep[j] ? v[j] : 0.0f;
+    if (n == 4 && vec_out) {
+      __stcs(reinterpret_cast<float4*>(outr + e),
+             make_float4(o[0], o[1], o[2], o[3]));
+    } else {
+      for (int j = 0; j < n; ++j) outr[e + j] = o[j];
+    }
+  });
+  if (c == 0 && threadIdx.x == 0) {
+    const float frac = frac_group ? frac_group[row / n_group] : frac_scalar;
+    bits[row] = topk_bits_f(frac, (float)L);
+  }
+}
+
+}  // namespace
+
+// The grid-wide instance of both top-k entries: frac_group null keeps
+// ceil(frac * L) of every row, else rows [g * n_group, (g + 1) * n_group)
+// keep ceil(frac_group[g] * L).  ws: int32 [rows, ws_stride], zeroed,
+// ws_stride >= 5136 + ceil(L / chunk); cand: int32 [rows, cap].  Five
+// launches: the three radix passes, the tie counts, the output.
+extern "C" int repro_fused_topk_grid(const float* x, float frac,
+                                     const float* frac_group, float* out,
+                                     float* bits, unsigned* ws,
+                                     unsigned* cand, int rows, int L,
+                                     int n_group, int chunk, int ws_stride,
+                                     int cap, void* stream) {
+  if (rows < 1 || rows > 65535 || L < 1 || chunk < 4 || chunk % 4
+      || n_group < 1 || (frac_group && rows % n_group) || cap < 0)
+    return (int)cudaErrorInvalidValue;
+  const long long nc = (L + (long long)chunk - 1) / chunk;
+  if (ws_stride < kChunkTies + nc) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)nc, (unsigned)rows);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const unsigned ng = (unsigned)n_group;
+  topk_grid_hist_kernel<0><<<grid, kGridThreads, 0, s>>>(
+      x, frac, frac_group, ws, cand, L, chunk, ws_stride, cap, ng);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  topk_grid_hist_kernel<1><<<grid, kGridThreads, 0, s>>>(
+      x, frac, frac_group, ws, cand, L, chunk, ws_stride, cap, ng);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  topk_grid_hist_kernel<2><<<grid, kGridThreads, 0, s>>>(
+      x, frac, frac_group, ws, cand, L, chunk, ws_stride, cap, ng);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  topk_grid_ties_kernel<<<grid, kGridThreads, 0, s>>>(x, ws, L, chunk,
+                                                      ws_stride);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  topk_grid_out_kernel<<<grid, kGridThreads, 0, s>>>(
+      x, frac, frac_group, ws, out, bits, L, chunk, ws_stride, ng);
+  return (int)cudaGetLastError();
+}
+
 extern "C" const char* repro_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }

@@ -10,6 +10,12 @@ as a tensor, as the Pallas wrapper does; ``fused_dither_keyed`` takes the
 parent key of the n workers' keys and draws the keys and the uniforms in
 the kernel, bit for bit ``random.uniform(random.split(key, n), (L,))``.
 
+Top-k has two instances, both hand-written kernels, and ``topk_plan``
+picks one from the shape alone: rows shorter than ``TOPK_GRID_MIN_L`` split
+over a thread-block cluster of up to 8 CTAs (``topk_cluster``); longer rows
+run the grid-wide radix select, a CTA a chunk of a row (``topk_chunk``),
+over a workspace this wrapper allocates.
+
 The grouped entries serve a sweep of G grid points at once: rows
 [G·n, L], point g owning rows [g·n, (g+1)·n), each point's parameters (its
 parent key, level s, fraction frac) read from [G] tensors on the device,
@@ -17,7 +23,8 @@ one launch for the whole grid and no host synchronisation.  At G = 1 each
 is bit-identical to its scalar entry.
 
 Every launch adds one to ``launches[name]``, so a run can show which
-kernels its path went through.
+kernels its path went through; the top-k entries also add one to
+``topk_instances[name][instance]``.
 """
 from __future__ import annotations
 
@@ -33,9 +40,18 @@ launches = {"fused_dither": 0, "fused_dither_keyed": 0, "fused_topk": 0,
             "dither_bits_grouped": 0, "topk_bits_grouped": 0}
 
 
+#: Top-k launches since the last :func:`reset_launches`, per entry and
+#: instance (``topk_plan``'s "cluster" or "grid").
+topk_instances = {name: {"cluster": 0, "grid": 0}
+                  for name in ("fused_topk", "fused_topk_grouped")}
+
+
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+    for counts in topk_instances.values():
+        for inst in counts:
+            counts[inst] = 0
 
 
 def _on_card(device) -> bool:
@@ -106,6 +122,43 @@ def topk_cluster(n: int, L: int, sms: int) -> int:
     return _cluster(n, L, sms, TOPK_MIN_SHARE)
 
 
+#: Rows at least this long take the grid-wide top-k instance: at [1, 3e6]
+#: and beyond, a cluster of 8 CTAs a row leaves most SMs idle and streams
+#: its shares from device memory on every pass.
+TOPK_GRID_MIN_L = 131_072
+#: Elements of a row that one CTA of the grid-wide instance reads: the
+#: smallest power of two from TOPK_CHUNK_MIN up that gives at most
+#: TOPK_GRID_CTAS_PER_SM CTAs an SM, and at most TOPK_CHUNK_MAX.
+TOPK_CHUNK_MIN = 4_096
+TOPK_CHUNK_MAX = 32_768
+TOPK_GRID_CTAS_PER_SM = 8
+#: Workspace words a row of the grid-wide instance before its per-chunk tie
+#: counts (compressor.cu's kChunkTies: three histograms and the state).
+TOPK_GRID_WS_WORDS = 5136
+#: Candidate buffer of the grid-wide instance: L // TOPK_CAND_DIV words a
+#: row (rows whose first digit matches more elements re-read x).
+TOPK_CAND_DIV = 8
+
+
+def topk_chunk(rows: int, L: int, sms: int) -> int:
+    """Elements a CTA of the grid-wide instance reads (a power of two)."""
+    chunk = TOPK_CHUNK_MIN
+    while (chunk < TOPK_CHUNK_MAX
+           and rows * -(-L // chunk) > TOPK_GRID_CTAS_PER_SM * sms):
+        chunk *= 2
+    return chunk
+
+
+def topk_plan(rows: int, L: int, sms: int) -> tuple:
+    """The top-k instance for ``rows`` rows of L on a card of ``sms`` SMs:
+    ("grid", ``topk_chunk``) for rows of at least TOPK_GRID_MIN_L (and at
+    most 65,535 rows, the grid's y extent), else ("cluster",
+    ``topk_cluster``)."""
+    if L >= TOPK_GRID_MIN_L and rows <= 65_535:
+        return ("grid", topk_chunk(rows, L, sms))
+    return ("cluster", topk_cluster(rows, L, sms))
+
+
 def dither_cluster(n: int, L: int, sms: int) -> int:
     """CTAs per row of ``fused_dither_keyed``: ``topk_cluster``'s rule with
     DITHER_MIN_SHARE."""
@@ -145,12 +198,34 @@ def fused_topk(x: torch.Tensor, frac):
     _check_rows("fused_topk", x)
     if not _on_card(x.device):
         return ref.fused_topk_ref(x, frac)
-    n, L = x.shape
+    return _topk("fused_topk", x, float(frac), None, 1)
+
+
+def _topk(name: str, x: torch.Tensor, frac: float, frac_g, n_group: int):
+    """Launch top-k entry ``name`` on x [rows, L] through the instance that
+    ``topk_plan`` names: a scalar frac, or frac_g [G] on the device."""
+    rows, L = x.shape
     out = torch.empty_like(x)
-    bits = torch.empty(n, dtype=torch.float32, device=x.device)
-    _launch("fused_topk", "repro_fused_topk", x.device, x.data_ptr(),
-            float(frac), out.data_ptr(), bits.data_ptr(), n, L,
-            topk_cluster(n, L, _sms(x.device)))
+    bits = torch.empty(rows, dtype=torch.float32, device=x.device)
+    kind, size = topk_plan(rows, L, _sms(x.device))
+    if kind == "grid":
+        nc = -(-L // size)
+        ws = torch.zeros((rows, TOPK_GRID_WS_WORDS + nc), dtype=torch.int32,
+                         device=x.device)
+        cap = max(L // TOPK_CAND_DIV, 1)
+        cand = torch.empty((rows, cap), dtype=torch.int32, device=x.device)
+        _launch(name, "repro_fused_topk_grid", x.device, x.data_ptr(), frac,
+                None if frac_g is None else frac_g.data_ptr(),
+                out.data_ptr(), bits.data_ptr(), ws.data_ptr(),
+                cand.data_ptr(), rows, L, n_group, size, ws.shape[1], cap)
+    elif frac_g is None:
+        _launch(name, "repro_fused_topk", x.device, x.data_ptr(), frac,
+                out.data_ptr(), bits.data_ptr(), rows, L, size)
+    else:
+        _launch(name, "repro_fused_topk_grouped", x.device, x.data_ptr(),
+                frac_g.data_ptr(), out.data_ptr(), bits.data_ptr(), rows, L,
+                n_group, size)
+    topk_instances[name][kind] += 1
     return out, bits
 
 
@@ -227,13 +302,7 @@ def fused_topk_grouped(x: torch.Tensor, frac: torch.Tensor):
     _check_params("fused_topk_grouped", x.device, G, frac=frac)
     if not _on_card(x.device):
         return ref.fused_topk_grouped_ref(x, frac)
-    rows, L = x.shape
-    out = torch.empty_like(x)
-    bits = torch.empty(rows, dtype=torch.float32, device=x.device)
-    _launch("fused_topk_grouped", "repro_fused_topk_grouped", x.device,
-            x.data_ptr(), frac.data_ptr(), out.data_ptr(), bits.data_ptr(),
-            rows, L, n, topk_cluster(rows, L, _sms(x.device)))
-    return out, bits
+    return _topk("fused_topk_grouped", x, 0.0, frac, n)
 
 
 def _ledger_grouped(name: str, entry: str, fn_ref, param: torch.Tensor, d):

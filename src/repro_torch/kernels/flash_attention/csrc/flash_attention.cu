@@ -1,6 +1,7 @@
 // Causal GQA flash attention for Hopper (sm_90a): the forward kernel and,
-// below it, the backward kernels, all on the tensor cores with mma.sync
-// (float32 as 3xTF32, bfloat16 as bf16).
+// below it, the backward kernels, all on the tensor cores: float32 as
+// 3xTF32 on mma.sync, the bf16 forward on mma.sync, the bf16 backward on
+// wgmma (its own section, namespace wg).
 //
 // Replaces the Pallas TPU kernel `_kernel` of
 // src/repro/kernels/flash_attention/flash_attention.py:28 (`flash_attention`):
@@ -71,6 +72,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -637,20 +640,24 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
 //     three keep about float32's accuracy.  TF32 stays off for every
 //     other product of the port (device.py); nothing here reads that
 //     switch.
-//   * bfloat16 inputs on m16n8k16 bf16; P and dS are rounded to bf16 as
-//     A operands, as FA2 does.
+//   * bfloat16 inputs: the kernels of the wgmma section below (same grids,
+//     steps and arithmetic; P and dS rounded to bf16 as A operands, as FA2
+//     does).
 // Each step's products are summed in an accumulator of their own and added
 // to the running dK, dV or dQ in float32 (add_to): a chain of thousands of
 // mma.sync on one accumulator is not a float32 sum.
-// mma.sync and not wgmma: wgmma takes TF32 operands only K-major, and three
-// of the five products (dV = P^T dO, dK = dS^T Q, dQ = dS K) read an [S, D]
-// operand along S, so dO, Q and K would each need a transposed copy in
-// shared memory.  mma.sync fragments are gathered per thread, so either
-// layout is read as it lies.  The wgmma + TMA + warp-specialised version is
-// the next redesign (ROADMAP.md).
+// float32 stays on mma.sync: wgmma takes TF32 operands only K-major, and
+// three of the five products (dV = P^T dO, dK = dS^T Q, dQ = dS K) read an
+// [S, D] operand along S, so dO, Q and K would each need a transposed copy
+// in shared memory, beside a hi and a lo tile of each staged B operand
+// (3xTF32): at 64 x 64 in float32, double-buffered, 256 KB for Q and dO in
+// the dK/dV kernel, past the 227 KB a CTA may hold (ROADMAP.md).
+// mma.sync fragments are gathered per thread, so either layout is read as
+// it lies.
 //
-// Three kernels, no float atomics (two runs give the same bits, and remat's
-// recomputation sees the same numbers):
+// Three kernels (float32; the bf16 section below shares the Delta kernel),
+// no float atomics (two runs give the same bits, and remat's recomputation
+// sees the same numbers):
 //   * Delta, one warp a row;
 //   * dK and dV: one CTA of four warps per (64-key tile, KV head, batch);
 //     each warp owns 16 keys and computes S^T = K Q^T and dP^T = V dO^T in
@@ -968,6 +975,676 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
+// ---------------------------------------------------------------------------
+// The bfloat16 backward on wgmma (sm_90a).
+//
+// The dK/dV and dQ kernels above issue mma.sync m16n8k16 from four
+// independent warps; on Hopper only wgmma reaches the tensor cores' full
+// rate.  Here the same two kernels, with the same grids, steps and masks,
+// issue their products as wgmma m64nNk16 from the CTA's one warpgroup (its
+// four warps own rows 16w..16w+15 of the 64-row tile, the accumulator
+// layout of mma.sync's m16n8 tiles, so the work between the products keeps
+// its form; dQ's step is 64 keys):
+//   * dK/dV: S^T = K Q^T and dP^T = V dO^T with K, V as the A operand and
+//     Q, dO as B, all K-major from shared memory; P^T and dS^T, rounded to
+//     bf16 in registers, are the register A operand of dV += P^T dO and
+//     dK += dS^T Q, whose B (dO, Q) is read MN-major with the transpose
+//     flag: no transposed copies.
+//   * dQ: S = Q K^T and dP = dO V^T from shared memory; dQ += dS K with dS
+//     in registers and K read MN-major.
+// A [R, D] tile is staged by cp.async into the swizzled layout the
+// descriptors name: rows of 128 bytes (a 64-wide panel; D = 128 is two
+// panels) with the 128-byte swizzle, or of 64 bytes (D = 32) with the
+// 64-byte swizzle, each tile on a 1,024-byte boundary.  A K-major operand's
+// 16-deep k step starts 32 bytes further into the swizzled rows; an
+// MN-major operand's k step is 16 rows further on, and each wgmma reads one
+// panel of D (N = 64 or 32), so the stride between panels is never used.
+// The streamed tiles are double-buffered as in the kernels above
+// (cp.async groups: step s + 1 loads while step s computes), then fenced
+// for the async proxy that wgmma reads through.  Staging with TMA and
+// mbarriers fed by a producer warp was not built or timed.
+// Each step's products are summed apart (scale-d 0 on the first k step)
+// and added to dK, dV and dQ in float32 (add_to), seven products as
+// before, no float atomics: two runs give the same bits.
+// What was timed (kernel_timing.py flash-backward at B=8, H=32, KV=4,
+// S=1024, D=64, bf16, versions in turns in one call each; NVIDIA H100
+// 80GB HBM3, 700 W): mma.sync 1.390 ms; these kernels with p_and_ds's
+// accurate expf 1.19 (dK/dV 0.695, dQ 0.435 by the profiler); with the
+// exponential as one ex2.approx and the mask skipped on steps every pair
+// of which is visible, 0.649; with the score scale, log2(e) and lse folded
+// into one FFMA and the soft-cap a compile-time case (below), 0.598 (dK/dV
+// 0.316, dQ 0.218, Delta 0.063).  The elementwise work, not the products,
+// bounds them.  Not kept, not in this source: P computed while the dP
+// product is in flight (two commit groups), 0.72 against 0.65; a register
+// budget for 2 or 3 CTAs an SM (__launch_bounds__), 1.19 and 1.22 against
+// 1.19; dV and dK issued one after the other, 1.19 against 1.19.
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+using bf16 = __nv_bfloat16;
+
+// d (64 x 32) += A B, A and B read from shared memory by descriptor;
+// tB: B is MN-major; scale_d 0: d is discarded first.
+template <int tB>
+__device__ __forceinline__ void wgmma_ss32(float (&d)[16],
+                                        unsigned long long a,
+                                        unsigned long long b,
+                                        int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, %19;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(tB));
+}
+
+// d (64 x 64) += A B, A and B read from shared memory by descriptor;
+// tB: B is MN-major; scale_d 0: d is discarded first.
+template <int tB>
+__device__ __forceinline__ void wgmma_ss64(float (&d)[32],
+                                        unsigned long long a,
+                                        unsigned long long b,
+                                        int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(tB));
+}
+
+// d (64 x 32) += A B: A from registers (four bf16 pairs a thread, the
+// layout of mma.sync's m16n8k16 A for each warp's 16 rows), B from shared
+// memory; tB: B is MN-major; scale_d 0: d is discarded first.
+template <int tB>
+__device__ __forceinline__ void wgmma_rs32(float (&d)[16],
+                                        const unsigned (&a)[4],
+                                        unsigned long long b,
+                                        int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+        "n"(tB));
+}
+
+// d (64 x 64) += A B: A from registers (four bf16 pairs a thread, the
+// layout of mma.sync's m16n8k16 A for each warp's 16 rows), B from shared
+// memory; tB: B is MN-major; scale_d 0: d is discarded first.
+template <int tB>
+__device__ __forceinline__ void wgmma_rs64(float (&d)[32],
+                                        const unsigned (&a)[4],
+                                        unsigned long long b,
+                                        int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+        "n"(tB));
+}
+
+template <int N, int tB>
+__device__ __forceinline__ void mma_ss(float (&d)[N / 8][4],
+                                       unsigned long long a,
+                                       unsigned long long b, int scale_d) {
+  static_assert(N == 32 || N == 64, "wgmma N");
+  auto& f = *reinterpret_cast<float(*)[N / 2]>(&d[0][0]);
+  if constexpr (N == 32) wgmma_ss32<tB>(f, a, b, scale_d);
+  else wgmma_ss64<tB>(f, a, b, scale_d);
+}
+
+template <int N, int tB>
+__device__ __forceinline__ void mma_rs(float (&d)[N / 8][4],
+                                       const unsigned (&a)[4],
+                                       unsigned long long b, int scale_d) {
+  static_assert(N == 32 || N == 64, "wgmma N");
+  auto& f = *reinterpret_cast<float(*)[N / 2]>(&d[0][0]);
+  if constexpr (N == 32) wgmma_rs32<tB>(f, a, b, scale_d);
+  else wgmma_rs64<tB>(f, a, b, scale_d);
+}
+
+__device__ __forceinline__ void fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// cp.async's shared-memory writes, made visible to wgmma's async proxy
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Keep the compiler from moving accesses of registers that an in-flight
+// wgmma writes (or reads) across its issue or its wait.
+template <int N>
+__device__ __forceinline__ void hold(float (&c)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(c[j][e])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void hold(unsigned (&a)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[j][e])::"memory");
+}
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// p_and_ds for the bf16 kernels, with the exponential as one ex2.approx
+// (relative error ~2^-22, far inside bf16's): P = 2^(x log2 e - lse_l2),
+// lse_l2 = lse log2 e; without a soft-cap (kCap false) x log2 e - lse_l2 is
+// one FFMA of the raw score (scale_l2 = scale log2 e).  The elementwise
+// work between the products bounds these kernels more than the products
+// do: the accurate expf took the training shape's backward from 0.65 to
+// 1.19 ms (kernel_timing.py flash-backward, one call; NVIDIA H100 80GB
+// HBM3, 700 W).
+template <bool kCap>
+__device__ __forceinline__ void p_and_ds_bf16(float& s, float& dp,
+                                              float lse_l2, float dl,
+                                              bool keep, float cap,
+                                              float scale, float scale_l2) {
+  float y, dcap = 1.f;
+  if constexpr (kCap) {
+    const float th = tanhf(s * scale / cap);
+    dcap = 1.f - th * th;
+    y = cap * th * LOG2E - lse_l2;
+  } else {
+    y = fmaf(s, scale_l2, -lse_l2);
+  }
+  float p = 0.f;
+  if (keep) asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(p) : "f"(y));
+  s = p;
+  dp = kCap ? p * (dp - dl) * dcap : p * (dp - dl);
+}
+
+// Runs f(kSeen, kCap) with both as compile-time constants: the elementwise
+// loops come in four instances, none testing the mask or the cap per
+// element where it need not.
+template <typename F>
+__device__ __forceinline__ void with_flags(bool seen, bool capped, F&& f) {
+  if (seen) {
+    if (capped) f(std::true_type(), std::true_type());
+    else f(std::true_type(), std::false_type());
+  } else {
+    if (capped) f(std::false_type(), std::true_type());
+    else f(std::false_type(), std::false_type());
+  }
+}
+
+// A staged [R, D] tile: panels of PW columns, rows of PW * 2 bytes.
+template <int D>
+__host__ __device__ constexpr int panel() { return D >= 64 ? 64 : 32; }
+// the descriptor's layout type: 1 = 128-byte swizzle, 2 = 64-byte
+template <int D>
+__host__ __device__ constexpr unsigned long long swizzle_mode() {
+  return D >= 64 ? 1ull : 2ull;
+}
+
+// Byte offset of 16-byte chunk c16 (of D / 8) of row r in a tile of R rows
+// whose base lies on a 1,024-byte boundary: the chunk index XORed with row
+// bits, as the hardware swizzles the address.
+template <int D, int R>
+__device__ __forceinline__ int tile_off(int r, int c16) {
+  constexpr int PB = 2 * panel<D>(), CPP = PB / 16;
+  const int p = c16 / CPP, cc = c16 % CPP;
+  const int sw = PB == 128 ? (r & 7) : ((r >> 1) & 3);
+  return p * R * PB + r * PB + ((cc ^ sw) << 4);
+}
+
+// R rows of a [.., S, D] operand (row `lo` on) into a swizzled tile, zeros
+// past S.
+template <int D, int R>
+__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src,
+                                           long long stride, int lo, int S) {
+  constexpr int CPR = D / 8;
+  unsigned char* base = reinterpret_cast<unsigned char*>(dst);
+  for (int c = threadIdx.x; c < R * CPR; c += TC_THREADS) {
+    const int r = c / CPR, col = c % CPR, row = lo + r;
+    const bool in = row < S;
+    cp_async16(base + tile_off<D, R>(r, col),
+               in ? src + row * stride + col * 8 : src, in);
+  }
+}
+
+__device__ __forceinline__ unsigned long long make_desc(
+    const void* p, unsigned lbo, unsigned sbo, unsigned long long mode) {
+  return (unsigned long long)((smem_addr(p) & 0x3ffffu) >> 4)
+         | ((unsigned long long)((lbo >> 4) & 0x3fffu) << 16)
+         | ((unsigned long long)((sbo >> 4) & 0x3fffu) << 32)
+         | (mode << 62);
+}
+
+// K-major operand (A, or B read along its rows): k step ks (columns
+// 16ks..16ks+15) of an [R, D] tile; 8-row groups 8 * PB bytes apart.
+template <int D, int R>
+__device__ __forceinline__ unsigned long long desc_k(const bf16* tile,
+                                                     int ks) {
+  constexpr int PW = panel<D>(), PB = 2 * PW;
+  const int e = 16 * ks;
+  return make_desc(reinterpret_cast<const unsigned char*>(tile)
+                       + (e / PW) * R * PB + (e % PW) * 2,
+                   16, 8 * PB, swizzle_mode<D>());
+}
+
+// MN-major B: rows 16ks..16ks+15 of an [R, D] tile (the product's k) and
+// panel p of its columns (its n); 8-row groups 8 * PB bytes apart.  A
+// wgmma reads one panel (N = the swizzle's width), so the stride between
+// MN blocks is never taken: both offsets hold the 8-row stride.
+template <int D, int R>
+__device__ __forceinline__ unsigned long long desc_mn(const bf16* tile,
+                                                      int ks, int p) {
+  constexpr int PB = 2 * panel<D>();
+  return make_desc(reinterpret_cast<const unsigned char*>(tile)
+                       + p * R * PB + 16 * ks * PB,
+                   8 * PB, 8 * PB, swizzle_mode<D>());
+}
+
+// The A operand of k step i from accumulator tiles 2i and 2i + 1, rounded
+// to bf16 (Tc<bf16>::a_from_acc).
+template <int N>
+__device__ __forceinline__ void to_a(unsigned (&a)[N / 2][4],
+                                     const float (&c)[N][4]) {
+  using O = Tc<bf16>;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    const typename O::A f = O::a_from_acc(c, i);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[i][e] = f.r[e];
+  }
+}
+
+// acc's panel p += A B, A from registers (R / 16 k steps of the product),
+// B the MN-major [R, D] tile; the product summed apart, then added in
+// float32.
+template <int D, int R, int PW, int ND>
+__device__ __forceinline__ void product_into(float (&acc)[ND][4],
+                                             unsigned (&a)[R / 16][4],
+                                             const bf16* tile, int p) {
+  constexpr int NPW = PW / 8;
+  float part[NPW][4];
+  zero(part);
+  hold(part);
+  fence();
+#pragma unroll
+  for (int i = 0; i < R / 16; ++i)
+    mma_rs<PW, 1>(part, a[i], desc_mn<D, R>(tile, i, p), i);
+  commit();
+  wait_all();
+  hold(part);
+  hold(a);
+#pragma unroll
+  for (int j = 0; j < NPW; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[p * NPW + j][e] += part[j][e];
+}
+
+// q rows a step of the dK/dV kernel; keys a step of the dQ kernel
+template <int D>
+__host__ __device__ constexpr int dkdv_bq() { return D <= 64 ? 64 : 32; }
+constexpr int DQ_BK = 64;
+
+__device__ __forceinline__ unsigned char* align1k(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<unsigned long long>(p) + 1023ull) & ~1023ull);
+}
+
+template <int D>
+constexpr size_t dkdv_smem_bytes() {
+  // 1 KB to align; K, V; Q and dO twice; lse and Delta twice
+  return 1024 + (size_t)(2 * BWD_BK + 4 * dkdv_bq<D>()) * D * 2
+         + 4 * dkdv_bq<D>() * sizeof(float);
+}
+
+template <int D>
+constexpr size_t dq_smem_bytes() {
+  // 1 KB to align; Q, dO; K and V twice
+  return 1024 + (size_t)(2 * BWD_BQ + 4 * DQ_BK) * D * 2;
+}
+
+// dK and dV of one 64-key tile of one KV head, summed over the group's
+// heads (flash_bwd_dkdv_kernel's grid and steps).
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS)
+dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+            const bf16* __restrict__ v, const bf16* __restrict__ dout,
+            const float* __restrict__ lse, const float* __restrict__ delta,
+            bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int KV,
+            int S, int window, float cap, float scale, BwdStrides st) {
+  constexpr int BQ = dkdv_bq<D>(), BK = BWD_BK;
+  constexpr int NQ = BQ / 8, ND = D / 8, PW = panel<D>(), NP = D / PW;
+  constexpr int NPW = PW / 8, KS = D / 16, QS = BQ / 16;
+  extern __shared__ unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(align1k(smem_raw));   // [BK, D]
+  bf16* Vs = Ks + BK * D;                                  // [BK, D]
+  bf16* Qs = Vs + BK * D;                                  // [2][BQ, D]
+  bf16* dOs = Qs + 2 * BQ * D;                             // [2][BQ, D]
+  float* lse_s = reinterpret_cast<float*>(dOs + 2 * BQ * D);   // [2][BQ]
+  float* dl_s = lse_s + 2 * BQ;                                // [2][BQ]
+
+  const int nb = gridDim.x / (((S + BK - 1) / BK) * KV);   // batch size
+  const int k_lo = (blockIdx.x / (KV * nb)) * BK;
+  const int kvh = blockIdx.x % KV, b = (blockIdx.x / KV) % nb;
+  const int G = H / KV;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4, m = 16 * warp;
+
+  const int nq = (S + BQ - 1) / BQ;
+  const int k_hi = min(k_lo + BK - 1, S - 1);
+  const int i_lo = k_lo / BQ;
+  const int i_hi = window ? min(nq - 1, (k_hi + window - 1) / BQ) : nq - 1;
+  const int n_it = i_hi - i_lo + 1, steps = G * n_it;
+
+  auto stage = [&](int step) {
+    const int h = kvh * G + step / n_it, q_lo = (i_lo + step % n_it) * BQ;
+    const int buf = step & 1;
+    stage_tile<D, BQ>(Qs + buf * BQ * D, q + b * st.q[0] + h * st.q[1],
+                      st.q[2], q_lo, S);
+    stage_tile<D, BQ>(dOs + buf * BQ * D,
+                      dout + b * st.dout[0] + h * st.dout[1], st.dout[2],
+                      q_lo, S);
+    const long long off = ((long long)b * H + h) * S;
+    stage_vec<BQ>(lse_s + buf * BQ, lse + off, q_lo, S);
+    stage_vec<BQ>(dl_s + buf * BQ, delta + off, q_lo, S);
+  };
+  stage_tile<D, BK>(Ks, k + b * st.k[0] + kvh * st.k[1], st.k[2], k_lo, S);
+  stage_tile<D, BK>(Vs, v + b * st.v[0] + kvh * st.v[1], st.v[2], k_lo, S);
+  stage(0);
+  cp_async_commit();
+
+  float dk_acc[ND][4], dv_acc[ND][4];
+  zero(dk_acc);
+  zero(dv_acc);
+  const float scale_l2 = scale * LOG2E;
+
+  for (int step = 0; step < steps; ++step) {
+    if (step + 1 < steps) stage(step + 1);
+    cp_async_commit();
+    cp_async_wait_one();   // this step's tiles have landed
+    fence_async_smem();
+    __syncthreads();
+    const int buf = step & 1, q_lo = (i_lo + step % n_it) * BQ;
+    const bf16* Qb = Qs + buf * BQ * D;
+    const bf16* dOb = dOs + buf * BQ * D;
+    const float* lb = lse_s + buf * BQ;
+    const float* db = dl_s + buf * BQ;
+
+    float s[NQ][4], dp[NQ][4];                 // S^T = K Q^T, dP^T = V dO^T
+    zero(s);
+    zero(dp);
+    hold(s);
+    hold(dp);
+    fence();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+      mma_ss<BQ, 0>(s, desc_k<D, BK>(Ks, ks), desc_k<D, BQ>(Qb, ks), ks);
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+      mma_ss<BQ, 0>(dp, desc_k<D, BK>(Vs, ks), desc_k<D, BQ>(dOb, ks), ks);
+    commit();
+    wait_all();
+    hold(s);
+    hold(dp);
+    // a step whose every q row sees every key of the tile skips the mask
+    const bool seen = q_lo >= k_lo + BK - 1 && q_lo + BQ <= S
+                      && (!window || q_lo + BQ - 1 - k_lo < window);
+    with_flags(seen, cap != 0.f, [&](auto all_seen, auto capped) {
+      float l2[NQ][2];              // lse log2 e of this thread's q rows
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) l2[j][i] = lb[8 * j + 2 * t + i] * LOG2E;
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kpos = k_lo + m + g + (e & 2 ? 8 : 0);
+          const int c = 8 * j + 2 * t + (e & 1);   // q row in the tile
+          p_and_ds_bf16<decltype(capped)::value>(
+              s[j][e], dp[j][e], l2[j][e & 1], db[c],
+              decltype(all_seen)::value
+                  || visible(q_lo + c, kpos, S, window),
+              cap, scale, scale_l2);
+        }
+    });
+    // dV += P^T dO and dK += dS^T Q, a panel of D at a time, each step's
+    // products summed apart
+    unsigned pa[QS][4], da[QS][4];
+    to_a(pa, s);
+    to_a(da, dp);
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      float pv[NPW][4], pk[NPW][4];
+      zero(pv);
+      zero(pk);
+      hold(pv);
+      hold(pk);
+      fence();
+#pragma unroll
+      for (int i = 0; i < QS; ++i)
+        mma_rs<PW, 1>(pv, pa[i], desc_mn<D, BQ>(dOb, i, p), i);
+#pragma unroll
+      for (int i = 0; i < QS; ++i)
+        mma_rs<PW, 1>(pk, da[i], desc_mn<D, BQ>(Qb, i, p), i);
+      commit();
+      wait_all();
+      hold(pv);
+      hold(pk);
+      hold(pa);
+      hold(da);
+#pragma unroll
+      for (int j = 0; j < NPW; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dv_acc[p * NPW + j][e] += pv[j][e];
+          dk_acc[p * NPW + j][e] += pk[j][e];
+        }
+    }
+    __syncthreads();   // every warp is done with this buffer: it refills
+  }
+
+  bf16* dkb = dk + b * st.dk[0] + kvh * st.dk[1];
+  bf16* dvb = dv + b * st.dv[0] + kvh * st.dv[1];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = k_lo + m + g + (e & 2 ? 8 : 0);
+      const int c = 8 * j + 2 * t + (e & 1);
+      if (key < S) {
+        store(&dkb[key * st.dk[2] + c], dk_acc[j][e] * scale);
+        store(&dvb[key * st.dv[2] + c], dv_acc[j][e]);
+      }
+    }
+}
+
+// dQ of one 64-row q tile of one head (flash_bwd_dq_kernel's grid), over
+// the KV tiles the forward visits, 64 keys a step.
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS)
+dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+          const bf16* __restrict__ v, const bf16* __restrict__ dout,
+          const float* __restrict__ lse, const float* __restrict__ delta,
+          bf16* __restrict__ dq, int H, int KV, int S, int window, float cap,
+          float scale, BwdStrides st) {
+  constexpr int BQ = BWD_BQ, BK = DQ_BK;
+  constexpr int NK = BK / 8, ND = D / 8, PW = panel<D>(), NP = D / PW;
+  constexpr int NPW = PW / 8, KS = D / 16, BS = BK / 16;
+  extern __shared__ unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(align1k(smem_raw));   // [BQ, D]
+  bf16* dOs = Qs + BQ * D;                                 // [BQ, D]
+  bf16* Ks = dOs + BQ * D;                                 // [2][BK, D]
+  bf16* Vs = Ks + 2 * BK * D;                              // [2][BK, D]
+
+  const int nq = (S + BQ - 1) / BQ;
+  const int nb = gridDim.x / (nq * H);                       // batch size
+  const int q_lo = (nq - 1 - (int)(blockIdx.x / (H * nb))) * BQ;
+  const int h = blockIdx.x % H, b = (blockIdx.x / H) % nb;
+  const int kvh = h / (H / KV);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4, m = 16 * warp;
+
+  const bf16* kb = k + b * st.k[0] + kvh * st.k[1];
+  const bf16* vb = v + b * st.v[0] + kvh * st.v[1];
+  const int q_hi = min(q_lo + BQ - 1, S - 1);
+  const int j_lo = window ? max(0, q_lo - window + 1) / BK : 0;
+  const int j_hi = q_hi / BK;
+  auto stage = [&](int jt) {
+    const int buf = (jt - j_lo) & 1;
+    stage_tile<D, BK>(Ks + buf * BK * D, kb, st.k[2], jt * BK, S);
+    stage_tile<D, BK>(Vs + buf * BK * D, vb, st.v[2], jt * BK, S);
+  };
+  stage_tile<D, BQ>(Qs, q + b * st.q[0] + h * st.q[1], st.q[2], q_lo, S);
+  stage_tile<D, BQ>(dOs, dout + b * st.dout[0] + h * st.dout[1], st.dout[2],
+                    q_lo, S);
+  stage(j_lo);
+  cp_async_commit();
+
+  float lse_l2[2], dl_r[2];                   // lse log2 e, Delta
+  const long long off = ((long long)b * H + h) * S;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q_lo + m + g + 8 * r;
+    lse_l2[r] = row < S ? lse[off + row] * LOG2E : 0.f;
+    dl_r[r] = row < S ? delta[off + row] : 0.f;
+  }
+  const float scale_l2 = scale * LOG2E;
+
+  float acc[ND][4];
+  zero(acc);
+
+  for (int jt = j_lo; jt <= j_hi; ++jt) {
+    if (jt < j_hi) stage(jt + 1);
+    cp_async_commit();
+    cp_async_wait_one();   // this step's tiles (and Q, dO) have landed
+    fence_async_smem();
+    __syncthreads();
+    const int buf = (jt - j_lo) & 1, k_lo = jt * BK;
+    const bf16* Kb = Ks + buf * BK * D;
+    const bf16* Vb = Vs + buf * BK * D;
+
+    float s[NK][4], dp[NK][4];                 // S = Q K^T, dP = dO V^T
+    zero(s);
+    zero(dp);
+    hold(s);
+    hold(dp);
+    fence();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+      mma_ss<BK, 0>(s, desc_k<D, BQ>(Qs, ks), desc_k<D, BK>(Kb, ks), ks);
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+      mma_ss<BK, 0>(dp, desc_k<D, BQ>(dOs, ks), desc_k<D, BK>(Vb, ks), ks);
+    commit();
+    wait_all();
+    hold(s);
+    hold(dp);
+    // a step where every q row of the tile sees every key skips the mask
+    const bool seen = k_lo + BK - 1 <= q_lo && k_lo + BK <= S
+                      && q_lo + BQ <= S
+                      && (!window || q_lo + BQ - 1 - k_lo < window);
+    with_flags(seen, cap != 0.f, [&](auto all_seen, auto capped) {
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const int kpos = k_lo + 8 * j + 2 * t + (e & 1);
+          p_and_ds_bf16<decltype(capped)::value>(
+              s[j][e], dp[j][e], lse_l2[r], dl_r[r],
+              decltype(all_seen)::value
+                  || visible(q_lo + m + g + 8 * r, kpos, S, window),
+              cap, scale, scale_l2);
+        }
+    });
+    unsigned da[BS][4];                        // dQ += dS K, a panel a time
+    to_a(da, dp);
+#pragma unroll
+    for (int p = 0; p < NP; ++p) product_into<D, BK, PW>(acc, da, Kb, p);
+    __syncthreads();   // every warp is done with this buffer: it refills
+  }
+
+  bf16* dqb = dq + b * st.dq[0] + h * st.dq[1];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = q_lo + m + g + (e & 2 ? 8 : 0);
+      if (row < S)
+        store(&dqb[row * st.dq[2] + 8 * j + 2 * t + (e & 1)],
+              acc[j][e] * scale);
+    }
+}
+
+// The dK/dV and dQ kernels in bf16, after the Delta kernel.
+template <int D>
+cudaError_t launch(const bf16* q, const bf16* k, const bf16* v,
+                   const bf16* dout, const float* lse, const float* delta,
+                   bf16* dq, bf16* dk, bf16* dv, int B, int H, int KV, int S,
+                   int window, float cap, float scale, const BwdStrides& st,
+                   cudaStream_t stream) {
+  const size_t kv_bytes = dkdv_smem_bytes<D>();
+  const size_t q_bytes = dq_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kv_bytes);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(dq_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)q_bytes);
+  if (err != cudaSuccess) return err;
+  const unsigned kv_ctas = (S + BWD_BK - 1) / BWD_BK * KV * B;
+  const unsigned q_ctas = (S + BWD_BQ - 1) / BWD_BQ * H * B;
+  dkdv_kernel<D><<<kv_ctas, TC_THREADS, kv_bytes, stream>>>(
+      q, k, v, dout, lse, delta, dk, dv, H, KV, S, window, cap, scale, st);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dq_kernel<D><<<q_ctas, TC_THREADS, q_bytes, stream>>>(
+      q, k, v, dout, lse, delta, dq, H, KV, S, window, cap, scale, st);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
+
 template <typename T, int D>
 cudaError_t launch_backward(const void* q, const void* k, const void* v,
                             const void* o, const void* dout, const float* lse,
@@ -983,32 +1660,39 @@ cudaError_t launch_backward(const void* q, const void* k, const void* v,
       rows, st);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-
-  const size_t kv_bytes = dkdv_smem_bytes<T, D>();
-  const size_t q_bytes = dq_smem_bytes<T, D>();
-  auto dkdv = flash_bwd_dkdv_kernel<T, D>;
-  auto dqk = flash_bwd_dq_kernel<T, D>;
-  err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)kv_bytes);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)q_bytes);
-  if (err != cudaSuccess) return err;
   const float scale = (float)(1.0 / sqrt((double)D));
-  const unsigned kv_ctas = (S + BWD_BK - 1) / BWD_BK * KV * B;
-  const unsigned q_ctas = (S + BWD_BQ - 1) / BWD_BQ * H * B;
-  dkdv<<<kv_ctas, TC_THREADS, kv_bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), H, KV, S, window, cap, scale,
-      st);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  dqk<<<q_ctas, TC_THREADS, q_bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq), H, KV, S, window, cap, scale, st);
-  return cudaGetLastError();
+  if constexpr (sizeof(T) == 2) {       // bf16: the wgmma kernels above
+    return wg::launch<D>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+        static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), B, H,
+        KV, S, window, cap, scale, st, stream);
+  } else {     // float32: 3xTF32 on mma.sync
+    const size_t kv_bytes = dkdv_smem_bytes<T, D>();
+    const size_t q_bytes = dq_smem_bytes<T, D>();
+    auto dkdv = flash_bwd_dkdv_kernel<T, D>;
+    auto dqk = flash_bwd_dq_kernel<T, D>;
+    err = cudaFuncSetAttribute(
+        dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kv_bytes);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(
+        dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)q_bytes);
+    if (err != cudaSuccess) return err;
+    const unsigned kv_ctas = (S + BWD_BK - 1) / BWD_BK * KV * B;
+    const unsigned q_ctas = (S + BWD_BQ - 1) / BWD_BQ * H * B;
+    dkdv<<<kv_ctas, TC_THREADS, kv_bytes, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+        static_cast<T*>(dk), static_cast<T*>(dv), H, KV, S, window, cap,
+        scale, st);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    dqk<<<q_ctas, TC_THREADS, q_bytes, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+        static_cast<T*>(dq), H, KV, S, window, cap, scale, st);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T>

@@ -159,18 +159,98 @@ def test_fused_topk_rows_across_the_cluster(cuda, frac):
 
 @pytest.mark.parametrize("L", [300_000, 3_000_000])
 def test_fused_topk_long_rows(cuda, L):
-    """One row: 8 shares of 37,500 (held in shared memory) and of 375,000
-    (streamed from device memory on every pass)."""
+    """One row of 300,000 and of 3,000,000: the grid-wide instance (chunks
+    of ``ops.topk_chunk`` over the whole card), normal values and integer ties,
+    through both entries, the same bits over two runs."""
     g = np.random.default_rng(L)
     x = torch.as_tensor(g.normal(size=(1, L)).astype(np.float32))
     ties = torch.as_tensor(g.integers(-50, 51, size=(1, L)).astype(
         np.float32))
     for row in (x, ties):
         for frac in (1e-4, 0.1):
+            ops.reset_launches()
             out, bits = ops.fused_topk(row.to(cuda), frac)
+            assert ops.topk_instances["fused_topk"]["grid"] == 1
             want, want_bits = ref.fused_topk_ref(row, frac)
             _same(out, want)
             _same(bits, want_bits)
+            _same_exact(out, ops.fused_topk(row.to(cuda), frac)[0])
+            grouped, _ = ops.fused_topk_grouped(
+                row.to(cuda), torch.tensor([frac], device=cuda))
+            _same(grouped, want)
+
+
+def _grid_rows():
+    """Rows for the grid-wide instance: (what, rows)."""
+    g = np.random.default_rng(23)
+    L = 200_003                      # odd: rows after the first unaligned
+    edges = g.normal(size=(3, L)) * 1e-3
+    chunk = ops.topk_chunk(3, L, 132)
+    for c in range(1, L // chunk + 1):
+        edges[:, c * chunk - 50:c * chunk + 50] = 5.0
+    edges[:, g.integers(0, L, 40)] = 9.0
+    special = g.normal(size=(2, 150_001))
+    special[:, ::97] = np.nan
+    special[:, 5::89] = np.inf
+    special[:, 7::83] = -np.inf
+    special[:, ::13] = -0.0
+    subnormal = g.normal(size=(1, 140_000)) * 1e-41
+    subnormal[:, ::7] = 0.0
+    rows = [("chunk-edge ties", edges),
+            ("all-equal (candidates overflow)", np.full((1, 300_001), -2.5)),
+            ("more ties than the budget", g.integers(-3, 4, (2, 150_001))),
+            ("nan inf -0", special), ("subnormals", subnormal)]
+    return [(what, torch.as_tensor(np.asarray(x, np.float32)))
+            for what, x in rows]
+
+
+@pytest.mark.parametrize("index", range(5))
+@pytest.mark.parametrize("frac", [1e-4, 0.01, 0.3, 1.0])
+def test_fused_topk_grid_rows_bit_identical(cuda, index, frac):
+    """The grid-wide instance on the rows that test its routes: ties across
+    chunk edges in rows of odd length, the candidate buffer's overflow,
+    ranked ties, NaN/inf/-0 and subnormals; both entries, two runs."""
+    what, x = _grid_rows()[index]
+    xd = x.to(cuda)
+    ops.reset_launches()
+    out, bits = ops.fused_topk(xd, frac)
+    assert ops.topk_instances["fused_topk"] == {"cluster": 0, "grid": 1}
+    want, want_bits = ref.fused_topk_ref(x, frac)
+    _same(out, want)
+    _same(bits, want_bits)
+    _same_exact(out, ops.fused_topk(xd, frac)[0])
+    grouped, gbits = ops.fused_topk_grouped(
+        xd, torch.full((x.shape[0],), frac, device=cuda))
+    _same(grouped, want)
+    _same(gbits, want_bits)
+
+
+def test_fused_topk_grid_grouped_mixed_frac(cuda):
+    """A grouped call on long rows with a different frac a point, read on
+    the device, against the plain version."""
+    x = _rows((6, 200_003), 5)
+    frac = torch.tensor([0.01, 0.25, 1e-4])
+    ops.reset_launches()
+    out, bits = ops.fused_topk_grouped(x.to(cuda), frac.to(cuda))
+    assert ops.topk_instances["fused_topk_grouped"]["grid"] == 1
+    want, want_bits = ref.fused_topk_grouped_ref(x, frac)
+    _same(out, want)
+    _same(bits, want_bits)
+
+
+@pytest.mark.parametrize("rows,L", [(20, 20000), (1, 131_071), (1, 131_072),
+                                    (60, 15129), (2, 300_000)])
+def test_topk_takes_the_planned_instance(cuda, rows, L):
+    """Each side of the crossover takes the instance topk_plan names, by the
+    per-instance launch counts, and both agree with the plain version."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    kind, _ = ops.topk_plan(rows, L, sms)
+    x = _rows((rows, L), L)
+    ops.reset_launches()
+    out, _ = ops.fused_topk(x.to(cuda), 0.1)
+    assert ops.topk_instances["fused_topk"] == {
+        "cluster": int(kind == "cluster"), "grid": int(kind == "grid")}
+    _same(out, ref.fused_topk_ref(x, 0.1)[0])
 
 
 @pytest.mark.parametrize("d", [1, 2, 123, 128, 129, 492, 4096, 5000, 20000])
@@ -573,7 +653,14 @@ def _grads(fn, tensors):
     return out, torch.autograd.grad(out, leaves, g_out)
 
 
-@pytest.mark.parametrize("B,H,KV,S,D,window,cap", FLASH_SHAPES)
+#: The backward's shapes: the forward's, a window of 7, a cap of 50 at
+#: S = 200, and the training shape (tinyllama-1.1b, batch 8 x 1024).
+BWD_SHAPES = FLASH_SHAPES + [(1, 4, 2, 200, 64, 7, 0.0),
+                             (2, 4, 1, 200, 32, 0, 50.0),
+                             (8, 32, 4, 1024, 64, 0, 0.0)]
+
+
+@pytest.mark.parametrize("B,H,KV,S,D,window,cap", BWD_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_backward_matches_plain_version(
         cuda, B, H, KV, S, D, window, cap, dtype):
@@ -618,6 +705,20 @@ def test_flash_attention_backward_is_deterministic(cuda, B, H, KV, S, D,
     _, second = _grads(fn, qkv)
     for a, b in zip(first, second):
         _same_exact(a, b)
+
+
+def test_flash_attention_backward_bf16_runs_on_wgmma(cuda):
+    """The bf16 backward's kernels (dK/dV and dQ at D = 32, 64, 128) hold
+    HGMMA in the SASS of the library built (cuobjdump), so a fall back to
+    mma.sync cannot pass unseen."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    counts = chip_smoke.bwd_wgmma_sass(fa_ops)
+    assert len(counts) == 6 and all(counts.values()), counts
 
 
 def test_flash_attention_backward_unaligned_rows(cuda):

@@ -66,6 +66,30 @@ back to the CPU):
    against the port on this machine's CPU: ledgers, activity counts,
    round counters, scan lengths and budget rounds equal, final F within
    rtol 1e-4, frozen tails bit-stable; only grouped entries launched.
+3c. The stochastic setting: randint, permutation, choice and the exact-k
+   masks on the card bit for bit the CPU's; natural, count sketch (its
+   table twice, and the decode of one table) and min-max on the card bit
+   for bit the CPU's (their sums in float64, rounded once; a sum that
+   still lands one ulp apart, a double rounding, is logged as such);
+   stochastic FLECS-CGD at quickstart size (minibatch oracles of 32 rows,
+   exact-k p = 0.5, alpha 0.2; 50 rounds) on the card against the CPU:
+   ledgers, every round's masks and rows equal, 10 workers a round, the
+   full-batch round's compressor launches, and the round ms of both;
+   ``sketch_families_plan`` at quickstart size (200 rounds): round_bits,
+   omega and ledgers equal, one grouped launch a kernel family a round.
+   Both runs record every compressor call (``plan_drift``) and are held
+   by ``plan_drift.verdict``: every card message is the plain
+   compressor's on the CPU from the recorded key and input, at every
+   round; the first differing message is explained by a rounding
+   decision after rounds that agreed within 1e-6; F within rtol 1e-4 of
+   the CPU at every round, or else within 3x the largest gap one ulp of
+   noise in A opens between two CPU runs (five seeds).  Whether final F
+   held rtol 1e-4 is logged for each run;
+   at gisette width, 10 rounds
+   a cell, stochastic FLECS-CGD with the coordinate and with the Gaussian
+   sketch and ``sketch_families_plan`` at m = 2: ms, kernels and busy ms a
+   round (10- less 1-round runs; 3- less 1-round profiles), compressor
+   launches, peak memory.
 4. Gisette width (d=5000, n=20, r=300, m=4): 10 rounds with each Hessian
    compressor on the card, with exact ledgers; the dither run's objective
    against the port on this machine's CPU; round time and peak memory.
@@ -1639,6 +1663,372 @@ def grouped_timing(dev, ops, ref, random, library):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Slice 9: the stochastic setting, exact-k sampling, sketches, families
+# ---------------------------------------------------------------------------
+
+def held_by_verdict(label: str, report: dict, envelope: float) -> None:
+    """Log one run's ``plan_drift`` report against the CPU (and whether
+    final F held rtol 1e-4), and fail on every fault
+    ``plan_drift.verdict`` finds in it."""
+    from repro_torch import plan_drift
+    faults = plan_drift.verdict(report, envelope)
+    log(f"phase 3c: {label}, card against CPU: final F rel gap "
+        f"{report['final_rel_gap']!r} (rtol 1e-4 "
+        f"{'held' if report['final_rel_gap'] <= 1e-4 else 'not held'}), "
+        f"max {report['max_rel_gap']!r}; the CPU's ulp envelope "
+        f"{envelope!r}; card messages not the plain compressor's "
+        f"{report['unfaithful_a']}; first differing message "
+        f"{report.get('first_difference')}; faults {faults}")
+    check(not faults, f"{label}: {faults}")
+
+
+def phase_key_streams(random, driver):
+    """Phase 3c (a): randint, permutation, choice and the choice masks on
+    the card, bit for bit those of the port on the CPU."""
+    import torch
+    cases = {
+        "randint [1, 20] x 32 of 300": lambda k: random.randint(
+            driver.worker_keys(k.unsqueeze(0), 20), (32,), 0, 300),
+        "randint [7, 5000] of 2**31 - 1": lambda k: random.randint(
+            k, (7, 5000), 0, 2**31 - 1),
+        "permutation 20": lambda k: random.permutation(k, 20),
+        "permutation 1626": lambda k: random.permutation(k, 1626),
+        "permutation 5000": lambda k: random.permutation(k, 5000),
+        "choice 5000 (4,)": lambda k: random.choice(k, 5000, (4,),
+                                                    replace=False),
+        "choice masks [50, 20] p 0.5": lambda k: driver.participation_mask(
+            random.split(k, 50), 20, 0.5, "choice"),
+    }
+    for seed in (0, 1, 12345):
+        for name, fn in cases.items():
+            a = fn(random.key(seed, "cuda")).cpu()
+            b = fn(random.key(seed, "cpu"))
+            check(torch.equal(a, b), f"key streams: {name} (seed {seed}) "
+                  "differs between the card and the CPU")
+    log(f"phase 3c: {len(cases)} key streams x 3 seeds bit-identical, card "
+        f"against CPU: {list(cases)}")
+
+
+def phase_stochastic_quickstart(quickstart, random, driver, ops, counts):
+    """Phase 3c (b): stochastic FLECS-CGD at quickstart size (batch 32,
+    exact-k p = 0.5, alpha 0.2), 50 rounds on the card against the port on
+    the CPU, every compressor call recorded: ledgers exact, 10 workers
+    every round, every round's masks and minibatch rows equal, the same
+    compressor launches a round as the full-batch round, and
+    ``held_by_verdict`` against the CPU's ulp envelope; then the round ms
+    of both, timed in this call."""
+    import numpy as np
+    import torch
+    from repro_torch import plan_drift
+    from repro_torch.core.driver import run_experiment
+    iters = 50
+    kw = dict(QUICK, **quickstart.STOCHASTIC)
+    card = plan_drift.stochastic_setup("cuda")
+    host = plan_drift.stochastic_setup("cpu")
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    rec = plan_drift.record_run(plan_drift.rounds(card, iters))
+    torch.cuda.synchronize()
+    launched = dict(ops.launches)
+    for k, v in launched.items():
+        counts[k] += v
+    expect = main_path_expect(2 * iters, 0)
+    for name, n in expect.items():
+        check(launched[name] == n, f"stochastic quickstart: {name} launched "
+              f"{launched[name]} times, expected {n} (the full-batch "
+              "round's)")
+    crec = plan_drift.record_run(plan_drift.rounds(host, iters))
+    gpu, cpu = rec[1], crec[1]
+    check(np.array_equal(gpu["bits_per_node"].cpu().numpy(),
+                         cpu["bits_per_node"].numpy()),
+          "stochastic quickstart: card and CPU ledgers differ")
+    active = gpu["n_active"].cpu().numpy()
+    check((active == 10).all(), f"stochastic quickstart: n_active {active}")
+
+    def draws(pieces):
+        """Every round's gradient and HVP minibatch rows and mask."""
+        p, k = pieces[0], pieces[3]
+        k_g, k_h, _, _, k_p = random.split(random.split(k, iters),
+                                           5).unbind(dim=-2)
+        return [p.minibatch(driver.worker_keys(kk, 20), kw["batch"])[0].cpu()
+                for kk in (k_g, k_h)] + [driver.participation_mask(
+                    k_p, 20, kw["participation"], "choice").cpu()]
+
+    check(all(torch.equal(a, b) for a, b in zip(draws(card), draws(host))),
+          "stochastic quickstart: minibatch rows or masks differ")
+    F = gpu["F"].cpu().numpy().astype(np.float64)
+    check(np.isfinite(F).all(), "stochastic quickstart: F not finite")
+    log(f"phase 3c: stochastic quickstart x{iters} (batch 32, choice p 0.5, "
+        f"alpha 0.2): ledgers and the masks and rows of every round equal; "
+        f"final bits {gpu['bits_per_node'][-1].tolist()}; F card "
+        f"{float(F[-1])!r} cpu {float(cpu['F'][-1])!r}; launches {launched}")
+    drift = plan_drift.compare_recorded_runs(rec, crec)
+    env, env_gaps = plan_drift.stochastic_envelope(iters, base=crec)
+    log(f"phase 3c: stochastic quickstart, the CPU against itself with A "
+        f"moved by one ulp, (problem, ulp) seeds "
+        f"{plan_drift.ENVELOPE_SEEDS}: max rel gaps of F {env_gaps}")
+    held_by_verdict("stochastic quickstart", drift, env)
+    ms = {}
+    for label, setup_kw in (("stochastic", kw), ("full batch", QUICK)):
+        _, step, state, k = quickstart.setup(device="cuda", **setup_kw)
+        run_experiment(step, state, k, 2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_experiment(step, state, k, iters)
+        torch.cuda.synchronize()
+        ms[label] = 1e3 * (time.perf_counter() - t0) / iters
+    log(f"phase 3c: quickstart round, host clock around {iters} rounds: "
+        f"stochastic {ms['stochastic']!r} ms, full batch "
+        f"{ms['full batch']!r} ms")
+    return dict(F_final=float(F[-1]), rel_final=drift["final_rel_gap"],
+                rel_max=drift["max_rel_gap"], launches=launched,
+                round_ms=ms, drift=drift, ulp_envelope=env,
+                ulp_gaps=env_gaps)
+
+
+#: One grouped launch a family a round: the gradient's dither and top-k
+#: points, the count sketch's heavy hitters (fused_topk_grouped), the
+#: Hessian's dither64 over all four points; the ledgers of the dither
+#: points and of the top-k and min-max points (one formula).
+FAMILIES_PER_ROUND = {"fused_dither_keyed_grouped": 2,
+                      "fused_topk_grouped": 2, "dither_bits_grouped": 2,
+                      "topk_bits_grouped": 2}
+
+
+def phase_families_plan(api, experiments, make_problem, ops, counts):
+    """Phase 3c (c): ``sketch_families_plan`` at quickstart size on the
+    card against the CPU, every compressor call recorded: round_bits and
+    omega exact, ledgers exact, one grouped launch a kernel family a
+    round, and every family held by ``held_by_verdict`` against the CPU's
+    ulp envelope of that family."""
+    import numpy as np
+    import torch
+    from repro_torch import plan_drift
+    iters = 200
+
+    def plan(prob):
+        return experiments.sketch_families_plan(prob, iters)
+
+    gpu = make_problem(**PLAN_PROBLEM, device="cuda")
+    cpu = make_problem(**PLAN_PROBLEM, device="cpu")
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    rec = plan_drift.run_recorded(plan(gpu))
+    torch.cuda.synchronize()
+    launched = dict(ops.launches)
+    for k, v in launched.items():
+        counts[k] += v
+    for name, per in FAMILIES_PER_ROUND.items():
+        check(launched[name] == per * iters, f"sketch_families: {name} "
+              f"launched {launched[name]} times, expected {per * iters}")
+    crec = plan_drift.run_recorded(plan(cpu))
+    res, want = rec[0], crec[0]
+    rows = experiments.sketch_families_rows(res, gpu.d)
+    wrows = experiments.sketch_families_rows(want, cpu.d)
+    check([(r["round_bits"], r["omega"], r["Mbits_mean"]) for r in rows]
+          == [(r["round_bits"], r["omega"], r["Mbits_mean"]) for r in wrows],
+          "sketch_families: round_bits, omega or Mbits_mean differ")
+    (_, tr), (_, wtr) = res["families"], want["families"]
+    check(np.array_equal(tr["bits_per_node"].cpu().numpy(),
+                         wtr["bits_per_node"].numpy()),
+          "sketch_families: ledgers differ")
+    F = tr["F"].cpu().numpy().astype(np.float64)
+    check(np.isfinite(F).all(), "sketch_families: F not finite")
+    log(f"phase 3c: sketch_families_plan x{iters} at quickstart size: "
+        f"rows {rows}; launches {launched}")
+    drift = plan_drift.compare_recorded(rec, crec)["families"]
+    problem = {k: v for k, v in PLAN_PROBLEM.items() if k != "seed"}
+    env = plan_drift.plan_envelope(plan, problem, base=crec)["families"]
+    for rep, e, name in zip(drift, env, experiments.SKETCH_FAMILY_NAMES):
+        held_by_verdict(f"sketch_families {name}", rep, e)
+    return dict(rows=rows, rel_final=[r["final_rel_gap"] for r in drift],
+                rel_max=[r["max_rel_gap"] for r in drift], launches=launched,
+                ulp_envelope=env, drift=drift)
+
+
+def _profile_ms(run) -> tuple:
+    """(device kernels and copies, device busy ms) of one call of ``run``
+    under the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    return sum(c for _, c, _ in rows), sum(t for t, _, _ in rows) / 1e3
+
+
+def _cell(label, run_n, ops, counts) -> dict:
+    """One gisette cell: ms a round (10-round less 1-round run, host clock
+    around runs that end in a synchronize, after a 1-round warm-up),
+    kernels and busy ms a round (3-round less 1-round profiles), the
+    10-round run's compressor launches and peak memory."""
+    import torch
+    run_n(1)
+    torch.cuda.synchronize()
+    t = {}
+    for n in (1, 10):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        run_n(n)
+        torch.cuda.synchronize()
+        t[n] = time.perf_counter() - t0
+    launched = dict(ops.launches)
+    for k, v in launched.items():
+        counts[k] += v
+    peak = torch.cuda.max_memory_allocated()
+    (k1, b1), (k3, b3) = (_profile_ms(lambda: run_n(n)) for n in (1, 3))
+    r = dict(round_ms=1e3 * (t[10] - t[1]) / 9,
+             kernels_per_round=(k3 - k1) / 2, busy_ms_per_round=(b3 - b1) / 2,
+             launches={k: v for k, v in launched.items() if v},
+             peak_gib=peak / 2**30)
+    log(f"phase 3c: gisette {label} x10: {r['round_ms']!r} ms a round, "
+        f"{r['kernels_per_round']:g} device kernels and copies a round, "
+        f"device busy {r['busy_ms_per_round']!r} ms a round, peak "
+        f"{r['peak_gib']!r} GiB; launches {r['launches']}")
+    return r
+
+
+def phase_gisette_stochastic(quickstart, api, experiments, make_problem, ops,
+                             counts):
+    """Phase 3c (d): gisette width (d = 5000, n = 20, r = 300), 10 rounds a
+    cell: stochastic FLECS-CGD with the coordinate and with the Gaussian
+    sketch (batch 32, m = 4, choice p = 0.5), and ``sketch_families_plan``
+    at FlecsConfig(m=2)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core.driver import run_experiment
+    out = {}
+    for sk in ("coordinate", "gaussian"):
+        prob, step, state, key = quickstart.setup(
+            device="cuda", sketch=sk, **GISETTE, **quickstart.STOCHASTIC)
+        out[f"stochastic {sk}"] = _cell(
+            f"stochastic FLECS-CGD, {sk} sketch",
+            lambda n: run_experiment(step, state, key, n), ops, counts)
+        _, tr = run_experiment(step, state, key, 10,
+                               record=lambda st: prob.metrics(st.w))
+        F = tr["F"].cpu().numpy()
+        check(np.isfinite(F).all() and (tr["n_active"] == 10).all().item(),
+              f"gisette stochastic {sk}: F not finite or n_active not 10")
+        out[f"stochastic {sk}"]["F"] = F.tolist()
+        del step, state, tr
+        torch.cuda.empty_cache()
+    prob = make_problem(**GISETTE_PROBLEM, device="cuda")
+    plan = experiments.sketch_families_plan(prob, 10)
+
+    def run_plan(n):
+        return api.run_plan(dataclasses.replace(plan, iters=n))
+
+    out["sketch_families"] = _cell("sketch_families_plan (m = 2)", run_plan,
+                                   ops, counts)
+    res = run_plan(10)
+    rows = experiments.sketch_families_rows(res, prob.d)
+    check(all(np.isfinite(r["F"]) for r in rows),
+          "gisette sketch_families: F not finite")
+    log(f"phase 3c: gisette sketch_families rows {rows}")
+    out["sketch_families"]["rows"] = rows
+    return out
+
+
+def ulps_apart(a, b) -> tuple:
+    """(elements of two float32 tensors whose bits differ, the largest
+    distance among them in ulps)."""
+    import torch
+    d = (a.cpu().view(torch.int32).long()
+         - b.cpu().view(torch.int32).long()).abs()
+    return int((d > 0).sum()), int(d.max()) if d.numel() else 0
+
+
+def phase_family_contracts(dev, compressors, random):
+    """Phase 3c: the three plain-PyTorch families on the card against the
+    CPU, on the same rows and keys: natural bit for bit (also on powers of
+    two and one ulp either side, where ``log2`` could round apart), its
+    decode of one table bit for bit; the count sketch's table (a float64
+    scatter-add on atomics, rounded once) and min-max's ℓ1 norm (a float64
+    sum) bit for bit, or else one ulp apart: a float64 sum of float32
+    terms is not always exact, so two orders can round to neighbouring
+    float32 values next to a midpoint (a double rounding, logged as such);
+    min-max's messages bit for bit in every row whose ℓ1 norm agrees."""
+    import numpy as np
+    import torch
+    g = np.random.default_rng(0)
+    x = torch.as_tensor((g.normal(size=(20, 5000))).astype(np.float32))
+    p = np.float32(2.0) ** np.arange(-30, 31, dtype=np.float32)
+    edge = np.concatenate([p, np.nextafter(p, np.float32(0)),
+                           np.nextafter(p, np.float32(np.inf))])
+    edge = torch.as_tensor(np.tile(np.concatenate([edge, -edge]), (20, 1)))
+    keys = random.split(random.key(5, "cpu"), 20)
+    exact, sums = {}, {}
+
+    def differing(fn, rows):
+        return int((fn(rows.to(dev), keys.to(dev)).cpu() != fn(rows, keys))
+                   .sum())
+
+    nat = compressors.make_spec("natural")
+    for name, rows in (("normal", x), ("powers of two +-1 ulp", edge)):
+        exact[f"natural differing, {name}"] = differing(
+            lambda r, k: compressors.compress(nat, k, r), rows)
+    width = torch.full((20,), 64.0)
+    tab = [compressors.count_sketch_encode(keys.to(dev), x.to(dev),
+                                           width.to(dev)).cpu()
+           for _ in range(2)]
+    tab_cpu = compressors.count_sketch_encode(keys, x, width)
+    sums["count_sketch table"] = ulps_apart(tab[0], tab_cpu)
+    sums["count_sketch two card runs"] = ulps_apart(tab[0], tab[1])
+    depth, hh = torch.full((20,), 3.0), torch.full((1,), 0.25)
+    dec = compressors.count_sketch_decode(
+        keys.to(dev), tab_cpu.to(dev), width.to(dev), depth.to(dev),
+        hh.to(dev)).cpu()
+    exact["count_sketch decode differing"] = int(
+        (dec != compressors.count_sketch_decode(keys, tab_cpu, width, depth,
+                                                hh)).sum())
+    l1 = compressors._l1(x.to(dev).abs()).cpu()
+    l1_cpu = compressors._l1(x.abs())
+    sums["minmax l1"] = ulps_apart(l1, l1_cpu)
+    same_l1 = (l1 == l1_cpu)[:, 0]
+    mm = compressors.make_spec("minmax0.5")
+    got = compressors.compress(mm, keys.to(dev), x.to(dev)).cpu()
+    exact["minmax differing, rows whose l1 agrees"] = int(
+        (got != compressors.compress(mm, keys, x))[same_l1].sum())
+    log(f"phase 3c: the families on the card against the CPU at [20, 5000] "
+        f"(natural also on +-2^-30..2^30 and one ulp either side), elements "
+        f"differing: {exact}; the float64 sums (elements differing, largest "
+        f"ulps): {sums}")
+    for name, n in exact.items():
+        check(n == 0, f"families on the card: {name} {n}")
+    for name, (n, ulps) in sums.items():
+        check(ulps <= 1, f"families on the card: {name}: {n} elements up "
+              f"to {ulps} ulps apart")
+        if n:
+            log(f"phase 3c: {name}: {n} elements one ulp apart, a double "
+                "rounding of the float64 sum (not a port fault)")
+    return dict(exact, **{f"{k} (elements, ulps)": v
+                          for k, v in sums.items()})
+
+
+def phase_stochastic(dev, quickstart, random, driver, compressors, api,
+                     experiments, make_problem, ops, counts):
+    """Phase 3c: the stochastic setting (key streams, the stochastic
+    quickstart, the families plan, the three families' contracts, gisette
+    width)."""
+    out = {}
+    phase_key_streams(random, driver)
+    out["families_on_card"] = phase_family_contracts(dev, compressors,
+                                                     random)
+    out["quickstart"] = phase_stochastic_quickstart(quickstart, random,
+                                                    driver, ops, counts)
+    out["sketch_families"] = phase_families_plan(api, experiments,
+                                                 make_problem, ops, counts)
+    out["gisette"] = phase_gisette_stochastic(quickstart, api, experiments,
+                                              make_problem, ops, counts)
+    return out
+
+
 def empty_launch_ms() -> float:
     """One launch of a kernel that does nothing (``torch.cuda._sleep(0)``),
     timed back to back behind a spin: the least any kernel takes on this
@@ -2237,7 +2627,7 @@ def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false; this script needs a card")
     from repro_torch import experiments, quickstart, random
-    from repro_torch.core import api
+    from repro_torch.core import api, driver
     from repro_torch.data.logreg import make_problem
     from repro_torch.kernels.compressor import build, ops, ref
     from repro_torch.kernels.flash_attention import build as fa_build
@@ -2295,6 +2685,14 @@ def main():
         check((n > 0) == (name in GROUPED_REPLACES),
               f"{name} launched {n} times by the plans")
     log(f"plan launches (sum of phases 3b and 4b): {plan_counts}")
+    stoch_counts = {name: 0 for name in ops.launches}
+    stoch = phase_stochastic(dev, quickstart, random, driver, compressors,
+                             api, experiments, make_problem, ops,
+                             stoch_counts)
+    for name, n in stoch_counts.items():
+        check((n > 0) == (name in GROUPED_REPLACES),
+              f"{name} launched {n} times by the stochastic phase")
+    log(f"stochastic launches (sum of phase 3c): {stoch_counts}")
     depth2 = phase_serve_depth2(serve)
     full = phase_serve_full(serve, fa_ops)
     train2 = phase_train_depth2(train, value_and_grad, compressors, random,
@@ -2350,9 +2748,11 @@ def main():
     for name, r in gtiming.items():
         entry = {"name": name, "route": "cuda", "source": SOURCE,
                  "replaces": GROUPED_REPLACES[name],
-                 "launches": counts[name] + plan_counts[name],
+                 "launches": counts[name] + plan_counts[name]
+                 + stoch_counts[name],
                  "launches_by_path": {"quickstart, gisette": counts[name],
-                                      "plans": plan_counts[name]},
+                                      "plans": plan_counts[name],
+                                      "stochastic": stoch_counts[name]},
                  "max_abs_err": grouped_err[name], "ms": r["ms"],
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                  "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -2426,6 +2826,7 @@ def main():
             "hgmma")},
         "shape": list(SERVE_SHAPE[:5])})
     log(json.dumps({"plans": plans, "gisette_baselines": gis_base}))
+    log(json.dumps({"stochastic": stoch}))
     log(json.dumps({"quickstart": quick, "gisette": gis, "profile": prof,
                     "serve_depth2": depth2, "serve": full,
                     "train_depth2": train2, "train": trained}))

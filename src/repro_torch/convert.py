@@ -11,7 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.compressors import CompressorSpec, grid_spec
+from repro_torch.core.compressors import (CompressorSpec, SketchParams,
+                                          default_sketch_params, grid_spec)
 from repro_torch.core.flecs import FlecsState
 from repro_torch.data.logreg import FederatedLogReg
 from repro_torch.device import resolve_device
@@ -110,16 +111,22 @@ def gd_state_from_reference(w, k, bits_per_node, device=None) -> GDState:
 
 
 def spec_from_reference(spec, device=None) -> CompressorSpec:
-    """A reference ``CompressorSpec`` (numpy leaves: family, s, frac; the
-    sketch params are not ported): a scalar spec, or a grid spec for [G]
-    leaves."""
+    """A reference ``CompressorSpec`` (numpy leaves: family, s, frac and
+    the sketch params, which may be absent): a scalar spec, or a grid spec
+    for [G] leaves, families mixed freely."""
     family = np.asarray(spec.family)
+    params = getattr(spec, "params", None)
+    if params is not None:
+        params = SketchParams(*(np.asarray(v, np.float32) for v in params))
     if family.ndim == 0:
-        return CompressorSpec(int(family), float(np.float32(spec.s)),
-                              float(np.float32(spec.frac)))
+        return CompressorSpec(
+            int(family), float(np.float32(spec.s)),
+            float(np.float32(spec.frac)),
+            params=(default_sketch_params() if params is None
+                    else SketchParams(*(float(v) for v in params))))
     return grid_spec(family.tolist(), np.asarray(spec.s, np.float32),
                      np.asarray(spec.frac, np.float32),
-                     resolve_device(device))
+                     resolve_device(device), params)
 
 
 def hparams_from_reference(cls, hp, device=None):

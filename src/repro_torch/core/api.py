@@ -41,8 +41,8 @@ import torch
 
 from repro_torch import random
 from repro_torch.core import flecs
-from repro_torch.core.compressors import (CompressorSpec, as_grid,
-                                          grid_spec, is_grid, make_spec)
+from repro_torch.core.compressors import (CompressorSpec, as_grid, is_grid,
+                                          make_spec, tile_spec)
 from repro_torch.core.driver import (bits_dtype, grid1, grid_size,
                                      hparams_bit_budget, hparams_to,
                                      iters_for_bit_budget, sweep_keys,
@@ -82,8 +82,7 @@ class MethodSpec:
 def _bcast_spec(spec: CompressorSpec, G: int) -> CompressorSpec:
     """A scalar spec or a [1] grid as a [G] grid; a [G] grid as it is."""
     if is_grid(spec) and len(spec.family) == 1 and G > 1:
-        return grid_spec(spec.family * G, np.repeat(spec.s_host, G),
-                         np.repeat(spec.frac_host, G), spec.s.device)
+        return tile_spec(spec, G)
     return as_grid(spec, G)
 
 

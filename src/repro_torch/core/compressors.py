@@ -1,12 +1,13 @@
-"""Compressors of the main path (counterpart of ``repro.core.compressors``).
+"""Compressors (counterpart of ``repro.core.compressors``).
 
 A :class:`CompressorSpec` names a family and its parameters.  A scalar spec
-holds a Python int family and float parameters.  A grid spec (a sweep's [G]
-axis, :func:`stack_specs`) holds the families as a host tuple, known when
-the grid is built, and s and frac as float32 [G] tensors beside their host
-numpy copies (which price the grid without reading the device).  The entry
-points dispatch on the families in Python, where the reference's traced
-``lax.switch`` selects per grid point:
+holds a Python int family, float parameters and float
+:class:`SketchParams`.  A grid spec (a sweep's [G] axis,
+:func:`stack_specs`) holds the families as a host tuple, known when the
+grid is built, and s, frac and the sketch parameters as float32 [G] tensors
+beside their host numpy copies (which price the grid without reading the
+device).  The entry points dispatch on the families in Python, where the
+reference's traced ``lax.switch`` selects per grid point:
 
     compress(spec, keys, x)      — apply Q to each row of x (one row per
                                    worker message, one key per row)
@@ -20,10 +21,28 @@ points dispatch on the families in Python, where the reference's traced
                                    ([G], one ledger launch per family)
     spec_bits_host(spec, d)      — the same in numpy, priced on the CPU
                                    from the host copies
+    spec_omega(spec, d)          — the variance bound ω of Definition 3
+    spec_commutes_with_sum(spec) — whether the encoding is linear
     shared_scale_levels(key, x, s) / decode_int8(levels, scale)
                                  — the int8 wire format of the deep-learning
                                    trainer (``core/dl_flecs.py``), through
                                    the dither codec kernels
+
+The six families, priced and bounded as the reference prices them:
+
+* identity — Q(x) = x; 32·d bits; ω = 0.
+* dither<s> — random ∞-norm dithering to s levels; ⌈log2(2s+1)⌉·d bits;
+  ω = d/(4s²).
+* natural — the exponent kept, the mantissa rounded to a power of two
+  stochastically; 9·d bits; ω = 1/8.
+* topk<frac> — the ⌈frac·d⌉ largest magnitudes (biased); ⌈frac·d⌉·(32 +
+  ⌈log2 d⌉) bits.
+* count_sketch<width> — a sign-hashed [depth, width] linear sketch (the
+  hashes drawn from the message's key), decoded by the median over the
+  depth's rows and a top-k of the ``hh_frac`` heaviest coordinates;
+  32·depth·width bits (width clipped to d); ω = d/width.
+* minmax<frac> — coordinate i kept with probability min(1, k|x_i|/||x||₁),
+  k = ⌈frac·d⌉, and reweighted by its inverse; priced like top-k; ω = d/k.
 
 Dither and top-k run through the fused kernels of
 ``repro_torch.kernels.compressor`` on a CUDA tensor and through their plain
@@ -35,9 +54,20 @@ the keys it is given; ``compress_split`` on a CUDA tensor hands the parent
 key to ``fused_dither_keyed``, which derives the workers' keys and their
 uniforms in registers, so no key or uniform reaches device memory.
 
-Families ported: identity (32·d bits), dither<s> (⌈log2(2s+1)⌉·d bits) and
-topk<frac> (⌈frac·d⌉·(32 + ⌈log2 d⌉) bits).  natural, count_sketch and
-minmax raise ``NotImplementedError`` (ROADMAP.md).
+natural, count_sketch and minmax are plain ``jnp`` in the reference,
+outside any Pallas kernel, and plain PyTorch here on either device, on the
+reference's key streams: natural and minmax draw ``uniform(key, shape)``,
+the count sketch its hashes from ``split(key)``.  The count sketch's
+heavy-hitter step is a top-k of the median estimate, through
+``fused_topk_grouped`` on the card.  The count sketch's table and
+min-max's ℓ1 norm are sums, taken in float64 and rounded once, so the card
+(atomics, a tree) and the CPU agree in practice: the float64 sum is exact
+while its terms span fewer than about 29 - log2(terms) binary orders, and
+otherwise two orders can still round to neighbouring float32 values when
+the sum lies next to a float32 midpoint (a double rounding; rare, never
+more than one ulp).  XLA's float32 sums round at every term, so against
+the reference both are held to a tolerance, their ledgers exactly; natural
+is the reference's bit for bit.
 """
 from __future__ import annotations
 
@@ -49,46 +79,118 @@ import torch
 
 from repro_torch import random
 from repro_torch.kernels.compressor import ops
+from repro_torch.kernels.compressor.ref import sign
 from repro_torch.kernels.dither import ops as dither_ops
 
-# Family ids, the reference's (natural = 2, count_sketch = 4 and minmax = 5
-# are not ported)
+# Family ids, the reference's
 FAMILY_IDENTITY = 0
 FAMILY_DITHER = 1
+FAMILY_NATURAL = 2
 FAMILY_TOPK = 3
+FAMILY_COUNT_SKETCH = 4
+FAMILY_MINMAX = 5
+
+#: Row capacity of the count-sketch table: ``depth`` is clipped to
+#: [1, SKETCH_DEPTH_MAX] and the hashes are drawn for all of its rows.
+SKETCH_DEPTH_MAX = 7
+DEFAULT_SKETCH_WIDTH = 64.0
+DEFAULT_SKETCH_DEPTH = 3.0
 
 
 def _f32(v) -> float:
     return float(np.float32(v))
 
 
+class SketchParams(NamedTuple):
+    """Count-sketch parameters (ignored by the other families): table
+    columns ``width`` (clipped to [1, d]), estimator rows ``depth``
+    (clipped to [1, SKETCH_DEPTH_MAX]) and the heavy-hitter fraction
+    ``hh_frac`` kept on decode (1 keeps every coordinate).  Floats in a
+    scalar spec, float32 [G] tensors (or their numpy copies) in a grid
+    spec."""
+    width: object
+    depth: object
+    hh_frac: object
+
+
+def default_sketch_params(G: Optional[int] = None) -> SketchParams:
+    """The defaults (width 64, depth 3, hh_frac 1): floats, or float32
+    numpy [G] arrays for a grid of G points."""
+    vals = (DEFAULT_SKETCH_WIDTH, DEFAULT_SKETCH_DEPTH, 1.0)
+    if G is None:
+        return SketchParams(*vals)
+    return SketchParams(*(np.full(G, v, np.float32) for v in vals))
+
+
 class CompressorSpec(NamedTuple):
-    """(family, s, frac): the family id (FAMILY_*), the dithering level
-    count s (FAMILY_DITHER) and the kept fraction frac (FAMILY_TOPK), both
-    rounded to float32 as the reference holds them.
+    """(family, s, frac, ..., params): the family id (FAMILY_*), the
+    dithering level count s (FAMILY_DITHER), the kept fraction frac
+    (FAMILY_TOPK, FAMILY_MINMAX) and the count sketch's
+    :class:`SketchParams`, all rounded to float32 as the reference holds
+    them.
 
     A grid spec ([G] points, :func:`stack_specs`, :func:`grid_spec`) holds
-    ``family`` as a tuple of G ids, ``s`` and ``frac`` as float32 [G]
-    tensors, and ``s_host`` / ``frac_host``, their numpy copies."""
+    ``family`` as a tuple of G ids, ``s``, ``frac`` and each of ``params``
+    as float32 [G] tensors, and ``s_host``, ``frac_host`` and
+    ``params_host``, their numpy copies."""
     family: Union[int, Tuple[int, ...]]
     s: Union[float, torch.Tensor]
     frac: Union[float, torch.Tensor]
     s_host: Optional[np.ndarray] = None
     frac_host: Optional[np.ndarray] = None
+    params: Optional[SketchParams] = None
+    params_host: Optional[SketchParams] = None
+
+
+def fill_params(spec: CompressorSpec) -> CompressorSpec:
+    """A spec without sketch parameters given the defaults (for a grid
+    spec, on its device), so every entry point sees one layout."""
+    if spec.params is not None:
+        return spec
+    if not is_grid(spec):
+        return spec._replace(params=default_sketch_params())
+    host = default_sketch_params(len(spec.family))
+    return spec._replace(params=SketchParams(*(
+        torch.as_tensor(v, device=spec.s.device) for v in host)),
+        params_host=host)
 
 
 def identity_spec() -> CompressorSpec:
-    return CompressorSpec(FAMILY_IDENTITY, 1.0, 1.0)
+    return CompressorSpec(FAMILY_IDENTITY, 1.0, 1.0,
+                          params=default_sketch_params())
 
 
 def dither_spec(s) -> CompressorSpec:
     """Random ∞-norm dithering with s levels."""
-    return CompressorSpec(FAMILY_DITHER, _f32(s), 1.0)
+    return CompressorSpec(FAMILY_DITHER, _f32(s), 1.0,
+                          params=default_sketch_params())
+
+
+def natural_spec() -> CompressorSpec:
+    """Natural compression (the exponent kept, the mantissa rounded)."""
+    return CompressorSpec(FAMILY_NATURAL, 1.0, 1.0,
+                          params=default_sketch_params())
 
 
 def topk_spec(frac) -> CompressorSpec:
     """Biased top-k contraction keeping ⌈frac·d⌉ magnitudes."""
-    return CompressorSpec(FAMILY_TOPK, 1.0, _f32(frac))
+    return CompressorSpec(FAMILY_TOPK, 1.0, _f32(frac),
+                          params=default_sketch_params())
+
+
+def count_sketch_spec(width=DEFAULT_SKETCH_WIDTH, depth=DEFAULT_SKETCH_DEPTH,
+                      hh_frac=1.0) -> CompressorSpec:
+    """A linear count sketch of ``width`` columns and ``depth`` rows that
+    keeps the ``hh_frac`` heaviest coordinates of its estimate."""
+    return CompressorSpec(FAMILY_COUNT_SKETCH, 1.0, 1.0,
+                          params=SketchParams(_f32(width), _f32(depth),
+                                              _f32(hh_frac)))
+
+
+def minmax_spec(frac) -> CompressorSpec:
+    """Unbiased min-max (iceberg) sampling of ~⌈frac·d⌉ coordinates."""
+    return CompressorSpec(FAMILY_MINMAX, 1.0, _f32(frac),
+                          params=default_sketch_params())
 
 
 _VALID_NAMES = ("'identity'", "'dither<s>' (e.g. 'dither64')", "'natural'",
@@ -107,15 +209,18 @@ def _unknown_name(name: str) -> ValueError:
 def make_spec(name_or_spec: Union[str, CompressorSpec],
               **params) -> CompressorSpec:
     """The compressor constructor: a registry name (``"identity"``,
-    ``"dither64"``, ``"topk0.1"``; the numeric suffix is the family's main
-    parameter, which may instead be a keyword: ``s`` or ``frac``) or an
-    existing spec.  Errors and their messages are the reference's."""
+    ``"dither64"``, ``"natural"``, ``"topk0.1"``, ``"count_sketch64"``,
+    ``"minmax0.25"``; the numeric suffix is the family's main parameter,
+    which may instead be a keyword: ``s``, ``frac`` or, for the count
+    sketch, ``width``, with ``depth`` and ``hh_frac`` beside it) or an
+    existing spec (given the default sketch parameters where it has none).
+    Errors and their messages are the reference's."""
     if isinstance(name_or_spec, CompressorSpec):
         if params:
             raise ValueError(
                 "make_spec(spec, **params): keyword parameters only apply "
                 "to name-based construction; rebuild the spec instead")
-        return name_or_spec
+        return fill_params(name_or_spec)
     if not isinstance(name_or_spec, str):
         raise TypeError(
             f"make_spec takes a name, CompressorSpec, or Compressor — got "
@@ -137,15 +242,20 @@ def make_spec(name_or_spec: Union[str, CompressorSpec],
 
     if name == "identity":
         allowed, ctor = (), identity_spec
-    elif name == "natural" or name.startswith(("count_sketch", "minmax")):
-        raise NotImplementedError(
-            f"compressor {name!r} is not ported yet (ROADMAP.md, queue 1: "
-            "'other compressor families'); ported: identity, dither<s>, "
-            "topk<frac>")
+    elif name == "natural":
+        allowed, ctor = (), natural_spec
+    elif name.startswith("count_sketch"):
+        allowed = ("width", "depth", "hh_frac")
+        suffix_param("count_sketch", int, "width")
+        ctor = lambda: count_sketch_spec(**params)            # noqa: E731
     elif name.startswith("dither"):
         allowed = ("s",)
         suffix_param("dither", int, "s")
         ctor = lambda: dither_spec(params.get("s", 64))       # noqa: E731
+    elif name.startswith("minmax"):
+        allowed = ("frac",)
+        suffix_param("minmax", float, "frac")
+        ctor = lambda: minmax_spec(params.get("frac", 0.1))   # noqa: E731
     elif name.startswith("topk"):
         allowed = ("frac",)
         suffix_param("topk", float, "frac")
@@ -168,19 +278,33 @@ def is_grid(spec: CompressorSpec) -> bool:
     return isinstance(spec.family, tuple)
 
 
-def grid_spec(family, s, frac, device="cpu") -> CompressorSpec:
-    """A [G] grid spec from G family ids and G levels and fractions
-    (rounded to float32), the tensors on ``device``."""
+def grid_spec(family, s, frac, device="cpu", params=None) -> CompressorSpec:
+    """A [G] grid spec from G family ids, levels, fractions and, optionally,
+    :class:`SketchParams` of G values each (the defaults where None), all
+    rounded to float32, the tensors on ``device``."""
     s_host = np.asarray(s, np.float32).reshape(-1).copy()
     frac_host = np.asarray(frac, np.float32).reshape(-1).copy()
     family = tuple(int(f) for f in family)
-    if not len(family) == s_host.shape[0] == frac_host.shape[0] >= 1:
-        raise ValueError(f"grid spec: {len(family)} families, "
+    G = len(family)
+    if not G == s_host.shape[0] == frac_host.shape[0] >= 1:
+        raise ValueError(f"grid spec: {G} families, "
                          f"{s_host.shape[0]} levels, {frac_host.shape[0]} "
                          "fractions")
-    return CompressorSpec(family, torch.as_tensor(s_host, device=device),
-                          torch.as_tensor(frac_host, device=device),
-                          s_host, frac_host)
+    if params is None:
+        params_host = default_sketch_params(G)
+    else:
+        params_host = SketchParams(*(np.asarray(v, np.float32).reshape(-1)
+                                     .copy() for v in params))
+        if any(v.shape[0] != G for v in params_host):
+            raise ValueError(f"grid spec: {G} families, sketch params of "
+                             f"{[v.shape[0] for v in params_host]} points")
+
+    def t(a):
+        return torch.as_tensor(a, device=device)
+
+    return CompressorSpec(family, t(s_host), t(frac_host), s_host, frac_host,
+                          SketchParams(*(t(v) for v in params_host)),
+                          params_host)
 
 
 def stack_specs(*specs) -> CompressorSpec:
@@ -191,7 +315,8 @@ def stack_specs(*specs) -> CompressorSpec:
     if not scal or any(is_grid(sp) for sp in scal):
         raise ValueError("stack_specs takes one or more scalar specs")
     return grid_spec([sp.family for sp in scal], [sp.s for sp in scal],
-                     [sp.frac for sp in scal])
+                     [sp.frac for sp in scal],
+                     params=SketchParams(*zip(*(sp.params for sp in scal))))
 
 
 def as_grid(spec: CompressorSpec, G: int) -> CompressorSpec:
@@ -202,20 +327,26 @@ def as_grid(spec: CompressorSpec, G: int) -> CompressorSpec:
             raise ValueError(f"grid spec of {len(spec.family)} points, "
                              f"expected {G}")
         return spec
-    return grid_spec((spec.family,) * G, [spec.s] * G, [spec.frac] * G)
+    spec = fill_params(spec)
+    return grid_spec((spec.family,) * G, [spec.s] * G, [spec.frac] * G,
+                     params=SketchParams(*([v] * G for v in spec.params)))
 
 
 def tile_spec(spec: CompressorSpec, reps: int) -> CompressorSpec:
     """A grid spec's points repeated ``reps`` times (point b·G + g is
     point g): ``jnp.tile`` of every leaf."""
     return grid_spec(spec.family * reps, np.tile(spec.s_host, reps),
-                     np.tile(spec.frac_host, reps), spec.s.device)
+                     np.tile(spec.frac_host, reps), spec.s.device,
+                     SketchParams(*(np.tile(v, reps)
+                                    for v in spec.params_host)))
 
 
 def spec_point(spec: CompressorSpec, g: int) -> CompressorSpec:
     """Point g of a grid spec as a scalar spec (from the host copies)."""
     return CompressorSpec(spec.family[g], float(spec.s_host[g]),
-                          float(spec.frac_host[g]))
+                          float(spec.frac_host[g]),
+                          params=SketchParams(*(float(v[g])
+                                                for v in spec.params_host)))
 
 
 def spec_to(spec: CompressorSpec, device) -> CompressorSpec:
@@ -223,7 +354,9 @@ def spec_to(spec: CompressorSpec, device) -> CompressorSpec:
     tensor)."""
     if not is_grid(spec):
         return spec
-    return spec._replace(s=spec.s.to(device), frac=spec.frac.to(device))
+    return spec._replace(s=spec.s.to(device), frac=spec.frac.to(device),
+                         params=SketchParams(*(v.to(device)
+                                               for v in spec.params)))
 
 
 @functools.lru_cache(maxsize=64)
@@ -242,22 +375,147 @@ def _groups(family: tuple, device: torch.device):
     return tuple(out)
 
 
-def _unported(family) -> NotImplementedError:
-    return NotImplementedError(
-        f"compressor family {family} is not ported yet (ROADMAP.md, queue "
-        "1: 'other compressor families')")
+def _select(spec: CompressorSpec, sel) -> CompressorSpec:
+    """The points ``sel`` of a grid spec's device tensors (the host copies
+    are not carried)."""
+    return CompressorSpec(None, spec.s[sel].contiguous(),
+                          spec.frac[sel].contiguous(),
+                          params=SketchParams(*(v[sel].contiguous()
+                                                for v in spec.params)))
 
 
-def _compress_grid_rows(family: int, rows, keys, s, frac):
-    """One family's points: rows [P·n, L] of P points, their keys [P, 2]
-    and parameters [P] — one grouped launch on the card."""
+# ---------------------------------------------------------------------------
+# natural, count_sketch, minmax: plain PyTorch on either device
+# ---------------------------------------------------------------------------
+
+def _natural_rows(rows: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
+    """``_natural`` of each row of rows [R, L] with its key keys [R, 2]:
+    lo = 2^⌊log2 |x|⌋, rounded up to 2·lo with probability (|x| - lo)/lo."""
+    ax = rows.abs()
+    lo = torch.where(ax > 0, torch.pow(2.0, torch.floor(torch.log2(
+        torch.clamp(ax, min=1e-38)))), 0.0)
+    p = torch.where(lo > 0, (ax - lo) / lo, 0.0)     # round to 2·lo w.p. p
+    u = random.uniform(keys, rows.shape[1:])
+    mag = torch.where(u < p, 2.0 * lo, lo)
+    return sign(rows) * mag
+
+
+def _l1(ax: torch.Tensor) -> torch.Tensor:
+    """Each row's sum of ax [R, L] (>= 0), [R, 1] float32, summed in
+    float64 and rounded once: in practice the float32 result does not
+    depend on the order of the sum, so the card's reduction and the CPU's
+    agree; where the float64 sum is inexact and lands next to a float32
+    midpoint, two orders can round one ulp apart (a double rounding).  The
+    reference's float32 sum rounds in XLA's order, an ulp or so from
+    either."""
+    return ax.sum(dim=1, keepdim=True, dtype=torch.float64).to(torch.float32)
+
+
+def _minmax_rows(rows: torch.Tensor, keys: torch.Tensor,
+                 frac: torch.Tensor) -> torch.Tensor:
+    """``_minmax`` of each row of rows [R, L], frac [R, 1]: coordinate i
+    kept with probability p_i = min(1, k|x_i|/||x||₁), k = ⌈frac·L⌉, and
+    sent as x_i/p_i."""
+    L = _f32(rows.shape[1])
+    k = torch.clamp(torch.ceil(frac * L), 1.0, L)
+    ax = rows.abs()
+    p = torch.clamp(k * ax / torch.clamp(_l1(ax), min=1e-30), 0.0, 1.0)
+    u = random.uniform(keys, rows.shape[1:])
+    return torch.where(u < p, rows / torch.clamp(p, min=1e-30), 0.0)
+
+
+def _sketch_hashes(keys: torch.Tensor, L: int, width: torch.Tensor):
+    """Bucket [R, SKETCH_DEPTH_MAX, L] (int64) and sign (float32) hash
+    tables of each row's key (``_sketch_hashes``): ``kb, ks = split(key)``,
+    buckets ``randint(kb, (7, L), 0, 2**31 - 1) % clip(⌊width⌋, 1, L)``,
+    signs ``rademacher(ks, (7, L))``."""
+    kb, ks = random.split(keys, 2).unbind(dim=-2)
+    wc = torch.clamp(torch.floor(width).to(torch.int64), 1, L)
+    raw = random.randint(kb, (SKETCH_DEPTH_MAX, L), 0, 2**31 - 1)
+    return raw % wc[:, None, None], random.rademacher(ks,
+                                                      (SKETCH_DEPTH_MAX, L))
+
+
+def count_sketch_encode(keys: torch.Tensor, rows: torch.Tensor,
+                        width: torch.Tensor) -> torch.Tensor:
+    """Each row of rows [R, L] sketched into its [SKETCH_DEPTH_MAX, L]
+    table with its key's hashes (columns past the clipped width stay
+    zero): the reference's ``table.at[rows, bucket].add(sign · x)``, a
+    scatter-add, here summed in float64 and rounded once to float32, so
+    in practice the table does not depend on the order of the sum (atomics
+    on the card, a loop on the CPU), but for a double rounding one ulp
+    apart where an inexact float64 sum lands next to a float32 midpoint;
+    XLA's float32 sum rounds at every term, an ulp or so from it.  Linear
+    in x for a fixed key."""
+    bucket, sgn = _sketch_hashes(keys, rows.shape[1], width)
+    table = torch.zeros(sgn.shape, dtype=torch.float64, device=rows.device)
+    table.scatter_add_(2, bucket, (sgn * rows[:, None, :]).to(torch.float64))
+    return table.to(torch.float32)
+
+
+def count_sketch_decode(keys: torch.Tensor, table: torch.Tensor,
+                        width: torch.Tensor, depth: torch.Tensor,
+                        hh_frac: torch.Tensor) -> torch.Tensor:
+    """Unsketch each row's table [R, SKETCH_DEPTH_MAX, L]: the estimates
+    sign·table[row, bucket], their median over the first ⌊depth⌋ rows
+    (the rest masked with +inf; rows (dep-1)//2 and dep//2 of the sorted
+    estimates), then the heavy hitters: a top-k of the median at hh_frac
+    [P] (R = P·n rows, point g's rows at its fraction), through
+    ``fused_topk_grouped`` on the card."""
+    R, _, L = table.shape
+    bucket, sgn = _sketch_hashes(keys, L, width)
+    est = sgn * torch.gather(table, 2, bucket)
+    dep = torch.clamp(torch.floor(depth).to(torch.int64), 1,
+                      SKETCH_DEPTH_MAX)[:, None, None]
+    active = torch.arange(SKETCH_DEPTH_MAX, device=table.device)[
+        None, :, None] < dep
+    srt = torch.sort(torch.where(active, est, torch.inf), dim=1).values
+    lo = torch.gather(srt, 1, ((dep - 1) // 2).expand(R, 1, L))[:, 0]
+    hi = torch.gather(srt, 1, (dep // 2).expand(R, 1, L))[:, 0]
+    med = 0.5 * (lo + hi)
+    return ops.fused_topk_grouped(med.contiguous(), hh_frac)[0]
+
+
+def _count_sketch_rows(rows, keys, params: SketchParams, n: int):
+    """Q(x) = decode(encode(x)) of each row; ``params`` of the P points
+    ([P] each, R = P·n rows, point g's rows [g·n, (g+1)·n))."""
+    width = params.width.repeat_interleave(n)
+    table = count_sketch_encode(keys, rows, width)
+    return count_sketch_decode(keys, table, width,
+                               params.depth.repeat_interleave(n),
+                               params.hh_frac)
+
+
+# ---------------------------------------------------------------------------
+# Entry points
+# ---------------------------------------------------------------------------
+
+def _plain_rows(family: int, rows, row_keys, sub: CompressorSpec, n: int):
+    """natural, min-max or the count sketch of P points' rows [P·n, L]
+    with one key a row [P·n, 2] and parameters ``sub`` ([P] tensors)."""
+    if family == FAMILY_NATURAL:
+        return _natural_rows(rows, row_keys)
+    if family == FAMILY_MINMAX:
+        return _minmax_rows(rows, row_keys,
+                            sub.frac.repeat_interleave(n)[:, None])
+    if family == FAMILY_COUNT_SKETCH:
+        return _count_sketch_rows(rows, row_keys, sub.params, n)
+    raise ValueError(f"unknown compressor family {family}")
+
+
+def _compress_rows(family: int, rows, keys, sub: CompressorSpec, n: int):
+    """One family's P points: rows [P·n, L], their parent keys [P, 2]
+    (point g's row i takes ``split(keys[g], n)[i]``) and parameters ``sub``
+    ([P] tensors) — one grouped launch on the card for the kernel
+    families."""
     if family == FAMILY_IDENTITY:
         return rows
     if family == FAMILY_DITHER:
-        return ops.fused_dither_keyed_grouped(rows, keys, s)[0]
+        return ops.fused_dither_keyed_grouped(rows, keys, sub.s)[0]
     if family == FAMILY_TOPK:
-        return ops.fused_topk_grouped(rows, frac)[0]
-    raise _unported(family)
+        return ops.fused_topk_grouped(rows, sub.frac)[0]
+    return _plain_rows(family, rows, random.split(keys, n).reshape(-1, 2),
+                       sub, n)
 
 
 def _compress_split_grid(spec: CompressorSpec, keys: torch.Tensor,
@@ -267,11 +525,11 @@ def _compress_split_grid(spec: CompressorSpec, keys: torch.Tensor,
     if keys.shape != (G, 2):
         raise ValueError(f"grid compress_split: keys [{G}, 2] required, got "
                          f"{tuple(keys.shape)}")
+    spec = fill_params(spec)
     rows = x.reshape(G * n, -1).contiguous()
     groups = _groups(spec.family, x.device)
     if len(groups) == 1:
-        out = _compress_grid_rows(groups[0][0], rows, keys.contiguous(),
-                                  spec.s, spec.frac)
+        out = _compress_rows(groups[0][0], rows, keys.contiguous(), spec, n)
         return out.reshape(x.shape)
     L = rows.shape[1]
     out = rows.clone() if FAMILY_IDENTITY in spec.family else \
@@ -281,10 +539,8 @@ def _compress_split_grid(spec: CompressorSpec, keys: torch.Tensor,
         if fam == FAMILY_IDENTITY:
             continue
         sub = rows.view(G, n, L)[sel]
-        res = _compress_grid_rows(fam, sub.reshape(-1, L).contiguous(),
-                                  keys[sel].contiguous(),
-                                  spec.s[sel].contiguous(),
-                                  spec.frac[sel].contiguous())
+        res = _compress_rows(fam, sub.reshape(-1, L).contiguous(),
+                             keys[sel].contiguous(), _select(spec, sel), n)
         view[sel] = res.view(-1, n, L)
     return out.reshape(x.shape)
 
@@ -296,16 +552,17 @@ def compress(spec: CompressorSpec, keys: torch.Tensor,
     tensor shaped like x."""
     if spec.family == FAMILY_IDENTITY:
         return x
+    spec = fill_params(spec)
     rows = x.reshape(x.shape[0], -1).contiguous()
     if spec.family == FAMILY_DITHER:
         u = random.uniform(keys, rows.shape[1:])     # == _dither's draw
         out = ops.fused_dither(rows, u, spec.s)[0]
     elif spec.family == FAMILY_TOPK:
         out = ops.fused_topk(rows, spec.frac)[0]
-    else:
-        raise NotImplementedError(
-            f"compressor family {spec.family} is not ported yet "
-            "(ROADMAP.md, queue 1: 'other compressor families')")
+    else:                               # as the one point of a grid
+        sub = grid_spec((spec.family,), [spec.s], [spec.frac], x.device,
+                        spec.params)
+        out = _plain_rows(spec.family, rows, keys, sub, rows.shape[0])
     return out.reshape(x.shape)
 
 
@@ -315,7 +572,7 @@ def compress_split(spec: CompressorSpec, key: torch.Tensor,
     i is compressed with the i-th key split from ``key`` (``[2]``).  On a
     CUDA tensor the dither family launches the keyed kernel, which splits
     the key and draws the uniforms itself; on the CPU this is exactly that
-    call.  The other families use no key, so they never split one.
+    call.  Identity and top-k use no key, so they never split one.
 
     A grid spec of G points takes keys [G, 2] and x [G, n, ...]: point g's
     rows are compressed with ``split(keys[g], n)`` at its own parameters,
@@ -323,12 +580,20 @@ def compress_split(spec: CompressorSpec, key: torch.Tensor,
     points pass through)."""
     if is_grid(spec):
         return _compress_split_grid(spec, key, x)
-    if spec.family != FAMILY_DITHER:
+    if spec.family in (FAMILY_IDENTITY, FAMILY_TOPK):
         return compress(spec, None, x)
-    if x.device.type == "cuda":
+    if spec.family == FAMILY_DITHER and x.device.type == "cuda":
         rows = x.reshape(x.shape[0], -1).contiguous()
         return ops.fused_dither_keyed(rows, key, spec.s)[0].reshape(x.shape)
     return compress(spec, random.split(key, x.shape[0]), x)
+
+
+def _sketch_bits(width: torch.Tensor, depth: torch.Tensor, d):
+    """32·clip(⌊depth⌋, 1, 7)·clip(⌊width⌋, 1, d) in float32, on the
+    parameters' device."""
+    dep = torch.clamp(torch.floor(depth), 1.0, float(SKETCH_DEPTH_MAX))
+    wc = torch.clamp(torch.floor(width), 1.0, _f32(d))
+    return 32.0 * dep * wc
 
 
 def spec_bits(spec: CompressorSpec, d: int,
@@ -336,28 +601,39 @@ def spec_bits(spec: CompressorSpec, d: int,
     """Exact uplink payload bits of compressing a d-element message, as a
     float32 0-d tensor on ``device`` (the ledger stays on the device).
 
-    identity: 32·d.  dither: ⌈log2(2s+1)⌉·d.  top-k: ⌈frac·d⌉ kept values,
-    each a 32-bit payload plus a ⌈log2 d⌉-bit index.  Dither and top-k are
-    priced by the ledger kernels on a CUDA device."""
-    if spec.family == FAMILY_IDENTITY:
-        return torch.tensor(32.0 * float(np.float32(d)), dtype=torch.float32,
-                            device=device)
+    identity: 32·d.  dither: ⌈log2(2s+1)⌉·d.  natural: 9·d.  top-k and
+    min-max: ⌈frac·d⌉ values, each a 32-bit payload plus a ⌈log2 d⌉-bit
+    index.  count sketch: 32·⌊depth⌋·⌊width⌋ counters (width clipped to
+    d).  Dither, top-k and min-max are priced by the ledger kernels on a
+    CUDA device (min-max by the top-k ledger: the same formula)."""
+    spec = fill_params(spec)
+    if spec.family in (FAMILY_IDENTITY, FAMILY_NATURAL):
+        per = 32.0 if spec.family == FAMILY_IDENTITY else 9.0
+        return torch.tensor(float(np.float32(per) * np.float32(d)),
+                            dtype=torch.float32, device=device)
+    if spec.family == FAMILY_COUNT_SKETCH:
+        width, depth = (torch.tensor(v, dtype=torch.float32)
+                        for v in spec.params[:2])
+        return _sketch_bits(width, depth, d).to(device)
     if spec.family == FAMILY_DITHER:
         return ops.dither_bits(spec.s, d, device)
-    if spec.family == FAMILY_TOPK:
+    if spec.family in (FAMILY_TOPK, FAMILY_MINMAX):
         return ops.topk_bits(spec.frac, d, device)
-    raise _unported(spec.family)
+    raise ValueError(f"unknown compressor family {spec.family}")
 
 
-def _bits_grid(family: int, s, frac, d, device) -> torch.Tensor:
-    if family == FAMILY_IDENTITY:
-        return torch.full(s.shape, 32.0 * float(np.float32(d)),
+def _bits_grid(family: int, sub: CompressorSpec, d, device) -> torch.Tensor:
+    if family in (FAMILY_IDENTITY, FAMILY_NATURAL):
+        per = 32.0 if family == FAMILY_IDENTITY else 9.0
+        return torch.full(sub.s.shape, float(np.float32(per) * np.float32(d)),
                           dtype=torch.float32, device=device)
     if family == FAMILY_DITHER:
-        return ops.dither_bits_grouped(s, d)
-    if family == FAMILY_TOPK:
-        return ops.topk_bits_grouped(frac, d)
-    raise _unported(family)
+        return ops.dither_bits_grouped(sub.s, d)
+    if family in (FAMILY_TOPK, FAMILY_MINMAX):
+        return ops.topk_bits_grouped(sub.frac, d)
+    if family == FAMILY_COUNT_SKETCH:
+        return _sketch_bits(sub.params.width, sub.params.depth, d)
+    raise ValueError(f"unknown compressor family {family}")
 
 
 def spec_bits_many(spec: CompressorSpec, d, device=None) -> torch.Tensor:
@@ -367,15 +643,15 @@ def spec_bits_many(spec: CompressorSpec, d, device=None) -> torch.Tensor:
     on ``device``."""
     if not is_grid(spec):
         return spec_bits(spec, d, device)
+    spec = fill_params(spec)
     dev = spec.s.device
     G = len(spec.family)
     groups = _groups(spec.family, dev)
     if len(groups) == 1:
-        return _bits_grid(groups[0][0], spec.s, spec.frac, d, dev)
+        return _bits_grid(groups[0][0], spec, d, dev)
     out = torch.empty(G, dtype=torch.float32, device=dev)
     for fam, sel in groups:
-        out[sel] = _bits_grid(fam, spec.s[sel].contiguous(),
-                              spec.frac[sel].contiguous(), d, dev)
+        out[sel] = _bits_grid(fam, _select(spec, sel), d, dev)
     return out
 
 
@@ -386,8 +662,51 @@ def spec_bits_host(spec: CompressorSpec, d) -> np.ndarray:
     for a scalar one.  Budget scan lengths are priced so."""
     if not is_grid(spec):
         return spec_bits(spec, d, "cpu").numpy()
+    spec = fill_params(spec)
     return spec_bits_many(grid_spec(spec.family, spec.s_host,
-                                     spec.frac_host), d).numpy()
+                                     spec.frac_host,
+                                     params=spec.params_host), d).numpy()
+
+
+def _omega(family: int, s, frac, width, d) -> np.float32:
+    d = np.float32(d)
+    one = np.float32(1.0)
+    if family == FAMILY_DITHER:
+        return d / (np.float32(4.0) * np.float32(s) * np.float32(s))
+    if family == FAMILY_NATURAL:
+        return np.float32(1.0 / 8.0)
+    if family == FAMILY_COUNT_SKETCH:
+        return d / np.clip(np.floor(np.float32(width)), one, d)
+    if family == FAMILY_MINMAX:
+        return d / np.clip(np.ceil(np.float32(frac) * d), one, d)
+    if family in (FAMILY_IDENTITY, FAMILY_TOPK):
+        return np.float32(0.0)
+    raise ValueError(f"unknown compressor family {family}")
+
+
+def spec_omega(spec: CompressorSpec, d) -> torch.Tensor:
+    """Variance bound ω of Definition 3, in float32 from the host values:
+    0 for identity and for top-k (biased, not in U(ω)), d/(4s²) for
+    dither, 1/8 for natural, d/⌊width⌋ for the count sketch (at hh_frac =
+    1), d/⌈frac·d⌉ for min-max.  0-d for a scalar spec, [G] (CPU) for a
+    grid spec."""
+    spec = fill_params(spec)
+    if not is_grid(spec):
+        return torch.tensor(float(_omega(spec.family, spec.s, spec.frac,
+                                         spec.params.width, d)))
+    return torch.tensor([float(_omega(f, s, fr, w, d)) for f, s, fr, w in
+                         zip(spec.family, spec.s_host, spec.frac_host,
+                             spec.params_host.width)], dtype=torch.float32)
+
+
+def spec_commutes_with_sum(spec: CompressorSpec):
+    """Whether partial sums may be aggregated in the compressed domain
+    (the encoding is linear): identity and the count sketch.  A bool, or
+    a bool [G] tensor for a grid spec."""
+    linear = (FAMILY_IDENTITY, FAMILY_COUNT_SKETCH)
+    if not is_grid(spec):
+        return spec.family in linear
+    return torch.tensor([f in linear for f in spec.family])
 
 
 # ---------------------------------------------------------------------------

@@ -54,7 +54,9 @@ def participation_mask(key: torch.Tensor, n: int, p: float = 1.0,
     worker participates independently w.p. p — the reference's
     ``uniform(key, (n,)) < p`` draw, so masks match it worker for worker.
     A rate that expects fewer than one participant per round (p·n < 1) is
-    rejected, as in the reference.
+    rejected, as in the reference.  kind="choice": exactly
+    ``max(1, round(p·n))`` workers, without replacement — the reference's
+    ``permutation(key, n) < k``.
     """
     p = float(p)
     if p <= 0:
@@ -72,9 +74,8 @@ def participation_mask(key: torch.Tensor, n: int, p: float = 1.0,
         return (random.uniform(key, (n,))
                 < torch.tensor(p, dtype=torch.float32)).to(torch.float32)
     if kind == "choice":
-        raise NotImplementedError(
-            "sampling='choice' needs random.permutation, which is not "
-            "ported yet (ROADMAP.md, queue 1: 'choice sampling')")
+        k = max(1, int(round(p * n)))
+        return (random.permutation(key, n) < k).to(torch.float32)
     raise ValueError(f"unknown sampling kind: {kind!r}")
 
 
@@ -89,7 +90,8 @@ def resolve_participation(key: torch.Tensor, n: int, cfg_p, kind: str,
     """The sweep steps' mask: the grid's Bernoulli probabilities ``hp_p``
     ([G], on the device) override the static config ``cfg_p``.  Point g's
     mask is ``uniform(keys[g], (n,)) < hp_p[g]``, the reference's traced
-    draw, draw for draw.  'choice' sampling has no such form."""
+    draw, draw for draw.  'choice' sampling fixes its worker count from
+    the static p, so it takes no p axis (rejected, as in the reference)."""
     if hp_p is None:
         return participation_mask(key, n, cfg_p, kind)
     if kind != "bernoulli":
@@ -98,6 +100,22 @@ def resolve_participation(key: torch.Tensor, n: int, cfg_p, kind: str,
             f"sampling={kind!r} resolves its worker count statically — drop "
             "the p axis or switch the config to bernoulli")
     return (random.uniform(key, (n,)) < hp_p.unsqueeze(-1)).to(torch.float32)
+
+
+def worker_keys(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``fold_in(key, i)`` for each worker i: keys [..., 2] -> [..., n, 2],
+    the keys the reference hands worker i's stochastic oracles."""
+    return random.fold_in(key.unsqueeze(-2),
+                          torch.arange(n, device=key.device))
+
+
+def call_oracle(oracle: Callable, key: torch.Tensor, n: int, *args):
+    """``oracle(*args)``; a minibatch oracle (one with ``keyed`` set,
+    ``FederatedLogReg.make_oracles(batch=B)``) also gets each worker's key
+    ``fold_in(key, i)``.  Full-batch oracles derive no key."""
+    if getattr(oracle, "keyed", False):
+        return oracle(*args, worker_keys(key, n))
+    return oracle(*args)
 
 
 def masked_sum(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

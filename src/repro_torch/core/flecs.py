@@ -53,7 +53,7 @@ from repro_torch.core.compressors import (FAMILY_DITHER, CompressorSpec,
 from repro_torch.core.directions import (fedsonia_direction,
                                          truncated_inverse_direction,
                                          truncated_inverse_direction_floored)
-from repro_torch.core.driver import (bits_dtype, masked_mean,
+from repro_torch.core.driver import (bits_dtype, call_oracle, masked_mean,
                                      resolve_participation, specialize,
                                      validate_ps)
 from repro_torch.core.sketch import sketch
@@ -77,7 +77,7 @@ class FlecsConfig:
     sketch_kind: str = "rademacher"
     tinv_floor: float = 0.0           # curvature floor for Alg 4
     participation: float = 1.0        # per-round client sampling probability
-    sampling: str = "bernoulli"       # "bernoulli" ("choice" is not ported)
+    sampling: str = "bernoulli"       # "bernoulli" | "choice" (exact-k)
     hierarchy: Optional[object] = None    # two-tier aggregation: not ported
 
     @property
@@ -202,15 +202,17 @@ def hparams_round_bits(cfg: FlecsConfig, hp: FlecsHParams, d: int):
 
 def _worker_messages(local_grad: Callable, local_hvp: Callable,
                      grad_spec: CompressorSpec, hess_spec: CompressorSpec,
-                     w, h, B, S, k_q, k_c):
+                     w, h, B, S, k_g, k_h, k_q, k_c):
     """Worker compute phase of Algorithm 1 for all n workers of every grid
-    point at once.
+    point at once.  Minibatch oracles draw worker i's rows from
+    ``fold_in(k_g, i)`` (gradient) and ``fold_in(k_h, i)`` (HVP).
 
     Returns (c [G,n,d], M [G,n,m,m], C [G,n,d,m], BS [G,n,d,m]): the
     compressed gradient differences, the exact Grams SᵀY, the compressed
     Hessian-sketch differences and B S, at the iterates ``w`` [G, d]."""
-    g = local_grad(w)                                   # [n, d]
-    Y = local_hvp(w, S)                                 # [n, d, m]
+    n = h.shape[-2]
+    g = call_oracle(local_grad, k_g, n, w)              # [G, n, d]
+    Y = call_oracle(local_hvp, k_h, n, w, S)            # [G, n, d, m]
     M = S.mT @ Y                                        # [n, m, m] (exact)
     c = compress_split(grad_spec, k_q, g - h)
     BS = B @ S
@@ -247,14 +249,13 @@ def _flecs_round(cfg: FlecsConfig, local_grad: Callable, local_hvp: Callable,
     m = cfg.m
     S = sketch(cfg.sketch_kind, d, m, state.t, state.w.device)
 
-    # k_g, k_h: the full-batch oracles take no key
-    _, _, k_q, k_c, k_p = random.split(keys, 5).unbind(dim=-2)
+    k_g, k_h, k_q, k_c, k_p = random.split(keys, 5).unbind(dim=-2)
     mask = resolve_participation(k_p, n, cfg.participation, cfg.sampling,
                                  hp.p)                          # [G, n]
 
     c_all, M_all, C_all, BS_all = _worker_messages(
         local_grad, local_hvp, hp.grad_spec, hp.hess_spec,
-        state.w, state.h, state.B, S, k_q, k_c)
+        state.w, state.h, state.B, S, k_g, k_h, k_q, k_c)
 
     g_tilde_i = c_all + state.h                          # [G, n, d]
     Y_tilde_i = C_all + BS_all                           # [G, n, d, m]
@@ -296,7 +297,9 @@ def make_flecs_sweep_step(cfg: FlecsConfig, local_grad: Callable,
     ``FlecsHParams`` grid, state batched, keys [G, 2] — the single round
     implementation every other step maker specialises
     (``driver.run_sweep``).  Oracles: ``local_grad(w [G, d]) -> [G, n,
-    d]``, ``local_hvp(w [G, d], S [d, m]) -> [G, n, d, m]``."""
+    d]``, ``local_hvp(w [G, d], S [d, m]) -> [G, n, d, m]``, or the
+    minibatch pair of ``make_oracles(batch=B)``, which also take the
+    workers' keys."""
     if cfg.hierarchy is not None:
         raise NotImplementedError(
             "FlecsConfig.hierarchy is not ported yet (ROADMAP.md, queue 1: "

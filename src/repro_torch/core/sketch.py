@@ -2,7 +2,10 @@
 
 Worker and server agree on S_k by seeding it with the iteration number k
 (Algorithm 1, lines 3 and 9): ``sketch(kind, d, m, k, device)`` is a pure
-function of its arguments, bit for bit the reference's.
+function of its arguments, drawn from ``fold_in(key(17), k)`` as the
+reference draws it.  The Rademacher and coordinate sketches are the
+reference's bit for bit; the Gaussian one within ``random.normal``'s few
+ulps.
 """
 from __future__ import annotations
 
@@ -13,13 +16,15 @@ from repro_torch import random
 
 def sketch(kind: str, d: int, m: int, k: int, device) -> torch.Tensor:
     """Deterministic S_k from iteration number k.  [d, m], float32."""
+    key = random.fold_in(random.key(17, device), k)
+    root_m = torch.sqrt(torch.tensor(m, dtype=torch.float32))
     if kind == "rademacher":
-        key = random.fold_in(random.key(17, device), k)
-        return (random.rademacher(key, (d, m))
-                / torch.sqrt(torch.tensor(m, dtype=torch.float32)))
-    if kind in ("gaussian", "coordinate"):
-        raise NotImplementedError(
-            f"sketch_kind={kind!r} is not ported yet (ROADMAP.md, queue 1: "
-            "'other sketches': Gaussian needs only the sketch itself, "
-            "coordinate needs random.choice)")
+        return random.rademacher(key, (d, m)) / root_m
+    if kind == "gaussian":
+        return random.normal(key, (d, m)) / root_m
+    if kind == "coordinate":
+        idx = random.choice(key, d, (m,), replace=False)
+        S = torch.zeros((d, m), dtype=torch.float32, device=key.device)
+        S[idx, torch.arange(m, device=key.device)] = 1.0
+        return S
     raise ValueError(kind)

@@ -4,7 +4,8 @@
 ``make_problem`` is a copy of the reference's numpy generator, so the port's
 data is identical by construction.  The worker oracles are batched over all
 workers at once, and over a grid of iterates w [G, d] where a sweep runs
-(the results then lead with [G]), and closed-form:
+(the results then lead with [G]), and closed-form, over each worker's r
+rows or, for the minibatch oracles, its B sampled rows:
 
     z_i = b_i ⊙ A_i w
     g_i = -(1/r) A_iᵀ (b_i ⊙ σ(-z_i)) + μ w
@@ -25,6 +26,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import random
 from repro_torch.device import resolve_device
 
 
@@ -67,12 +69,21 @@ class FederatedLogReg:
                 "grad_sq": torch.sum(torch.square(self.global_grad(w)),
                                      dim=-1)}
 
-    def make_oracles(self):
-        """Returns ``(local_grad(w) -> [..., n, d], local_hvp(w, S) ->
-        [..., n, d, m])`` for w [..., d]: full local gradients and
-        Hessian-sketch products of every worker (of every grid point).
-        (Minibatch oracles are a later slice of the port.)"""
+    def make_oracles(self, batch: int = 0):
+        """Returns ``(local_grad, local_hvp)`` for w [..., d]: every
+        worker's gradient [..., n, d] and Hessian-sketch product
+        [..., n, d, m] (of every grid point).
+
+        batch=0: full local batches, ``local_grad(w)`` and
+        ``local_hvp(w, S)``.  batch=B: minibatch oracles, the stochastic
+        setting of Theorems 4/5: ``local_grad(w, keys)`` and
+        ``local_hvp(w, S, keys)`` with keys [..., n, 2], worker i's rows
+        ``A_i[randint(keys[..., i, :], (B,), 0, r)]`` as the reference picks
+        them (the rounds pass ``fold_in(k_g, i)`` and ``fold_in(k_h, i)``:
+        ``driver.call_oracle``, which the ``keyed`` attribute selects)."""
         r = self.A.shape[1]
+        if batch:
+            return self._minibatch_oracles(batch)
 
         def local_grad(w):
             z = self._margins(w)
@@ -88,6 +99,33 @@ class FederatedLogReg:
                                  wgt[..., None] * AS) / r
                     + self.mu * S)
 
+        return local_grad, local_hvp
+
+    def minibatch(self, keys: torch.Tensor, batch: int):
+        """Worker i's minibatch of B rows under keys [..., n, 2]: (A rows
+        [..., n, B, d], labels [..., n, B]), rows
+        ``randint(keys[..., i, :], (B,), 0, r)`` of worker i's shard."""
+        idx = random.randint(keys, (batch,), 0, self.A.shape[1])
+        workers = torch.arange(self.n_workers, device=idx.device)[:, None]
+        return self.A[workers, idx], self.b[workers, idx]
+
+    def _minibatch_oracles(self, batch: int):
+        def local_grad(w, keys):
+            A, b = self.minibatch(keys, batch)          # [..., n, B, d]
+            z = b * torch.einsum("...nbd,...d->...nb", A, w)
+            coef = b * torch.sigmoid(-z)
+            return (-torch.einsum("...nbd,...nb->...nd", A, coef) / batch
+                    + self.mu * w.unsqueeze(-2))
+
+        def local_hvp(w, S, keys):
+            A, b = self.minibatch(keys, batch)
+            z = b * torch.einsum("...nbd,...d->...nb", A, w)
+            wgt = torch.sigmoid(z) * torch.sigmoid(-z)          # [..., n, B]
+            AS = torch.matmul(A, S)                     # [..., n, B, m]
+            return (torch.matmul(A.transpose(-1, -2), wgt[..., None] * AS)
+                    / batch + self.mu * S)
+
+        local_grad.keyed = local_hvp.keyed = True
         return local_grad, local_hvp
 
     def local_hessian(self, w):

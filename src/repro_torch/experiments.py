@@ -7,10 +7,13 @@ plans and row builders).
     baselines_plan       FLECS-CGD, DIANA, FedNL and GD, one point each
     participation_plan   FLECS-CGD over a Bernoulli p axis (1, 0.5, 0.25)
     budget_fair_plan     all five methods to the same bit budgets
+    sketch_families_plan FLECS-CGD over a gradient-compressor family axis
+                         (dither64, topk0.25, count_sketch64, minmax0.5)
 
-``fig1_rows``, ``participation_rows`` and ``budget_fair_rows`` turn a
-``PlanResult`` into the rows of ``fig1_flecs_vs_cgd.json``,
-``participation.json`` and ``budget_fair.json``; ``budget_fair_rows``
+``fig1_rows``, ``participation_rows``, ``budget_fair_rows`` and
+``sketch_families_rows`` turn a ``PlanResult`` into the rows of
+``fig1_flecs_vs_cgd.json``, ``participation.json``, ``budget_fair.json``
+and ``sketch_families.json``; ``budget_fair_rows``
 checks, as the reference does, that every (method, budget) point reached
 its budget and that its ledger stays bit-stable after it froze.
 """
@@ -20,14 +23,17 @@ import numpy as np
 import torch
 
 from repro_torch.core.api import ExperimentPlan, MethodRun, get_method
-from repro_torch.core.compressors import stack_specs
-from repro_torch.core.flecs import FlecsConfig, FlecsHParams, dither_grid
+from repro_torch.core.compressors import spec_omega, stack_specs
+from repro_torch.core.flecs import (FlecsConfig, FlecsHParams, dither_grid,
+                                    hparams_round_bits)
 from repro_torch.optim.baselines import DianaConfig, FedNLConfig, GDConfig
 
 FIG1_MS = (1, 2, 4, 8)
 FIG1_FAMILIES = ("FLECS", "FLECS-CGD")       # grid order of the family axis
 PARTICIPATION_PS = (1.0, 0.5, 0.25)
 BUDGET_GRID_MULTS = (2.0, 8.0, 32.0)
+SKETCH_FAMILY_NAMES = ("dither64", "topk0.25", "count_sketch64",
+                       "minmax0.5")
 
 
 def fig1_plan(prob, iters=300) -> ExperimentPlan:
@@ -84,6 +90,19 @@ def participation_plan(prob, iters=300) -> ExperimentPlan:
         problem=prob,
         runs=(MethodRun("flecs_cgd", cfg=FlecsConfig(m=2), hparams=hp,
                         label="participation"),),
+        iters=iters)
+
+
+def sketch_families_plan(prob, iters=200) -> ExperimentPlan:
+    """The four non-trivial gradient-compressor families — random
+    dithering, top-k, count sketch, min-max sampling — as one grid axis of
+    FLECS-CGD m=2 (``stack_specs``)."""
+    hp = get_method("flecs_cgd").grid(
+        grad_specs=stack_specs(*SKETCH_FAMILY_NAMES))
+    return ExperimentPlan(
+        problem=prob,
+        runs=(MethodRun("flecs_cgd", cfg=FlecsConfig(m=2), hparams=hp,
+                        label="families"),),
         iters=iters)
 
 
@@ -177,3 +196,19 @@ def budget_fair_rows(res, budgets) -> list:
                          "bits_per_node": float(ledger[-1]),
                          "rounds": rounds})
     return rows
+
+
+def sketch_families_rows(res, d: int) -> list:
+    """``sketch_families.json``: per family the wire price a round and ω
+    (exact: host arithmetic), the final F and grad_sq, and the mean Mbit a
+    node."""
+    hp = res.hparams["families"]
+    st, tr = res["families"]
+    price = hparams_round_bits(FlecsConfig(m=2), hp, d)
+    omega = spec_omega(hp.grad_spec, d).numpy()
+    return [{"family": name, "round_bits": float(price[g]),
+             "omega": float(omega[g]),
+             "F": float(_np(tr["F"][g, -1])),
+             "grad_sq": float(_np(tr["grad_sq"][g, -1])),
+             "Mbits_mean": float(_np(torch.mean(st.bits_per_node[g]))) / 1e6}
+            for g, name in enumerate(SKETCH_FAMILY_NAMES)]

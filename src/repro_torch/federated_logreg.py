@@ -13,10 +13,12 @@ Every method is resolved through the registry (``core.api.get_method``) and
 the invocation is one ``ExperimentPlan`` (``core.api.run_plan``), each
 method's participation levels one [G] grid.  It runs on the card unless
 ``--device cpu`` is given.  A comma-list of --participation values is a
-Bernoulli p axis; a single value < 1 is the config's static Bernoulli rate.
-``--sampling choice`` (exact-k sampling) and the async flags (--staleness,
---delay-kind, --arrival-profile, --buffer-k, --auto-alpha) are not ported
-and raise.
+Bernoulli p axis; a single value < 1 is the config's static rate, sampled
+by --sampling: "choice" (the default, the reference example's) takes
+exactly max(1, round(p·n)) workers a round, "bernoulli" each worker with
+probability p.  The async flags (--staleness, --delay-kind,
+--arrival-profile, --buffer-k, --auto-alpha) are not ported and raise
+(ROADMAP.md, queue 1: 'async engine').
 """
 from __future__ import annotations
 
@@ -35,12 +37,14 @@ from repro_torch.optim.baselines import (DianaConfig, DianaHParams,
 METHOD_ORDER = ("flecs", "flecs_cgd", "diana", "fednl", "gd")
 
 
-def build_runs(method: str, iters: int, budgeted: bool, prob, ps, alphas):
+def build_runs(method: str, iters: int, budgeted: bool, prob, ps, alphas,
+               sampling: str = "choice"):
     """One MethodRun per selected method; a multi-valued p list rides along
-    as a p axis of each run's grid, paired with its own alpha per point."""
+    as a Bernoulli p axis of each run's grid, paired with its own alpha per
+    point; a single p is the configs' static rate, drawn by ``sampling``."""
     sweeping = len(ps) > 1
     static = dict(participation=ps[0] if not sweeping else 1.0,
-                  sampling="bernoulli")
+                  sampling=sampling if not sweeping else "bernoulli")
     G = len(ps)
     p_axis = torch.tensor(ps, dtype=torch.float32) if sweeping else None
     a_axis = torch.tensor(alphas, dtype=torch.float32)
@@ -108,7 +112,9 @@ def main(argv=None):
                          "list (e.g. 1.0,0.5,0.25) is a p axis of each "
                          "method's grid")
     ap.add_argument("--sampling", choices=("bernoulli", "choice"),
-                    default="bernoulli")
+                    default="choice",
+                    help="single-p sampling kind (comma-lists are always "
+                         "bernoulli)")
     ap.add_argument("--bit-budget", type=float, default=0.0, metavar="BITS",
                     help="budget-fair mode: freeze every method once its "
                          "per-node ledger reaches BITS (--iters is ignored)")
@@ -119,10 +125,6 @@ def main(argv=None):
     ap.add_argument("--auto-alpha", action="store_true")
     args = ap.parse_args(argv)
 
-    if args.sampling == "choice":
-        raise NotImplementedError(
-            "--sampling choice needs random.permutation, which is not "
-            "ported yet (ROADMAP.md, queue 1: 'choice sampling')")
     if (args.staleness or args.delay_kind != "fixed"
             or args.arrival_profile != "fixed" or args.buffer_k
             or args.auto_alpha):
@@ -140,7 +142,7 @@ def main(argv=None):
     plan = ExperimentPlan(
         problem=prob,
         runs=tuple(build_runs(args.method, args.iters, budgeted, prob, ps,
-                              alphas)),
+                              alphas, args.sampling)),
         iters=args.iters,
         bit_budget=args.bit_budget if budgeted else None)
     res = run_plan(plan)

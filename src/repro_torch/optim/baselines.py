@@ -20,7 +20,10 @@ float32 expressions in their order.
 
 The oracles are the batched closed forms of ``repro_torch.data.logreg``:
 ``local_grad(w [G, d]) -> [G, n, d]`` and, for FedNL,
-``local_hessian(w [G, d]) -> [G, n, d, d]``.
+``local_hessian(w [G, d]) -> [G, n, d, d]``.  A minibatch gradient oracle
+(``make_oracles(batch=B)``) draws worker i's rows from ``fold_in(k_g, i)``,
+as the reference does; FedNL's Hessian stays full-batch, as the
+reference's.
 
 Not ported: the sharded and cohort engines (ROADMAP.md, queue 1: 'cohort,
 hierarchy and sharding') and the async ones (queue 1: 'async engine'); their
@@ -40,9 +43,9 @@ from repro_torch.core.compressors import (FAMILY_TOPK, CompressorSpec,
                                           make_spec, spec_bits_host,
                                           spec_bits_many)
 from repro_torch.core.directions import inverse_apply
-from repro_torch.core.driver import (bits_dtype, grid_size, masked_mean,
-                                     resolve_participation, specialize,
-                                     validate_ps)
+from repro_torch.core.driver import (bits_dtype, call_oracle, grid_size,
+                                     masked_mean, resolve_participation,
+                                     specialize, validate_ps)
 from repro_torch.core.flecs import dither_grid
 from repro_torch.core.linalg import eigh
 
@@ -86,7 +89,7 @@ class DianaConfig:
     gamma: float = 0.5
     compressor: str = "dither64"      # name or CompressorSpec
     participation: float = 1.0
-    sampling: str = "bernoulli"       # "bernoulli" ("choice" is not ported)
+    sampling: str = "bernoulli"       # "bernoulli" | "choice" (exact-k)
 
 
 class DianaHParams(NamedTuple):
@@ -129,10 +132,11 @@ def _diana_round(cfg: DianaConfig, local_grad: Callable, hp: DianaHParams,
     """One DIANA round (the reference's dense branch) at every point of a
     batched state."""
     n, d = state.h.shape[-2:]
-    _, k_q, k_p = random.split(keys, 3).unbind(dim=-2)    # k_g: no minibatch
+    k_g, k_q, k_p = random.split(keys, 3).unbind(dim=-2)
     mask = resolve_participation(k_p, n, cfg.participation, cfg.sampling,
                                  hp.p)                              # [G, n]
-    c = compress_split(hp.spec, k_q, local_grad(state.w) - state.h)
+    g = call_oracle(local_grad, k_g, n, state.w)
+    c = compress_split(hp.spec, k_q, g - state.h)
     g_tilde = masked_mean(c + state.h, mask)
     w = state.w - hp.alpha[:, None] * g_tilde
     h = state.h + hp.gamma[:, None, None] * mask[..., None] * c
@@ -238,10 +242,10 @@ def make_fednl_sweep_step(cfg: FedNLConfig, local_grad: Callable,
     H^i_{k+1} = H^i_k + C(∇²f_i(w_k) - H^i_k);  w⁺ = w - α [H̄]_μ^{-1} ḡ."""
     def step(hp: FedNLHParams, state: FedNLState, keys: torch.Tensor):
         n, d = state.H.shape[-3:-1]
-        _, k_c, k_p = random.split(keys, 3).unbind(dim=-2)
+        k_g, k_c, k_p = random.split(keys, 3).unbind(dim=-2)
         mask = resolve_participation(k_p, n, cfg.participation,
                                      cfg.sampling, hp.p)          # [G, n]
-        g_all = local_grad(state.w)                               # [G, n, d]
+        g_all = call_oracle(local_grad, k_g, n, state.w)          # [G, n, d]
         D = compress_split(hp.spec, k_c, local_hessian(state.w) - state.H)
         H_new = state.H + mask[..., None, None] * D
         del D
@@ -329,10 +333,11 @@ def make_gd_sweep_step(cfg: GDConfig, local_grad: Callable, n_workers: int):
     """Uncompressed synchronous GD over a [G] grid."""
     def step(hp: GDHParams, state: GDState, keys: torch.Tensor):
         d = state.w.shape[-1]
-        _, k_p = random.split(keys, 2).unbind(dim=-2)
+        k_g, k_p = random.split(keys, 2).unbind(dim=-2)
         mask = resolve_participation(k_p, n_workers, cfg.participation,
                                      cfg.sampling, hp.p)
-        g = masked_mean(local_grad(state.w), mask)
+        g = masked_mean(call_oracle(local_grad, k_g, n_workers, state.w),
+                        mask)
         bits = state.bits_per_node + mask.to(
             state.bits_per_node.dtype) * (d * 32.0)
         new = GDState(state.w - hp.alpha[:, None] * g, _k_next(state.k),

@@ -1,60 +1,89 @@
-"""Where two runs of one plan part: the first compressed value that
-differs, and whether a rounding boundary explains it.
+"""Where two runs of one plan part: the first compressed message that
+differs, whether a rounding decision explains it, and whether every
+message is the plain compressor's own.
 
 Two runs of the same plan with the same keys may still round their float32
 arithmetic differently: the card against the CPU, or the CPU against itself
 with the features A nudged by one ulp each.  Until a compressor decides
 differently, the two trajectories stay within a few ulps of each other.
 Random dithering decides by ``u < p`` with p the fractional part of
-``|x| / ‖x‖∞ · s`` (``kernels/compressor/ref._dither_rows``): where u falls
-between the two runs' p, one rounds up and the other down, and the two
-messages differ by a whole level, ‖x‖∞ / s.  Top-k decides by comparing
-magnitudes, and a near-tie can keep another index.
+``|x| / ‖x‖∞ · s`` (``kernels/compressor/ref._dither_rows``), natural by
+``u < (|x| - lo) / lo`` with lo the power of two at or below |x|, min-max
+by ``u < k|x| / ‖x‖₁``: where u falls between the two runs' p, one rounds
+up and the other down.  Top-k (and the count sketch's heavy-hitter step)
+decides by comparing magnitudes, and a near-tie can keep another index.
 
-This records every ``compress_split`` call of both runs and reports, for
-each run of the plan and each grid point:
+This records every ``compress_split`` call of both runs and replays each
+message recorded on the card through the plain compressor on the CPU, from
+the recorded key and input (:func:`replay`): a message that is not its
+replay is a fault, whatever F does.  For each run of the plan and each grid
+point it reports:
 
-* the final F of both sides and their relative gap, and the first round
-  whose relative gap of F passes 1e-6;
-* the first compressed message that differs, among the rounds the point
-  lived (a point frozen by its bit budget keeps computing, discarded):
-  the round, the message, the row and element; for dither both levels,
-  both y and p and the shared u; for top-k the magnitudes and thresholds
-  at the swapped index; and whether a rounding decision explains it
-  (``explained``: u between the two p, or y across an integer; for top-k
-  the element within the row's largest input gap of the threshold), which
-  tells a flip by rounding from a fault;
+* the final F of both sides, their relative gap, the largest relative gap
+  over all rounds, and the first round whose gap passes 1e-6;
+* each side's messages that differ from their replay (``unfaithful_a``,
+  ``unfaithful_b``; the first one's round, element count and largest
+  distance in ulps);
+* the first compressed message that differs between the two sides, among
+  the rounds the point lived (a point frozen by its bit budget keeps
+  computing, discarded): the round, the message, the row and element; for
+  dither both levels, y and p and the shared u; for natural both powers of
+  two, p and u; for min-max both p and u; for top-k the magnitudes and
+  thresholds at the swapped index; for the count sketch and identity, which
+  decide nothing by a uniform, the first differing element and the input
+  and output gaps; and whether that is explained (``explained``: both
+  messages are their replays, and for a decision u lies between the two
+  p, or y or |x| crosses a level or a power of two, or the swapped element
+  lies within the row's input gap of the threshold);
 * the largest relative gap of F before that round.
+
+:func:`verdict` holds a pair to its report: no message that is not its
+replay, a first difference that is explained and comes after rounds that
+agreed within 1e-6, and F within ``STRICT`` of the other side at every
+round, or else within ``ENVELOPE_FACTOR`` times the largest gap that one
+ulp of noise in A opens between two CPU runs over several ulp and problem
+seeds (:func:`stochastic_envelope`, :func:`plan_envelope`).
 
     python -m repro_torch.plan_drift --a cuda --b cpu
     python -m repro_torch.plan_drift --a cpu --b cpu-ulp --ulp-seed 0
 
 (``--d 24 --workers 4 --r 24`` by default, the budget-fair plan; ``--plan``
-picks another of ``experiments``.)  The last line printed is one JSON
-object with every point's report.
+picks another of ``experiments``, or ``stochastic``: FLECS-CGD with
+minibatch oracles and exact-k sampling at quickstart size, 50 rounds.)
+The last line printed is one JSON object with every point's report.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import json
-from typing import Dict, List
+from typing import Callable, Dict, List
 
 import numpy as np
 import torch
 
-from repro_torch import experiments, random
+from repro_torch import experiments, quickstart, random
 from repro_torch.core import api, compressors, flecs
-from repro_torch.core.compressors import FAMILY_DITHER, FAMILY_TOPK
+from repro_torch.core.compressors import (FAMILY_DITHER, FAMILY_MINMAX,
+                                          FAMILY_NATURAL, FAMILY_TOPK)
+from repro_torch.core.driver import run_experiment
 from repro_torch.data.logreg import FederatedLogReg, make_problem
 from repro_torch.optim import baselines
 
 PLANS = {"budget_fair": experiments.budget_fair_plan,
          "baselines": experiments.baselines_plan,
          "fig1": experiments.fig1_plan,
-         "participation": experiments.participation_plan}
+         "participation": experiments.participation_plan,
+         "sketch_families": experiments.sketch_families_plan}
 #: The relative gap of F that counts as the two runs having parted.
 PARTED = 1e-6
+#: The relative gap of F that two sides may always show.
+STRICT = 1e-4
+#: How far past the CPU's own ulp envelope (the largest gap one ulp of
+#: noise in A opens between two CPU runs) a pair may part.
+ENVELOPE_FACTOR = 3.0
+#: (problem seed, ulp seed) of the CPU runs the envelope is taken over.
+ENVELOPE_SEEDS = ((0, 0), (0, 1), (0, 2), (1, 0), (2, 0))
 
 
 def nudged(prob: FederatedLogReg, seed: int) -> FederatedLogReg:
@@ -69,7 +98,8 @@ def nudged(prob: FederatedLogReg, seed: int) -> FederatedLogReg:
 @contextlib.contextmanager
 def recording(calls: List[dict]):
     """Every ``compress_split`` of FLECS and the baselines appends {label,
-    spec, key, x, out} (CPU copies) to ``calls`` while this is open."""
+    spec, key, x, out (CPU copies), device} to ``calls`` while this is
+    open."""
     label = [None]
     resolve, mods = api._resolve, (flecs, baselines)
     originals = [m.compress_split for m in mods]
@@ -81,7 +111,8 @@ def recording(calls: List[dict]):
     def record(spec, key, x):
         out = compressors.compress_split(spec, key, x)
         calls.append(dict(label=label[0], spec=spec, key=key.cpu(),
-                          x=x.detach().cpu(), out=out.detach().cpu()))
+                          x=x.detach().cpu(), out=out.detach().cpu(),
+                          device=x.device.type))
         return out
 
     api._resolve = resolve_and_name
@@ -96,10 +127,51 @@ def recording(calls: List[dict]):
 
 
 def run_recorded(plan) -> tuple:
+    """(the plan's result, its recorded compressor calls)."""
     calls: List[dict] = []
     with recording(calls):
         res = api.run_plan(plan)
     return res, calls
+
+
+def record_run(run: Callable) -> tuple:
+    """(final state, traces, recorded compressor calls) of ``run()``, a
+    zero-argument run of one (unbatched) step -> (final state, traces)."""
+    calls: List[dict] = []
+    with recording(calls):
+        state, tr = run()
+    return state, tr, calls
+
+
+def replay(call: dict) -> torch.Tensor:
+    """The plain compressor's message, on the CPU, for a recorded call's
+    spec, key and input."""
+    return compressors.compress_split(
+        compressors.spec_to(call["spec"], "cpu"), call["key"], call["x"])
+
+
+def _points(call: dict) -> int:
+    return call["x"].shape[0] if compressors.is_grid(call["spec"]) else 1
+
+
+def _replay_gaps(calls: List[dict]) -> List[np.ndarray]:
+    """Per recorded call, [G, 2]: the elements of each point's message
+    whose bits differ from its replay (NaN matching NaN), and the largest
+    distance among them in ulps.  A message recorded on the CPU is the
+    plain compressor's by construction and is not replayed."""
+    out = []
+    for c in calls:
+        G = _points(c)
+        if c["device"] == "cpu":
+            out.append(np.zeros((G, 2), np.int64))
+            continue
+        got, want = c["out"].reshape(G, -1), replay(c).reshape(G, -1)
+        ulps = (got.view(torch.int32).long()
+                - want.view(torch.int32).long()).abs()
+        ulps = torch.where(torch.isnan(got) & torch.isnan(want), 0, ulps)
+        out.append(np.stack([(ulps > 0).sum(dim=1).numpy(),
+                             ulps.amax(dim=1).numpy()], axis=1))
+    return out
 
 
 def _dither_parts(x: torch.Tensor, u: torch.Tensor, s: float):
@@ -114,101 +186,351 @@ def _dither_parts(x: torch.Tensor, u: torch.Tensor, s: float):
     return lo + (u < p).to(torch.float32), y, p
 
 
-def first_difference(ca: dict, cb: dict, g: int) -> dict:
+def _sent_levels(x: torch.Tensor, out: torch.Tensor, s: float):
+    """The dither levels a message out [n, L] of rows x carries:
+    |out| / ‖x‖∞ · s, rounded to the nearest level."""
+    norm = x.abs().amax(dim=1, keepdim=True)
+    norm = torch.where(norm == 0, 1.0, norm)
+    return torch.round(out.abs() / norm * s)
+
+
+def _natural_parts(x: torch.Tensor):
+    """(lo, p) of each element of x: the power of two at or below |x| and
+    the probability of rounding up to 2·lo (the plain
+    ``compressors._natural_rows``'s expressions)."""
+    ax = x.abs()
+    lo = torch.where(ax > 0, torch.pow(2.0, torch.floor(torch.log2(
+        torch.clamp(ax, min=1e-38)))), 0.0)
+    return lo, torch.where(lo > 0, (ax - lo) / lo, 0.0)
+
+
+def _minmax_p(x: torch.Tensor, frac: float) -> torch.Tensor:
+    """min-max's keep probabilities of rows x [n, L] (the plain
+    ``compressors._minmax_rows``'s p)."""
+    L = np.float32(x.shape[1])
+    k = float(np.clip(np.ceil(np.float32(frac) * L), 1.0, L))
+    ax = x.abs()
+    return torch.clamp(k * ax / torch.clamp(compressors._l1(ax), min=1e-30),
+                       0.0, 1.0)
+
+
+def _between(u: float, a: float, b: float) -> bool:
+    return min(a, b) <= u <= max(a, b)
+
+
+def first_difference(ca: dict, cb: dict, g: int,
+                     faithful: bool = True) -> dict:
     """Grid point g's first differing element between two records of one
-    call, or None where the two messages are equal."""
+    call, or None where the two messages are equal.  ``faithful``: both
+    messages are their replays (an unexplained difference otherwise)."""
     spec = ca["spec"]
-    fam = spec.family[g] if compressors.is_grid(spec) else spec.family
-    xa, xb = ca["x"][g], cb["x"][g]
+    grid = compressors.is_grid(spec)
+    fam = int(spec.family[g]) if grid else spec.family
+    pick = (lambda t: t[g]) if grid else (lambda t: t)
+    xa, xb, oa, ob = (pick(c[k]) for k in ("x", "out") for c in (ca, cb))
     n = xa.shape[0]
-    xa, xb = xa.reshape(n, -1), xb.reshape(n, -1)
-    oa, ob = ca["out"][g].reshape(n, -1), cb["out"][g].reshape(n, -1)
+    xa, xb, oa, ob = (t.reshape(n, -1) for t in (xa, xb, oa, ob))
+    u = random.uniform(random.split(pick(ca["key"]), n), (xa.shape[1],))
     scale = xa.abs().amax(dim=1).clamp_min(1e-30)
     abs_gap = (xa - xb).abs().amax(dim=1)
-    rep = dict(family=int(fam),
+    rep = dict(family=fam, faithful=bool(faithful), decision=True,
                input_rel_gap=float((abs_gap / scale).max()))
+
+    def first(mask):
+        idx = mask.nonzero()
+        if not idx.shape[0]:
+            return None
+        i, j = (int(v) for v in idx[0])
+        rep.update(row=i, element=j, elements_differing=int(idx.shape[0]),
+                   x_a=float(xa[i, j]), x_b=float(xb[i, j]),
+                   out_a=float(oa[i, j]), out_b=float(ob[i, j]))
+        return i, j
+
     if fam == FAMILY_DITHER:
-        s = float(spec.s_host[g]) if compressors.is_grid(spec) else spec.s
-        keys = ca["key"][g] if ca["key"].dim() == 2 else ca["key"]
-        u = random.uniform(random.split(keys, n), (xa.shape[1],))
+        s = float(spec.s_host[g]) if grid else spec.s
         la, ya, pa = _dither_parts(xa, u, s)
         lb, yb, pb = _dither_parts(xb, u, s)
-        diff = (la != lb).nonzero()
-        if not diff.shape[0]:
+        # the levels the recorded messages carry (|out| = level·‖x‖∞/s);
+        # where a message is its replay they are la, lb
+        ra, rb = (_sent_levels(x, o, s) for x, o in ((xa, oa), (xb, ob)))
+        hit = first((ra != rb) | (la != lb))
+        if hit is None:
             return None
-        i, j = (int(v) for v in diff[0])
-        y_lo, y_hi = sorted((float(ya[i, j]), float(yb[i, j])))
-        p_lo, p_hi = sorted((float(pa[i, j]), float(pb[i, j])))
-        uij = float(u[i, j])
-        same_floor = np.floor(y_lo) == np.floor(y_hi)
+        y = sorted((float(ya[hit]), float(yb[hit])))
+        uij = float(u[hit])
         # the level is floor(y) + (u < p): it moves only where u lies
         # between the two p, or where y crosses an integer
-        rep.update(row=i, element=j, levels_differing=int(diff.shape[0]),
-                   level_a=float(la[i, j]), level_b=float(lb[i, j]),
-                   y_a=float(ya[i, j]), y_b=float(yb[i, j]),
-                   p_a=float(pa[i, j]), p_b=float(pb[i, j]), u=uij,
-                   explained=bool(p_lo <= uij <= p_hi if same_floor
-                                  else np.floor(y_hi) > y_lo))
+        rep.update(levels_differing=rep["elements_differing"],
+                   level_a=float(ra[hit]), level_b=float(rb[hit]),
+                   y_a=float(ya[hit]), y_b=float(yb[hit]),
+                   p_a=float(pa[hit]), p_b=float(pb[hit]), u=uij,
+                   explained=faithful and (
+                       _between(uij, float(pa[hit]), float(pb[hit]))
+                       if np.floor(y[0]) == np.floor(y[1])
+                       else np.floor(y[1]) > y[0]))
+    elif fam == FAMILY_NATURAL:
+        hit = first(oa != ob)
+        if hit is None:
+            return None
+        (lo_a, p_a), (lo_b, p_b) = (
+            (float(v[hit]) for v in _natural_parts(x)) for x in (xa, xb))
+        uij, mags = float(u[hit]), sorted((abs(rep["x_a"]),
+                                           abs(rep["x_b"])))
+        # sent as lo or 2·lo: the messages part only where u lies between
+        # the two p, or where |x| crosses a power of two
+        rep.update(lo_a=lo_a, lo_b=lo_b, p_a=p_a, p_b=p_b, u=uij,
+                   explained=faithful and (
+                       _between(uij, p_a, p_b) if lo_a == lo_b
+                       else mags[0] < max(lo_a, lo_b) <= mags[1]))
+    elif fam == FAMILY_MINMAX:
+        ka, kb = oa != 0, ob != 0
+        hit = first(ka != kb)
+        if hit is None:
+            return None
+        frac = float(spec.frac_host[g]) if grid else spec.frac
+        pa, pb = (float(_minmax_p(x, frac)[hit]) for x in (xa, xb))
+        uij = float(u[hit])
+        # kept where u < p: the decisions part only where u lies between
+        # the two sides' p
+        rep.update(kept_a=bool(ka[hit]), kept_b=bool(kb[hit]), p_a=pa,
+                   p_b=pb, u=uij,
+                   selections_differing=rep["elements_differing"],
+                   explained=faithful and _between(uij, pa, pb))
     elif fam == FAMILY_TOPK:
         ka, kb = oa != 0, ob != 0
-        diff = (ka != kb).nonzero()
-        if not diff.shape[0]:
+        hit = first(ka != kb)
+        if hit is None:
             return None
-        i, j = (int(v) for v in diff[0])
-        mag, thr = float(xa[i, j].abs()), float(oa[i][ka[i]].abs().min())
+        i = hit[0]
+        mag, thr = float(xa[hit].abs()), float(oa[i][ka[i]].abs().min())
         # kept on one side only: the element and the kept threshold lie
         # within the two sides' largest difference in that row
-        rep.update(row=i, element=j, kept_a=bool(ka[i, j]),
-                   kept_b=bool(kb[i, j]), magnitude_a=mag,
-                   magnitude_b=float(xb[i, j].abs()), threshold_a=thr,
+        rep.update(kept_a=bool(ka[hit]), kept_b=bool(kb[hit]),
+                   selections_differing=rep["elements_differing"],
+                   magnitude_a=mag, magnitude_b=float(xb[hit].abs()),
+                   threshold_a=thr,
                    threshold_b=float(ob[i][kb[i]].abs().min()),
-                   selections_differing=int(diff.shape[0]),
-                   explained=bool(abs(mag - thr) <= 2 * float(abs_gap[i])))
-    else:                               # identity decides nothing
-        return None
+                   explained=faithful and abs(mag - thr)
+                   <= 2 * float(abs_gap[i]))
+    else:
+        # identity and the count sketch (a float64 table, a median and a
+        # top-k of the median): no uniform decides; the heavy hitters kept
+        # are a decision, the values move with their input, and either is
+        # explained where both messages are their replays
+        chosen = (oa != 0) != (ob != 0)
+        hit = first(chosen if bool(chosen.any())
+                    else oa.view(torch.int32) != ob.view(torch.int32))
+        if hit is None:
+            return None
+        out_scale = oa.abs().amax(dim=1).clamp_min(1e-30)
+        rep.update(output_rel_gap=float(((oa - ob).abs().amax(dim=1)
+                                         / out_scale).max()),
+                   selections_differing=int(chosen.sum()),
+                   decision=bool(chosen.any()), explained=bool(faithful))
     return rep
 
 
-def compare(plan_a, plan_b) -> Dict[str, list]:
-    """Run both plans with every compressor call recorded; one report per
-    run label and grid point (see the module's docstring)."""
-    res_a, calls_a = run_recorded(plan_a)
-    res_b, calls_b = run_recorded(plan_b)
+def _decides(spec, g: int) -> bool:
+    """Whether point g's compressor can make a decision that differs: all
+    but identity."""
+    fam = spec.family[g] if compressors.is_grid(spec) else spec.family
+    return int(fam) != compressors.FAMILY_IDENTITY
+
+
+def _unfaithful(gaps: List[np.ndarray], g: int, calls: int,
+                per_round: int) -> tuple:
+    """(messages of point g among the first ``calls`` that are not their
+    replays, the first one's {round, message, elements, max_ulps})."""
+    bad = [c for c in range(calls) if gaps[c][g, 0]]
+    if not bad:
+        return 0, None
+    c = bad[0]
+    return len(bad), dict(round=c // per_round, message=c % per_round,
+                          elements=int(gaps[c][g, 0]),
+                          max_ulps=int(gaps[c][g, 1]))
+
+
+def _reports(Fa: torch.Tensor, Fb: torch.Tensor, pairs: list,
+             lived: list) -> list:
+    """One report a grid point: F [G, T] of both sides, their recorded
+    call pairs in order, the rounds each point lived."""
+    rel = ((Fa - Fb).abs() / Fa.abs()).numpy()
+    per_round = len(pairs) // Fa.shape[1]
+    gaps = [_replay_gaps([p[side] for p in pairs]) for side in (0, 1)]
+    reports = []
+    for g in range(Fa.shape[0]):
+        parted = np.nonzero(rel[g] > PARTED)[0]
+        calls = min(len(pairs), int(lived[g]) * per_round)
+        rep = dict(point=g, rounds_lived=int(lived[g]),
+                   F_a=float(Fa[g, -1]), F_b=float(Fb[g, -1]),
+                   final_rel_gap=float(rel[g, -1]),
+                   max_rel_gap=float(rel[g].max()),
+                   first_parted_round=(int(parted[0]) if parted.size
+                                       else None))
+        for side, gp in zip("ab", gaps):
+            rep[f"unfaithful_{side}"], rep[f"first_unfaithful_{side}"] = \
+                _unfaithful(gp, g, calls, per_round)
+        # the first differing decision; failing one, the first message
+        # whose values differ (identity, the count sketch)
+        first_values = None
+        for c in range(calls):
+            ca, cb = pairs[c]
+            if first_values is not None and not _decides(ca["spec"], g):
+                continue
+            t = c // per_round
+            diff = first_difference(ca, cb, g, faithful=not (
+                gaps[0][c][g, 0] or gaps[1][c][g, 0]))
+            if diff is None:
+                continue
+            diff.update(round=t, message=c % per_round,
+                        rel_gap_before=float(rel[g, :t].max())
+                        if t else 0.0)
+            if diff["decision"]:
+                rep["first_difference"] = diff
+                break
+            if first_values is None:
+                first_values = diff
+        if "first_difference" not in rep and first_values is not None:
+            rep["first_difference"] = first_values
+        reports.append(rep)
+    return reports
+
+
+def _check_calls(calls_a, calls_b) -> None:
     if len(calls_a) != len(calls_b):
         raise RuntimeError(f"the two runs made {len(calls_a)} and "
                            f"{len(calls_b)} compressor calls")
+
+
+def compare_recorded(rec_a: tuple, rec_b: tuple) -> Dict[str, list]:
+    """Two :func:`run_recorded` results of one plan: one report per run
+    label and grid point (see the module's docstring)."""
+    (res_a, calls_a), (res_b, calls_b) = rec_a, rec_b
+    _check_calls(calls_a, calls_b)
     out = {}
     for lab in res_a.labels:
-        Fa = res_a.traces[lab]["F"].cpu().double()
-        Fb = res_b.traces[lab]["F"].cpu().double()
-        rel = ((Fa - Fb).abs() / Fa.abs()).numpy()
         mine = [(ca, cb) for ca, cb in zip(calls_a, calls_b)
                 if ca["label"] == lab]
-        T = Fa.shape[1]
-        per_round = len(mine) // T
-        lived = res_a.states[lab].k.cpu().reshape(-1).tolist()
-        reports = []
-        for g in range(Fa.shape[0]):
-            parted = np.nonzero(rel[g] > PARTED)[0]
-            rep = dict(point=g, rounds_lived=int(lived[g]),
-                       F_a=float(Fa[g, -1]), F_b=float(Fb[g, -1]),
-                       final_rel_gap=float(rel[g, -1]),
-                       first_parted_round=(int(parted[0]) if parted.size
-                                           else None))
-            for c, (ca, cb) in enumerate(mine):
-                t = c // per_round
-                if t >= lived[g]:
-                    break
-                diff = first_difference(ca, cb, g)
-                if diff is not None:
-                    diff.update(round=t, message=c % per_round,
-                                rel_gap_before=float(rel[g, :t].max())
-                                if t else 0.0)
-                    rep["first_difference"] = diff
-                    break
-            reports.append(rep)
-        out[lab] = reports
+        out[lab] = _reports(res_a.traces[lab]["F"].cpu().double(),
+                            res_b.traces[lab]["F"].cpu().double(), mine,
+                            res_a.states[lab].k.cpu().reshape(-1).tolist())
     return out
+
+
+def compare(plan_a, plan_b) -> Dict[str, list]:
+    """Run both plans with every compressor call recorded and compare
+    them (:func:`compare_recorded`)."""
+    return compare_recorded(run_recorded(plan_a), run_recorded(plan_b))
+
+
+def compare_recorded_runs(rec_a: tuple, rec_b: tuple) -> dict:
+    """Two :func:`record_run` results of one (unbatched) step: the report
+    of :func:`compare` for their one point."""
+    (st_a, tr_a, calls_a), (_, tr_b, calls_b) = rec_a, rec_b
+    _check_calls(calls_a, calls_b)
+    return _reports(tr_a["F"].cpu().double().reshape(1, -1),
+                    tr_b["F"].cpu().double().reshape(1, -1),
+                    list(zip(calls_a, calls_b)), [int(st_a.k)])[0]
+
+
+def compare_runs(run_a: Callable, run_b: Callable) -> dict:
+    """Two zero-argument runs of one (unbatched) step, ``run()`` ->
+    (final state, traces with F [T]), every compressor call recorded."""
+    return compare_recorded_runs(record_run(run_a), record_run(run_b))
+
+
+def verdict(rep: dict, envelope: float = 0.0) -> List[str]:
+    """The faults in one point's report (none: an empty list): a message
+    of either side that is not its replay; a first difference that is not
+    explained, or that comes after F had parted by more than ``PARTED``;
+    F beyond max(``STRICT``, ``ENVELOPE_FACTOR`` · envelope) of the other
+    side at any round."""
+    faults = []
+    for side in "ab":
+        if rep[f"unfaithful_{side}"]:
+            faults.append(f"{rep[f'unfaithful_{side}']} message(s) of side "
+                          f"{side} are not the plain compressor's on their "
+                          f"inputs, first {rep[f'first_unfaithful_{side}']}")
+    diff = rep.get("first_difference")
+    if diff is not None and not diff["explained"]:
+        faults.append(f"first differing message not explained: {diff}")
+    if diff is not None and diff["rel_gap_before"] > PARTED:
+        faults.append(f"F had parted by {diff['rel_gap_before']!r} before "
+                      "the first differing message")
+    limit = max(STRICT, ENVELOPE_FACTOR * envelope)
+    if rep["max_rel_gap"] > limit:
+        faults.append(f"F parted by {rep['max_rel_gap']!r} (final "
+                      f"{rep['final_rel_gap']!r}), beyond {limit!r} "
+                      f"(max of {STRICT} and {ENVELOPE_FACTOR} x the CPU's "
+                      f"ulp envelope {envelope!r})")
+    return faults
+
+
+def stochastic_setup(side: str, seed: int = 0, ulp_seed: int = 0):
+    """``quickstart.setup(**quickstart.STOCHASTIC)`` (minibatch oracles of
+    32 rows, exact-k p = 0.5, alpha 0.2) at quickstart size on ``side``
+    (cuda, cpu, or cpu-ulp: the CPU with A nudged by one ulp from
+    ``ulp_seed``, in place, so the oracles see it): (problem, step, state,
+    key)."""
+    dev = "cpu" if side == "cpu-ulp" else side
+    prob, step, state, key = quickstart.setup(device=dev, seed=seed,
+                                              **quickstart.STOCHASTIC)
+    if side == "cpu-ulp":
+        prob.A.copy_(nudged(prob, ulp_seed).A)
+    return prob, step, state, key
+
+
+def rounds(pieces: tuple, iters: int) -> Callable:
+    """A zero-argument run of ``iters`` rounds of (problem, step, state,
+    key), recording F each round."""
+    prob, step, state, key = pieces
+    return lambda: run_experiment(step, state, key, iters,
+                                  record=lambda st: prob.metrics(st.w))
+
+
+def stochastic_run(side: str, iters: int = 50, seed: int = 0,
+                   ulp_seed: int = 0) -> Callable:
+    """A zero-argument run of stochastic FLECS-CGD at quickstart size on
+    ``side`` (:func:`stochastic_setup`), recording F each round."""
+    return rounds(stochastic_setup(side, seed, ulp_seed), iters)
+
+
+def stochastic_envelope(iters: int = 50, seeds=ENVELOPE_SEEDS,
+                        base: tuple = None) -> tuple:
+    """The CPU's ulp envelope of the stochastic run: (the largest
+    ``max_rel_gap`` between a CPU run and the CPU run with A nudged by one
+    ulp, over (problem seed, ulp seed) ``seeds``, every gap).  ``base``:
+    the :func:`record_run` of problem seed 0's CPU run, if made already."""
+    bases = {} if base is None else {0: base}
+    gaps = []
+    for ps, us in seeds:
+        if ps not in bases:
+            bases[ps] = record_run(stochastic_run("cpu", iters, ps))
+        gaps.append(compare_recorded_runs(bases[ps], record_run(
+            stochastic_run("cpu-ulp", iters, ps, us)))["max_rel_gap"])
+    return max(gaps), gaps
+
+
+def plan_envelope(make_plan: Callable, problem: dict, seeds=ENVELOPE_SEEDS,
+                  base: tuple = None) -> Dict[str, list]:
+    """The CPU's ulp envelope of a plan, a list per run label (one float a
+    grid point): the largest ``max_rel_gap`` between the plan on the CPU
+    and on the CPU with A nudged by one ulp, over (problem seed, ulp seed)
+    ``seeds``.  ``problem``: ``make_problem``'s keywords but the seed and
+    the device; ``base``: the :func:`run_recorded` of problem seed 0's CPU
+    run, if made already."""
+    bases = {} if base is None else {0: base}
+    env: Dict[str, list] = {}
+    for ps, us in seeds:
+        prob = make_problem(**problem, seed=ps, device="cpu")
+        if ps not in bases:
+            bases[ps] = run_recorded(make_plan(prob))
+        out = compare_recorded(bases[ps], run_recorded(make_plan(
+            nudged(prob, us))))
+        for lab, reports in out.items():
+            gaps = [r["max_rel_gap"] for r in reports]
+            env[lab] = [max(a, b) for a, b in zip(env.get(lab, gaps), gaps)]
+    return env
 
 
 def _side(name: str, args):
@@ -224,21 +546,31 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--a", default="cuda", help="cuda, cpu or cpu-ulp")
     ap.add_argument("--b", default="cpu", help="cuda, cpu or cpu-ulp")
-    ap.add_argument("--plan", default="budget_fair", choices=sorted(PLANS))
+    ap.add_argument("--plan", default="budget_fair",
+                    choices=sorted(PLANS) + ["stochastic"],
+                    help="a plan of experiments, or 'stochastic': FLECS-CGD "
+                         "with minibatch oracles at quickstart size")
     ap.add_argument("--d", type=int, default=24)
     ap.add_argument("--workers", type=int, default=4)
     ap.add_argument("--r", type=int, default=24)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ulp-seed", type=int, default=0)
     args = ap.parse_args(argv)
-    make = PLANS[args.plan]
-    out = compare(make(_side(args.a, args)), make(_side(args.b, args)))
+    if args.plan == "stochastic":
+        out = {"stochastic": [compare_runs(
+            stochastic_run(args.a, seed=args.seed, ulp_seed=args.ulp_seed),
+            stochastic_run(args.b, seed=args.seed, ulp_seed=args.ulp_seed))]}
+    else:
+        make = PLANS[args.plan]
+        out = compare(make(_side(args.a, args)), make(_side(args.b, args)))
     for lab, reports in out.items():
         for r in reports:
             print(f"{lab}[{r['point']}]: final F {r['F_a']!r} / "
                   f"{r['F_b']!r}, relative gap {r['final_rel_gap']:.3g}; "
-                  f"parted at round {r['first_parted_round']}; first "
-                  f"differing message {r.get('first_difference')}")
+                  f"parted at round {r['first_parted_round']}; messages "
+                  f"not their replays {r['unfaithful_a']} / "
+                  f"{r['unfaithful_b']}; first differing message "
+                  f"{r.get('first_difference')}")
     print(json.dumps(out))
     return out
 

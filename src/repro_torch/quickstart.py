@@ -23,17 +23,29 @@ from repro_torch.data.logreg import make_problem
 from repro_torch.device import resolve_device
 
 
+#: The stochastic setting's knobs as the reference tests it: minibatch
+#: oracles of 32 rows a worker, exact-k sampling of half the workers, and
+#: the step size of its Theorem-4 test (tests/test_flecs_convergence.py;
+#: alpha 1 diverges there).
+STOCHASTIC = dict(batch=32, participation=0.5, sampling="choice", alpha=0.2)
+
+
 def setup(d: int = 123, n_workers: int = 20, r: int = 64, m: int = 4,
           grad: str = "dither64", hess: str = "dither64", seed: int = 0,
-          device=None):
+          batch: int = 0, participation: float = 1.0,
+          sampling: str = "bernoulli", sketch: str = "rademacher",
+          alpha: float = 1.0, device=None):
     """The quickstart's pieces: (problem, step, initial state w = 0, key
-    ``key(seed)``), all on ``device``."""
+    ``key(seed)``), all on ``device``.  ``batch`` > 0 takes minibatch
+    oracles of that many rows a worker."""
     dev = resolve_device(device)
     prob = make_problem(d=d, n_workers=n_workers, r=r, mu=1e-3, seed=seed,
                         device=dev)
     cfg = FlecsConfig(m=m, grad_compressor=grad, hess_compressor=hess,
-                      alpha=1.0, beta=1.0, gamma=1.0)
-    step = make_flecs_step(cfg, *prob.make_oracles())
+                      alpha=alpha, beta=1.0, gamma=1.0,
+                      participation=participation, sampling=sampling,
+                      sketch_kind=sketch)
+    step = make_flecs_step(cfg, *prob.make_oracles(batch))
     state = init_state(torch.zeros(prob.d, device=dev), prob.n_workers)
     return prob, step, state, random.key(seed, dev)
 

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
@@ -180,3 +181,79 @@ def rademacher(key: torch.Tensor, shape=(),
                dtype=torch.float32) -> torch.Tensor:
     """``jax.random.rademacher``: ``2 * bernoulli(key, 0.5) - 1``."""
     return (2 * bernoulli(key, 0.5, shape).to(dtype) - 1).to(dtype)
+
+
+def _int32_wrap(v: torch.Tensor) -> torch.Tensor:
+    """int64 values as the int32 they wrap to."""
+    return ((v + 2**31) & _MASK) - 2**31
+
+
+def randint(key: torch.Tensor, shape, minval, maxval) -> torch.Tensor:
+    """``jax.random.randint`` (int32, the reference's default dtype):
+    ``key.shape[:-1] + shape`` int64 values in [minval, maxval).
+
+    As JAX draws it: ``k1, k2 = split(key)``, ``higher = bits(k1)``,
+    ``lower = bits(k2)``, ``span = maxval - minval`` (1 where maxval <=
+    minval), ``mult = (2**16 % span)**2 % span`` and the value
+    ``minval + ((higher % span) * mult + lower % span) % span``, every
+    product and sum wrapping in uint32 (masked here, as the module's int64
+    arithmetic is).  minval and maxval are ints or int tensors that
+    broadcast against the result, clipped to int32 as JAX clips them."""
+    shape = tuple(shape)
+    k1, k2 = split(key, 2).unbind(dim=-2)
+    higher, lower = bits(k1, shape), bits(k2, shape)
+    i32 = dict(min=-2**31, max=2**31 - 1)
+    lo = torch.as_tensor(minval, dtype=torch.int64,
+                         device=key.device).clamp(**i32)
+    hi = torch.as_tensor(maxval, dtype=torch.int64,
+                         device=key.device).clamp(**i32)
+    span = torch.where(hi <= lo, 1, (hi - lo) & _MASK)
+    mult = (65536 % span) * (65536 % span) & _MASK
+    mult = mult % span
+    offset = ((higher % span) * mult) & _MASK
+    offset = ((offset + lower % span) & _MASK) % span
+    return _int32_wrap(lo + offset)
+
+
+def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)``: a permutation of ``arange(n)``
+    per key row, int64 ``key.shape[:-1] + (n,)``.
+
+    JAX's ``_shuffle``: ``ceil(3·ln(max(1, n)) / ln(2**32 - 1))`` rounds
+    (float64), each splitting ``key, subkey = split(key)`` and sorting the
+    array stably by ``bits(subkey, (n,))``.  One round below n = 1,626, two
+    from there, three from n = 2,642,281."""
+    rounds = int(np.ceil(3 * np.log(max(1, n))
+                         / np.log(np.iinfo(np.uint32).max)))
+    x = torch.arange(n, dtype=torch.int64, device=key.device).expand(
+        key.shape[:-1] + (n,))
+    for _ in range(rounds):
+        key, sub = split(key, 2).unbind(dim=-2)
+        order = torch.sort(bits(sub, (n,)), dim=-1, stable=True).indices
+        x = torch.gather(x, -1, order)
+    return x.contiguous()
+
+
+def choice(key: torch.Tensor, n: int, shape=(), replace: bool = True,
+           p=None) -> torch.Tensor:
+    """``jax.random.choice(key, n, shape, replace)`` from ``arange(n)``:
+    ``permutation(key, n)[:m]`` without replacement (m the draws of
+    ``shape``), ``randint(key, shape, 0, n)`` with it.  int64
+    ``key.shape[:-1] + shape``."""
+    if p is not None:
+        raise NotImplementedError(
+            "choice(p=...) is not ported: the JAX package never draws a "
+            "weighted choice")
+    shape = tuple(shape)
+    m = math.prod(shape)
+    if n <= 0 and m:
+        raise ValueError("a must be greater than 0 unless no samples are "
+                         "taken")
+    if replace:
+        return randint(key, shape, 0, n)
+    if m > n:
+        raise ValueError(
+            f"Cannot take a larger sample (size {m}) than population (size "
+            f"{n}) when 'replace=False'")
+    perm = permutation(key, n)[..., :m]
+    return perm.reshape(key.shape[:-1] + shape)

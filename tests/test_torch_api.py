@@ -211,10 +211,15 @@ def test_federated_logreg_cli(capsys):
                            "--iters", "6", "--participation", "1.0,0.5"])
     out = capsys.readouterr().out.splitlines()
     assert len(out) == 11 and out[-1].startswith("(10 trajectories")
-    for flags, label in ((["--sampling", "choice"], "choice sampling"),
-                         (["--staleness", "2"], "async engine")):
-        with pytest.raises(NotImplementedError, match=label):
-            federated_logreg.main(["--device", "cpu", *flags])
+    # exact-k sampling (ported): two of four workers every round
+    federated_logreg.main(["--device", "cpu", "--d", "16", "--workers", "4",
+                           "--iters", "6", "--participation", "0.5",
+                           "--sampling", "choice"])
+    out = capsys.readouterr().out.splitlines()
+    assert len(out) == 6 and all("active/round=  2.0" in line
+                                 for line in out[:5])
+    with pytest.raises(NotImplementedError, match="async engine"):
+        federated_logreg.main(["--device", "cpu", "--staleness", "2"])
 
 
 def test_federated_logreg_budget_rows_match_reference_example(capsys):

@@ -186,8 +186,14 @@ def test_make_spec_errors_match_reference(args, kwargs):
 
 @pytest.mark.parametrize("name", ["natural", "count_sketch64", "minmax0.5"])
 def test_families_not_ported_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tc.make_spec(name)
+    """The three families once raised here; since they are ported the name
+    builds the reference's spec: family, levels, fraction and sketch
+    parameters (tests/test_torch_families.py holds what they compute)."""
+    want = jc.make_spec(name)
+    got = tc.make_spec(name)
+    assert got.family == int(want.family)
+    assert (got.s, got.frac) == (float(want.s), float(want.frac))
+    assert tuple(got.params) == tuple(float(v) for v in want.params)
 
 
 def test_wrappers_dispatch_on_device_only():

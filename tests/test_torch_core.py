@@ -34,8 +34,16 @@ def test_rademacher_sketch_exact(d, m, k):
 
 @pytest.mark.parametrize("kind", ["gaussian", "coordinate"])
 def test_other_sketches_not_ported(kind):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts.sketch(kind, 8, 2, 0, torch.device("cpu"))
+    """The two sketches once raised here; since they are ported they are
+    the reference's: the coordinate sketch exactly, the Gaussian one within
+    ``random.normal``'s tolerance (tests/test_torch_sampling.py covers more
+    sizes and rounds)."""
+    want = np.asarray(jax_sketch(kind, 8, 2, jnp.int32(0)))
+    got = ts.sketch(kind, 8, 2, 0, torch.device("cpu")).numpy()
+    if kind == "coordinate":
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
 
 
 def _curvature(rng, d=16, m=3, n=None):
@@ -129,8 +137,12 @@ def test_participation_guards():
         tdr.participation_mask(key, 4, 0.0)
     with pytest.raises(ValueError, match="degenerate"):
         tdr.participation_mask(key, 4, 0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdr.participation_mask(key, 4, 0.5, "choice")
+    # exact-k sampling takes max(1, round(p·n)) workers, even at p·n < 1
+    assert tdr.participation_mask(key, 4, 0.5, "choice").sum().item() == 2
+    assert tdr.participation_mask(key, 4, 0.1, "choice").sum().item() == 1
+    with pytest.raises(ValueError, match="requires sampling='bernoulli'"):
+        tdr.resolve_participation(key, 4, 1.0, "choice",
+                                  torch.tensor([0.5]))
 
 
 def test_masked_mean_matches_reference(rng):

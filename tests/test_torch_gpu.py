@@ -27,9 +27,19 @@ Tolerances:
 * grouped compressor entries: none — bit-identical to their plain versions
   and to G launches of the scalar entries;
 * plans (budget-fair, small): ledgers, counts and budget rounds equal to
-  the CPU's, final objectives within rtol 1e-4.
+  the CPU's, final objectives within rtol 1e-4;
+* the stochastic setting: key streams, exact-k masks and natural
+  bit-identical to the CPU's; the count sketch's table and min-max's ℓ1
+  norm (float64 sums rounded once) bit-identical or, where the float64 sum
+  lands next to a float32 midpoint, one ulp apart (a double rounding,
+  warned about), min-max's messages bit-identical where the norms agree;
+  a stochastic run's every card message the plain compressor's on its
+  recorded input, and F within rtol 1e-4 of the CPU's at every round or
+  within 3x the CPU's own ulp envelope (``plan_drift.verdict``).
 This file imports no JAX (the card's machine has none).
 """
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -64,6 +74,19 @@ def _same(a, b):
     assert torch.equal(torch.isnan(a), torch.isnan(b))
     keep = ~torch.isnan(b)
     assert torch.equal(a[keep].view(torch.int32), b[keep].view(torch.int32))
+
+
+def _same_sum(a, b):
+    """Bit-identical, or else every differing element one ulp apart: a
+    float64 sum of float32 terms is not always exact, so two orders of it
+    can round to neighbouring float32 values next to a midpoint (a double
+    rounding, reported as a warning, not a port fault)."""
+    a, b = a.cpu(), b.cpu()
+    ulps = (a.view(torch.int32).long() - b.view(torch.int32).long()).abs()
+    assert int(ulps.max()) <= 1, f"{int(ulps.max())} ulps apart"
+    if int(ulps.sum()):
+        warnings.warn(f"{int(ulps.sum())} element(s) one ulp apart: a double "
+                      "rounding of a float64 sum")
 
 
 def _rows(shape, seed, kind="normal"):
@@ -932,3 +955,145 @@ def test_budget_fair_card_drift_is_a_level_flip(cuda):
             assert diff is not None, (lab, r)
             assert diff["rel_gap_before"] <= 1e-6, (lab, r)
             assert diff["explained"], (lab, r)
+
+
+# ---------------------------------------------------------------------------
+# The stochastic setting: key streams, sampling, the three families
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("seed", [0, 12345])
+def test_key_streams_on_the_card_equal_the_cpu(cuda, seed):
+    """randint (maxval 300 and 2**31 - 1), permutation (one and two sort
+    rounds), choice and the exact-k masks: bit for bit the CPU's."""
+    from repro_torch.core import driver
+    cases = (
+        lambda k: random.randint(driver.worker_keys(k.unsqueeze(0), 20),
+                                 (32,), 0, 300),
+        lambda k: random.randint(k, (7, 5000), 0, 2**31 - 1),
+        lambda k: random.permutation(k, 20),
+        lambda k: random.permutation(k, 1626),
+        lambda k: random.permutation(k, 5000),
+        lambda k: random.choice(k, 5000, (4,), replace=False),
+        lambda k: driver.participation_mask(random.split(k, 50), 20, 0.5,
+                                            "choice"))
+    for fn in cases:
+        assert torch.equal(fn(random.key(seed, cuda)).cpu(),
+                           fn(random.key(seed, "cpu")))
+
+
+def _family_rows(seed=0, n=20, L=5000):
+    x = torch.as_tensor(np.random.default_rng(seed).normal(
+        size=(n, L)).astype(np.float32))
+    return x, random.split(random.key(seed + 5, "cpu"), n)
+
+
+def test_natural_on_the_card_equals_the_cpu(cuda):
+    """natural: sign, abs, log2, floor, a power of two and a compare; on
+    normal rows the card's ``log2`` floors as the CPU's does."""
+    from repro_torch.core import compressors as tc
+    x, keys = _family_rows()
+    spec = tc.make_spec("natural")
+    _same(tc.compress(spec, keys.to(cuda), x.to(cuda)),
+          tc.compress(spec, keys, x))
+
+
+def test_count_sketch_on_the_card_within_its_contract(cuda):
+    """The table's scatter-add runs on float64 atomics and is rounded once:
+    the CPU's table and the same over two runs, bit for bit or a double
+    rounding apart (``_same_sum``); decoding one table (gather, sort,
+    median, the heavy hitters through fused_topk_grouped) is
+    bit-identical."""
+    from repro_torch.core import compressors as tc
+    x, keys = _family_rows(1)
+    width = torch.full((20,), 64.0)
+    tabs = [tc.count_sketch_encode(keys.to(cuda), x.to(cuda),
+                                   width.to(cuda)) for _ in range(2)]
+    want = tc.count_sketch_encode(keys, x, width)
+    _same_sum(tabs[0], want)
+    _same_sum(tabs[1], tabs[0])
+    depth = torch.full((20,), 3.0)
+    for hh in (1.0, 0.25):
+        frac = torch.full((1,), hh)
+        ops.reset_launches()
+        got = tc.count_sketch_decode(keys.to(cuda), want.to(cuda),
+                                     width.to(cuda), depth.to(cuda),
+                                     frac.to(cuda))
+        assert ops.launches["fused_topk_grouped"] == 1
+        _same(got, tc.count_sketch_decode(keys, want, width, depth, frac))
+
+
+def test_minmax_on_the_card_equals_the_cpu(cuda):
+    """min-max: the ℓ1 norm is summed in float64 and rounded once, the
+    CPU's bit for bit or a double rounding apart (``_same_sum``); in every
+    row whose norm agrees, the card's p, decisions and x/p are the CPU's
+    bit for bit."""
+    from repro_torch.core import compressors as tc
+    x, keys = _family_rows(2)
+    l1 = tc._l1(x.to(cuda).abs()).cpu()
+    want_l1 = tc._l1(x.abs())
+    _same_sum(l1, want_l1)
+    agree = (l1 == want_l1)[:, 0]
+    spec = tc.make_spec("minmax0.5")
+    _same(tc.compress(spec, keys.to(cuda), x.to(cuda)).cpu()[agree],
+          tc.compress(spec, keys, x)[agree])
+
+
+def test_mixed_family_grid_one_grouped_launch_per_family(cuda):
+    """compress_split over a grid of all six families: one
+    fused_dither_keyed_grouped (dither), one fused_topk_grouped each for
+    top-k and the count sketch's heavy hitters, no scalar entry; the
+    whole grid bit-identical to the CPU."""
+    from repro_torch.core import compressors as tc
+    names = ("dither64", "topk0.25", "count_sketch64", "minmax0.5",
+             "natural", "identity")
+    spec = tc.stack_specs(*names)
+    x = torch.as_tensor(np.random.default_rng(3).normal(
+        size=(6, 20, 492)).astype(np.float32))
+    keys = random.split(random.key(4, "cpu"), 6)
+    ops.reset_launches()
+    got = tc.compress_split(tc.spec_to(spec, cuda), keys.to(cuda),
+                            x.to(cuda)).cpu()
+    bits = tc.spec_bits_many(tc.spec_to(spec, cuda), 492).cpu()
+    assert {k: v for k, v in ops.launches.items() if v} == {
+        "fused_dither_keyed_grouped": 1, "fused_topk_grouped": 2,
+        "dither_bits_grouped": 1, "topk_bits_grouped": 2}
+    _same(got, tc.compress_split(spec, keys, x))
+    _same(bits, tc.spec_bits_many(spec, 492))
+
+
+def test_stochastic_round_launches_the_full_batch_kernels(cuda):
+    """A stochastic FLECS-CGD round (minibatch oracles, exact-k sampling)
+    launches the compressor kernels of the full-batch round: the keyed
+    dither and its ledger twice, nothing else."""
+    from repro_torch import quickstart
+    from repro_torch.core.driver import run_experiment
+    launched = []
+    for kw in ({}, dict(batch=32, participation=0.5, sampling="choice")):
+        _, step, state, key = quickstart.setup(device=cuda, **kw)
+        ops.reset_launches()
+        run_experiment(step, state, key, 3)
+        torch.cuda.synchronize()
+        launched.append(dict(ops.launches))
+    assert launched[0] == launched[1]
+    assert launched[0]["fused_dither_keyed_grouped"] == 6
+    assert launched[0]["dither_bits_grouped"] == 6
+
+
+def test_stochastic_card_drift_is_a_level_flip(cuda):
+    """Stochastic FLECS-CGD at quickstart size (batch 32, exact-k p = 0.5,
+    alpha 0.2, 50 rounds) on the card against the CPU, every compressor
+    call recorded (``plan_drift``): every card message is the plain
+    compressor's on its recorded input and key; the first differing
+    message is a dither level whose uniform lies between the two sides'
+    fractional parts, after rounds that agreed within 1e-6; and F stays
+    within rtol 1e-4 of the CPU's at every round or within 3x the largest
+    gap one ulp of noise in A opens between two CPU runs (five seeds;
+    ``plan_drift.verdict``)."""
+    from repro_torch import plan_drift
+    cpu = plan_drift.record_run(plan_drift.stochastic_run("cpu"))
+    rep = plan_drift.compare_recorded_runs(
+        plan_drift.record_run(plan_drift.stochastic_run("cuda")), cpu)
+    env, _ = plan_drift.stochastic_envelope(base=cpu)
+    assert not plan_drift.verdict(rep, env), rep
+    if "first_difference" in rep:
+        assert rep["first_difference"]["family"] == 1, rep

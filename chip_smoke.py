@@ -83,13 +83,52 @@ back to the CPU):
    round; the first differing message is explained by a rounding
    decision after rounds that agreed within 1e-6; F within rtol 1e-4 of
    the CPU at every round, or else within 3x the largest gap one ulp of
-   noise in A opens between two CPU runs (five seeds).  Whether final F
-   held rtol 1e-4 is logged for each run;
+   noise in A opens between two CPU runs (five seeds; the envelopes' CPU
+   runs in seven spawned worker processes, after the timed quickstart
+   rounds).  Whether final F held rtol 1e-4 is logged for each run;
    at gisette width, 10 rounds
    a cell, stochastic FLECS-CGD with the coordinate and with the Gaussian
    sketch and ``sketch_families_plan`` at m = 2: ms, kernels and busy ms a
    round (10- less 1-round runs; 3- less 1-round profiles), compressor
    launches, peak memory.
+3d. The async engine (FedBuff-style buffered aggregation) and its traffic
+   model, at quickstart size on the card against the port on the CPU,
+   every compressor call and every round's routing recorded
+   (``plan_drift``): ``experiments.async_grid`` (FLECS-CGD m = 2, exact-k
+   p = 0.5, taus {0, 2, 4} × buffer_k {1, 5, 20}, alpha auto-damped, 600
+   rounds, G = 9 in one batched run): ledgers, sends, arrivals, flushes
+   and buffered counts equal every round, and every point held by
+   ``plan_drift.verdict`` (card messages their CPU replays, the first
+   difference an explained decision, F within rtol 1e-4 or else within 3x
+   the CPU's ulp envelope over five seeds);
+   the grid's tau = 0 points with buffer_k <= the cohort equal the
+   synchronous sweep on the card bit for bit, and so does each method's
+   legacy async step at tau = 0, buffer_k = the cohort (FLECS-CGD, DIANA,
+   FedNL topk0.25, GD; state, ledgers and aux); each legacy async step
+   under a fixed, a uniform and a geometric (q 0.5) schedule at tau 2,
+   buffer_k 5, 100 rounds: ledgers and routing equal, a geometric delay
+   that differs must lie within 4 ulps of an integer log(u) / log(q) (and
+   is logged), and ``plan_drift.verdict`` with F held at rtol 1e-4 (F
+   logged only for FedNL, whose eigh parts the sides before a top-k tie
+   flips); the five-method traffic plan of
+   ``benchmarks/traffic_bench.py`` (tau 2, buffer_k 2; fixed, poisson 0.6
+   and diurnal (0.9, 0.5, 0.2, 0.5) arrivals, the default availability
+   chain, admission cutoff 3 / 6 in flight), 100 rounds: the availability
+   states and admitted arrivals of every round and the ledgers bit for
+   bit, and each method under ``plan_drift.verdict`` (F logged only for
+   FedNL, and for a run that diverges on the CPU too); a cutoff of 0 at
+   tau 0 is the synchronous plan on the card bit for bit, at tau 2 it
+   leaves w and every ledger at zero.  At gisette width, 10 rounds a run
+   as phase 4b takes them: async FLECS-CGD over taus {0,
+   2, 4} × buffer_k 5 (G = 3), and each method of the diurnal traffic plan
+   at tau 2 (FedNL's linalg_eigh of 5000 × 5000 apart; FLECS's are m × m):
+   ms, kernels and busy ms a round, peak memory, bits a round, and for
+   DIANA and GD the routing's share (``traffic.route_round``: its host
+   ms, its host read's copy and synchronize, its kernels).  Only the
+   grouped compressor entries launch.  The CPU side of every comparison
+   (and the grid's ulp envelope, a run a job) runs in seven spawned
+   worker processes after the gisette cells are timed, while the card
+   runs its own side.
 4. Gisette width (d=5000, n=20, r=300, m=4): 10 rounds with each Hessian
    compressor on the card, with exact ledgers; the dither run's objective
    against the port on this machine's CPU; round time and peak memory.
@@ -1425,26 +1464,37 @@ def device_split(prof, op: str) -> dict:
     (count, µs), "rest": (count, µs)}.  A device event's launch call (CUDA
     runtime or driver) carries its correlation id in the profile's trace;
     it belongs to ``op`` when that call lies inside one of the op's spans."""
-    import tempfile
-    with tempfile.TemporaryDirectory() as tmp:
-        path = Path(tmp) / "trace.json"
-        prof.export_chrome_trace(str(path))
-        events = json.loads(path.read_text())["traceEvents"]
+    events = trace_events(prof)
     spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
              if e.get("cat") == "cpu_op" and e.get("name") == op]
-    launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
-                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
-                 and "correlation" in e.get("args", {})}
     out = {"op": [0, 0.0], "rest": [0, 0.0]}
-    for e in events:
-        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
-            continue
-        ts = launch_ts.get(e.get("args", {}).get("correlation"))
+    for e, ts in device_launches(events):
         side = "op" if ts is not None and any(
             a <= ts <= b for a, b in spans) else "rest"
         out[side][0] += 1
         out[side][1] += e["dur"]
     return {k: tuple(v) for k, v in out.items()}
+
+
+def trace_events(prof) -> list:
+    """A profile's events, as its chrome trace holds them."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        return json.loads(path.read_text())["traceEvents"]
+
+
+def device_launches(events: list) -> list:
+    """(device event, host time of the runtime or driver call that
+    launched it, None if not found) for every kernel, copy and set of a
+    trace: a device event carries its launch call's correlation id."""
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "correlation" in e.get("args", {})}
+    return [(e, launch_ts.get(e.get("args", {}).get("correlation")))
+            for e in events
+            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
 
 
 def phase_gisette_baselines(api, experiments, make_problem, ops, ref,
@@ -1715,14 +1765,15 @@ def phase_stochastic_quickstart(quickstart, random, driver, ops, counts):
     exact-k p = 0.5, alpha 0.2), 50 rounds on the card against the port on
     the CPU, every compressor call recorded: ledgers exact, 10 workers
     every round, every round's masks and minibatch rows equal, the same
-    compressor launches a round as the full-batch round, and
-    ``held_by_verdict`` against the CPU's ulp envelope; then the round ms
-    of both, timed in this call."""
+    compressor launches a round as the full-batch round; then the round ms
+    of both, timed in this call.  Returns the results, with the drift
+    report that :func:`phase_stochastic` holds to the CPU's ulp envelope,
+    and the CPU run's F."""
     import numpy as np
     import torch
     from repro_torch import plan_drift
     from repro_torch.core.driver import run_experiment
-    iters = 50
+    iters = STOCHASTIC_ITERS
     kw = dict(QUICK, **quickstart.STOCHASTIC)
     card = plan_drift.stochastic_setup("cuda")
     host = plan_drift.stochastic_setup("cpu")
@@ -1764,11 +1815,6 @@ def phase_stochastic_quickstart(quickstart, random, driver, ops, counts):
         f"final bits {gpu['bits_per_node'][-1].tolist()}; F card "
         f"{float(F[-1])!r} cpu {float(cpu['F'][-1])!r}; launches {launched}")
     drift = plan_drift.compare_recorded_runs(rec, crec)
-    env, env_gaps = plan_drift.stochastic_envelope(iters, base=crec)
-    log(f"phase 3c: stochastic quickstart, the CPU against itself with A "
-        f"moved by one ulp, (problem, ulp) seeds "
-        f"{plan_drift.ENVELOPE_SEEDS}: max rel gaps of F {env_gaps}")
-    held_by_verdict("stochastic quickstart", drift, env)
     ms = {}
     for label, setup_kw in (("stochastic", kw), ("full batch", QUICK)):
         _, step, state, k = quickstart.setup(device="cuda", **setup_kw)
@@ -1783,8 +1829,7 @@ def phase_stochastic_quickstart(quickstart, random, driver, ops, counts):
         f"{ms['full batch']!r} ms")
     return dict(F_final=float(F[-1]), rel_final=drift["final_rel_gap"],
                 rel_max=drift["max_rel_gap"], launches=launched,
-                round_ms=ms, drift=drift, ulp_envelope=env,
-                ulp_gaps=env_gaps)
+                round_ms=ms, drift=drift), cpu["F"]
 
 
 #: One grouped launch a family a round: the gradient's dither and top-k
@@ -1800,12 +1845,13 @@ def phase_families_plan(api, experiments, make_problem, ops, counts):
     """Phase 3c (c): ``sketch_families_plan`` at quickstart size on the
     card against the CPU, every compressor call recorded: round_bits and
     omega exact, ledgers exact, one grouped launch a kernel family a
-    round, and every family held by ``held_by_verdict`` against the CPU's
-    ulp envelope of that family."""
+    round.  Returns the results, with each family's drift report that
+    :func:`phase_stochastic` holds to the CPU's ulp envelope, and the CPU
+    run's F."""
     import numpy as np
     import torch
     from repro_torch import plan_drift
-    iters = 200
+    iters = FAMILIES_ITERS
 
     def plan(prob):
         return experiments.sketch_families_plan(prob, iters)
@@ -1838,13 +1884,9 @@ def phase_families_plan(api, experiments, make_problem, ops, counts):
     log(f"phase 3c: sketch_families_plan x{iters} at quickstart size: "
         f"rows {rows}; launches {launched}")
     drift = plan_drift.compare_recorded(rec, crec)["families"]
-    problem = {k: v for k, v in PLAN_PROBLEM.items() if k != "seed"}
-    env = plan_drift.plan_envelope(plan, problem, base=crec)["families"]
-    for rep, e, name in zip(drift, env, experiments.SKETCH_FAMILY_NAMES):
-        held_by_verdict(f"sketch_families {name}", rep, e)
     return dict(rows=rows, rel_final=[r["final_rel_gap"] for r in drift],
                 rel_max=[r["max_rel_gap"] for r in drift], launches=launched,
-                ulp_envelope=env, drift=drift)
+                drift=drift), wtr["F"]
 
 
 def _profile_ms(run) -> tuple:
@@ -1860,12 +1902,13 @@ def _profile_ms(run) -> tuple:
     return sum(c for _, c, _ in rows), sum(t for t, _, _ in rows) / 1e3
 
 
-def _cell(label, run_n, ops, counts) -> dict:
+def _cell(label, run_n, ops, counts, phase="3c") -> dict:
     """One gisette cell: ms a round (10-round less 1-round run, host clock
     around runs that end in a synchronize, after a 1-round warm-up),
     kernels and busy ms a round (3-round less 1-round profiles), the
     10-round run's compressor launches and peak memory."""
     import torch
+    start = time.perf_counter()
     run_n(1)
     torch.cuda.synchronize()
     t = {}
@@ -1886,10 +1929,11 @@ def _cell(label, run_n, ops, counts) -> dict:
              kernels_per_round=(k3 - k1) / 2, busy_ms_per_round=(b3 - b1) / 2,
              launches={k: v for k, v in launched.items() if v},
              peak_gib=peak / 2**30)
-    log(f"phase 3c: gisette {label} x10: {r['round_ms']!r} ms a round, "
+    log(f"phase {phase}: gisette {label} x10: {r['round_ms']!r} ms a round, "
         f"{r['kernels_per_round']:g} device kernels and copies a round, "
         f"device busy {r['busy_ms_per_round']!r} ms a round, peak "
-        f"{r['peak_gib']!r} GiB; launches {r['launches']}")
+        f"{r['peak_gib']!r} GiB; launches {r['launches']} "
+        f"({time.perf_counter() - start:.1f} s)")
     return r
 
 
@@ -1932,6 +1976,554 @@ def phase_gisette_stochastic(quickstart, api, experiments, make_problem, ops,
           "gisette sketch_families: F not finite")
     log(f"phase 3c: gisette sketch_families rows {rows}")
     out["sketch_families"]["rows"] = rows
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Slice 10: the async engine, staleness schedules and traffic
+# ---------------------------------------------------------------------------
+
+ASYNC_SIZE = dict(d=123, n_workers=20, r=64)
+ASYNC_ITERS = 600
+LEGACY_ITERS = 100
+TRAFFIC_ITERS = 100
+CUTOFF_ITERS = 30
+
+
+#: Per-round aux entries an async run's card and CPU runs share exactly
+#: (masks, delays and traffic come from key streams both draw alike).
+ASYNC_EXACT = ("bits_per_node", "n_active", "n_arrived", "flushed",
+               "buffered", "staleness_mean")
+
+
+#: Worker processes of the CPU side of phases 3c and 3d (the card's
+#: machine has 8 cores; one drives the card).
+CPU_WORKERS = 7
+STOCHASTIC_ITERS = 50
+FAMILIES_ITERS = 200
+
+
+def cpu_pool():
+    """The worker processes (spawned) that run :func:`cpu_job`."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    return ProcessPoolExecutor(CPU_WORKERS, mp_context=multiprocessing
+                               .get_context("spawn"))
+
+
+def envelope_jobs(kind: str, iters: int, problem=None) -> list:
+    """The :func:`cpu_job` runs of ``plan_drift.envelope(kind, ...)``
+    but problem seed 0's as made (the recorded CPU run's): each other
+    problem seed's, then every nudged one."""
+    from repro_torch import plan_drift
+    seeds = plan_drift.ENVELOPE_SEEDS
+    keys = ([(ps, None) for ps in sorted({ps for ps, _ in seeds} - {0})]
+            + list(seeds))
+    items = tuple(sorted((problem or {}).items()))
+    return [("envelope", kind, ps, us, iters, items) for ps, us in keys]
+
+
+def envelope_from(cpu: dict, kind: str, iters: int, problem, base) -> tuple:
+    """``plan_drift.envelope`` of ``kind`` from the finished
+    :func:`envelope_jobs` in ``cpu`` and problem seed 0's F ``base``."""
+    from repro_torch import plan_drift
+    runs = {(0, None): base}
+    for job in envelope_jobs(kind, iters, problem):
+        runs[job[2:4]] = cpu_result(cpu, job)
+    return plan_drift.envelope(kind, iters, problem, runs=runs)
+
+
+def cpu_job(job: tuple) -> bytes:
+    """One CPU run of phases 3c and 3d, in a worker process (one thread
+    each): ("grid",) the async grid's recorded run; ("legacy", method,
+    kind) a legacy async step's; ("traffic", profile) a traffic plan's;
+    ("envelope", kind, ps, us, iters, problem items) the F of one run of
+    an ulp envelope (``plan_drift.envelope_F``).  Returns the record (or
+    F) as ``torch.save`` bytes: a record holds thousands of tensors, too
+    many to pass as shared memory handles."""
+    import io
+    import torch
+    torch.set_num_threads(1)
+    buf = io.BytesIO()
+    torch.save(_cpu_run(job), buf)
+    return buf.getvalue()
+
+
+def cpu_result(cpu: dict, job: tuple):
+    """A finished :func:`cpu_job`'s record, loaded in this process."""
+    import io
+    import torch
+    return torch.load(io.BytesIO(cpu[job].result()), weights_only=False)
+
+
+def _cpu_run(job: tuple):
+    from repro_torch import experiments, plan_drift, random
+    from repro_torch.core.driver import run_experiment
+    from repro_torch.data.logreg import make_problem
+    kind = job[0]
+    if kind == "grid":
+        return plan_drift.record_run(plan_drift.async_grid_run(
+            "cpu", ASYNC_ITERS, **ASYNC_SIZE))
+    if kind == "envelope":
+        return plan_drift.envelope_F(*job[1:5], dict(job[5]))
+    prob = make_problem(**ASYNC_SIZE, mu=1e-3, seed=0, device="cpu")
+    if kind == "legacy":
+        (step, st0), _ = experiments.legacy_steps(job[1], prob, job[2], 2,
+                                                  5)
+        return plan_drift.record_run(lambda: run_experiment(
+            step, st0, random.key(0, "cpu"), LEGACY_ITERS,
+            record=lambda st: prob.metrics(st.w)))
+    return plan_drift.run_recorded(experiments.traffic_plan(
+        prob, job[1], TRAFFIC_ITERS, 2))
+
+
+def _exact_aux(label, a, b, keys=ASYNC_EXACT) -> None:
+    import numpy as np
+    for key in keys:
+        check(np.array_equal(a[key].cpu().numpy(), b[key].cpu().numpy()),
+              f"{label}: {key} differs between the card and the CPU")
+
+
+def _bitwise(label, a, b) -> None:
+    """Two runs' states or trace dicts equal bit for bit, leaf by leaf."""
+    import torch
+    from repro_torch.core.driver import map_tree
+    bad = []
+    map_tree(lambda x, y: None if torch.equal(x.cpu(), y.cpu())
+             else bad.append(tuple(x.shape)), a, b)
+    check(not bad, f"{label}: leaves of shapes {bad} differ")
+
+
+#: Why F is logged and not held, for the runs where a cause was shown.
+EIGH_PARTS = ("FedNL's eigh parts the card from the CPU by more than 1e-6 "
+              "before its first top-k tie flips")
+DIVERGES = "the run diverges on the CPU too (F grew past twice its start)"
+
+
+def held_async(label, report, envelope=0.0, relax=None) -> dict:
+    """``plan_drift.verdict`` of one point's card-against-CPU report,
+    against the CPU's ulp ``envelope``.  ``relax``, the cause shown for
+    a run (``EIGH_PARTS``, ``DIVERGES``), logs F without holding it, nor
+    the rule that F agreed within 1e-6 until the first differing message.
+    Fails on every other fault."""
+    from repro_torch import plan_drift
+    faults = plan_drift.verdict(report, envelope)
+    if relax:
+        faults = [f for f in faults
+                  if not f.startswith(("F parted", "F had parted"))]
+    how = f"logged, not held: {relax}" if relax else "held"
+    log(f"phase 3d: {label}, card against CPU: final F "
+        f"{report['F_a']!r} / {report['F_b']!r}, rel gap "
+        f"{report['final_rel_gap']!r}, max {report['max_rel_gap']!r}; ulp "
+        f"envelope {envelope!r}; F {how}; card messages not their "
+        f"replays {report['unfaithful_a']}; first difference "
+        f"{report.get('first_difference')}; faults {faults}")
+    check(not faults, f"{label}: {faults}")
+    return dict(final_rel_gap=report["final_rel_gap"],
+                max_rel_gap=report["max_rel_gap"], envelope=envelope,
+                F_held=not relax, first_difference=report.get(
+                    "first_difference"))
+
+
+def _recorded(ops, counts, run):
+    """``plan_drift.record_run(run)`` on the card with the launch counters
+    set to 0 just before and read just after (added to ``counts``):
+    (record, seconds)."""
+    import torch
+    from repro_torch import plan_drift
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    rec = plan_drift.record_run(run)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    for k, v in ops.launches.items():
+        counts[k] += v
+    return rec, seconds
+
+
+def phase_async_grid(ops, counts, cpu) -> dict:
+    """Phase 3d (a): ``experiments.async_grid`` at quickstart size, 600
+    rounds, card against CPU (``cpu``: the CPU side's futures), and its
+    tau = 0 points against the synchronous sweep on the card."""
+    import torch
+    from repro_torch import experiments, plan_drift, random
+    from repro_torch.core import driver, flecs
+    from repro_torch.data.logreg import make_problem
+    rec, secs = _recorded(ops, counts, plan_drift.async_grid_run(
+        "cuda", ASYNC_ITERS, **ASYNC_SIZE))
+    crec = cpu_result(cpu, ("grid",))
+    (sts, tr, _), (csts, ctr, _) = rec, crec
+    _exact_aux("async_grid", tr, ctr)
+    prob = make_problem(**ASYNC_SIZE, mu=1e-3, seed=0, device="cuda")
+    cfg, _, ahp, _ = experiments.async_grid_setup(prob)
+    rows = experiments.async_grid_rows(ahp, sts, tr)
+    log(f"phase 3d: async_grid x{ASYNC_ITERS} (G = 9) on the card in "
+        f"{secs!r} s ({1e3 * secs / ASYNC_ITERS!r} ms a round, compressor "
+        f"calls and routing recorded, the host shared with the CPU side's "
+        f"workers): rows {rows}; CPU rows "
+        f"{experiments.async_grid_rows(ahp, csts, ctr)}")
+    reports = plan_drift.compare_recorded_grid(rec, crec)
+    # the CPU's ulp envelope of every point, a run a worker
+    env, gaps = envelope_from(cpu, "async", ASYNC_ITERS, ASYNC_SIZE,
+                              ctr["F"])
+    parted = [g for g, r in enumerate(reports)
+              if r["max_rel_gap"] > plan_drift.STRICT]
+    log(f"phase 3d: async_grid points {parted} part past rtol 1e-4; the "
+        f"CPU against itself with A moved by one ulp, (problem, ulp) seeds "
+        f"{plan_drift.ENVELOPE_SEEDS}: envelopes {env}, gaps {gaps}")
+    held = [held_async(f"async_grid point {g} (tau {rows[g]['tau']}, K "
+                       f"{rows[g]['K']})", rep, env[g])
+            for g, rep in enumerate(reports)]
+    # tau = 0 with buffer_k <= the cohort: the synchronous sweep
+    cohort = round(experiments.ASYNC_GRID_P * prob.n_workers)
+    sync = driver.run_sweep(
+        flecs.make_flecs_sweep_step(cfg, *prob.make_oracles()), ahp.hp,
+        flecs.init_state(torch.zeros(prob.d, device="cuda"),
+                         prob.n_workers),
+        random.key(0, "cuda"), ASYNC_ITERS,
+        record=lambda st: prob.metrics(st.w))
+    points = [g for g, r in enumerate(rows)
+              if r["tau"] == 0 and r["K"] <= cohort]
+    for g in points:
+        _bitwise(f"async_grid tau 0 point {g}", {
+            k: getattr(sts, k)[g] for k in ("w", "h", "B", "bits_per_node")},
+            {k: getattr(sync[0], k)[g] for k in ("w", "h", "B",
+                                                 "bits_per_node")})
+        _bitwise(f"async_grid tau 0 point {g} traces",
+                 {k: tr[k][g] for k in sync[1]},
+                 {k: v[g] for k, v in sync[1].items()})
+    log(f"phase 3d: async_grid points {points} (tau 0, buffer_k <= "
+        f"{cohort}) equal the synchronous sweep on the card bit for bit "
+        f"over {ASYNC_ITERS} rounds: state, ledgers, F and every shared "
+        f"trace")
+    return dict(rows=rows, seconds=secs, held=held, tau0_points=points)
+
+
+def phase_async_legacy(ops, counts, cpu) -> dict:
+    """Phase 3d (b): each method's legacy async step at tau = 0, buffer_k
+    the cohort, against its synchronous step on the card (bit for bit);
+    then under each schedule at tau 2, buffer_k 5, card against CPU
+    (``cpu``: the CPU side's futures)."""
+    import numpy as np
+    from repro_torch import experiments, plan_drift, random
+    from repro_torch.core.driver import run_experiment
+    from repro_torch.data.logreg import make_problem
+    gpu = make_problem(**ASYNC_SIZE, mu=1e-3, seed=0, device="cuda")
+    cohort = gpu.n_workers // 2
+    methods = experiments.LEGACY_METHODS
+    for method in methods:
+        (astep, a0), (sstep, s0) = experiments.legacy_steps(
+            method, gpu, "fixed", 0, cohort)
+        rec = lambda st: gpu.metrics(st.w)                 # noqa: E731
+        sa, ta = run_experiment(astep, a0, random.key(1, "cuda"), 50,
+                                record=rec)
+        ss, ts = run_experiment(sstep, s0, random.key(1, "cuda"), 50,
+                                record=rec)
+        _bitwise(f"{method} tau 0 state", {f: getattr(ss, f) for f in
+                                           type(ss)._fields if f not in
+                                           ("k", "t")},
+                 {f: getattr(sa, f) for f in type(ss)._fields
+                  if f not in ("k", "t")})
+        _bitwise(f"{method} tau 0 traces", ts, {k: ta[k] for k in ts})
+    log(f"phase 3d: legacy async steps at tau 0, buffer_k {cohort} (the "
+        f"cohort), 50 rounds: {list(methods)} equal their "
+        f"synchronous steps on the card bit for bit (state, ledgers, aux)")
+    out = {}
+    for method in methods:
+        for kind in ("fixed", "uniform", "geometric"):
+            label = f"{method} {kind} tau 2"
+            (step, st0), _ = experiments.legacy_steps(method, gpu, kind, 2,
+                                                      5)
+            rec, secs = _recorded(ops, counts, lambda: run_experiment(
+                step, st0, random.key(0, "cuda"), LEGACY_ITERS,
+                record=lambda st: gpu.metrics(st.w)))
+            crec = cpu_result(cpu, ("legacy", method, kind))
+            rep = plan_drift.compare_recorded_runs(rec, crec)
+            diff = rep.get("first_difference")
+            routed = diff is not None and diff.get("kind") is not None
+            if routed:
+                log(f"phase 3d: {label}: routing parts at {diff}")
+                check(diff["explained"], f"{label}: unexplained routing "
+                      f"difference {diff}")
+            else:
+                _exact_aux(label, rec[1], crec[1])
+            F = rec[1]["F"].cpu().numpy()
+            check(np.isfinite(F).all(), f"{label}: F not finite")
+            held = held_async(label, rep, relax=EIGH_PARTS
+                              if method == "FedNL" else None)
+            out[label] = dict(held, seconds=secs, F=float(F[-1]),
+                              arrived=float(rec[1]["n_arrived"].sum()),
+                              flushes=float(rec[1]["flushed"].sum()))
+    return out
+
+
+def phase_traffic(ops, counts, cpu) -> dict:
+    """Phase 3d (c): the five-method traffic plan at traffic_bench's
+    settings, 100 rounds a profile, card against CPU (``cpu``: the CPU
+    side's futures; routing, availability and admitted arrivals of every
+    round, ledgers); the cutoff-0 contracts on the card, 30 rounds."""
+    import dataclasses
+    import torch
+    from repro_torch import experiments, plan_drift
+    from repro_torch.core import api
+    from repro_torch.core.traffic import AdmissionPolicy, TrafficModel
+    from repro_torch.data.logreg import make_problem
+    gpu = make_problem(**ASYNC_SIZE, mu=1e-3, seed=0, device="cuda")
+    out = {}
+    for profile in experiments.TRAFFIC_PROFILES:
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        rec = plan_drift.run_recorded(experiments.traffic_plan(
+            gpu, profile, TRAFFIC_ITERS, 2))
+        torch.cuda.synchronize()
+        for k, v in ops.launches.items():
+            counts[k] += v
+        crec = cpu_result(cpu, ("traffic", profile))
+        routes, croutes = rec[1].routes, crec[1].routes
+        check(len(routes) == len(croutes) == 5 * TRAFFIC_ITERS,
+              f"traffic {profile}: {len(routes)} / {len(croutes)} rounds")
+        for a, b in zip(routes, croutes):
+            for key in ("avail", "send", "delays", "drained", "arrived"):
+                if a[key] is not None:
+                    check(torch.equal(a[key], b[key]),
+                          f"traffic {profile} {a['label']} round "
+                          f"{a['round']}: {key} differs from the CPU's")
+        reports = plan_drift.compare_recorded(rec, crec)
+        rows = experiments.traffic_rows(profile, rec[0])
+        out[profile] = dict(rows=rows, seconds=rec[0].seconds, held={})
+        for lab in rec[0].labels:
+            _exact_aux(f"traffic {profile} {lab}", rec[0].traces[lab],
+                       crec[0].traces[lab])
+            Fc = crec[0].traces[lab]["F"][0]
+            relax = (EIGH_PARTS if lab == "fednl" else DIVERGES
+                     if float(Fc.max()) > 2 * float(Fc[0]) else None)
+            out[profile]["held"][lab] = held_async(
+                f"traffic {profile} {lab}", reports[lab][0], relax=relax)
+        log(f"phase 3d: traffic plan {profile} x{TRAFFIC_ITERS} on the "
+            f"card in {rec[0].seconds!r} s: routing, availability states "
+            f"and admitted arrivals of every round and the ledgers equal the "
+            f"CPU's; rows {rows}")
+    zero = TrafficModel(admission=AdmissionPolicy(staleness_cutoff=0.0))
+    n = gpu.n_workers
+    sync = api.run_plan(dataclasses.replace(
+        experiments.traffic_plan(gpu, "fixed", CUTOFF_ITERS, 0),
+        staleness=None))
+    at0 = api.run_plan(dataclasses.replace(
+        experiments.traffic_plan(gpu, "fixed", CUTOFF_ITERS, 0, zero),
+        buffer_k=float(n)))
+    for lab in sync.labels:
+        _bitwise(f"cutoff 0 at tau 0, {lab}", sync.traces[lab],
+                 {k: at0.traces[lab][k] for k in sync.traces[lab]})
+        check(torch.equal(sync.states[lab].w, at0.states[lab].w),
+              f"cutoff 0 at tau 0, {lab}: w differs from the sync run's")
+    at2 = api.run_plan(experiments.traffic_plan(gpu, "fixed", CUTOFF_ITERS,
+                                                2, zero))
+    for lab in at2.labels:
+        trc = at2.traces[lab]
+        check(float(trc["n_active"].sum()) > 0
+              and not trc["bits_per_node"].any()
+              and not trc["n_arrived"].any()
+              and not at2.states[lab].w.any(),
+              f"cutoff 0 at tau 2, {lab}: something was billed or moved")
+    log(f"phase 3d: cutoff 0: at tau 0 (buffer_k {n}) the five methods are "
+        f"their synchronous plan on the card bit for bit; at tau 2 they "
+        f"send but w and every ledger stay at zero")
+    return out
+
+
+def route_split(prof) -> dict:
+    """Inside a profile's ``route_round`` spans (``record_function``):
+    their host µs, the µs of that in copy and synchronize calls (the host
+    read of the per-point flags, which waits for the card to drain its
+    queue), and the device events launched from inside them (count, µs)."""
+    events = trace_events(prof)
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation"
+             and e.get("name") == "route_round"]
+
+    def inside(ts):
+        return ts is not None and any(a <= ts <= b for a, b in spans)
+
+    read = [e for e in events
+            if e.get("cat") in ("cuda_runtime", "cuda_driver")
+            and ("Memcpy" in e.get("name", "")
+                 or "Synchronize" in e.get("name", "")) and inside(e["ts"])]
+    mine = [e for e, ts in device_launches(events) if inside(ts)]
+    return dict(host_us=sum(b - a for a, b in spans),
+                read_us=sum(e["dur"] for e in read),
+                kernels=len(mine), busy_us=sum(e["dur"] for e in mine))
+
+
+def route_cost(run_n) -> dict:
+    """The routing half of a gisette async round of DIANA or GD
+    (``traffic.route_round``, whose host read of the per-point flags is
+    the round's one wait on the card): host ms a round inside it (host
+    clock around each call, 10-round less 1-round runs, over 9); and from
+    3-round less 1-round profiles with each call traced: its host ms a
+    round, the ms of that in the read's copy and synchronize calls, and
+    the kernels it launches a round with their device busy ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.optim import baselines
+    inner, spent = baselines.route_round, [0.0]
+
+    def timed(*args):
+        t0 = time.perf_counter()
+        try:
+            return inner(*args)
+        finally:
+            spent[0] += time.perf_counter() - t0
+
+    def traced(*args):
+        with record_function("route_round"):
+            return inner(*args)
+
+    host, split = {}, {}
+    try:
+        baselines.route_round = timed
+        for n in (1, 10):
+            spent[0] = 0.0
+            run_n(n)
+            torch.cuda.synchronize()
+            host[n] = spent[0]
+        baselines.route_round = traced
+        for n in (1, 3):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                run_n(n)
+                torch.cuda.synchronize()
+            split[n] = route_split(prof)
+    finally:
+        baselines.route_round = inner
+
+    def per_round(key):
+        return (split[3][key] - split[1][key]) / 2
+
+    return dict(host_ms=1e3 * (host[10] - host[1]) / 9,
+                traced_host_ms=per_round("host_us") / 1e3,
+                read_ms=per_round("read_us") / 1e3,
+                kernels=per_round("kernels"),
+                kernel_busy_ms=per_round("busy_us") / 1e3)
+
+
+def phase_async_gisette(ops, counts) -> dict:
+    """Phase 3d (d): gisette width, 10 rounds a run: async FLECS-CGD over
+    taus {0, 2, 4} × buffer_k 5 (G = 3), and each method of the diurnal
+    traffic plan at tau 2 (FedNL's linalg_eigh apart)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import experiments, random
+    from repro_torch.core import api
+    from repro_torch.core.driver import run_async_sweep
+    from repro_torch.core.flecs import hparams_round_bits
+    from repro_torch.data.logreg import make_problem
+    prob = make_problem(**GISETTE_PROBLEM, device="cuda")
+    out = {}
+    cfg, sweep, ahp, st0 = experiments.async_grid_setup(prob, ks=(5.0,))
+    timed = {}
+
+    def grid(n):
+        res = run_async_sweep(sweep, ahp, st0, random.key(0, "cuda"), n)
+        if n == 10:
+            timed[n] = res
+        return res
+
+    r = _cell("async FLECS-CGD taus {0, 2, 4} x K 5 (G = 3)", grid, ops,
+              counts, phase="3d")
+    sts, _ = timed.pop(10)            # the timed 10-round run's result
+    r["bits_per_round"] = hparams_round_bits(cfg, ahp.hp, prob.d).tolist()
+    r["mean_bits_per_node_round"] = (sts.bits_per_node.mean(dim=1) / 10
+                                     ).tolist()
+    r["w_finite"] = bool(torch.isfinite(sts.w).all())
+    check(r["w_finite"], "gisette async grid: w not finite")
+    out["async_grid"] = r
+    del sts
+    torch.cuda.empty_cache()
+    plan = experiments.traffic_plan(prob, "diurnal", 10, 2)
+    for run in plan.runs:
+        label = run.label or run.method
+        timed = {}
+
+        def run_n(n, run=run, timed=timed):
+            res = api.run_plan(dataclasses.replace(plan, iters=n,
+                                                   runs=(run,)))
+            if n == 10:
+                timed[n] = res
+            return res
+
+        r = _cell(f"diurnal traffic {label} tau 2", run_n, ops, counts,
+                  phase="3d")
+        res = timed.pop(10)           # the timed 10-round run's result
+        if run.method in ("diana", "gd"):
+            r["route"] = route_cost(run_n)
+            log(f"phase 3d: gisette diurnal traffic {label}: routing "
+                f"{r['route']}")
+        if run.method == "fednl":
+            # its eigh's share, by the CPU op that launched each kernel
+            split = {}
+            for n in (1, 3):
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    run_n(n)
+                    torch.cuda.synchronize()
+                split[n] = device_split(prof, "aten::linalg_eigh")
+            r["eigh_kernels_per_round"] = (split[3]["op"][0]
+                                           - split[1]["op"][0]) / 2
+            r["eigh_busy_ms_per_round"] = (split[3]["op"][1]
+                                           - split[1]["op"][1]) / 2e3
+            log(f"phase 3d: gisette diurnal traffic {label}: "
+                f"{r['eigh_kernels_per_round']:g} kernels and "
+                f"{r['eigh_busy_ms_per_round']!r} busy ms a round in "
+                f"linalg_eigh")
+        st, trc = res[label]
+        spec = api.get_method(run.method)
+        r["bits_per_round"] = float(np.asarray(spec.round_bits(
+            prob, run.cfg or spec.default_config(),
+            res.hparams[label].hp))[0])
+        r["mean_bits_per_node_round"] = float(st.bits_per_node.mean()) / 10
+        r["F"] = trc["F"][0].tolist()
+        r["arrived"] = float(trc["n_arrived"].sum())
+        log(f"phase 3d: gisette diurnal traffic {label}: price "
+            f"{r['bits_per_round']!r} bits a message, "
+            f"{r['mean_bits_per_node_round']!r} bits a node a round billed; "
+            f"{r['arrived']:g} arrivals; F {r['F']}")
+        out[f"traffic {label}"] = r
+        del res, st, trc
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_async(ops, counts) -> dict:
+    """Phase 3d: the async engine and its traffic model.  The gisette
+    cells are timed first, with the host quiet (their rounds are
+    host-bound); then the CPU side of every card-against-CPU comparison
+    runs in worker processes while the card runs its own side (whose
+    times are logged, not measured: the host is shared)."""
+    from repro_torch import experiments
+    # the longest runs first; the card's side takes the shortest first
+    jobs = ([("grid",)] + envelope_jobs("async", ASYNC_ITERS, ASYNC_SIZE)
+            + [("traffic", p) for p in experiments.TRAFFIC_PROFILES]
+            + [("legacy", m, k) for m in experiments.LEGACY_METHODS
+               for k in ("fixed", "uniform", "geometric")])
+    out, seconds = {}, {}
+    t0 = time.perf_counter()
+    out["gisette"] = phase_async_gisette(ops, counts)
+    seconds["gisette"] = time.perf_counter() - t0
+    with cpu_pool() as pool:
+        cpu = {job: pool.submit(cpu_job, job) for job in jobs}
+        for name, fn in (("legacy", phase_async_legacy),
+                         ("traffic", phase_traffic),
+                         ("grid", phase_async_grid)):
+            t0 = time.perf_counter()
+            out[name] = fn(ops, counts, cpu)
+            seconds[name] = time.perf_counter() - t0
+        for f in cpu.values():
+            f.result()
+    out["seconds"] = seconds
+    log(f"phase 3d: seconds by part {seconds}")
     return out
 
 
@@ -2016,14 +2608,35 @@ def phase_stochastic(dev, quickstart, random, driver, compressors, api,
     """Phase 3c: the stochastic setting (key streams, the stochastic
     quickstart, the families plan, the three families' contracts, gisette
     width)."""
+    from repro_torch import plan_drift
     out = {}
     phase_key_streams(random, driver)
     out["families_on_card"] = phase_family_contracts(dev, compressors,
                                                      random)
-    out["quickstart"] = phase_stochastic_quickstart(quickstart, random,
-                                                    driver, ops, counts)
-    out["sketch_families"] = phase_families_plan(api, experiments,
-                                                 make_problem, ops, counts)
+    q, q_F = phase_stochastic_quickstart(quickstart, random, driver, ops,
+                                         counts)
+    fam, fam_F = phase_families_plan(api, experiments, make_problem, ops,
+                                     counts)
+    # the CPU's ulp envelopes, their runs in worker processes after the
+    # timed quickstart rounds and before the gisette cells
+    problem = {k: v for k, v in PLAN_PROBLEM.items() if k != "seed"}
+    kinds = (("stochastic", STOCHASTIC_ITERS, None, q_F),
+             ("sketch_families_plan", FAMILIES_ITERS, problem, fam_F))
+    with cpu_pool() as pool:
+        cpu = {job: pool.submit(cpu_job, job) for kind, iters, prob, _ in
+               kinds for job in envelope_jobs(kind, iters, prob)}
+        (q_env, q_gaps), (f_env, f_gaps) = (
+            envelope_from(cpu, *k) for k in kinds)
+    log(f"phase 3c: the CPU against itself with A moved by one ulp, "
+        f"(problem, ulp) seeds {plan_drift.ENVELOPE_SEEDS}: max rel gaps of "
+        f"F, stochastic quickstart {q_gaps}, sketch_families {f_gaps}")
+    held_by_verdict("stochastic quickstart", q["drift"], q_env[0])
+    for rep, e, name in zip(fam["drift"], f_env,
+                            experiments.SKETCH_FAMILY_NAMES):
+        held_by_verdict(f"sketch_families {name}", rep, e)
+    q.update(ulp_envelope=q_env[0], ulp_gaps=q_gaps)
+    fam.update(ulp_envelope=f_env)
+    out["quickstart"], out["sketch_families"] = q, fam
     out["gisette"] = phase_gisette_stochastic(quickstart, api, experiments,
                                               make_problem, ops, counts)
     return out
@@ -2648,7 +3261,11 @@ def main():
     log("torch", torch.__version__, "cuda", torch.version.cuda, "python",
         sys.version.split()[0])
 
-    t0 = time.perf_counter()
+    t0 = start = time.perf_counter()
+
+    def elapsed(what):
+        log(f"elapsed after {what}: {time.perf_counter() - start:.1f} s")
+
     libraries = (build, fa_build, d_build)
     with ThreadPoolExecutor(len(libraries)) as pool:   # one nvcc per source
         built = list(pool.map(lambda b: b.build(), libraries))
@@ -2669,6 +3286,7 @@ def main():
     flash_err = phase_flash_kernel(dev, fa_ops, fa_ref)
     dither_err = phase_dither_kernels(dev, d_ops, d_ref, random)
     bwd_err, bwd_rel = phase_flash_backward(dev, fa_ops, fa_ref)
+    elapsed("phase 2")
     counts = {name: 0 for name in ops.launches}
     quick = phase_quickstart(quickstart, ops, counts)
     gis = phase_gisette(quickstart, ops, counts)
@@ -2677,6 +3295,7 @@ def main():
         check((n > 0) == (name in GROUPED_REPLACES),
               f"{name} launched {n} times on the main path")
     log(f"main-path launches (sum of the four runs above): {counts}")
+    elapsed("phases 3 and 4")
     plan_counts = {name: 0 for name in ops.launches}
     plans = phase_plans(api, experiments, make_problem, ops, plan_counts)
     gis_base = phase_gisette_baselines(api, experiments, make_problem, ops,
@@ -2685,6 +3304,7 @@ def main():
         check((n > 0) == (name in GROUPED_REPLACES),
               f"{name} launched {n} times by the plans")
     log(f"plan launches (sum of phases 3b and 4b): {plan_counts}")
+    elapsed("phases 3b and 4b")
     stoch_counts = {name: 0 for name in ops.launches}
     stoch = phase_stochastic(dev, quickstart, random, driver, compressors,
                              api, experiments, make_problem, ops,
@@ -2693,21 +3313,39 @@ def main():
         check((n > 0) == (name in GROUPED_REPLACES),
               f"{name} launched {n} times by the stochastic phase")
     log(f"stochastic launches (sum of phase 3c): {stoch_counts}")
+    elapsed("phase 3c")
+    async_counts = {name: 0 for name in ops.launches}
+    asy = phase_async(ops, async_counts)
+    for name, n in async_counts.items():
+        check((n > 0) == (name in GROUPED_REPLACES),
+              f"{name} launched {n} times by the async phase")
+    log(f"async launches (sum of phase 3d): {async_counts}")
+    elapsed("phase 3d")
     depth2 = phase_serve_depth2(serve)
+    elapsed("phase 5")
     full = phase_serve_full(serve, fa_ops)
+    elapsed("phase 6")
     train2 = phase_train_depth2(train, value_and_grad, compressors, random,
                                 tree)
+    elapsed("phase 8")
     trained = phase_train_full(train, fa_ops, d_ops, ops, tree)
+    elapsed("phase 9")
     prof = phase_profile(quickstart)
+    elapsed("phase 7's profile")
     timing = phase_timing(dev, ops, ref, random, library=built[0])
+    elapsed("phase 7's compressor timing")
     ttopk = topk_shape_timing(dev, ops, ref)
+    elapsed("phase 7's top-k shapes")
     gtiming = grouped_timing(dev, ops, ref, random, library=built[0])
+    elapsed("phase 7's grouped entries")
     floor_ms = empty_launch_ms()
     log(f"timing an empty kernel (torch.cuda._sleep(0)) back to back: "
         f"{floor_ms!r} ms a launch")
     flash = phase_flash_timing(dev, fa_ops, fa_ref)
+    elapsed("phase 7's flash timing")
     ttiming = phase_train_kernel_timing(dev, d_ops, d_ref, fa_ops, fa_ref,
                                         random)
+    elapsed("phase 9's kernel timings")
 
     kernels = []
     for name in REPLACES:
@@ -2749,10 +3387,11 @@ def main():
         entry = {"name": name, "route": "cuda", "source": SOURCE,
                  "replaces": GROUPED_REPLACES[name],
                  "launches": counts[name] + plan_counts[name]
-                 + stoch_counts[name],
+                 + stoch_counts[name] + async_counts[name],
                  "launches_by_path": {"quickstart, gisette": counts[name],
                                       "plans": plan_counts[name],
-                                      "stochastic": stoch_counts[name]},
+                                      "stochastic": stoch_counts[name],
+                                      "async": async_counts[name]},
                  "max_abs_err": grouped_err[name], "ms": r["ms"],
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                  "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -2827,6 +3466,7 @@ def main():
         "shape": list(SERVE_SHAPE[:5])})
     log(json.dumps({"plans": plans, "gisette_baselines": gis_base}))
     log(json.dumps({"stochastic": stoch}))
+    log(json.dumps({"async": asy}, default=str))
     log(json.dumps({"quickstart": quick, "gisette": gis, "profile": prof,
                     "serve_depth2": depth2, "serve": full,
                     "train_depth2": train2, "train": trained}))

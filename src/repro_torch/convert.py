@@ -4,7 +4,10 @@ The arguments are numpy arrays (``np.asarray`` of the reference's leaves,
 and ``jax.random.key_data`` for a key), so this module needs no JAX.  The
 tests use it to run both packages from the same state.  A state whose
 ``k`` has a leading [G] axis (a reference sweep's) converts to the port's
-batched state (``driver.batch_state``'s layout).
+batched state (``driver.batch_state``'s layout).  The async states carry
+their buffers (``MessageBuffer`` slots [S, n, ...], or [G, S, n, ...] from
+a sweep: the reference's vmapped layout is the port's), FedBuff sums and
+traffic state, the async hparams their tau, buffer_k and traffic numbers.
 """
 from __future__ import annotations
 
@@ -13,10 +16,16 @@ import torch
 
 from repro_torch.core.compressors import (CompressorSpec, SketchParams,
                                           default_sketch_params, grid_spec)
-from repro_torch.core.flecs import FlecsState
+from repro_torch.core.driver import MessageBuffer
+from repro_torch.core.flecs import (FlecsAsyncHParams, FlecsHParams,
+                                    FlecsState)
+from repro_torch.core.traffic import TrafficHParams, TrafficState
 from repro_torch.data.logreg import FederatedLogReg
 from repro_torch.device import resolve_device
-from repro_torch.optim.baselines import DianaState, FedNLState, GDState
+from repro_torch.optim.baselines import (DianaAsyncHParams, DianaHParams,
+                                         DianaState, FedNLAsyncHParams,
+                                         FedNLHParams, FedNLState,
+                                         GDAsyncHParams, GDHParams, GDState)
 
 
 def key_from_reference(key_data, device=None) -> torch.Tensor:
@@ -146,3 +155,64 @@ def hparams_from_reference(cls, hp, device=None):
 
     return cls(**{name: leaf(getattr(hp, name, None))
                   for name in cls._fields})
+
+
+def _f32(a, dev) -> torch.Tensor:
+    return torch.as_tensor(np.array(a, np.float32), device=dev)
+
+
+def async_state_from_reference(cls, state, device=None):
+    """An async state ``cls`` (``FlecsAsyncState``, ``DianaAsyncState``,
+    ``FedNLAsyncState``, ``GDAsyncState``) from the reference's state of
+    the same name with numpy leaves (``jax.tree.map(np.asarray, st)``):
+    its buffer's slots and occupancy, FedBuff sums and count, ledger,
+    iterate, k (and the host round ``t``), and the availability chain's
+    states (int64) where the state has them."""
+    dev = resolve_device(device)
+    k = np.asarray(state.k)
+    fields = {}
+    for name in cls._fields:
+        if name == "t":
+            fields[name] = int(k.max())
+        elif name == "k":
+            fields[name] = (int(k) if k.ndim == 0 else torch.as_tensor(
+                k.astype(np.int32), device=dev))
+        elif name == "buf":
+            buf = state.buf
+            fields[name] = MessageBuffer(
+                {key: _f32(v, dev) for key, v in buf.slots.items()},
+                _f32(buf.occupied, dev))
+        elif name == "traffic":
+            tr = getattr(state, "traffic", None)
+            fields[name] = None if tr is None else TrafficState(
+                torch.as_tensor(np.asarray(tr.avail).astype(np.int64),
+                                device=dev))
+        else:
+            fields[name] = _f32(getattr(state, name), dev)
+    return cls(**fields)
+
+
+#: The sync hparams inside each async hparams class.
+_SYNC_HPARAMS = {FlecsAsyncHParams: FlecsHParams,
+                 DianaAsyncHParams: DianaHParams,
+                 FedNLAsyncHParams: FedNLHParams,
+                 GDAsyncHParams: GDHParams}
+
+def traffic_hparams_from_reference(thp, device=None) -> TrafficHParams:
+    """``TrafficHParams`` from the reference's (numpy leaves)."""
+    dev = resolve_device(device)
+    return TrafficHParams(*(_f32(v, dev) for v in thp))
+
+
+def async_hparams_from_reference(cls, ahp, device=None):
+    """The port's async hparams ``cls`` from the reference's (numpy
+    leaves): the sync hparams through :func:`hparams_from_reference`, tau
+    as int32 and buffer_k as float32 tensors, the traffic numbers (or
+    None)."""
+    dev = resolve_device(device)
+    thp = getattr(ahp, "traffic", None)
+    return cls(
+        hparams_from_reference(_SYNC_HPARAMS[cls], ahp.hp, dev),
+        torch.as_tensor(np.asarray(ahp.tau).astype(np.int32), device=dev),
+        _f32(ahp.buffer_k, dev),
+        None if thp is None else traffic_hparams_from_reference(thp, dev))

@@ -22,13 +22,17 @@ lowering).
   bound from its wire price (``driver.iters_for_bit_budget``, priced on the
   host).
 
+* ``ExperimentPlan.staleness`` — a ``driver.StalenessSchedule`` switches
+  every run to its method's async engine (all five methods have one), with
+  ``buffer_k`` broadcast over the run's grid; ``ExperimentPlan.traffic``
+  (a ``core.traffic.TrafficModel``, which needs ``staleness``) layers
+  arrivals, availability and admission on it, its numbers broadcast over
+  the grid and the availability chain seeded in the state.  Budget runs
+  stretch their round bound by (tau + 1) for the arrival billing.
+
 Key streams (the reference's): run j of a plan sweeps with
 ``fold_in(key(plan.seed), j)``, and its grid point g steps with
 ``split(split(fold_in(key(seed), j), G)[g], iters)``.
-
-Not ported: ``plan.staleness`` and ``plan.traffic`` (the async engine and
-its traffic model; ROADMAP.md, queue 1: 'async engine') raise
-``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -43,13 +47,13 @@ from repro_torch import random
 from repro_torch.core import flecs
 from repro_torch.core.compressors import (CompressorSpec, as_grid, is_grid,
                                           make_spec, tile_spec)
-from repro_torch.core.driver import (bits_dtype, grid1, grid_size,
-                                     hparams_bit_budget, hparams_to,
-                                     iters_for_bit_budget, sweep_keys,
-                                     sweep_program, tile_hparams)
+from repro_torch.core.driver import (StalenessSchedule, bits_dtype, grid1,
+                                     grid_size, hparams_bit_budget,
+                                     hparams_to, iters_for_bit_budget,
+                                     sweep_keys, sweep_program, tile_hparams)
+from repro_torch.core.traffic import (TrafficHParams, TrafficModel,
+                                      init_traffic_state, traffic_hparams)
 from repro_torch.optim import baselines
-
-_ASYNC = ("ROADMAP.md, queue 1: 'async engine'")
 
 
 # ---------------------------------------------------------------------------
@@ -65,6 +69,12 @@ class MethodSpec:
     sweep_step:  (problem, cfg) -> step(hp, state, keys [G, 2]).
     grid:        keyword axes -> [G] hparam grid (cartesian).
     from_config: cfg -> the hparams point of the legacy step.
+    init_async / async_sweep_step / async_wrap: the FedBuff-style buffered
+                 engine (None: the method has none):
+                 ``init_async(problem, n, cfg, max_delay)``,
+                 ``async_sweep_step(problem, cfg, delay_kind, q, traffic)``
+                 and ``async_wrap(hp, tau, buffer_k)``, which broadcasts
+                 the staleness axes over the grid.
     round_bits:  (problem, cfg, hp) -> per-participating-worker uplink bits
                  of one round at each grid point (float32 numpy [G], priced
                  on the host), which sets budget runs' lengths.
@@ -76,7 +86,17 @@ class MethodSpec:
     sweep_step: Callable[[Any, Any], Callable]
     grid: Callable[..., Any]
     from_config: Callable[[Any], Any]
+    init_async: Optional[Callable] = None
+    async_sweep_step: Optional[Callable] = None
+    async_wrap: Optional[Callable] = None
     round_bits: Optional[Callable] = None
+
+
+def _broadcast(hp, tau, buffer_k, wrapper):
+    """Wrap a [G] grid with tau (int32 [G]) and buffer_k (float32 [G])."""
+    G = grid_size(hp)
+    return wrapper(hp, torch.full((G,), int(tau), dtype=torch.int32),
+                   torch.full((G,), float(buffer_k), dtype=torch.float32))
 
 
 def _bcast_spec(spec: CompressorSpec, G: int) -> CompressorSpec:
@@ -159,6 +179,14 @@ def _flecs_spec(name: str, default_grad: str) -> MethodSpec:
             cfg, *prob.make_oracles()),
         grid=grid,
         from_config=flecs.hparams_from_config,
+        init_async=lambda prob, n, cfg, max_delay: flecs.init_async_state(
+            _zeros_w(prob), n, cfg.m, max_delay),
+        async_sweep_step=lambda prob, cfg, kind, q, traffic=None:
+            flecs.make_flecs_async_sweep_step(cfg, *prob.make_oracles(),
+                                              delay_kind=kind, q=q,
+                                              traffic=traffic),
+        async_wrap=lambda hp, tau, K: _broadcast(
+            hp, tau, K, flecs.FlecsAsyncHParams),
         round_bits=lambda prob, cfg, hp: flecs.hparams_round_bits(
             cfg, hp, prob.d),
     )
@@ -200,6 +228,14 @@ register_method(MethodSpec(
         cfg, prob.make_oracles()[0]),
     grid=baselines.diana_hparam_grid,
     from_config=baselines.diana_hparams_from_config,
+    init_async=lambda prob, n, cfg, max_delay: baselines.init_diana_async(
+        _zeros_w(prob), n, max_delay),
+    async_sweep_step=lambda prob, cfg, kind, q, traffic=None:
+        baselines.make_diana_async_sweep_step(
+            cfg, prob.make_oracles()[0], delay_kind=kind, q=q,
+            traffic=traffic),
+    async_wrap=lambda hp, tau, K: _broadcast(
+        hp, tau, K, baselines.DianaAsyncHParams),
     round_bits=lambda prob, cfg, hp: baselines.diana_round_bits(
         cfg, hp, prob.d),
 ))
@@ -213,6 +249,14 @@ register_method(MethodSpec(
         cfg, prob.make_oracles()[0], prob.local_hessian),
     grid=baselines.fednl_hparam_grid,
     from_config=baselines.fednl_hparams_from_config,
+    init_async=lambda prob, n, cfg, max_delay: baselines.init_fednl_async(
+        _zeros_w(prob), n, max_delay),
+    async_sweep_step=lambda prob, cfg, kind, q, traffic=None:
+        baselines.make_fednl_async_sweep_step(
+            cfg, prob.make_oracles()[0], prob.local_hessian,
+            delay_kind=kind, q=q, traffic=traffic),
+    async_wrap=lambda hp, tau, K: _broadcast(
+        hp, tau, K, baselines.FedNLAsyncHParams),
     round_bits=lambda prob, cfg, hp: baselines.fednl_round_bits(
         cfg, hp, prob.d),
 ))
@@ -226,6 +270,14 @@ register_method(MethodSpec(
         cfg, prob.make_oracles()[0], prob.n_workers),
     grid=baselines.gd_hparam_grid,
     from_config=baselines.gd_hparams_from_config,
+    init_async=lambda prob, n, cfg, max_delay: baselines.init_gd_async(
+        _zeros_w(prob), n, max_delay),
+    async_sweep_step=lambda prob, cfg, kind, q, traffic=None:
+        baselines.make_gd_async_sweep_step(
+            cfg, prob.make_oracles()[0], prob.n_workers,
+            delay_kind=kind, q=q, traffic=traffic),
+    async_wrap=lambda hp, tau, K: _broadcast(
+        hp, tau, K, baselines.GDAsyncHParams),
     round_bits=lambda prob, cfg, hp: baselines.gd_round_bits(
         cfg, hp, prob.d),
 ))
@@ -241,7 +293,9 @@ class MethodRun:
 
     method:  registry name or a :class:`MethodSpec`.
     cfg:     static config (None => the method's default).
-    hparams: [G] hparam grid (None => ``from_config(cfg)`` as a [1] grid).
+    hparams: [G] hparam grid (None => ``from_config(cfg)`` as a [1] grid);
+             in an async plan it may be the method's async hparams (with
+             ``tau``), else it is wrapped with the plan's tau and buffer_k.
     iters:   per-run override of the plan's round count.
     label:   result key (defaults to the method name, deduplicated).
     """
@@ -263,8 +317,15 @@ class ExperimentPlan:
                 g``) and enforced by the budget freeze; runs without an
                 explicit ``iters`` get an upper-bound round count from
                 their wire price (stretched by 1/p_min under sampling).
-    staleness, buffer_k, traffic: the async engine's knobs, not ported
-                (they raise).
+                The async runs' bound is stretched by (tau + 1) and
+                tau more rounds (arrival billing).
+    staleness:  a ``StalenessSchedule``: every run takes its method's async
+                engine, ``buffer_k`` the FedBuff flush threshold on every
+                grid point.
+    traffic:    a ``TrafficModel`` on every run's async engine (needs
+                ``staleness``): its numbers broadcast over each run's grid
+                (unless the run's async hparams carry their own), the
+                availability chain seeded in the state.
     """
     problem: Any
     runs: Sequence[MethodRun]
@@ -273,10 +334,10 @@ class ExperimentPlan:
     record_every: int = 1
     trace_dtype: Any = None
     record: Optional[Callable] = None
-    staleness: Any = None
+    staleness: Optional[StalenessSchedule] = None
     buffer_k: float = 1.0
     bit_budget: Any = None
-    traffic: Any = None
+    traffic: Optional[TrafficModel] = None
 
 
 @dataclasses.dataclass
@@ -294,7 +355,7 @@ class PlanResult:
 
 
 def _validate_p(spec: MethodSpec, cfg, hp) -> None:
-    p = getattr(hp, "p", None)
+    p = getattr(getattr(hp, "hp", hp), "p", None)
     if p is None:
         return
     if getattr(cfg, "sampling", "bernoulli") != "bernoulli":
@@ -312,35 +373,44 @@ def cross_bit_budget(hp, budgets):
 
     Returns (hparams', budgets') with [B·G] leaves: point ``b·G + g``
     pairs ``budgets[b]`` with grid point g; the budgets, in
-    ``driver.bits_dtype()`` as the ledger they gate, land on the hparams'
-    ``bit_budget`` slot."""
-    if not hasattr(hp, "bit_budget"):
+    ``driver.bits_dtype()`` as the ledger they gate, land on the sync
+    hparams' ``bit_budget`` slot (an async grid's inner ``hp``)."""
+    sync = getattr(hp, "hp", hp)
+    if not hasattr(sync, "bit_budget"):
         raise ValueError(
             f"hparams {type(hp).__name__} carry no bit_budget slot")
     budgets = torch.atleast_1d(torch.as_tensor(
         np.asarray(budgets, np.float64), dtype=bits_dtype()))
     G = grid_size(hp)
     tiled = tile_hparams(hp, budgets.shape[0])
-    bud = torch.repeat_interleave(budgets, G).to(hp.alpha.device)
-    return tiled._replace(bit_budget=bud), bud
+    bud = torch.repeat_interleave(budgets, G).to(sync.alpha.device)
+    if sync is hp:
+        return tiled._replace(bit_budget=bud), bud
+    return tiled._replace(hp=tiled.hp._replace(bit_budget=bud)), bud
 
 
 def _budget_scan_len(spec: MethodSpec, plan: ExperimentPlan, cfg, hp,
                      bud) -> int:
     """Upper bound on the rounds a budget run can charge: the reference's
     ``iters_for_bit_budget`` over the (budget × wire-price) grid, stretched
-    by 1/p_min under client sampling (host values only)."""
+    by 1/p_min under client sampling and, for an async run, by (tau + 1)
+    plus tau rounds (busy exclusion spaces a worker's messages tau + 1
+    rounds apart; host values only)."""
     if spec.round_bits is None:
         raise ValueError(
             f"method {spec.name!r} has no round_bits price query; pass "
             "run.iters explicitly to combine it with plan.bit_budget")
-    prices = np.asarray(spec.round_bits(plan.problem, cfg, hp), float)
+    sync = getattr(hp, "hp", hp)
+    prices = np.asarray(spec.round_bits(plan.problem, cfg, sync), float)
     iters = iters_for_bit_budget(bud.cpu().numpy(), prices)
-    p_axis = getattr(hp, "p", None)
+    p_axis = getattr(sync, "p", None)
     p_min = (float(np.min(p_axis.cpu().numpy())) if p_axis is not None
              else float(getattr(cfg, "participation", 1.0)))
     if p_min < 1.0:
         iters = int(np.ceil(iters / p_min))
+    if hasattr(hp, "tau"):
+        tau_max = int(hp.tau.max())
+        iters = iters * (tau_max + 1) + tau_max
     return iters
 
 
@@ -352,10 +422,6 @@ def _resolve(plan: ExperimentPlan, run: MethodRun):
         raise TypeError(
             f"run {spec.name!r}: cfg must be a {spec.config_cls.__name__}, "
             f"got {type(cfg).__name__}")
-    if plan.staleness is not None or plan.traffic is not None:
-        raise NotImplementedError(
-            f"plan.staleness / plan.traffic (the async engine) are not "
-            f"ported yet ({_ASYNC})")
     hp = run.hparams
     if hp is None:
         hp = grid1(spec.from_config(cfg))
@@ -372,8 +438,50 @@ def _resolve(plan: ExperimentPlan, run: MethodRun):
                 "plan.bit_budget must be a positive scalar or a 1-D grid "
                 f"of positive budgets, got {np.asarray(plan.bit_budget)}")
         hp, bud = cross_bit_budget(hp, budgets)
-    step = spec.sweep_step(plan.problem, cfg)
-    state = spec.init(plan.problem, plan.problem.n_workers, cfg)
+    n = plan.problem.n_workers
+    if plan.staleness is not None:
+        if spec.async_sweep_step is None:
+            raise ValueError(
+                f"method {spec.name!r} has no async variant — drop it from "
+                "the plan or clear plan.staleness")
+        sched = plan.staleness
+        step = spec.async_sweep_step(plan.problem, cfg, sched.kind, sched.q,
+                                     plan.traffic)
+        state = spec.init_async(plan.problem, n, cfg, sched.max_delay)
+        if not hasattr(hp, "tau"):
+            hp = spec.async_wrap(hp, sched.tau, plan.buffer_k)
+        if plan.traffic is not None:
+            # seed the availability chain; broadcast the model's numbers
+            # over the run's grid unless its hparams carry their own
+            state = state._replace(traffic=init_traffic_state(
+                n, state.w.device))
+            if getattr(hp, "traffic", None) is None:
+                G = grid_size(hp)
+                hp = hp._replace(traffic=TrafficHParams(*(
+                    a.unsqueeze(0).expand((G,) + a.shape).contiguous()
+                    for a in traffic_hparams(plan.traffic))))
+        # the buffer-shape guard: a tau beyond the slots would wrap modulo
+        # them and silently act as a shorter delay
+        slots = state.buf.occupied.shape[-2]
+        tau_max = int(hp.tau.max())
+        if tau_max + 1 > slots:
+            raise ValueError(
+                f"run {spec.name!r}: shared MessageBuffer has {slots} "
+                f"slot(s) but the hparam grid reaches tau={tau_max}; raise "
+                f"plan.staleness.tau to >= {tau_max}")
+    else:
+        if plan.traffic is not None:
+            raise ValueError(
+                "plan.traffic rides the async engine's buffered path — set "
+                "plan.staleness (tau=0 for synchronous-delay traffic) or "
+                "drop the traffic model")
+        if hasattr(hp, "tau"):
+            raise ValueError(
+                f"run {spec.name!r}: async hparams (tau/buffer_k axes) "
+                "require plan.staleness — set a StalenessSchedule or pass "
+                "sync hparams")
+        step = spec.sweep_step(plan.problem, cfg)
+        state = spec.init(plan.problem, n, cfg)
     if run.iters is not None:
         iters = run.iters
     elif bud is not None:

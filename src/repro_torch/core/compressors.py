@@ -23,6 +23,13 @@ reference's traced ``lax.switch`` selects per grid point:
                                    from the host copies
     spec_omega(spec, d)          — the variance bound ω of Definition 3
     spec_commutes_with_sum(spec) — whether the encoding is linear
+    Compressor, identity(), random_dithering(s), natural(), top_k(frac),
+    count_sketch(width, depth, hh_frac), min_max(frac)
+                                 — the static veneer: a named scalar spec
+                                   with ``compress``, ``bits(d)`` and
+                                   ``omega(d)``; ``get_compressor``,
+                                   ``as_spec`` and ``spec_from_name`` are
+                                   deprecated aliases, as in the reference
     shared_scale_levels(key, x, s) / decode_int8(levels, scale)
                                  — the int8 wire format of the deep-learning
                                    trainer (``core/dl_flecs.py``), through
@@ -71,7 +78,9 @@ is the reference's bit for bit.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
+import warnings
 from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
@@ -206,14 +215,15 @@ def _unknown_name(name: str) -> ValueError:
         + " — numeric suffixes may instead be passed as make_spec keywords")
 
 
-def make_spec(name_or_spec: Union[str, CompressorSpec],
+def make_spec(name_or_spec: Union[str, CompressorSpec, "Compressor"],
               **params) -> CompressorSpec:
     """The compressor constructor: a registry name (``"identity"``,
     ``"dither64"``, ``"natural"``, ``"topk0.1"``, ``"count_sketch64"``,
     ``"minmax0.25"``; the numeric suffix is the family's main parameter,
     which may instead be a keyword: ``s``, ``frac`` or, for the count
-    sketch, ``width``, with ``depth`` and ``hh_frac`` beside it) or an
-    existing spec (given the default sketch parameters where it has none).
+    sketch, ``width``, with ``depth`` and ``hh_frac`` beside it), an
+    existing spec (given the default sketch parameters where it has none),
+    or a :class:`Compressor` (its spec).
     Errors and their messages are the reference's."""
     if isinstance(name_or_spec, CompressorSpec):
         if params:
@@ -221,6 +231,12 @@ def make_spec(name_or_spec: Union[str, CompressorSpec],
                 "make_spec(spec, **params): keyword parameters only apply "
                 "to name-based construction; rebuild the spec instead")
         return fill_params(name_or_spec)
+    if isinstance(name_or_spec, Compressor):
+        if params:
+            raise ValueError(
+                "make_spec(compressor, **params): keyword parameters only "
+                "apply to name-based construction")
+        return fill_params(name_or_spec.spec)
     if not isinstance(name_or_spec, str):
         raise TypeError(
             f"make_spec takes a name, CompressorSpec, or Compressor — got "
@@ -268,6 +284,17 @@ def make_spec(name_or_spec: Union[str, CompressorSpec],
             f"unknown parameter(s) {sorted(unknown)} for compressor "
             f"{name!r}; this family takes {list(allowed) or 'no parameters'}")
     return ctor()
+
+
+def _warn_deprecated(old: str, repl: str) -> None:
+    warnings.warn(f"compressors.{old} is deprecated; use {repl}",
+                  DeprecationWarning, stacklevel=3)
+
+
+def spec_from_name(name: str) -> CompressorSpec:
+    """DEPRECATED alias of :func:`make_spec` (name form)."""
+    _warn_deprecated("spec_from_name(name)", "make_spec(name)")
+    return make_spec(name)
 
 
 # ---------------------------------------------------------------------------
@@ -707,6 +734,95 @@ def spec_commutes_with_sum(spec: CompressorSpec):
     if not is_grid(spec):
         return spec.family in linear
     return torch.tensor([f in linear for f in spec.family])
+
+
+# ---------------------------------------------------------------------------
+# Static wrapper (the registry veneer over the spec entry points)
+# ---------------------------------------------------------------------------
+
+#: Families whose wire price is not linear in d (``bits_per_value``).
+_DIM_DEPENDENT_FAMILIES = (FAMILY_TOPK, FAMILY_COUNT_SKETCH, FAMILY_MINMAX)
+
+
+@dataclasses.dataclass(frozen=True)
+class Compressor:
+    """A named scalar spec; ``compress``, ``bits`` and ``omega`` go through
+    the spec entry points, so a Compressor and its spec compute alike."""
+    name: str
+    spec: CompressorSpec
+    unbiased: bool = True
+
+    def compress(self, key: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """Q(x) of one whole message x with key ``key`` ([2])."""
+        return compress(self.spec, key.unsqueeze(0), x.unsqueeze(0))[0]
+
+    def bits(self, d) -> float:
+        """Total payload bits of a d-element message (dimension-aware)."""
+        return float(spec_bits(self.spec, d, "cpu"))
+
+    @property
+    def bits_per_value(self) -> float:
+        """DEPRECATED per-element price, defined only for the families
+        whose wire size is linear in d (identity, dither, natural)."""
+        warnings.warn(
+            "Compressor.bits_per_value is deprecated; .bits(d) is the "
+            "single wire-price query (see the compressors module "
+            "docstring)", DeprecationWarning, stacklevel=2)
+        if int(self.spec.family) in _DIM_DEPENDENT_FAMILIES:
+            raise ValueError(
+                f"{self.name}: wire size is dimension-dependent "
+                "(top-k/min-max pay (32 + ceil(log2 d)) bits per kept "
+                "value; a count sketch pays its depth*width accumulator); "
+                "use .bits(d)")
+        return float(spec_bits(self.spec, 1, "cpu"))
+
+    def omega(self, d: int) -> float:
+        return float(spec_omega(self.spec, d))
+
+
+def identity() -> Compressor:
+    return Compressor("identity", identity_spec())
+
+
+def random_dithering(s: int = 64) -> Compressor:
+    """∞-norm random dithering with s levels; ω = d/(4s²)."""
+    return Compressor(f"dither{s}", dither_spec(s))
+
+
+def natural() -> Compressor:
+    return Compressor("natural", natural_spec())
+
+
+def top_k(frac: float = 0.1) -> Compressor:
+    """Biased top-k contraction."""
+    return Compressor(f"topk{frac}", topk_spec(frac), unbiased=False)
+
+
+def count_sketch(width: int = 64, depth: int = 3,
+                 hh_frac: float = 1.0) -> Compressor:
+    """Linear count sketch; unbiased at hh_frac = 1."""
+    return Compressor(f"count_sketch{width}",
+                      count_sketch_spec(width, depth, hh_frac),
+                      unbiased=hh_frac >= 1.0)
+
+
+def min_max(frac: float = 0.1) -> Compressor:
+    """Unbiased min-max sampling at kept fraction ``frac``."""
+    return Compressor(f"minmax{frac}", minmax_spec(frac))
+
+
+def get_compressor(name: str) -> Compressor:
+    """DEPRECATED alias: a :class:`Compressor` from a registry name."""
+    _warn_deprecated("get_compressor(name)",
+                     "make_spec(name) or the Compressor factories")
+    return Compressor(name, make_spec(name),
+                      unbiased=not name.startswith("topk"))
+
+
+def as_spec(c) -> CompressorSpec:
+    """DEPRECATED alias of :func:`make_spec` (pass-through form)."""
+    _warn_deprecated("as_spec(c)", "make_spec(c)")
+    return make_spec(c)
 
 
 # ---------------------------------------------------------------------------

@@ -30,6 +30,24 @@ stops counting, and its round's outputs are discarded), so one S_t a round
 serves the batch: ``FlecsState.t`` is that count on the host, and ``k``
 holds each point's own count (its frozen value where a budget froze it).
 
+Asynchronous buffered aggregation (FedBuff-style, the reference's
+``make_flecs_async_sweep_step``): a sampled worker's message (c, Ỹ, M)
+arrives a delay after it was computed, its shift h^i and approximation B^i
+are updated and its bits charged at the arrival round, arrivals buffer on
+the server, and once ``buffer_k`` of them have buffered the server steps
+from their means.  A worker with a message in flight is busy and is not
+sampled.  tau, buffer_k, the step sizes, beta and the specs are per grid
+point (:class:`FlecsAsyncHParams`, :func:`async_hparam_grid`), and an
+optional ``core.traffic.TrafficModel`` adds arrival processes,
+availability and admission.  At tau = 0 (buffer_k = n at full
+participation, or buffer_k = 1 under sampling) the async round is the
+synchronous one, bit for bit: the same key splits, the same ``masked_sum``
+algebra.  The reference skips the worker compute, the B update and the
+direction where its ``lax.cond`` finds no sender, arrival or flush (under
+``vmap`` it computes both branches and selects); here one host read a
+round (``traffic.route_round``) tells whether any grid point needs each,
+and the branch is skipped where none does, its keys untouched.
+
 Communication accounting (per participating worker per round, bits;
 ``FlecsState.bits_per_node`` is [n]):
   c_k^i : spec_bits(grad_spec, d)     (gradient difference, compressed)
@@ -53,10 +71,14 @@ from repro_torch.core.compressors import (FAMILY_DITHER, CompressorSpec,
 from repro_torch.core.directions import (fedsonia_direction,
                                          truncated_inverse_direction,
                                          truncated_inverse_direction_floored)
-from repro_torch.core.driver import (bits_dtype, call_oracle, masked_mean,
-                                     resolve_participation, specialize,
-                                     validate_ps)
+from repro_torch.core.driver import (StalenessSchedule, bits_dtype,
+                                     call_oracle, damped_alpha,
+                                     fedbuff_accumulate, init_buffer,
+                                     masked_mean, resolve_participation,
+                                     specialize, validate_ps)
 from repro_torch.core.sketch import sketch
+from repro_torch.core.traffic import (TrafficModel, deliver, round_aux,
+                                      route_round)
 from repro_torch.core.updates import direct_update, truncated_lsr1_update
 from repro_torch.device import resolve_device
 
@@ -200,6 +222,14 @@ def hparams_round_bits(cfg: FlecsConfig, hp: FlecsHParams, d: int):
             + np.float32(32.0 * cfg.m * cfg.m))
 
 
+def _grid_round_bits(hp: FlecsHParams, d: int, m: int) -> torch.Tensor:
+    """Per-participating-worker bits of one round at each grid point
+    ([G], on the device: the grouped ledger kernels)."""
+    return (spec_bits_many(hp.grad_spec, d)             # c_k^i
+            + spec_bits_many(hp.hess_spec, d * m)       # C_k^i (dim-aware)
+            + 32.0 * m * m)                             # M_k^i (float32)
+
+
 def _worker_messages(local_grad: Callable, local_hvp: Callable,
                      grad_spec: CompressorSpec, hess_spec: CompressorSpec,
                      w, h, B, S, k_g, k_h, k_q, k_c):
@@ -276,11 +306,8 @@ def _flecs_round(cfg: FlecsConfig, local_grad: Callable, local_hvp: Callable,
     w_new = state.w + hp.alpha[:, None] * p
     h_new = state.h + hp.gamma[:, None, None] * mask[..., None] * c_all
 
-    round_bits = (spec_bits_many(hp.grad_spec, d)        # c_k^i
-                  + spec_bits_many(hp.hess_spec, d * m)  # C_k^i (dim-aware)
-                  + 32.0 * m * m)                        # M_k^i (float32)
-    bits_new = (state.bits_per_node
-                + mask.to(state.bits_per_node.dtype) * round_bits[:, None])
+    bits_new = (state.bits_per_node + mask.to(state.bits_per_node.dtype)
+                * _grid_round_bits(hp, d, m)[:, None])
     new_state = FlecsState(w_new, h_new, B_new,
                            None if state.k is None else state.k + 1,
                            bits_new, state.t + 1)
@@ -319,3 +346,205 @@ def make_flecs_step(cfg: FlecsConfig,
     state (``driver.specialize``), the same ops and key stream."""
     return specialize(make_flecs_sweep_step(cfg, local_grad, local_hvp),
                       hparams_from_config(cfg))
+
+
+# ---------------------------------------------------------------------------
+# Asynchronous buffered aggregation (FedBuff-style staleness)
+# ---------------------------------------------------------------------------
+
+class FlecsAsyncHParams(NamedTuple):
+    """An async point or [G] grid: the synchronous hparams ``hp`` (alpha
+    possibly auto-damped, ``driver.damped_alpha``), the delay bound ``tau``
+    (int32), the FedBuff flush threshold ``buffer_k`` (float32) and the
+    traffic model's numbers (``core.traffic.TrafficHParams``, or None)."""
+    hp: FlecsHParams
+    tau: object
+    buffer_k: object
+    traffic: object = None
+
+
+def async_hparams_from_config(cfg: FlecsConfig, tau: int,
+                              buffer_k) -> FlecsAsyncHParams:
+    return FlecsAsyncHParams(hparams_from_config(cfg),
+                             torch.tensor(int(tau), dtype=torch.int32),
+                             torch.tensor(float(buffer_k),
+                                          dtype=torch.float32))
+
+
+def async_hparam_grid(taus, buffer_ks, *, alpha=1.0, gamma=1.0, beta=1.0,
+                      grad_s=64.0, hess_s=64.0, ps=None,
+                      auto_damp=None) -> FlecsAsyncHParams:
+    """Cartesian (tau × buffer_k [× p]) staleness grid, [G] leaves on the
+    CPU.  ``auto_damp=(sampled_frac, n_workers)`` sets each point's alpha
+    to ``damped_alpha(alpha, frac, K_eff, n_workers)``, K_eff the updates a
+    flush averages: max(K, round(p·n)) at tau = 0 (the whole sampled cohort
+    lands at once), K otherwise; with a ``ps`` axis each point's own p."""
+    validate_ps(ps)
+    t, K, p = (a.ravel() for a in np.meshgrid(
+        np.asarray(taus, np.int32).reshape(-1),
+        np.asarray(buffer_ks, np.float32).reshape(-1),
+        np.asarray([1.0] if ps is None else ps, np.float32).reshape(-1),
+        indexing="ij"))
+    t, K, p = torch.as_tensor(t), torch.as_tensor(K), torch.as_tensor(p)
+    G = t.shape[0]
+    if auto_damp is not None:
+        frac, n_workers = auto_damp
+        if ps is None:
+            cohort = torch.tensor(float(max(1, round(frac * n_workers))))
+            frac_pt = frac
+        else:
+            cohort = torch.clamp(torch.round(p * n_workers), min=1.0)
+            frac_pt = p
+        K_eff = torch.where(t == 0, torch.maximum(K, cohort), K)
+        alphas = damped_alpha(alpha, frac_pt, K_eff, n_workers)
+    else:
+        alphas = torch.full((G,), alpha, dtype=torch.float32)
+
+    def full(v):
+        return torch.full((G,), v, dtype=torch.float32)
+
+    hp = FlecsHParams(alphas, full(gamma), full(beta),
+                      dither_grid(np.full(G, grad_s, np.float32)),
+                      dither_grid(np.full(G, hess_s, np.float32)),
+                      None if ps is None else p)
+    return FlecsAsyncHParams(hp, t, K)
+
+
+class FlecsAsyncState(NamedTuple):
+    """The synchronous state with the in-flight and FedBuff buffers.
+
+    buf holds each worker's message {c [n, d], Y [n, d, m], M [n, m, m],
+    t [n]} under its arrival slot (t the compute round: the age of an
+    update, and the sketch the L-SR1 update regenerates); acc_* are the
+    FedBuff sums since the last flush, acc_n their count; traffic the
+    availability chain's state (or None); t the round on the host."""
+    w: torch.Tensor
+    h: torch.Tensor
+    B: torch.Tensor
+    k: object
+    bits_per_node: torch.Tensor
+    buf: object
+    acc_g: torch.Tensor    # [d]    sum of arrived g̃^i = c^i + h^i
+    acc_Y: torch.Tensor    # [d, m] sum of arrived Ỹ^i
+    acc_M: torch.Tensor    # [m, m] sum of arrived M^i
+    acc_B: torch.Tensor    # [d, d] sum of arrived workers' updated B^i
+    acc_n: torch.Tensor    # buffered-update count
+    traffic: object = None
+    t: int = 0
+
+
+def init_async_state(w0: torch.Tensor, n_workers: int, m: int,
+                     max_delay: int) -> FlecsAsyncState:
+    """Empty buffers for delays up to ``max_delay``, on ``w0``'s device."""
+    base = init_state(w0, n_workers)
+    d = w0.shape[0]
+
+    def z(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=w0.device)
+
+    proto = {"c": z(n_workers, d), "Y": z(n_workers, d, m),
+             "M": z(n_workers, m, m), "t": z(n_workers)}
+    return FlecsAsyncState(base.w, base.h, base.B, 0, base.bits_per_node,
+                           init_buffer(proto, max_delay), z(d), z(d, m),
+                           z(m, m), z(d, d), z(), None, 0)
+
+
+def make_flecs_async_sweep_step(cfg: FlecsConfig, local_grad: Callable,
+                                local_hvp: Callable,
+                                delay_kind: str = "fixed", q: float = 0.5,
+                                traffic: Optional[TrafficModel] = None):
+    """Build step(ahp, state, keys) -> (state, aux) over a [G] grid: ahp a
+    ``FlecsAsyncHParams`` grid, state a batched ``FlecsAsyncState`` whose
+    buffer has max(tau) + 1 slots, keys [G, 2].
+
+    A round: (1) sample clients, busy ones excluded, traffic applied; (2)
+    the senders compute (c, Ỹ, M) at the current iterate as the
+    synchronous round does; (3) messages go to their arrival slots; (4)
+    this round's admitted arrivals update h^i and B^i (the L-SR1 update on
+    each message's compute-round sketch), are billed, and join the FedBuff
+    sums; (5) a point whose count reaches buffer_k steps from the means and
+    resets them."""
+    if cfg.hierarchy is not None:
+        raise NotImplementedError(
+            "FlecsConfig.hierarchy is not ported yet (ROADMAP.md, queue 1: "
+            "'cohort, hierarchy and sharding')")
+
+    def step(ahp: FlecsAsyncHParams, state: FlecsAsyncState,
+             keys: torch.Tensor):
+        hp = ahp.hp
+        n, d = state.h.shape[-2:]
+        m = cfg.m
+        t = state.t
+        dev = state.w.device
+        S = sketch(cfg.sketch_kind, d, m, t, dev)
+        k_g, k_h, k_q, k_c, k_p = random.split(keys, 5).unbind(dim=-2)
+        mask = resolve_participation(k_p, n, cfg.participation,
+                                     cfg.sampling, hp.p)
+        route = route_round(delay_kind, q, traffic, ahp, state, keys, mask)
+
+        msgs = None
+        if route.sends.any():
+            c_all, M_all, C_all, BS_all = _worker_messages(
+                local_grad, local_hvp, hp.grad_spec, hp.hess_spec,
+                state.w, state.h, state.B, S, k_g, k_h, k_q, k_c)
+            msgs = {"c": c_all, "Y": C_all + BS_all, "M": M_all}
+            del C_all, BS_all
+        buf, msg = deliver(route, state.buf, msgs)
+        del msgs
+        arrived = route.arrived
+
+        # arrivals: per-worker server state, billed at the arrival round
+        B_new = state.B
+        if route.arrives:
+            S_msg = S if route.tau_zero or cfg.hessian_update == "direct" \
+                else sketch(cfg.sketch_kind, d, m, msg["t"].to(torch.int64),
+                            dev)
+            B_upd = _update_B(cfg, hp.beta.reshape(-1, 1, 1, 1), state.B,
+                              msg["Y"], msg["M"], S_msg)
+            B_new = torch.where(arrived[..., None, None] > 0, B_upd, state.B)
+            del B_upd
+        h_new = state.h + hp.gamma[:, None, None] * arrived[..., None] \
+            * msg["c"]
+        bits_new = (state.bits_per_node + arrived.to(
+            state.bits_per_node.dtype) * _grid_round_bits(hp, d, m)[:, None])
+
+        acc, acc_n, means, flush, reset = fedbuff_accumulate(
+            {"g": state.acc_g, "Y": state.acc_Y, "M": state.acc_M,
+             "B": state.acc_B}, state.acc_n,
+            {"g": msg["c"] + state.h, "Y": msg["Y"], "M": msg["M"],
+             "B": B_new}, arrived, ahp.buffer_k)
+
+        # the direction only where a point flushes this round
+        w_new = state.w
+        dir_norm = torch.zeros_like(state.acc_n)
+        if route.flushes:
+            p = _direction(cfg, means["g"], means["Y"], means["M"],
+                           means["B"])
+            w_new = torch.where(flush[:, None],
+                                state.w + hp.alpha[:, None] * p, state.w)
+            dir_norm = torch.where(flush, torch.linalg.norm(p, dim=-1),
+                                   dir_norm)
+
+        new_state = FlecsAsyncState(
+            w_new, h_new, B_new, None if state.k is None else state.k + 1,
+            bits_new, buf, reset(acc["g"]), reset(acc["Y"]),
+            reset(acc["M"]), reset(acc["B"]), reset(acc_n), route.tstate,
+            t + 1)
+        return new_state, round_aux(route, new_state.acc_n, flush, t,
+                                    bits_new,
+                                    torch.linalg.norm(means["g"], dim=-1),
+                                    dir_norm)
+
+    return step
+
+
+def make_flecs_async_step(cfg: FlecsConfig, local_grad: Callable,
+                          local_hvp: Callable, schedule: StalenessSchedule,
+                          buffer_k):
+    """Build step(state, key) -> (state, aux) at (cfg, schedule.tau,
+    buffer_k): the async sweep step's [1] grid on an unbatched
+    ``FlecsAsyncState`` (``driver.specialize``)."""
+    return specialize(
+        make_flecs_async_sweep_step(cfg, local_grad, local_hvp,
+                                    delay_kind=schedule.kind, q=schedule.q),
+        async_hparams_from_config(cfg, schedule.tau, buffer_k))

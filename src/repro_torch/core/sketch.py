@@ -14,8 +14,11 @@ import torch
 from repro_torch import random
 
 
-def sketch(kind: str, d: int, m: int, k: int, device) -> torch.Tensor:
-    """Deterministic S_k from iteration number k.  [d, m], float32."""
+def sketch(kind: str, d: int, m: int, k, device) -> torch.Tensor:
+    """Deterministic S_k from iteration number k: [d, m], float32.  ``k``
+    may be an int tensor of rounds (any shape, on ``device``): one sketch
+    for each, ``k.shape + (d, m)``, drawn on the device at once (the async
+    L-SR1 update regenerates each message's compute-round sketch so)."""
     key = random.fold_in(random.key(17, device), k)
     root_m = torch.sqrt(torch.tensor(m, dtype=torch.float32))
     if kind == "rademacher":
@@ -24,7 +27,7 @@ def sketch(kind: str, d: int, m: int, k: int, device) -> torch.Tensor:
         return random.normal(key, (d, m)) / root_m
     if kind == "coordinate":
         idx = random.choice(key, d, (m,), replace=False)
-        S = torch.zeros((d, m), dtype=torch.float32, device=key.device)
-        S[idx, torch.arange(m, device=key.device)] = 1.0
-        return S
+        S = torch.zeros(key.shape[:-1] + (d, m), dtype=torch.float32,
+                        device=key.device)
+        return S.scatter_(-2, idx.unsqueeze(-2), 1.0)
     raise ValueError(kind)

@@ -16,16 +16,47 @@ plans and row builders).
 and ``sketch_families.json``; ``budget_fair_rows``
 checks, as the reference does, that every (method, budget) point reached
 its budget and that its ledger stays bit-stable after it froze.
+
+The async engine's experiments (``benchmarks/paper_experiments.py`` and
+``benchmarks/traffic_bench.py``):
+
+    async_grid           FLECS-CGD (m = 2, exact-k p = 0.5) over a (tau ×
+                         buffer_k) grid, alpha auto-damped, one batched
+                         run (``driver.run_async_sweep``); rows as
+                         ``async_grid.json``'s
+    staleness_ablation   FLECS-CGD under fixed and geometric delays ×
+                         participation, one legacy async run a row
+    legacy_steps         each method's legacy async step beside its sync
+                         step (exact-k p = 0.5), for the card checks
+    traffic_plan         the five methods on the async engine (tau, buffer_k
+                         2) under a traffic profile: "fixed" (no model),
+                         "poisson" or "diurnal" arrivals with the default
+                         availability chain and admission (cutoff 3,
+                         6 in flight); ``traffic_rows`` / ``run_profiles``
+                         give ``traffic_bench.json``'s rows
 """
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
 
-from repro_torch.core.api import ExperimentPlan, MethodRun, get_method
+from repro_torch import random
+from repro_torch.core.api import (ExperimentPlan, MethodRun, get_method,
+                                  run_plan)
 from repro_torch.core.compressors import spec_omega, stack_specs
-from repro_torch.core.flecs import (FlecsConfig, FlecsHParams, dither_grid,
-                                    hparams_round_bits)
+from repro_torch.core.driver import (StalenessSchedule, run_async_sweep,
+                                     run_experiment)
+from repro_torch.core.flecs import (FlecsConfig, FlecsHParams,
+                                    async_hparam_grid, dither_grid,
+                                    hparams_round_bits, init_async_state,
+                                    init_state, make_flecs_async_step,
+                                    make_flecs_async_sweep_step,
+                                    make_flecs_step)
+from repro_torch.core.traffic import (AdmissionPolicy, ArrivalSchedule,
+                                      AvailabilityModel, TrafficModel)
+from repro_torch.optim import baselines as tb
 from repro_torch.optim.baselines import DianaConfig, FedNLConfig, GDConfig
 
 FIG1_MS = (1, 2, 4, 8)
@@ -212,3 +243,192 @@ def sketch_families_rows(res, d: int) -> list:
              "grad_sq": float(_np(tr["grad_sq"][g, -1])),
              "Mbits_mean": float(_np(torch.mean(st.bits_per_node[g]))) / 1e6}
             for g, name in enumerate(SKETCH_FAMILY_NAMES)]
+
+
+
+# ---------------------------------------------------------------------------
+# The async engine: staleness grids and traffic profiles
+# ---------------------------------------------------------------------------
+
+ASYNC_GRID_TAUS = (0, 2, 4)
+ASYNC_GRID_P = 0.5
+TRAFFIC_METHODS = ("flecs", "flecs_cgd", "diana", "fednl", "gd")
+TRAFFIC_PROFILES = ("fixed", "poisson", "diurnal")
+DIURNAL_RATES = (0.9, 0.5, 0.2, 0.5)
+POISSON_RATE = 0.6
+
+
+def async_grid_ks(n: int) -> tuple:
+    """The flush thresholds of the grid: 1, n/4 and n (distinct, sorted)."""
+    return tuple(sorted({1.0, float(max(1, n // 4)), float(n)}))
+
+
+def async_grid_setup(prob, taus=ASYNC_GRID_TAUS, ks=None):
+    """(config, sweep step, hparams grid, initial state) of
+    :func:`async_grid`: FLECS-CGD m = 2, dither64 / dither64, exact-k
+    p = 0.5, the (tau × buffer_k) grid with alpha auto-damped
+    (``flecs.async_hparam_grid(auto_damp=(p, n))``)."""
+    n = prob.n_workers
+    cfg = FlecsConfig(m=2, grad_compressor="dither64",
+                      hess_compressor="dither64",
+                      participation=ASYNC_GRID_P, sampling="choice")
+    ahp = async_hparam_grid(taus, async_grid_ks(n) if ks is None else ks,
+                            alpha=1.0, auto_damp=(ASYNC_GRID_P, n))
+    sweep = make_flecs_async_sweep_step(cfg, *prob.make_oracles())
+    st0 = init_async_state(torch.zeros(prob.d, device=prob.A.device), n,
+                           cfg.m, max(taus))
+    return cfg, sweep, ahp, st0
+
+
+def async_grid(prob, iters=600, taus=ASYNC_GRID_TAUS, ks=None):
+    """The (tau × buffer_k) staleness grid as one batched run on the
+    problem's device, key ``key(0)``: (rows, seconds)."""
+    _, sweep, ahp, st0 = async_grid_setup(prob, taus, ks)
+    dev = prob.A.device
+    t0 = time.perf_counter()
+    sts, tr = run_async_sweep(sweep, ahp, st0, random.key(0, dev), iters,
+                              record=lambda st: prob.metrics(st.w))
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    seconds = time.perf_counter() - t0
+    return async_grid_rows(ahp, sts, tr), seconds
+
+
+def async_grid_rows(ahp, sts, tr) -> list:
+    """``async_grid.json``'s rows: per point tau, K, alpha, the final F
+    and grad_sq, the mean Mbit a node and the flushes."""
+    return [{"tau": int(ahp.tau[g]), "K": float(ahp.buffer_k[g]),
+             "alpha": float(ahp.hp.alpha[g]),
+             "F": float(_np(tr["F"][g, -1])),
+             "grad_sq": float(_np(tr["grad_sq"][g, -1])),
+             "Mbits_mean": float(_np(torch.mean(sts.bits_per_node[g]))) / 1e6,
+             "flushes": float(_np(torch.sum(tr["flushed"][g])))}
+            for g in range(int(ahp.tau.shape[0]))]
+
+
+STALENESS_CELLS = (("fixed", 0), ("fixed", 2), ("fixed", 4),
+                   ("geometric", 4))
+
+
+def staleness_ablation(prob, iters=600, cells=STALENESS_CELLS,
+                       ps=(1.0, 0.5)) -> list:
+    """FedBuff-style FLECS-CGD over (delay kind, tau) × participation, one
+    legacy async run a row (``record_every=5``); tau = 0, p = 1 is the
+    synchronous engine.  Rows as the reference's ``staleness.json``."""
+    lg, lh = prob.make_oracles()
+    n = prob.n_workers
+    dev = prob.A.device
+    rows = []
+    for kind, tau in cells:
+        for p in ps:
+            alpha = 1.0 if (tau == 0 and p == 1.0) else 0.2
+            cfg = FlecsConfig(m=2, alpha=alpha, grad_compressor="dither64",
+                              hess_compressor="dither64", participation=p,
+                              sampling="choice")
+            sched = StalenessSchedule(kind, tau=tau, q=0.5)
+            K = n if (tau == 0 and p == 1.0) else max(1, n // 4)
+            step = make_flecs_async_step(cfg, lg, lh, sched, buffer_k=K)
+            st, tr = run_experiment(
+                step, init_async_state(torch.zeros(prob.d, device=dev), n,
+                                       cfg.m, sched.max_delay),
+                random.key(0, dev), iters, record_every=5,
+                record=lambda st: prob.metrics(st.w))
+            arr = _np(tr["n_arrived"])
+            stale = float((_np(tr["staleness_mean"]) * arr).sum()
+                          / max(arr.sum(), 1.0))
+            rows.append({"kind": kind, "tau": tau, "p": p, "K": K,
+                         "alpha": alpha, "F": float(_np(tr["F"][-1])),
+                         "grad_sq": float(_np(tr["grad_sq"][-1])),
+                         "Mbits_mean": float(_np(torch.mean(
+                             st.bits_per_node))) / 1e6,
+                         "staleness_mean": stale})
+    return rows
+
+
+LEGACY_METHODS = ("FLECS-CGD", "DIANA", "FedNL", "GD")
+
+
+def legacy_steps(method: str, prob, kind: str, tau: int, K: float):
+    """((async step, state), (sync step, state)) of one of
+    ``LEGACY_METHODS`` through its legacy makers, exact-k p = 0.5, under a
+    ``StalenessSchedule(kind, tau, q=0.5)`` and buffer_k ``K``, on the
+    problem's device: FLECS-CGD m = 2 (alpha 0.5, 0.2 when stale), DIANA
+    dither64 (lr 1, alpha 0.5), FedNL topk0.25 (alpha 0.5), GD lr 1."""
+    sched = StalenessSchedule(kind, tau=tau, q=0.5)
+    samp = dict(participation=0.5, sampling="choice")
+    n, w0 = prob.n_workers, torch.zeros(prob.d, device=prob.A.device)
+    lg, lh = prob.make_oracles()
+    if method == "FLECS-CGD":
+        cfg = FlecsConfig(m=2, alpha=0.2 if tau else 0.5, **samp)
+        return ((make_flecs_async_step(cfg, lg, lh, sched, K),
+                 init_async_state(w0, n, 2, tau)),
+                (make_flecs_step(cfg, lg, lh), init_state(w0, n)))
+    if method == "DIANA":
+        return ((tb.make_diana_async_step(1.0, 0.5, "dither64", lg, sched, K,
+                                          **samp),
+                 tb.init_diana_async(w0, n, tau)),
+                (tb.make_diana_step(1.0, 0.5, "dither64", lg, **samp),
+                 tb.init_diana(w0, n)))
+    if method == "FedNL":
+        return ((tb.make_fednl_async_step(0.5, "topk0.25", lg,
+                                          prob.local_hessian, prob.mu, sched,
+                                          K, **samp),
+                 tb.init_fednl_async(w0, n, tau)),
+                (tb.make_fednl_step(0.5, "topk0.25", lg, prob.local_hessian,
+                                    prob.mu, **samp),
+                 tb.init_fednl(w0, n)))
+    return ((tb.make_gd_async_step(1.0, lg, n, sched, K, **samp),
+             tb.init_gd_async(w0, n, tau)),
+            (tb.make_gd_step(1.0, lg, n, **samp), tb.init_gd(w0, n)))
+
+
+def traffic_model(profile: str):
+    """A profile's TrafficModel (None for "fixed", the plain delays)."""
+    if profile == "fixed":
+        return None
+    arrival = (ArrivalSchedule("poisson", rates=(POISSON_RATE,))
+               if profile == "poisson"
+               else ArrivalSchedule("diurnal", rates=DIURNAL_RATES))
+    return TrafficModel(arrival=arrival, availability=AvailabilityModel(),
+                        admission=AdmissionPolicy(staleness_cutoff=3.0,
+                                                  max_in_flight=6.0))
+
+
+def traffic_plan(prob, profile: str, iters: int, tau: int,
+                 model=None) -> ExperimentPlan:
+    """The five methods on the async engine (fixed delays up to tau,
+    buffer_k 2) under a traffic profile (``model`` overrides the
+    profile's); FedNL damped to alpha 0.5, as the reference damps it."""
+    def run(m):
+        if m != "fednl":
+            return MethodRun(m)
+        return MethodRun(m, cfg=FedNLConfig(alpha=0.5, mu=prob.mu))
+
+    return ExperimentPlan(
+        problem=prob, runs=tuple(run(m) for m in TRAFFIC_METHODS),
+        iters=iters, seed=0,
+        staleness=StalenessSchedule("fixed", tau=tau), buffer_k=2.0,
+        traffic=traffic_model(profile) if model is None else model)
+
+
+def traffic_rows(profile: str, res) -> list:
+    """``traffic_bench.json``'s rows of one profile's result: per method
+    the final F and the mean Mbit a node."""
+    rows = []
+    for m in TRAFFIC_METHODS:
+        F = float(_np(res.traces[m]["F"][0, -1]))
+        if not np.isfinite(F):
+            raise AssertionError(f"{profile} {m}: F {F}")
+        rows.append({"profile": profile, "method": m, "F": F,
+                     "Mbits_mean": float(np.mean(_np(
+                         res.states[m].bits_per_node[0]))) / 1e6})
+    return rows
+
+
+def run_profiles(prob, iters: int, tau: int) -> list:
+    """Every profile's plan, run in turn: their rows."""
+    rows = []
+    for profile in TRAFFIC_PROFILES:
+        rows += traffic_rows(profile, run_plan(traffic_plan(prob, profile,
+                                                            iters, tau)))
+    return rows

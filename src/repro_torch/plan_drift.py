@@ -42,31 +42,43 @@ replay, a first difference that is explained and comes after rounds that
 agreed within 1e-6, and F within ``STRICT`` of the other side at every
 round, or else within ``ENVELOPE_FACTOR`` times the largest gap that one
 ulp of noise in A opens between two CPU runs over several ulp and problem
-seeds (:func:`stochastic_envelope`, :func:`plan_envelope`).
+seeds (:func:`envelope`).
 
     python -m repro_torch.plan_drift --a cuda --b cpu
     python -m repro_torch.plan_drift --a cpu --b cpu-ulp --ulp-seed 0
 
 (``--d 24 --workers 4 --r 24`` by default, the budget-fair plan; ``--plan``
-picks another of ``experiments``, or ``stochastic``: FLECS-CGD with
-minibatch oracles and exact-k sampling at quickstart size, 50 rounds.)
-The last line printed is one JSON object with every point's report.
+picks another of ``experiments``, ``traffic_<profile>`` (the five methods
+on the async engine under a traffic profile, 100 rounds), ``stochastic``:
+FLECS-CGD with minibatch oracles and exact-k sampling at quickstart size,
+50 rounds, or ``async``: ``experiments.async_grid``'s (tau × buffer_k)
+FLECS-CGD grid, ``--iters`` rounds.)  The last line printed is one JSON
+object with every point's report.
+
+Async runs also record each round's routing (``traffic.route_round``):
+the availability states, the send mask, the senders' delays, the slot
+drained and the admitted arrivals.  Their messages are matched by round,
+and the first difference of a round's routing is named before its
+messages': a routing difference is explained only where it is a geometric
+delay whose log(u) / log(q) lies within ``DELAY_ULPS`` ulps of an integer
+(every other routing decision compares exact float32 values, the same on
+both sides until an earlier difference moves them).
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import json
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import experiments, quickstart, random
-from repro_torch.core import api, compressors, flecs
+from repro_torch.core import api, compressors, flecs, traffic
 from repro_torch.core.compressors import (FAMILY_DITHER, FAMILY_MINMAX,
                                           FAMILY_NATURAL, FAMILY_TOPK)
-from repro_torch.core.driver import run_experiment
+from repro_torch.core.driver import ASYNC_SALT, run_experiment
 from repro_torch.data.logreg import FederatedLogReg, make_problem
 from repro_torch.optim import baselines
 
@@ -74,7 +86,11 @@ PLANS = {"budget_fair": experiments.budget_fair_plan,
          "baselines": experiments.baselines_plan,
          "fig1": experiments.fig1_plan,
          "participation": experiments.participation_plan,
-         "sketch_families": experiments.sketch_families_plan}
+         "sketch_families": experiments.sketch_families_plan,
+         **{f"traffic_{profile}": (
+             lambda prob, iters=100, profile=profile:
+             experiments.traffic_plan(prob, profile, iters, 2))
+            for profile in experiments.TRAFFIC_PROFILES}}
 #: The relative gap of F that counts as the two runs having parted.
 PARTED = 1e-6
 #: The relative gap of F that two sides may always show.
@@ -95,14 +111,28 @@ def nudged(prob: FederatedLogReg, seed: int) -> FederatedLogReg:
     return FederatedLogReg(A, prob.b, prob.mu)
 
 
+class Recording(list):
+    """The recorded compressor calls of a run, in order; ``routes`` the
+    async rounds' routing decisions (empty for a synchronous run)."""
+
+    def __init__(self, *args):
+        super().__init__(*args)
+        self.routes: List[dict] = []
+
+
 @contextlib.contextmanager
 def recording(calls: List[dict]):
     """Every ``compress_split`` of FLECS and the baselines appends {label,
-    spec, key, x, out (CPU copies), device} to ``calls`` while this is
-    open."""
-    label = [None]
+    spec, key, x, out (CPU copies), device, round} to ``calls`` while this
+    is open; every async round's routing (``traffic.route_round``) appends
+    {label, round, kind, q, keys, avail, send, delays, drained, arrived,
+    device} to ``calls.routes`` (where ``calls`` is a
+    :class:`Recording`), and the compressor calls made after it carry its
+    round."""
+    label, rnd = [None], [None]
+    routes = getattr(calls, "routes", [])
     resolve, mods = api._resolve, (flecs, baselines)
-    originals = [m.compress_split for m in mods]
+    originals = [(m.compress_split, m.route_round) for m in mods]
 
     def resolve_and_name(plan, run):
         label[0] = run.label or getattr(run.method, "name", run.method)
@@ -112,32 +142,43 @@ def recording(calls: List[dict]):
         out = compressors.compress_split(spec, key, x)
         calls.append(dict(label=label[0], spec=spec, key=key.cpu(),
                           x=x.detach().cpu(), out=out.detach().cpu(),
-                          device=x.device.type))
+                          device=x.device.type, round=rnd[0]))
         return out
+
+    def route(delay_kind, q, model, ahp, state, keys, mask):
+        r = traffic.route_round(delay_kind, q, model, ahp, state, keys, mask)
+        rnd[0] = state.t
+        routes.append(dict(
+            label=label[0], round=state.t, kind=delay_kind, q=q,
+            keys=keys.cpu(), send=r.send.cpu(), delays=r.delays.cpu(),
+            avail=None if r.tstate is None else r.tstate.avail.cpu(),
+            drained=r.drained.cpu(), arrived=r.arrived.cpu(),
+            device=keys.device.type))
+        return r
 
     api._resolve = resolve_and_name
     for m in mods:
-        m.compress_split = record
+        m.compress_split, m.route_round = record, route
     try:
         yield
     finally:
         api._resolve = resolve
-        for m, f in zip(mods, originals):
-            m.compress_split = f
+        for m, (f, g) in zip(mods, originals):
+            m.compress_split, m.route_round = f, g
 
 
 def run_recorded(plan) -> tuple:
-    """(the plan's result, its recorded compressor calls)."""
-    calls: List[dict] = []
+    """(the plan's result, its :class:`Recording`)."""
+    calls = Recording()
     with recording(calls):
         res = api.run_plan(plan)
     return res, calls
 
 
 def record_run(run: Callable) -> tuple:
-    """(final state, traces, recorded compressor calls) of ``run()``, a
+    """(final state, traces, :class:`Recording`) of ``run()``, a
     zero-argument run of one (unbatched) step -> (final state, traces)."""
-    calls: List[dict] = []
+    calls = Recording()
     with recording(calls):
         state, tr = run()
     return state, tr, calls
@@ -330,6 +371,59 @@ def first_difference(ca: dict, cb: dict, g: int,
     return rep
 
 
+#: A route's decisions in the order a round takes them: the availability
+#: chain, the send mask (sampling, busy exclusion, the in-flight cap), the
+#: senders' delays, the slot drained, the admission.
+ROUTE_DECISIONS = (("avail", "availability"), ("send", "send"),
+                   ("delays", "delay"), ("drained", "arrival"),
+                   ("arrived", "admission"))
+#: How near an integer (in ulps of the quotient) a geometric delay's
+#: log(u) / log(q) may lie where two devices floor it differently.
+DELAY_ULPS = 4
+
+
+def _delay_quotient(ra: dict, g: int, i: int) -> float:
+    """log(u) / log(q) of worker i's geometric delay draw at point g, in
+    float64, from the route's recorded key."""
+    key = random.fold_in(ra["keys"][g], ASYNC_SALT)
+    u = random.uniform(key, (ra["send"].shape[-1],),
+                       minval=float(np.finfo(np.float32).tiny))[i]
+    return float(np.log(np.float64(u)) / np.log(np.float64(
+        np.float32(ra["q"]))))
+
+
+def route_difference(ra: dict, rb: dict, g: int) -> dict:
+    """Point g's first differing routing decision between two records of
+    one async round (``ROUTE_DECISIONS``, a sender's delay only), or None.
+    Only a geometric delay is explained: where log(u) / log(q) lies within
+    ``DELAY_ULPS`` ulps of an integer, two logs an ulp apart can floor
+    either side of it."""
+    for field, name in ROUTE_DECISIONS:
+        if ra[field] is None:
+            continue
+        a, b = ra[field][g], rb[field][g]
+        differ = a != b
+        if field == "delays":
+            differ &= (ra["send"][g] > 0) | (rb["send"][g] > 0)
+        if not bool(differ.any()):
+            continue
+        i = int(differ.nonzero()[0, 0])
+        rep = dict(family=None, decision=True, kind=name, worker=i,
+                   value_a=float(a[i]), value_b=float(b[i]),
+                   elements_differing=int(differ.sum()), faithful=True,
+                   explained=False)
+        if field == "delays" and ra["kind"] == "geometric":
+            quo = _delay_quotient(ra, g, i)
+            j = round(quo)
+            ulps = abs(quo - j) / float(np.spacing(np.float32(abs(quo))))
+            lo, hi = sorted((rep["value_a"], rep["value_b"]))
+            rep.update(quotient=quo, ulps_from_integer=ulps,
+                       explained=ulps <= DELAY_ULPS and hi - lo == 1
+                       and hi == j)
+        return rep
+    return None
+
+
 def _decides(spec, g: int) -> bool:
     """Whether point g's compressor can make a decision that differs: all
     but identity."""
@@ -337,30 +431,47 @@ def _decides(spec, g: int) -> bool:
     return int(fam) != compressors.FAMILY_IDENTITY
 
 
-def _unfaithful(gaps: List[np.ndarray], g: int, calls: int,
-                per_round: int) -> tuple:
-    """(messages of point g among the first ``calls`` that are not their
+def _unfaithful(gaps: List[np.ndarray], g: int, calls: list,
+                stamps: list) -> tuple:
+    """(messages of point g among ``calls`` (indices) that are not their
     replays, the first one's {round, message, elements, max_ulps})."""
-    bad = [c for c in range(calls) if gaps[c][g, 0]]
+    bad = [c for c in calls if gaps[c][g, 0]]
     if not bad:
         return 0, None
     c = bad[0]
-    return len(bad), dict(round=c // per_round, message=c % per_round,
+    return len(bad), dict(round=stamps[c][0], message=stamps[c][1],
                           elements=int(gaps[c][g, 0]),
                           max_ulps=int(gaps[c][g, 1]))
 
 
+def _stamps(pairs: list, T: int) -> list:
+    """(round, message) of each call pair: the recorded round of an async
+    run's call (its messages numbered within the round), else the calls
+    split evenly over the T rounds."""
+    if pairs and pairs[0][0].get("round") is not None:
+        out, seen = [], {}
+        for ca, _ in pairs:
+            t = ca["round"]
+            out.append((t, seen.get(t, 0)))
+            seen[t] = seen.get(t, 0) + 1
+        return out
+    per_round = max(1, len(pairs) // T)
+    return [(c // per_round, c % per_round) for c in range(len(pairs))]
+
+
 def _reports(Fa: torch.Tensor, Fb: torch.Tensor, pairs: list,
-             lived: list) -> list:
+             lived: list, routes: list = ()) -> list:
     """One report a grid point: F [G, T] of both sides, their recorded
-    call pairs in order, the rounds each point lived."""
+    call pairs in order, the rounds each point lived, and an async run's
+    route pairs (one a round)."""
     rel = ((Fa - Fb).abs() / Fa.abs()).numpy()
-    per_round = len(pairs) // Fa.shape[1]
+    stamps = _stamps(pairs, Fa.shape[1])
     gaps = [_replay_gaps([p[side] for p in pairs]) for side in (0, 1)]
+    by_round = {ra["round"]: (ra, rb) for ra, rb in routes}
     reports = []
     for g in range(Fa.shape[0]):
         parted = np.nonzero(rel[g] > PARTED)[0]
-        calls = min(len(pairs), int(lived[g]) * per_round)
+        calls = [c for c in range(len(pairs)) if stamps[c][0] < lived[g]]
         rep = dict(point=g, rounds_lived=int(lived[g]),
                    F_a=float(Fa[g, -1]), F_b=float(Fb[g, -1]),
                    final_rel_gap=float(rel[g, -1]),
@@ -369,20 +480,26 @@ def _reports(Fa: torch.Tensor, Fb: torch.Tensor, pairs: list,
                                        else None))
         for side, gp in zip("ab", gaps):
             rep[f"unfaithful_{side}"], rep[f"first_unfaithful_{side}"] = \
-                _unfaithful(gp, g, calls, per_round)
+                _unfaithful(gp, g, calls, stamps)
+        # events in round order: a round's routing, then its messages
+        events = sorted([(t, 0, None) for t in by_round if t < lived[g]]
+                        + [(stamps[c][0], 1, c) for c in calls],
+                        key=lambda e: (e[0], e[1]))
         # the first differing decision; failing one, the first message
         # whose values differ (identity, the count sketch)
         first_values = None
-        for c in range(calls):
-            ca, cb = pairs[c]
-            if first_values is not None and not _decides(ca["spec"], g):
-                continue
-            t = c // per_round
-            diff = first_difference(ca, cb, g, faithful=not (
-                gaps[0][c][g, 0] or gaps[1][c][g, 0]))
+        for t, _, c in events:
+            if c is None:
+                diff = route_difference(*by_round[t], g)
+            else:
+                ca, cb = pairs[c]
+                if first_values is not None and not _decides(ca["spec"], g):
+                    continue
+                diff = first_difference(ca, cb, g, faithful=not (
+                    gaps[0][c][g, 0] or gaps[1][c][g, 0]))
             if diff is None:
                 continue
-            diff.update(round=t, message=c % per_round,
+            diff.update(round=t, message=None if c is None else stamps[c][1],
                         rel_gap_before=float(rel[g, :t].max())
                         if t else 0.0)
             if diff["decision"]:
@@ -396,24 +513,47 @@ def _reports(Fa: torch.Tensor, Fb: torch.Tensor, pairs: list,
     return reports
 
 
-def _check_calls(calls_a, calls_b) -> None:
+def _route_pairs(rec_a: list, rec_b: list, label=None) -> list:
+    ra = [r for r in getattr(rec_a, "routes", []) if r["label"] == label]
+    rb = [r for r in getattr(rec_b, "routes", []) if r["label"] == label]
+    if len(ra) != len(rb):
+        raise RuntimeError(f"the two runs routed {len(ra)} and {len(rb)} "
+                           "async rounds")
+    return list(zip(ra, rb))
+
+
+def _check_calls(calls_a, calls_b) -> list:
+    """The call pairs of two runs: in order, or for async runs matched by
+    (label, round, message) (a round where one side's grid had no sender
+    makes no call there; the routes show why)."""
+    if calls_a and calls_a[0].get("round") is not None:
+        def keyed(calls):
+            out, seen = {}, {}
+            for c in calls:
+                k = (c["label"], c["round"])
+                out[k + (seen.get(k, 0),)] = c
+                seen[k] = seen.get(k, 0) + 1
+            return out
+        ka, kb = keyed(calls_a), keyed(calls_b)
+        return [(ka[k], kb[k]) for k in ka if k in kb]
     if len(calls_a) != len(calls_b):
         raise RuntimeError(f"the two runs made {len(calls_a)} and "
                            f"{len(calls_b)} compressor calls")
+    return list(zip(calls_a, calls_b))
 
 
 def compare_recorded(rec_a: tuple, rec_b: tuple) -> Dict[str, list]:
     """Two :func:`run_recorded` results of one plan: one report per run
     label and grid point (see the module's docstring)."""
     (res_a, calls_a), (res_b, calls_b) = rec_a, rec_b
-    _check_calls(calls_a, calls_b)
+    pairs = _check_calls(calls_a, calls_b)
     out = {}
     for lab in res_a.labels:
-        mine = [(ca, cb) for ca, cb in zip(calls_a, calls_b)
-                if ca["label"] == lab]
+        mine = [(ca, cb) for ca, cb in pairs if ca["label"] == lab]
         out[lab] = _reports(res_a.traces[lab]["F"].cpu().double(),
                             res_b.traces[lab]["F"].cpu().double(), mine,
-                            res_a.states[lab].k.cpu().reshape(-1).tolist())
+                            res_a.states[lab].k.cpu().reshape(-1).tolist(),
+                            _route_pairs(calls_a, calls_b, lab))
     return out
 
 
@@ -427,10 +567,10 @@ def compare_recorded_runs(rec_a: tuple, rec_b: tuple) -> dict:
     """Two :func:`record_run` results of one (unbatched) step: the report
     of :func:`compare` for their one point."""
     (st_a, tr_a, calls_a), (_, tr_b, calls_b) = rec_a, rec_b
-    _check_calls(calls_a, calls_b)
     return _reports(tr_a["F"].cpu().double().reshape(1, -1),
                     tr_b["F"].cpu().double().reshape(1, -1),
-                    list(zip(calls_a, calls_b)), [int(st_a.k)])[0]
+                    _check_calls(calls_a, calls_b), [int(st_a.k)],
+                    _route_pairs(calls_a, calls_b))[0]
 
 
 def compare_runs(run_a: Callable, run_b: Callable) -> dict:
@@ -466,6 +606,42 @@ def verdict(rep: dict, envelope: float = 0.0) -> List[str]:
     return faults
 
 
+def compare_recorded_grid(rec_a: tuple, rec_b: tuple) -> list:
+    """Two :func:`record_run` results of one sweep (batched final states,
+    traces [G, T]): one report a grid point."""
+    (st_a, tr_a, calls_a), (_, tr_b, calls_b) = rec_a, rec_b
+    return _reports(tr_a["F"].cpu().double(), tr_b["F"].cpu().double(),
+                    _check_calls(calls_a, calls_b),
+                    st_a.k.cpu().reshape(-1).tolist(),
+                    _route_pairs(calls_a, calls_b))
+
+
+def async_grid_run(side: str, iters: int = 60, seed: int = 0,
+                   ulp_seed: int = 0, **problem) -> Callable:
+    """A zero-argument run of ``experiments.async_grid``'s batched (tau ×
+    buffer_k) FLECS-CGD grid on ``side`` (cuda, cpu or cpu-ulp), recording
+    F each round; ``problem``: ``make_problem``'s sizes (d = 24, n = 4,
+    r = 24 by default)."""
+    from repro_torch.core.driver import run_async_sweep
+    size = dict(dict(d=24, n_workers=4, r=24), **problem)
+    dev = "cpu" if side == "cpu-ulp" else side
+    prob = make_problem(**size, mu=1e-3, seed=seed, device=dev)
+    if side == "cpu-ulp":
+        prob = nudged(prob, ulp_seed)
+    _, sweep, ahp, st0 = experiments.async_grid_setup(prob)
+    return lambda: run_async_sweep(sweep, ahp, st0, random.key(0, dev),
+                                   iters, record=lambda st: prob.metrics(st.w))
+
+
+def max_rel_gaps(F_a: torch.Tensor, F_b: torch.Tensor) -> List[float]:
+    """The ``max_rel_gap`` of a report, a float a row of F [G, T] (or of
+    one run's F [T]), from the F traces alone: an envelope's runs need no
+    recorded calls."""
+    F_a, F_b = (F.cpu().double().reshape(-1, F.shape[-1]) for F in (F_a, F_b))
+    rel = ((F_a - F_b).abs() / F_a.abs()).numpy()
+    return [float(r.max()) for r in rel]
+
+
 def stochastic_setup(side: str, seed: int = 0, ulp_seed: int = 0):
     """``quickstart.setup(**quickstart.STOCHASTIC)`` (minibatch oracles of
     32 rows, exact-k p = 0.5, alpha 0.2) at quickstart size on ``side``
@@ -495,42 +671,45 @@ def stochastic_run(side: str, iters: int = 50, seed: int = 0,
     return rounds(stochastic_setup(side, seed, ulp_seed), iters)
 
 
-def stochastic_envelope(iters: int = 50, seeds=ENVELOPE_SEEDS,
-                        base: tuple = None) -> tuple:
-    """The CPU's ulp envelope of the stochastic run: (the largest
-    ``max_rel_gap`` between a CPU run and the CPU run with A nudged by one
-    ulp, over (problem seed, ulp seed) ``seeds``, every gap).  ``base``:
-    the :func:`record_run` of problem seed 0's CPU run, if made already."""
-    bases = {} if base is None else {0: base}
+def envelope_F(kind: str, ps: int, us: Optional[int], iters: int,
+               problem: Optional[dict] = None) -> torch.Tensor:
+    """F of one CPU run of an ulp envelope: problem seed ``ps``, A nudged
+    by ulp seed ``us`` (None: as made).  ``kind``: "async" (the async
+    grid, F [G, T]; ``problem``: ``make_problem``'s sizes), "stochastic"
+    (stochastic FLECS-CGD at quickstart size, F [T]) or the name of a plan
+    of one run in ``experiments`` (F [G, T]; ``problem``:
+    ``make_problem``'s keywords but the seed and the device).  Plain
+    arguments: a worker process's job."""
+    side = "cpu" if us is None else "cpu-ulp"
+    if kind == "async":
+        return async_grid_run(side, iters, ps, us or 0, **(problem or {}))(
+        )[1]["F"]
+    if kind == "stochastic":
+        return stochastic_run(side, iters, ps, us or 0)()[1]["F"]
+    prob = make_problem(**problem, seed=ps, device="cpu")
+    if us is not None:
+        prob = nudged(prob, us)
+    res = api.run_plan(getattr(experiments, kind)(prob, iters))
+    (label,) = res.labels
+    return res.traces[label]["F"]
+
+
+def envelope(kind: str, iters: int, problem: Optional[dict] = None,
+             seeds=ENVELOPE_SEEDS, runs: Optional[dict] = None) -> tuple:
+    """The CPU's ulp envelope of ``kind``'s runs (:func:`envelope_F`), a
+    float a grid point: the largest ``max_rel_gap`` over (problem seed,
+    ulp seed) ``seeds`` between problem seed ps's run and that run with A
+    nudged by one ulp; and every gap.  ``runs``: the F traces of runs
+    already made, by (ps, us) (us None: the run as made); the others are
+    made here, one after another."""
+    runs = dict(runs or {})
     gaps = []
     for ps, us in seeds:
-        if ps not in bases:
-            bases[ps] = record_run(stochastic_run("cpu", iters, ps))
-        gaps.append(compare_recorded_runs(bases[ps], record_run(
-            stochastic_run("cpu-ulp", iters, ps, us)))["max_rel_gap"])
-    return max(gaps), gaps
-
-
-def plan_envelope(make_plan: Callable, problem: dict, seeds=ENVELOPE_SEEDS,
-                  base: tuple = None) -> Dict[str, list]:
-    """The CPU's ulp envelope of a plan, a list per run label (one float a
-    grid point): the largest ``max_rel_gap`` between the plan on the CPU
-    and on the CPU with A nudged by one ulp, over (problem seed, ulp seed)
-    ``seeds``.  ``problem``: ``make_problem``'s keywords but the seed and
-    the device; ``base``: the :func:`run_recorded` of problem seed 0's CPU
-    run, if made already."""
-    bases = {} if base is None else {0: base}
-    env: Dict[str, list] = {}
-    for ps, us in seeds:
-        prob = make_problem(**problem, seed=ps, device="cpu")
-        if ps not in bases:
-            bases[ps] = run_recorded(make_plan(prob))
-        out = compare_recorded(bases[ps], run_recorded(make_plan(
-            nudged(prob, us))))
-        for lab, reports in out.items():
-            gaps = [r["max_rel_gap"] for r in reports]
-            env[lab] = [max(a, b) for a, b in zip(env.get(lab, gaps), gaps)]
-    return env
+        for key in ((ps, None), (ps, us)):
+            if key not in runs:
+                runs[key] = envelope_F(kind, *key, iters, problem)
+        gaps.append(max_rel_gaps(runs[(ps, None)], runs[(ps, us)]))
+    return [max(col) for col in zip(*gaps)], gaps
 
 
 def _side(name: str, args):
@@ -547,9 +726,14 @@ def main(argv=None) -> dict:
     ap.add_argument("--a", default="cuda", help="cuda, cpu or cpu-ulp")
     ap.add_argument("--b", default="cpu", help="cuda, cpu or cpu-ulp")
     ap.add_argument("--plan", default="budget_fair",
-                    choices=sorted(PLANS) + ["stochastic"],
-                    help="a plan of experiments, or 'stochastic': FLECS-CGD "
-                         "with minibatch oracles at quickstart size")
+                    choices=sorted(PLANS) + ["stochastic", "async"],
+                    help="a plan of experiments (traffic_<profile>: the "
+                         "five methods on the async engine under a traffic "
+                         "profile), 'stochastic': FLECS-CGD with minibatch "
+                         "oracles at quickstart size, or 'async': the "
+                         "async_grid's (tau × buffer_k) FLECS-CGD grid")
+    ap.add_argument("--iters", type=int, default=60,
+                    help="rounds of the 'async' grid")
     ap.add_argument("--d", type=int, default=24)
     ap.add_argument("--workers", type=int, default=4)
     ap.add_argument("--r", type=int, default=24)
@@ -560,6 +744,11 @@ def main(argv=None) -> dict:
         out = {"stochastic": [compare_runs(
             stochastic_run(args.a, seed=args.seed, ulp_seed=args.ulp_seed),
             stochastic_run(args.b, seed=args.seed, ulp_seed=args.ulp_seed))]}
+    elif args.plan == "async":
+        size = dict(d=args.d, n_workers=args.workers, r=args.r)
+        out = {"async": compare_recorded_grid(*(record_run(async_grid_run(
+            side, args.iters, args.seed, args.ulp_seed, **size))
+            for side in (args.a, args.b)))}
     else:
         make = PLANS[args.plan]
         out = compare(make(_side(args.a, args)), make(_side(args.b, args)))

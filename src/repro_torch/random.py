@@ -19,7 +19,8 @@ on (the default of the JAX releases the reference runs on):
   index ``i``;
 * ``split(key, n)[i]`` is the pair ``threefry2x32(key, (0, i))``;
 * ``fold_in(key, d)`` is the pair ``threefry2x32(key, (0, d))``;
-* ``uniform`` is ``bitcast((bits >> 9) | 0x3F800000) - 1``;
+* ``uniform`` is ``bitcast((bits >> 9) | 0x3F800000) - 1``, scaled to
+  [minval, maxval) as ``max(minval, u * (maxval - minval) + minval)``;
 * ``normal`` is ``sqrt(2) * erfinv`` of a uniform on (-1, 1): exact up to
   the erfinv, which is held to a few ulps (see :func:`erfinv`).
 
@@ -119,8 +120,14 @@ def bits(key: torch.Tensor, shape=()) -> torch.Tensor:
     return out.reshape(key.shape[:-1] + shape)
 
 
-def uniform(key: torch.Tensor, shape=()) -> torch.Tensor:
-    """``jax.random.uniform`` on [0, 1), float32."""
+def uniform(key: torch.Tensor, shape=(), minval=0.0,
+            maxval=1.0) -> torch.Tensor:
+    """``jax.random.uniform`` on [minval, maxval), float32: the floats on
+    [0, 1) scaled as JAX scales them, ``max(minval, floats * (maxval -
+    minval) + minval)``, where XLA fuses the product and the sum into one
+    float32 fma: here taken in float64 and rounded once, which is that fma
+    while the product and minval lie within 29 binary orders of each
+    other (on [0, 1) the floats themselves)."""
     shape = tuple(shape)
 
     def finish(b):
@@ -128,7 +135,13 @@ def uniform(key: torch.Tensor, shape=()) -> torch.Tensor:
         return mant.to(torch.int32).view(torch.float32) - 1.0
 
     out = _draw(key, math.prod(shape), torch.float32, finish)
-    return out.reshape(key.shape[:-1] + shape)
+    out = out.reshape(key.shape[:-1] + shape)
+    if minval == 0.0 and maxval == 1.0:
+        return out
+    f32 = dict(dtype=torch.float32, device=key.device)
+    lo, hi = torch.tensor(minval, **f32), torch.tensor(maxval, **f32)
+    scaled = (out.double() * (hi - lo).double() + lo.double()).float()
+    return torch.maximum(lo, scaled)
 
 
 #: Giles' single-precision erfinv ("Approximating the erfinv function",
@@ -165,11 +178,9 @@ def normal(key: torch.Tensor, shape=()) -> torch.Tensor:
     The uniforms are the reference's bit for bit; ``erfinv`` holds the
     result to within a few ulps of the reference (relative error below
     5e-7, ``tests/test_torch_random.py``)."""
-    f32 = dict(dtype=torch.float32, device=key.device)
-    lo = torch.tensor(-(1 - 2**-24), **f32)          # nextafter(-1, 0)
-    span = torch.tensor(1.0, **f32) - lo
-    u = torch.maximum(lo, uniform(key, shape) * span + lo)
-    return erfinv(u) * torch.tensor(math.sqrt(2), **f32)
+    u = uniform(key, shape, minval=-(1 - 2**-24))    # nextafter(-1, 0)
+    return erfinv(u) * torch.tensor(math.sqrt(2), dtype=torch.float32,
+                                    device=key.device)
 
 
 def bernoulli(key: torch.Tensor, p=0.5, shape=()) -> torch.Tensor:

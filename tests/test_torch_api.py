@@ -185,12 +185,34 @@ def jax_stack(*names):
 
 
 def test_plan_errors(probs):
+    """The reference's plan contracts, the async ones included: traffic
+    without staleness, async hparams without staleness, a tau beyond the
+    buffer's slots, and a method without an async variant all raise, as
+    ``repro.core.api`` raises them."""
+    import dataclasses
+    from repro_torch.core.driver import StalenessSchedule
+    from repro_torch.core.traffic import TrafficModel
+    from repro_torch.optim import baselines as tb
     _, tp = probs
     runs = (tapi.MethodRun("gd"),)
-    with pytest.raises(NotImplementedError, match="async engine"):
-        tapi.run_plan(tapi.ExperimentPlan(tp, runs, staleness=object()))
-    with pytest.raises(NotImplementedError, match="async engine"):
-        tapi.run_plan(tapi.ExperimentPlan(tp, runs, traffic=object()))
+    with pytest.raises(ValueError, match="rides the async engine"):
+        tapi.run_plan(tapi.ExperimentPlan(tp, runs, traffic=TrafficModel()))
+    gd = tapi.get_method("gd")
+    ahp = tapi._broadcast(tdr.grid1(gd.from_config(gd.default_config())),
+                          3, 2.0, tb.GDAsyncHParams)
+    with pytest.raises(ValueError, match="require plan.staleness"):
+        tapi.run_plan(tapi.ExperimentPlan(
+            tp, (tapi.MethodRun("gd", hparams=ahp),)))
+    with pytest.raises(ValueError, match="tau=3"):
+        tapi.run_plan(tapi.ExperimentPlan(
+            tp, (tapi.MethodRun("gd", hparams=ahp),),
+            staleness=StalenessSchedule("fixed", tau=1)))
+    sync_only = dataclasses.replace(gd, name="gd_sync", init_async=None,
+                                    async_sweep_step=None, async_wrap=None)
+    with pytest.raises(ValueError, match="no async variant"):
+        tapi.run_plan(tapi.ExperimentPlan(
+            tp, (tapi.MethodRun(sync_only),),
+            staleness=StalenessSchedule("fixed", tau=1)))
     with pytest.raises(ValueError, match="no runs"):
         tapi.run_plan(tapi.ExperimentPlan(tp, ()))
     with pytest.raises(ValueError, match="positive"):
@@ -218,19 +240,20 @@ def test_federated_logreg_cli(capsys):
     out = capsys.readouterr().out.splitlines()
     assert len(out) == 6 and all("active/round=  2.0" in line
                                  for line in out[:5])
-    with pytest.raises(NotImplementedError, match="async engine"):
-        federated_logreg.main(["--device", "cpu", "--staleness", "2"])
+    # traffic rides the async engine, as in the reference example
+    with pytest.raises(SystemExit, match="--staleness"):
+        federated_logreg.main(["--device", "cpu", "--arrival-profile",
+                               "diurnal"])
 
 
-def test_federated_logreg_budget_rows_match_reference_example(capsys):
-    """The CLI's budget-fair rows against the reference example's at the
-    same size (the example's Bernoulli flags): the same finals."""
+def _cli_rows(capsys, argv, keep):
+    """(the port CLI's rows, the reference example's rows) for ``argv``:
+    the lines ``keep`` selects of each."""
     import runpy
     import sys
-    argv = ["--d", "16", "--workers", "4", "--bit-budget", "4000",
-            "--participation", "1.0,0.5"]
     federated_logreg.main(["--device", "cpu", *argv])
-    got = capsys.readouterr().out.splitlines()[:-1]
+    got = [line for line in capsys.readouterr().out.splitlines()
+           if keep(line)]
     old = sys.argv
     sys.argv = ["federated_logreg.py", *argv]
     japi.reset_plan_stats()          # the example asserts its own compile
@@ -239,18 +262,60 @@ def test_federated_logreg_budget_rows_match_reference_example(capsys):
                        run_name="__main__")
     finally:
         sys.argv = old
-    want = capsys.readouterr().out.splitlines()
-    want = [line for line in want if "@p=" in line]
+    want = [line for line in capsys.readouterr().out.splitlines()
+            if keep(line)]
+    return got, want
+
+
+def _cli_fields(line):
+    return line.split()[0], {k: float(v) for k, v in re.findall(
+        r"([\w/|-]+)=\s*([-+.\deE]+)", line)}
+
+
+def test_federated_logreg_budget_rows_match_reference_example(capsys):
+    """The CLI's budget-fair rows against the reference example's at the
+    same size (the example's Bernoulli flags): the same finals."""
+    got, want = _cli_rows(capsys, [
+        "--d", "16", "--workers", "4", "--bit-budget", "4000",
+        "--participation", "1.0,0.5"], lambda line: "@p=" in line)
     assert len(got) == len(want) == 10
-
-    def fields(line):
-        return line.split()[0], {k: float(v) for k, v in re.findall(
-            r"([\w/|]+)=\s*([-+.\deE]+)", line)}
-
     for g, w in zip(got, want):
-        gn, gv = fields(g)
-        wn, wv = fields(w)
+        gn, gv = _cli_fields(g)
+        wn, wv = _cli_fields(w)
         assert gn == wn
         assert gv["Mbits/node"] == wv["Mbits/node"]
         assert gv["active/round"] == wv["active/round"]
+        np.testing.assert_allclose(gv["F"], wv["F"], rtol=5e-4)
+
+
+ASYNC_CLI = {
+    "geometric": ["--staleness", "2", "--delay-kind", "geometric",
+                  "--participation", "0.5"],
+    "diurnal": ["--staleness", "2", "--arrival-profile", "diurnal",
+                "--participation", "0.5"],
+    "auto-alpha": ["--staleness", "2", "--auto-alpha",
+                   "--participation", "0.5"],
+}
+
+
+@pytest.mark.parametrize("case", list(ASYNC_CLI))
+def test_federated_logreg_async_rows_match_reference_example(capsys, case):
+    """The CLI's async flags against the reference example's rows at the
+    same size: the same methods, ledgers, activity and staleness columns
+    exactly (masks, delays, traffic and arrivals are the reference's key
+    streams), F within rtol 5e-4; the auto-damped alphas it prints equal."""
+    argv = ["--d", "16", "--workers", "4", "--iters", "12",
+            *ASYNC_CLI[case]]
+    got, want = _cli_rows(capsys, argv, lambda line: "F=" in line
+                          or line.startswith("auto-damped"))
+    assert len(got) == len(want) == 5 + (case == "auto-alpha")
+    for g, w in zip(got, want):
+        if g.startswith("auto-damped"):
+            assert g == w
+            continue
+        gn, gv = _cli_fields(g)
+        wn, wv = _cli_fields(w)
+        assert gn == wn and set(gv) == set(wv) and "stale/round" in gv
+        for key in ("Mbits/node", "active/round", "stale/round"):
+            assert gv[key] == wv[key], (gn, key)
         np.testing.assert_allclose(gv["F"], wv["F"], rtol=5e-4)

@@ -243,10 +243,7 @@ def test_hparam_grids_match_reference(grid):
 @pytest.mark.parametrize("maker,label", [
     (tb.make_diana_sharded_sweep_step, "cohort, hierarchy and sharding"),
     (tb.make_diana_cohort_sweep_step, "cohort, hierarchy and sharding"),
-    (tb.make_gd_cohort_sweep_step, "cohort, hierarchy and sharding"),
-    (tb.make_diana_async_sweep_step, "async engine"),
-    (tb.make_fednl_async_sweep_step, "async engine"),
-    (tb.make_gd_async_sweep_step, "async engine")])
+    (tb.make_gd_cohort_sweep_step, "cohort, hierarchy and sharding")])
 def test_unported_engines_raise(maker, label):
     with pytest.raises(NotImplementedError, match=label):
         maker()

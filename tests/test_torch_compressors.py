@@ -345,3 +345,69 @@ def test_dither_cluster_size_rule(n, L, C):
     """fused_dither_keyed's CTAs per row on 132 SMs: n·C <= 132 and at
     least DITHER_MIN_SHARE elements a CTA."""
     assert tops.dither_cluster(n, L, 132) == C
+
+
+# ---------------------------------------------------------------------------
+# The static Compressor veneer
+# ---------------------------------------------------------------------------
+
+def _veneers():
+    return [(jc.identity(), tc.identity()),
+            (jc.random_dithering(16), tc.random_dithering(16)),
+            (jc.natural(), tc.natural()),
+            (jc.top_k(0.25), tc.top_k(0.25)),
+            (jc.count_sketch(8, 2, 0.5), tc.count_sketch(8, 2, 0.5)),
+            (jc.min_max(0.3), tc.min_max(0.3))]
+
+
+def test_static_compressors_match_reference():
+    """Names, bias flags, prices (``bits``, the deprecated
+    ``bits_per_value`` where it is defined), ω and the spec ``make_spec``
+    takes from a Compressor, against the reference's veneer."""
+    import warnings
+    for jc_, tc_ in _veneers():
+        assert (tc_.name, tc_.unbiased) == (jc_.name, jc_.unbiased)
+        for d in (1, 24, 5000):
+            assert tc_.bits(d) == jc_.bits(d)
+            assert tc_.omega(d) == jc_.omega(d)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            try:
+                want = jc_.bits_per_value
+            except ValueError:
+                with pytest.raises(ValueError, match="dimension"):
+                    tc_.bits_per_value
+            else:
+                assert tc_.bits_per_value == want
+        spec = tc.make_spec(tc_)
+        assert spec.family == tc_.spec.family and spec.params is not None
+    with pytest.raises(ValueError, match="keyword"):
+        tc.make_spec(tc.top_k(0.5), frac=0.2)
+
+
+def test_static_compress_matches_reference():
+    """``Compressor.compress(key, x)`` compresses one whole message as the
+    reference's does: dither, natural and top-k bit for bit."""
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal(300).astype(np.float32)
+    for jc_, tc_ in _veneers()[:4]:
+        want = jc_.compress(jax.random.key(3), jnp.asarray(x))
+        got = tc_.compress(tr.key(3, "cpu"), torch.as_tensor(x))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_deprecated_aliases_warn_as_the_reference():
+    """``get_compressor``, ``as_spec`` and ``spec_from_name`` warn with
+    the reference's messages and return its values."""
+    for call in (lambda m: m.get_compressor("topk0.5"),
+                 lambda m: m.as_spec("dither8"),
+                 lambda m: m.spec_from_name("natural")):
+        with pytest.warns(DeprecationWarning) as jw:
+            want = call(jc)
+        with pytest.warns(DeprecationWarning) as tw:
+            got = call(tc)
+        assert [str(w.message) for w in tw] == [str(w.message) for w in jw]
+        if isinstance(got, tc.Compressor):
+            assert (got.name, got.unbiased) == (want.name, want.unbiased)
+            got, want = got.spec, want.spec
+        assert got.family == int(np.asarray(want.family))

@@ -35,7 +35,12 @@ Tolerances:
   warned about), min-max's messages bit-identical where the norms agree;
   a stochastic run's every card message the plain compressor's on its
   recorded input, and F within rtol 1e-4 of the CPU's at every round or
-  within 3x the CPU's own ulp envelope (``plan_drift.verdict``).
+  within 3x the CPU's own ulp envelope (``plan_drift.verdict``);
+* the async engine: tau = 0 async steps equal the sync steps on the card
+  bit for bit; delays, sends, arrivals, the availability chain and the
+  ledgers bit for bit the CPU's, except a geometric delay whose
+  log(u) / log(q) lies within 4 ulps of an integer (each such one warned
+  about); the async grid held by ``plan_drift.verdict``.
 This file imports no JAX (the card's machine has none).
 """
 import warnings
@@ -1093,7 +1098,112 @@ def test_stochastic_card_drift_is_a_level_flip(cuda):
     cpu = plan_drift.record_run(plan_drift.stochastic_run("cpu"))
     rep = plan_drift.compare_recorded_runs(
         plan_drift.record_run(plan_drift.stochastic_run("cuda")), cpu)
-    env, _ = plan_drift.stochastic_envelope(base=cpu)
+    (env,), _ = plan_drift.envelope("stochastic", 50,
+                                    runs={(0, None): cpu[1]["F"]})
     assert not plan_drift.verdict(rep, env), rep
     if "first_difference" in rep:
         assert rep["first_difference"]["family"] == 1, rep
+
+
+# ---------------------------------------------------------------------------
+# The async engine and its traffic model on the card
+# ---------------------------------------------------------------------------
+
+ASYNC_SMALL = dict(d=24, n_workers=8, r=24)
+
+
+@pytest.mark.parametrize("method", ["FLECS-CGD", "DIANA", "FedNL", "GD"])
+def test_async_tau0_is_the_sync_step_on_the_card(cuda, method):
+    """tau = 0 with buffer_k the cohort: the async step is the sync step on
+    the card bit for bit (state, ledgers, every shared aux entry); the
+    steps are ``experiments.legacy_steps``' (exact-k p = 0.5)."""
+    from repro_torch import experiments
+    from repro_torch.core.driver import run_experiment
+    from repro_torch.data.logreg import make_problem
+    prob = make_problem(**ASYNC_SMALL, mu=1e-3, seed=0, device=cuda)
+    (astep, a0), (sstep, s0) = experiments.legacy_steps(
+        method, prob, "fixed", 0, 4)
+    rec = lambda st: prob.metrics(st.w)                    # noqa: E731
+    sa, ta = run_experiment(astep, a0, random.key(1, cuda), 30, record=rec)
+    ss, ts = run_experiment(sstep, s0, random.key(1, cuda), 30, record=rec)
+    for field in type(ss)._fields:
+        if isinstance(getattr(ss, field), torch.Tensor):
+            assert torch.equal(getattr(ss, field), getattr(sa, field)), field
+    for key, v in ts.items():
+        assert torch.equal(v, ta[key]), key
+
+
+def test_async_grid_on_the_card_under_the_verdict(cuda):
+    """``experiments.async_grid`` at d = 24 (G = 9, 60 rounds), card against
+    CPU, every compressor call and routing recorded: ledgers, sends and
+    arrivals equal, every point held by ``plan_drift.verdict`` (the CPU's
+    ulp envelope taken where F parts past rtol 1e-4)."""
+    from repro_torch import plan_drift
+    cpu = plan_drift.record_run(plan_drift.async_grid_run("cpu", 60,
+                                                          **ASYNC_SMALL))
+    card = plan_drift.record_run(plan_drift.async_grid_run(cuda.type, 60,
+                                                           **ASYNC_SMALL))
+    for key in ("bits_per_node", "n_active", "n_arrived", "flushed"):
+        assert torch.equal(card[1][key].cpu(), cpu[1][key]), key
+    reports = plan_drift.compare_recorded_grid(card, cpu)
+    env = None
+    for g, rep in enumerate(reports):
+        if rep["max_rel_gap"] > plan_drift.STRICT and env is None:
+            env = plan_drift.envelope("async", 60, ASYNC_SMALL)[0]
+        faults = plan_drift.verdict(rep, 0.0 if env is None else env[g])
+        assert not faults, (g, rep)
+
+
+def test_geometric_delays_at_powers_of_two_on_the_card(cuda):
+    """Geometric delays from u = 2^-j and its neighbours, and from
+    200,000 real draws: every delay the card floors differently from the
+    CPU has log(u) / log(q) within 4 ulps of an integer."""
+    from repro_torch.core import driver
+    u = np.array([2.0 ** -j for j in range(1, 24)]
+                 + [np.nextafter(np.float32(2.0 ** -j), np.float32(s))
+                    for j in range(1, 24) for s in (0, 1)], np.float32)
+    keys = random.split(random.key(3, "cpu"), 100)
+    draws = random.uniform(keys, (2000,),
+                           minval=float(np.finfo(np.float32).tiny))
+    for q in (0.5, 0.3):
+        for x in (torch.as_tensor(u), draws.reshape(-1)):
+            card = driver.geometric_delays(x.to(cuda), q, 60).cpu()
+            host = driver.geometric_delays(x, q, 60)
+            for i in torch.nonzero(card != host).reshape(-1).tolist():
+                quo = np.log(np.float64(x[i])) / np.log(np.float64(
+                    np.float32(q)))
+                ulps = abs(quo - round(quo)) / np.spacing(np.float32(
+                    abs(quo)))
+                warnings.warn(f"geometric delay at u = {float(x[i])!r}, q "
+                              f"{q}: card {int(card[i])}, CPU "
+                              f"{int(host[i])}, {ulps:.2f} ulps from "
+                              f"{round(quo)}")
+                assert ulps <= 4 and abs(int(card[i]) - int(host[i])) == 1
+    for kind in ("fixed", "uniform"):
+        taus = torch.tensor([0, 1, 2, 4, 7])
+        k5 = random.split(random.key(4, "cpu"), 5)
+        assert torch.equal(driver.sample_delays(kind, k5.to(cuda), 500,
+                                                taus.to(cuda)).cpu(),
+                           driver.sample_delays(kind, k5, 500, taus))
+
+
+def test_traffic_plan_chain_on_the_card_matches_the_cpu(cuda):
+    """The five-method diurnal traffic plan (availability chain, admission
+    cutoff 3, 6 in flight; tau 2) at d = 24, 40 rounds: every round's
+    availability states, sends, delays and admitted arrivals, and the
+    ledgers, bit for bit the CPU's."""
+    from repro_torch import experiments, plan_drift
+    from repro_torch.data.logreg import make_problem
+    recs = [plan_drift.run_recorded(experiments.traffic_plan(
+        make_problem(**ASYNC_SMALL, mu=1e-3, seed=0, device=dev),
+        "diurnal", 40, 2)) for dev in (cuda, "cpu")]
+    (res, calls), (cres, ccalls) = recs
+    assert len(calls.routes) == len(ccalls.routes) == 5 * 40
+    for a, b in zip(calls.routes, ccalls.routes):
+        for key in ("avail", "send", "delays", "drained", "arrived"):
+            assert torch.equal(a[key], b[key]), (a["label"], a["round"],
+                                                 key)
+    for lab in res.labels:
+        for key in ("bits_per_node", "n_active", "n_arrived"):
+            assert torch.equal(res.traces[lab][key].cpu(),
+                               cres.traces[lab][key]), (lab, key)

@@ -8,7 +8,10 @@ runs' fractional parts, or a top-k near-tie) after rounds that agreed, and
 that the tool's levels are the compressor's own.  Records made on the card
 are replayed through the plain compressor: the tests mark CPU records as
 the card's, so a corrupted message must be caught as not its replay, and
-``verdict`` must fail it and a run that parts beyond its limit.
+``verdict`` must fail it and a run that parts beyond its limit.  Async
+runs (the async grid) also record each round's routing: it never differs
+under ulp noise, a changed decision is named, and a sub-grid runs its
+points on the grid's own key streams.
 """
 import copy
 
@@ -215,6 +218,83 @@ def test_stochastic_envelope_is_the_largest_ulp_gap(stochastic_pair):
     """The envelope is the largest gap over its seeds, each a CPU run
     against the same run with A nudged in place (the oracles see it)."""
     a, b = stochastic_pair
-    env, gaps = plan_drift.stochastic_envelope(14, ((0, 0), (1, 0)), base=a)
-    assert env == max(gaps) and len(gaps) == 2 and min(gaps) > 0
-    assert gaps[0] == plan_drift.compare_recorded_runs(a, b)["max_rel_gap"]
+    env, gaps = plan_drift.envelope("stochastic", 14, seeds=((0, 0), (1, 0)),
+                                    runs={(0, None): a[1]["F"]})
+    assert env == [max(g for g, in gaps)] and len(gaps) == 2
+    assert min(g for g, in gaps) > 0
+    assert gaps[0] == [plan_drift.compare_recorded_runs(a, b)["max_rel_gap"]]
+
+
+# ---------------------------------------------------------------------------
+# Async runs: messages matched by round, routing decisions named
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def async_pair():
+    """The async grid (d = 24, n = 4, 40 rounds: taus {0, 2, 4} × buffer_k
+    {1, 4}, G = 6) on the CPU and on the CPU
+    with A nudged by one ulp, every call and route recorded."""
+    return tuple(plan_drift.record_run(plan_drift.async_grid_run(side, 40))
+                 for side in ("cpu", "cpu-ulp"))
+
+
+def test_async_grid_parts_at_rounding_decisions(async_pair):
+    """Every point of the async grid that parts under one ulp of noise
+    parts at an explained decision, after rounds that agreed within 1e-6;
+    the routing (masks, fixed delays, arrivals) never differs; every
+    message is its own replay."""
+    reports = plan_drift.compare_recorded_grid(*async_pair)
+    assert len(reports) == 6
+    routes = plan_drift._route_pairs(async_pair[0][2], async_pair[1][2])
+    assert len(routes) == 40
+    for r in reports:
+        assert r["unfaithful_a"] == r["unfaithful_b"] == 0
+        diff = r.get("first_difference")
+        if diff is not None:
+            assert diff.get("kind") is None, diff     # not a routing one
+            assert diff["explained"] and diff["rel_gap_before"] <= 1e-6
+    for ra, rb in routes:
+        for g in range(6):
+            assert plan_drift.route_difference(ra, rb, g) is None
+
+
+def test_route_differences_are_named_and_only_delays_explained(async_pair):
+    """A changed availability state, send or admitted arrival is the first
+    difference of its round, named and unexplained; a changed delay of a
+    worker that sent nothing is no difference."""
+    ra = async_pair[0][2].routes[5]
+    for field, kind in (("send", "send"), ("arrived", "admission")):
+        rb = dict(ra, **{field: ra[field].clone()})
+        rb[field][3, 1] = 1.0 - rb[field][3, 1]
+        diff = plan_drift.route_difference(ra, rb, 3)
+        assert diff["kind"] == kind and diff["worker"] == 1
+        assert not diff["explained"]
+        assert plan_drift.route_difference(ra, rb, 2) is None
+    idle = int(torch.nonzero(ra["send"][0] == 0)[0, 0])
+    rb = dict(ra, delays=ra["delays"].clone())
+    rb["delays"][0, idle] += 1
+    assert plan_drift.route_difference(ra, rb, 0) is None
+    avail = dict(ra, avail=torch.zeros_like(ra["send"], dtype=torch.int64))
+    changed = dict(avail, avail=avail["avail"].clone())
+    changed["avail"][4, 0] = 2
+    assert plan_drift.route_difference(avail, changed, 4)["kind"] == \
+        "availability"
+
+
+def test_async_envelope_is_the_grid_reports_gaps(async_pair):
+    """The async grid's envelope from its F traces alone (each run made
+    by ``envelope_F``, a worker process's job) is each grid point's
+    ``max_rel_gap`` of the recorded comparison, the largest over its seed
+    pairs."""
+    want = [r["max_rel_gap"]
+            for r in plan_drift.compare_recorded_grid(*async_pair)]
+    base = plan_drift.envelope_F("async", 0, None, 40)
+    assert torch.equal(base, async_pair[0][1]["F"])
+    env, gaps = plan_drift.envelope("async", 40, seeds=((0, 0),),
+                                    runs={(0, None): base})
+    assert gaps == [want] and env == want
+    env2, gaps2 = plan_drift.envelope("async", 40, seeds=((0, 0), (0, 1)),
+                                      runs={(0, None): base, (0, 0): plan_drift
+                                            .envelope_F("async", 0, 0, 40)})
+    assert gaps2[0] == want and env2 == [max(a, b) for a, b in
+                                         zip(*gaps2)]

@@ -50,7 +50,12 @@ back to the CPU):
    max |Δ| <= 1e-5 (f32) / 1e-2 (bf16) · max |grad|, and bitwise the same
    over two runs; the forward's output must be bitwise the same with and
    without its log-sum-exp output; the bf16 backward's six wgmma kernels
-   must hold HGMMA in the SASS of the library built.
+   must hold HGMMA in the SASS of the library built.  The grouped keyed
+   dither with global row ids (``ids=``) against its plain version, bit
+   for bit: a cohort's ids (``cohort_indices`` of 102,400 clients; rows
+   [64, 123] and [64, 492]), per-point ids [G, n], a block 10..19 of a
+   20-worker federation (rows [10, 5000]), at G = 1 and 3; ids 0..n-1
+   equal to the kernel without ids.
 3. Quickstart (d=123, n=20, r=64, m=4, seed 0): 201 rounds with
    dither64/dither64 and 50 with a topk0.1 Hessian compressor, on the card
    and in the port on the CPU.  Ledgers must be equal every round, the
@@ -66,6 +71,12 @@ back to the CPU):
    against the port on this machine's CPU: ledgers, activity counts,
    round counters, scan lengths and budget rounds equal, final F within
    rtol 1e-4, frozen tails bit-stable; only grouped entries launched.
+   The paper's remaining figures (``experiments.fig3_iterate_updates``,
+   ``comm_table``, ``ablation_dither_levels``, ``vmapped_grid``,
+   ``ablation_grid``; 30 rounds each, the cut) on the card against the
+   CPU (worker processes): ledger columns and the communication table
+   equal, F within rtol 1e-4 at every row but for a run whose F climbs 5%
+   past its start on the CPU too (fig3's L-SR1 run: logged).
 3c. The stochastic setting: randint, permutation, choice and the exact-k
    masks on the card bit for bit the CPU's; natural, count sketch (its
    table twice, and the decode of one table) and min-max on the card bit
@@ -129,6 +140,26 @@ back to the CPU):
    (and the grid's ulp envelope, a run a job) runs in seven spawned
    worker processes after the gisette cells are timed, while the card
    runs its own side.
+3e. Hierarchy, cohort and sharding.  With the host quiet: gisette width
+   (d = 5000, n = 20, r = 300, m = 4) with an edge tier of 4 aggregators
+   over a [3] grid of edge specs (identity, dither64, count_sketch64), and
+   the cohort FLECS-CGD engine over K = 20 of a virtual population of
+   102,400 shards of 16 rows (10 rounds each: ms, kernels, busy ms, peak
+   a round as phase 4b takes them); the cohort engine's memory round by
+   round (K = 64 of N = 1,024, 102,400 and 1,048,576, d = 123, 10 rounds):
+   the last round's peak above the allocation before it agrees within 2
+   MiB over the three N; DIANA and GD at N = 102,400 logged.  Then, the
+   CPU side in worker processes meanwhile: the sharded engine at world
+   size 1 (NCCL) equal to ``run_sweep`` on the card bit for bit over 50
+   rounds (FLECS FedSONIA, FLECS truncated inverse, hierarchical
+   FLECS-CGD, DIANA); the cohort runs (FLECS-CGD at N = 1,024, DIANA and
+   GD at 102,400; 10 rounds) against the CPU: every round's ids and mask,
+   the ledgers equal, F held by ``plan_drift.verdict``; the hierarchy grid
+   at quickstart size (100 rounds) against the CPU: edge_bits and
+   bits_per_node equal every round, each point held by ``verdict``, the
+   identity point within rtol 1e-5 of the flat server over 6 rounds (the
+   reference's own contract; its gap over 100 rounds logged).  Only the
+   grouped compressor entries launch.
 4. Gisette width (d=5000, n=20, r=300, m=4): 10 rounds with each Hessian
    compressor on the card, with exact ledgers; the dither run's objective
    against the port on this machine's CPU; round time and peak memory.
@@ -182,7 +213,8 @@ back to the CPU):
    float32 (bound: 3xTF32 on the tensor cores) and bfloat16 (wgmma; its
    HGMMA count read from the SASS).
 10. Print the kernels line (fourteen kernels: the ten of slices 1–6 and
-   the four grouped entries), then the device line as the last line.
+   the four grouped entries, whose launches add phase 3e's), then the
+   device line as the last line.
 """
 from __future__ import annotations
 
@@ -2034,11 +2066,12 @@ def envelope_from(cpu: dict, kind: str, iters: int, problem, base) -> tuple:
 
 
 def cpu_job(job: tuple) -> bytes:
-    """One CPU run of phases 3c and 3d, in a worker process (one thread
+    """One CPU run of phases 3b to 3e, in a worker process (one thread
     each): ("grid",) the async grid's recorded run; ("legacy", method,
     kind) a legacy async step's; ("traffic", profile) a traffic plan's;
     ("envelope", kind, ps, us, iters, problem items) the F of one run of
-    an ulp envelope (``plan_drift.envelope_F``).  Returns the record (or
+    an ulp envelope (``plan_drift.envelope_F``); phase 3e's and the paper
+    figures' runs (:func:`_pop_cpu_run`).  Returns the record (or
     F) as ``torch.save`` bytes: a record holds thousands of tensors, too
     many to pass as shared memory handles."""
     import io
@@ -2061,6 +2094,8 @@ def _cpu_run(job: tuple):
     from repro_torch.core.driver import run_experiment
     from repro_torch.data.logreg import make_problem
     kind = job[0]
+    if kind in ("hier", "cohort", "figure"):
+        return _pop_cpu_run(job)
     if kind == "grid":
         return plan_drift.record_run(plan_drift.async_grid_run(
             "cpu", ASYNC_ITERS, **ASYNC_SIZE))
@@ -2206,6 +2241,7 @@ def phase_async_legacy(ops, counts, cpu) -> dict:
     then under each schedule at tau 2, buffer_k 5, card against CPU
     (``cpu``: the CPU side's futures)."""
     import numpy as np
+    import torch
     from repro_torch import experiments, plan_drift, random
     from repro_torch.core.driver import run_experiment
     from repro_torch.data.logreg import make_problem
@@ -2220,11 +2256,11 @@ def phase_async_legacy(ops, counts, cpu) -> dict:
                                 record=rec)
         ss, ts = run_experiment(sstep, s0, random.key(1, "cuda"), 50,
                                 record=rec)
-        _bitwise(f"{method} tau 0 state", {f: getattr(ss, f) for f in
-                                           type(ss)._fields if f not in
-                                           ("k", "t")},
-                 {f: getattr(sa, f) for f in type(ss)._fields
-                  if f not in ("k", "t")})
+        # the sync state's tensors (its edge_bits is None: no hierarchy)
+        names = [f for f, v in zip(ss._fields, ss)
+                 if isinstance(v, torch.Tensor) and f != "k"]
+        _bitwise(f"{method} tau 0 state", {f: getattr(ss, f) for f in names},
+                 {f: getattr(sa, f) for f in names})
         _bitwise(f"{method} tau 0 traces", ts, {k: ta[k] for k in ts})
     log(f"phase 3d: legacy async steps at tau 0, buffer_k {cohort} (the "
         f"cohort), 50 rounds: {list(methods)} equal their "
@@ -2640,6 +2676,546 @@ def phase_stochastic(dev, quickstart, random, driver, compressors, api,
     out["gisette"] = phase_gisette_stochastic(quickstart, api, experiments,
                                               make_problem, ops, counts)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Slice 11: hierarchy, cohort and sharding
+# ---------------------------------------------------------------------------
+
+#: Phase 3e's sizes: the quickstart's federation, the edge tier of four
+#: aggregators, the cohort of 64 clients of a virtual population of shards
+#: of 16 rows.
+POP_SIZE = dict(d=123, n_workers=20, r=64)
+HIER_ITERS = 100
+HIER_EDGES = ("identity", "dither64", "count_sketch64")
+HIER_E = 4
+COHORT_K = 64
+COHORT_R = 16
+COHORT_NS = (1024, 102_400, 1_048_576)
+COHORT_ITERS = 10
+SHARDED_ITERS = 50
+#: Rounds of each of phase 3b's paper figures (the reference's 200-300,
+#: cut so the CPU side fits the time limit).
+FIGURE_ITERS = 30
+
+
+def hierarchy_setup(dev, d=123, n_workers=20, r=64, seed=0):
+    """Hierarchical FLECS-CGD (m = 4, dither64, E = 4) over a [3] grid of
+    edge specs (identity, dither64, count_sketch64), and the flat server on
+    the same grid: (problem, step, hparams, state, flat step, flat
+    hparams, flat state)."""
+    import torch
+    from repro_torch.core import compressors, driver, flecs
+    from repro_torch.core.hierarchy import HierarchyConfig
+    from repro_torch.data.logreg import make_problem
+    prob = make_problem(d=d, n_workers=n_workers, r=r, mu=1e-3, seed=seed,
+                        device=dev)
+    lg, lh = prob.make_oracles()
+    flat = flecs.FlecsConfig(m=4, grad_compressor="dither64",
+                             hess_compressor="dither64")
+    cfg = flecs.FlecsConfig(m=4, grad_compressor="dither64",
+                            hess_compressor="dither64",
+                            hierarchy=HierarchyConfig(HIER_E))
+    flat_hp = driver.tile_hparams(driver.grid1(flecs.hparams_from_config(
+        flat)), len(HIER_EDGES))
+    hp = flat_hp._replace(edge_spec=compressors.stack_specs(*HIER_EDGES))
+    w0 = torch.zeros(d, device=dev)
+    return (prob, flecs.make_flecs_sweep_step(cfg, lg, lh), hp,
+            flecs.init_state(w0, n_workers, n_edges=HIER_E),
+            flecs.make_flecs_sweep_step(flat, lg, lh), flat_hp,
+            flecs.init_state(w0, n_workers))
+
+
+def hierarchy_run(dev, iters, flat=False, **size):
+    """A zero-argument run of :func:`hierarchy_setup`'s grid (or of the
+    flat server on it), recording F each round."""
+    from repro_torch import random
+    from repro_torch.core.driver import run_sweep
+    prob, step, hp, st0, fstep, fhp, fst0 = hierarchy_setup(dev, **size)
+    if flat:
+        step, hp, st0 = fstep, fhp, fst0
+    return lambda: run_sweep(step, hp, st0, random.key(0, dev), iters,
+                             record=lambda st: prob.metrics(st.w))
+
+
+def cohort_setup(method, dev, n_total, d=123, r=COHORT_R, cohort=COHORT_K,
+                 m=4):
+    """The cohort engine of ``method`` (flecs: FLECS-CGD m = 4 dither64;
+    diana: dither64; gd) at p = 0.5 over ``make_virtual_problem(d, n_total,
+    r)``: (problem, sweep step, [1] grid, initial state)."""
+    import torch
+    from repro_torch.core import driver, flecs
+    from repro_torch.data.logreg import make_virtual_problem
+    from repro_torch.optim import baselines as tb
+    prob = make_virtual_problem(d=d, n_total=n_total, r=r, seed=0,
+                                device=dev)
+    lg, lh = prob.make_oracles()
+    w0 = torch.zeros(d, device=dev)
+    if method == "flecs":
+        cfg = flecs.FlecsConfig(m=m, participation=0.5)
+        return (prob, flecs.make_flecs_cohort_sweep_step(cfg, lg, lh,
+                                                         n_total, cohort),
+                driver.grid1(flecs.hparams_from_config(cfg)),
+                flecs.init_cohort_state(w0, n_total))
+    if method == "diana":
+        cfg = tb.DianaConfig(participation=0.5)
+        return (prob, tb.make_diana_cohort_sweep_step(cfg, lg, n_total,
+                                                      cohort),
+                driver.grid1(tb.diana_hparams_from_config(cfg)),
+                tb.init_diana(w0, n_total))
+    cfg = tb.GDConfig(participation=0.5)
+    return (prob, tb.make_gd_cohort_sweep_step(cfg, lg, n_total, cohort),
+            driver.grid1(tb.gd_hparams_from_config(cfg)),
+            tb.init_gd(w0, n_total))
+
+
+def cohort_run(method, dev, n_total, iters, **kw):
+    """A zero-argument run of :func:`cohort_setup`, recording F."""
+    from repro_torch import random
+    from repro_torch.core.driver import run_sweep
+    prob, step, hp, st0 = cohort_setup(method, dev, n_total, **kw)
+    return lambda: run_sweep(step, hp, st0, random.key(0, dev), iters,
+                             record=lambda st: prob.metrics(st.w))
+
+
+def cohort_draws(dev, n_total, cohort, iters, splits):
+    """Every round's cohort ids and mask (p = 0.5) of a [1] grid on key 0,
+    drawn as the cohort steps draw them (``splits``: the method's key
+    split count): (ids [iters, K], masks [iters, K]) on the CPU."""
+    import torch
+    from repro_torch import random
+    from repro_torch.core import driver
+    keys = driver.sweep_keys(random.key(0, dev), 1, iters)[0]
+    k_p = random.split(keys, splits)[:, -1]
+    ids = driver.cohort_indices(random.fold_in(k_p, driver.COHORT_SALT),
+                                n_total, cohort)
+    mask = driver.resolve_participation(k_p, n_total, 0.5, "bernoulli",
+                                        cohort=cohort)
+    return ids.cpu(), mask.cpu()
+
+
+def phase_row_ids(dev, ops, ref, random, driver, err) -> None:
+    """Phase 2, ``fused_dither_keyed_grouped(..., ids=)``: against its
+    plain version bit for bit at a cohort's ids (``cohort_indices`` of
+    102,400 clients, 64 rows of 123 and 492), a block of a 20-worker
+    federation (ids 10..19, rows of 5000), per-point ids [G, n] and over
+    G = 3 points; and ids = 0..n-1 equal to the kernel without ids."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(23)
+    cases = []
+    for G in (1, 3):
+        coh = driver.cohort_indices(random.split(random.key(31, "cpu"), G),
+                                    102_400, 64)
+        for L in (123, 492):
+            cases.append((G, coh[0], L, "cohort ids"))
+            cases.append((G, coh, L, "per-point cohort ids"))
+        cases.append((G, torch.arange(10, 20), 5000, "block 10..19"))
+    for G, ids, L, what in cases:
+        n = ids.shape[-1]
+        x = torch.as_tensor((rng.normal(size=(G * n, L)) * 10)
+                            .astype(np.float32))
+        keys = random.split(random.key(40 + G, "cpu"), G)
+        s = torch.as_tensor(rng.choice([4.0, 16.0, 64.0], G)
+                            .astype(np.float32))
+        ids = ids.contiguous()
+        out, bits = ops.fused_dither_keyed_grouped(
+            x.to(dev), keys.to(dev), s.to(dev), ids.to(dev))
+        want, want_bits = ref.fused_dither_keyed_grouped_ref(x, keys, s,
+                                                             ids)
+        label = f"{what}, G={G} [{G * n},{L}]"
+        check(bit_identical(out, want) and bit_identical(bits, want_bits),
+              f"fused_dither_keyed_grouped with ids differs from its plain "
+              f"version on {label}")
+        err["fused_dither_keyed_grouped"] = max(
+            err["fused_dither_keyed_grouped"], max_abs_err(out, want))
+        plain_ids = ops.fused_dither_keyed_grouped(
+            x.to(dev), keys.to(dev), s.to(dev),
+            torch.arange(n, device=dev))[0]
+        check(bit_identical(plain_ids, ops.fused_dither_keyed_grouped(
+            x.to(dev), keys.to(dev), s.to(dev))[0]),
+            f"ids 0..n-1 differ from the kernel without ids on {label}")
+    log(f"phase 2: fused_dither_keyed_grouped with global row ids "
+        f"bit-identical to its plain version on {len(cases)} cases "
+        f"(cohort ids of 102,400 clients, per-point ids, a 10..19 block) "
+        f"and with ids 0..n-1 to the kernel without ids")
+
+
+def _pop_cpu_run(job: tuple):
+    """Phase 3e's CPU runs (a worker process, two threads): ("hier",) the
+    hierarchy grid's recorded run at quickstart size; ("cohort", method,
+    n_total) a cohort run's; ("figure", name) a paper figure's rows."""
+    import torch
+    from repro_torch import plan_drift
+    torch.set_num_threads(2)
+    if job[0] == "hier":
+        return plan_drift.record_run(hierarchy_run("cpu", HIER_ITERS,
+                                                   **POP_SIZE))
+    if job[0] == "cohort":
+        return plan_drift.record_run(cohort_run(job[1], "cpu", job[2],
+                                                COHORT_ITERS))
+    return figure_rows(job[1], "cpu")
+
+
+def figure_rows(name, dev):
+    """One of the paper figures of ``experiments`` at quickstart size,
+    FIGURE_ITERS rounds where it takes rounds: its rows."""
+    from repro_torch import experiments
+    from repro_torch.data.logreg import make_problem
+    prob = make_problem(**PLAN_PROBLEM, device=dev)
+    if name == "comm_table":
+        return experiments.comm_table(prob)
+    out = getattr(experiments, name)(prob, FIGURE_ITERS)
+    return out[0] if isinstance(out, tuple) else out
+
+
+#: The kernels phase 3e's paths launch: the dither messages and prices,
+#: and the count sketch's heavy-hitter top-k (no spec is priced by top-k).
+POP_PATH = ("fused_dither_keyed_grouped", "dither_bits_grouped",
+            "fused_topk_grouped")
+#: Why a figure's F is logged and not held.
+RISES = ("the run's F climbs 5% past its first value on the CPU too (the "
+         "L-SR1 update's unstable start amplifies an ulp)")
+FIGURES = ("fig3_iterate_updates", "comm_table", "ablation_dither_levels",
+           "vmapped_grid", "ablation_grid")
+#: Row keys compared exactly (ledgers and the grid's coordinates).
+FIGURE_EXACT = ("bits_per_node", "Mbits", "iter", "s", "alpha", "grad_s",
+                "hess_s", "beta", "method", "m", "measured_bits",
+                "formula_bits", "match")
+
+
+def _figure_pairs(rows):
+    """(label, row) pairs of a figure's rows (fig3: by run)."""
+    if isinstance(rows, dict):
+        return [(f"{k} {r.get('iter')}", r) for k, v in rows.items()
+                for r in v]
+    return [(str(i), r) for i, r in enumerate(rows)]
+
+
+def phase_figures(ops, counts) -> dict:
+    """Phase 3b, the paper's remaining figures at quickstart size
+    (``experiments.fig3_iterate_updates``, ``comm_table``,
+    ``ablation_dither_levels``, ``vmapped_grid``, ``ablation_grid``;
+    FIGURE_ITERS rounds): on the card against the CPU (run in worker
+    processes meanwhile): ledger columns and the communication table
+    exactly, every row's F within rtol 1e-4, but for a run whose F climbs
+    past its start on the CPU too (``RISES``: logged)."""
+    import numpy as np
+    import torch
+    out = {}
+    with cpu_pool() as pool:
+        cpu = {("figure", name): pool.submit(cpu_job, ("figure", name))
+               for name in FIGURES}
+        for name in FIGURES:
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            rows = figure_rows(name, "cuda")
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            for k, v in ops.launches.items():
+                counts[k] += v
+            want = cpu_result(cpu, ("figure", name))
+            pairs, wpairs = _figure_pairs(rows), _figure_pairs(want)
+            check([p[0] for p in pairs] == [p[0] for p in wpairs],
+                  f"{name}: rows differ in shape from the CPU's")
+            worst, logged = 0.0, []
+            diverged = {}
+            if isinstance(want, dict):
+                # a run whose F climbs on the CPU too amplifies an ulp
+                diverged = {k: max(r["F"] for r in v) > 1.05 * v[0]["F"]
+                            for k, v in want.items()}
+            for (lab, r), (_, w) in zip(pairs, wpairs):
+                for key in FIGURE_EXACT:
+                    if key in w:
+                        check(r[key] == w[key], f"{name} row {lab}: {key} "
+                              f"{r[key]} != the CPU's {w[key]}")
+                if "F" in w:
+                    rel = abs(r["F"] / w["F"] - 1)
+                    run = lab.rsplit(" ", 1)[0]
+                    if diverged.get(run):
+                        logged.append((lab, rel))
+                        continue
+                    worst = max(worst, rel)
+                    check(np.isfinite(r["F"]) and rel <= 1e-4,
+                          f"{name} row {lab}: F {r['F']!r} beyond rtol "
+                          f"1e-4 of the CPU's {w['F']!r}")
+            log(f"phase 3b: {name} x{FIGURE_ITERS} on the card in "
+                f"{secs!r} s: ledgers equal to the CPU's, F within "
+                f"{worst!r}; logged, not held ({RISES}): {logged}; rows "
+                f"{rows if not isinstance(rows, dict) else {k: v[-1] for k, v in rows.items()}}")
+            out[name] = dict(seconds=secs, rel_final=worst,
+                             diverged_logged=logged)
+    return out
+
+
+def _round_memory(step, hp, st, keys):
+    """Step one round from ``st``: (state, aux, the round's peak device
+    memory above the allocation before it, bytes)."""
+    import torch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    st, aux = step(hp, st, keys)
+    torch.cuda.synchronize()
+    return st, aux, torch.cuda.max_memory_allocated() - base
+
+
+def cohort_memory(method, n_total, ops, counts) -> dict:
+    """COHORT_ITERS rounds of ``method``'s cohort engine over N = n_total
+    on the card, round by round: ms a round, the persistent state's bytes,
+    every round's peak above the allocation before it (the last is the
+    N-independence measure)."""
+    import torch
+    from repro_torch import random
+    from repro_torch.core import driver
+    prob, step, hp, st0 = cohort_setup(method, "cuda", n_total)
+    hp = driver.hparams_to(hp, "cuda")
+    keys = driver.sweep_keys(random.key(0, "cuda"), 1, COHORT_ITERS)
+    st = driver.batch_state(st0, 1, copy=True)
+    persistent = sum(v.numel() * v.element_size() for v in st
+                     if isinstance(v, torch.Tensor))
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    peaks = []
+    for t in range(COHORT_ITERS):
+        st, aux, peak = _round_memory(step, hp, st, keys[:, t])
+        peaks.append(peak)
+    secs = time.perf_counter() - t0
+    for k, v in ops.launches.items():
+        counts[k] += v
+    F = float(prob.metrics(st.w)["F"][0])
+    check(torch.isfinite(st.w).all().item(),
+          f"cohort {method} N={n_total}: w not finite")
+    r = dict(round_ms=1e3 * secs / COHORT_ITERS, persistent_bytes=persistent,
+             round_peak_bytes=peaks[-1], round_peaks=peaks, F=F)
+    log(f"phase 3e: cohort {method} K={COHORT_K} of N={n_total} x"
+        f"{COHORT_ITERS}: {r['round_ms']!r} ms a round (each round timed "
+        f"alone), persistent state {persistent / 2**20:.1f} MiB, the last "
+        f"round's peak above the state {peaks[-1] / 2**20!r} MiB (every "
+        f"round's: {[round(p / 2**20, 3) for p in peaks]}), F {F!r}")
+    del st, st0
+    torch.cuda.empty_cache()
+    return r
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_sharded(ops, counts) -> dict:
+    """Phase 3e, the sharded engine at world size 1 (NCCL, one rank, a
+    ``tcp://localhost`` rendezvous): ``run_sharded_sweep`` against
+    ``run_sweep`` on the card, bit for bit in every state leaf and trace,
+    SHARDED_ITERS rounds at quickstart size with p = 0.5: FLECS (FedSONIA),
+    FLECS (truncated inverse), hierarchical FLECS-CGD (dither64 edges) and
+    DIANA."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import random
+    from repro_torch.core import driver, flecs
+    from repro_torch.core.hierarchy import HierarchyConfig
+    from repro_torch.data.logreg import make_problem
+    from repro_torch.optim import baselines as tb
+    group = driver.worker_group(1, 0, f"tcp://localhost:{_free_port()}",
+                                backend="nccl")
+    prob = make_problem(**POP_SIZE, mu=1e-3, seed=0, device="cuda")
+    lg, lh = prob.make_oracles()
+    n, w0 = prob.n_workers, torch.zeros(prob.d, device="cuda")
+    cases = {}
+    for name, kw in (("FLECS fedsonia", dict(grad_compressor="identity")),
+                     ("FLECS truncated_inverse", dict(
+                         grad_compressor="identity",
+                         direction="truncated_inverse", tinv_floor=1e-3)),
+                     ("FLECS-CGD hierarchy", dict(
+                         hierarchy=HierarchyConfig(HIER_E, "dither64")))):
+        cfg = flecs.FlecsConfig(m=4, participation=0.5, **kw)
+        E = HIER_E if cfg.hierarchy else None
+        cases[name] = (flecs.make_flecs_sweep_step(cfg, lg, lh),
+                       flecs.make_flecs_sharded_sweep_step(cfg, lg, lh, n,
+                                                           group),
+                       driver.grid1(flecs.hparams_from_config(cfg)),
+                       flecs.init_state(w0, n, n_edges=E),
+                       flecs.sharded_state_specs(E is not None))
+    cfg = tb.DianaConfig(participation=0.5)
+    cases["DIANA"] = (tb.make_diana_sweep_step(cfg, lg),
+                      tb.make_diana_sharded_sweep_step(cfg, lg, n, group),
+                      driver.grid1(tb.diana_hparams_from_config(cfg)),
+                      tb.init_diana(w0, n), tb.diana_sharded_state_specs())
+    out = {}
+    rec = lambda st: prob.metrics(st.w)                     # noqa: E731
+    for name, (dense, sharded, hp, st0, specs) in cases.items():
+        key = random.key(0, "cuda")
+        ops.reset_launches()
+        d = driver.run_sweep(dense, hp, st0, key, SHARDED_ITERS, record=rec)
+        t0 = time.perf_counter()
+        s = driver.run_sharded_sweep(sharded, hp, st0, key, SHARDED_ITERS,
+                                     specs, group, record=rec)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        for k, v in ops.launches.items():
+            counts[k] += v
+        _bitwise(f"sharded {name} state", {f: v for f, v in zip(
+            d[0]._fields, d[0]) if isinstance(v, torch.Tensor)},
+            {f: v for f, v in zip(s[0]._fields, s[0])
+             if isinstance(v, torch.Tensor)})
+        _bitwise(f"sharded {name} traces", d[1], s[1])
+        out[name] = dict(seconds=secs, F=float(d[1]["F"][0, -1]))
+        log(f"phase 3e: run_sharded_sweep (NCCL, world size 1) equals "
+            f"run_sweep on the card bit for bit, {name} x{SHARDED_ITERS}: "
+            f"every state leaf and trace; {secs!r} s, final F "
+            f"{out[name]['F']!r}")
+    dist.destroy_process_group()
+    return out
+
+
+def phase_population(ops, counts) -> dict:
+    """Phase 3e: hierarchy, cohort and sharding on the card.  First, with
+    the host quiet, the timed cells: gisette width with the edge tier and
+    the cohort engine (ms, kernels, busy ms, peak a round as phase 4b
+    takes them), and the cohort engine's memory round by round at N =
+    1,024, 102,400 and 1,048,576 (FLECS-CGD) and 102,400 (DIANA, GD).
+    Then, the CPU side in worker processes meanwhile: the hierarchy grid
+    at quickstart size (100 rounds: ledgers equal, each point held by
+    ``plan_drift.verdict``, the identity point against the flat server),
+    the cohort runs against the CPU (ids, masks and ledgers equal, F held
+    by ``verdict``), and the sharded engine at world size 1."""
+    import torch
+    from repro_torch import random
+    from repro_torch.core.driver import run_sweep
+    out = {}
+    # gisette width, the edge tier and the cohort engine
+    _, step, hp, st0, _, _, _ = hierarchy_setup("cuda", d=5000,
+                                                n_workers=20, r=300)
+    out["gisette_hierarchy"] = _cell(
+        "hierarchical FLECS-CGD E=4, edges identity/dither64/count_sketch64"
+        " (G = 3)", lambda n: run_sweep(step, hp, st0,
+                                        random.key(0, "cuda"), n),
+        ops, counts, phase="3e")
+    del step, st0
+    torch.cuda.empty_cache()
+    _, gstep, ghp, gst0 = cohort_setup("flecs", "cuda", 102_400, d=5000,
+                                           cohort=20)
+    out["gisette_cohort"] = _cell(
+        "cohort FLECS-CGD K=20 of N=102,400 (virtual shards of 16 rows)",
+        lambda n: run_sweep(gstep, ghp, gst0, random.key(0, "cuda"), n),
+        ops, counts, phase="3e")
+    del gstep, gst0
+    torch.cuda.empty_cache()
+    # a round's memory above the persistent state, by N
+    mem = {n: cohort_memory("flecs", n, ops, counts) for n in COHORT_NS}
+    peaks = [mem[n]["round_peak_bytes"] for n in COHORT_NS]
+    check(max(peaks) - min(peaks) <= 2 * 2**20,
+          f"cohort round peaks above the state differ by more than 2 MiB "
+          f"over N {COHORT_NS}: {peaks}")
+    out["cohort_memory"] = mem
+    for method in ("diana", "gd"):
+        out[f"cohort_memory_{method}"] = cohort_memory(method, 102_400, ops,
+                                                       counts)
+    log(f"phase 3e: one cohort round's peak above the persistent state at N "
+        f"{COHORT_NS}: {[p / 2**20 for p in peaks]} MiB (within 2 MiB)")
+    jobs = [("hier",), ("cohort", "flecs", 1024), ("cohort", "diana", 102_400),
+            ("cohort", "gd", 102_400)]
+    with cpu_pool() as pool:
+        cpu = {job: pool.submit(cpu_job, job) for job in jobs}
+        # the card's own runs first, while the CPU side works
+        out["sharded"] = phase_sharded(ops, counts)
+        out["cohort"] = {}
+        for method, n_total in (("flecs", 1024), ("diana", 102_400),
+                                ("gd", 102_400)):
+            out["cohort"][method] = phase_cohort_cpu(method, n_total, ops,
+                                                     counts, cpu)
+        out["hierarchy"] = phase_hierarchy_quick(ops, counts, cpu)
+        for f in cpu.values():
+            f.result()
+    return out
+
+
+def phase_hierarchy_quick(ops, counts, cpu) -> dict:
+    """Phase 3e (a): the hierarchy grid at quickstart size, HIER_ITERS
+    rounds, on the card against the CPU: edge_bits and bits_per_node equal
+    every round, each point held by ``plan_drift.verdict``; the identity
+    point's F within rtol 1e-5 of the flat server's over the first 6
+    rounds (the reference's own contract) and its largest gap over all
+    rounds logged."""
+    import numpy as np
+    from repro_torch import plan_drift
+    rec, secs = _recorded(ops, counts, hierarchy_run("cuda", HIER_ITERS,
+                                                     **POP_SIZE))
+    crec = cpu_result(cpu, ("hier",))
+    (sts, tr, _), (csts, ctr, _) = rec, crec
+    for key in ("edge_bits", "bits_per_node", "n_active"):
+        check(np.array_equal(tr[key].cpu().numpy(), ctr[key].numpy()),
+              f"hierarchy: {key} differs between the card and the CPU")
+    check(np.array_equal(sts.edge_bits.cpu().numpy(),
+                         csts.edge_bits.numpy()),
+          "hierarchy: final edge_bits differ from the CPU's")
+    reports = plan_drift.compare_recorded_grid(rec, crec)
+    held = {}
+    for g, (name, rep) in enumerate(zip(HIER_EDGES, reports)):
+        faults = plan_drift.verdict(rep)
+        log(f"phase 3e: hierarchy {name} edges x{HIER_ITERS}, card against "
+            f"CPU: final F {rep['F_a']!r} / {rep['F_b']!r}, max rel gap "
+            f"{rep['max_rel_gap']!r}; first difference "
+            f"{rep.get('first_difference')}; faults {faults}")
+        check(not faults, f"hierarchy {name}: {faults}")
+        held[name] = dict(final_rel_gap=rep["final_rel_gap"],
+                          max_rel_gap=rep["max_rel_gap"],
+                          edge_bits=sts.edge_bits[g].cpu().tolist())
+    _, ftr = hierarchy_run("cuda", HIER_ITERS, flat=True, **POP_SIZE)()
+    F_id = tr["F"][0].cpu().double().numpy()
+    F_flat = ftr["F"][0].cpu().double().numpy()
+    rel = np.abs(F_id / F_flat - 1)
+    check(rel[:6].max() <= 1e-5, f"hierarchy: the identity edge point "
+          f"parts from the flat server by {rel[:6].max()!r} in 6 rounds")
+    log(f"phase 3e: hierarchy x{HIER_ITERS} (G = 3) on the card in {secs!r} "
+        f"s (compressor calls recorded): edge_bits and bits_per_node equal "
+        f"to the CPU's every round, final edge_bits "
+        f"{sts.edge_bits.cpu().tolist()}; the identity point within "
+        f"{rel[:6].max()!r} of the flat server over 6 rounds, "
+        f"{rel.max()!r} over {HIER_ITERS} (logged)")
+    return dict(points=held, seconds=secs, identity_vs_flat_6=rel[:6].max(),
+                identity_vs_flat_all=rel.max())
+
+
+def phase_cohort_cpu(method, n_total, ops, counts, cpu) -> dict:
+    """Phase 3e (b): a cohort run (K = 64 of ``n_total``, COHORT_ITERS
+    rounds) on the card against the CPU: every round's cohort ids and mask
+    equal, the ledgers (bits_per_node, cohort_bits, n_active) equal, and
+    F held by ``plan_drift.verdict``."""
+    import numpy as np
+    import torch
+    from repro_torch import plan_drift
+    splits = {"flecs": 5, "diana": 3, "gd": 2}[method]
+    ids, masks = cohort_draws("cuda", n_total, COHORT_K, COHORT_ITERS, splits)
+    cids, cmasks = cohort_draws("cpu", n_total, COHORT_K, COHORT_ITERS,
+                                splits)
+    check(torch.equal(ids, cids) and torch.equal(masks, cmasks),
+          f"cohort {method} N={n_total}: ids or masks differ from the CPU's")
+    rec, secs = _recorded(ops, counts, cohort_run(method, "cuda", n_total,
+                                                  COHORT_ITERS))
+    crec = cpu_result(cpu, ("cohort", method, n_total))
+    (sts, tr, _), (csts, ctr, _) = rec, crec
+    for key in ("cohort_bits", "n_active"):
+        check(np.array_equal(tr[key].cpu().numpy(), ctr[key].numpy()),
+              f"cohort {method}: {key} differs between the card and CPU")
+    check(np.array_equal(sts.bits_per_node.cpu().numpy(),
+                         csts.bits_per_node.numpy()),
+          f"cohort {method}: bits_per_node differs from the CPU's")
+    (rep,) = plan_drift.compare_recorded_grid(rec, crec)
+    faults = plan_drift.verdict(rep)
+    log(f"phase 3e: cohort {method} K={COHORT_K} of N={n_total} "
+        f"x{COHORT_ITERS} on the card in {secs!r} s: ids, masks and ledgers "
+        f"equal to the CPU's; final F {rep['F_a']!r} / {rep['F_b']!r}, max "
+        f"rel gap {rep['max_rel_gap']!r}; first difference "
+        f"{rep.get('first_difference')}; faults {faults}")
+    check(not faults, f"cohort {method}: {faults}")
+    return dict(seconds=secs, max_rel_gap=rep["max_rel_gap"],
+                F=rep["F_a"])
 
 
 def empty_launch_ms() -> float:
@@ -3283,6 +3859,7 @@ def main():
     phase_dither_cluster(dev, ops, ref, random, err)
     phase_topk_cluster(dev, ops, ref, err)
     grouped_err = phase_grouped_kernels(dev, ops, ref, random, compressors)
+    phase_row_ids(dev, ops, ref, random, driver, grouped_err)
     flash_err = phase_flash_kernel(dev, fa_ops, fa_ref)
     dither_err = phase_dither_kernels(dev, d_ops, d_ref, random)
     bwd_err, bwd_rel = phase_flash_backward(dev, fa_ops, fa_ref)
@@ -3298,6 +3875,7 @@ def main():
     elapsed("phases 3 and 4")
     plan_counts = {name: 0 for name in ops.launches}
     plans = phase_plans(api, experiments, make_problem, ops, plan_counts)
+    plans["figures"] = phase_figures(ops, plan_counts)
     gis_base = phase_gisette_baselines(api, experiments, make_problem, ops,
                                        ref, plan_counts)
     for name, n in plan_counts.items():
@@ -3321,6 +3899,14 @@ def main():
               f"{name} launched {n} times by the async phase")
     log(f"async launches (sum of phase 3d): {async_counts}")
     elapsed("phase 3d")
+    pop_counts = {name: 0 for name in ops.launches}
+    pop = phase_population(ops, pop_counts)
+    for name, n in pop_counts.items():
+        # no top-k-priced spec on this path: topk_bits_grouped stays at 0
+        check((n > 0) == (name in POP_PATH),
+              f"{name} launched {n} times by the population phase")
+    log(f"population launches (sum of phase 3e): {pop_counts}")
+    elapsed("phase 3e")
     depth2 = phase_serve_depth2(serve)
     elapsed("phase 5")
     full = phase_serve_full(serve, fa_ops)
@@ -3387,11 +3973,13 @@ def main():
         entry = {"name": name, "route": "cuda", "source": SOURCE,
                  "replaces": GROUPED_REPLACES[name],
                  "launches": counts[name] + plan_counts[name]
-                 + stoch_counts[name] + async_counts[name],
+                 + stoch_counts[name] + async_counts[name]
+                 + pop_counts[name],
                  "launches_by_path": {"quickstart, gisette": counts[name],
                                       "plans": plan_counts[name],
                                       "stochastic": stoch_counts[name],
-                                      "async": async_counts[name]},
+                                      "async": async_counts[name],
+                                      "population": pop_counts[name]},
                  "max_abs_err": grouped_err[name], "ms": r["ms"],
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                  "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -3467,6 +4055,7 @@ def main():
     log(json.dumps({"plans": plans, "gisette_baselines": gis_base}))
     log(json.dumps({"stochastic": stoch}))
     log(json.dumps({"async": asy}, default=str))
+    log(json.dumps({"population": pop}, default=str))
     log(json.dumps({"quickstart": quick, "gisette": gis, "profile": prof,
                     "serve_depth2": depth2, "serve": full,
                     "train_depth2": train2, "train": trained}))

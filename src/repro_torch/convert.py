@@ -17,8 +17,8 @@ import torch
 from repro_torch.core.compressors import (CompressorSpec, SketchParams,
                                           default_sketch_params, grid_spec)
 from repro_torch.core.driver import MessageBuffer
-from repro_torch.core.flecs import (FlecsAsyncHParams, FlecsHParams,
-                                    FlecsState)
+from repro_torch.core.flecs import (FlecsAsyncHParams, FlecsCohortState,
+                                    FlecsHParams, FlecsState)
 from repro_torch.core.traffic import TrafficHParams, TrafficState
 from repro_torch.data.logreg import FederatedLogReg
 from repro_torch.device import resolve_device
@@ -81,7 +81,7 @@ def _state(cls, leaves: dict, k, device):
     points, where the state has one)."""
     dev = resolve_device(device)
     fields = {name: torch.as_tensor(np.array(a, np.float32), device=dev)
-              for name, a in leaves.items()}
+              for name, a in leaves.items() if a is not None}
     k = np.asarray(k)
     if k.ndim == 0:
         fields["k"] = int(k)
@@ -92,11 +92,21 @@ def _state(cls, leaves: dict, k, device):
     return cls(**fields)
 
 
-def state_from_reference(w, h, B, k, bits_per_node,
+def state_from_reference(w, h, B, k, bits_per_node, edge_bits=None,
                          device=None) -> FlecsState:
-    """``FlecsState`` from the reference ``FlecsState``'s leaves."""
-    return _state(FlecsState, dict(w=w, h=h, B=B,
-                                   bits_per_node=bits_per_node), k, device)
+    """``FlecsState`` from the reference ``FlecsState``'s leaves (its
+    backhaul ledger ``edge_bits`` where the state has one)."""
+    return _state(FlecsState, dict(w=w, h=h, B=B, bits_per_node=bits_per_node,
+                                   edge_bits=edge_bits), k, device)
+
+
+def cohort_state_from_reference(w, h, B, k, bits_per_node, edge_bits=None,
+                                device=None) -> FlecsCohortState:
+    """``FlecsCohortState`` (the [N, d] shift table, the shared [d, d]
+    curvature, the [N] ledger) from the reference's leaves."""
+    return _state(FlecsCohortState, dict(w=w, h=h, B=B,
+                                         bits_per_node=bits_per_node,
+                                         edge_bits=edge_bits), k, device)
 
 
 def diana_state_from_reference(w, h, k, bits_per_node,

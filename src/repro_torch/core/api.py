@@ -113,12 +113,19 @@ def _flecs_grid(alphas=(1.0,), gammas=(1.0,), betas=(1.0,),
     """FLECS grid with optional explicit spec arguments: a stacked spec
     (``compressors.stack_specs``) replaces its slot's level axis with a
     K-point axis (the other axes must then be scalar); a scalar spec pins
-    the compressor for every grid point."""
+    the compressor for every grid point.  ``edge_levels`` then crosses the
+    result with an edge-tier dithering axis, base-major
+    (``flecs.cross_edge_levels``)."""
     hp = flecs.hparam_grid(alphas, gammas, grad_levels, betas=betas,
-                           hess_levels=hess_levels, ps=ps,
-                           edge_levels=edge_levels)
-    if grad_specs is None and hess_specs is None:
-        return hp
+                           hess_levels=hess_levels, ps=ps)
+    if grad_specs is not None or hess_specs is not None:
+        hp = _flecs_spec_grid(hp, grad_levels, hess_levels, grad_specs,
+                              hess_specs)
+    return (hp if edge_levels is None
+            else flecs.cross_edge_levels(hp, edge_levels))
+
+
+def _flecs_spec_grid(hp, grad_levels, hess_levels, grad_specs, hess_specs):
     if grad_specs is not None and len(grad_levels) > 1:
         raise ValueError("grad_levels and grad_specs are mutually "
                          "exclusive ways to set the gradient compressor")
@@ -174,7 +181,9 @@ def _flecs_spec(name: str, default_grad: str) -> MethodSpec:
         name=name,
         config_cls=flecs.FlecsConfig,
         default_config=default_config,
-        init=lambda prob, n, cfg: flecs.init_state(_zeros_w(prob), n),
+        init=lambda prob, n, cfg: flecs.init_state(
+            _zeros_w(prob), n, n_edges=None if cfg.hierarchy is None
+            else cfg.hierarchy.n_edges),
         sweep_step=lambda prob, cfg: flecs.make_flecs_sweep_step(
             cfg, *prob.make_oracles()),
         grid=grid,

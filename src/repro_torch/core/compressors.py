@@ -530,33 +530,48 @@ def _plain_rows(family: int, rows, row_keys, sub: CompressorSpec, n: int):
     raise ValueError(f"unknown compressor family {family}")
 
 
-def _compress_rows(family: int, rows, keys, sub: CompressorSpec, n: int):
+def _row_keys(keys: torch.Tensor, n: int, ids) -> torch.Tensor:
+    """[P·n, 2]: point g's row i takes ``split(keys[g], n)[i]``, or with
+    global ids (int64 [n] or [P, n]) ``split(keys[g], N)[ids[i]]``."""
+    rk = random.split(keys, n) if ids is None else random.split_at(keys,
+                                                                    ids)
+    return rk.reshape(-1, 2)
+
+
+def _compress_rows(family: int, rows, keys, sub: CompressorSpec, n: int,
+                   ids=None):
     """One family's P points: rows [P·n, L], their parent keys [P, 2]
-    (point g's row i takes ``split(keys[g], n)[i]``) and parameters ``sub``
-    ([P] tensors) — one grouped launch on the card for the kernel
-    families."""
+    (point g's row i takes ``split(keys[g], n)[i]``, or the key of its
+    global id: :func:`_row_keys`) and parameters ``sub`` ([P] tensors) —
+    one grouped launch on the card for the kernel families."""
     if family == FAMILY_IDENTITY:
         return rows
     if family == FAMILY_DITHER:
-        return ops.fused_dither_keyed_grouped(rows, keys, sub.s)[0]
+        return ops.fused_dither_keyed_grouped(rows, keys, sub.s, ids)[0]
     if family == FAMILY_TOPK:
         return ops.fused_topk_grouped(rows, sub.frac)[0]
-    return _plain_rows(family, rows, random.split(keys, n).reshape(-1, 2),
-                       sub, n)
+    return _plain_rows(family, rows, _row_keys(keys, n, ids), sub, n)
 
 
 def _compress_split_grid(spec: CompressorSpec, keys: torch.Tensor,
-                         x: torch.Tensor) -> torch.Tensor:
-    """compress_split of each grid point: x [G, n, ...], keys [G, 2]."""
+                         x: torch.Tensor, ids=None) -> torch.Tensor:
+    """compress_split of each grid point: x [G, n, ...], keys [G, 2], ids
+    None, [n] or [G, n]."""
     G, n = x.shape[0], x.shape[1]
     if keys.shape != (G, 2):
         raise ValueError(f"grid compress_split: keys [{G}, 2] required, got "
                          f"{tuple(keys.shape)}")
+    if ids is not None:
+        ids = ids.to(torch.int64).contiguous()
+        if tuple(ids.shape) not in ((n,), (G, n)):
+            raise ValueError(f"grid compress_split: ids [{n}] or [{G}, {n}] "
+                             f"required, got {tuple(ids.shape)}")
     spec = fill_params(spec)
     rows = x.reshape(G * n, -1).contiguous()
     groups = _groups(spec.family, x.device)
     if len(groups) == 1:
-        out = _compress_rows(groups[0][0], rows, keys.contiguous(), spec, n)
+        out = _compress_rows(groups[0][0], rows, keys.contiguous(), spec, n,
+                             ids)
         return out.reshape(x.shape)
     L = rows.shape[1]
     out = rows.clone() if FAMILY_IDENTITY in spec.family else \
@@ -566,8 +581,11 @@ def _compress_split_grid(spec: CompressorSpec, keys: torch.Tensor,
         if fam == FAMILY_IDENTITY:
             continue
         sub = rows.view(G, n, L)[sel]
+        sub_ids = ids if ids is None or ids.dim() == 1 else \
+            ids[sel].contiguous()
         res = _compress_rows(fam, sub.reshape(-1, L).contiguous(),
-                             keys[sel].contiguous(), _select(spec, sel), n)
+                             keys[sel].contiguous(), _select(spec, sel), n,
+                             sub_ids)
         view[sel] = res.view(-1, n, L)
     return out.reshape(x.shape)
 
@@ -594,7 +612,7 @@ def compress(spec: CompressorSpec, keys: torch.Tensor,
 
 
 def compress_split(spec: CompressorSpec, key: torch.Tensor,
-                   x: torch.Tensor) -> torch.Tensor:
+                   x: torch.Tensor, ids=None) -> torch.Tensor:
     """``compress(spec, random.split(key, n), x)`` for x ``[n, ...]``: row
     i is compressed with the i-th key split from ``key`` (``[2]``).  On a
     CUDA tensor the dither family launches the keyed kernel, which splits
@@ -604,11 +622,18 @@ def compress_split(spec: CompressorSpec, key: torch.Tensor,
     A grid spec of G points takes keys [G, 2] and x [G, n, ...]: point g's
     rows are compressed with ``split(keys[g], n)`` at its own parameters,
     one grouped launch per family of the grid, G = 1 included (identity
-    points pass through)."""
+    points pass through).
+
+    ids: the rows' global worker ids (int64 [n], or [G, n] for a grid):
+    row i then takes ``split(key, N)[ids[i]]`` (``random.split_at``), the
+    key the whole N-worker federation gives that worker — the cohort's and
+    the shards' call; through the keyed kernel's row ids on the card."""
     if is_grid(spec):
-        return _compress_split_grid(spec, key, x)
+        return _compress_split_grid(spec, key, x, ids)
     if spec.family in (FAMILY_IDENTITY, FAMILY_TOPK):
         return compress(spec, None, x)
+    if ids is not None:
+        return compress(spec, random.split_at(key, ids), x)
     if spec.family == FAMILY_DITHER and x.device.type == "cuda":
         rows = x.reshape(x.shape[0], -1).contiguous()
         return ops.fused_dither_keyed(rows, key, spec.s)[0].reshape(x.shape)

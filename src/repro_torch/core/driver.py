@@ -37,6 +37,16 @@ counts rounds on the host: :func:`specialize`), and a ``FlecsState``'s
 the sketch).  Hparams carrying a ``bit_budget`` run in the budget-freeze
 mode (:func:`freeze_on_bit_budget`): a ``torch.where`` over every state
 leaf with a [G] mask, on the device, no value read back in a round.
+
+Population scale.  :func:`cohort_indices` draws a stratified cohort of K
+clients of an N-client population (``COHORT_SALT``), and the masks take a
+``cohort=`` axis; a cohort step updates its [G, N] tables in place
+(``step.in_place``), so :func:`sweep_program` and :func:`run_experiment`
+hand it a copy of the caller's state once.  :func:`run_sharded_sweep`
+lays the worker axis over a ``torch.distributed`` process group
+(:func:`worker_group`; gloo on the CPU, NCCL on the card), every rank
+running the same program on its block (:func:`gather_workers`,
+:func:`sum_workers`).
 """
 from __future__ import annotations
 
@@ -58,7 +68,8 @@ def bits_dtype():
 
 
 def participation_mask(key: torch.Tensor, n: int, p: float = 1.0,
-                       kind: str = "bernoulli") -> torch.Tensor:
+                       kind: str = "bernoulli",
+                       cohort: Optional[int] = None) -> torch.Tensor:
     """Per-round client-sampling mask [n] (or [G, n] for keys [G, 2]),
     float32 in {0, 1}, on the key's device.
 
@@ -69,12 +80,19 @@ def participation_mask(key: torch.Tensor, n: int, p: float = 1.0,
     rejected, as in the reference.  kind="choice": exactly
     ``max(1, round(p·n))`` workers, without replacement — the reference's
     ``permutation(key, n) < k``.
+
+    cohort: the rows a cohort round materializes (:func:`cohort_indices`):
+    the mask is drawn over the cohort axis only, [cohort] (choice keeps
+    ``max(1, round(p·cohort))``), while ``n``, the registered population,
+    still sets the degenerate-rate guard.  ``cohort == n`` is the dense
+    draw bit for bit.
     """
+    rows = n if cohort is None else int(cohort)
     p = float(p)
     if p <= 0:
         raise ValueError(f"participation p must be > 0, got {p}")
     if p >= 1.0:
-        return torch.ones(key.shape[:-1] + (n,), dtype=torch.float32,
+        return torch.ones(key.shape[:-1] + (rows,), dtype=torch.float32,
                           device=key.device)
     if kind == "bernoulli":
         if p * n < 1.0:
@@ -83,11 +101,11 @@ def participation_mask(key: torch.Tensor, n: int, p: float = 1.0,
                 f"population of n={n} expects p*n={p * n:.3g} < 1 "
                 f"participating client per round — raise p (or use "
                 f"kind='choice', which always samples at least one worker)")
-        return (random.uniform(key, (n,))
+        return (random.uniform(key, (rows,))
                 < torch.tensor(p, dtype=torch.float32)).to(torch.float32)
     if kind == "choice":
-        k = max(1, int(round(p * n)))
-        return (random.permutation(key, n) < k).to(torch.float32)
+        k = max(1, int(round(p * rows)))
+        return (random.permutation(key, rows) < k).to(torch.float32)
     raise ValueError(f"unknown sampling kind: {kind!r}")
 
 
@@ -98,36 +116,82 @@ def validate_ps(ps) -> None:
 
 
 def resolve_participation(key: torch.Tensor, n: int, cfg_p, kind: str,
-                          hp_p: Optional[torch.Tensor] = None):
+                          hp_p: Optional[torch.Tensor] = None,
+                          cohort: Optional[int] = None):
     """The sweep steps' mask: the grid's Bernoulli probabilities ``hp_p``
     ([G], on the device) override the static config ``cfg_p``.  Point g's
     mask is ``uniform(keys[g], (n,)) < hp_p[g]``, the reference's traced
     draw, draw for draw.  'choice' sampling fixes its worker count from
-    the static p, so it takes no p axis (rejected, as in the reference)."""
+    the static p, so it takes no p axis (rejected, as in the reference).
+    ``cohort`` draws over the cohort axis only (:func:`participation_mask`)."""
     if hp_p is None:
-        return participation_mask(key, n, cfg_p, kind)
+        return participation_mask(key, n, cfg_p, kind, cohort)
     if kind != "bernoulli":
         raise ValueError(
             "traced participation p requires sampling='bernoulli'; "
             f"sampling={kind!r} resolves its worker count statically — drop "
             "the p axis or switch the config to bernoulli")
-    return (random.uniform(key, (n,)) < hp_p.unsqueeze(-1)).to(torch.float32)
+    rows = n if cohort is None else int(cohort)
+    return (random.uniform(key, (rows,))
+            < hp_p.unsqueeze(-1)).to(torch.float32)
 
 
-def worker_keys(key: torch.Tensor, n: int) -> torch.Tensor:
+#: fold_in salt of the cohort steps' selection key, derived from the
+#: participation key: each method's dense key split stays as it is, so a
+#: cohort == n run draws the dense engine's masks and worker keys.
+COHORT_SALT = 0xC040
+
+
+def validate_cohort(n_total: int, cohort: int) -> None:
+    """Stratified selection draws one client a contiguous stratum of
+    n_total // cohort: 1 <= cohort <= n_total and cohort | n_total."""
+    if not 1 <= cohort <= n_total:
+        raise ValueError(
+            f"cohort size must be in [1, n_total], got cohort={cohort} "
+            f"for population n_total={n_total}")
+    if n_total % cohort:
+        raise ValueError(
+            f"cohort {cohort} must divide the registered population "
+            f"{n_total}: stratified sampling draws one client per "
+            f"contiguous stratum of n_total // cohort")
+
+
+def cohort_indices(key: torch.Tensor, n_total: int,
+                   cohort: int) -> torch.Tensor:
+    """Stratified distinct-client draw, the reference's: [cohort] int64
+    ids (``key.shape[:-1] + (cohort,)`` for batched keys), one uniform
+    ``randint(key, (cohort,), 0, stride)`` offset a contiguous stratum of
+    ``stride = n_total // cohort`` clients.  Distinct and increasing by
+    construction, O(cohort), no [n_total] array; ``cohort == n_total`` is
+    ``arange``."""
+    validate_cohort(n_total, cohort)
+    stride = n_total // cohort
+    offs = random.randint(key, (cohort,), 0, stride)
+    return torch.arange(cohort, dtype=torch.int64,
+                        device=key.device) * stride + offs
+
+
+def worker_keys(key: torch.Tensor, n: int, ids=None) -> torch.Tensor:
     """``fold_in(key, i)`` for each worker i: keys [..., 2] -> [..., n, 2],
-    the keys the reference hands worker i's stochastic oracles."""
-    return random.fold_in(key.unsqueeze(-2),
-                          torch.arange(n, device=key.device))
+    the keys the reference hands worker i's stochastic oracles; ``ids``
+    ([n] or [G, n]) the workers' global ids where the rows are a cohort or
+    a shard."""
+    if ids is None:
+        ids = torch.arange(n, device=key.device)
+    return random.fold_in(key.unsqueeze(-2), ids)
 
 
-def call_oracle(oracle: Callable, key: torch.Tensor, n: int, *args):
+def call_oracle(oracle: Callable, key: torch.Tensor, n: int, *args,
+                ids=None):
     """``oracle(*args)``; a minibatch oracle (one with ``keyed`` set,
     ``FederatedLogReg.make_oracles(batch=B)``) also gets each worker's key
-    ``fold_in(key, i)``.  Full-batch oracles derive no key."""
+    ``fold_in(key, i)``.  Full-batch oracles derive no key.  ``ids``
+    (global worker ids, [n] or [G, n]): the oracle computes those workers'
+    rows only (``ids=``), the cohort's or the shard's."""
+    kw = {} if ids is None else {"ids": ids}
     if getattr(oracle, "keyed", False):
-        return oracle(*args, worker_keys(key, n))
-    return oracle(*args)
+        return oracle(*args, worker_keys(key, n, ids), **kw)
+    return oracle(*args, **kw)
 
 
 def masked_sum(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -174,6 +238,8 @@ def run_experiment(step: Callable, state, key: torch.Tensor, iters: int,
     if record_every < 1 or iters % record_every:
         raise ValueError(
             f"record_every={record_every} must divide iters={iters}")
+    if getattr(step, "in_place", False):
+        state = map_tree(torch.clone, state)   # the rounds own a copy
     keys = random.split(key, iters)
     rows = []
     for t in range(iters):
@@ -266,11 +332,12 @@ def _state_device(state) -> torch.device:
     return next(v for v in state if isinstance(v, torch.Tensor)).device
 
 
-def batch_state(state, G: int, count: bool = True):
+def batch_state(state, G: int, count: bool = True, copy: bool = False):
     """A single (unbatched) state shared by G grid points: every tensor
-    (those of nested buffers too) broadcast to a leading [G] axis (a view),
-    ``k`` as an int32 [G] tensor (None unless ``count``), ``t`` (where the
-    state has one) = k."""
+    (those of nested buffers too) broadcast to a leading [G] axis (a view;
+    with ``copy``, G copies the rounds may update in place), ``k`` as an
+    int32 [G] tensor (None unless ``count``), ``t`` (where the state has
+    one) = k."""
     dev = _state_device(state)
     fields = {}
     for name, v in zip(state._fields, state):
@@ -279,6 +346,9 @@ def batch_state(state, G: int, count: bool = True):
                                        device=dev) if count else None)
         elif name == "t":
             fields[name] = int(state.k)
+        elif copy:
+            fields[name] = map_tree(
+                lambda x: x.unsqueeze(0).repeat((G,) + (1,) * x.dim()), v)
         else:
             fields[name] = map_tree(
                 lambda x: x.unsqueeze(0).expand((G,) + x.shape), v)
@@ -314,6 +384,9 @@ def specialize(sweep_step: Callable, hp) -> Callable:
         return point_state(new, 0, state.k + 1), {k: v[0]
                                                   for k, v in aux.items()}
 
+    # an in-place sweep step (the cohort engines) updates the state it is
+    # given: run_experiment hands it a copy of the caller's
+    step.in_place = getattr(sweep_step, "in_place", False)
     return step
 
 
@@ -417,10 +490,17 @@ def sweep_program(sweep_step: Callable, iters: int,
     if record_every < 1 or iters % record_every:
         raise ValueError(
             f"record_every={record_every} must divide iters={iters}")
-    step = freeze_on_bit_budget(sweep_step)
+    # a step that updates its state in place (the cohort engines' [G, N]
+    # tables) owns a copy of the initial state; the caller's is untouched
+    in_place = getattr(sweep_step, "in_place", False)
+    step = sweep_step if in_place else freeze_on_bit_budget(sweep_step)
 
     def fn(hp, state, keys):
-        st = batch_state(state, keys.shape[0])
+        if in_place and hparams_bit_budget(hp) is not None:
+            raise ValueError(
+                "the cohort engines update their population tables in "
+                "place and run without a bit budget")
+        st = batch_state(state, keys.shape[0], copy=in_place)
         per_round = keys.transpose(0, 1).contiguous()       # [iters, G, 2]
         rows = []
         for t in range(iters):
@@ -448,6 +528,126 @@ def run_sweep(sweep_step: Callable, hparams, state, key: torch.Tensor,
     fn = sweep_program(sweep_step, iters, record=record,
                        record_every=record_every, trace_dtype=trace_dtype)
     return fn(hp, state, sweep_keys(key, G, iters))
+
+
+# ---------------------------------------------------------------------------
+# Sharded sweeps: the worker axis over a process group
+# ---------------------------------------------------------------------------
+
+#: The state-spec name of a worker-sharded leaf (dim 0 of the unbatched
+#: state, dim 1 of a batched one); "" is replicated.
+WORKERS = "workers"
+
+
+class WorkerGroup(NamedTuple):
+    """A ``torch.distributed`` process group laid over the worker axis
+    (the reference's 1-D device mesh): rank r holds the contiguous block
+    [r·n_local, (r+1)·n_local) of every worker-sharded leaf."""
+    group: Any
+    rank: int
+    size: int
+
+
+def worker_group(world_size: Optional[int] = None,
+                 rank: Optional[int] = None,
+                 init_method: Optional[str] = None,
+                 backend: str = "gloo") -> WorkerGroup:
+    """The process group of the sharded engine (the reference's
+    ``worker_mesh``).  Initializes ``torch.distributed`` where it is not:
+    ``init_method`` (``file://...`` or ``tcp://localhost:<port>``), the
+    world size and this process's rank are given explicitly, as nothing
+    tells a program of a cluster; ``backend`` "nccl" for CUDA tensors,
+    "gloo" for CPU ones.  Returns the default group."""
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        if init_method is None or world_size is None or rank is None:
+            raise ValueError(
+                "worker_group: torch.distributed is not initialized; pass "
+                "init_method, world_size and rank")
+        dist.init_process_group(backend, init_method=init_method,
+                                world_size=world_size, rank=rank)
+    return WorkerGroup(dist.group.WORLD, dist.get_rank(),
+                       dist.get_world_size())
+
+
+def gather_workers(x: torch.Tensor, group: WorkerGroup,
+                   dim: int = 1) -> torch.Tensor:
+    """Every rank's block of x, concatenated along ``dim`` in rank order
+    (``all_gather(tiled=True)``): the full-federation array, the same
+    values on every rank."""
+    import torch.distributed as dist
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(group.size)]
+    dist.all_gather(parts, x, group=group.group)
+    return torch.cat(parts, dim=dim)
+
+
+def sum_workers(x: torch.Tensor, group: WorkerGroup) -> torch.Tensor:
+    """Sum over the ranks (``psum``) — for integer-exact counts only: a
+    float sum would depend on the order of the ranks' partials."""
+    import torch.distributed as dist
+    out = x.clone()
+    dist.all_reduce(out, group=group.group)
+    return out
+
+
+def shard_rows(group: WorkerGroup, n_total: int, device) -> torch.Tensor:
+    """This rank's global worker ids, int64 [n_total // size]."""
+    n_loc = n_total // group.size
+    return torch.arange(group.rank * n_loc, (group.rank + 1) * n_loc,
+                        device=device)
+
+
+def run_sharded_sweep(sweep_step: Callable, hparams, state,
+                      key: torch.Tensor, iters: int, state_specs,
+                      group: Optional[WorkerGroup] = None,
+                      record: Optional[Callable] = None,
+                      record_every: int = 1, trace_dtype=None,
+                      worker_traces: Sequence[str] = ("bits_per_node",)):
+    """:func:`run_sweep` with the worker axis over a process group, called
+    in every rank with the full initial state (SPMD).
+
+    ``sweep_step`` is shard-aware (``make_*_sharded_sweep_step``): each
+    rank keeps its contiguous block of the worker leaves (``state_specs``:
+    a tree like ``state`` whose leaves are :data:`WORKERS` or ""), computes
+    its workers' messages under their global ids and the global key
+    stream, rebuilds the full-federation arrays with ``all_gather`` and
+    runs the server math replicated; only integer-exact counts are summed
+    over the ranks.  The server math is the dense round's ops on the same
+    values, so the result equals :func:`run_sweep` bit for bit where each
+    rank's worker computations give the bits they give in one batch.
+
+    Returns (final states, traces) shaped as :func:`run_sweep`'s: the
+    worker leaves and the ``worker_traces`` (a trailing worker axis)
+    gathered from every rank.  A worker leaf that does not divide over the
+    ranks raises."""
+    if group is None:
+        group = worker_group()
+
+    def local(leaf, spec):
+        if spec != WORKERS:
+            return leaf
+        if leaf.dim() == 0 or leaf.shape[0] % group.size:
+            raise ValueError(
+                f"worker-sharded state leaf of shape {tuple(leaf.shape)} "
+                f"does not divide over {group.size} rank(s)")
+        n_loc = leaf.shape[0] // group.size
+        return leaf[group.rank * n_loc:(group.rank + 1) * n_loc]
+
+    local_state = type(state)(*(
+        local(v, sp) if isinstance(v, torch.Tensor) else v
+        for v, sp in zip(state, state_specs)))
+    G = grid_size(hparams)
+    hp = hparams_to(hparams, _state_device(state))
+    fn = sweep_program(sweep_step, iters, record=record,
+                       record_every=record_every, trace_dtype=trace_dtype)
+    sts, tr = fn(hp, local_state, sweep_keys(key, G, iters))
+    sts = type(sts)(*(
+        gather_workers(v, group, 1) if sp == WORKERS else v
+        for v, sp in zip(sts, state_specs)))
+    tr = {name: gather_workers(v, group, 2) if name in worker_traces else v
+          for name, v in tr.items()}
+    return sts, tr
 
 
 # ---------------------------------------------------------------------------

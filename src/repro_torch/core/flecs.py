@@ -48,6 +48,18 @@ direction where its ``lax.cond`` finds no sender, arrival or flush (under
 round (``traffic.route_round``) tells whether any grid point needs each,
 and the branch is skipped where none does, its keys untouched.
 
+Population scale (the reference's hierarchy, cohort and sharded engines).
+``FlecsConfig.hierarchy`` (``core.hierarchy``) puts an edge tier between
+the workers and the server: each edge's partial sum re-compressed with the
+traced ``FlecsHParams.edge_spec`` (``hparam_grid(edge_levels=)``), billed
+on the [n_edges] ``edge_bits`` ledger; the async step does not read it, as
+in the reference.  :func:`make_flecs_cohort_sweep_step` runs a stratified
+cohort of K of N clients a round over a [N, d] shift table and one shared
+d×d curvature (:class:`FlecsCohortState`), updated in place.
+:func:`make_flecs_sharded_sweep_step` runs a rank's block of the workers
+under ``driver.run_sharded_sweep``.  Both compress a worker's rows under
+``split(k, N)[id]`` of its global id (the keyed kernel's row ids).
+
 Communication accounting (per participating worker per round, bits;
 ``FlecsState.bits_per_node`` is [n]):
   c_k^i : spec_bits(grad_spec, d)     (gradient difference, compressed)
@@ -71,11 +83,19 @@ from repro_torch.core.compressors import (FAMILY_DITHER, CompressorSpec,
 from repro_torch.core.directions import (fedsonia_direction,
                                          truncated_inverse_direction,
                                          truncated_inverse_direction_floored)
-from repro_torch.core.driver import (StalenessSchedule, bits_dtype,
-                                     call_oracle, damped_alpha,
-                                     fedbuff_accumulate, init_buffer,
+from repro_torch.core.driver import (COHORT_SALT, WORKERS,
+                                     StalenessSchedule, WorkerGroup,
+                                     bits_dtype, call_oracle, cohort_indices,
+                                     damped_alpha, fedbuff_accumulate,
+                                     gather_workers, init_buffer,
                                      masked_mean, resolve_participation,
-                                     specialize, validate_ps)
+                                     shard_rows, specialize, sum_workers,
+                                     validate_cohort, validate_ps,
+                                     worker_group)
+from repro_torch.core.hierarchy import (EDGE_SALT, HierarchyConfig,
+                                        charge_edges, edge_combine,
+                                        edge_combine_cohort, edge_round_bits,
+                                        init_edge_bits, validate_hierarchy)
 from repro_torch.core.sketch import sketch
 from repro_torch.core.traffic import (TrafficModel, deliver, round_aux,
                                       route_round)
@@ -100,7 +120,11 @@ class FlecsConfig:
     tinv_floor: float = 0.0           # curvature floor for Alg 4
     participation: float = 1.0        # per-round client sampling probability
     sampling: str = "bernoulli"       # "bernoulli" | "choice" (exact-k)
-    hierarchy: Optional[object] = None    # two-tier aggregation: not ported
+    hierarchy: Optional[HierarchyConfig] = None
+                                      # two-tier server tree: edges
+                                      # re-compress per-edge partial sums,
+                                      # billed on the edge_bits ledger
+                                      # (core.hierarchy)
 
     @property
     def rho_val(self):
@@ -111,8 +135,10 @@ class FlecsHParams(NamedTuple):
     """Per-round hyperparameters: step sizes alpha (iterate) and gamma
     (shift), the direct-update rate beta, both compressor specs, and
     optionally a Bernoulli participation probability p (None: the config's
-    static ``participation``) and a per-node bit budget (None: unbounded;
-    else the budget-freeze mode, ``driver.freeze_on_bit_budget``).
+    static ``participation``), a per-node bit budget (None: unbounded;
+    else the budget-freeze mode, ``driver.freeze_on_bit_budget``) and the
+    edge-tier compressor of hierarchical aggregation (None for a config
+    without ``hierarchy``).
 
     A point holds floats and scalar specs (:func:`hparams_from_config`); a
     grid ([G] points, :func:`hparam_grid`) float32 [G] tensors and grid
@@ -124,6 +150,7 @@ class FlecsHParams(NamedTuple):
     hess_spec: CompressorSpec
     p: object = None
     bit_budget: object = None
+    edge_spec: Optional[CompressorSpec] = None
 
     @property
     def grad_s(self):
@@ -139,7 +166,9 @@ def hparams_from_config(cfg: FlecsConfig) -> FlecsHParams:
     """The hparams point a static ``make_flecs_step(cfg)`` runs at."""
     return FlecsHParams(cfg.alpha, cfg.gamma, cfg.beta,
                         make_spec(cfg.grad_compressor),
-                        make_spec(cfg.hess_compressor))
+                        make_spec(cfg.hess_compressor),
+                        edge_spec=(None if cfg.hierarchy is None else
+                                   make_spec(cfg.hierarchy.edge_compressor)))
 
 
 def dither_grid(levels) -> CompressorSpec:
@@ -155,11 +184,9 @@ def hparam_grid(alphas, gammas, grad_levels, betas=(1.0,),
     """Cartesian product of the sweep axes (the reference's ``meshgrid``,
     ``indexing="ij"``), flattened to [G] leaves on the CPU (``run_sweep``
     moves them to the state's device).  ``grad_levels`` / ``hess_levels``
-    build dithering specs; ``ps`` adds a Bernoulli participation axis."""
-    if edge_levels is not None:
-        raise NotImplementedError(
-            "edge_levels (hierarchical aggregation) is not ported yet "
-            "(ROADMAP.md, queue 1: 'cohort, hierarchy and sharding')")
+    build dithering specs; ``ps`` adds a Bernoulli participation axis;
+    ``edge_levels`` an edge-tier dithering axis (:func:`cross_edge_levels`;
+    a config with ``hierarchy`` set)."""
     validate_ps(ps)
     axes = [np.asarray(v, np.float32).reshape(-1) for v in (
         alphas, gammas, grad_levels, betas, hess_levels,
@@ -167,8 +194,31 @@ def hparam_grid(alphas, gammas, grad_levels, betas=(1.0,),
     a, g, s, b, hs, p = (m.ravel() for m in np.meshgrid(*axes,
                                                          indexing="ij"))
     t = torch.as_tensor
-    return FlecsHParams(t(a), t(g), t(b), dither_grid(s), dither_grid(hs),
-                        None if ps is None else t(p))
+    hp = FlecsHParams(t(a), t(g), t(b), dither_grid(s), dither_grid(hs),
+                      None if ps is None else t(p))
+    return hp if edge_levels is None else cross_edge_levels(hp, edge_levels)
+
+
+def cross_edge_levels(hp: FlecsHParams, edge_levels) -> FlecsHParams:
+    """Cross a [G] grid with an edge-tier dithering axis (the reference's
+    order, base-major): every point repeated E times, the E levels tiled
+    over them, [G·E] leaves."""
+    from repro_torch.core.driver import map_hparams
+    E = len(edge_levels)
+    hp = map_hparams(hp, lambda v: v.repeat_interleave(E, dim=0),
+                     lambda sp: _repeat_spec(sp, E))
+    G = hp.alpha.shape[0] // E
+    return hp._replace(edge_spec=dither_grid(
+        np.tile(np.asarray(edge_levels, np.float32).reshape(-1), G)))
+
+
+def _repeat_spec(spec: CompressorSpec, reps: int) -> CompressorSpec:
+    """A grid spec's points each repeated ``reps`` times (``jnp.repeat``)."""
+    return grid_spec(tuple(f for f in spec.family for _ in range(reps)),
+                     np.repeat(spec.s_host, reps),
+                     np.repeat(spec.frac_host, reps), spec.s.device,
+                     type(spec.params_host)(*(np.repeat(v, reps)
+                                              for v in spec.params_host)))
 
 
 class FlecsState(NamedTuple):
@@ -182,10 +232,16 @@ class FlecsState(NamedTuple):
     k: object              # iteration counter (seeds the sketch)
     bits_per_node: torch.Tensor   # [n] cumulative communicated bits
     t: int = 0             # batched states: the sketch's round counter
+    edge_bits: Optional[torch.Tensor] = None
+                           # [n_edges] cumulative backhaul bits an edge
+                           # (hierarchical aggregation only)
 
 
-def init_state(w0: torch.Tensor, n_workers: int) -> FlecsState:
-    """Zero shifts, zero curvature and empty ledgers on ``w0``'s device."""
+def init_state(w0: torch.Tensor, n_workers: int,
+               n_edges: Optional[int] = None) -> FlecsState:
+    """Zero shifts, zero curvature and empty ledgers on ``w0``'s device;
+    ``n_edges`` allocates the backhaul ledger (pass
+    ``cfg.hierarchy.n_edges`` iff the config aggregates hierarchically)."""
     d = w0.shape[0]
     dev = w0.device
     return FlecsState(
@@ -194,6 +250,7 @@ def init_state(w0: torch.Tensor, n_workers: int) -> FlecsState:
         B=torch.zeros((n_workers, d, d), dtype=torch.float32, device=dev),
         k=0,
         bits_per_node=torch.zeros(n_workers, dtype=bits_dtype(), device=dev),
+        edge_bits=None if n_edges is None else init_edge_bits(n_edges, dev),
     )
 
 
@@ -232,21 +289,28 @@ def _grid_round_bits(hp: FlecsHParams, d: int, m: int) -> torch.Tensor:
 
 def _worker_messages(local_grad: Callable, local_hvp: Callable,
                      grad_spec: CompressorSpec, hess_spec: CompressorSpec,
-                     w, h, B, S, k_g, k_h, k_q, k_c):
+                     w, h, B, S, k_g, k_h, k_q, k_c, ids=None):
     """Worker compute phase of Algorithm 1 for all n workers of every grid
     point at once.  Minibatch oracles draw worker i's rows from
     ``fold_in(k_g, i)`` (gradient) and ``fold_in(k_h, i)`` (HVP).
 
     Returns (c [G,n,d], M [G,n,m,m], C [G,n,d,m], BS [G,n,d,m]): the
     compressed gradient differences, the exact Grams SᵀY, the compressed
-    Hessian-sketch differences and B S, at the iterates ``w`` [G, d]."""
+    Hessian-sketch differences and B S, at the iterates ``w`` [G, d].
+
+    ids: the rows' global worker ids where they are a subset of the
+    federation (a shard's block [n], a cohort [G, n]): the oracles compute
+    those workers, and row i is compressed with ``split(k, N)[ids[i]]``,
+    the key the dense engine gives that worker (the keyed kernel's row ids
+    on the card; for a cohort this is the reference's ``fold_in(k, id)``,
+    the same pair below 2**32)."""
     n = h.shape[-2]
-    g = call_oracle(local_grad, k_g, n, w)              # [G, n, d]
-    Y = call_oracle(local_hvp, k_h, n, w, S)            # [G, n, d, m]
+    g = call_oracle(local_grad, k_g, n, w, ids=ids)     # [G, n, d]
+    Y = call_oracle(local_hvp, k_h, n, w, S, ids=ids)   # [G, n, d, m]
     M = S.mT @ Y                                        # [n, m, m] (exact)
-    c = compress_split(grad_spec, k_q, g - h)
+    c = compress_split(grad_spec, k_q, g - h, ids=ids)
     BS = B @ S
-    Cm = compress_split(hess_spec, k_c, Y - BS)
+    Cm = compress_split(hess_spec, k_c, Y - BS, ids=ids)
     return c, M, Cm, BS
 
 
@@ -270,51 +334,127 @@ def _update_B(cfg: FlecsConfig, beta, B, Y_tilde_i, M_all, S):
     return truncated_lsr1_update(B, Y_tilde_i, M_all, S, cfg.omega)[0]
 
 
+def _hierarchy_guards(cfg: FlecsConfig, hp, state, n: int) -> None:
+    """The hierarchical rounds' contract checks (dense, sharded, cohort)."""
+    if hp.edge_spec is None:
+        raise ValueError(
+            "FlecsConfig.hierarchy requires hparams carrying an edge_spec "
+            "(hparams_from_config fills it from the config; grids pass "
+            "edge_levels=...)")
+    if state.edge_bits is None:
+        raise ValueError(
+            "FlecsConfig.hierarchy requires init_state(..., n_edges="
+            "cfg.hierarchy.n_edges) so the backhaul ledger exists")
+    validate_hierarchy(cfg.hierarchy, n)
+
+
+def _edge_means(hp, state, keys, mask, parts, combine):
+    """The hierarchical server: (g̃, Ỹ, M̄, edge_bits') from the per-worker
+    (g̃^i, Ỹ^i, M^i) ``parts``, each two-tier summed by ``combine(spec,
+    key, x)`` (-> (sum, edge_active)) under ``fold_in(fold_in(key,
+    EDGE_SALT), 0/1/2)`` and divided by max(Σ mask, 1); the backhaul
+    ledger charged ``edge_round_bits`` an active edge."""
+    d, m = parts[1].shape[-2:]
+    k_e = random.fold_in(keys, EDGE_SALT)
+    denom = torch.clamp(torch.sum(mask, dim=-1), min=1.0)
+    means, edge_active = [], None
+    for j, x in enumerate(parts):
+        total, active = combine(hp.edge_spec, random.fold_in(k_e, j), x)
+        edge_active = active if edge_active is None else edge_active
+        means.append(total / denom.reshape((-1,) + (1,) * (x.dim() - 2)))
+    edge_bits = charge_edges(state.edge_bits, edge_active,
+                             edge_round_bits(hp.edge_spec, d, m))
+    return means[0], means[1], means[2], edge_bits
+
+
 def _flecs_round(cfg: FlecsConfig, local_grad: Callable, local_hvp: Callable,
-                 hp: FlecsHParams, state: FlecsState, keys: torch.Tensor):
-    """One round of Algorithm 1 with client sampling (the reference's
-    dense ``axis=None`` round) at every point of a batched state; ``hp`` a
-    [G] grid on the state's device, ``keys`` [G, 2]."""
-    n, d = state.h.shape[-2:]
+                 hp: FlecsHParams, state: FlecsState, keys: torch.Tensor,
+                 group: Optional[WorkerGroup] = None,
+                 n_total: Optional[int] = None):
+    """One round of Algorithm 1 with client sampling at every point of a
+    batched state; ``hp`` a [G] grid on the state's device, ``keys``
+    [G, 2].
+
+    group/n_total: under ``driver.run_sharded_sweep`` the state's worker
+    leaves are this rank's contiguous block of the ``n_total``-worker
+    federation.  The block computes its workers' messages under their
+    global ids and the global key stream, the full-federation arrays are
+    rebuilt with ``all_gather`` and the integer-exact active count summed
+    over the ranks, and the server math runs replicated on the gathered
+    arrays: the dense round's ops on the same values.  ``group=None`` is
+    the dense round (the reference's ``axis=None``)."""
+    n_loc, d = state.h.shape[-2:]
+    n = n_loc if group is None else n_total
     m = cfg.m
-    S = sketch(cfg.sketch_kind, d, m, state.t, state.w.device)
+    dev = state.w.device
+    S = sketch(cfg.sketch_kind, d, m, state.t, dev)
 
     k_g, k_h, k_q, k_c, k_p = random.split(keys, 5).unbind(dim=-2)
+    # the full-federation mask: the same draw on every rank
     mask = resolve_participation(k_p, n, cfg.participation, cfg.sampling,
                                  hp.p)                          # [G, n]
+    if group is None:
+        ids, mask_loc = None, mask
+    else:
+        ids = shard_rows(group, n, dev)
+        mask_loc = mask[:, group.rank * n_loc:(group.rank + 1) * n_loc]
 
     c_all, M_all, C_all, BS_all = _worker_messages(
         local_grad, local_hvp, hp.grad_spec, hp.hess_spec,
-        state.w, state.h, state.B, S, k_g, k_h, k_q, k_c)
+        state.w, state.h, state.B, S, k_g, k_h, k_q, k_c, ids=ids)
 
-    g_tilde_i = c_all + state.h                          # [G, n, d]
-    Y_tilde_i = C_all + BS_all                           # [G, n, d, m]
+    g_tilde_i = c_all + state.h                          # [G, n_loc, d]
+    Y_tilde_i = C_all + BS_all                           # [G, n_loc, d, m]
     B_upd = _update_B(cfg, hp.beta.reshape(-1, 1, 1, 1), state.B, Y_tilde_i,
                       M_all, S)
     # only sampled workers communicated a Hessian difference this round
-    B_new = torch.where(mask[..., None, None] > 0, B_upd, state.B)
+    B_new = torch.where(mask_loc[..., None, None] > 0, B_upd, state.B)
     del B_upd
 
-    g_tilde = masked_mean(g_tilde_i, mask)
-    Y_tilde = masked_mean(Y_tilde_i, mask)
-    M_bar = masked_mean(M_all, mask)
-    # B̄ ([G, d, d]) is only consumed by the truncated-inverse direction
-    B_bar = (masked_mean(B_new, mask)
-             if cfg.direction == "truncated_inverse" else None)
+    # full-federation aggregates (replicated under sharding)
+    if group is None:
+        g_i, Y_i, M_i = g_tilde_i, Y_tilde_i, M_all
+        n_active = torch.sum(mask, dim=-1)
+    else:
+        g_i, Y_i, M_i = (gather_workers(x, group)
+                         for x in (g_tilde_i, Y_tilde_i, M_all))
+        # a sum of {0, 1} counts over the ranks: exact, == sum(mask)
+        n_active = sum_workers(torch.sum(mask_loc, dim=-1), group)
+
+    if cfg.hierarchy is not None:
+        _hierarchy_guards(cfg, hp, state, n)
+        E = cfg.hierarchy.n_edges
+        g_tilde, Y_tilde, M_bar, edge_bits = _edge_means(
+            hp, state, keys, mask, (g_i, Y_i, M_i),
+            lambda spec, k, x: edge_combine(spec, k, x, mask, E))
+    else:
+        g_tilde = masked_mean(g_i, mask)
+        Y_tilde = masked_mean(Y_i, mask)
+        M_bar = masked_mean(M_i, mask)
+        edge_bits = state.edge_bits
+    # B̄ ([G, d, d]) is server-side curvature, not wire traffic: a flat
+    # mean under hierarchy, consumed only by the truncated-inverse
+    # direction (the only case that gathers B under sharding)
+    B_bar = None
+    if cfg.direction == "truncated_inverse":
+        B_bar = masked_mean(B_new if group is None
+                            else gather_workers(B_new, group), mask)
 
     p = _direction(cfg, g_tilde, Y_tilde, M_bar, B_bar)
     w_new = state.w + hp.alpha[:, None] * p
-    h_new = state.h + hp.gamma[:, None, None] * mask[..., None] * c_all
+    h_new = state.h + hp.gamma[:, None, None] * mask_loc[..., None] * c_all
 
-    bits_new = (state.bits_per_node + mask.to(state.bits_per_node.dtype)
+    bits_new = (state.bits_per_node + mask_loc.to(state.bits_per_node.dtype)
                 * _grid_round_bits(hp, d, m)[:, None])
     new_state = FlecsState(w_new, h_new, B_new,
                            None if state.k is None else state.k + 1,
-                           bits_new, state.t + 1)
+                           bits_new, state.t + 1, edge_bits)
     aux = {"g_tilde_norm": torch.linalg.norm(g_tilde, dim=-1),
            "dir_norm": torch.linalg.norm(p, dim=-1),
-           "n_active": torch.sum(mask, dim=-1),
+           "n_active": n_active,
            "bits_per_node": bits_new}
+    if edge_bits is not None:
+        aux["edge_bits"] = edge_bits
     return new_state, aux
 
 
@@ -327,11 +467,6 @@ def make_flecs_sweep_step(cfg: FlecsConfig, local_grad: Callable,
     d]``, ``local_hvp(w [G, d], S [d, m]) -> [G, n, d, m]``, or the
     minibatch pair of ``make_oracles(batch=B)``, which also take the
     workers' keys."""
-    if cfg.hierarchy is not None:
-        raise NotImplementedError(
-            "FlecsConfig.hierarchy is not ported yet (ROADMAP.md, queue 1: "
-            "'cohort, hierarchy and sharding')")
-
     def step(hp: FlecsHParams, state: FlecsState, keys: torch.Tensor):
         return _flecs_round(cfg, local_grad, local_hvp, hp, state, keys)
 
@@ -346,6 +481,176 @@ def make_flecs_step(cfg: FlecsConfig,
     state (``driver.specialize``), the same ops and key stream."""
     return specialize(make_flecs_sweep_step(cfg, local_grad, local_hvp),
                       hparams_from_config(cfg))
+
+
+# ---------------------------------------------------------------------------
+# Sharded engine (the worker axis over a process group)
+# ---------------------------------------------------------------------------
+
+def make_flecs_sharded_sweep_step(cfg: FlecsConfig, local_grad: Callable,
+                                  local_hvp: Callable, n_total: int,
+                                  group: Optional[WorkerGroup] = None):
+    """The sweep step for ``driver.run_sharded_sweep``: the signature of
+    ``make_flecs_sweep_step``'s, the state's worker leaves this rank's
+    block of the ``n_total``-worker federation (``group``: the
+    ``driver.worker_group`` of the run, the default group where None).
+    The oracles take ``ids=`` (the block's global worker ids)."""
+    def step(hp: FlecsHParams, state: FlecsState, keys: torch.Tensor):
+        return _flecs_round(cfg, local_grad, local_hvp, hp, state, keys,
+                            group=group or worker_group(), n_total=n_total)
+
+    return step
+
+
+def sharded_state_specs(hierarchy: bool = False) -> FlecsState:
+    """``driver.run_sharded_sweep``'s spec tree for ``FlecsState``: the
+    per-worker leaves (h, B, bits_per_node) shard over the ranks; the
+    iterate, the counters and the [n_edges] backhaul ledger (its edges
+    span ranks) stay replicated."""
+    return FlecsState(w="", h=WORKERS, B=WORKERS, k="",
+                      bits_per_node=WORKERS, t="",
+                      edge_bits="" if hierarchy else None)
+
+
+# ---------------------------------------------------------------------------
+# Cohort engine (population-scale client subsampling)
+# ---------------------------------------------------------------------------
+
+class FlecsCohortState(NamedTuple):
+    """Population-scale server state: O(N·d) per-client arrays and one
+    SHARED d×d curvature, never O(N·d²).  N appears only in the shift
+    table ``h`` and the uplink ledger ``bits_per_node``; a round gathers
+    the cohort's rows, computes on [K, ...] arrays and adds the updates
+    back in place at distinct ids.  The Hessian approximation is shared
+    (the population variant of Algorithm 1): the directions only consume
+    aggregate curvature."""
+    w: torch.Tensor        # [d]
+    h: torch.Tensor        # [N, d]  per-client gradient shifts
+    B: torch.Tensor        # [d, d]  SHARED Hessian approximation
+    k: object              # iteration counter
+    bits_per_node: torch.Tensor   # [N] cumulative uplink bits per client
+    t: int = 0             # batched states: the sketch's round counter
+    edge_bits: Optional[torch.Tensor] = None   # [n_edges] backhaul ledger
+
+
+def init_cohort_state(w0: torch.Tensor, n_total: int,
+                      n_edges: Optional[int] = None) -> FlecsCohortState:
+    d = w0.shape[0]
+    dev = w0.device
+    return FlecsCohortState(
+        w=w0.to(torch.float32),
+        h=torch.zeros((n_total, d), dtype=torch.float32, device=dev),
+        B=torch.zeros((d, d), dtype=torch.float32, device=dev),
+        k=0,
+        bits_per_node=torch.zeros(n_total, dtype=bits_dtype(), device=dev),
+        edge_bits=None if n_edges is None else init_edge_bits(n_edges, dev))
+
+
+def cohort_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows idx [G, K] of each point's table [G, N, ...]: [G, K, ...]."""
+    G, K = idx.shape
+    return table[torch.arange(G, device=idx.device)[:, None], idx]
+
+
+def cohort_add_(table: torch.Tensor, idx: torch.Tensor,
+                rows: torch.Tensor) -> torch.Tensor:
+    """``table[g, idx[g, k]] += rows[g, k]`` in place, for distinct ids
+    (one add a cell: on the card one atomic a cell, so the bits do not
+    depend on an order); no [N] temporary.  Returns ``table``."""
+    G, N = table.shape[:2]
+    flat = (idx + N * torch.arange(G, device=idx.device)[:, None]).reshape(-1)
+    table.view((G * N,) + table.shape[2:]).index_add_(
+        0, flat, rows.reshape((-1,) + table.shape[2:]))
+    return table
+
+
+def make_flecs_cohort_sweep_step(cfg: FlecsConfig, local_grad: Callable,
+                                 local_hvp: Callable, n_total: int,
+                                 cohort: int):
+    """The cohort-subsampled sweep step: each round draws a size-K cohort
+    of the N-client population (``driver.cohort_indices``: one client a
+    stratum, from ``fold_in(k_p, COHORT_SALT)``), samples participation
+    over the cohort axis only, and works on [K, ...] arrays, so a round's
+    compute and memory above the persistent state do not depend on N.  The
+    round key splits as the dense round's, and worker ``id`` compresses
+    with ``fold_in(k, id)`` (the keyed kernel's row ids): at ``cohort ==
+    n_total`` the selection is the identity and the masks and keys are the
+    dense engine's.
+
+    The persistent [G, N, d] shift table and [G, N] ledger are updated in
+    place (``step.in_place``): ``driver.run_sweep``'s batched copy of the
+    initial state is what the rounds own, the caller's stays untouched.
+    The oracles take ``ids=`` ([G, K]).  Direct Hessian updates only (the
+    L-SR1 update needs per-client state)."""
+    if cfg.hessian_update != "direct":
+        raise ValueError(
+            "the cohort engine maintains a SHARED Hessian approximation "
+            "and supports hessian_update='direct' only (L-SR1 needs "
+            f"per-client state), got {cfg.hessian_update!r}")
+    validate_cohort(n_total, cohort)
+
+    def step(hp: FlecsHParams, state: FlecsCohortState, keys: torch.Tensor):
+        d = state.w.shape[-1]
+        m = cfg.m
+        S = sketch(cfg.sketch_kind, d, m, state.t, state.w.device)
+        k_g, k_h, k_q, k_c, k_p = random.split(keys, 5).unbind(dim=-2)
+        idx = cohort_indices(random.fold_in(k_p, COHORT_SALT), n_total,
+                             cohort)                            # [G, K]
+        # over the cohort axis only, from the dense draw's key
+        mask = resolve_participation(k_p, n_total, cfg.participation,
+                                     cfg.sampling, hp.p, cohort=cohort)
+
+        h_c = cohort_rows(state.h, idx)                         # [G, K, d]
+        B_rows = state.B.unsqueeze(1)                           # [G, 1, d, d]
+        c_c, M_c, C_c, BS_c = _worker_messages(
+            local_grad, local_hvp, hp.grad_spec, hp.hess_spec,
+            state.w, h_c, B_rows, S, k_g, k_h, k_q, k_c, ids=idx)
+        g_tilde_i = c_c + h_c                                   # [G, K, d]
+        Y_tilde_i = C_c + BS_c                                  # [G, K, d, m]
+        B_upd = _update_B(cfg, hp.beta.reshape(-1, 1, 1, 1), B_rows,
+                          Y_tilde_i, M_c, S)                    # [G, K, d, d]
+        # the shared curvature: the mean of the active members' updates;
+        # a round with nobody active leaves B as it was
+        any_active = torch.sum(mask, dim=-1) > 0
+        B_new = torch.where(any_active[:, None, None],
+                            masked_mean(B_upd, mask), state.B)
+        del B_upd
+
+        if cfg.hierarchy is not None:
+            _hierarchy_guards(cfg, hp, state, n_total)
+            E = cfg.hierarchy.n_edges
+            g_tilde, Y_tilde, M_bar, edge_bits = _edge_means(
+                hp, state, keys, mask, (g_tilde_i, Y_tilde_i, M_c),
+                lambda spec, k, x: edge_combine_cohort(
+                    spec, k, x, mask, idx, n_total, E))
+        else:
+            g_tilde = masked_mean(g_tilde_i, mask)
+            Y_tilde = masked_mean(Y_tilde_i, mask)
+            M_bar = masked_mean(M_c, mask)
+            edge_bits = state.edge_bits
+
+        p = _direction(cfg, g_tilde, Y_tilde, M_bar, B_new)
+        w_new = state.w + hp.alpha[:, None] * p
+        # the cohort's updates added back in place, at distinct ids
+        cohort_add_(state.h, idx, hp.gamma[:, None, None]
+                    * mask[..., None] * c_c)
+        per_round = (mask.to(state.bits_per_node.dtype)
+                     * _grid_round_bits(hp, d, m)[:, None])
+        cohort_add_(state.bits_per_node, idx, per_round)
+
+        new_state = FlecsCohortState(
+            w_new, state.h, B_new, None if state.k is None else state.k + 1,
+            state.bits_per_node, state.t + 1, edge_bits)
+        aux = {"g_tilde_norm": torch.linalg.norm(g_tilde, dim=-1),
+               "dir_norm": torch.linalg.norm(p, dim=-1),
+               "n_active": torch.sum(mask, dim=-1),
+               "cohort_bits": torch.sum(per_round, dim=-1)}
+        if edge_bits is not None:
+            aux["edge_bits"] = edge_bits
+        return new_state, aux
+
+    step.in_place = True
+    return step
 
 
 # ---------------------------------------------------------------------------
@@ -463,12 +768,8 @@ def make_flecs_async_sweep_step(cfg: FlecsConfig, local_grad: Callable,
     this round's admitted arrivals update h^i and B^i (the L-SR1 update on
     each message's compute-round sketch), are billed, and join the FedBuff
     sums; (5) a point whose count reaches buffer_k steps from the means and
-    resets them."""
-    if cfg.hierarchy is not None:
-        raise NotImplementedError(
-            "FlecsConfig.hierarchy is not ported yet (ROADMAP.md, queue 1: "
-            "'cohort, hierarchy and sharding')")
-
+    resets them.  A config's ``hierarchy`` is not read here (nor in the
+    reference's async step): the flat server, no backhaul ledger."""
     def step(ahp: FlecsAsyncHParams, state: FlecsAsyncState,
              keys: torch.Tensor):
         hp = ahp.hp

@@ -9,6 +9,14 @@ plans and row builders).
     budget_fair_plan     all five methods to the same bit budgets
     sketch_families_plan FLECS-CGD over a gradient-compressor family axis
                          (dither64, topk0.25, count_sketch64, minmax0.5)
+    ablation_grid_plan   FLECS-CGD over the 8-point (grad_s × hess_s ×
+                         beta) cube; ``ablation_grid`` its rows
+
+The paper's remaining figures, as the reference's functions of the same
+names return them: ``fig3_iterate_updates`` (Alg 4 against Alg 5, and the
+truncated inverse with L-SR1), ``comm_table`` (§3's bits a round, measured
+against 8md + c·d + 32m²), ``ablation_dither_levels`` (s in {4, 16, 64,
+128}) and ``vmapped_grid`` (alpha × gradient level, one batched run).
 
 ``fig1_rows``, ``participation_rows``, ``budget_fair_rows`` and
 ``sketch_families_rows`` turn a ``PlanResult`` into the rows of
@@ -47,13 +55,14 @@ from repro_torch.core.api import (ExperimentPlan, MethodRun, get_method,
                                   run_plan)
 from repro_torch.core.compressors import spec_omega, stack_specs
 from repro_torch.core.driver import (StalenessSchedule, run_async_sweep,
-                                     run_experiment)
+                                     run_experiment, run_sweep)
 from repro_torch.core.flecs import (FlecsConfig, FlecsHParams,
-                                    async_hparam_grid, dither_grid,
+                                    async_hparam_grid, bits_per_round,
+                                    dither_grid, hparam_grid,
                                     hparams_round_bits, init_async_state,
                                     init_state, make_flecs_async_step,
                                     make_flecs_async_sweep_step,
-                                    make_flecs_step)
+                                    make_flecs_step, make_flecs_sweep_step)
 from repro_torch.core.traffic import (AdmissionPolicy, ArrivalSchedule,
                                       AvailabilityModel, TrafficModel)
 from repro_torch.optim import baselines as tb
@@ -244,6 +253,155 @@ def sketch_families_rows(res, d: int) -> list:
              "Mbits_mean": float(_np(torch.mean(st.bits_per_node[g]))) / 1e6}
             for g, name in enumerate(SKETCH_FAMILY_NAMES)]
 
+
+
+# ---------------------------------------------------------------------------
+# The paper's remaining figures (``benchmarks/paper_experiments.py``)
+# ---------------------------------------------------------------------------
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _trajectory(step, state, prob, iters, seed=0, every=5):
+    """One legacy run on ``key(seed)``: (rows every ``every``-th round,
+    µs a round on the host clock)."""
+    dev = prob.A.device
+    t0 = time.perf_counter()
+    _, tr = run_experiment(step, state, random.key(seed, dev), iters,
+                           record=lambda st: prob.metrics(st.w))
+    _sync(dev)
+    dt = (time.perf_counter() - t0) / iters * 1e6
+    return trace_rows({k: v[None] for k, v in tr.items()}, 0, iters,
+                      every), dt
+
+
+FIG3_RUNS = ("FedSONIA(Alg5)", "TruncInv(Alg4)", "TruncInv+LSR1")
+
+
+def fig3_configs(prob) -> dict:
+    """Fig 3's three configs: Alg 5, Alg 4 (curvature floor 10μ) and Alg 4
+    with the L-SR1 update (floor μ); m = 4, dither64 both ways."""
+    kws = (dict(direction="fedsonia"),
+           dict(direction="truncated_inverse", tinv_floor=prob.mu * 10),
+           dict(direction="truncated_inverse", hessian_update="lsr1",
+                tinv_floor=prob.mu))
+    return {name: FlecsConfig(m=4, grad_compressor="dither64",
+                              hess_compressor="dither64", **kw)
+            for name, kw in zip(FIG3_RUNS, kws)}
+
+
+def fig3_iterate_updates(prob, iters=300):
+    """Fig 3: the iterate updates, one legacy run each: (rows by name, µs
+    a round by name)."""
+    lg, lh = prob.make_oracles()
+    results, us = {}, {}
+    for name, cfg in fig3_configs(prob).items():
+        st = init_state(torch.zeros(prob.d, device=prob.A.device),
+                        prob.n_workers)
+        results[name], us[name] = _trajectory(make_flecs_step(cfg, lg, lh),
+                                              st, prob, iters)
+    return results, us
+
+
+def comm_table(prob) -> list:
+    """§3's communication complexity: the per-node bits of one round,
+    measured from the ledger, against the formula 8md + c·d + 32m² (c = 32
+    for FLECS's plain gradient, 8 for FLECS-CGD's dither64) and
+    ``bits_per_round`` (priced on the host), for m in {1, 4}."""
+    lg, lh = prob.make_oracles()
+    d = prob.d
+    dev = prob.A.device
+    rows = []
+    for m in (1, 4):
+        for name, gc, c_bits in (("FLECS", "identity", 32),
+                                 ("FLECS-CGD", "dither64", 8)):
+            cfg = FlecsConfig(m=m, grad_compressor=gc,
+                              hess_compressor="dither64")
+            st, _ = run_experiment(make_flecs_step(cfg, lg, lh),
+                                   init_state(torch.zeros(d, device=dev),
+                                              prob.n_workers),
+                                   random.key(0, dev), 1)
+            measured = float(st.bits_per_node[0])
+            formula = 8 * m * d + c_bits * d + 32 * m * m
+            rows.append({"method": name, "m": m, "measured_bits": measured,
+                         "formula_bits": formula,
+                         "match": abs(measured - formula) < 1e-3
+                         and formula == bits_per_round(cfg, d, "cpu")})
+    return rows
+
+
+def ablation_dither_levels(prob, iters=200) -> list:
+    """Dithering levels s in {4, 16, 64, 128} on both compressors, m = 1:
+    final F and grad_sq, the largest ledger in Mbit."""
+    lg, lh = prob.make_oracles()
+    dev = prob.A.device
+    rows = []
+    for s in (4, 16, 64, 128):
+        cfg = FlecsConfig(m=1, grad_compressor=f"dither{s}",
+                          hess_compressor=f"dither{s}")
+        st, tr = run_experiment(
+            make_flecs_step(cfg, lg, lh),
+            init_state(torch.zeros(prob.d, device=dev), prob.n_workers),
+            random.key(0, dev), iters, record=lambda st: prob.metrics(st.w))
+        rows.append({"s": s, "F": float(_np(tr["F"][-1])),
+                     "grad_sq": float(_np(tr["grad_sq"][-1])),
+                     "Mbits": float(_np(torch.max(st.bits_per_node))) / 1e6})
+    return rows
+
+
+def vmapped_grid(prob, iters=200):
+    """The step size × gradient level grid (alpha {0.5, 1}, s {16, 64,
+    128}; m = 2) as one batched run: (rows, µs a point-round)."""
+    lg, lh = prob.make_oracles()
+    dev = prob.A.device
+    cfg = FlecsConfig(m=2, hess_compressor="dither64")
+    hp = hparam_grid([0.5, 1.0], [1.0], [16.0, 64.0, 128.0])
+    t0 = time.perf_counter()
+    sts, tr = run_sweep(make_flecs_sweep_step(cfg, lg, lh), hp,
+                        init_state(torch.zeros(prob.d, device=dev),
+                                   prob.n_workers),
+                        random.key(0, dev), iters,
+                        record=lambda st: prob.metrics(st.w))
+    _sync(dev)
+    G = hp.alpha.shape[0]
+    dt = (time.perf_counter() - t0) / (iters * G) * 1e6
+    return [{"alpha": float(hp.alpha[g]), "grad_s": float(hp.grad_s[g]),
+             "F": float(_np(tr["F"][g, -1])),
+             "grad_sq": float(_np(tr["grad_sq"][g, -1])),
+             "Mbits": float(_np(torch.max(sts.bits_per_node[g]))) / 1e6}
+            for g in range(G)], dt
+
+
+def ablation_grid_plan(prob, iters=200) -> ExperimentPlan:
+    """The (grad_s × hess_s × beta) cube, grad_s and hess_s in {16, 64},
+    beta in {0.5, 1}: one flecs_cgd run of eight grid points."""
+    hp = hparam_grid([1.0], [1.0], grad_levels=[16.0, 64.0],
+                     betas=[0.5, 1.0], hess_levels=[16.0, 64.0])
+    return ExperimentPlan(
+        problem=prob,
+        runs=(MethodRun("flecs_cgd", cfg=FlecsConfig(m=2), hparams=hp,
+                        label="grid"),),
+        iters=iters)
+
+
+def ablation_grid(prob, iters=200):
+    """``ablation_grid.json``'s rows (grad_s, hess_s, beta, final F and
+    grad_sq, the largest ledger in Mbit) and µs a point-round."""
+    res = run_plan(ablation_grid_plan(prob, iters))
+    return ablation_grid_rows(res), res.seconds / (
+        iters * res.hparams["grid"].alpha.shape[0]) * 1e6
+
+
+def ablation_grid_rows(res) -> list:
+    hp = res.hparams["grid"]
+    sts, tr = res["grid"]
+    return [{"grad_s": float(hp.grad_s[g]), "hess_s": float(hp.hess_s[g]),
+             "beta": float(hp.beta[g]), "F": float(_np(tr["F"][g, -1])),
+             "grad_sq": float(_np(tr["grad_sq"][g, -1])),
+             "Mbits": float(_np(torch.max(sts.bits_per_node[g]))) / 1e6}
+            for g in range(hp.alpha.shape[0])]
 
 
 # ---------------------------------------------------------------------------

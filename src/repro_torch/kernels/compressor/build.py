@@ -26,9 +26,10 @@ LIBRARY = CudaLibrary(
         "repro_fused_topk": (_P, _F, _P, _P, _I, _I, _I, _P),
         "repro_dither_bits": (_F, _F, _P, _P),
         "repro_topk_bits": (_F, _F, _P, _P),
-        # x, keys, s, out, bits, rows, L, n_group, cluster, stream
+        # x, keys, s, out, bits, rows, L, n_group, cluster, ids (or null),
+        # ids_stride, stream
         "repro_fused_dither_keyed_grouped": (_P, _P, _P, _P, _P, _I, _I, _I,
-                                             _I, _P),
+                                             _I, _P, _I, _P),
         # x, frac, out, bits, rows, L, n_group, cluster, stream
         "repro_fused_topk_grouped": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
         # x, frac, frac[G] or null, out, bits, ws, cand, rows, L, n_group,

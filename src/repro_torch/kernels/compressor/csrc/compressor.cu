@@ -69,6 +69,15 @@
 // kernels price G points in one launch.  Each is the scalar kernel's body
 // with the point's parameters read from device memory, so at G = 1 the
 // results are bit-identical to the scalar entries'.
+//
+// Global row ids.  The cohort and sharded engines compress a subset of a
+// federation's rows, each under the key its global worker id gives it:
+// split(k, N)[id] = threefry2x32(k, (id >> 32, id & 0xffffffff)), which for
+// id < 2^32 is also fold_in(k, id).  grouped_dither_keyed_kernel takes an
+// optional int64 id vector, [n] shared by the G points (ids_stride 0) or
+// [G, n] (ids_stride n), and row i of point g takes its counter from
+// ids[g * ids_stride + i] instead of i: one load a row.  Without ids the
+// kernel is the one above, bit for bit.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -182,7 +191,8 @@ __device__ __forceinline__ void dither_keyed_rows(
     const float* __restrict__ x, const long long* __restrict__ key,
     float s_scalar, const float* __restrict__ s_group,
     float* __restrict__ out, float* __restrict__ bits, int L, int share,
-    unsigned n_group) {
+    unsigned n_group, const long long* __restrict__ ids,
+    unsigned ids_stride) {
   __shared__ float red[32];
   __shared__ float share_max;
   cg::cluster_group cluster = cg::this_cluster();
@@ -197,6 +207,12 @@ __device__ __forceinline__ void dither_keyed_rows(
   float* outr = out + row * (size_t)L + lo;
 
   uint32_t rk0 = 0u, rk1 = i_row;
+  if (kGrouped && ids != nullptr) {
+    const unsigned long long id = static_cast<unsigned long long>(
+        ids[(size_t)g * ids_stride + i_row]);
+    rk0 = static_cast<uint32_t>(id >> 32);
+    rk1 = static_cast<uint32_t>(id);
+  }
   repro_threefry::threefry2x32(static_cast<uint32_t>(key[2 * g]),
                                static_cast<uint32_t>(key[2 * g + 1]), rk0,
                                rk1);
@@ -228,7 +244,8 @@ fused_dither_keyed_kernel(const float* __restrict__ x,
                           const long long* __restrict__ key, float s,
                           float* __restrict__ out, float* __restrict__ bits,
                           int L, int share) {
-  dither_keyed_rows<false>(x, key, s, nullptr, out, bits, L, share, 0u);
+  dither_keyed_rows<false>(x, key, s, nullptr, out, bits, L, share, 0u,
+                           nullptr, 0u);
 }
 
 __global__ void __launch_bounds__(kMaxThreads)
@@ -237,8 +254,11 @@ grouped_dither_keyed_kernel(const float* __restrict__ x,
                             const float* __restrict__ s,
                             float* __restrict__ out,
                             float* __restrict__ bits, int L, int share,
-                            unsigned n_group) {
-  dither_keyed_rows<true>(x, keys, 0.0f, s, out, bits, L, share, n_group);
+                            unsigned n_group,
+                            const long long* __restrict__ ids,
+                            unsigned ids_stride) {
+  dither_keyed_rows<true>(x, keys, 0.0f, s, out, bits, L, share, n_group,
+                          ids, ids_stride);
 }
 
 constexpr int kTopkThreads = 512;
@@ -536,15 +556,19 @@ extern "C" int repro_topk_bits(float frac, float d, float* out,
 
 // Grouped entries: rows = G * n_group rows of L, point g owning rows
 // [g * n_group, (g + 1) * n_group); keys int64 [G, 2], s and frac float32
-// [G], all on the device.
+// [G], all on the device.  ids: null, or the rows' global ids (int64, [n]
+// with ids_stride 0 or [G, n] with ids_stride n_group) on the device.
 extern "C" int repro_fused_dither_keyed_grouped(const float* x,
                                                 const long long* keys,
                                                 const float* s, float* out,
                                                 float* bits, int rows, int L,
                                                 int n_group, int cluster,
+                                                const long long* ids,
+                                                int ids_stride,
                                                 void* stream) {
   if (!valid_cluster(cluster) || keys == nullptr || s == nullptr ||
-      n_group < 1 || rows % n_group)
+      n_group < 1 || rows % n_group ||
+      (ids_stride != 0 && ids_stride != n_group))
     return (int)cudaErrorInvalidValue;
   const int share = (int)((L + (long long)cluster - 1) / cluster);
   cudaLaunchAttribute attr;
@@ -552,7 +576,7 @@ extern "C" int repro_fused_dither_keyed_grouped(const float* x,
                                           0, stream, &attr);
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, grouped_dither_keyed_kernel, x, keys, s, out, bits, L, share,
-      (unsigned)n_group);
+      (unsigned)n_group, ids, (unsigned)ids_stride);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -20,7 +20,9 @@ The grouped entries serve a sweep of G grid points at once: rows
 [G·n, L], point g owning rows [g·n, (g+1)·n), each point's parameters (its
 parent key, level s, fraction frac) read from [G] tensors on the device,
 one launch for the whole grid and no host synchronisation.  At G = 1 each
-is bit-identical to its scalar entry.
+is bit-identical to its scalar entry.  ``fused_dither_keyed_grouped`` also
+takes the rows' global worker ids (a cohort's, a shard's): row i then
+draws under ``split(keys[g], N)[ids[i]]``.
 
 Every launch adds one to ``launches[name]``, so a run can show which
 kernels its path went through; the top-k entries also add one to
@@ -266,11 +268,18 @@ def _groups(name: str, x: torch.Tensor, G: int) -> int:
 
 
 def fused_dither_keyed_grouped(x: torch.Tensor, keys: torch.Tensor,
-                               s: torch.Tensor):
+                               s: torch.Tensor, ids=None):
     """``fused_dither_keyed`` of each grid point's rows: x [G·n, L], keys
     the int64 [G, 2] parent keys, s float32 [G] levels, all on one device.
     Row i of point g is dithered to s[g] levels with the key
-    ``random.split(keys[g], n)[i]``; returns (Q(x) [G·n, L], bits [G·n])."""
+    ``random.split(keys[g], n)[i]``; returns (Q(x) [G·n, L], bits [G·n]).
+
+    ids: the rows' global worker ids, a contiguous int64 [n] vector shared
+    by the G points or [G, n] (each point's own): row i of point g then
+    takes the key ``random.split(keys[g], N)[ids[i]]`` (``random.split_at``;
+    N any population above the ids) — a cohort's or a shard's rows under
+    the keys the whole federation would give them.  None is the kernel
+    without ids, bit for bit."""
     _check_rows("fused_dither_keyed_grouped", x)
     if (keys.dtype != torch.int64 or keys.dim() != 2 or keys.shape[1] != 2
             or keys.device != x.device or not keys.is_contiguous()):
@@ -280,15 +289,25 @@ def fused_dither_keyed_grouped(x: torch.Tensor, keys: torch.Tensor,
     G = keys.shape[0]
     n = _groups("fused_dither_keyed_grouped", x, G)
     _check_params("fused_dither_keyed_grouped", x.device, G, s=s)
+    if ids is not None and (
+            ids.dtype != torch.int64 or ids.device != x.device
+            or not ids.is_contiguous()
+            or tuple(ids.shape) not in ((n,), (G, n))):
+        raise ValueError(f"fused_dither_keyed_grouped: ids must be a "
+                         f"contiguous int64 [{n}] or [{G}, {n}] tensor on "
+                         f"x's device, got {ids.dtype} {tuple(ids.shape)} "
+                         f"on {ids.device}")
     if not _on_card(x.device):
-        return ref.fused_dither_keyed_grouped_ref(x, keys, s)
+        return ref.fused_dither_keyed_grouped_ref(x, keys, s, ids)
     rows, L = x.shape
     out = torch.empty_like(x)
     bits = torch.empty(rows, dtype=torch.float32, device=x.device)
     _launch("fused_dither_keyed_grouped", "repro_fused_dither_keyed_grouped",
             x.device, x.data_ptr(), keys.data_ptr(), s.data_ptr(),
             out.data_ptr(), bits.data_ptr(), rows, L, n,
-            dither_cluster(rows, L, _sms(x.device)))
+            dither_cluster(rows, L, _sms(x.device)),
+            None if ids is None else ids.data_ptr(),
+            0 if ids is None or ids.dim() == 1 else n)
     return out, bits
 
 

@@ -93,13 +93,16 @@ def fused_dither_keyed_ref(x: torch.Tensor, key: torch.Tensor, s):
 
 
 def fused_dither_keyed_grouped_ref(x: torch.Tensor, keys: torch.Tensor,
-                                   s: torch.Tensor):
+                                   s: torch.Tensor, ids=None):
     """Grid point g of G owns rows [g·n, (g+1)·n) of x [G·n, L]: its row i
     is dithered to s[g] levels with the uniforms of
-    ``random.split(keys[g], n)[i]``; returns (out, payload bits [G·n])."""
+    ``random.split(keys[g], n)[i]``, or, with global row ids (int64 [n],
+    shared by the points, or [G, n]), of ``random.split(keys[g], N)[id]``
+    for row i's id; returns (out, payload bits [G·n])."""
     G = keys.shape[0]
     n = x.shape[0] // G
-    row_keys = random.split(keys, n).reshape(G * n, 2)
+    row_keys = (random.split(keys, n) if ids is None
+                else random.split_at(keys, ids)).reshape(G * n, 2)
     u = random.uniform(row_keys, (x.shape[1],))
     out = _dither_rows(x, u, s.repeat_interleave(n)[:, None])
     bits = dither_bits_grouped_ref(s, x.shape[1]).repeat_interleave(n)

@@ -34,9 +34,8 @@ from repro_torch.models.layers import ffn, init_ffn, rms_norm, softcap
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 #: Where the layer kinds this slice lacks come from (ROADMAP.md).
-_LATER = "a later slice (ROADMAP.md, queue 1 item 12: the other model " \
-         "families: MLA, MoE, SSM, RG-LRU, VLM image embeds, audio " \
-         "codebooks)"
+_LATER = "a later slice (ROADMAP.md, queue 1: 'other model families': " \
+         "MLA, MoE, SSM, RG-LRU, VLM image embeds, audio codebooks)"
 
 
 def check_supported(cfg: ModelConfig) -> None:

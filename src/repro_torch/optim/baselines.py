@@ -37,8 +37,13 @@ steps bit for bit.  The worker compute is skipped where no grid point
 sends, FedNL's eigh where none flushes (one host read a round,
 ``traffic.route_round``).
 
-Not ported: the sharded and cohort engines (ROADMAP.md, queue 1: 'cohort,
-hierarchy and sharding'); their makers raise ``NotImplementedError``.
+Population scale, as in ``repro_torch.core.flecs``: DIANA has a sharded
+engine (``make_diana_sharded_sweep_step`` and ``diana_sharded_state_specs``
+for ``driver.run_sharded_sweep``), DIANA and GD cohort engines
+(``make_*_cohort_sweep_step``: a stratified cohort of the N-client
+population a round, the [G, N] tables updated in place).  FedNL has
+neither, as in the reference: its per-worker d×d estimates make its state
+O(n·d²).
 """
 from __future__ import annotations
 
@@ -54,13 +59,16 @@ from repro_torch.core.compressors import (FAMILY_TOPK, CompressorSpec,
                                           make_spec, spec_bits_host,
                                           spec_bits_many)
 from repro_torch.core.directions import inverse_apply
-from repro_torch.core.driver import (StalenessSchedule, bits_dtype,
-                                     call_oracle,
-                                     fedbuff_accumulate, grid_size,
-                                     init_buffer, masked_mean,
-                                     resolve_participation, specialize,
-                                     validate_ps)
-from repro_torch.core.flecs import dither_grid
+from repro_torch.core.driver import (COHORT_SALT, WORKERS,
+                                     StalenessSchedule, WorkerGroup,
+                                     bits_dtype, call_oracle, cohort_indices,
+                                     fedbuff_accumulate, gather_workers,
+                                     grid_size, init_buffer, masked_mean,
+                                     resolve_participation, shard_rows,
+                                     specialize, sum_workers,
+                                     validate_cohort, validate_ps,
+                                     worker_group)
+from repro_torch.core.flecs import cohort_add_, cohort_rows, dither_grid
 from repro_torch.core.linalg import eigh
 from repro_torch.core.traffic import (TrafficModel, deliver, round_aux,
                                       route_round)
@@ -77,11 +85,6 @@ def _grid_axes(*axes, ps=None):
                        indexing="ij")
     flat = [torch.as_tensor(m.ravel()) for m in mesh]
     return flat[:-1] + [None if ps is None else flat[-1]]
-
-
-def _not_ported(what: str, label: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, queue 1: '{label}')")
 
 
 def _k_next(k):
@@ -150,23 +153,38 @@ class DianaState(NamedTuple):
 
 
 def _diana_round(cfg: DianaConfig, local_grad: Callable, hp: DianaHParams,
-                 state: DianaState, keys: torch.Tensor):
-    """One DIANA round (the reference's dense branch) at every point of a
-    batched state."""
-    n, d = state.h.shape[-2:]
+                 state: DianaState, keys: torch.Tensor,
+                 group: Optional[WorkerGroup] = None,
+                 n_total: Optional[int] = None):
+    """One DIANA round at every point of a batched state: dense
+    (``group=None``) or this rank's block of the ``n_total`` federation, as
+    ``flecs._flecs_round``: global ids and key stream, the shifted
+    gradients gathered from every rank, the server mean replicated."""
+    n_loc, d = state.h.shape[-2:]
+    n = n_loc if group is None else n_total
     k_g, k_q, k_p = random.split(keys, 3).unbind(dim=-2)
     mask = resolve_participation(k_p, n, cfg.participation, cfg.sampling,
                                  hp.p)                              # [G, n]
-    g = call_oracle(local_grad, k_g, n, state.w)
-    c = compress_split(hp.spec, k_q, g - state.h)
-    g_tilde = masked_mean(c + state.h, mask)
+    ids, mask_loc = None, mask
+    if group is not None:
+        ids = shard_rows(group, n, state.w.device)
+        mask_loc = mask[:, group.rank * n_loc:(group.rank + 1) * n_loc]
+    g = call_oracle(local_grad, k_g, n_loc, state.w, ids=ids)
+    c = compress_split(hp.spec, k_q, g - state.h, ids=ids)
+    g_i = c + state.h
+    if group is None:
+        n_active = torch.sum(mask, dim=-1)
+    else:
+        g_i = gather_workers(g_i, group)
+        n_active = sum_workers(torch.sum(mask_loc, dim=-1), group)
+    g_tilde = masked_mean(g_i, mask)
     w = state.w - hp.alpha[:, None] * g_tilde
-    h = state.h + hp.gamma[:, None, None] * mask[..., None] * c
-    bits = state.bits_per_node + mask.to(
+    h = state.h + hp.gamma[:, None, None] * mask_loc[..., None] * c
+    bits = state.bits_per_node + mask_loc.to(
         state.bits_per_node.dtype) * spec_bits_many(hp.spec, d)[:, None]
     new = DianaState(w, h, _k_next(state.k), bits)
     return new, {"g_tilde_norm": torch.linalg.norm(g_tilde, dim=-1),
-                 "n_active": torch.sum(mask, dim=-1),
+                 "n_active": n_active,
                  "bits_per_node": bits}
 
 
@@ -179,14 +197,62 @@ def make_diana_sweep_step(cfg: DianaConfig, local_grad: Callable):
     return step
 
 
-def make_diana_sharded_sweep_step(*args, **kwargs):
-    raise _not_ported("the sharded DIANA engine",
-                      "cohort, hierarchy and sharding")
+def make_diana_sharded_sweep_step(cfg: DianaConfig, local_grad: Callable,
+                                  n_total: int,
+                                  group: Optional[WorkerGroup] = None):
+    """The DIANA sweep step for ``driver.run_sharded_sweep``: the state's
+    worker leaves hold this rank's block of the ``n_total`` federation."""
+    def step(hp: DianaHParams, state: DianaState, keys: torch.Tensor):
+        return _diana_round(cfg, local_grad, hp, state, keys,
+                            group=group or worker_group(), n_total=n_total)
+
+    return step
 
 
-def make_diana_cohort_sweep_step(*args, **kwargs):
-    raise _not_ported("the cohort DIANA engine",
-                      "cohort, hierarchy and sharding")
+def diana_sharded_state_specs() -> DianaState:
+    """``driver.run_sharded_sweep``'s spec tree for ``DianaState``."""
+    return DianaState(w="", h=WORKERS, k="", bits_per_node=WORKERS)
+
+
+def _cohort_draw(cfg, hp, k_p, n_total: int, cohort: int):
+    """The cohort (``fold_in(k_p, COHORT_SALT)``, [G, K] ids) and its
+    participation mask (over the cohort axis, from k_p)."""
+    idx = cohort_indices(random.fold_in(k_p, COHORT_SALT), n_total, cohort)
+    mask = resolve_participation(k_p, n_total, cfg.participation,
+                                 cfg.sampling, hp.p, cohort=cohort)
+    return idx, mask
+
+
+def make_diana_cohort_sweep_step(cfg: DianaConfig, local_grad: Callable,
+                                 n_total: int, cohort: int):
+    """Cohort-subsampled DIANA over an N-client population: a round
+    gathers the cohort's rows of the persistent [G, N, d] shift table and
+    [G, N] ledger, computes on them and adds the updates back in place
+    (``step.in_place``), with no [N, ...] temporary.  Selection,
+    participation and keys as ``flecs.make_flecs_cohort_sweep_step``'s."""
+    validate_cohort(n_total, cohort)
+
+    def step(hp: DianaHParams, state: DianaState, keys: torch.Tensor):
+        d = state.w.shape[-1]
+        k_g, k_q, k_p = random.split(keys, 3).unbind(dim=-2)
+        idx, mask = _cohort_draw(cfg, hp, k_p, n_total, cohort)
+        h_c = cohort_rows(state.h, idx)                        # [G, K, d]
+        g = call_oracle(local_grad, k_g, cohort, state.w, ids=idx)
+        c = compress_split(hp.spec, k_q, g - h_c, ids=idx)
+        g_tilde = masked_mean(c + h_c, mask)
+        w = state.w - hp.alpha[:, None] * g_tilde
+        cohort_add_(state.h, idx, hp.gamma[:, None, None]
+                    * mask[..., None] * c)
+        per_round = mask.to(state.bits_per_node.dtype) * spec_bits_many(
+            hp.spec, d)[:, None]
+        cohort_add_(state.bits_per_node, idx, per_round)
+        new = DianaState(w, state.h, _k_next(state.k), state.bits_per_node)
+        return new, {"g_tilde_norm": torch.linalg.norm(g_tilde, dim=-1),
+                     "n_active": torch.sum(mask, dim=-1),
+                     "cohort_bits": torch.sum(per_round, dim=-1)}
+
+    step.in_place = True
+    return step
 
 
 def make_diana_step(alpha: float, gamma: float, compressor,
@@ -557,9 +623,29 @@ def make_gd_sweep_step(cfg: GDConfig, local_grad: Callable, n_workers: int):
     return step
 
 
-def make_gd_cohort_sweep_step(*args, **kwargs):
-    raise _not_ported("the cohort GD engine",
-                      "cohort, hierarchy and sharding")
+def make_gd_cohort_sweep_step(cfg: GDConfig, local_grad: Callable,
+                              n_total: int, cohort: int):
+    """Cohort-subsampled uncompressed GD: only the cohort's gradients a
+    round; the persistent [G, N] ledger updated in place.  Selection and
+    participation as the DIANA and FLECS cohort engines'."""
+    validate_cohort(n_total, cohort)
+
+    def step(hp: GDHParams, state: GDState, keys: torch.Tensor):
+        d = state.w.shape[-1]
+        k_g, k_p = random.split(keys, 2).unbind(dim=-2)
+        idx, mask = _cohort_draw(cfg, hp, k_p, n_total, cohort)
+        g = masked_mean(call_oracle(local_grad, k_g, cohort, state.w,
+                                    ids=idx), mask)
+        per_round = mask.to(state.bits_per_node.dtype) * (d * 32.0)
+        cohort_add_(state.bits_per_node, idx, per_round)
+        new = GDState(state.w - hp.alpha[:, None] * g, _k_next(state.k),
+                      state.bits_per_node)
+        return new, {"g_tilde_norm": torch.linalg.norm(g, dim=-1),
+                     "n_active": torch.sum(mask, dim=-1),
+                     "cohort_bits": torch.sum(per_round, dim=-1)}
+
+    step.in_place = True
+    return step
 
 
 def make_gd_step(alpha: float, local_grad: Callable, n_workers: int,

@@ -75,7 +75,7 @@ import numpy as np
 import torch
 
 from repro_torch import experiments, quickstart, random
-from repro_torch.core import api, compressors, flecs, traffic
+from repro_torch.core import api, compressors, flecs, hierarchy, traffic
 from repro_torch.core.compressors import (FAMILY_DITHER, FAMILY_MINMAX,
                                           FAMILY_NATURAL, FAMILY_TOPK)
 from repro_torch.core.driver import ASYNC_SALT, run_experiment
@@ -122,8 +122,9 @@ class Recording(list):
 
 @contextlib.contextmanager
 def recording(calls: List[dict]):
-    """Every ``compress_split`` of FLECS and the baselines appends {label,
-    spec, key, x, out (CPU copies), device, round} to ``calls`` while this
+    """Every ``compress_split`` of FLECS, the baselines and the edge tier
+    (``core.hierarchy``) appends {label, spec, key, x, out, ids (CPU
+    copies), device, round} to ``calls`` while this
     is open; every async round's routing (``traffic.route_round``) appends
     {label, round, kind, q, keys, avail, send, delays, drained, arrived,
     device} to ``calls.routes`` (where ``calls`` is a
@@ -133,15 +134,17 @@ def recording(calls: List[dict]):
     routes = getattr(calls, "routes", [])
     resolve, mods = api._resolve, (flecs, baselines)
     originals = [(m.compress_split, m.route_round) for m in mods]
+    edge_original = hierarchy.compress_split
 
     def resolve_and_name(plan, run):
         label[0] = run.label or getattr(run.method, "name", run.method)
         return resolve(plan, run)
 
-    def record(spec, key, x):
-        out = compressors.compress_split(spec, key, x)
+    def record(spec, key, x, ids=None):
+        out = compressors.compress_split(spec, key, x, ids=ids)
         calls.append(dict(label=label[0], spec=spec, key=key.cpu(),
                           x=x.detach().cpu(), out=out.detach().cpu(),
+                          ids=None if ids is None else ids.cpu(),
                           device=x.device.type, round=rnd[0]))
         return out
 
@@ -159,12 +162,14 @@ def recording(calls: List[dict]):
     api._resolve = resolve_and_name
     for m in mods:
         m.compress_split, m.route_round = record, route
+    hierarchy.compress_split = record
     try:
         yield
     finally:
         api._resolve = resolve
         for m, (f, g) in zip(mods, originals):
             m.compress_split, m.route_round = f, g
+        hierarchy.compress_split = edge_original
 
 
 def run_recorded(plan) -> tuple:
@@ -188,7 +193,8 @@ def replay(call: dict) -> torch.Tensor:
     """The plain compressor's message, on the CPU, for a recorded call's
     spec, key and input."""
     return compressors.compress_split(
-        compressors.spec_to(call["spec"], "cpu"), call["key"], call["x"])
+        compressors.spec_to(call["spec"], "cpu"), call["key"], call["x"],
+        ids=call.get("ids"))
 
 
 def _points(call: dict) -> int:
@@ -271,7 +277,12 @@ def first_difference(ca: dict, cb: dict, g: int,
     xa, xb, oa, ob = (pick(c[k]) for k in ("x", "out") for c in (ca, cb))
     n = xa.shape[0]
     xa, xb, oa, ob = (t.reshape(n, -1) for t in (xa, xb, oa, ob))
-    u = random.uniform(random.split(pick(ca["key"]), n), (xa.shape[1],))
+    ids = ca.get("ids")
+    if ids is not None and ids.dim() == 2:
+        ids = ids[g]
+    u = random.uniform(random.split(pick(ca["key"]), n) if ids is None
+                       else random.split_at(pick(ca["key"]), ids),
+                       (xa.shape[1],))
     scale = xa.abs().amax(dim=1).clamp_min(1e-30)
     abs_gap = (xa - xb).abs().amax(dim=1)
     rep = dict(family=fam, faithful=bool(faithful), decision=True,

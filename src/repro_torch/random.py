@@ -104,6 +104,18 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack((y0, y1), dim=-1)
 
 
+def split_at(key: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Rows ``ids`` of ``split(key, N)`` for any N above them, without the
+    other rows: the pair ``threefry2x32(key, (id >> 32, id & 0xffffffff))``
+    of each id.  ``key`` [..., 2] and ``ids`` (int) broadcast as ``key[...,
+    None, :]`` against ``ids``: keys [G, 2] with ids [n] or [G, n] give
+    [G, n, 2].  For ids below 2**32 this is ``fold_in(key, id)`` too."""
+    ids = torch.as_tensor(ids, dtype=torch.int64, device=key.device)
+    k = key.unsqueeze(-2)
+    y0, y1 = threefry2x32(k[..., 0], k[..., 1], ids >> 32, ids & _MASK)
+    return torch.stack((y0, y1), dim=-1)
+
+
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in``: mix an integer (or an int tensor that
     broadcasts against the key's batch dimensions) into the key."""

@@ -23,7 +23,7 @@ def _loss_fn(params, batch, cfg: ModelConfig, remat: bool = False):
         text = torch.arange(S, device=hidden.device) >= cfg.n_img_tokens
         mask = text[None, :].float().expand(hidden.shape[:2])
     # MoE layers (and their router loss) raise in ``forward``: ROADMAP.md,
-    # queue 1 item 12
+    # queue 1: 'other model families'
     return lm_loss(params, hidden, batch["labels"], cfg, mask=mask)
 
 

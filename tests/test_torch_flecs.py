@@ -197,7 +197,13 @@ def test_bits_per_round_matches_reference(grad, hess, d, m):
 
 
 def test_unported_options_raise():
+    """Every option of the config is ported (the hierarchy since the
+    cohort, hierarchy and sharding slice); a hierarchy whose edges do not
+    divide the workers raises at its first round, as the reference's."""
+    from repro_torch.core.hierarchy import HierarchyConfig
     _, tp = _pair()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tf.make_flecs_step(tf.FlecsConfig(hierarchy=object()),
-                           *tp.make_oracles())
+    step = tf.make_flecs_step(
+        tf.FlecsConfig(hierarchy=HierarchyConfig(n_edges=3)),
+        *tp.make_oracles())
+    with pytest.raises(ValueError, match="divide"):
+        step(tf.init_state(torch.zeros(24), 4, n_edges=3), tr.key(0, "cpu"))

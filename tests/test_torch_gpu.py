@@ -1207,3 +1207,106 @@ def test_traffic_plan_chain_on_the_card_matches_the_cpu(cuda):
         for key in ("bits_per_node", "n_active", "n_arrived"):
             assert torch.equal(res.traces[lab][key].cpu(),
                                cres.traces[lab][key]), (lab, key)
+
+
+# ---------------------------------------------------------------------------
+# Hierarchy, cohort and sharding on the card
+# ---------------------------------------------------------------------------
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("G", (1, 3))
+def test_keyed_grouped_ids_match_plain(cuda, G):
+    """The grouped keyed dither with global row ids bit for bit its plain
+    version (a cohort's ids shared by the points, per-point ids, a
+    federation's block), and ids 0..n-1 the kernel without ids."""
+    from repro_torch.core import driver
+    coh = driver.cohort_indices(random.split(random.key(31, "cpu"), G),
+                                102_400, 64)
+    gen = torch.Generator().manual_seed(G)
+    for ids, L in ((coh[0], 123), (coh, 492), (torch.arange(10, 20), 5000)):
+        n = ids.shape[-1]
+        x = torch.randn((G * n, L), generator=gen) * 10
+        keys = random.split(random.key(40 + G, "cpu"), G)
+        s = torch.full((G,), 64.0)
+        out, bits = ops.fused_dither_keyed_grouped(
+            x.to(cuda), keys.to(cuda), s.to(cuda), ids.contiguous().to(cuda))
+        want, want_bits = ref.fused_dither_keyed_grouped_ref(x, keys, s, ids)
+        _same(out, want)
+        _same(bits, want_bits)
+        no_ids = ops.fused_dither_keyed_grouped(x.to(cuda), keys.to(cuda),
+                                                s.to(cuda))[0]
+        _same(ops.fused_dither_keyed_grouped(
+            x.to(cuda), keys.to(cuda), s.to(cuda),
+            torch.arange(n, device=cuda))[0], no_ids)
+
+
+def test_hierarchy_grid_on_the_card_matches_the_cpu(cuda):
+    """The hierarchy grid (identity, dither64, count_sketch64 edges; E = 4)
+    at d = 24, 8 workers, 10 rounds, every compressor call recorded:
+    edge_bits and bits_per_node the CPU's every round; every card message
+    (the workers' and the edges') its replay on the CPU; where the runs
+    part, the first differing message is a dither decision explained by
+    the two devices' rounding, after rounds that agreed within 1e-6 (at
+    this size one flipped level moves F by ~1e-4: F is held only up to
+    that decision)."""
+    from repro_torch import plan_drift
+    cs = _chip_smoke()
+    size = dict(d=24, n_workers=8, r=24)
+    rec = plan_drift.record_run(cs.hierarchy_run(cuda, 10, **size))
+    crec = plan_drift.record_run(cs.hierarchy_run("cpu", 10, **size))
+    for key in ("edge_bits", "bits_per_node", "n_active"):
+        assert torch.equal(rec[1][key].cpu(), crec[1][key]), key
+    for rep in plan_drift.compare_recorded_grid(rec, crec):
+        faults = [f for f in plan_drift.verdict(rep)
+                  if not f.startswith("F parted")]
+        assert not faults, faults
+        if rep["max_rel_gap"] > plan_drift.STRICT:
+            assert rep["first_difference"]["explained"], rep
+
+
+@pytest.mark.parametrize("method", ("flecs", "diana", "gd"))
+def test_cohort_on_the_card_matches_the_cpu(cuda, method):
+    """A cohort run (K = 64 of N = 1,024, d = 24, 6 rounds): the ids and
+    masks of every round and the ledgers the CPU's, F within rtol 1e-4."""
+    cs = _chip_smoke()
+    splits = {"flecs": 5, "diana": 3, "gd": 2}[method]
+    a, b = (cs.cohort_draws(dev, 1024, 64, 6, splits)
+            for dev in (cuda, "cpu"))
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    st, tr = cs.cohort_run(method, cuda, 1024, 6, d=24)()
+    cst, ctr = cs.cohort_run(method, "cpu", 1024, 6, d=24)()
+    assert torch.equal(st.bits_per_node.cpu(), cst.bits_per_node)
+    for key in ("cohort_bits", "n_active"):
+        assert torch.equal(tr[key].cpu(), ctr[key]), key
+    torch.testing.assert_close(tr["F"].cpu(), ctr["F"], rtol=1e-4, atol=0)
+
+
+def test_cohort_round_memory_does_not_grow_with_n(cuda):
+    """One cohort round's peak above the persistent state agrees within
+    2 MiB at N = 1,024 and 102,400."""
+    cs = _chip_smoke()
+    counts = {name: 0 for name in ops.launches}
+    peaks = [cs.cohort_memory("flecs", n, ops, counts)["round_peak_bytes"]
+             for n in (1024, 102_400)]
+    assert abs(peaks[0] - peaks[1]) <= 2 * 2**20, peaks
+    assert counts["fused_dither_keyed_grouped"] > 0
+    assert counts["fused_dither_keyed"] == 0
+
+
+def test_sharded_world_size_one_equals_dense_on_the_card(cuda):
+    """``run_sharded_sweep`` over one NCCL rank equals ``run_sweep`` on the
+    card bit for bit (phase 3e's four runs, 50 rounds)."""
+    cs = _chip_smoke()
+    counts = {name: 0 for name in ops.launches}
+    out = cs.phase_sharded(ops, counts)
+    assert set(out) == {"FLECS fedsonia", "FLECS truncated_inverse",
+                        "FLECS-CGD hierarchy", "DIANA"}

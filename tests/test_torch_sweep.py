@@ -337,6 +337,16 @@ def test_flecs_hparam_grid_and_price_match_reference(kw):
 
 
 def test_edge_levels_raise_naming_their_queue_item():
-    with pytest.raises(NotImplementedError,
-                       match="cohort, hierarchy and sharding"):
-        tf.hparam_grid([1.0], [1.0], [64.0], edge_levels=(16.0,))
+    """``edge_levels`` builds the edge-tier axis (ported with the cohort,
+    hierarchy and sharding slice); a hierarchical config run on a grid
+    without it raises naming ``edge_levels``."""
+    from repro_torch.core.hierarchy import HierarchyConfig
+    hp = tf.hparam_grid([1.0], [1.0], [64.0], edge_levels=(16.0,))
+    np.testing.assert_array_equal(hp.edge_spec.s.numpy(), [16.0])
+    _, tp = _pair()
+    cfg = tf.FlecsConfig(m=2, hierarchy=HierarchyConfig(n_edges=2))
+    step = tf.make_flecs_sweep_step(cfg, *tp.make_oracles())
+    with pytest.raises(ValueError, match="edge_levels"):
+        tdr.run_sweep(step, tf.hparam_grid([1.0], [1.0], [64.0]),
+                      tf.init_state(torch.zeros(D), N, n_edges=2),
+                      _tkey(0), 1)

@@ -6,8 +6,9 @@
 Phases (any failure stops the script with a non-zero exit; nothing falls
 back to the CPU):
 
-1. Build the three kernel libraries from their sources
-   (``src/repro_torch/kernels/*/csrc``) with nvcc for sm_90a, the three
+1. Build the four kernel libraries from their sources
+   (``src/repro_torch/kernels/*/csrc``; flash attention's forward and
+   backward, and their tangents, are two) with nvcc for sm_90a, the four
    compilers started together; print the compiler's register report and the
    card's name and power limit.
 2. Hold every compressor kernel on the card against its plain PyTorch
@@ -212,9 +213,32 @@ back to the CPU):
    for the decode, ``torch.mul`` (both timed only); the backward in
    float32 (bound: 3xTF32 on the tensor cores) and bfloat16 (wgmma; its
    HGMMA count read from the SASS).
-10. Print the kernels line (fourteen kernels: the ten of slices 1–6 and
-   the four grouped entries, whose launches add phase 3e's), then the
-   device line as the last line.
+10. The sketched-Hessian FLECS-CGD trainer (m = 2, alpha = 30 · lr).
+   (a) The forward- and backward-tangent kernels against their plain
+   versions on the card, on the same inputs, at ``JVP_SHAPES``
+   (tinyllama's [8, 32/4, 1024, 64] in the model and the kernel layout,
+   ragged S, window, cap, D = 32 and 128, S = 1): max |Δ| <= 1e-5 · max
+   |t|, bitwise the same over two runs.  (b) tinyllama-1.1b at full width
+   and depth 2, batch 2 x 256: one m = 2 step on the card and, in a
+   spawned worker process with every core, on this machine's CPU from the
+   card's weights, then each side's loss of its new weights on the next
+   batch: losses within rtol 1e-5, ``uplink_mbits`` equal, every card Y
+   message (each leaf's compressed HVP column) its replay through the
+   plain encode on the CPU, the Y levels differing at no more than 1e-3
+   of the elements and by one level at most.  (c) 22 layers, float32,
+   remat, batch 8 x 1024 (cut to 4 only if 8 does not fit): 3 m = 2 steps,
+   the counters set to 0 just before and read just after (per step 6 L
+   forwards, 3 L backwards, 4 L forward tangents, 2 L backward tangents,
+   and 3 codec launches of each kind per parameter leaf); losses, step ms
+   split into the gradient pass, the HVP passes, the sketch draws and
+   FedSONIA, peak memory.  (d) ``train_lm --flecs --flecs-m 2 --steps 3
+   --checkpoint DIR`` at its defaults, every kernel of the path launched,
+   the checkpoint restored bit for bit.  Then both tangent kernels timed
+   at the training shape beside their plain versions and bounds.  (b)'s
+   CPU side runs while the card runs (a), (c) and (d).
+11. Print the kernels line (sixteen kernels: the ten of slices 1–6, the
+   four grouped entries, whose launches add phase 3e's, and the two
+   tangent kernels), then the device line as the last line.
 """
 from __future__ import annotations
 
@@ -3811,6 +3835,526 @@ def topk_entry(entry, ttopk, rows_of) -> None:
             entry.setdefault(key, {})[shape] = r[field]
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the sketched-Hessian FLECS-CGD trainer (m = 2)
+# ---------------------------------------------------------------------------
+
+JVP_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
+              "flash_attention_jvp.cu")
+# no Pallas kernel: the reference takes attention's tangents by jax.jvp (of
+# jax.grad) through chunked_attention, in XLA
+JVP_REPLACES = "src/repro/models/attention.py:38"
+#: The tangent kernels' shapes: tinyllama's training attention in the model
+#: layout (as the trainer calls them) and in the kernel layout, ragged S, a
+#: window, a cap, D = 32 and 128, S = 1: B, H, KV, S, D, window, cap, model
+#: layout.
+JVP_SHAPES = [(8, 32, 4, 1024, 64, 0, 0.0, True),
+              (8, 32, 4, 1024, 64, 0, 0.0, False),
+              (2, 8, 2, 777, 64, 0, 0.0, True),
+              (2, 8, 4, 300, 32, 64, 0.0, False),
+              (1, 4, 1, 200, 128, 0, 30.0, True),
+              (2, 4, 2, 129, 128, 33, 50.0, False),
+              (1, 2, 2, 1, 32, 0, 0.0, False)]
+#: Each tangent kernel's outputs within JVP_REL · max |t| (over the
+#: kernel's outputs) of its plain version: the float32 backward's tolerance.
+JVP_REL = 1e-5
+#: FLECS-CGD with m = 2 sketch columns at launch/train.py's alpha (30 · lr).
+FLECS_M, FLECS_M_ALPHA = 2, 3e-3 * 30
+FLECS_M_STEPS = 3
+
+
+def jvp_inputs(shape, dev, seed=0):
+    """q, k, v, tq, tk, tv, dout, tdout (float32, on ``dev``) for a
+    JVP_SHAPES entry, [B, H or KV, S, D]: views of the model layout
+    [B, S, H, D] where the entry asks for it."""
+    import torch
+    B, H, KV, S, D, _, _, model = shape
+    g = torch.Generator(device="cpu").manual_seed(seed)
+
+    def one(h):
+        t = torch.randn((B, S, h, D) if model else (B, h, S, D),
+                        generator=g).to(dev)
+        return t.transpose(1, 2) if model else t
+
+    return [one(H), one(KV), one(KV), one(H), one(KV), one(KV), one(H),
+            one(H)]
+
+
+def launch_jvp_pair(fa_ops, q, k, v, tq, tk, tv, do, tdo, out, lse, tout,
+                    tlse, window, cap):
+    """Both tangent kernels on one set of inputs (out, lse, tout and tlse
+    given, the plain version's): (tout, tlse) and (tdq, tdk, tdv)."""
+    import torch
+    got_to, got_tl = torch.empty_like(q), torch.empty_like(lse)
+    fa_ops._launch_jvp(q, k, v, lse, tq, tk, tv, got_to, got_tl, window,
+                       cap)
+    tdq, tdk, tdv = (torch.empty_like(t) for t in (q, k, v))
+    fa_ops._launch_backward_jvp(q, k, v, out, do, lse, tq, tk, tv, tout,
+                                tdo, tlse, tdq, tdk, tdv, window, cap)
+    return (got_to, got_tl), (tdq, tdk, tdv)
+
+
+def phase_flash_jvp(dev, fa_ops, fa_ref):
+    """Phase 10 (a): the forward- and backward-tangent kernels against
+    their plain versions on the card, same inputs (out, lse, tO and t_lse
+    from the plain forward tangent), at JVP_SHAPES; bitwise the same over
+    two runs.  Returns (max |Δ|, max |Δ| / max |t|) per kernel."""
+    import torch
+    err = {"flash_attention_jvp": 0.0, "flash_attention_backward_jvp": 0.0}
+    rel = dict(err)
+    for shape in JVP_SHAPES:
+        window, cap = shape[5], shape[6]
+        q, k, v, tq, tk, tv, do, tdo = jvp_inputs(shape, dev, seed=4)
+        out, tout, lse, tlse = fa_ref.attention_jvp_ref(q, k, v, tq, tk, tv,
+                                                        window, cap)
+        want_b = fa_ref.attention_backward_jvp_ref(
+            q, k, v, out, do, lse, tq, tk, tv, tout, tdo, tlse, window, cap)
+        args = (q, k, v, tq, tk, tv, do, tdo, out, lse, tout, tlse, window,
+                cap)
+        got_f, got_b = launch_jvp_pair(fa_ops, *args)
+        again_f, again_b = launch_jvp_pair(fa_ops, *args)
+        torch.cuda.synchronize()
+        check(all(same_bits(a, b) for a, b in zip(got_f + got_b,
+                                                  again_f + again_b)),
+              f"the tangent kernels differ between two runs at {shape}")
+        for name, got, want in (("flash_attention_jvp", got_f,
+                                 (tout, tlse)),
+                                ("flash_attention_backward_jvp", got_b,
+                                 want_b)):
+            scale = max(float(w.abs().max()) for w in want)
+            e = max(abs_err(a, w) for a, w in zip(got, want))
+            check(e <= JVP_REL * scale,
+                  f"{name} differs from its plain version at {shape}: max "
+                  f"|Δ| {e!r} beyond {JVP_REL} · {scale!r}")
+            err[name] = max(err[name], e)
+            rel[name] = max(rel[name], e / scale if scale else 0.0)
+            log(f"phase 10: {name} {shape}: max |Δ| {e!r} "
+                f"({e / scale if scale else 0.0!r} of max |t| {scale!r}); "
+                f"bitwise equal over two runs")
+        del q, k, v, tq, tk, tv, do, tdo, out, tout, lse, tlse, want_b
+        del got_f, got_b, again_f, again_b
+    torch.cuda.empty_cache()
+    return err, rel
+
+
+def flash_jvp_timing(dev, fa_ops, fa_ref):
+    """The tangent kernels at the training shape (SERVE_SHAPE's attention,
+    model layout) by CUDA events, beside their plain versions, with their
+    bounds, as the float32 flash rows take theirs: the products the
+    function needs a live (query, key) pair (forward tangent: S0, tS0's two
+    products and tO's two, 10·D operations; backward tangent: S0, tS0, dP,
+    tdP and two products for each of tdQ, tdK, tdV, 24·D) as 3xTF32 on the
+    tensor cores (three TF32 operations each), and the 6·D a row for D and
+    tD on the CUDA cores, against each input read once and each output
+    written once.  ``cuda_core_bound_ms`` is every operation at the
+    CUDA cores' float32 rate, the kernels' present route.  No one PyTorch
+    call computes attention's tangent (SDPA has no forward-mode rule of its
+    own), so library_ms is null."""
+    import torch
+    shape = SERVE_SHAPE + (True,)
+    B, H, KV, S, D = shape[:5]
+    q, k, v, tq, tk, tv, do, tdo = jvp_inputs(shape, dev, seed=5)
+    out, tout, lse, tlse = fa_ref.attention_jvp_ref(q, k, v, tq, tk, tv)
+    got_to, got_tl = torch.empty_like(q), torch.empty_like(lse)
+    tdq, tdk, tdv = (torch.empty_like(t) for t in (q, k, v))
+    pairs = B * H * S * (S + 1) / 2
+    q_elems, kv_elems, rows = B * H * S * D, B * KV * S * D, B * H * S
+    res = {}
+    for name, run, plain, products, row_ops, nbytes in (
+            ("flash_attention_jvp",
+             lambda: fa_ops._launch_jvp(q, k, v, lse, tq, tk, tv, got_to,
+                                        got_tl, 0, 0.0),
+             lambda: fa_ref.attention_jvp_ref(q, k, v, tq, tk, tv),
+             10 * D * pairs, 0, 4 * (3 * q_elems + 4 * kv_elems + 2 * rows)),
+            ("flash_attention_backward_jvp",
+             lambda: fa_ops._launch_backward_jvp(
+                 q, k, v, out, do, lse, tq, tk, tv, tout, tdo, tlse, tdq,
+                 tdk, tdv, 0, 0.0),
+             lambda: fa_ref.attention_backward_jvp_ref(
+                 q, k, v, out, do, lse, tq, tk, tv, tout, tdo, tlse),
+             24 * D * pairs, 6 * D * rows,
+             4 * (7 * q_elems + 6 * kv_elems + 2 * rows))):
+        ops = products + row_ops
+        r = dict(ms=cuda_ms(run, 10), plain_ms=cuda_ms(plain, 3),
+                 library_ms=None, ops=ops, tensor_ops=3 * products,
+                 bytes=nbytes)
+        t_ops = 1e3 * max(3 * products / TF32_OPS_PER_S,
+                          row_ops / F32_OPS_PER_S)
+        t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+        r.update(bound_ms=max(t_ops, t_bytes),
+                 bound_by="operations" if t_ops >= t_bytes else "bytes",
+                 cuda_core_bound_ms=1e3 * ops / F32_OPS_PER_S,
+                 tflops=ops / r["ms"] / 1e9)
+        log(f"timing {name} {list(shape[:5])} float32: {r['ms']!r} ms "
+            f"(plain {r['plain_ms']!r} ms; bound {r['bound_ms']!r} ms by "
+            f"{r['bound_by']}: {3 * products:.4g} tensor-core operations at "
+            f"{TF32_OPS_PER_S / 1e12:g} TFLOP/s, {nbytes:.4g} bytes; "
+            f"float32 CUDA-core bound {r['cuda_core_bound_ms']!r} ms); "
+            f"{r['tflops']!r} TFLOP/s")
+        res[name] = r
+    del q, k, v, tq, tk, tv, do, tdo, out, tout, lse, tlse
+    del got_to, got_tl, tdq, tdk, tdv
+    torch.cuda.empty_cache()
+    return res
+
+
+def m2_step(cfg, dl_flecs, remat=True):
+    return dl_flecs.make_flecs_train_step(
+        cfg, dl_flecs.FlecsDLConfig(alpha=FLECS_M_ALPHA, m=FLECS_M),
+        remat=remat)
+
+
+def record_y_messages(dl_flecs, n_leaves, on_y, fn):
+    """Run ``fn()`` with ``dl_flecs.shared_scale_levels`` wrapped: each
+    step's Y messages (every call after the step's first n_leaves, its
+    gradient messages) go through ``on_y(inner, key, x, s)`` instead;
+    returns what ``fn`` returns."""
+    inner = dl_flecs.shared_scale_levels
+    calls = [0]
+
+    def wrapped(key, x, s):
+        calls[0] += 1
+        if (calls[0] - 1) % (n_leaves * (1 + FLECS_M)) < n_leaves:
+            return inner(key, x, s)
+        return on_y(inner, key, x, s)
+
+    dl_flecs.shared_scale_levels = wrapped
+    try:
+        return fn()
+    finally:
+        dl_flecs.shared_scale_levels = inner
+
+
+def m2_one_step(cfg, dl_flecs, params, b0, b1):
+    """One m = 2 step from ``params`` on b0, then the new weights' loss on
+    b1: (loss, next loss, uplink Mbit)."""
+    import torch
+    from repro_torch.train.step import _loss_fn
+    new, _, m = m2_step(cfg, dl_flecs)(params, dl_flecs.init_shifts(params),
+                                       b0, 0)
+    with torch.no_grad():
+        nxt = _loss_fn(new, b1, cfg)
+    return float(m["loss"]), float(nxt), float(m["uplink_mbits"])
+
+
+def m2_depth2_cfg():
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(TINYLLAMA, smoke=False)
+    return dataclasses.replace(cfg, n_layers=2, layer_plan=cfg.layer_plan[:2])
+
+
+def phase_m2_depth2_card(train, dl_flecs, tree, path):
+    """Phase 10 (b), the card's side: tinyllama-1.1b at full width and
+    depth 2, batch 2 x 256, one FLECS-CGD step with m = 2 (remat) from the
+    weights of phase 8, then the loss of the new weights on the next batch;
+    every Y message's key, input and int8 levels recorded.  Writes the
+    weights, the batches and the messages to ``path`` (the CPU's side reads
+    them) and returns the card's numbers."""
+    import torch
+    cfg, params = train.setup(TINYLLAMA, smoke=False, device="cuda",
+                              n_layers=2)
+    batches = train.token_batches(cfg, 2, 256, params["embed"].device)
+    b0, b1 = next(batches), next(batches)
+    n_leaves = len(tree.tree_leaves(params))
+    messages = []
+
+    def on_y(inner, key, x, s):
+        levels, scale = inner(key, x, s)
+        messages.append((key.cpu(), x.cpu(), levels.cpu(), scale.cpu()))
+        return levels, scale
+
+    loss, loss_next, uplink = record_y_messages(
+        dl_flecs, n_leaves, on_y,
+        lambda: m2_one_step(cfg, dl_flecs, params, b0, b1))
+    check(len(messages) == FLECS_M * n_leaves,
+          f"depth 2 m = 2: {len(messages)} Y messages, expected "
+          f"{FLECS_M * n_leaves}")
+    torch.save({"params": to_cpu(params), "batches": [to_cpu(b0),
+                                                      to_cpu(b1)],
+                "messages": messages}, path)
+    log(f"phase 10: depth 2 m = 2 on the card: loss {loss!r}, next loss "
+        f"{loss_next!r}, uplink {uplink!r} Mbit, {len(messages)} Y messages "
+        f"recorded")
+    del params, messages
+    torch.cuda.empty_cache()
+    return dict(loss=loss, loss_next=loss_next, uplink_mbits=uplink)
+
+
+def m2_cpu_job(path: str) -> dict:
+    """Phase 10 (b), the CPU's side, in a worker process with every core:
+    the same step from the card's weights, its Y messages' int8 levels
+    against the card's (flips counted, by how many levels), and every card
+    Y message replayed through the plain encode on the CPU with the same
+    uniforms (drawn once for both)."""
+    import os
+    import torch
+    from repro_torch import random
+    from repro_torch.core import dl_flecs
+    from repro_torch.kernels.dither import ref as d_ref
+    from repro_torch import tree
+    torch.set_num_threads(os.cpu_count() or 1)
+    data = torch.load(path, weights_only=False)
+    cfg = m2_depth2_cfg()
+    params, (b0, b1), card = data["params"], data["batches"], \
+        data["messages"]
+    n_leaves = len(tree.tree_leaves(params))
+    stats = dict(flips=0, total=0, max_flip=0, replay_differ=0,
+                 messages=0)
+    seen = [0]
+
+    def on_y(inner, key, x, s):
+        ckey, cx, clev, cscale = card[seen[0]]
+        seen[0] += 1
+        check(torch.equal(ckey, key), "depth 2 m = 2: the CPU's Y keys "
+              "differ from the card's")
+        rows, crows = x.reshape(-1, x.shape[-1]), cx.reshape(-1, x.shape[-1])
+        u = random.uniform(key, tuple(rows.shape))
+        levels, scale = d_ref.dither_encode_ref(rows, u, s, rows.shape[0])
+        rl, rs = d_ref.dither_encode_ref(crows, u, s, crows.shape[0])
+        if not (torch.equal(rl.reshape(clev.shape), clev)
+                and same_bits(rs[0], cscale)):
+            stats["replay_differ"] += 1
+        d = (levels.reshape(clev.shape).int() - clev.int()).abs()
+        stats["flips"] += int((d > 0).sum())
+        stats["total"] += d.numel()
+        stats["max_flip"] = max(stats["max_flip"], int(d.max()))
+        stats["messages"] += 1
+        return levels.reshape(x.shape), scale[0]
+
+    t0 = time.perf_counter()
+    loss, loss_next, uplink = record_y_messages(
+        dl_flecs, n_leaves, on_y,
+        lambda: m2_one_step(cfg, dl_flecs, params, b0, b1))
+    return dict(loss=loss, loss_next=loss_next, uplink_mbits=uplink,
+                seconds=time.perf_counter() - t0, **stats)
+
+
+class StepSplit:
+    """Wraps ``dl_flecs``'s gradient pass, HVP passes, sketch draws and
+    FedSONIA so that each call's time (host clock between two
+    synchronizes) adds to ``ms[part]``; ``close()`` unwraps."""
+
+    PARTS = {"value_and_grad": "gradient", "hvp_pytree": "hvp",
+             "_sketch_signs": "sketch draws", "_fedsonia_tensor": "fedsonia"}
+
+    def __init__(self, dl_flecs):
+        import torch
+        self.mod, self.saved = dl_flecs, {}
+        self.ms = {part: 0.0 for part in self.PARTS.values()}
+        for name, part in self.PARTS.items():
+            fn = getattr(dl_flecs, name)
+            self.saved[name] = fn
+
+            def timed(*a, _fn=fn, _part=part, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _fn(*a, **kw)
+                torch.cuda.synchronize()
+                self.ms[_part] += 1e3 * (time.perf_counter() - t0)
+                return out
+
+            setattr(dl_flecs, name, timed)
+
+    def take(self) -> dict:
+        ms, self.ms = self.ms, {p: 0.0 for p in self.PARTS.values()}
+        return ms
+
+    def close(self):
+        for name, fn in self.saved.items():
+            setattr(self.mod, name, fn)
+
+
+def m2_full_steps(train, cfg, params, rows, dl_flecs, fa_ops, d_ops, ops):
+    """FLECS_M_STEPS m = 2 steps at batch rows x TRAIN_BATCH[1] from
+    ``params`` on one batch, the counters set to 0 just before: (losses,
+    step ms, split ms a step, uplink Mbit, launches), or None if the card
+    runs out of memory (the failed run's tensors are gone on return)."""
+    import itertools
+    import torch
+    batch = next(train.token_batches(cfg, rows, TRAIN_BATCH[1],
+                                     params["embed"].device))
+    step = m2_step(cfg, dl_flecs)
+    shifts = dl_flecs.init_shifts(params)
+    split = StepSplit(dl_flecs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_train_counters(fa_ops, d_ops, ops)
+    p, losses, step_ms, parts, uplink = params, [], [], [], None
+    try:
+        for i, b in zip(range(FLECS_M_STEPS), itertools.repeat(batch)):
+            t0 = time.perf_counter()
+            p, shifts, met = step(p, shifts, b, i)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            losses.append(float(met["loss"]))
+            uplink = float(met["uplink_mbits"])
+            parts.append(split.take())
+            log(f"  m = 2 step {i}: loss {losses[-1]!r}, {step_ms[-1]!r} "
+                f"ms: {parts[-1]}")
+    except torch.cuda.OutOfMemoryError as exc:
+        log(f"phase 10: batch {rows} x {TRAIN_BATCH[1]} does not fit "
+            f"({str(exc).splitlines()[0]})")
+        return None
+    finally:
+        split.close()
+    return losses, step_ms, parts, uplink, train_counters(fa_ops, d_ops,
+                                                          ops)
+
+
+def phase_m2_full(train, dl_flecs, fa_ops, d_ops, ops, tree):
+    """Phase 10 (c): tinyllama-1.1b at full width, 22 layers, float32,
+    remat, batch 8 x 1024 (cut to 4 x 1024 only if 8 does not fit): 3
+    FLECS-CGD steps with m = 2 on one batch; the counters set to 0 just
+    before and read just after; losses, step ms split into the gradient
+    pass, the HVP passes, the sketch draws and FedSONIA (the rest: the
+    codec and the update), peak memory, launches a step by kernel."""
+    import torch
+    cfg, params = train.setup(TINYLLAMA, smoke=False, device="cuda")
+    L, n_leaves = cfg.n_layers, len(tree.tree_leaves(params))
+    for rows in (TRAIN_BATCH[0], TRAIN_BATCH[0] // 2):
+        out = m2_full_steps(train, cfg, params, rows, dl_flecs, fa_ops,
+                            d_ops, ops)
+        torch.cuda.empty_cache()
+        if out is not None:
+            break
+    else:
+        fail("full-width m = 2 does not fit even at batch 4 x 1024")
+    losses, step_ms, parts, uplink, counts = out
+    peak = torch.cuda.max_memory_allocated()
+    m = FLECS_M
+    per_step = {"flash_attention": 2 * L * (1 + m),
+                "flash_attention_backward": L * (1 + m),
+                "flash_attention_jvp": 2 * L * m,
+                "flash_attention_backward_jvp": L * m,
+                "dither_encode": 0,
+                "dither_encode_keyed": n_leaves * (1 + m),
+                "dither_decode": n_leaves * (1 + m),
+                "dither_bits": n_leaves * (1 + m)}
+    for name, n in per_step.items():
+        check(counts[name] == n * FLECS_M_STEPS,
+              f"full-width m = 2: {name} launched {counts[name]} times in "
+              f"{FLECS_M_STEPS} steps, expected {n * FLECS_M_STEPS}")
+    check(all(map(math.isfinite, losses)),
+          f"full-width m = 2: losses not finite: {losses}")
+    res = dict(batch=[rows, TRAIN_BATCH[1]], losses=losses, step_ms=step_ms,
+               split_ms=parts, peak_gib=peak / 2**30, launches=counts,
+               launches_per_step={k: v / FLECS_M_STEPS
+                                  for k, v in counts.items()},
+               uplink_mbits=uplink)
+    log(f"phase 10: {TINYLLAMA} x{L} f32 remat, batch {rows} x "
+        f"{TRAIN_BATCH[1]}, FLECS-CGD m = {m} x{FLECS_M_STEPS}: losses "
+        f"{losses}; step ms {step_ms}; split {parts}; peak "
+        f"{peak / 2**30!r} GiB; launches per step "
+        f"{res['launches_per_step']}")
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_m2_driver(dl_flecs, fa_ops, d_ops, ops, tmp):
+    """Phase 10 (d): ``python -m repro_torch.train_lm --flecs --flecs-m 2
+    --steps 3 --checkpoint DIR`` at its defaults (tinyllama-1.1b at full
+    width, batch 8 x 128, no remat), DIR under ``tmp``; the counters set to
+    0 just before and read just after; then the checkpoint restored onto
+    the card, bit for bit the run's last weights, at step 3."""
+    import torch
+    from repro_torch import train_lm
+    from repro_torch.checkpoint import store
+    from repro_torch.tree import tree_leaves
+    ckpt = tmp / "train_lm_ckpt"
+    reset_train_counters(fa_ops, d_ops, ops)
+    t0 = time.perf_counter()
+    out = train_lm.main(["--flecs", "--flecs-m", str(FLECS_M), "--steps",
+                         "3", "--checkpoint", str(ckpt)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = train_counters(fa_ops, d_ops, ops)
+    for name in ("flash_attention", "flash_attention_backward",
+                 "flash_attention_jvp", "flash_attention_backward_jvp",
+                 "dither_encode_keyed", "dither_decode", "dither_bits"):
+        check(counts[name] > 0, f"train_lm --flecs-m 2: {name} never "
+              f"launched")
+    losses = [m["loss"] for m in out["metrics"]]
+    check(all(map(math.isfinite, losses)),
+          f"train_lm --flecs-m 2: losses not finite: {losses}")
+    t1 = time.perf_counter()
+    restored, step = store.restore(ckpt, out["params"])
+    restore_s = time.perf_counter() - t1
+    check(step == 3, f"train_lm checkpoint: step {step}, expected 3")
+    check(all(a.device == b.device and same_bits(a, b) for a, b in zip(
+        tree_leaves(restored), tree_leaves(out["params"]))),
+        "train_lm checkpoint: the restored weights are not the saved ones")
+    nbytes = sum(f.stat().st_size for f in ckpt.iterdir())
+    log(f"phase 10: train_lm --flecs --flecs-m 2 --steps 3 --checkpoint: "
+        f"losses {losses}, {seconds!r} s with the save; checkpoint "
+        f"{nbytes / 2**30!r} GiB restored bit for bit in {restore_s!r} s; "
+        f"launches {counts}")
+    del out, restored
+    torch.cuda.empty_cache()
+    return dict(losses=losses, seconds=seconds, restore_s=restore_s,
+                checkpoint_gib=nbytes / 2**30, launches=counts)
+
+
+#: The CPU's Y levels may differ from the card's at no more than this share
+#: of the elements, by one level (phase 8's bound for the gradients').
+Y_LEVEL_SHARE = LEVEL_SHARE
+
+
+def phase_flecs_m2(dev, train, dl_flecs, fa_ops, fa_ref, d_ops, ops, tree):
+    """Phase 10: the sketched-Hessian FLECS-CGD trainer, m = 2.  (b)'s
+    card side first; its CPU side then runs in a spawned worker process
+    with every core while the card runs (a), (c) and (d) and times the
+    tangent kernels; then (b)'s comparison: losses within LOSS_REL, uplink
+    equal, every card Y message its CPU replay, the Y levels' flips at no
+    more than Y_LEVEL_SHARE of the elements and by one level."""
+    import multiprocessing
+    import shutil
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+    tmp = Path(tempfile.mkdtemp(prefix="_smoke_tmp_", dir=ROOT))
+    try:
+        card2 = phase_m2_depth2_card(train, dl_flecs, tree,
+                                     tmp / "depth2.pt")
+        with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context(
+                "spawn")) as pool:
+            cpu_side = pool.submit(m2_cpu_job, str(tmp / "depth2.pt"))
+            err, rel = phase_flash_jvp(dev, fa_ops, fa_ref)
+            full = phase_m2_full(train, dl_flecs, fa_ops, d_ops, ops, tree)
+            drv = phase_m2_driver(dl_flecs, fa_ops, d_ops, ops, tmp)
+            timing = flash_jvp_timing(dev, fa_ops, fa_ref)
+            t0 = time.perf_counter()
+            cpu2 = cpu_side.result()
+            waited = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for key in ("loss", "loss_next"):
+        check(abs(card2[key] - cpu2[key]) <= LOSS_REL * abs(cpu2[key]),
+              f"depth 2 m = 2: {key} {card2[key]!r} (card) and "
+              f"{cpu2[key]!r} (CPU) beyond rtol {LOSS_REL}")
+    check(card2["uplink_mbits"] == cpu2["uplink_mbits"],
+          f"depth 2 m = 2: uplink {card2['uplink_mbits']!r} (card) and "
+          f"{cpu2['uplink_mbits']!r} (CPU)")
+    check(cpu2["replay_differ"] == 0,
+          f"depth 2 m = 2: {cpu2['replay_differ']} of {cpu2['messages']} "
+          f"card Y messages are not their CPU replay")
+    check(cpu2["max_flip"] <= 1
+          and cpu2["flips"] <= Y_LEVEL_SHARE * cpu2["total"],
+          f"depth 2 m = 2: Y levels differ at {cpu2['flips']} of "
+          f"{cpu2['total']} elements, by up to {cpu2['max_flip']}")
+    log(f"phase 10: depth 2 m = 2, card against CPU: losses "
+        f"{card2['loss']!r} / {cpu2['loss']!r}, next {card2['loss_next']!r}"
+        f" / {cpu2['loss_next']!r}; uplink {card2['uplink_mbits']!r} Mbit "
+        f"both; {cpu2['messages']} Y messages, each its CPU replay; Y levels"
+        f" differ at {cpu2['flips']} of {cpu2['total']} elements, by at "
+        f"most {cpu2['max_flip']}; the CPU side took {cpu2['seconds']!r} s "
+        f"({waited!r} s waited for)")
+    return dict(depth2=dict(card=card2, cpu=cpu2, waited_s=waited),
+                jvp_err=err, jvp_rel=rel, full=full, driver=drv,
+                timing=timing)
+
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3829,6 +4373,7 @@ def main():
     from repro_torch.core import compressors
     from repro_torch.launch import serve
     from repro_torch.launch import train
+    from repro_torch.core import dl_flecs
     from repro_torch.train.step import value_and_grad
 
     dev = torch.device("cuda")
@@ -3842,7 +4387,7 @@ def main():
     def elapsed(what):
         log(f"elapsed after {what}: {time.perf_counter() - start:.1f} s")
 
-    libraries = (build, fa_build, d_build)
+    libraries = (build, fa_build, d_build, fa_build.JVP_LIBRARY)
     with ThreadPoolExecutor(len(libraries)) as pool:   # one nvcc per source
         built = list(pool.map(lambda b: b.build(), libraries))
     log(f"phase 1: built {[p.name for p in built]} in "
@@ -3916,6 +4461,9 @@ def main():
     elapsed("phase 8")
     trained = phase_train_full(train, fa_ops, d_ops, ops, tree)
     elapsed("phase 9")
+    m2 = phase_flecs_m2(dev, train, dl_flecs, fa_ops, fa_ref, d_ops, ops,
+                        tree)
+    elapsed("phase 10")
     prof = phase_profile(quickstart)
     elapsed("phase 7's profile")
     timing = phase_timing(dev, ops, ref, random, library=built[0])
@@ -3933,6 +4481,11 @@ def main():
                                         random)
     elapsed("phase 9's kernel timings")
 
+    # phase 10's two main paths: the m = 2 trainer and train_lm
+    m2_paths = {"train flecs m=2 x3": m2["full"]["launches"],
+                "train_lm --flecs-m 2 x3": m2["driver"]["launches"]}
+    m2_launches = {name: sum(n.get(name, 0) for n in m2_paths.values())
+                   for name in m2["full"]["launches"]}
     kernels = []
     for name in REPLACES:
         L = 20000 if name.startswith("fused") else 1
@@ -3940,12 +4493,15 @@ def main():
         entry = {"name": name, "route": "cuda", "source": SOURCE,
                  "replaces": REPLACES[name],
                  "launches": counts[name] + plan_counts[name]
-                 + trained["flecs"]["launches"].get(name, 0),
+                 + trained["flecs"]["launches"].get(name, 0)
+                 + m2_launches.get(name, 0),
                  "launches_by_path": {
                      "quickstart, gisette": counts[name],
                      "plans": plan_counts[name],
                      "train flecs x5": trained["flecs"]["launches"].get(
-                         name, 0)},
+                         name, 0),
+                     **{path: n.get(name, 0)
+                        for path, n in m2_paths.items()}},
                  "max_abs_err": err[name], "ms": r["ms"],
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                  "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -4003,13 +4559,14 @@ def main():
         kernels.append(entry)
     by_path = {"serve prefill": full["launches"],
                "train adam x5": trained["adam"]["launches"],
-               "train flecs x5": trained["flecs"]["launches"]}
+               "train flecs x5": trained["flecs"]["launches"], **m2_paths}
     kernels.append({
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES,
         "launches": full["launches"]
         + trained["adam"]["launches"]["flash_attention"]
-        + trained["flecs"]["launches"]["flash_attention"],
+        + trained["flecs"]["launches"]["flash_attention"]
+        + m2_launches["flash_attention"],
         "launches_by_path": {k: (v if isinstance(v, int)
                                  else v["flash_attention"])
                              for k, v in by_path.items()},
@@ -4028,7 +4585,11 @@ def main():
         kernels.append({
             "name": name, "route": "cuda", "source": DITHER_SOURCE,
             "replaces": DITHER_REPLACES[name],
-            "launches": trained["flecs"]["launches"][name],
+            "launches": trained["flecs"]["launches"][name]
+            + m2_launches[name],
+            "launches_by_path": {"train flecs x5": trained["flecs"][
+                "launches"][name], **{path: n[name]
+                                      for path, n in m2_paths.items()}},
             "max_abs_err": dither_err[name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -4043,7 +4604,11 @@ def main():
         "name": "flash_attention_backward", "route": "cuda",
         "source": FLASH_SOURCE, "replaces": BWD_REPLACES,
         "launches": trained["adam"]["launches"]["flash_attention_backward"]
-        + trained["flecs"]["launches"]["flash_attention_backward"],
+        + trained["flecs"]["launches"]["flash_attention_backward"]
+        + m2_launches["flash_attention_backward"],
+        "launches_by_path": {k: v["flash_attention_backward"]
+                             for k, v in by_path.items()
+                             if k != "serve prefill"},
         "max_abs_err": max(bwd_err.values()), "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -4052,6 +4617,20 @@ def main():
             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
             "hgmma")},
         "shape": list(SERVE_SHAPE[:5])})
+    for name in ("flash_attention_jvp", "flash_attention_backward_jvp"):
+        r = m2["timing"][name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": JVP_SOURCE,
+            "replaces": JVP_REPLACES, "launches": m2_launches[name],
+            "launches_by_path": {path: n[name]
+                                 for path, n in m2_paths.items()},
+            "max_abs_err": m2["jvp_err"][name],
+            "rel_err": m2["jvp_rel"][name], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None,
+            "library_ms_why": "no one PyTorch call computes attention's "
+                              "tangent",
+            "shape": list(SERVE_SHAPE[:5])})
     log(json.dumps({"plans": plans, "gisette_baselines": gis_base}))
     log(json.dumps({"stochastic": stoch}))
     log(json.dumps({"async": asy}, default=str))
@@ -4059,6 +4638,8 @@ def main():
     log(json.dumps({"quickstart": quick, "gisette": gis, "profile": prof,
                     "serve_depth2": depth2, "serve": full,
                     "train_depth2": train2, "train": trained}))
+    log(json.dumps({"flecs_m2": {k: v for k, v in m2.items()
+                                 if k != "timing"}}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,10 +3,12 @@
     python3 kernel_timing.py compressor [--root DIR] [--topk-chunk N]
     python3 kernel_timing.py flash-forward [--root DIR] [-D NAME=VALUE ...]
     python3 kernel_timing.py flash-backward [--root DIR] [-D NAME=VALUE ...]
+    python3 kernel_timing.py flash-jvp [--root DIR]
     python3 kernel_timing.py topk [--root DIR] [--topk-chunk N]
     python3 kernel_timing.py fednl [--root DIR]
     python3 kernel_timing.py dither [--root DIR]
     python3 kernel_timing.py quickstart [--root DIR]
+    python3 kernel_timing.py remat
 
 ``--root`` names the checkout whose ``src/repro_torch`` is timed (default:
 this one), so that a parent unpacked with ``git archive`` beside a change is
@@ -41,6 +43,12 @@ the plain autograd at every ``chip_smoke.BWD_SHAPES`` shape, and times it at
 the training shape in float32 and bfloat16 beside the plain autograd and
 SDPA (``chip_smoke.flash_backward_timing``).
 
+``flash-jvp`` holds the forward- and backward-tangent kernels
+(``csrc/flash_attention_jvp.cu``) against their plain versions at every
+``chip_smoke.JVP_SHAPES`` shape (and bitwise over two runs), and times them
+at the training shape beside the plain versions and the bound
+(``chip_smoke.phase_flash_jvp``, ``chip_smoke.flash_jvp_timing``).
+
 ``dither`` times the codec kernels at the trainer's leaf shapes
 (``chip_smoke.LEAF_SHAPES``): the u-taking encode, the keyed encode beside
 the draw it replaces, and the decode beside ``torch.mul`` of the levels
@@ -55,6 +63,13 @@ synchronize, and device kernels and int64 elementwise launches a round from
 a profile (``chip_smoke.round_timing``).  The rounds are host-bound and
 vary between calls; compare two checkouts only within one call.
 
+``remat`` times tinyllama-1.1b's adam step at full width (22 layers,
+float32, batch 8 x 1024, 4 steps on one batch, the first left out) with
+each layer's remat through ``torch.utils.checkpoint`` (the gradient pass's)
+and through ``models/model._dual_remat`` (the Hessian-vector products'),
+in the order checkpoint, dual, dual, checkpoint: step ms, peak GiB, and
+whether the two routes' losses are the same bits.
+
 Each prints the card's name and power limit, the timing lines, and as its
 last line one JSON object of the times.  Needs one card.
 """
@@ -68,12 +83,57 @@ from pathlib import Path
 import chip_smoke
 
 
+def remat_timing(dev) -> list:
+    """``remat``: the adam step with each remat route, alternated."""
+    import itertools
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.models import model
+    from repro_torch.tree import tree_flatten, tree_unflatten
+    cfg, params = train.setup(chip_smoke.TINYLLAMA, smoke=False,
+                              device=dev)
+    batch = next(train.token_batches(cfg, *chip_smoke.TRAIN_BATCH, dev))
+    checkpoint = model.checkpoint
+
+    def dual_remat(fn, sp, x, m, cfg, positions, **kwargs):
+        leaves, treedef = tree_flatten(sp)
+        return model._dual_remat(
+            lambda *ts: fn(tree_unflatten(treedef, list(ts[:-1])), ts[-1],
+                           m, cfg, positions)[0],
+            *leaves, x), torch.zeros((), device=x.device)
+
+    runs = []
+    try:
+        for route in ("checkpoint", "dual_remat", "dual_remat",
+                      "checkpoint"):
+            model.checkpoint = (checkpoint if route == "checkpoint"
+                                else dual_remat)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            run = train.train(cfg, params, itertools.repeat(batch), 4)
+            r = dict(route=route, step_ms=run["step_ms"][1:],
+                     losses=[m["loss"] for m in run["metrics"]],
+                     peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+            chip_smoke.log(f"remat {route}: adam step ms {r['step_ms']}; "
+                           f"losses {r['losses']}; peak {r['peak_gib']!r} "
+                           f"GiB")
+            runs.append(r)
+            del run
+            torch.cuda.empty_cache()
+    finally:
+        model.checkpoint = checkpoint
+    chip_smoke.check(len({tuple(r["losses"]) for r in runs}) == 1,
+                     "remat: the routes' losses differ")
+    return runs
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(
         description="Time one checkout's kernels on the card.")
     parser.add_argument("what", choices=("compressor", "topk", "fednl",
                                          "flash-forward", "flash-backward",
-                                         "dither", "quickstart"))
+                                         "flash-jvp", "dither",
+                                         "quickstart", "remat"))
     parser.add_argument("--root", type=Path, default=chip_smoke.ROOT,
                         help="checkout whose src/repro_torch is timed")
     parser.add_argument("-D", dest="defines", action="append", default=[],
@@ -114,6 +174,21 @@ def main(argv=None) -> None:
     elif args.what == "quickstart":
         from repro_torch import quickstart
         out["rounds"] = chip_smoke.round_timing(quickstart)
+    elif args.what == "flash-jvp":
+        from repro_torch.kernels.flash_attention import build, ops, ref
+        chip_smoke.log(f"built {build.JVP_LIBRARY.build().name}")
+        for line in build.JVP_LIBRARY.build_log().splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                chip_smoke.log("  ptxas:", line.strip())
+        out["max_abs_err"], out["rel_err"] = chip_smoke.phase_flash_jvp(
+            dev, ops, ref)
+        out["times"] = {
+            name: {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "cuda_core_bound_ms")}
+            for name, r in chip_smoke.flash_jvp_timing(dev, ops,
+                                                       ref).items()}
+    elif args.what == "remat":
+        out["runs"] = remat_timing(dev)
     elif args.what == "dither":
         from repro_torch import random
         from repro_torch.kernels.dither import ops, ref

@@ -24,6 +24,7 @@ is bit-identical to its scalar entry.  ``fused_dither_keyed_grouped`` also
 takes the rows' global worker ids (a cohort's, a shard's): row i then
 draws under ``split(keys[g], N)[ids[i]]``.
 
+A forward-AD dual operand on the card raises (``kernels/dual.py``).
 Every launch adds one to ``launches[name]``, so a run can show which
 kernels its path went through; the top-k entries also add one to
 ``topk_instances[name][instance]``.
@@ -34,6 +35,7 @@ import torch
 
 from repro_torch.kernels.compressor import ref
 from repro_torch.kernels.compressor.build import LIBRARY
+from repro_torch.kernels.dual import refuse_duals
 
 #: Kernel launches since the last :func:`reset_launches`, per kernel.
 launches = {"fused_dither": 0, "fused_dither_keyed": 0, "fused_topk": 0,
@@ -94,6 +96,7 @@ def fused_dither(x: torch.Tensor, u: torch.Tensor, s):
     _check_rows("fused_dither", x, u)
     if not _on_card(x.device):
         return ref.fused_dither_ref(x, u, s)
+    refuse_duals("fused_dither", x, u)
     n, L = x.shape
     out = torch.empty_like(x)
     bits = torch.empty(n, dtype=torch.float32, device=x.device)
@@ -184,6 +187,7 @@ def fused_dither_keyed(x: torch.Tensor, key: torch.Tensor, s):
                          f"{tuple(key.shape)} on {key.device}")
     if not _on_card(x.device):
         return ref.fused_dither_keyed_ref(x, key, s)
+    refuse_duals("fused_dither_keyed", x)
     n, L = x.shape
     out = torch.empty_like(x)
     bits = torch.empty(n, dtype=torch.float32, device=x.device)
@@ -206,6 +210,7 @@ def fused_topk(x: torch.Tensor, frac):
 def _topk(name: str, x: torch.Tensor, frac: float, frac_g, n_group: int):
     """Launch top-k entry ``name`` on x [rows, L] through the instance that
     ``topk_plan`` names: a scalar frac, or frac_g [G] on the device."""
+    refuse_duals(name, x, frac_g)
     rows, L = x.shape
     out = torch.empty_like(x)
     bits = torch.empty(rows, dtype=torch.float32, device=x.device)
@@ -235,6 +240,8 @@ def dither_bits(s, d, device: torch.device) -> torch.Tensor:
     """Ledger query: dither payload bits of a d-value message (0-d)."""
     if not _on_card(device):
         return ref.dither_bits_ref(s, d, device)
+    refuse_duals("dither_bits", *(t for t in (s, d)
+                                  if isinstance(t, torch.Tensor)))
     out = torch.empty((), dtype=torch.float32, device=device)
     _launch("dither_bits", "repro_dither_bits", device, float(s), float(d),
             out.data_ptr())
@@ -245,6 +252,8 @@ def topk_bits(frac, d, device: torch.device) -> torch.Tensor:
     """Ledger query: top-k payload bits of a d-value message (0-d)."""
     if not _on_card(device):
         return ref.topk_bits_ref(frac, d, device)
+    refuse_duals("topk_bits", *(t for t in (frac, d)
+                                if isinstance(t, torch.Tensor)))
     out = torch.empty((), dtype=torch.float32, device=device)
     _launch("topk_bits", "repro_topk_bits", device, float(frac), float(d),
             out.data_ptr())
@@ -299,6 +308,7 @@ def fused_dither_keyed_grouped(x: torch.Tensor, keys: torch.Tensor,
                          f"on {ids.device}")
     if not _on_card(x.device):
         return ref.fused_dither_keyed_grouped_ref(x, keys, s, ids)
+    refuse_duals("fused_dither_keyed_grouped", x, s)
     rows, L = x.shape
     out = torch.empty_like(x)
     bits = torch.empty(rows, dtype=torch.float32, device=x.device)
@@ -331,6 +341,7 @@ def _ledger_grouped(name: str, entry: str, fn_ref, param: torch.Tensor, d):
     _check_params(name, param.device, param.shape[0], param=param)
     if not _on_card(param.device):
         return fn_ref(param, d)
+    refuse_duals(name, param)
     out = torch.empty_like(param)
     _launch(name, entry, param.device, param.data_ptr(), float(d),
             out.data_ptr(), param.shape[0])

@@ -18,7 +18,8 @@ multiple of ``rb = min(block_rows, rows)``, and the uniforms are the
 reference's own draw, ``uniform(key, padded_shape)`` (drawn by the keyed
 encode), so the levels compare bit for bit.
 
-Every launch adds one to ``launches[name]``.
+Every launch adds one to ``launches[name]``.  A forward-AD dual operand on
+the card raises (``kernels/dual.py``).
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.dither import ref
 from repro_torch.kernels.dither.build import LIBRARY
+from repro_torch.kernels.dual import refuse_duals
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -70,6 +72,7 @@ def _launch(name, entry, device, *args) -> None:
 def _encode(name, entry, x, operand, s, block_rows):
     """Launch an encode entry point on x [R, C] and its uniforms or key:
     (levels int8 [R, C], scale float32 [R // block_rows])."""
+    refuse_duals(name, x, operand)
     R, C = x.shape
     nb = R // block_rows
     levels = torch.empty((R, C), dtype=torch.int8, device=x.device)
@@ -135,6 +138,7 @@ def dither_decode(levels, scale, *, block_rows: int = 256):
                          f"{scale.device}")
     if not _on_card(levels):
         return ref.dither_decode_ref(levels, scale, block_rows)
+    refuse_duals("dither_decode", scale)
     R, C = levels.shape
     out = torch.empty((R, C), dtype=torch.float32, device=levels.device)
     _launch("dither_decode", "repro_dither_decode", levels.device,

@@ -1,6 +1,8 @@
-"""Build and load the flash-attention kernels (``csrc/flash_attention.cu``)
-through :class:`repro_torch.kernels.nvcc.CudaLibrary`: nvcc into ``_build/``
-beside this file at first use, loaded with ``ctypes``."""
+"""Build and load the flash-attention kernels through
+:class:`repro_torch.kernels.nvcc.CudaLibrary`: nvcc into ``_build/`` beside
+this file at first use, loaded with ``ctypes``.  Two libraries, one nvcc
+each (built side by side): ``csrc/flash_attention.cu`` (forward and
+backward) and ``csrc/flash_attention_jvp.cu`` (their tangents)."""
 from __future__ import annotations
 
 import ctypes
@@ -20,6 +22,19 @@ LIBRARY = CudaLibrary(
         # q, k, v, o, dout, lse, delta, dq, dk, dv, dtype, B, H, KV, S, D,
         # window, cap, strides, stream
         "repro_flash_attention_backward": (_P,) * 10 + (_I,) * 7 + (
+            _F, _P, _P),
+    })
+
+JVP_LIBRARY = CudaLibrary(
+    Path(__file__).resolve().parent / "csrc" / "flash_attention_jvp.cu",
+    signatures={
+        # q, k, v, lse, tq, tk, tv, tout, tlse, B, H, KV, S, D, window,
+        # cap, strides, stream
+        "repro_flash_attention_jvp": (_P,) * 9 + (_I,) * 6 + (_F, _P, _P),
+        # q, k, v, out, dout, lse, tq, tk, tv, tout, tdout, tlse, delta,
+        # tdelta, tdq, tdk, tdv, B, H, KV, S, D, window, cap, strides,
+        # stream
+        "repro_flash_attention_backward_jvp": (_P,) * 17 + (_I,) * 6 + (
             _F, _P, _P),
     })
 

@@ -12,32 +12,47 @@ its code aligns them to the start, and the two agree only when Sq == Sk,
 the only case prefill uses.  Any S >= 1 is taken (the kernel masks the
 ragged last tile; the Pallas wrapper asserts S % 128 == 0).
 
-Gradients: where an operand requires grad (the training path), the call
+Gradients: where an operand requires grad (the training path) or is a
+forward-AD dual (a Hessian-vector product, ``core/hessian.py``), the call
 goes through ``FlashAttention``, a ``torch.autograd.Function`` whose forward
-launches the kernel with its log-sum-exp output and whose backward launches
-the backward kernels (dQ, dK, dV).  Otherwise the forward kernel runs alone,
-as the serving path calls it.  On the CPU the plain version runs under
-autograd, and is the counterpart the card's backward is held to.
+launches the kernel with its log-sum-exp output, whose ``jvp`` launches the
+forward-tangent kernel (tO and t_lse), and whose backward goes through
+``FlashAttentionBackward``: its forward launches the backward kernels (dQ,
+dK, dV), its ``jvp`` the backward-tangent kernels (the tangents of dQ, dK
+and dV).  So forward-over-reverse (a ``jvp`` of the gradient) runs on the
+card through kernels alone.  Otherwise the forward kernel runs alone, as
+the serving path calls it.  On the CPU the plain version runs under
+autograd (and forward AD), and is the counterpart the card's kernels are
+held to.  The tangent kernels (``csrc/flash_attention_jvp.cu``) take
+float32 only; a bfloat16 dual raises.  A dual tensor that reaches a raw
+launch raises (``kernels/dual.py``): no tangent is ever dropped.
 
 Every forward launch adds one to ``launches["flash_attention"]``, every
-backward one to ``launches["flash_attention_backward"]``.
+backward one to ``launches["flash_attention_backward"]``, and the tangent
+kernels to ``launches["flash_attention_jvp"]`` and
+``launches["flash_attention_backward_jvp"]``.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
-from torch.autograd.function import once_differentiable
+import torch.autograd.forward_ad as fwAD
 
+from repro_torch.kernels.dual import refuse_duals, tangent
 from repro_torch.kernels.flash_attention import ref
-from repro_torch.kernels.flash_attention.build import LIBRARY
+from repro_torch.kernels.flash_attention.build import JVP_LIBRARY, LIBRARY
 
 #: Head dimensions the kernel is built for.
 HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: Kernel launches since the last :func:`reset_launches`.
-launches = {"flash_attention": 0, "flash_attention_backward": 0}
+launches = {"flash_attention": 0, "flash_attention_backward": 0,
+            "flash_attention_jvp": 0, "flash_attention_backward_jvp": 0}
+
+#: Where tangents in bfloat16 come from (ROADMAP.md).
+_LATER_BF16_TANGENTS = "ROADMAP.md queue 1, 'bf16 attention tangents'"
 
 
 def reset_launches() -> None:
@@ -105,6 +120,7 @@ def _launch(q, k, v, out, window, cap, lse=None) -> None:
     """The forward kernel on [B, H, S, D] views of any batch/head/sequence
     strides; writes ``out`` (q's shape and type) and, if given, ``lse``
     (float32 [B, H, S], contiguous)."""
+    refuse_duals("flash_attention", q, k, v, out, lse)
     q, k, v = map(_rows_aligned, (q, k, v))
     strides = _strides(q, k, v, out)
     B, H, S, D = q.shape
@@ -123,6 +139,8 @@ def _launch_backward(q, k, v, out, dout, lse, dq, dk, dv, window,
                      cap) -> None:
     """The backward kernels on [B, H, S, D] views (k, v, dk, dv with KV
     heads): write dq, dk and dv from the forward's out and lse."""
+    refuse_duals("flash_attention_backward", q, k, v, out, dout, lse, dq, dk,
+                 dv)
     q, k, v, dout = map(_rows_aligned, (q, k, v, dout))
     strides = _strides(q, k, v, out, dout, dq, dk, dv)
     B, H, S, D = q.shape
@@ -138,44 +156,167 @@ def _launch_backward(q, k, v, out, dout, lse, dq, dk, dv, window,
     launches["flash_attention_backward"] += 1
 
 
+def _launch_jvp(q, k, v, lse, tq, tk, tv, tout, tlse, window,
+                cap) -> None:
+    """The forward-tangent kernel on float32 [B, H, S, D] views (k, v and
+    their tangents with KV heads): writes tout and tlse (float32 [B, H, S],
+    contiguous) from the forward's lse."""
+    refuse_duals("flash_attention_jvp", q, k, v, lse, tq, tk, tv, tout,
+                 tlse)
+    strides = _strides(q, k, v, tq, tk, tv, tout)
+    B, H, S, D = q.shape
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = JVP_LIBRARY.load().repro_flash_attention_jvp(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(),
+            tq.data_ptr(), tk.data_ptr(), tv.data_ptr(), tout.data_ptr(),
+            tlse.data_ptr(), B, H, k.shape[1], S, D, int(window), float(cap),
+            ctypes.addressof(strides), stream)
+    JVP_LIBRARY.check("flash_attention_jvp", rc)
+    launches["flash_attention_jvp"] += 1
+
+
+def _launch_backward_jvp(q, k, v, out, dout, lse, tq, tk, tv, tout, tdout,
+                         tlse, tdq, tdk, tdv, window, cap) -> None:
+    """The backward-tangent kernels on float32 [B, H, S, D] views (k, v,
+    their tangents and tdk, tdv with KV heads): write the tangents of dq,
+    dk and dv from the forward's out and lse and their tangents."""
+    refuse_duals("flash_attention_backward_jvp", q, k, v, out, dout, lse,
+                 tq, tk, tv, tout, tdout, tlse, tdq, tdk, tdv)
+    strides = _strides(q, k, v, out, dout, tq, tk, tv, tout, tdout, tdq,
+                       tdk, tdv)
+    B, H, S, D = q.shape
+    delta, tdelta = (torch.empty((B, H, S), dtype=torch.float32,
+                                 device=q.device) for _ in range(2))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = JVP_LIBRARY.load().repro_flash_attention_backward_jvp(
+            *(t.data_ptr() for t in (q, k, v, out, dout, lse, tq, tk, tv,
+                                     tout, tdout, tlse, delta, tdelta, tdq,
+                                     tdk, tdv)),
+            B, H, k.shape[1], S, D, int(window), float(cap),
+            ctypes.addressof(strides), stream)
+    JVP_LIBRARY.check("flash_attention_backward_jvp", rc)
+    launches["flash_attention_backward_jvp"] += 1
+
+
 def _kernel_layout(t, model_layout: bool):
     return t.transpose(1, 2) if model_layout else t
 
 
+def _primal(t):
+    return fwAD.unpack_dual(t).primal
+
+
+def _float32_tangents(*tensors) -> None:
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f"flash_attention: the tangent kernels take float32 "
+                        f"only, got {tensors[0].dtype}; bfloat16 tangents "
+                        f"come with {_LATER_BF16_TANGENTS}")
+
+
+def _zeros_if_none(t, like):
+    return torch.zeros_like(like) if t is None else t
+
+
 class FlashAttention(torch.autograd.Function):
-    """The kernel with a backward kernel: ``apply(q, k, v, window, cap,
-    model_layout)``, operands in the model layout [B, S, H, D] or, with
-    ``model_layout`` False, the kernel layout [B, H, S, D].  Saves q, k, v,
-    the output and the float32 log-sum-exp; CUDA tensors only."""
+    """The kernel with a backward and a forward tangent: ``apply(q, k, v,
+    window, cap, model_layout)``, operands in the model layout [B, S, H, D]
+    or, with ``model_layout`` False, the kernel layout [B, H, S, D].  Saves
+    q, k, v, the output and the float32 log-sum-exp; ``jvp`` keeps the
+    tangents tO and t_lse on ``ctx`` for the backward's own tangent.  CUDA
+    tensors only."""
 
     @staticmethod
     def forward(ctx, q, k, v, window, cap, model_layout):
+        given = (q, k, v)
+        q, k, v = map(_primal, given)
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
         qt = _kernel_layout(q, model_layout)
         lse = torch.empty(qt.shape[:3], dtype=torch.float32, device=q.device)
         _launch(qt, *(_kernel_layout(t, model_layout) for t in (k, v, out)),
                 window, cap, lse)
-        ctx.save_for_backward(q, k, v, out, lse)
+        # q, k, v saved as given: where they are duals, the backward sees
+        # their tangents (the kernels get the primals)
+        ctx.save_for_backward(*given, out, lse)
+        ctx.save_for_forward(q, k, v, lse)
         ctx.window, ctx.cap, ctx.model_layout = window, cap, model_layout
+        ctx.tangents = None
         return out
 
     @staticmethod
-    @once_differentiable
+    def jvp(ctx, tq, tk, tv, *_):
+        q, k, v, lse = map(_primal, ctx.saved_tensors)
+        _float32_tangents(q, k, v)
+        tq, tk, tv = (_zeros_if_none(t, x).contiguous()
+                      for t, x in ((tq, q), (tk, k), (tv, v)))
+        tout = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        tlse = torch.empty_like(lse)
+        views = [_kernel_layout(t, ctx.model_layout)
+                 for t in (q, k, v, tq, tk, tv, tout)]
+        _launch_jvp(*views[:3], lse, *views[3:], tlse, ctx.window, ctx.cap)
+        ctx.tangents = (tout, tlse)
+        return tout
+
+    @staticmethod
     def backward(ctx, grad_out):
         q, k, v, out, lse = ctx.saved_tensors
-        grad_out = grad_out.to(q.dtype)
-        if grad_out.stride(-1) != 1:
-            grad_out = grad_out.contiguous()
-        dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device)
-                      for t in (q, k, v))
-        views = [_kernel_layout(t, ctx.model_layout)
-                 for t in (q, k, v, out, grad_out, dq, dk, dv)]
-        _launch_backward(*views[:5], lse, *views[5:], ctx.window, ctx.cap)
+        if ctx.tangents is not None and any(tangent(t) is not None
+                                            for t in (q, k, v)):
+            # forward-over-reverse: out and lse carry the tangents the jvp
+            # computed, whether or not grad_out carries one (a loss linear
+            # in the output through a constant gives a grad_out without)
+            out = fwAD.make_dual(_primal(out), ctx.tangents[0])
+            lse = fwAD.make_dual(_primal(lse), ctx.tangents[1])
+        dq, dk, dv = FlashAttentionBackward.apply(
+            q, k, v, out, grad_out, lse, ctx.window, ctx.cap,
+            ctx.model_layout)
         return dq, dk, dv, None, None, None
 
 
+class FlashAttentionBackward(torch.autograd.Function):
+    """The backward kernels as a differentiable function: ``apply(q, k, v,
+    out, dout, lse, window, cap, model_layout) -> (dq, dk, dv)``; its
+    ``jvp`` launches the backward-tangent kernels.  It has no backward: a
+    second reverse pass is not a path of this repository (Hessian-vector
+    products run forward over reverse)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, out, dout, lse, window, cap, model_layout):
+        q, k, v, out, dout, lse = map(_primal, (q, k, v, out, dout, lse))
+        dout = dout.to(q.dtype)
+        if dout.stride(-1) != 1:
+            dout = dout.contiguous()
+        dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                      for t in (q, k, v))
+        views = [_kernel_layout(t, model_layout)
+                 for t in (q, k, v, out, dout, dq, dk, dv)]
+        _launch_backward(*views[:5], lse, *views[5:], window, cap)
+        ctx.save_for_forward(q, k, v, out, dout, lse)
+        ctx.window, ctx.cap, ctx.model_layout = window, cap, model_layout
+        return dq, dk, dv
+
+    @staticmethod
+    def jvp(ctx, tq, tk, tv, tout, tdout, tlse, *_):
+        q, k, v, out, dout, lse = ctx.saved_tensors
+        _float32_tangents(q, k, v, out, dout)
+        tq, tk, tv, tout, tdout, tlse = (
+            _zeros_if_none(t, x).contiguous() for t, x in (
+                (tq, q), (tk, k), (tv, v), (tout, out), (tdout, dout),
+                (tlse, lse)))
+        tdq, tdk, tdv = (torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                         for t in (q, k, v))
+        views = [_kernel_layout(t, ctx.model_layout) for t in (
+            q, k, v, out, dout, tq, tk, tv, tout, tdout, tdq, tdk, tdv)]
+        _launch_backward_jvp(*views[:5], lse, *views[5:10], tlse,
+                             *views[10:], ctx.window, ctx.cap)
+        return tdq, tdk, tdv
+
+
 def _needs_grad(*tensors) -> bool:
-    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+    return ((torch.is_grad_enabled() and any(t.requires_grad
+                                             for t in tensors))
+            or any(tangent(t) is not None for t in tensors))
 
 
 def flash_attention(q, k, v, window: int = 0, cap: float = 0.0):

@@ -12,7 +12,9 @@ from ``numpy.random.default_rng(--seed)`` (a fresh batch a step, the first
 draw spent on shapes as the reference spends it), adam at lr 3e-3, and
 FLECS-CGD with ``alpha = 30 · lr`` and m = 0.  ``--smoke`` (the default, as
 in the reference, whose flag cannot be turned off) runs the reduced config;
-``--no-smoke`` the full width.  There is no mesh: ``--mesh debug`` is the
+``--no-smoke`` the full width.  ``--checkpoint DIR`` saves the last params
+there (``checkpoint/store.py``, the reference's format) with step
+``--steps``.  There is no mesh: ``--mesh debug`` is the
 one device.  Prints loss and grad norm every 5 steps and at the last, with
 the step's time (host clock around a synchronize) and, on the card, the
 peak memory.
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch import random
+from repro_torch.checkpoint import store
 from repro_torch.configs import get_config
 from repro_torch.core.dl_flecs import (FlecsDLConfig, init_shifts,
                                        make_flecs_train_step)
@@ -34,11 +37,6 @@ from repro_torch.device import resolve_device
 from repro_torch.models.model import init_params
 from repro_torch.optim.optimizers import get_optimizer
 from repro_torch.train.step import make_train_step
-
-#: Where the checkpoint store comes from (ROADMAP.md).
-_LATER_CHECKPOINT = ("a later slice (checkpoint/store.py, ROADMAP.md queue "
-                     "1)")
-
 
 def setup(arch="tinyllama-1.1b", smoke=True, device=None, n_layers=0,
           seed=0):
@@ -130,10 +128,6 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0,
                     help="weights key and token stream seed")
     args = ap.parse_args(argv)
-    if args.checkpoint:
-        raise NotImplementedError(
-            f"--checkpoint is not ported yet; it comes with "
-            f"{_LATER_CHECKPOINT}")
 
     cfg, params = setup(args.arch, args.smoke, args.device, seed=args.seed)
     dev = next(iter(params.values())).device
@@ -149,6 +143,9 @@ def main(argv=None):
                 microbatches=args.microbatches, log=print)
     if args.flecs:
         print(f"uplink {out['metrics'][-1]['uplink_mbits']:.3f} Mbit a step")
+    if args.checkpoint:
+        store.save(args.checkpoint, out["params"], step=args.steps)
+        print("saved", args.checkpoint)
     return out
 
 

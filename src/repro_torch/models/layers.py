@@ -10,6 +10,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.autograd.forward_ad as fwAD
 import torch.nn.functional as F
 
 from repro_torch import random
@@ -30,8 +31,46 @@ def softcap(x, cap):
     return cap * torch.tanh(x / cap)
 
 
+class _SiLU(torch.autograd.Function):
+    """silu whose backward forward AD can differentiate: ``aten::
+    silu_backward`` has no forward-AD formula, so a Hessian-vector product
+    (``core/hessian.py``) could not pass ``F.silu``'s backward.  The forward
+    is ``F.silu``; the backward g·s·(1 + x(1 − s)) (s = sigmoid(x)) in
+    plain ops, which forward AD differentiates; ``jvp`` is the same
+    derivative times the tangent."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        ctx.save_for_forward(x)
+        return F.silu(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        s = torch.sigmoid(x)
+        return g * s * (1 + x * (1 - s))
+
+    @staticmethod
+    def jvp(ctx, tx):
+        (x,) = ctx.saved_tensors
+        s = torch.sigmoid(x)
+        return tx * s * (1 + x * (1 - s))
+
+
+def silu(x):
+    """``F.silu``, and under a forward-AD dual level (a Hessian-vector
+    product) ``_SiLU``, whose backward forward AD can pass.  Only under a
+    dual level: ``_SiLU``'s backward is not ``aten::silu_backward`` bit for
+    bit, and the standard and first-order FLECS-CGD steps keep the bits
+    they had."""
+    if fwAD._current_level >= 0:
+        return _SiLU.apply(x)
+    return F.silu(x)
+
+
 def act_fn(name):
-    return {"silu": F.silu,
+    return {"silu": silu,
             "gelu": lambda v: F.gelu(v, approximate="tanh")}[name]
 
 

@@ -24,6 +24,7 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+import torch.autograd.forward_ad as fwAD
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import random
@@ -189,21 +190,94 @@ def _layers(params, cfg, unbind: bool = False):
                 yield gi, r, i, sp, m
 
 
+class _DualRemat(torch.autograd.Function):
+    """The primal output of a block whose forward ran outside autograd
+    (``_dual_remat``): ``forward`` hands it on; ``backward`` recomputes the
+    block on the saved inputs with grad on and backpropagates the incoming
+    gradient, itself a dual in a forward-over-reverse pass, so the inputs'
+    gradients carry their tangents."""
+
+    @staticmethod
+    def forward(ctx, run, duals, value, *primals):
+        ctx.run, ctx.duals = run, duals
+        return value.pop()
+
+    @staticmethod
+    def backward(ctx, grad):
+        leaves, inputs = [], []
+        with torch.enable_grad():         # the backward runs with grad off
+            for d in ctx.duals:
+                primal, tangent = fwAD.unpack_dual(d)
+                leaf = primal.detach().requires_grad_(True)
+                leaves.append(leaf)
+                inputs.append(leaf if tangent is None
+                              else fwAD.make_dual(leaf, tangent))
+            out = ctx.run(*inputs)
+        grads = torch.autograd.grad(out, leaves, grad, allow_unused=True)
+        return (None, None, None) + tuple(grads)
+
+
+def _dual_remat(run, *duals):
+    """``run(*duals)`` (a block: tensors in, one tensor out) whose inputs
+    carry forward-AD tangents (a Hessian-vector product), with its
+    activations recomputed in the backward, as ``torch.utils.checkpoint``
+    recomputes them for inputs without.
+
+    The forward runs once, dual and without autograd: the output's primal
+    and tangent, nothing saved.  ``_DualRemat`` links the primal to the
+    inputs' primals, keeping only the dual inputs (a layer's input and its
+    weights) for the backward's recompute.  ``torch.utils.checkpoint``
+    does not serve here: its saved-tensor hooks leave every saved dual's
+    tangent stored beside the hook's handle (and each tangent's own
+    autograd graph), so the tangents of all layers' activations would stay
+    on the card; and some torch releases pass its inputs through an
+    ``autograd.Function`` without ``jvp``, which forward AD refuses.  On
+    inputs without tangents both give the same bits, but
+    ``torch.utils.checkpoint`` stops its recompute once the backward has
+    every saved tensor it needs, so it skips each block's last GEMM (the
+    FFN's down projection), which ``_dual_remat`` recomputes: it stays the
+    remat of the gradient pass."""
+    with torch.no_grad():
+        out = run(*duals)
+    value, tangent = fwAD.unpack_dual(out)
+    primals = [fwAD.unpack_dual(d).primal for d in duals]
+    primal = _DualRemat.apply(run, duals, [value.clone()], *primals)
+    return primal if tangent is None else fwAD.make_dual(primal, tangent)
+
+
+def _block_remat(sp, x, m, cfg, positions):
+    """``apply_block`` with its activations recomputed in the backward:
+    through ``_dual_remat`` where the layer's input or weights carry a
+    forward-AD tangent, else through ``torch.utils.checkpoint``
+    (non-reentrant).  Under ``_dual_remat`` aux is the dense FFN's zero
+    (the layer kinds with a router loss raise in ``check_supported``)."""
+    leaves, treedef = tree_flatten(sp)
+    if all(fwAD.unpack_dual(t).tangent is None for t in (*leaves, x)):
+        return checkpoint(apply_block, sp, x, m, cfg, positions,
+                          use_reentrant=False, preserve_rng_state=False)
+
+    def run(*ts):
+        return apply_block(tree_unflatten(treedef, list(ts[:-1])), ts[-1],
+                           m, cfg, positions)[0]
+
+    return (_dual_remat(run, *leaves, x),
+            torch.zeros((), device=x.device))
+
+
 def forward(params, batch, cfg: ModelConfig, remat: bool = False):
     """Full-sequence forward.  Returns (hidden [B, S, D], aux scalar).
 
-    ``remat`` checkpoints each layer (``torch.utils.checkpoint``,
-    non-reentrant): the backward recomputes the layer's activations from
-    its input, as the reference's ``jax.checkpoint`` of each scanned block
-    does, so only the layers' inputs are kept."""
+    ``remat`` checkpoints each layer (``_block_remat``): the backward
+    recomputes the layer's activations from its input, as the reference's
+    ``jax.checkpoint`` of each scanned block does, so only the layers'
+    inputs are kept."""
     check_supported(cfg)
     x = embed_inputs(params, batch, cfg)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux = torch.zeros((), device=x.device)
     for _, _, _, sp, m in _layers(params, cfg, unbind=True):
         if remat:
-            x, a = checkpoint(apply_block, sp, x, m, cfg, positions,
-                              use_reentrant=False, preserve_rng_state=False)
+            x, a = _block_remat(sp, x, m, cfg, positions)
         else:
             x, a = apply_block(sp, x, m, cfg, positions)
         aux = aux + a

@@ -59,3 +59,23 @@ def tree_unflatten(treedef, leaves):
     if next(it, None) is not None:
         raise ValueError("tree_unflatten: more leaves than the tree holds")
     return out
+
+
+def tree_paths(tree):
+    """The path of every leaf in ``tree_flatten`` order, as the reference
+    names it from ``jax.tree_util.tree_flatten_with_path``: dict keys and
+    list indices joined by "/"."""
+    paths = []
+
+    def walk(t, prefix):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], prefix + (str(k),))
+        elif isinstance(t, (list, tuple)):
+            for i, x in enumerate(t):
+                walk(x, prefix + (str(i),))
+        else:
+            paths.append("/".join(prefix))
+
+    walk(tree, ())
+    return paths

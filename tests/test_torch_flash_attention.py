@@ -124,7 +124,9 @@ def test_model_layout_on_cpu_tensors():
     assert torch.equal(out, want)
     # the CPU path takes the plain version: no launch is counted
     assert ops.launches == {"flash_attention": 0,
-                            "flash_attention_backward": 0}
+                            "flash_attention_backward": 0,
+                            "flash_attention_jvp": 0,
+                            "flash_attention_backward_jvp": 0}
 
 
 def test_ragged_length_and_fully_masked_rows():

@@ -41,6 +41,19 @@ Tolerances:
   ledgers bit for bit the CPU's, except a geometric delay whose
   log(u) / log(q) lies within 4 ulps of an integer (each such one warned
   about); the async grid held by ``plan_drift.verdict``.
+* attention's tangent kernels (forward and backward) against their plain
+  versions on the same card and inputs: max |Δ| <= 1e-5 · max |t| (the
+  float32 backward's tolerance; CUDA-core float32 sums in another order),
+  the same bits over two runs; a Hessian-vector product through
+  ``ops.attention`` within 1e-5 · max |Hv| of the plain path's on the card,
+  also for a loss linear in attention's output (its backward's grad_out
+  carries no tangent);
+* the sketched-Hessian FLECS-CGD step (m = 2, smoke config) on the card
+  against the CPU: ``uplink_mbits`` equal, losses within 1e-5 relative
+  (before and after the step).
+* ``models/model._dual_remat`` against ``torch.utils.checkpoint`` on the
+  card, inputs without tangents: loss and gradients bit for bit (the same
+  operations).
 This file imports no JAX (the card's machine has none).
 """
 import warnings
@@ -410,7 +423,9 @@ def test_flash_attention_matches_plain_version(cuda, B, H, KV, S, D, window,
     fa_ops.reset_launches()
     got = fa_ops.flash_attention(q, k, v, window=window, cap=cap)
     assert fa_ops.launches == {"flash_attention": 1,
-                               "flash_attention_backward": 0}
+                               "flash_attention_backward": 0,
+                               "flash_attention_jvp": 0,
+                               "flash_attention_backward_jvp": 0}
     want = fa_ref.attention_ref(q, k, v, window, cap)
     assert got.dtype == dtype and got.shape == (B, H, S, D)
     tol = 2e-5 if dtype == torch.float32 else 2e-2
@@ -699,7 +714,9 @@ def test_flash_attention_backward_matches_plain_version(
     out, got = _grads(lambda q, k, v: fa_ops.flash_attention(
         q, k, v, window=window, cap=cap), qkv)
     assert fa_ops.launches == {"flash_attention": 1,
-                               "flash_attention_backward": 1}
+                               "flash_attention_backward": 1,
+                               "flash_attention_jvp": 0,
+                               "flash_attention_backward_jvp": 0}
     # the forward is the same with and without the log-sum-exp output
     with torch.no_grad():
         _same(out.float(), fa_ops.flash_attention(*qkv, window=window,
@@ -773,7 +790,9 @@ def test_attention_weights_get_gradients_on_the_card(cuda):
     loss, grads = value_and_grad(params, batch, cfg, remat=True)
     n_attn = cfg.n_layers
     assert fa_ops.launches == {"flash_attention": 2 * n_attn,
-                               "flash_attention_backward": n_attn}
+                               "flash_attention_backward": n_attn,
+                               "flash_attention_jvp": 0,
+                               "flash_attention_backward_jvp": 0}
     cpu_loss, cpu_grads = value_and_grad(
         tree_map(lambda t: t.cpu(), params),
         tree_map(lambda t: t.cpu(), batch), cfg, remat=True)
@@ -1310,3 +1329,179 @@ def test_sharded_world_size_one_equals_dense_on_the_card(cuda):
     out = cs.phase_sharded(ops, counts)
     assert set(out) == {"FLECS fedsonia", "FLECS truncated_inverse",
                         "FLECS-CGD hierarchy", "DIANA"}
+
+
+# ---------------------------------------------------------------------------
+# Hessian-vector products: attention's tangent kernels and the m = 2 step
+# ---------------------------------------------------------------------------
+
+JVP_CASES = [(2, 8, 2, 200, 64, 0, 0.0, True), (1, 4, 4, 129, 32, 17, 0.0,
+                                                False),
+             (1, 2, 1, 96, 128, 0, 30.0, True), (1, 2, 2, 1, 64, 0, 0.0,
+                                                  False)]
+
+
+@pytest.mark.parametrize("case", JVP_CASES)
+def test_flash_tangent_kernels_match_plain_versions(cuda, case):
+    cs = _chip_smoke()
+    window, cap = case[5], case[6]
+    q, k, v, tq, tk, tv, do, tdo = cs.jvp_inputs(case, cuda, seed=8)
+    out, tout, lse, tlse = fa_ref.attention_jvp_ref(q, k, v, tq, tk, tv,
+                                                    window, cap)
+    want_b = fa_ref.attention_backward_jvp_ref(
+        q, k, v, out, do, lse, tq, tk, tv, tout, tdo, tlse, window, cap)
+    args = (q, k, v, tq, tk, tv, do, tdo, out, lse, tout, tlse, window, cap)
+    fa_ops.reset_launches()
+    got_f, got_b = cs.launch_jvp_pair(fa_ops, *args)
+    again_f, again_b = cs.launch_jvp_pair(fa_ops, *args)
+    assert fa_ops.launches["flash_attention_jvp"] == 2
+    assert fa_ops.launches["flash_attention_backward_jvp"] == 2
+    for a, b in zip(got_f + got_b, again_f + again_b):
+        _same(a, b)
+    for got, want in ((got_f, (tout, tlse)), (got_b, want_b)):
+        scale = max(float(w.abs().max()) for w in want)
+        for a, w in zip(got, want):
+            assert float((a - w).abs().max()) <= 1e-5 * scale
+
+
+def test_dual_reaching_a_raw_launch_raises(cuda):
+    import torch.autograd.forward_ad as fwAD
+    q = torch.randn(1, 2, 64, 32, device=cuda)
+    key = random.key(0, cuda)
+    with fwAD.dual_level():
+        qd = fwAD.make_dual(q, torch.ones_like(q))
+        x = fwAD.make_dual(torch.randn(4, 64, device=cuda),
+                           torch.ones(4, 64, device=cuda))
+        for call in (lambda: fa_ops._launch(qd, q, q, torch.empty_like(q), 0,
+                                            0.0),
+                     lambda: d_ops.dither_encode_keyed(x, key, block_rows=4),
+                     lambda: ops.fused_dither_keyed(x, key, 8.0),
+                     lambda: ops.fused_topk(x, 0.25)):
+            with pytest.raises(RuntimeError, match="dual tensor"):
+                call()
+        # through the Function the tangent reaches its own kernel
+        fa_ops.reset_launches()
+        out = fa_ops.flash_attention(qd, q, q)
+        assert fwAD.unpack_dual(out).tangent is not None
+        assert fa_ops.launches["flash_attention_jvp"] == 1
+
+
+def _card_hvp(cuda, head):
+    """The HVP of ``head(o, q)`` (o attention's output, window and cap)
+    through ``fa_ops.attention`` and through the plain path, both on the
+    card; asserts the kernel run's launches."""
+    from repro_torch.core import hessian
+    g = torch.Generator(device="cpu").manual_seed(9)
+    B, S, H, KV, D, E = 2, 70, 4, 2, 32, 16
+    W = [(torch.randn(E, n * D, generator=g) * 0.3).to(cuda)
+         for n in (H, KV, KV)]
+    T = [torch.randn(w.shape, generator=g).to(cuda) for w in W]
+    x = torch.randn(B, S, E, generator=g).to(cuda)
+
+    def loss(ws, kernel):
+        q, k, v = ((x @ w).view(B, S, -1, D) for w in ws)
+        if kernel:
+            o = fa_ops.attention(q, k, v, window=9, cap=20.0)
+        else:
+            o = fa_ref.attention_ref(*(t.transpose(1, 2) for t in (q, k, v)),
+                                     9, 20.0).transpose(1, 2)
+        return head(o, q)
+
+    fa_ops.reset_launches()
+    got = hessian.hvp_pytree(lambda ws: loss(ws, True), W, T)
+    assert fa_ops.launches == {"flash_attention": 1,
+                               "flash_attention_backward": 1,
+                               "flash_attention_jvp": 1,
+                               "flash_attention_backward_jvp": 1}
+    want = hessian.hvp_pytree(lambda ws: loss(ws, False), W, T)
+    return got, want
+
+
+def test_hvp_through_attention_on_the_card(cuda):
+    got, want = _card_hvp(cuda, lambda o, q: (o ** 2).sum() + (o * q).sum())
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+def test_hvp_of_a_loss_linear_in_the_output_on_the_card(cuda):
+    """(o · c) summed: the backward's grad_out carries no tangent, q, k and
+    v do; the backward-tangent kernel must still get tO and t_lse."""
+    c = torch.randn(2, 70, 4, 32,
+                    generator=torch.Generator(device="cpu").manual_seed(10))
+    c = c.to(cuda)
+    got, want = _card_hvp(cuda, lambda o, q: (o * c).sum())
+    for a, b in zip(got, want):
+        assert float(b.abs().max()) > 0
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+def test_flecs_m2_step_on_the_card_matches_the_cpu(cuda):
+    """One m = 2 FLECS-CGD step (smoke tinyllama widths at depth 2, remat)
+    on the card and on the CPU from the same weights, then the new
+    weights' loss."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import uniform_plan
+    from repro_torch.core.dl_flecs import (FlecsDLConfig, init_shifts,
+                                           make_flecs_train_step)
+    from repro_torch.models.model import init_params
+    from repro_torch.train.step import _loss_fn
+    cfg = get_config("tinyllama-1.1b", smoke=True)
+    cfg = dataclasses.replace(cfg, n_layers=2,
+                              layer_plan=uniform_plan(2, *cfg.layer_plan[0]))
+    params = init_params(cfg, random.key(0, cuda), torch.float32)
+    res = {}
+    for dev in (cuda, torch.device("cpu")):
+        p = tree_map(lambda t: t.to(dev), params)
+        stream = train_launch.token_batches(cfg, 4, 32, dev)
+        b0, b1 = next(stream), next(stream)
+        fa_ops.reset_launches()
+        step = make_flecs_train_step(cfg, FlecsDLConfig(alpha=0.09, m=2),
+                                     remat=True)
+        new, _, m = step(p, init_shifts(p), b0, 0)
+        if dev.type == "cuda":
+            L = cfg.n_layers
+            assert fa_ops.launches == {"flash_attention": 6 * L,
+                                       "flash_attention_backward": 3 * L,
+                                       "flash_attention_jvp": 4 * L,
+                                       "flash_attention_backward_jvp": 2 * L}
+        with torch.no_grad():
+            nxt = _loss_fn(new, b1, cfg)
+        res[dev.type] = (float(m["loss"]), float(nxt),
+                         float(m["uplink_mbits"]))
+    (l0, l1, up), (c0, c1, cup) = res["cuda"], res["cpu"]
+    assert up == cup
+    assert abs(l0 - c0) <= 1e-5 * abs(c0) and abs(l1 - c1) <= 1e-5 * abs(c1)
+
+
+def test_dual_remat_gives_torch_checkpoints_bits_on_the_card(cuda,
+                                                             monkeypatch):
+    """On inputs without tangents ``_dual_remat`` gives the card's loss and
+    gradients that ``torch.utils.checkpoint`` gives, bit for bit (smoke
+    tinyllama widths at depth 2, float32)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import uniform_plan
+    from repro_torch.models import model
+    from repro_torch.tree import tree_flatten, tree_unflatten
+    cfg = get_config("tinyllama-1.1b", smoke=True)
+    cfg = dataclasses.replace(cfg, n_layers=2,
+                              layer_plan=uniform_plan(2, *cfg.layer_plan[0]))
+    params = model.init_params(cfg, random.key(0, cuda), torch.float32)
+    batch = next(train_launch.token_batches(cfg, 4, 32, cuda))
+    fa_ops.reset_launches()
+    want = value_and_grad(params, batch, cfg, remat=True)
+    assert fa_ops.launches["flash_attention_backward"] == cfg.n_layers
+
+    def dual_remat(fn, sp, x, m, cfg, positions, **kwargs):
+        leaves, treedef = tree_flatten(sp)
+        return model._dual_remat(
+            lambda *ts: fn(tree_unflatten(treedef, list(ts[:-1])), ts[-1],
+                           m, cfg, positions)[0],
+            *leaves, x), torch.zeros((), device=x.device)
+
+    monkeypatch.setattr(model, "checkpoint", dual_remat)
+    got = value_and_grad(params, batch, cfg, remat=True)
+    assert torch.equal(got[0], want[0])
+    for a, b in zip(tree_leaves(got[1]), tree_leaves(want[1])):
+        assert torch.equal(a, b)

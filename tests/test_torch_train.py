@@ -54,6 +54,7 @@ from repro.optim import optimizers as ref_optimizers
 from repro.train.step import _loss_fn as ref_loss_fn
 from repro.train.step import make_train_step as ref_make_train_step
 from repro_torch import convert
+from repro_torch.checkpoint import store
 from repro_torch.configs import get_config
 from repro_torch.configs.base import uniform_plan
 from repro_torch.core.dl_flecs import (FlecsDLConfig, init_shifts,
@@ -289,6 +290,95 @@ def test_flecs_steps_match_reference(steps):
         ALPHA * 2 * max(scales) / 127 + 1e-6)
 
 
+@functools.lru_cache(maxsize=None)
+def _reference_flecs_m2_run(compress, steps=2):
+    """The reference trainer with m = 2 sketch columns on a 1x1 mesh:
+    (params, shifts, metrics) after each step, as numpy."""
+    ref_cfg, _ = _configs()
+    mesh = make_debug_mesh((1, 1), ("data", "model"))
+    ctx = ModelContext(mesh=mesh, data_axes=("data",), remat=True)
+    params = jax.tree.map(jnp.asarray, _reference_params())
+    batches = [_batch(seed=i)[0] for i in range(steps)]
+    pa = jax.eval_shape(lambda: params)
+    ba = jax.eval_shape(lambda: batches[0])
+    pshard = named_shardings(pa, mesh)
+    bshard = named_shardings(ba, mesh, batch_specs(ba, mesh, ("data",)))
+    lower = ref_flecs_step(ref_cfg, ctx, RefFlecsDLConfig(
+        alpha=ALPHA, m=2, compress=compress))
+    jitted, shifts_abs = lower.build(pa, ba, pshard, bshard)
+    shifts = jax.tree.map(lambda x: jnp.zeros(x.shape, x.dtype), shifts_abs)
+    out = []
+    for i in range(steps):
+        params, shifts, m = jitted(params, shifts, batches[i], jnp.int32(i))
+        out.append((_np(params), _np(shifts), {k: float(v)
+                                               for k, v in m.items()}))
+    return out
+
+
+@pytest.mark.parametrize("steps", [1, 2])
+def test_flecs_m2_steps_match_reference(steps):
+    """m = 2, compressed: ``uplink_mbits`` exactly (the gradient leaves'
+    bits, then each column's leaves', in the reference's float32 order),
+    loss rtol 1e-5; the shifts bounded as ``test_flecs_steps_match_
+    reference`` bounds them (they see only the gradient messages); the
+    params within that test's bound a step, α · 2 · max |h̄| / 127 + 1e-6
+    (a flipped level moves g̃ by one level step and, with ρ = 1, the
+    complement's step by as much; the sketched subspace's part moves less
+    at this size: measured 5.5e-5 after one step and 1.4e-4 after two,
+    against 1.4e-4 a step)."""
+    _, cfg = _configs()
+    ref = _reference_flecs_m2_run(True)
+    step = make_flecs_train_step(cfg, FlecsDLConfig(alpha=ALPHA, m=2),
+                                 remat=True)
+    params, shifts = _params(), init_shifts(_params())
+    scales = []
+    for i in range(steps):
+        params, shifts, m = step(params, shifts, _batch(seed=i)[1], i)
+        ref_params, ref_shifts, ref_m = ref[i]
+        assert m["uplink_mbits"].item() == np.float32(ref_m["uplink_mbits"])
+        np.testing.assert_allclose(float(m["loss"]), ref_m["loss"],
+                                   rtol=1e-5)
+        scales.append(np.abs(_shift_levels(ref_shifts["mean"])).max())
+    own = np.concatenate([t.float().numpy().reshape(-1)
+                          for t in tree_leaves(shifts["own"])])
+    want_own = _shift_levels(ref_shifts["own"])
+    differ = own != want_own
+    assert differ.mean() <= (1e-3 if steps == 1 else 2e-2), differ.mean()
+    step_bound = 0.5 * 2 * max(scales) / 127 + 1e-6
+    assert np.abs(own - want_own).max() <= step_bound * steps
+    got_p = np.concatenate([t.numpy().reshape(-1)
+                            for t in tree_leaves(params)])
+    want_p = np.concatenate([np.asarray(x).reshape(-1)
+                             for x in jax.tree.leaves(ref_params)])
+    assert np.abs(got_p - want_p).max() <= steps * (
+        ALPHA * 2 * max(scales) / 127 + 1e-6)
+
+
+@pytest.mark.parametrize("steps", [1, 2])
+def test_flecs_m2_uncompressed_matches_reference(steps):
+    """m = 2 without compression (the mean path: 32 bits an element, Y
+    used as computed): the params within 1e-6 a step of the reference's
+    (float32 HVPs, QR, SVD and eigh, as the gradients' and FedSONIA's
+    tolerances allow; measured 3e-8), loss rtol 1e-5."""
+    _, cfg = _configs()
+    ref = _reference_flecs_m2_run(False)
+    step = make_flecs_train_step(cfg, FlecsDLConfig(alpha=ALPHA, m=2,
+                                                    compress=False),
+                                 remat=True)
+    params, shifts = _params(), init_shifts(_params())
+    for i in range(steps):
+        params, shifts, m = step(params, shifts, _batch(seed=i)[1], i)
+        assert m["uplink_mbits"].item() == np.float32(ref[i][2][
+            "uplink_mbits"])
+        np.testing.assert_allclose(float(m["loss"]), ref[i][2]["loss"],
+                                   rtol=1e-5)
+    got_p = np.concatenate([t.numpy().reshape(-1)
+                            for t in tree_leaves(params)])
+    want_p = np.concatenate([np.asarray(x).reshape(-1)
+                             for x in jax.tree.leaves(ref[steps - 1][0])])
+    assert np.abs(got_p - want_p).max() <= 1e-6 * steps
+
+
 def test_shifts_carry_from_reference():
     ref = _reference_flecs_run()
     shifts = convert.shifts_from_reference(ref[0][1], "cpu")
@@ -311,15 +401,23 @@ def test_flecs_uncompressed_and_sketched():
     for p, q, g in zip(tree_leaves(params), tree_leaves(new),
                        tree_leaves(grads)):
         torch.testing.assert_close(q, p - 1e-2 * g, rtol=0, atol=1e-7)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        make_flecs_train_step(cfg, FlecsDLConfig(m=2))
+    # with m = 2 sketch columns the step now runs (it raised before the
+    # sketched-Hessian slice): each column's leaves add 32 bits an element
+    sketched = make_flecs_train_step(cfg, FlecsDLConfig(m=2, compress=False))
+    new2, _, m2 = sketched(params, init_shifts(params), batch, 0)
+    assert m2["uplink_mbits"].item() == np.float32(
+        np.float32(np.float32(32.0 * n) * 3) / 1e6)
+    assert float(m2["loss"]) == float(m["loss"])
+    assert all(bool(torch.isfinite(t).all()) for t in tree_leaves(new2))
+    assert any(not torch.equal(a, b) for a, b in zip(tree_leaves(new2),
+                                                     tree_leaves(new)))
 
 
 # ---------------------------------------------------------------------------
 # the launcher
 # ---------------------------------------------------------------------------
 
-def test_launcher_runs_both_modes(capsys):
+def test_launcher_runs_both_modes(capsys, tmp_path):
     adam = train_launch.main(["--device", "cpu", "--steps", "6",
                               "--seq", "16", "--batch", "4"])
     flecs = train_launch.main(["--device", "cpu", "--steps", "3", "--flecs",
@@ -329,5 +427,14 @@ def test_launcher_runs_both_modes(capsys):
     assert "uplink" in out
     for run in (adam, flecs):
         assert all(np.isfinite(m["loss"]) for m in run["metrics"])
-    with pytest.raises(NotImplementedError, match="later slice"):
-        train_launch.main(["--device", "cpu", "--checkpoint", "ckpt"])
+    # --checkpoint now saves the last params (it raised before the
+    # checkpoint store was ported); they restore bit for bit
+    ckpt = tmp_path / "ckpt"
+    run = train_launch.main(["--device", "cpu", "--steps", "2", "--seq",
+                             "16", "--batch", "4", "--checkpoint",
+                             str(ckpt)])
+    assert "saved" in capsys.readouterr().out
+    back, step = store.restore(ckpt, run["params"])
+    assert step == 2
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(back),
+                                                 tree_leaves(run["params"])))

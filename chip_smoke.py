@@ -217,9 +217,12 @@ back to the CPU):
    (a) The forward- and backward-tangent kernels against their plain
    versions on the card, on the same inputs, at ``JVP_SHAPES``
    (tinyllama's [8, 32/4, 1024, 64] in the model and the kernel layout,
-   ragged S, window, cap, D = 32 and 128, S = 1): max |Δ| <= 1e-5 · max
-   |t|, bitwise the same over two runs.  (b) tinyllama-1.1b at full width
-   and depth 2, batch 2 x 256: one m = 2 step on the card and, in a
+   ragged S (one past and one short of a 64-row tile too), window, cap,
+   D = 32 and 128, S = 1): max |Δ| <= 1e-5 · max |t|, bitwise the same
+   over two runs; the forward-, dK/dV- and dQ-tangent kernels' SASS at
+   D = 32, 64 and 128 must hold HMMA (3xTF32 on the tensor cores).  (b)
+   tinyllama-1.1b at full width and depth 2, batch 2 x 256: one m = 2
+   step on the card and, in a
    spawned worker process with every core, on this machine's CPU from the
    card's weights, then each side's loss of its new weights on the next
    batch: losses within rtol 1e-5, ``uplink_mbits`` equal, every card Y
@@ -3845,16 +3848,19 @@ JVP_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
 # jax.grad) through chunked_attention, in XLA
 JVP_REPLACES = "src/repro/models/attention.py:38"
 #: The tangent kernels' shapes: tinyllama's training attention in the model
-#: layout (as the trainer calls them) and in the kernel layout, ragged S, a
-#: window, a cap, D = 32 and 128, S = 1: B, H, KV, S, D, window, cap, model
-#: layout.
+#: layout (as the trainer calls them) and in the kernel layout, ragged S
+#: (S = 65 and 191: one past and one short of a 64-row tile, the latter
+#: with a window smaller than a tile and a cap), a window, a cap, D = 32
+#: and 128, S = 1: B, H, KV, S, D, window, cap, model layout.
 JVP_SHAPES = [(8, 32, 4, 1024, 64, 0, 0.0, True),
               (8, 32, 4, 1024, 64, 0, 0.0, False),
               (2, 8, 2, 777, 64, 0, 0.0, True),
               (2, 8, 4, 300, 32, 64, 0.0, False),
               (1, 4, 1, 200, 128, 0, 30.0, True),
               (2, 4, 2, 129, 128, 33, 50.0, False),
-              (1, 2, 2, 1, 32, 0, 0.0, False)]
+              (1, 2, 2, 1, 32, 0, 0.0, False),
+              (1, 4, 2, 65, 64, 0, 0.0, True),
+              (2, 8, 2, 191, 64, 40, 20.0, False)]
 #: Each tangent kernel's outputs within JVP_REL · max |t| (over the
 #: kernel's outputs) of its plain version: the float32 backward's tolerance.
 JVP_REL = 1e-5
@@ -3880,26 +3886,61 @@ def jvp_inputs(shape, dev, seed=0):
             one(H)]
 
 
+def launch_jvp(fa_ops, q, k, v, out, lse, tq, tk, tv, tout, tlse, window,
+               cap):
+    """The forward-tangent kernel of ``fa_ops``: since the tensor-core
+    version it takes the forward's output; an earlier checkout's (timed
+    beside this one by ``kernel_timing.py flash-jvp --root``) does not."""
+    import inspect
+    if "out" in inspect.signature(fa_ops._launch_jvp).parameters:
+        fa_ops._launch_jvp(q, k, v, out, lse, tq, tk, tv, tout, tlse, window,
+                           cap)
+    else:
+        fa_ops._launch_jvp(q, k, v, lse, tq, tk, tv, tout, tlse, window, cap)
+
+
+#: Mangled-name fragment of the three tensor-core tangent kernels
+#: (flash_attention_jvp.cu: fwd_tangent, bwd_tangent_dkdv, bwd_tangent_dq).
+JVP_MMA_SASS = "tangent"
+
+
+def jvp_mma_sass(fa_ops, required=True) -> dict:
+    """HMMA instructions in the SASS of each tangent kernel (forward, dK/dV
+    and dQ at D = 32, 64, 128), read with cuobjdump from the tangent
+    library built; ``required``: fail unless all nine hold some, so a
+    CUDA-core version cannot pass unseen."""
+    counts = opcode_counts(sass_functions(fa_ops.JVP_LIBRARY.build()),
+                           JVP_MMA_SASS, "HMMA")
+    check(not required or (len(counts) == 9 and all(counts.values())),
+          f"the tangent kernels hold no HMMA: {counts}")
+    return counts
+
+
 def launch_jvp_pair(fa_ops, q, k, v, tq, tk, tv, do, tdo, out, lse, tout,
                     tlse, window, cap):
     """Both tangent kernels on one set of inputs (out, lse, tout and tlse
     given, the plain version's): (tout, tlse) and (tdq, tdk, tdv)."""
     import torch
     got_to, got_tl = torch.empty_like(q), torch.empty_like(lse)
-    fa_ops._launch_jvp(q, k, v, lse, tq, tk, tv, got_to, got_tl, window,
-                       cap)
+    launch_jvp(fa_ops, q, k, v, out, lse, tq, tk, tv, got_to, got_tl, window,
+               cap)
     tdq, tdk, tdv = (torch.empty_like(t) for t in (q, k, v))
     fa_ops._launch_backward_jvp(q, k, v, out, do, lse, tq, tk, tv, tout,
                                 tdo, tlse, tdq, tdk, tdv, window, cap)
     return (got_to, got_tl), (tdq, tdk, tdv)
 
 
-def phase_flash_jvp(dev, fa_ops, fa_ref):
+def phase_flash_jvp(dev, fa_ops, fa_ref, need_mma=True):
     """Phase 10 (a): the forward- and backward-tangent kernels against
     their plain versions on the card, same inputs (out, lse, tO and t_lse
     from the plain forward tangent), at JVP_SHAPES; bitwise the same over
-    two runs.  Returns (max |Δ|, max |Δ| / max |t|) per kernel."""
+    two runs.  With ``need_mma`` the tangent kernels' SASS must hold HMMA
+    (an earlier checkout timed beside this one has none).  Returns (max
+    |Δ|, max |Δ| / max |t|) per kernel."""
     import torch
+    hmma = jvp_mma_sass(fa_ops, need_mma)
+    log(f"phase 10: HMMA instructions of the tangent kernels (SASS): "
+        f"{hmma}")
     err = {"flash_attention_jvp": 0.0, "flash_attention_backward_jvp": 0.0}
     rel = dict(err)
     for shape in JVP_SHAPES:
@@ -3946,10 +3987,9 @@ def flash_jvp_timing(dev, fa_ops, fa_ref):
     tdP and two products for each of tdQ, tdK, tdV, 24·D) as 3xTF32 on the
     tensor cores (three TF32 operations each), and the 6·D a row for D and
     tD on the CUDA cores, against each input read once and each output
-    written once.  ``cuda_core_bound_ms`` is every operation at the
-    CUDA cores' float32 rate, the kernels' present route.  No one PyTorch
-    call computes attention's tangent (SDPA has no forward-mode rule of its
-    own), so library_ms is null."""
+    written once (the forward tangent's inputs include the forward's
+    output O).  No one PyTorch call computes attention's tangent (SDPA has
+    no forward-mode rule of its own), so library_ms is null."""
     import torch
     shape = SERVE_SHAPE + (True,)
     B, H, KV, S, D = shape[:5]
@@ -3962,10 +4002,10 @@ def flash_jvp_timing(dev, fa_ops, fa_ref):
     res = {}
     for name, run, plain, products, row_ops, nbytes in (
             ("flash_attention_jvp",
-             lambda: fa_ops._launch_jvp(q, k, v, lse, tq, tk, tv, got_to,
-                                        got_tl, 0, 0.0),
+             lambda: launch_jvp(fa_ops, q, k, v, out, lse, tq, tk, tv,
+                                got_to, got_tl, 0, 0.0),
              lambda: fa_ref.attention_jvp_ref(q, k, v, tq, tk, tv),
-             10 * D * pairs, 0, 4 * (3 * q_elems + 4 * kv_elems + 2 * rows)),
+             10 * D * pairs, 0, 4 * (4 * q_elems + 4 * kv_elems + 2 * rows)),
             ("flash_attention_backward_jvp",
              lambda: fa_ops._launch_backward_jvp(
                  q, k, v, out, do, lse, tq, tk, tv, tout, tdo, tlse, tdq,
@@ -3983,13 +4023,11 @@ def flash_jvp_timing(dev, fa_ops, fa_ref):
         t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
         r.update(bound_ms=max(t_ops, t_bytes),
                  bound_by="operations" if t_ops >= t_bytes else "bytes",
-                 cuda_core_bound_ms=1e3 * ops / F32_OPS_PER_S,
                  tflops=ops / r["ms"] / 1e9)
         log(f"timing {name} {list(shape[:5])} float32: {r['ms']!r} ms "
             f"(plain {r['plain_ms']!r} ms; bound {r['bound_ms']!r} ms by "
             f"{r['bound_by']}: {3 * products:.4g} tensor-core operations at "
-            f"{TF32_OPS_PER_S / 1e12:g} TFLOP/s, {nbytes:.4g} bytes; "
-            f"float32 CUDA-core bound {r['cuda_core_bound_ms']!r} ms); "
+            f"{TF32_OPS_PER_S / 1e12:g} TFLOP/s, {nbytes:.4g} bytes); "
             f"{r['tflops']!r} TFLOP/s")
         res[name] = r
     del q, k, v, tq, tk, tv, do, tdo, out, tout, lse, tlse

@@ -3,7 +3,7 @@
     python3 kernel_timing.py compressor [--root DIR] [--topk-chunk N]
     python3 kernel_timing.py flash-forward [--root DIR] [-D NAME=VALUE ...]
     python3 kernel_timing.py flash-backward [--root DIR] [-D NAME=VALUE ...]
-    python3 kernel_timing.py flash-jvp [--root DIR]
+    python3 kernel_timing.py flash-jvp [--root DIR] [-D NAME=VALUE ...]
     python3 kernel_timing.py topk [--root DIR] [--topk-chunk N]
     python3 kernel_timing.py fednl [--root DIR]
     python3 kernel_timing.py dither [--root DIR]
@@ -43,11 +43,19 @@ the plain autograd at every ``chip_smoke.BWD_SHAPES`` shape, and times it at
 the training shape in float32 and bfloat16 beside the plain autograd and
 SDPA (``chip_smoke.flash_backward_timing``).
 
-``flash-jvp`` holds the forward- and backward-tangent kernels
-(``csrc/flash_attention_jvp.cu``) against their plain versions at every
-``chip_smoke.JVP_SHAPES`` shape (and bitwise over two runs), and times them
-at the training shape beside the plain versions and the bound
-(``chip_smoke.phase_flash_jvp``, ``chip_smoke.flash_jvp_timing``).
+``flash-jvp`` builds the tangent library (``build.JVP_LIBRARY``) with the
+extra nvcc ``-D`` flags given (the steps ``REPRO_JVP_FWD_BK``,
+``REPRO_JVP_DKDV_BQ`` and ``REPRO_JVP_DQ_BK``, see
+``csrc/flash_attention_jvp.cu``), prints ptxas's register and spill lines,
+holds the forward- and backward-tangent kernels against their plain
+versions at every ``chip_smoke.JVP_SHAPES`` shape (and bitwise over two
+runs; this checkout's kernels must hold HMMA), and times them at the
+training shape beside the plain versions and the bound
+(``chip_smoke.phase_flash_jvp``, ``chip_smoke.flash_jvp_timing``), then
+each of their kernels' device ms a call from a profile.  With
+``--root`` it times DIR's kernels and this checkout's in one call, each run
+in a process of its own (one package cannot be imported twice), in the
+order DIR, this, this, DIR.
 
 ``dither`` times the codec kernels at the trainer's leaf shapes
 (``chip_smoke.LEAF_SHAPES``): the u-taking encode, the keyed encode beside
@@ -127,6 +135,54 @@ def remat_timing(dev) -> list:
     return runs
 
 
+def jvp_kernel_split(dev, ops, ref) -> dict:
+    """Device ms a call of each kernel of the two tangent launches (the
+    forward tangent; the backward tangent's row pass, dK/dV and dQ
+    kernels) at the training shape, from torch.profiler over five calls of
+    each."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    shape = chip_smoke.SERVE_SHAPE + (True,)
+    q, k, v, tq, tk, tv, do, tdo = chip_smoke.jvp_inputs(shape, dev, seed=5)
+    out, tout, lse, tlse = ref.attention_jvp_ref(q, k, v, tq, tk, tv)
+    args = (q, k, v, tq, tk, tv, do, tdo, out, lse, tout, tlse, 0, 0.0)
+    chip_smoke.launch_jvp_pair(ops, *args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            chip_smoke.launch_jvp_pair(ops, *args)
+        torch.cuda.synchronize()
+    split = {name.split("_cu_")[-1]: us / 1e3 / 5
+             for us, _, name in chip_smoke.device_rows(prof)}
+    for name, ms in split.items():
+        chip_smoke.log(f"  device ms a call: {ms!r} {name}")
+    return split
+
+
+def flash_jvp_beside(args) -> None:
+    """``flash-jvp --root DIR``: DIR's tangent kernels and this checkout's,
+    each run a ``flash-jvp --alone`` process of its own, in the order DIR,
+    this, this, DIR; the runs' output as it comes, then each kernel's
+    times side by side, and the four runs' JSON as the last line."""
+    import subprocess
+    runs = []
+    for root in (args.root, chip_smoke.ROOT, chip_smoke.ROOT, args.root):
+        cmd = [sys.executable, str(Path(__file__).resolve()), "flash-jvp",
+               "--alone", "--root", str(root),
+               *(f"-D{d}" for d in args.defines)]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, text=True,
+                              check=False, timeout=1200)
+        print(proc.stdout, end="", flush=True)
+        chip_smoke.check(proc.returncode == 0,
+                         f"flash-jvp of {root} failed ({proc.returncode})")
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    for name in runs[0]["times"]:
+        chip_smoke.log(f"{name}: ms " + ", ".join(
+            f"{run['root']} {run['times'][name]['ms']!r} (plain "
+            f"{run['times'][name]['plain_ms']!r})" for run in runs))
+    print(json.dumps({"what": "flash-jvp", "runs": runs}), flush=True)
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(
         description="Time one checkout's kernels on the card.")
@@ -141,7 +197,12 @@ def main(argv=None) -> None:
                         help="extra nvcc -D flag for the flash library")
     parser.add_argument("--topk-chunk", type=int, default=None,
                         help="elements a CTA of the grid-wide top-k reads")
+    parser.add_argument("--alone", action="store_true",
+                        help="flash-jvp: time --root's kernels only")
     args = parser.parse_args(argv)
+    if args.what == "flash-jvp" and not args.alone and (
+            args.root.resolve() != chip_smoke.ROOT):
+        return flash_jvp_beside(args)
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("kernel_timing: no CUDA device")
@@ -176,17 +237,26 @@ def main(argv=None) -> None:
         out["rounds"] = chip_smoke.round_timing(quickstart)
     elif args.what == "flash-jvp":
         from repro_torch.kernels.flash_attention import build, ops, ref
-        chip_smoke.log(f"built {build.JVP_LIBRARY.build().name}")
-        for line in build.JVP_LIBRARY.build_log().splitlines():
+        from repro_torch.kernels.nvcc import CudaLibrary
+        if args.defines:
+            ops.JVP_LIBRARY = CudaLibrary(
+                build.JVP_LIBRARY.source,
+                flags=tuple(f"-D{d}" for d in args.defines),
+                signatures=build.JVP_LIBRARY.signatures,
+                headers=build.JVP_LIBRARY.headers)
+        chip_smoke.log(f"built {ops.JVP_LIBRARY.build().name}")
+        for line in ops.JVP_LIBRARY.build_log().splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 chip_smoke.log("  ptxas:", line.strip())
         out["max_abs_err"], out["rel_err"] = chip_smoke.phase_flash_jvp(
-            dev, ops, ref)
+            dev, ops, ref,
+            need_mma=args.root.resolve() == chip_smoke.ROOT)
         out["times"] = {
             name: {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
-                                     "bound_by", "cuda_core_bound_ms")}
+                                     "bound_by")}
             for name, r in chip_smoke.flash_jvp_timing(dev, ops,
                                                        ref).items()}
+        out["split_ms"] = jvp_kernel_split(dev, ops, ref)
     elif args.what == "remat":
         out["runs"] = remat_timing(dev)
     elif args.what == "dither":
@@ -205,7 +275,8 @@ def main(argv=None) -> None:
             ops.LIBRARY = CudaLibrary(
                 build.LIBRARY.source,
                 flags=tuple(f"-D{d}" for d in args.defines),
-                signatures=build.LIBRARY.signatures)
+                signatures=build.LIBRARY.signatures,
+                headers=build.LIBRARY.headers)
         out["times"] = {}
         if args.what == "flash-forward":
             out["max_abs_err_by_dtype"] = chip_smoke.phase_flash_kernel(

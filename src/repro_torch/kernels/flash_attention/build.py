@@ -2,7 +2,8 @@
 :class:`repro_torch.kernels.nvcc.CudaLibrary`: nvcc into ``_build/`` beside
 this file at first use, loaded with ``ctypes``.  Two libraries, one nvcc
 each (built side by side): ``csrc/flash_attention.cu`` (forward and
-backward) and ``csrc/flash_attention_jvp.cu`` (their tangents)."""
+backward) and ``csrc/flash_attention_jvp.cu`` (their tangents), both on
+the tensor-core helpers of ``csrc/tensor_core.cuh``."""
 from __future__ import annotations
 
 import ctypes
@@ -10,10 +11,13 @@ from pathlib import Path
 
 from repro_torch.kernels.nvcc import CudaLibrary
 
+_CSRC = Path(__file__).resolve().parent / "csrc"
+
 _P, _F, _I = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
 
 LIBRARY = CudaLibrary(
-    Path(__file__).resolve().parent / "csrc" / "flash_attention.cu",
+    _CSRC / "flash_attention.cu",
+    headers=(_CSRC / "tensor_core.cuh",),
     signatures={
         # q, k, v, o, lse, dtype, B, H, KV, S, D, window, cap, strides,
         # stream
@@ -26,11 +30,12 @@ LIBRARY = CudaLibrary(
     })
 
 JVP_LIBRARY = CudaLibrary(
-    Path(__file__).resolve().parent / "csrc" / "flash_attention_jvp.cu",
+    _CSRC / "flash_attention_jvp.cu",
+    headers=(_CSRC / "tensor_core.cuh",),
     signatures={
-        # q, k, v, lse, tq, tk, tv, tout, tlse, B, H, KV, S, D, window,
+        # q, k, v, o, lse, tq, tk, tv, tout, tlse, B, H, KV, S, D, window,
         # cap, strides, stream
-        "repro_flash_attention_jvp": (_P,) * 9 + (_I,) * 6 + (_F, _P, _P),
+        "repro_flash_attention_jvp": (_P,) * 10 + (_I,) * 6 + (_F, _P, _P),
         # q, k, v, out, dout, lse, tq, tk, tv, tout, tdout, tlse, delta,
         # tdelta, tdq, tdk, tdv, B, H, KV, S, D, window, cap, strides,
         # stream

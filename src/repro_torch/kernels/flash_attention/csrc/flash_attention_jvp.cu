@@ -1,6 +1,7 @@
-// Tangents of causal GQA flash attention for Hopper (sm_90a), float32 on
-// the CUDA cores: the forward's tangent and the backward's tangent, which
-// carry a Hessian-vector product (forward over reverse) through attention.
+// Tangents of causal GQA flash attention for Hopper (sm_90a), float32 as
+// 3xTF32 on the tensor cores (mma.sync): the forward's tangent and the
+// backward's tangent, which carry a Hessian-vector product (forward over
+// reverse) through attention.
 //
 // Replaces no Pallas kernel of its own: the reference takes these tangents
 // by `jax.jvp` of `jax.grad` through the pure-JAX `chunked_attention`
@@ -18,10 +19,10 @@
 // Forward tangent (tQ, tK, tV -> tO, t_lse):
 //   tS = c' scale (tQ K^T + Q tK^T), t_lse = sum_j P tS,
 //   tP = P (tS - t_lse), tO = tP V + P tV
-//      = sum_j (P tS) V + P tV - t_lse (P V),
+//      = sum_j (P tS) V + P tV - t_lse O,
 // so one pass over the live KV tiles with the forward's lse (no online
-// rescaling) sums A = (P tS) V + P tV, C = P V and t_lse, and writes
-// tO = A - t_lse C.
+// rescaling) sums A = (P tS) V + P tV and t_lse, and writes tO = A - t_lse O
+// with O the forward's own output (an input here).
 // Backward tangent (D = rowsum(dO O), dS = P (dO V^T - D), dS0 = c' dS;
 // dQ = scale dS0 K, dK = scale dS0^T Q, dV = P^T dO):
 //   tdP = tdO V^T + dO tV^T, tD = rowsum(tdO O + dO tO),
@@ -29,206 +30,292 @@
 //   tdS0 = c' tdS + dS c'' tS0, c'' = -2 tanh(S0 / cap) c' / cap,
 //   tdQ = scale (tdS0 K + dS0 tK), tdK = scale (tdS0^T Q + dS0^T tQ),
 //   tdV = tP^T dO + P^T tdO,
-// split as the backward is split: a row pass for D and tD, a dK/dV kernel
-// over key tiles (looping over the query heads of its KV group and the
-// query tiles that see it: GQA groups summed without atomics) and a dQ
-// kernel over query tiles.  No float atomics: two runs give the same bits.
+// split as the backward is split: a row pass for D and tD (one warp a row),
+// a dK/dV kernel over key tiles and a dQ kernel over query tiles.  No float
+// atomics: two runs give the same bits.
 //
-// Design: simple and right first.  A CTA of 128 threads owns a 32-row tile
-// (query rows, or keys in the dK/dV kernel) and loops over the other
-// side's 32-row tiles; every operand tile is staged in shared memory with
-// rows padded by one float (conflict-free across rows).  Per pair of
-// tiles: lane j of each warp takes key j against eight query rows (the
-// dot products over D with the query side's values broadcast), writes the
-// pair's P-like factors to shared memory, and then each thread sums its
-// (row, column) outputs over the 32 pairs.  Float32 FMAs throughout.
+// Design: the float32 flash kernels' (flash_attention.cu), on the shared
+// machinery of tensor_core.cuh.  Every CTA is four warps and owns a 64-row
+// tile, 16 rows a warp; the other side is streamed in steps, its tiles
+// double-buffered with cp.async, shared rows padded by 16 bytes.  Each
+// product is 3xTF32 on mma.sync m16n8k8, every operand split into hi and lo
+// as its fragment is loaded; a score-like tile and its tangent come from one
+// pass over D (gemm_nt_tangent: each fragment feeds two products), and the
+// P-like factors computed in the accumulators are the A operands of the
+// next products as they lie (a_from_acc), with the streamed or fixed [rows,
+// D] tiles read across rows (load_b_kn).  Each step's products are summed
+// apart and added to the running sums in float32 (add_to).
+//   * Forward tangent: one CTA a (64-row q tile, head, batch), one linear
+//     grid with the q tile slowest (the tiles with the most KV tiles start
+//     first), over the KV tiles the forward visits; Q and tQ staged once, K,
+//     tK, V, tV streamed.  Per step S0 and tS0 ([tQ | Q] [K | tK]^T), then
+//     P and P tS in place, t_lse's share in registers (summed over the quad
+//     at the end), A += (P tS) V + P tV.  tO = A - t_lse O takes the
+//     forward's O, not P V (two products fewer: the bound's 10 D a pair).
+//   * dK/dV: one CTA a (64-key tile, KV head, batch), key tile slowest,
+//     over the group's H / KV query heads and the q tiles that see its keys
+//     (the GQA sum stays in registers); K, tK, V, tV staged once; Q, tQ,
+//     dO, tdO, lse, t_lse, D and tD streamed.  Per step, transposed: S0^T,
+//     tS0^T, dP^T = V dO^T and tdP^T = tV dO^T + V tdO^T, turned in place
+//     into P^T, tP^T, dS0^T and tdS0^T (pair_factors), the A operands of
+//     tdV += tP^T dO + P^T tdO and tdK += tdS0^T Q + dS0^T tQ.
+//   * dQ: one CTA a (64-row q tile, head, batch), as the forward tangent's
+//     grid; Q, tQ, dO, tdO staged once, K, tK, V, tV streamed; S0, tS0, dP,
+//     tdP recomputed on the tensor cores, then tdQ += tdS0 K + dS0 tK.
+// A warp whose 16 rows see the whole step skips the mask.
+// Steps: the streamed side's rows a step, at D <= 64, may be set with -D
+// (REPRO_JVP_FWD_BK, REPRO_JVP_DKDV_BQ, REPRO_JVP_DQ_BK); 16 each, the
+// fastest at the training shape below, and 16 at D = 128, where larger
+// steps do not fit 227 KB or spill.  Whole launches by CUDA events, each
+// kernel by a profile, all in one call (kernel_timing.py flash-jvp -D ...;
+// NVIDIA H100 80GB HBM3, 700 W; registers a thread, shared memory, CTAs
+// an SM):
+//   forward tangent, keys a step: 16: 1.845-1.848 ms (127, 70 KB, three);
+//     32: 2.175 ms (182, 104 KB, two); 64: 2.845 ms (234, 174 KB, one);
+//   dK/dV, q rows a step: 16: 4.56 ms (168 and 8 bytes of spills, 105 KB,
+//     two); 32: 4.90 ms (255, 140 KB, one); 64: 9.78 ms (255 and 156
+//     bytes of spills, 209 KB, one);
+//   dQ, keys a step: 16: 3.62 ms (168 and 8 bytes of spills, 104 KB, two);
+//     32: 3.83 ms (206, 139 KB, one); 64: 7.57 ms (254 and 72 bytes of
+//     spills, 209 KB, one);
+//   so the backward tangent 8.22-8.28 ms at 16, 8.72 at 32, 17.33 at 64
+//   (the row pass 0.09 ms).
+// At D = 128 the dK/dV kernel spills 48 bytes, the forward tangent 8.
 //
 // What bounds these kernels on this card: operations.  At the training
 // shape (B=8, H=32, KV=4, S=1024, D=64) the forward tangent needs 10 D
 // flops a live (query, key) pair (S0, tS0's two products, tO's two), the
 // backward tangent 24 D (S0, tS0, dP, tdP and two products for each of
 // tdQ, tdK, tdV), over B H S (S + 1) / 2 pairs: 8.6e10 and 2.1e11 flops,
-// 0.52 and 1.25 ms as 3xTF32 on the tensor cores (three TF32 operations
-// a float32 one at 495 TFLOP/s, the bound of flash_attention.cu's float32
-// kernels; 1.28 and 3.08 ms at the 67 TFLOP/s of float32 on the CUDA
-// cores, this file's route), against 0.24 and 0.52 GB of inputs and
-// outputs.  These kernels do 12 D and 36 D
-// (C = P V beside tO; the dQ kernel recomputes the pair's four dot
-// products), and the score phase reads every operand from shared memory
-// one float at a time (4.5 loads an FMA pair), so the loads bound it well
-// before the FMA rate: 9.89 and 35.85 ms (chip_smoke.flash_jvp_timing;
-// NVIDIA H100 80GB HBM3, 700 W).  Float4 shared loads, then 3xTF32
-// mma.sync as in flash_attention.cu, are the next steps.
+// 0.52 and 1.25 ms as 3xTF32 on the tensor cores (three TF32 operations a
+// float32 one at 495 TFLOP/s), against 0.30 and 0.52 GB of inputs and
+// outputs.  The forward tangent does just those products; the backward
+// tangent 36 D (the dQ kernel recomputes S0, tS0, dP and tdP: its eight
+// products against the two it needs).  At 1.85 and 8.25 ms they are 3.5x
+// and 6.6x those bounds, as the float32 flash kernels are (3.75x and
+// 5.8x): the instruction issue bounds them, each operand element costing
+// three integer and float operations to split and a shared load of its own
+// beside its share of three mma.sync, with two or three CTAs an SM to hide
+// the latency.  The errors against the plain versions: up to 4.3e-6 of max
+// |t| (forward, with O in place of P V) and 4.0e-6 (backward) at the shapes
+// of chip_smoke.JVP_SHAPES, 2.3e-6 and 3.2e-6 at the training shape (the
+// CUDA-core version they replace: 7.9e-7 and 4.5e-6 there).
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "tensor_core.cuh"
+
+using namespace repro_tc;
+
 namespace {
 
-constexpr int NT = 128;      // threads a CTA
-constexpr int BR = 32;       // rows a tile (query or key), one per lane
-constexpr int NW = NT / 32;  // warps a CTA
-constexpr int RPW = BR / NW; // query rows a warp scores: eight
+constexpr int BT = 64;            // rows a CTA owns: 16 a warp
 constexpr int ROW_THREADS = 256;  // the D / tD row pass: eight rows a block
 
-struct T4 {                  // batch, head, sequence strides (elements)
+#ifndef REPRO_JVP_FWD_BK
+#define REPRO_JVP_FWD_BK 16
+#endif
+#ifndef REPRO_JVP_DKDV_BQ
+#define REPRO_JVP_DKDV_BQ 16
+#endif
+#ifndef REPRO_JVP_DQ_BK
+#define REPRO_JVP_DQ_BK 16
+#endif
+
+// keys a step of the forward tangent
+template <int D>
+__host__ __device__ constexpr int fwd_bk() {
+  return D <= 64 ? REPRO_JVP_FWD_BK : 16;
+}
+// query rows a step of the dK/dV kernel
+template <int D>
+__host__ __device__ constexpr int dkdv_bq() {
+  return D <= 64 ? REPRO_JVP_DKDV_BQ : 16;
+}
+// keys a step of the dQ kernel
+template <int D>
+__host__ __device__ constexpr int dq_bk() {
+  return D <= 64 ? REPRO_JVP_DQ_BK : 16;
+}
+
+struct Str {                 // batch, head, sequence strides (elements)
   long long b, h, s;
 };
 
-__device__ __forceinline__ long long at(const T4& t, int b, int h, int i) {
-  return b * t.b + h * t.h + (long long)i * t.s;
-}
+using O = Tc<float>;
 
-// R rows of a [.., S, D] operand (row lo on) into a [R][D + 1] tile,
-// zeros past S.
-template <int D>
-__device__ __forceinline__ void stage(float* dst, const float* src,
-                                      const T4& st, int b, int h, int lo,
-                                      int S) {
-  for (int idx = threadIdx.x; idx < BR * D; idx += NT) {
-    const int r = idx / D, d = idx % D;
-    const int i = lo + r;
-    dst[r * (D + 1) + d] = i < S ? src[at(st, b, h, i) + d] : 0.f;
-  }
-}
-
-// BR floats of a [B, H, S] row vector (contiguous), zeros past S.
-__device__ __forceinline__ void stage_row(float* dst, const float* src,
-                                          int b, int h, int H, int lo,
-                                          int S) {
-  for (int r = threadIdx.x; r < BR; r += NT) {
-    const int i = lo + r;
-    dst[r] = i < S ? src[((long long)b * H + h) * S + i] : 0.f;
-  }
-}
-
-__device__ __forceinline__ bool live(int i, int j, int S, int window) {
-  return i < S && j < S && j <= i && (window == 0 || i - j < window);
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
+// acc[j] += A B_j^T and tacc[j] += tA B_j^T + A tB_j^T (j < NT): A, tA the
+// 16 rows m.. of As, tAs; B_j, tB_j the rows 8j.. of Bs, tBs; KD columns.
+// A score tile and its tangent in one pass: each A and B fragment, split
+// once, feeds two products.
+template <int KD, int NT>
+__device__ __forceinline__ void gemm_nt_tangent(
+    float (&acc)[NT][4], float (&tacc)[NT][4], const float* As,
+    const float* tAs, const float* Bs, const float* tBs, int ld, int m,
+    int g, int t) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+  for (int k = 0; k < KD; k += O::KS) {
+    const O::A a = O::load_a(As, ld, m, k, g, t);
+    const O::A ta = O::load_a(tAs, ld, m, k, g, t);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const O::B bf = O::load_b_nk(Bs, ld, 8 * j, k, g, t);
+      O::mma(acc[j], a, bf);
+      O::mma(tacc[j], ta, bf);
+      O::mma(tacc[j], a, O::load_b_nk(tBs, ld, 8 * j, k, g, t));
+    }
+  }
 }
 
-// First and last KV tile a query tile [q0, q0 + BR) sees.
-__device__ __forceinline__ void kv_tiles(int q0, int S, int window,
-                                         int* lo, int* hi) {
-  const int q1 = min(q0 + BR, S) - 1;
-  const int jlo = window > 0 ? max(0, q0 - window + 1) : 0;
-  *lo = jlo / BR;
-  *hi = q1 / BR;
+// acc += A1 B1 + A2 B2, gemm_rn's operands: the step's products summed
+// apart and added to acc in float32 (add_to).
+template <int NT, int NA>
+__device__ __forceinline__ void add_rn2(float (&acc)[NT][4],
+                                        const float (&a1)[NA][4],
+                                        const float* B1s,
+                                        const float (&a2)[NA][4],
+                                        const float* B2s, int ld, int g,
+                                        int t) {
+  float part[NT][4];
+  zero(part);
+  gemm_rn<float, NT, NA>(part, a1, B1s, ld, g, t);
+  gemm_rn<float, NT, NA>(part, a2, B2s, ld, g, t);
+  add_to(acc, part);
 }
 
 // ---------------------------------------------------------------------------
-// Forward tangent: one CTA a (query tile, head, batch row).
+// Forward tangent.
 // ---------------------------------------------------------------------------
 
 struct FwdArgs {
-  const float *q, *k, *v, *lse, *tq, *tk, *tv;
+  const float *q, *k, *v, *o, *lse, *tq, *tk, *tv;
   float *tout, *tlse;
-  T4 sq, sk, sv, stq, stk, stv, sto;
+  Str sq, sk, sv, so, stq, stk, stv, sto;
   int H, KV, S, window;
   float cap, scale;
 };
 
 template <int D>
-__global__ void __launch_bounds__(NT) fwd_tangent(FwdArgs a) {
-  extern __shared__ float sm[];
-  constexpr int LD = D + 1, LP = BR + 1;
-  float* q_s = sm;
-  float* tq_s = q_s + BR * LD;
-  float* k_s = tq_s + BR * LD;
-  float* tk_s = k_s + BR * LD;
-  float* v_s = tk_s + BR * LD;
-  float* tv_s = v_s + BR * LD;
-  float* p_s = tv_s + BR * LD;        // P
-  float* pt_s = p_s + BR * LP;        // P tS
-  float* lse_s = pt_s + BR * LP;
-  float* tlse_s = lse_s + BR;
+constexpr size_t fwd_smem_bytes() {
+  // Q, tQ; K, tK, V, tV twice
+  return (size_t)(2 * BT + 8 * fwd_bk<D>()) * row_ld<float, D>()
+         * sizeof(float);
+}
 
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int kh = h / (a.H / a.KV);
-  const int q0 = qt * BR, S = a.S;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  stage<D>(q_s, a.q, a.sq, b, h, q0, S);
-  stage<D>(tq_s, a.tq, a.stq, b, h, q0, S);
-  stage_row(lse_s, a.lse, b, h, a.H, q0, S);
-  for (int r = threadIdx.x; r < BR; r += NT) tlse_s[r] = 0.f;
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS) fwd_tangent(FwdArgs a) {
+  constexpr int BK = fwd_bk<D>(), LD = row_ld<float, D>();
+  constexpr int NK = BK / 8, ND = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);   // [BT][LD]
+  float* tQs = Qs + BT * LD;                        // [BT][LD]
+  float* Ks = tQs + BT * LD;                        // [2][BK][LD]
+  float* tKs = Ks + 2 * BK * LD;                    // [2][BK][LD]
+  float* Vs = tKs + 2 * BK * LD;                    // [2][BK][LD]
+  float* tVs = Vs + 2 * BK * LD;                    // [2][BK][LD]
 
-  // outputs: column c, rows g + RG e
-  constexpr int RG = NT / D > 0 ? NT / D : 1;
-  constexpr int RPT = BR / RG;
-  const int c = threadIdx.x % D, g = threadIdx.x / D;
-  float acc_a[RPT], acc_c[RPT];
+  const int S = a.S, H = a.H, window = a.window;
+  const int nq = (S + BT - 1) / BT;
+  const int nb = gridDim.x / (nq * H);                       // batch size
+  const int q_lo = (nq - 1 - (int)(blockIdx.x / (H * nb))) * BT;
+  const int h = blockIdx.x % H, b = (blockIdx.x / H) % nb;
+  const int kvh = h / (H / a.KV);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4, m = 16 * warp;
+
+  const float* kb = a.k + b * a.sk.b + kvh * a.sk.h;
+  const float* tkb = a.tk + b * a.stk.b + kvh * a.stk.h;
+  const float* vb = a.v + b * a.sv.b + kvh * a.sv.h;
+  const float* tvb = a.tv + b * a.stv.b + kvh * a.stv.h;
+  const int q_hi = min(q_lo + BT - 1, S - 1);
+  const int j_lo = window ? max(0, q_lo - window + 1) / BK : 0;
+  const int j_hi = q_hi / BK;
+  auto stage = [&](int jt) {
+    const int off = ((jt - j_lo) & 1) * BK * LD;
+    stage_rows<float, D, BK>(Ks + off, kb, a.sk.s, jt * BK, S);
+    stage_rows<float, D, BK>(tKs + off, tkb, a.stk.s, jt * BK, S);
+    stage_rows<float, D, BK>(Vs + off, vb, a.sv.s, jt * BK, S);
+    stage_rows<float, D, BK>(tVs + off, tvb, a.stv.s, jt * BK, S);
+  };
+  stage_rows<float, D, BT>(Qs, a.q + b * a.sq.b + h * a.sq.h, a.sq.s, q_lo,
+                           S);
+  stage_rows<float, D, BT>(tQs, a.tq + b * a.stq.b + h * a.stq.h, a.stq.s,
+                           q_lo, S);
+  stage(j_lo);
+  cp_async_commit();
+
+  // this thread's rows g and g + 8 of the warp's 16: lse, t_lse's share
+  const long long row_off = ((long long)b * H + h) * S;
+  float lse_r[2], tl[2] = {0.f, 0.f};
 #pragma unroll
-  for (int e = 0; e < RPT; ++e) acc_a[e] = acc_c[e] = 0.f;
+  for (int r = 0; r < 2; ++r) {
+    const int row = q_lo + m + g + 8 * r;
+    lse_r[r] = row < S ? a.lse[row_off + row] : 0.f;
+  }
+  float acc[ND][4];
+  zero(acc);
 
-  int kt_lo, kt_hi;
-  kv_tiles(q0, S, a.window, &kt_lo, &kt_hi);
-  for (int kt = kt_lo; kt <= kt_hi; ++kt) {
-    const int k0 = kt * BR;
+  for (int jt = j_lo; jt <= j_hi; ++jt) {
+    if (jt < j_hi) stage(jt + 1);
+    cp_async_commit();
+    cp_async_wait_one();   // this step's tiles (and Q, tQ) have landed
     __syncthreads();
-    stage<D>(k_s, a.k, a.sk, b, kh, k0, S);
-    stage<D>(tk_s, a.tk, a.stk, b, kh, k0, S);
-    stage<D>(v_s, a.v, a.sv, b, kh, k0, S);
-    stage<D>(tv_s, a.tv, a.stv, b, kh, k0, S);
-    __syncthreads();
-    // scores: lane = key, eight rows a warp
-    float s[RPW], t[RPW];
+    const int off = ((jt - j_lo) & 1) * BK * LD, k_lo = jt * BK;
+
+    float s[NK][4], ts[NK][4];   // S0 = Q K^T, tS0 = tQ K^T + Q tK^T
+    zero(s);
+    zero(ts);
+    gemm_nt_tangent<D, NK>(s, ts, Qs, tQs, Ks + off, tKs + off, LD, m, g,
+                           t);
+    const bool seen = k_lo + BK - 1 <= q_lo + m
+                      && (!window || q_lo + m + 15 - k_lo < window);
 #pragma unroll
-    for (int r = 0; r < RPW; ++r) s[r] = t[r] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float kd = k_s[lane * LD + d], tkd = tk_s[lane * LD + d];
+    for (int j = 0; j < NK; ++j)
 #pragma unroll
-      for (int r = 0; r < RPW; ++r) {
-        const int i = warp + NW * r;
-        const float qd = q_s[i * LD + d], tqd = tq_s[i * LD + d];
-        s[r] = fmaf(qd, kd, s[r]);
-        t[r] = fmaf(tqd, kd, fmaf(qd, tkd, t[r]));
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < RPW; ++r) {
-      const int i = warp + NW * r;
-      float p = 0.f, pts = 0.f;
-      if (live(q0 + i, k0 + lane, S, a.window)) {
-        const float x = s[r] * a.scale;
-        float sc = x, c1 = 1.f;
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        float x = s[j][e] * a.scale, c1 = 1.f;
         if (a.cap != 0.f) {
           const float th = tanhf(x / a.cap);
-          sc = a.cap * th;
+          x = a.cap * th;
           c1 = 1.f - th * th;
         }
-        p = expf(sc - lse_s[i]);
-        pts = p * (c1 * (t[r] * a.scale));
+        const bool keep =
+            seen || visible(q_lo + m + g + 8 * r,
+                            k_lo + 8 * j + 2 * t + (e & 1), S, window);
+        const float p = keep ? expf(x - lse_r[r]) : 0.f;
+        s[j][e] = p;                                   // P
+        ts[j][e] = p * (c1 * (ts[j][e] * a.scale));    // P tS
+        tl[r] += ts[j][e];
       }
-      p_s[i * LP + lane] = p;
-      pt_s[i * LP + lane] = pts;
-      const float row = warp_sum(pts);
-      if (lane == 0) tlse_s[i] += row;
-    }
-    __syncthreads();
-    for (int j = 0; j < BR; ++j) {
-      const float vj = v_s[j * LD + c], tvj = tv_s[j * LD + c];
+    // A += (P tS) V + P tV
+    add_rn2<ND, NK>(acc, ts, Vs + off, s, tVs + off, LD, g, t);
+    __syncthreads();   // every warp is done with this buffer: it refills
+  }
+
 #pragma unroll
-      for (int e = 0; e < RPT; ++e) {
-        const int i = g + RG * e;
-        const float p = p_s[i * LP + j], pts = pt_s[i * LP + j];
-        acc_a[e] = fmaf(pts, vj, fmaf(p, tvj, acc_a[e]));
-        acc_c[e] = fmaf(p, vj, acc_c[e]);
-      }
+  for (int r = 0; r < 2; ++r) {
+    tl[r] += __shfl_xor_sync(0xffffffffu, tl[r], 1);
+    tl[r] += __shfl_xor_sync(0xffffffffu, tl[r], 2);
+  }
+  const float* ob = a.o + b * a.so.b + h * a.so.h;
+  float* tob = a.tout + b * a.sto.b + h * a.sto.h;
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = q_lo + m + g + (e & 2 ? 8 : 0);
+      const int c = 8 * j + 2 * t + (e & 1);
+      if (row < S)
+        tob[row * a.sto.s + c] = acc[j][e] - tl[e >> 1] * ob[row * a.so.s + c];
+    }
+  if (t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q_lo + m + g + 8 * r;
+      if (row < S) a.tlse[row_off + row] = tl[r];
     }
   }
-  __syncthreads();
-#pragma unroll
-  for (int e = 0; e < RPT; ++e) {
-    const int i = g + RG * e;
-    if (q0 + i < S)
-      a.tout[at(a.sto, b, h, q0 + i) + c] = acc_a[e] - tlse_s[i] * acc_c[e];
-  }
-  for (int r = threadIdx.x; r < BR; r += NT)
-    if (q0 + r < S) a.tlse[((long long)b * a.H + h) * S + q0 + r] = tlse_s[r];
 }
 
 // ---------------------------------------------------------------------------
@@ -239,10 +326,14 @@ struct BwdArgs {
   const float *q, *k, *v, *o, *dout, *lse, *tq, *tk, *tv, *to, *tdout,
       *tlse;
   float *delta, *tdelta, *tdq, *tdk, *tdv;
-  T4 sq, sk, sv, so, sdo, stq, stk, stv, sto, stdo, stdq, stdk, stdv;
+  Str sq, sk, sv, so, sdo, stq, stk, stv, sto, stdo, stdq, stdk, stdv;
   int B, H, KV, S, window;
   float cap, scale;
 };
+
+__device__ __forceinline__ long long at(const Str& t, int b, int h, int i) {
+  return b * t.b + h * t.h + (long long)i * t.s;
+}
 
 // D = rowsum(dO O) and tD = rowsum(tdO O + dO tO): one warp a row.
 template <int D>
@@ -263,245 +354,314 @@ __global__ void __launch_bounds__(ROW_THREADS) row_pass(BwdArgs a) {
     s = fmaf(dod, od, s);
     ts = fmaf(a.tdout[td + d], od, fmaf(dod, a.to[to + d], ts));
   }
-  s = warp_sum(s);
-  ts = warp_sum(ts);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+    ts += __shfl_xor_sync(0xffffffffu, ts, off);
+  }
   if (lane == 0) {
     a.delta[row] = s;
     a.tdelta[row] = ts;
   }
 }
 
-// The pair factors of a (query tile, key tile) block: lane = key j, eight
-// query rows a warp.  Writes P, tP, dS0 and tdS0 (any of them may be
-// skipped with a null pointer) as [BR][BR + 1] tiles.
-template <int D>
-__device__ __forceinline__ void bwd_pairs(
-    const BwdArgs& a, const float* q_s, const float* tq_s, const float* do_s,
-    const float* tdo_s, const float* k_s, const float* tk_s,
-    const float* v_s, const float* tv_s, const float* rows_s, int q0,
-    int k0, float* p_s, float* tp_s, float* ds0_s, float* tds0_s) {
-  constexpr int LD = D + 1, LP = BR + 1;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const float *lse_s = rows_s, *tlse_s = rows_s + BR,
-              *del_s = rows_s + 2 * BR, *tdel_s = rows_s + 3 * BR;
-  float s[RPW], t[RPW], dp[RPW], tdp[RPW];
-#pragma unroll
-  for (int r = 0; r < RPW; ++r) s[r] = t[r] = dp[r] = tdp[r] = 0.f;
-  for (int d = 0; d < D; ++d) {
-    const float kd = k_s[lane * LD + d], tkd = tk_s[lane * LD + d];
-    const float vd = v_s[lane * LD + d], tvd = tv_s[lane * LD + d];
-#pragma unroll
-    for (int r = 0; r < RPW; ++r) {
-      const int i = warp + NW * r;
-      const float qd = q_s[i * LD + d], tqd = tq_s[i * LD + d];
-      const float dod = do_s[i * LD + d], tdod = tdo_s[i * LD + d];
-      s[r] = fmaf(qd, kd, s[r]);
-      t[r] = fmaf(tqd, kd, fmaf(qd, tkd, t[r]));
-      dp[r] = fmaf(dod, vd, dp[r]);
-      tdp[r] = fmaf(tdod, vd, fmaf(dod, tvd, tdp[r]));
-    }
+// One pair's factors from its raw S0 and tS0 (before the scale), dP and
+// tdP, and its query row's lse, t_lse, D and tD: s becomes P, ts tP, dp
+// dS0 and tdp tdS0, all 0 where the pair is masked.
+__device__ __forceinline__ void pair_factors(float& s, float& ts, float& dp,
+                                             float& tdp, float lse,
+                                             float tlse, float dl, float tdl,
+                                             bool keep, float cap,
+                                             float scale) {
+  float x = s * scale, c1 = 1.f, c2 = 0.f;
+  const float ts0 = ts * scale;
+  if (cap != 0.f) {
+    const float th = tanhf(x / cap);
+    x = cap * th;
+    c1 = 1.f - th * th;
+    c2 = -2.f * th * c1 / cap;
   }
+  const float p = keep ? expf(x - lse) : 0.f;
+  const float tp = p * (c1 * ts0 - tlse);
+  const float dpd = dp - dl;
+  const float ds = p * dpd;
+  const float tds = tp * dpd + p * (tdp - tdl);
+  s = p;
+  ts = tp;
+  dp = c1 * ds;
+  tdp = c1 * tds + ds * c2 * ts0;
+}
+
+template <int D>
+constexpr size_t dkdv_smem_bytes() {
+  // K, tK, V, tV; Q, tQ, dO, tdO twice; lse, t_lse, D, tD twice
+  return (size_t)(4 * BT + 8 * dkdv_bq<D>()) * row_ld<float, D>()
+         * sizeof(float) + 8 * dkdv_bq<D>() * sizeof(float);
+}
+
+template <int D>
+constexpr size_t dq_smem_bytes() {
+  // Q, tQ, dO, tdO; K, tK, V, tV twice
+  return (size_t)(4 * BT + 8 * dq_bk<D>()) * row_ld<float, D>()
+         * sizeof(float);
+}
+
+// tdK and tdV of one 64-key tile of one KV head, summed over the group's
+// heads.  Warp w owns keys 16w..16w+15 of the tile.
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS) bwd_tangent_dkdv(BwdArgs a) {
+  constexpr int BQ = dkdv_bq<D>(), LD = row_ld<float, D>();
+  constexpr int NQ = BQ / 8, ND = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Ks = reinterpret_cast<float*>(smem_raw);   // [BT][LD]
+  float* tKs = Ks + BT * LD;                        // [BT][LD]
+  float* Vs = tKs + BT * LD;                        // [BT][LD]
+  float* tVs = Vs + BT * LD;                        // [BT][LD]
+  float* Qs = tVs + BT * LD;                        // [2][BQ][LD]
+  float* tQs = Qs + 2 * BQ * LD;                    // [2][BQ][LD]
+  float* dOs = tQs + 2 * BQ * LD;                   // [2][BQ][LD]
+  float* tdOs = dOs + 2 * BQ * LD;                  // [2][BQ][LD]
+  float* rows_s = tdOs + 2 * BQ * LD;   // [2][lse, t_lse, D, tD][BQ]
+
+  const int S = a.S, H = a.H, KV = a.KV, window = a.window;
+  // one linear grid, key tile slowest: the tiles that the most q tiles
+  // see (tile 0 first) start first, for every head and batch
+  const int nb = gridDim.x / (((S + BT - 1) / BT) * KV);   // batch size
+  const int k_lo = (blockIdx.x / (KV * nb)) * BT;
+  const int kvh = blockIdx.x % KV, b = (blockIdx.x / KV) % nb;
+  const int G = H / KV;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4, m = 16 * warp;
+
+  // q tiles that see a key of this tile: from the one holding row k_lo to
+  // the one holding the last row the window lets see the tile's last key;
+  // steps run over (head of the group, q tile)
+  const int nq = (S + BQ - 1) / BQ;
+  const int k_hi = min(k_lo + BT - 1, S - 1);
+  const int i_lo = k_lo / BQ;
+  const int i_hi = window ? min(nq - 1, (k_hi + window - 1) / BQ) : nq - 1;
+  const int n_it = i_hi - i_lo + 1, steps = G * n_it;
+
+  auto stage = [&](int step) {
+    const int h = kvh * G + step / n_it, q_lo = (i_lo + step % n_it) * BQ;
+    const int off = (step & 1) * BQ * LD;
+    stage_rows<float, D, BQ>(Qs + off, a.q + b * a.sq.b + h * a.sq.h,
+                             a.sq.s, q_lo, S);
+    stage_rows<float, D, BQ>(tQs + off, a.tq + b * a.stq.b + h * a.stq.h,
+                             a.stq.s, q_lo, S);
+    stage_rows<float, D, BQ>(dOs + off, a.dout + b * a.sdo.b + h * a.sdo.h,
+                             a.sdo.s, q_lo, S);
+    stage_rows<float, D, BQ>(tdOs + off,
+                             a.tdout + b * a.stdo.b + h * a.stdo.h, a.stdo.s,
+                             q_lo, S);
+    const long long row_off = ((long long)b * H + h) * S;
+    float* rb = rows_s + (step & 1) * 4 * BQ;
+    stage_vec<BQ>(rb, a.lse + row_off, q_lo, S);
+    stage_vec<BQ>(rb + BQ, a.tlse + row_off, q_lo, S);
+    stage_vec<BQ>(rb + 2 * BQ, a.delta + row_off, q_lo, S);
+    stage_vec<BQ>(rb + 3 * BQ, a.tdelta + row_off, q_lo, S);
+  };
+  stage_rows<float, D, BT>(Ks, a.k + b * a.sk.b + kvh * a.sk.h, a.sk.s,
+                           k_lo, S);
+  stage_rows<float, D, BT>(tKs, a.tk + b * a.stk.b + kvh * a.stk.h, a.stk.s,
+                           k_lo, S);
+  stage_rows<float, D, BT>(Vs, a.v + b * a.sv.b + kvh * a.sv.h, a.sv.s,
+                           k_lo, S);
+  stage_rows<float, D, BT>(tVs, a.tv + b * a.stv.b + kvh * a.stv.h, a.stv.s,
+                           k_lo, S);
+  stage(0);
+  cp_async_commit();
+
+  float tdk_acc[ND][4], tdv_acc[ND][4];
+  zero(tdk_acc);
+  zero(tdv_acc);
+
+  for (int step = 0; step < steps; ++step) {
+    if (step + 1 < steps) stage(step + 1);
+    cp_async_commit();
+    cp_async_wait_one();   // this step's tiles have landed
+    __syncthreads();
+    const int off = (step & 1) * BQ * LD;
+    const int q_lo = (i_lo + step % n_it) * BQ;
+    const float* Qb = Qs + off;
+    const float* tQb = tQs + off;
+    const float* dOb = dOs + off;
+    const float* tdOb = tdOs + off;
+    const float* rb = rows_s + (step & 1) * 4 * BQ;
+
+    // transposed: S0^T = K Q^T, tS0^T = tK Q^T + K tQ^T, dP^T = V dO^T,
+    // tdP^T = tV dO^T + V tdO^T
+    float s[NQ][4], ts[NQ][4], dp[NQ][4], tdp[NQ][4];
+    zero(s);
+    zero(ts);
+    zero(dp);
+    zero(tdp);
+    gemm_nt_tangent<D, NQ>(s, ts, Ks, tKs, Qb, tQb, LD, m, g, t);
+    gemm_nt_tangent<D, NQ>(dp, tdp, Vs, tVs, dOb, tdOb, LD, m, g, t);
+    const bool seen = q_lo >= k_lo + m + 15 && q_lo + BQ - 1 < S
+                      && (!window || q_lo + BQ - 1 - (k_lo + m) < window);
 #pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    const int i = warp + NW * r;
-    float p = 0.f, tp = 0.f, ds0 = 0.f, tds0 = 0.f;
-    if (live(q0 + i, k0 + lane, a.S, a.window)) {
-      const float x = s[r] * a.scale, ts0 = t[r] * a.scale;
-      float sc = x, c1 = 1.f, c2 = 0.f;
-      if (a.cap != 0.f) {
-        const float th = tanhf(x / a.cap);
-        sc = a.cap * th;
-        c1 = 1.f - th * th;
-        c2 = -2.f * th * c1 / a.cap;
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kpos = k_lo + m + g + (e & 2 ? 8 : 0);
+        const int c = 8 * j + 2 * t + (e & 1);     // q row in the step
+        pair_factors(s[j][e], ts[j][e], dp[j][e], tdp[j][e], rb[c],
+                     rb[BQ + c], rb[2 * BQ + c], rb[3 * BQ + c],
+                     seen || visible(q_lo + c, kpos, S, window), a.cap,
+                     a.scale);
       }
-      p = expf(sc - lse_s[i]);
-      tp = p * (c1 * ts0 - tlse_s[i]);
-      const float dpd = dp[r] - del_s[i];
-      const float ds = p * dpd;
-      const float tds = tp * dpd + p * (tdp[r] - tdel_s[i]);
-      ds0 = c1 * ds;
-      tds0 = c1 * tds + ds * c2 * ts0;
-    }
-    if (p_s) p_s[i * LP + lane] = p;
-    if (tp_s) tp_s[i * LP + lane] = tp;
-    ds0_s[i * LP + lane] = ds0;
-    tds0_s[i * LP + lane] = tds0;
+    // tdV += tP^T dO + P^T tdO, tdK += tdS0^T Q + dS0^T tQ
+    add_rn2<ND, NQ>(tdv_acc, ts, dOb, s, tdOb, LD, g, t);
+    add_rn2<ND, NQ>(tdk_acc, tdp, Qb, dp, tQb, LD, g, t);
+    __syncthreads();   // every warp is done with this buffer: it refills
   }
-}
 
-// Stage a query tile of head h: q, tq, dO, tdO and the row scalars lse,
-// t_lse, D, tD.
-template <int D>
-__device__ __forceinline__ void stage_queries(const BwdArgs& a, float* q_s,
-                                              float* tq_s, float* do_s,
-                                              float* tdo_s, float* rows_s,
-                                              int b, int h, int q0) {
-  stage<D>(q_s, a.q, a.sq, b, h, q0, a.S);
-  stage<D>(tq_s, a.tq, a.stq, b, h, q0, a.S);
-  stage<D>(do_s, a.dout, a.sdo, b, h, q0, a.S);
-  stage<D>(tdo_s, a.tdout, a.stdo, b, h, q0, a.S);
-  stage_row(rows_s, a.lse, b, h, a.H, q0, a.S);
-  stage_row(rows_s + BR, a.tlse, b, h, a.H, q0, a.S);
-  stage_row(rows_s + 2 * BR, a.delta, b, h, a.H, q0, a.S);
-  stage_row(rows_s + 3 * BR, a.tdelta, b, h, a.H, q0, a.S);
-}
-
-template <int D>
-__device__ __forceinline__ void stage_keys(const BwdArgs& a, float* k_s,
-                                           float* tk_s, float* v_s,
-                                           float* tv_s, int b, int kh,
-                                           int k0) {
-  stage<D>(k_s, a.k, a.sk, b, kh, k0, a.S);
-  stage<D>(tk_s, a.tk, a.stk, b, kh, k0, a.S);
-  stage<D>(v_s, a.v, a.sv, b, kh, k0, a.S);
-  stage<D>(tv_s, a.tv, a.stv, b, kh, k0, a.S);
-}
-
-template <int D>
-constexpr int bwd_smem_floats() {
-  return 8 * BR * (D + 1) + 4 * BR * (BR + 1) + 4 * BR;
-}
-
-// tdK and tdV: one CTA a (key tile, KV head, batch row), over the G query
-// heads of its group and the query tiles that see the key tile.
-template <int D>
-__global__ void __launch_bounds__(NT) bwd_tangent_dkdv(BwdArgs a) {
-  extern __shared__ float sm[];
-  constexpr int LD = D + 1, LP = BR + 1;
-  float* k_s = sm;
-  float* tk_s = k_s + BR * LD;
-  float* v_s = tk_s + BR * LD;
-  float* tv_s = v_s + BR * LD;
-  float* q_s = tv_s + BR * LD;
-  float* tq_s = q_s + BR * LD;
-  float* do_s = tq_s + BR * LD;
-  float* tdo_s = do_s + BR * LD;
-  float* p_s = tdo_s + BR * LD;
-  float* tp_s = p_s + BR * LP;
-  float* ds0_s = tp_s + BR * LP;
-  float* tds0_s = ds0_s + BR * LP;
-  float* rows_s = tds0_s + BR * LP;
-
-  const int kt = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
-  const int G = a.H / a.KV, S = a.S;
-  const int k0 = kt * BR, k1 = min(k0 + BR, S) - 1;
-  const int last = a.window > 0 ? min(S - 1, k1 + a.window - 1) : S - 1;
-  stage_keys<D>(a, k_s, tk_s, v_s, tv_s, b, kh, k0);
-
-  constexpr int RG = NT / D > 0 ? NT / D : 1;
-  constexpr int KPT = BR / RG;
-  const int c = threadIdx.x % D, g = threadIdx.x / D;
-  float acc_k[KPT], acc_v[KPT];
+  float* tdkb = a.tdk + b * a.stdk.b + kvh * a.stdk.h;
+  float* tdvb = a.tdv + b * a.stdv.b + kvh * a.stdv.h;
 #pragma unroll
-  for (int e = 0; e < KPT; ++e) acc_k[e] = acc_v[e] = 0.f;
-
-  for (int h = kh * G; h < kh * G + G; ++h) {
-    for (int qt = k0 / BR; qt <= last / BR; ++qt) {
-      const int q0 = qt * BR;
-      __syncthreads();
-      stage_queries<D>(a, q_s, tq_s, do_s, tdo_s, rows_s, b, h, q0);
-      __syncthreads();
-      bwd_pairs<D>(a, q_s, tq_s, do_s, tdo_s, k_s, tk_s, v_s, tv_s, rows_s,
-                   q0, k0, p_s, tp_s, ds0_s, tds0_s);
-      __syncthreads();
-      for (int i = 0; i < BR; ++i) {
-        const float qd = q_s[i * LD + c], tqd = tq_s[i * LD + c];
-        const float dod = do_s[i * LD + c], tdod = tdo_s[i * LD + c];
+  for (int j = 0; j < ND; ++j)
 #pragma unroll
-        for (int e = 0; e < KPT; ++e) {
-          const int j = g + RG * e;
-          acc_k[e] = fmaf(tds0_s[i * LP + j], qd,
-                          fmaf(ds0_s[i * LP + j], tqd, acc_k[e]));
-          acc_v[e] = fmaf(tp_s[i * LP + j], dod,
-                          fmaf(p_s[i * LP + j], tdod, acc_v[e]));
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int e = 0; e < KPT; ++e) {
-    const int j = g + RG * e;
-    if (k0 + j < S) {
-      a.tdk[at(a.stdk, b, kh, k0 + j) + c] = a.scale * acc_k[e];
-      a.tdv[at(a.stdv, b, kh, k0 + j) + c] = acc_v[e];
-    }
-  }
-}
-
-// tdQ: one CTA a (query tile, head, batch row), over the live key tiles.
-template <int D>
-__global__ void __launch_bounds__(NT) bwd_tangent_dq(BwdArgs a) {
-  extern __shared__ float sm[];
-  constexpr int LD = D + 1, LP = BR + 1;
-  float* q_s = sm;
-  float* tq_s = q_s + BR * LD;
-  float* do_s = tq_s + BR * LD;
-  float* tdo_s = do_s + BR * LD;
-  float* k_s = tdo_s + BR * LD;
-  float* tk_s = k_s + BR * LD;
-  float* v_s = tk_s + BR * LD;
-  float* tv_s = v_s + BR * LD;
-  float* ds0_s = tv_s + BR * LD;
-  float* tds0_s = ds0_s + BR * LP;
-  float* rows_s = tds0_s + BR * LP;
-
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int kh = h / (a.H / a.KV), q0 = qt * BR;
-  stage_queries<D>(a, q_s, tq_s, do_s, tdo_s, rows_s, b, h, q0);
-
-  constexpr int RG = NT / D > 0 ? NT / D : 1;
-  constexpr int RPT = BR / RG;
-  const int c = threadIdx.x % D, g = threadIdx.x / D;
-  float acc[RPT];
-#pragma unroll
-  for (int e = 0; e < RPT; ++e) acc[e] = 0.f;
-
-  int kt_lo, kt_hi;
-  kv_tiles(q0, a.S, a.window, &kt_lo, &kt_hi);
-  for (int kt = kt_lo; kt <= kt_hi; ++kt) {
-    const int k0 = kt * BR;
-    __syncthreads();
-    stage_keys<D>(a, k_s, tk_s, v_s, tv_s, b, kh, k0);
-    __syncthreads();
-    bwd_pairs<D>(a, q_s, tq_s, do_s, tdo_s, k_s, tk_s, v_s, tv_s, rows_s,
-                 q0, k0, nullptr, nullptr, ds0_s, tds0_s);
-    __syncthreads();
-    for (int j = 0; j < BR; ++j) {
-      const float kd = k_s[j * LD + c], tkd = tk_s[j * LD + c];
-#pragma unroll
-      for (int e = 0; e < RPT; ++e) {
-        const int i = g + RG * e;
-        acc[e] = fmaf(tds0_s[i * LP + j], kd,
-                      fmaf(ds0_s[i * LP + j], tkd, acc[e]));
+    for (int e = 0; e < 4; ++e) {
+      const int key = k_lo + m + g + (e & 2 ? 8 : 0);
+      const int c = 8 * j + 2 * t + (e & 1);
+      if (key < S) {
+        tdkb[key * a.stdk.s + c] = a.scale * tdk_acc[j][e];
+        tdvb[key * a.stdv.s + c] = tdv_acc[j][e];
       }
     }
-  }
-#pragma unroll
-  for (int e = 0; e < RPT; ++e) {
-    const int i = g + RG * e;
-    if (q0 + i < a.S) a.tdq[at(a.stdq, b, h, q0 + i) + c] = a.scale * acc[e];
-  }
 }
 
+// tdQ of one 64-row q tile of one head, over the KV tiles the forward
+// visits.  Warp w owns rows 16w..16w+15 of the tile.
 template <int D>
-constexpr int fwd_smem_floats() {
-  return 6 * BR * (D + 1) + 2 * BR * (BR + 1) + 2 * BR;
+__global__ void __launch_bounds__(TC_THREADS) bwd_tangent_dq(BwdArgs a) {
+  constexpr int BK = dq_bk<D>(), LD = row_ld<float, D>();
+  constexpr int NK = BK / 8, ND = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);   // [BT][LD]
+  float* tQs = Qs + BT * LD;                        // [BT][LD]
+  float* dOs = tQs + BT * LD;                       // [BT][LD]
+  float* tdOs = dOs + BT * LD;                      // [BT][LD]
+  float* Ks = tdOs + BT * LD;                       // [2][BK][LD]
+  float* tKs = Ks + 2 * BK * LD;                    // [2][BK][LD]
+  float* Vs = tKs + 2 * BK * LD;                    // [2][BK][LD]
+  float* tVs = Vs + 2 * BK * LD;                    // [2][BK][LD]
+
+  const int S = a.S, H = a.H, window = a.window;
+  const int nq = (S + BT - 1) / BT;
+  // one linear grid, q tile slowest: the last q tiles (the most KV tiles)
+  // start first, for every head and batch
+  const int nb = gridDim.x / (nq * H);                       // batch size
+  const int q_lo = (nq - 1 - (int)(blockIdx.x / (H * nb))) * BT;
+  const int h = blockIdx.x % H, b = (blockIdx.x / H) % nb;
+  const int kvh = h / (H / a.KV);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4, m = 16 * warp;
+
+  const float* kb = a.k + b * a.sk.b + kvh * a.sk.h;
+  const float* tkb = a.tk + b * a.stk.b + kvh * a.stk.h;
+  const float* vb = a.v + b * a.sv.b + kvh * a.sv.h;
+  const float* tvb = a.tv + b * a.stv.b + kvh * a.stv.h;
+  const int q_hi = min(q_lo + BT - 1, S - 1);
+  const int j_lo = window ? max(0, q_lo - window + 1) / BK : 0;
+  const int j_hi = q_hi / BK;
+  auto stage = [&](int jt) {
+    const int off = ((jt - j_lo) & 1) * BK * LD;
+    stage_rows<float, D, BK>(Ks + off, kb, a.sk.s, jt * BK, S);
+    stage_rows<float, D, BK>(tKs + off, tkb, a.stk.s, jt * BK, S);
+    stage_rows<float, D, BK>(Vs + off, vb, a.sv.s, jt * BK, S);
+    stage_rows<float, D, BK>(tVs + off, tvb, a.stv.s, jt * BK, S);
+  };
+  stage_rows<float, D, BT>(Qs, a.q + b * a.sq.b + h * a.sq.h, a.sq.s, q_lo,
+                           S);
+  stage_rows<float, D, BT>(tQs, a.tq + b * a.stq.b + h * a.stq.h, a.stq.s,
+                           q_lo, S);
+  stage_rows<float, D, BT>(dOs, a.dout + b * a.sdo.b + h * a.sdo.h, a.sdo.s,
+                           q_lo, S);
+  stage_rows<float, D, BT>(tdOs, a.tdout + b * a.stdo.b + h * a.stdo.h,
+                           a.stdo.s, q_lo, S);
+  stage(j_lo);
+  cp_async_commit();
+
+  // this thread's rows: g and g + 8 of the warp's 16
+  const long long row_off = ((long long)b * H + h) * S;
+  float lse_r[2], tl_r[2], dl_r[2], tdl_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q_lo + m + g + 8 * r;
+    const bool in = row < S;
+    lse_r[r] = in ? a.lse[row_off + row] : 0.f;
+    tl_r[r] = in ? a.tlse[row_off + row] : 0.f;
+    dl_r[r] = in ? a.delta[row_off + row] : 0.f;
+    tdl_r[r] = in ? a.tdelta[row_off + row] : 0.f;
+  }
+
+  float acc[ND][4];
+  zero(acc);
+
+  for (int jt = j_lo; jt <= j_hi; ++jt) {
+    if (jt < j_hi) stage(jt + 1);
+    cp_async_commit();
+    cp_async_wait_one();   // this step's tiles (and Q, tQ, dO, tdO) landed
+    __syncthreads();
+    const int off = ((jt - j_lo) & 1) * BK * LD, k_lo = jt * BK;
+    const float* Kb = Ks + off;
+    const float* tKb = tKs + off;
+
+    // S0 = Q K^T, tS0 = tQ K^T + Q tK^T, dP = dO V^T, tdP = tdO V^T + dO tV^T
+    float s[NK][4], ts[NK][4], dp[NK][4], tdp[NK][4];
+    zero(s);
+    zero(ts);
+    zero(dp);
+    zero(tdp);
+    gemm_nt_tangent<D, NK>(s, ts, Qs, tQs, Kb, tKb, LD, m, g, t);
+    gemm_nt_tangent<D, NK>(dp, tdp, dOs, tdOs, Vs + off, tVs + off, LD, m,
+                           g, t);
+    const bool seen = k_lo + BK - 1 <= q_lo + m
+                      && (!window || q_lo + m + 15 - k_lo < window);
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const int kpos = k_lo + 8 * j + 2 * t + (e & 1);
+        pair_factors(s[j][e], ts[j][e], dp[j][e], tdp[j][e], lse_r[r],
+                     tl_r[r], dl_r[r], tdl_r[r],
+                     seen || visible(q_lo + m + g + 8 * r, kpos, S, window),
+                     a.cap, a.scale);
+      }
+    // tdQ += tdS0 K + dS0 tK
+    add_rn2<ND, NK>(acc, tdp, Kb, dp, tKb, LD, g, t);
+    __syncthreads();   // every warp is done with this buffer: it refills
+  }
+
+  float* tdqb = a.tdq + b * a.stdq.b + h * a.stdq.h;
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = q_lo + m + g + (e & 2 ? 8 : 0);
+      if (row < S)
+        tdqb[row * a.stdq.s + 8 * j + 2 * t + (e & 1)] = a.scale * acc[j][e];
+    }
 }
 
 template <typename K>
-cudaError_t allow_smem(K kernel, int bytes) {
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  // above 48 KB of shared memory a launch is refused unless allowed more
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              bytes);
+                              (int)bytes);
 }
 
 template <int D>
 cudaError_t launch_fwd(const FwdArgs& a, int B, cudaStream_t st) {
-  const int bytes = fwd_smem_floats<D>() * (int)sizeof(float);
+  const size_t bytes = fwd_smem_bytes<D>();
   cudaError_t err = allow_smem(fwd_tangent<D>, bytes);
   if (err != cudaSuccess) return err;
-  dim3 grid((a.S + BR - 1) / BR, a.H, B);
-  fwd_tangent<D><<<grid, NT, bytes, st>>>(a);
+  const unsigned ctas = (a.S + BT - 1) / BT * a.H * B;
+  fwd_tangent<D><<<ctas, TC_THREADS, bytes, st>>>(a);
   return cudaGetLastError();
 }
 
@@ -512,32 +672,34 @@ cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t st) {
   row_pass<D><<<(unsigned)((rows + per - 1) / per), ROW_THREADS, 0, st>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int bytes = bwd_smem_floats<D>() * (int)sizeof(float);
-  if ((err = allow_smem(bwd_tangent_dkdv<D>, bytes)) != cudaSuccess ||
-      (err = allow_smem(bwd_tangent_dq<D>, bytes)) != cudaSuccess)
+  const size_t kv_bytes = dkdv_smem_bytes<D>(), q_bytes = dq_smem_bytes<D>();
+  if ((err = allow_smem(bwd_tangent_dkdv<D>, kv_bytes)) != cudaSuccess ||
+      (err = allow_smem(bwd_tangent_dq<D>, q_bytes)) != cudaSuccess)
     return err;
-  const int tiles = (a.S + BR - 1) / BR;
-  bwd_tangent_dkdv<D><<<dim3(tiles, a.KV, a.B), NT, bytes, st>>>(a);
+  const unsigned tiles = (a.S + BT - 1) / BT;
+  bwd_tangent_dkdv<D><<<tiles * a.KV * a.B, TC_THREADS, kv_bytes, st>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  bwd_tangent_dq<D><<<dim3(tiles, a.H, a.B), NT, bytes, st>>>(a);
+  bwd_tangent_dq<D><<<tiles * a.H * a.B, TC_THREADS, q_bytes, st>>>(a);
   return cudaGetLastError();
 }
 
-T4 t4(const long long* s, int t) {
-  return T4{s[3 * t], s[3 * t + 1], s[3 * t + 2]};
+Str str(const long long* s, int t) {
+  return Str{s[3 * t], s[3 * t + 1], s[3 * t + 2]};
 }
 
 }  // namespace
 
 extern "C" {
 
-// q, tq, tout: [B, H, S, D]; k, v, tk, tv: [B, KV, S, D], float32,
-// addressed through `strides` (21 int64: batch, head and sequence strides
-// of q, k, v, tq, tk, tv, tout, in elements; the head dimension is
-// contiguous).  lse: the forward's float32 [B, H, S]; tlse: float32
-// [B, H, S] out (both contiguous).  Returns the launch's cudaGetLastError().
+// q, o, tq, tout: [B, H, S, D]; k, v, tk, tv: [B, KV, S, D], float32,
+// addressed through `strides` (24 int64: batch, head and sequence strides
+// of q, k, v, o, tq, tk, tv, tout, in elements; the head dimension is
+// contiguous, and every row of q, k, v, tq, tk, tv starts on 16 bytes).
+// o and lse: the forward's output and its float32 log-sum-exp [B, H, S];
+// tlse: float32 [B, H, S] out (both contiguous).  Returns the launch's
+// cudaGetLastError().
 int repro_flash_attention_jvp(const void* q, const void* k, const void* v,
-                              const void* lse, const void* tq,
+                              const void* o, const void* lse, const void* tq,
                               const void* tk, const void* tv, void* tout,
                               void* tlse, int B, int H, int KV, int S, int D,
                               int window, float cap,
@@ -546,19 +708,15 @@ int repro_flash_attention_jvp(const void* q, const void* k, const void* v,
   a.q = static_cast<const float*>(q);
   a.k = static_cast<const float*>(k);
   a.v = static_cast<const float*>(v);
+  a.o = static_cast<const float*>(o);
   a.lse = static_cast<const float*>(lse);
   a.tq = static_cast<const float*>(tq);
   a.tk = static_cast<const float*>(tk);
   a.tv = static_cast<const float*>(tv);
   a.tout = static_cast<float*>(tout);
   a.tlse = static_cast<float*>(tlse);
-  a.sq = t4(strides, 0);
-  a.sk = t4(strides, 1);
-  a.sv = t4(strides, 2);
-  a.stq = t4(strides, 3);
-  a.stk = t4(strides, 4);
-  a.stv = t4(strides, 5);
-  a.sto = t4(strides, 6);
+  Str* dst[8] = {&a.sq, &a.sk, &a.sv, &a.so, &a.stq, &a.stk, &a.stv, &a.sto};
+  for (int t = 0; t < 8; ++t) *dst[t] = str(strides, t);
   a.H = H;
   a.KV = KV;
   a.S = S;
@@ -576,7 +734,8 @@ int repro_flash_attention_jvp(const void* q, const void* k, const void* v,
 // q, out, dout, tq, tout, tdout, tdq: [B, H, S, D]; k, v, tk, tv, tdk,
 // tdv: [B, KV, S, D], float32, addressed through `strides` (39 int64: the
 // batch, head and sequence strides of q, k, v, out, dout, tq, tk, tv, tout,
-// tdout, tdq, tdk, tdv in that order; the head dimension is contiguous).
+// tdout, tdq, tdk, tdv in that order; the head dimension is contiguous, and
+// every row of q, k, v, dout, tq, tk, tv, tdout starts on 16 bytes).
 // lse, tlse: float32 [B, H, S]; delta, tdelta: float32 scratch [B, H, S]
 // (all contiguous).  Writes tdq, tdk, tdv.  Returns the last launch's
 // cudaGetLastError() (0 on success).
@@ -605,9 +764,9 @@ int repro_flash_attention_backward_jvp(
   a.tdq = static_cast<float*>(tdq);
   a.tdk = static_cast<float*>(tdk);
   a.tdv = static_cast<float*>(tdv);
-  T4* dst[13] = {&a.sq,  &a.sk,  &a.sv,   &a.so,   &a.sdo,  &a.stq, &a.stk,
-                 &a.stv, &a.sto, &a.stdo, &a.stdq, &a.stdk, &a.stdv};
-  for (int t = 0; t < 13; ++t) *dst[t] = t4(strides, t);
+  Str* dst[13] = {&a.sq,  &a.sk,  &a.sv,   &a.so,   &a.sdo,  &a.stq, &a.stk,
+                  &a.stv, &a.sto, &a.stdo, &a.stdq, &a.stdk, &a.stdv};
+  for (int t = 0; t < 13; ++t) *dst[t] = str(strides, t);
   a.B = B;
   a.H = H;
   a.KV = KV;

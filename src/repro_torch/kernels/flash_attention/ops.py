@@ -103,10 +103,10 @@ def _strides(*tensors):
 
 def _rows_aligned(t):
     """t if each of its [B, H, S] rows starts on 16 bytes (the forward
-    stages q, k and v, the backward also dout, with 16-byte asynchronous
-    copies), else a contiguous copy, whose rows do.  A view whose head
-    dimension is strided is returned as it is, for ``_strides`` to
-    reject."""
+    stages q, k and v, the backward also dout, the tangent kernels also the
+    tangents of q, k, v and dout, with 16-byte asynchronous copies), else a
+    contiguous copy, whose rows do.  A view whose head dimension is strided
+    is returned as it is, for ``_strides`` to reject."""
     size = t.element_size()
     if t.stride(-1) != 1:
         return t
@@ -156,21 +156,22 @@ def _launch_backward(q, k, v, out, dout, lse, dq, dk, dv, window,
     launches["flash_attention_backward"] += 1
 
 
-def _launch_jvp(q, k, v, lse, tq, tk, tv, tout, tlse, window,
+def _launch_jvp(q, k, v, out, lse, tq, tk, tv, tout, tlse, window,
                 cap) -> None:
     """The forward-tangent kernel on float32 [B, H, S, D] views (k, v and
     their tangents with KV heads): writes tout and tlse (float32 [B, H, S],
-    contiguous) from the forward's lse."""
-    refuse_duals("flash_attention_jvp", q, k, v, lse, tq, tk, tv, tout,
+    contiguous) from the forward's output ``out`` and its lse."""
+    refuse_duals("flash_attention_jvp", q, k, v, out, lse, tq, tk, tv, tout,
                  tlse)
-    strides = _strides(q, k, v, tq, tk, tv, tout)
+    q, k, v, tq, tk, tv = map(_rows_aligned, (q, k, v, tq, tk, tv))
+    strides = _strides(q, k, v, out, tq, tk, tv, tout)
     B, H, S, D = q.shape
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = JVP_LIBRARY.load().repro_flash_attention_jvp(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(),
-            tq.data_ptr(), tk.data_ptr(), tv.data_ptr(), tout.data_ptr(),
-            tlse.data_ptr(), B, H, k.shape[1], S, D, int(window), float(cap),
+            *(t.data_ptr() for t in (q, k, v, out, lse, tq, tk, tv, tout,
+                                     tlse)),
+            B, H, k.shape[1], S, D, int(window), float(cap),
             ctypes.addressof(strides), stream)
     JVP_LIBRARY.check("flash_attention_jvp", rc)
     launches["flash_attention_jvp"] += 1
@@ -183,6 +184,8 @@ def _launch_backward_jvp(q, k, v, out, dout, lse, tq, tk, tv, tout, tdout,
     dk and dv from the forward's out and lse and their tangents."""
     refuse_duals("flash_attention_backward_jvp", q, k, v, out, dout, lse,
                  tq, tk, tv, tout, tdout, tlse, tdq, tdk, tdv)
+    q, k, v, dout, tq, tk, tv, tdout = map(
+        _rows_aligned, (q, k, v, dout, tq, tk, tv, tdout))
     strides = _strides(q, k, v, out, dout, tq, tk, tv, tout, tdout, tdq,
                        tdk, tdv)
     B, H, S, D = q.shape
@@ -239,22 +242,22 @@ class FlashAttention(torch.autograd.Function):
         # q, k, v saved as given: where they are duals, the backward sees
         # their tangents (the kernels get the primals)
         ctx.save_for_backward(*given, out, lse)
-        ctx.save_for_forward(q, k, v, lse)
+        ctx.save_for_forward(q, k, v, out, lse)
         ctx.window, ctx.cap, ctx.model_layout = window, cap, model_layout
         ctx.tangents = None
         return out
 
     @staticmethod
     def jvp(ctx, tq, tk, tv, *_):
-        q, k, v, lse = map(_primal, ctx.saved_tensors)
+        q, k, v, out, lse = map(_primal, ctx.saved_tensors)
         _float32_tangents(q, k, v)
         tq, tk, tv = (_zeros_if_none(t, x).contiguous()
                       for t, x in ((tq, q), (tk, k), (tv, v)))
         tout = torch.empty(q.shape, dtype=q.dtype, device=q.device)
         tlse = torch.empty_like(lse)
         views = [_kernel_layout(t, ctx.model_layout)
-                 for t in (q, k, v, tq, tk, tv, tout)]
-        _launch_jvp(*views[:3], lse, *views[3:], tlse, ctx.window, ctx.cap)
+                 for t in (q, k, v, out, tq, tk, tv, tout)]
+        _launch_jvp(*views[:4], lse, *views[4:], tlse, ctx.window, ctx.cap)
         ctx.tangents = (tout, tlse)
         return tout
 

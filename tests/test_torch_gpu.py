@@ -1338,7 +1338,11 @@ def test_sharded_world_size_one_equals_dense_on_the_card(cuda):
 JVP_CASES = [(2, 8, 2, 200, 64, 0, 0.0, True), (1, 4, 4, 129, 32, 17, 0.0,
                                                 False),
              (1, 2, 1, 96, 128, 0, 30.0, True), (1, 2, 2, 1, 64, 0, 0.0,
-                                                  False)]
+                                                  False),
+             # one past and one short of a 64-row tile, the latter with a
+             # window smaller than a tile and a cap
+             (1, 4, 2, 65, 64, 0, 0.0, True), (1, 4, 1, 191, 32, 40, 20.0,
+                                               False)]
 
 
 @pytest.mark.parametrize("case", JVP_CASES)
@@ -1362,6 +1366,36 @@ def test_flash_tangent_kernels_match_plain_versions(cuda, case):
         scale = max(float(w.abs().max()) for w in want)
         for a, w in zip(got, want):
             assert float((a - w).abs().max()) <= 1e-5 * scale
+
+
+def test_flash_tangent_kernels_unaligned_rows(cuda):
+    """Operands and tangents whose rows do not start on 16 bytes (views of
+    every 65th float) are copied before the tangent kernels stage them."""
+    g = np.random.default_rng(12)
+    B, H, KV, S, D = 1, 4, 2, 100, 64
+
+    def one(h):
+        return torch.as_tensor(g.normal(size=(B, h, S, D + 1)).astype(
+            np.float32)).to(cuda)[..., :D]
+
+    q, k, v, tq, tk, tv, do, tdo = (one(h) for h in (H, KV, KV, H, KV, KV,
+                                                     H, H))
+    out, tout, lse, tlse = fa_ref.attention_jvp_ref(q, k, v, tq, tk, tv)
+    want_b = fa_ref.attention_backward_jvp_ref(
+        q, k, v, out, do, lse, tq, tk, tv, tout, tdo, tlse)
+    got_f, got_b = _chip_smoke().launch_jvp_pair(
+        fa_ops, q, k, v, tq, tk, tv, do, tdo, out, lse, tout, tlse, 0, 0.0)
+    for got, want in ((got_f, (tout, tlse)), (got_b, want_b)):
+        scale = max(float(w.abs().max()) for w in want)
+        for a, w in zip(got, want):
+            assert float((a - w).abs().max()) <= 1e-5 * scale
+
+
+def test_tangent_kernels_run_on_the_tensor_cores(cuda):
+    """The forward-, dK/dV- and dQ-tangent kernels at D = 32, 64 and 128
+    each hold HMMA in their SASS (3xTF32 on mma.sync)."""
+    counts = _chip_smoke().jvp_mma_sass(fa_ops)
+    assert len(counts) == 9 and all(counts.values())
 
 
 def test_dual_reaching_a_raw_launch_raises(cuda):

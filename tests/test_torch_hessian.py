@@ -342,6 +342,32 @@ def test_tangent_plain_versions_match_forward_ad(B, H, KV, S, D, window,
     _close(got, want)
 
 
+def _tangent_sums(q, k, v, tq, tk, tv, window, cap):
+    """The forward tangent's sums before its last step, from the plain
+    version's pieces in the kernel layout: A = Σⱼ (P tS) V + P tV
+    [B, H, S, D] and t_lse [B, H, S]; tO = A − t_lse·O."""
+    B, H, S, D = q.shape
+    s, ts0, c1, _, mask = ref._pairs(q, k, tq, tk, window, cap)
+    p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+    pts = p * torch.where(mask, c1 * ts0, 0.0)
+    a = (torch.einsum("bkgqs,bksd->bkgqd", pts, v.float())
+         + torch.einsum("bkgqs,bksd->bkgqd", p, tv.float()))
+    return a.reshape(B, H, S, D), pts.sum(dim=-1).reshape(B, H, S)
+
+
+def test_forward_tangent_is_a_minus_t_lse_times_o():
+    """The identity the forward-tangent kernel relies on: tO = A − t_lse·O
+    with O the plain forward's output (not P V summed beside A), within
+    1e-5 · max |tO|, at a window-and-cap shape."""
+    t = [torch.as_tensor(x) for x in _attn_inputs(2, 4, 2, 45, 32, seed=2)]
+    q, k, v, tq, tk, tv = t[:6]
+    _, to, _, tlse = ref.attention_jvp_ref(q, k, v, tq, tk, tv, 7, 5.0)
+    o = ref.attention_ref(q, k, v, 7, 5.0)
+    a, tl = _tangent_sums(q, k, v, tq, tk, tv, 7, 5.0)
+    _close([a - tl[..., None] * o], [to])
+    _close([tl], [tlse])
+
+
 def _plain_launches(monkeypatch):
     """Replace the four raw launches with their plain versions, writing
     into the outputs as the kernels do, so the Functions run on CPU
@@ -365,11 +391,11 @@ def _plain_launches(monkeypatch):
             dst.copy_(src)
         ops.launches["flash_attention_backward"] += 1
 
-    def launch_jvp(q, k, v, lse, tq, tk, tv, tout, tlse, window, cap):
-        dual.refuse_duals("flash_attention_jvp", q, k, v, lse, tq, tk, tv)
-        _, to, _, tl = ref.attention_jvp_ref(q, k, v, tq, tk, tv, window,
-                                             cap)
-        tout.copy_(to)
+    def launch_jvp(q, k, v, out, lse, tq, tk, tv, tout, tlse, window, cap):
+        dual.refuse_duals("flash_attention_jvp", q, k, v, out, lse, tq, tk,
+                          tv)
+        a, tl = _tangent_sums(q, k, v, tq, tk, tv, window, cap)
+        tout.copy_(a - tl[..., None] * out)   # the forward's out, as given
         tlse.copy_(tl)
         ops.launches["flash_attention_jvp"] += 1
 
@@ -480,8 +506,7 @@ def test_raw_flash_launches_refuse_duals():
         for call in (lambda: ops._launch(q, q, q, q, 0, 0.0),
                      lambda: ops._launch_backward(q, q, q, q, q, q, q, q, q,
                                                   0, 0.0),
-                     lambda: ops._launch_jvp(q, q, q, q, q, q, q, q, q, 0,
-                                             0.0),
+                     lambda: ops._launch_jvp(*([q] * 10), 0, 0.0),
                      lambda: ops._launch_backward_jvp(*([q] * 15), 0, 0.0)):
             with pytest.raises(RuntimeError, match="dual tensor"):
                 call()

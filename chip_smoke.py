@@ -38,7 +38,12 @@ back to the CPU):
    leaves ([22·2048, 5632] and [32000, 2048]) as one block, and
    ``quantize``'s layout; the keyed encode also on lengths that are not a
    multiple of 4, an x that is not 16-byte aligned, and against the
-   u-taking kernel fed ``random.uniform(key, shape)``; the decode also on
+   u-taking kernel fed ``random.uniform(key, shape)``; the keyed encode's
+   split entries (``dither_absmax_into``, ``dither_levels_keyed``: the
+   norm pass over every worker's x into one norm, then each worker's
+   levels) over 1, 2 and 3 workers at those shapes, ragged lengths, edge
+   rows and the trainer's largest leaf, against their plain versions and,
+   at one worker, the fused keyed encode; the decode also on
    ragged blocks and on levels 1 and 4 bytes past an aligned address.  Hold
    the grouped compressor entries (one launch for a grid of G points)
    against their plain versions and against G launches of the scalar
@@ -107,8 +112,8 @@ back to the CPU):
    model, at quickstart size on the card against the port on the CPU,
    every compressor call and every round's routing recorded
    (``plan_drift``): ``experiments.async_grid`` (FLECS-CGD m = 2, exact-k
-   p = 0.5, taus {0, 2, 4} × buffer_k {1, 5, 20}, alpha auto-damped, 600
-   rounds, G = 9 in one batched run): ledgers, sends, arrivals, flushes
+   p = 0.5, taus {0, 2, 4} × buffer_k {1, 5, 20}, alpha auto-damped, 300
+   rounds (the cut), G = 9 in one batched run): ledgers, sends, arrivals, flushes
    and buffered counts equal every round, and every point held by
    ``plan_drift.verdict`` (card messages their CPU replays, the first
    difference an explained decision, F within rtol 1e-4 or else within 3x
@@ -118,14 +123,16 @@ back to the CPU):
    legacy async step at tau = 0, buffer_k = the cohort (FLECS-CGD, DIANA,
    FedNL topk0.25, GD; state, ledgers and aux); each legacy async step
    under a fixed, a uniform and a geometric (q 0.5) schedule at tau 2,
-   buffer_k 5, 100 rounds: ledgers and routing equal, a geometric delay
+   buffer_k 5, 40 rounds (the cut): ledgers and routing equal, a geometric delay
    that differs must lie within 4 ulps of an integer log(u) / log(q) (and
    is logged), and ``plan_drift.verdict`` with F held at rtol 1e-4 (F
    logged only for FedNL, whose eigh parts the sides before a top-k tie
    flips); the five-method traffic plan of
    ``benchmarks/traffic_bench.py`` (tau 2, buffer_k 2; fixed, poisson 0.6
    and diurnal (0.9, 0.5, 0.2, 0.5) arrivals, the default availability
-   chain, admission cutoff 3 / 6 in flight), 100 rounds: the availability
+   chain, admission cutoff 3 / 6 in flight), 40 rounds (the cut; the
+   runs that diverge on the CPU pass twice their first F by round 29): the
+   availability
    states and admitted arrivals of every round and the ledgers bit for
    bit, and each method under ``plan_drift.verdict`` (F logged only for
    FedNL, and for a run that diverges on the CPU too); a cutoff of 0 at
@@ -203,7 +210,7 @@ back to the CPU):
    run and read after it: flash_attention 44 a step (remat recomputes it),
    flash_attention_backward 22, and on FLECS steps dither_encode_keyed,
    dither_decode and dither_bits once per parameter leaf and the u-taking
-   dither_encode never; finite losses, adam's falling; step ms and peak
+   dither_encode and the split entries never; finite losses, adam's falling; step ms and peak
    memory; a profile of one step of each mode (the FLECS step's int64
    elementwise passes must take under 50 ms: its uniforms are drawn inside
    the keyed encode); then the codec and backward kernels timed by CUDA
@@ -229,7 +236,8 @@ back to the CPU):
    message (each leaf's compressed HVP column) its replay through the
    plain encode on the CPU, the Y levels differing at no more than 1e-3
    of the elements and by one level at most.  (c) 22 layers, float32,
-   remat, batch 8 x 1024 (cut to 4 only if 8 does not fit): 3 m = 2 steps,
+   remat, batch 8 x 1024 (cut to 4 only if 8 does not fit): 2 m = 2 steps
+   (the cut),
    the counters set to 0 just before and read just after (per step 6 L
    forwards, 3 L backwards, 4 L forward tangents, 2 L backward tangents,
    and 3 codec launches of each kind per parameter leaf); losses, step ms
@@ -239,9 +247,35 @@ back to the CPU):
    the checkpoint restored bit for bit.  Then both tangent kernels timed
    at the training shape beside their plain versions and bounds.  (b)'s
    CPU side runs while the card runs (a), (c) and (d).
-11. Print the kernels line (sixteen kernels: the ten of slices 1–6, the
-   four grouped entries, whose launches add phase 3e's, and the two
-   tangent kernels), then the device line as the last line.
+11. The multi-worker FLECS-CGD trainer (alpha = 30 · lr).  (a)
+   tinyllama-1.1b at full width and depth 2, global batch 4 x 256, one
+   step of 4 workers (m = 0) through ``launch/train.train`` and the new
+   weights' loss on the next batch, on the card and, in a spawned worker
+   process with every core, on this machine's CPU from the card's
+   weights: both losses within rtol 1e-5, ``uplink_mbits`` equal, every
+   worker's step-0 level message
+   its replay through the plain split entries on the CPU (the norm over
+   the card's inputs of all four workers, each worker's levels from it),
+   the CPU's own step-0 levels differing from the card's at no more than
+   1e-3 of the elements and by one level.  (d) The same run over a NCCL
+   ``WorkerGroup`` at world size 1 (the norm and the level sums through
+   ``all_reduce``): every param and shift leaf and the metrics bit for
+   bit the run without a group.  (b) 22 layers, float32, remat, global
+   batch 8 x 1024: 3 steps of 4 workers (2 x 1024 each), m = 0, through
+   ``launch/train.train``; (c) 2 steps of 2 workers (4 x 1024 each) at
+   m = 2 (cut to 4 x 1024 globally only if 8 does not fit); for each the
+   counters set to 0 just before and read just after (per step and
+   worker 2 L (1 + m) forwards, L (1 + m) backwards, 2 L m and L m
+   tangents, a norm and a levels pass a message, a decode a gradient
+   message; a bits launch a message; the fused encode never), losses,
+   step ms split by ``StepSplit`` (gradient, HVP, sketch draws,
+   FedSONIA, norm pass, norm all-reduce, levels pass, level sum,
+   decode), peak memory.  (a)'s CPU side runs while the card runs (d),
+   (b) and (c).
+12. Print the kernels line (eighteen kernels: the ten of slices 1–6, the
+   four grouped entries, whose launches add phase 3e's, the two tangent
+   kernels and the keyed encode's two split entries), then the device
+   line as the last line.
 """
 from __future__ import annotations
 
@@ -296,6 +330,9 @@ DITHER_SOURCE = "src/repro_torch/kernels/dither/csrc/dither.cu"
 DITHER_REPLACES = {
     "dither_encode": "src/repro/kernels/dither/dither.py:25",
     "dither_encode_keyed": "src/repro/kernels/dither/dither.py:25",
+    # the keyed encode's two passes apart: n workers share one norm
+    "dither_absmax": "src/repro/kernels/dither/dither.py:25",
+    "dither_levels_keyed": "src/repro/kernels/dither/dither.py:25",
     "dither_decode": "src/repro/kernels/dither/dither.py:62"}
 # no Pallas kernel: the reference differentiates chunked_attention in XLA
 BWD_REPLACES = "src/repro/models/attention.py:38"
@@ -2043,9 +2080,12 @@ def phase_gisette_stochastic(quickstart, api, experiments, make_problem, ops,
 # ---------------------------------------------------------------------------
 
 ASYNC_SIZE = dict(d=123, n_workers=20, r=64)
-ASYNC_ITERS = 600
-LEGACY_ITERS = 100
-TRAFFIC_ITERS = 100
+# rounds, cut from 600, 100 and 100 to make room for phase 11; the traffic
+# runs that diverge on the CPU pass twice their first F by round 29, so
+# 40 rounds keep which runs have their F held
+ASYNC_ITERS = 300
+LEGACY_ITERS = 40
+TRAFFIC_ITERS = 40
 CUTOFF_ITERS = 30
 
 
@@ -3283,15 +3323,53 @@ def abs_err(a, b) -> float:
 
 
 def phase_dither_kernels(dev, d_ops, d_ref, random):
-    """Phase 2, the int8 dither codec: the encode (u-taking and keyed) and
+    """Phase 2, the int8 dither codec: the encode (u-taking and keyed, and
+    the keyed encode's split entries over one worker and several) and
     decode kernels on the card against their plain versions on the same
     inputs, bit for bit."""
     import numpy as np
     import torch
     err = {"dither_encode": 0.0, "dither_encode_keyed": 0.0,
+           "dither_absmax": 0.0, "dither_levels_keyed": 0.0,
            "dither_decode": 0.0}
     rng = np.random.default_rng(4)
     n = 0
+
+    def compare_split(xs, key, s, br, what):
+        """The keyed encode's split entries over the workers' tensors xs
+        (the norm pass of each into zeroed norms, then each worker's levels
+        pass) against their plain versions on the same inputs, and at one
+        worker against the fused keyed encode, bit for bit."""
+        nonlocal n
+        nb = xs[0].shape[0] // br
+        bits = torch.zeros(nb, dtype=torch.int32, device=dev)
+        want_bits = torch.zeros(nb, dtype=torch.int32, device=xs[0].device)
+        for x in xs:
+            d_ops.dither_absmax_into(x.to(dev), bits, block_rows=br)
+            d_ref.dither_absmax_into_ref(x, want_bits, br)
+        check(same_bits(bits, want_bits.to(dev)),
+              f"dither_absmax differs from its plain version on {what}")
+        err["dither_absmax"] = max(err["dither_absmax"], abs_err(
+            bits.view(torch.float32), want_bits.view(torch.float32)))
+        for x in xs:
+            lv, sc = d_ops.dither_levels_keyed(x.to(dev), key.to(dev), bits,
+                                               s=s, block_rows=br)
+            want_lv, want_sc = d_ref.dither_levels_keyed_ref(
+                x, key.to(x.device), want_bits, s, br)
+            check(same_bits(lv, want_lv.to(dev)) and same_bits(sc, want_sc),
+                  f"dither_levels_keyed differs from its plain version on "
+                  f"{what}")
+            err["dither_levels_keyed"] = max(
+                err["dither_levels_keyed"], abs_err(lv, want_lv),
+                abs_err(sc, want_sc))
+            del want_lv
+        if len(xs) == 1:
+            f_lv, f_sc = d_ops.dither_encode_keyed(xs[0].to(dev), key.to(dev),
+                                                   s=s, block_rows=br)
+            check(same_bits(lv, f_lv) and same_bits(sc, f_sc),
+                  f"the split entries differ from dither_encode_keyed on "
+                  f"{what}")
+        n += 1
 
     def compare_keyed(x, key, s, br, what):
         """The keyed encode against its plain version (uniform(key, shape),
@@ -3341,12 +3419,19 @@ def phase_dither_kernels(dev, d_ops, d_ref, random):
             compare(x, u, s, br, f"[{R},{C}] br={br} s={s} {dtype}")
             compare_keyed(x, random.fold_in(random.key(R, "cpu"), C), s, br,
                           f"[{R},{C}] br={br} s={s} {dtype} (keyed)")
+            compare_split([x], random.key(R + C, "cpu"), s, br,
+                          f"[{R},{C}] br={br} s={s} {dtype} (split)")
     # lengths that are not a multiple of 4, and an x that is not 16-byte
     # aligned: the keyed pass's scalar path
     for R, C, br, s in ((24, 77, 3, 255), (1, 4099, 1, 127)):
         x = torch.as_tensor((rng.normal(size=(R, C)) * 10).astype(
             np.float32))
         compare_keyed(x, random.key(C, "cpu"), s, br, f"[{R},{C}] (keyed)")
+        for workers in (1, 3):
+            xs = [x] + [x * (0.5 + j) for j in range(1, workers)]
+            compare_split(xs, random.key(C, "cpu"), s, br,
+                          f"[{R},{C}] br={br} s={s}, {workers} workers "
+                          f"(split)")
     x = torch.as_tensor(rng.normal(size=64 * 128 + 1).astype(
         np.float32)).to(dev)[1:].view(64, 128)
     compare_keyed(x, random.key(2, "cpu"), 127, 16,
@@ -3362,6 +3447,8 @@ def phase_dither_kernels(dev, d_ops, d_ref, random):
         compare(x, u, s, 2, f"edge rows s={s}")
         compare_keyed(x, random.key(s, "cpu"), s, 2,
                       f"edge rows s={s} (keyed)")
+        compare_split([x, x.flip(0)], random.key(s, "cpu"), s, 2,
+                      f"edge rows s={s}, 2 workers (split)")
     # whole trainer leaves as one block (the FLECS-CGD path's shapes):
     # inputs made on the card, the plain version run there too
     g = torch.Generator(device=dev).manual_seed(5)
@@ -3372,6 +3459,13 @@ def phase_dither_kernels(dev, d_ops, d_ref, random):
         del u
         compare_keyed(x, random.fold_in(random.key(29, "cpu"), i), 127.0, R,
                       f"leaf [{R},{C}] as one block (keyed)")
+        if i == 0:
+            # the trainer's largest leaf, one worker and two
+            compare_split([x], random.fold_in(random.key(29, "cpu"), i),
+                          127.0, R, f"leaf [{R},{C}] as one block (split)")
+            compare_split([x, x * 2.0], random.fold_in(random.key(29, "cpu"),
+                                                       i), 127.0, R,
+                          f"leaf [{R},{C}] as one block, 2 workers (split)")
         del x
         torch.cuda.empty_cache()
     # the decode alone: multi-block, ragged blocks (the scalar kernel), and
@@ -3492,6 +3586,13 @@ def train_counters(fa_ops, d_ops, ops):
             "dither_bits": ops.launches["dither_bits"]}
 
 
+def check_launches(label, counts, expect, steps) -> None:
+    for name, n in expect.items():
+        check(counts[name] == n * steps,
+              f"{label}: {name} launched {counts[name]} times in {steps} "
+              f"steps, expected {n * steps}")
+
+
 def reset_train_counters(fa_ops, d_ops, ops):
     fa_ops.reset_launches()
     d_ops.reset_launches()
@@ -3601,7 +3702,8 @@ def phase_train_full(train, fa_ops, d_ops, ops, tree):
         per_leaf = n_leaves if flecs else 0
         expect = {"flash_attention": 2 * L * steps,
                   "flash_attention_backward": L * steps,
-                  "dither_encode": 0,
+                  "dither_encode": 0, "dither_absmax": 0,
+                  "dither_levels_keyed": 0,
                   "dither_encode_keyed": per_leaf * steps,
                   "dither_decode": per_leaf * steps,
                   "dither_bits": per_leaf * steps}
@@ -3750,9 +3852,12 @@ def dither_timing(dev, d_ops, d_ref, random):
     (5 B an element, but bound by the instructions of its main loop on the
     busiest pipe, read from the SASS of the library it runs:
     ``loop_clocks_per_element``) with the draw it replaces
-    (``random.uniform``, timed alone), and the decode (5 B an element)
-    beside ``torch.mul(levels.view(nb, -1), scale[:, None])``, one PyTorch
-    call of the same function (timed only)."""
+    (``random.uniform``, timed alone), its split entries (the norm pass:
+    4 B an element, beside ``torch.linalg.vector_norm(x, inf)``, one
+    PyTorch call of the same function, timed only; the levels pass: the
+    keyed encode's main loop, the same pipe bound), and the decode (5 B an
+    element) beside ``torch.mul(levels.view(nb, -1), scale[:, None])``,
+    one PyTorch call of the same function (timed only)."""
     import torch
     res = {}
     g = torch.Generator(device=dev).manual_seed(6)
@@ -3783,6 +3888,24 @@ def dither_timing(dev, d_ops, d_ref, random):
             draw_ms=cuda_ms(lambda: random.uniform(key, (R, C)), 3),
             library_ms=None, bytes=5 * N + 4 + 16,
             ops=clocks * N, rate=SM_CLOCKS_PER_S, pipe=pipe)
+        bits = torch.zeros(1, dtype=torch.int32, device=dev)
+        res[("dither_absmax", (R, C))] = dict(
+            ms=cuda_ms(lambda: d_ops.dither_absmax_into(x, bits,
+                                                        block_rows=R), 20),
+            plain_ms=cuda_ms(lambda: d_ref.dither_absmax_into_ref(
+                x, bits, R), 3),
+            # one PyTorch call of the same function (timed only)
+            library_ms=cuda_ms(lambda: torch.linalg.vector_norm(
+                x, float("inf")), 20),
+            bytes=4 * N + 4, ops=N, rate=F32_OPS_PER_S)
+        res[("dither_levels_keyed", (R, C))] = dict(
+            ms=cuda_ms(lambda: d_ops.dither_levels_keyed(
+                x, key, bits, s=127.0, block_rows=R), 20),
+            plain_ms=cuda_ms(lambda: d_ref.dither_levels_keyed_ref(
+                x, key, bits, 127.0, R), 3),
+            library_ms=None, bytes=5 * N + 4 + 16 + 4,
+            ops=clocks * N, rate=SM_CLOCKS_PER_S, pipe=pipe)
+        del bits
         res[("dither_decode", (R, C))] = dict(
             ms=cuda_ms(lambda: d_ops.dither_decode(lv, sc, block_rows=R), 20),
             plain_ms=cuda_ms(lambda: d_ref.dither_decode_ref(lv, sc, R), 3),
@@ -3866,7 +3989,8 @@ JVP_SHAPES = [(8, 32, 4, 1024, 64, 0, 0.0, True),
 JVP_REL = 1e-5
 #: FLECS-CGD with m = 2 sketch columns at launch/train.py's alpha (30 · lr).
 FLECS_M, FLECS_M_ALPHA = 2, 3e-3 * 30
-FLECS_M_STEPS = 3
+# full-width m = 2 steps of phase 10, cut from 3 to make room for phase 11
+FLECS_M_STEPS = 2
 
 
 def jvp_inputs(shape, dev, seed=0):
@@ -4036,25 +4160,26 @@ def flash_jvp_timing(dev, fa_ops, fa_ref):
     return res
 
 
-def m2_step(cfg, dl_flecs, remat=True):
+def m2_step(cfg, dl_flecs, n=1):
     return dl_flecs.make_flecs_train_step(
         cfg, dl_flecs.FlecsDLConfig(alpha=FLECS_M_ALPHA, m=FLECS_M),
-        remat=remat)
+        remat=True, n_workers=n)
 
 
 def record_y_messages(dl_flecs, n_leaves, on_y, fn):
     """Run ``fn()`` with ``dl_flecs.shared_scale_levels`` wrapped: each
     step's Y messages (every call after the step's first n_leaves, its
-    gradient messages) go through ``on_y(inner, key, x, s)`` instead;
-    returns what ``fn`` returns."""
+    gradient messages) go through ``on_y(inner, key, xs, s, group)``
+    instead (xs: the workers' inputs, one here); returns what ``fn``
+    returns."""
     inner = dl_flecs.shared_scale_levels
     calls = [0]
 
-    def wrapped(key, x, s):
+    def wrapped(key, xs, s, group=None):
         calls[0] += 1
         if (calls[0] - 1) % (n_leaves * (1 + FLECS_M)) < n_leaves:
-            return inner(key, x, s)
-        return on_y(inner, key, x, s)
+            return inner(key, xs, s, group)
+        return on_y(inner, key, xs, s, group)
 
     dl_flecs.shared_scale_levels = wrapped
     try:
@@ -4097,9 +4222,10 @@ def phase_m2_depth2_card(train, dl_flecs, tree, path):
     n_leaves = len(tree.tree_leaves(params))
     messages = []
 
-    def on_y(inner, key, x, s):
-        levels, scale = inner(key, x, s)
-        messages.append((key.cpu(), x.cpu(), levels.cpu(), scale.cpu()))
+    def on_y(inner, key, xs, s, group):
+        levels, scale = inner(key, xs, s, group)
+        messages.append((key.cpu(), xs[0].cpu(), levels[0].cpu(),
+                         scale.cpu()))
         return levels, scale
 
     loss, loss_next, uplink = record_y_messages(
@@ -4141,7 +4267,8 @@ def m2_cpu_job(path: str) -> dict:
                  messages=0)
     seen = [0]
 
-    def on_y(inner, key, x, s):
+    def on_y(inner, key, xs, s, group):
+        (x,) = xs
         ckey, cx, clev, cscale = card[seen[0]]
         seen[0] += 1
         check(torch.equal(ckey, key), "depth 2 m = 2: the CPU's Y keys "
@@ -4158,7 +4285,7 @@ def m2_cpu_job(path: str) -> dict:
         stats["total"] += d.numel()
         stats["max_flip"] = max(stats["max_flip"], int(d.max()))
         stats["messages"] += 1
-        return levels.reshape(x.shape), scale[0]
+        return [levels.reshape(x.shape)], scale[0]
 
     t0 = time.perf_counter()
     loss, loss_next, uplink = record_y_messages(
@@ -4169,20 +4296,35 @@ def m2_cpu_job(path: str) -> dict:
 
 
 class StepSplit:
-    """Wraps ``dl_flecs``'s gradient pass, HVP passes, sketch draws and
-    FedSONIA so that each call's time (host clock between two
-    synchronizes) adds to ``ms[part]``; ``close()`` unwraps."""
+    """Wraps the trainer's parts so that each call's time (host clock
+    between two synchronizes) adds to ``ms[part]``; ``close()`` unwraps.
+    ``dl_flecs``'s gradient pass, HVP passes, sketch draws, FedSONIA, level
+    sum and decode; the dither codec's fused encode, norm pass and levels
+    pass (``kernels/dither/ops``); the norm's all-reduce
+    (``core/driver``).  The rest of a step is the shift and parameter
+    updates."""
 
-    PARTS = {"value_and_grad": "gradient", "hvp_pytree": "hvp",
-             "_sketch_signs": "sketch draws", "_fedsonia_tensor": "fedsonia"}
+    PARTS = (("dl_flecs", "value_and_grad", "gradient"),
+             ("dl_flecs", "hvp_pytree", "hvp"),
+             ("dl_flecs", "_sketch_signs", "sketch draws"),
+             ("dl_flecs", "_fedsonia_tensor", "fedsonia"),
+             ("d_ops", "dither_encode_keyed", "fused encode"),
+             ("d_ops", "dither_absmax_into", "norm pass"),
+             ("driver", "max_workers", "norm all-reduce"),
+             ("d_ops", "dither_levels_keyed", "levels pass"),
+             ("dl_flecs", "sum_levels", "level sum"),
+             ("dl_flecs", "decode_int8", "decode"))
 
     def __init__(self, dl_flecs):
         import torch
-        self.mod, self.saved = dl_flecs, {}
-        self.ms = {part: 0.0 for part in self.PARTS.values()}
-        for name, part in self.PARTS.items():
-            fn = getattr(dl_flecs, name)
-            self.saved[name] = fn
+        from repro_torch.core import driver
+        from repro_torch.kernels.dither import ops as d_ops
+        mods = {"dl_flecs": dl_flecs, "d_ops": d_ops, "driver": driver}
+        self.saved = []
+        self.ms = {part: 0.0 for _, _, part in self.PARTS}
+        for mod, name, part in self.PARTS:
+            fn = getattr(mods[mod], name)
+            self.saved.append((mods[mod], name, fn))
 
             def timed(*a, _fn=fn, _part=part, **kw):
                 torch.cuda.synchronize()
@@ -4192,35 +4334,38 @@ class StepSplit:
                 self.ms[_part] += 1e3 * (time.perf_counter() - t0)
                 return out
 
-            setattr(dl_flecs, name, timed)
+            setattr(mods[mod], name, timed)
 
     def take(self) -> dict:
-        ms, self.ms = self.ms, {p: 0.0 for p in self.PARTS.values()}
+        ms, self.ms = self.ms, {p: 0.0 for p in self.ms}
         return ms
 
     def close(self):
-        for name, fn in self.saved.items():
-            setattr(self.mod, name, fn)
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
 
 
-def m2_full_steps(train, cfg, params, rows, dl_flecs, fa_ops, d_ops, ops):
-    """FLECS_M_STEPS m = 2 steps at batch rows x TRAIN_BATCH[1] from
-    ``params`` on one batch, the counters set to 0 just before: (losses,
-    step ms, split ms a step, uplink Mbit, launches), or None if the card
-    runs out of memory (the failed run's tensors are gone on return)."""
+def m2_full_steps(train, cfg, params, rows, dl_flecs, fa_ops, d_ops, ops,
+                  n=1, steps=None):
+    """``steps`` (FLECS_M_STEPS) m = 2 steps of n workers at batch rows x
+    TRAIN_BATCH[1] from ``params`` on one batch, the counters set to 0 just
+    before: (losses, step ms, split ms a step, uplink Mbit, launches), or
+    None if the card runs out of memory (the failed run's tensors are gone
+    on return)."""
     import itertools
     import torch
+    steps = steps or FLECS_M_STEPS
     batch = next(train.token_batches(cfg, rows, TRAIN_BATCH[1],
                                      params["embed"].device))
-    step = m2_step(cfg, dl_flecs)
-    shifts = dl_flecs.init_shifts(params)
+    step = m2_step(cfg, dl_flecs, n)
+    shifts = dl_flecs.init_shifts(params, n)
     split = StepSplit(dl_flecs)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_train_counters(fa_ops, d_ops, ops)
     p, losses, step_ms, parts, uplink = params, [], [], [], None
     try:
-        for i, b in zip(range(FLECS_M_STEPS), itertools.repeat(batch)):
+        for i, b in zip(range(steps), itertools.repeat(batch)):
             t0 = time.perf_counter()
             p, shifts, met = step(p, shifts, b, i)
             torch.cuda.synchronize()
@@ -4228,11 +4373,11 @@ def m2_full_steps(train, cfg, params, rows, dl_flecs, fa_ops, d_ops, ops):
             losses.append(float(met["loss"]))
             uplink = float(met["uplink_mbits"])
             parts.append(split.take())
-            log(f"  m = 2 step {i}: loss {losses[-1]!r}, {step_ms[-1]!r} "
-                f"ms: {parts[-1]}")
+            log(f"  m = 2, n = {n} step {i}: loss {losses[-1]!r}, "
+                f"{step_ms[-1]!r} ms: {parts[-1]}")
     except torch.cuda.OutOfMemoryError as exc:
-        log(f"phase 10: batch {rows} x {TRAIN_BATCH[1]} does not fit "
-            f"({str(exc).splitlines()[0]})")
+        log(f"batch {rows} x {TRAIN_BATCH[1]} at n = {n}, m = 2 does not "
+            f"fit ({str(exc).splitlines()[0]})")
         return None
     finally:
         split.close()
@@ -4265,14 +4410,12 @@ def phase_m2_full(train, dl_flecs, fa_ops, d_ops, ops, tree):
                 "flash_attention_backward": L * (1 + m),
                 "flash_attention_jvp": 2 * L * m,
                 "flash_attention_backward_jvp": L * m,
-                "dither_encode": 0,
+                "dither_encode": 0, "dither_absmax": 0,
+                "dither_levels_keyed": 0,
                 "dither_encode_keyed": n_leaves * (1 + m),
                 "dither_decode": n_leaves * (1 + m),
                 "dither_bits": n_leaves * (1 + m)}
-    for name, n in per_step.items():
-        check(counts[name] == n * FLECS_M_STEPS,
-              f"full-width m = 2: {name} launched {counts[name]} times in "
-              f"{FLECS_M_STEPS} steps, expected {n * FLECS_M_STEPS}")
+    check_launches("full-width m = 2", counts, per_step, FLECS_M_STEPS)
     check(all(map(math.isfinite, losses)),
           f"full-width m = 2: losses not finite: {losses}")
     res = dict(batch=[rows, TRAIN_BATCH[1]], losses=losses, step_ms=step_ms,
@@ -4393,6 +4536,329 @@ def phase_flecs_m2(dev, train, dl_flecs, fa_ops, fa_ref, d_ops, ops, tree):
 
 
 
+# ---------------------------------------------------------------------------
+# Slice 14: the multi-worker FLECS-CGD trainer
+# ---------------------------------------------------------------------------
+
+#: Phase 11's federations: n workers at m = 0 (and its steps), at m = 2
+#: (and its steps), and the depth-2 card-against-CPU run's batch and steps.
+WORKERS_N, WORKERS_STEPS = 4, 3
+WORKERS_M2_N, WORKERS_M2_STEPS = 2, 2
+WORKERS_DEPTH2_BATCH, WORKERS_DEPTH2_STEPS = (4, 256), 1
+
+
+def workers_launches(n, n_leaves, L, m=0) -> dict:
+    """The kernel launches of one step of n workers: every worker's
+    forwards (remat recomputes them), backwards and, with m > 0, tangents;
+    the split encode entries once per message and worker (a message a leaf
+    and, with m > 0, a leaf and column), the decode once per gradient
+    message and worker, the bits kernel once per message."""
+    return {"flash_attention": 2 * L * (1 + m) * n,
+            "flash_attention_backward": L * (1 + m) * n,
+            "flash_attention_jvp": 2 * L * m * n,
+            "flash_attention_backward_jvp": L * m * n,
+            "dither_encode": 0, "dither_encode_keyed": 0,
+            "dither_absmax": n_leaves * (1 + m) * n,
+            "dither_levels_keyed": n_leaves * (1 + m) * n,
+            "dither_decode": n_leaves * n,
+            "dither_bits": n_leaves * (1 + m)}
+
+
+def workers_run(train, cfg, params, batch):
+    """WORKERS_DEPTH2_STEPS FLECS-CGD steps of WORKERS_N workers from
+    ``params`` through ``launch/train.train`` on the launcher's stream at
+    ``batch`` (rows, seq) on the params' device, then the new weights' loss
+    on the stream's next batch (``loss_next``)."""
+    import torch
+    from repro_torch.train.step import _loss_fn
+    batches = train.token_batches(cfg, *batch, params["embed"].device)
+    out = train.train(cfg, params, batches, WORKERS_DEPTH2_STEPS, flecs=True,
+                      workers=WORKERS_N)
+    with torch.no_grad():
+        out["loss_next"] = float(_loss_fn(out["params"], next(batches), cfg))
+    return out
+
+
+def workers_depth2_card(train, dl_flecs, tree, path):
+    """Phase 11 (a), the card's side: tinyllama-1.1b at full width and
+    depth 2, batch 4 x 256, WORKERS_DEPTH2_STEPS FLECS-CGD steps of 4
+    workers (m = 0) through ``launch/train.train``, then the new weights'
+    loss on the next batch (``workers_run``); step 0's gradient messages
+    (key, every worker's input, levels and the shared scale) recorded.  Writes the config, the batch shape, the initial weights and
+    the messages to ``path`` (the CPU's side reads them) and returns
+    (config, weights, the card's run)."""
+    import torch
+    cfg, params = train.setup(TINYLLAMA, smoke=False, device="cuda",
+                              n_layers=2)
+    n_leaves = len(tree.tree_leaves(params))
+    messages = []
+    inner = dl_flecs.shared_scale_levels
+
+    def recorded(key, xs, s, group=None):
+        levels, scale = inner(key, xs, s, group)
+        if len(messages) < n_leaves:
+            messages.append((key.cpu(), [x.cpu() for x in xs],
+                             [lv.cpu() for lv in levels], scale.cpu(), s))
+        return levels, scale
+
+    dl_flecs.shared_scale_levels = recorded
+    try:
+        out = workers_run(train, cfg, params, WORKERS_DEPTH2_BATCH)
+    finally:
+        dl_flecs.shared_scale_levels = inner
+    check(len(messages) == n_leaves,
+          f"depth 2 n = {WORKERS_N}: {len(messages)} messages recorded")
+    torch.save({"cfg": cfg, "batch": WORKERS_DEPTH2_BATCH,
+                "params": to_cpu(params), "messages": messages}, path)
+    log(f"phase 11: depth 2, {WORKERS_N} workers on the card: losses "
+        f"{[m['loss'] for m in out['metrics']]}, next {out['loss_next']!r}, "
+        f"uplink "
+        f"{out['metrics'][0]['uplink_mbits']!r} Mbit; {n_leaves} messages "
+        f"of {WORKERS_N} workers recorded")
+    return cfg, params, out
+
+
+def workers_cpu_job(path: str) -> dict:
+    """Phase 11 (a), the CPU's side, in a worker process with every core:
+    every card message replayed through the plain split entries on the CPU
+    (the norm over the card's inputs of every worker, each worker's levels
+    from it under the same uniforms, drawn once a message); then the same
+    run from the card's weights on the CPU, its step-0 levels against the
+    card's (flips counted, by how many levels)."""
+    import os
+    import torch
+    from repro_torch import random
+    from repro_torch.core import dl_flecs
+    from repro_torch.kernels.dither import ref as d_ref
+    from repro_torch.launch import train
+    torch.set_num_threads(os.cpu_count() or 1)
+    data = torch.load(path, weights_only=False)
+    cfg, params, card = data["cfg"], data["params"], data["messages"]
+    t0 = time.perf_counter()
+    stats = dict(replay_differ=0, messages=0, flips=0, total=0, max_flip=0)
+    for key, xs, levels, scale, s in card:
+        rows = [x.reshape(-1, x.shape[-1]) for x in xs]
+        bits = torch.zeros(1, dtype=torch.int32)
+        for r in rows:
+            d_ref.dither_absmax_into_ref(r, bits, r.shape[0])
+        u = random.uniform(key, tuple(rows[0].shape))
+        for r, lv in zip(rows, levels):
+            rl, rs = d_ref.dither_levels_ref(r, u, bits, s, r.shape[0])
+            if not (torch.equal(rl.reshape(lv.shape), lv)
+                    and same_bits(rs[0], scale)):
+                stats["replay_differ"] += 1
+        stats["messages"] += 1
+    replay_s = time.perf_counter() - t0
+    seen = [0]
+    inner = dl_flecs.shared_scale_levels
+
+    def compared(key, xs, s, group=None):
+        levels, scale = inner(key, xs, s, group)
+        if seen[0] < len(card):
+            for lv, clv in zip(levels, card[seen[0]][2]):
+                d = (lv.int() - clv.int()).abs()
+                stats["flips"] += int((d > 0).sum())
+                stats["total"] += d.numel()
+                stats["max_flip"] = max(stats["max_flip"], int(d.max()))
+            seen[0] += 1
+        return levels, scale
+
+    dl_flecs.shared_scale_levels = compared
+    t1 = time.perf_counter()
+    try:
+        out = workers_run(train, cfg, params, data["batch"])
+    finally:
+        dl_flecs.shared_scale_levels = inner
+    return dict(metrics=out["metrics"], loss_next=out["loss_next"],
+                replay_s=replay_s, run_s=time.perf_counter() - t1, **stats)
+
+
+def workers_nccl(dl_flecs, cfg, params, card_out, tree):
+    """Phase 11 (d): the depth-2 run of (a) again over a NCCL
+    ``WorkerGroup`` at world size 1 (4 workers in the one rank: the norm
+    and the level sums through ``all_reduce``), every param and shift leaf
+    and the metrics bit for bit the run without a group."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import driver
+    from repro_torch.launch import train
+    group = driver.worker_group(1, 0, f"tcp://localhost:{_free_port()}",
+                                backend="nccl")
+    try:
+        step = dl_flecs.make_flecs_train_step(
+            cfg, dl_flecs.FlecsDLConfig(alpha=FLECS_M_ALPHA), remat=True,
+            n_workers=WORKERS_N, group=group)
+        p, s = params, dl_flecs.init_shifts(params, WORKERS_N)
+        batches = train.token_batches(cfg, *WORKERS_DEPTH2_BATCH,
+                                      params["embed"].device)
+        metrics = []
+        for i in range(WORKERS_DEPTH2_STEPS):
+            p, s, m = step(p, s, next(batches), i)
+            metrics.append({k: float(v) for k, v in m.items()})
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    check(metrics == card_out["metrics"],
+          f"NCCL world size 1: metrics {metrics} differ from the run "
+          f"without a group, {card_out['metrics']}")
+    check(len(metrics) == WORKERS_DEPTH2_STEPS, "NCCL world size 1: steps")
+    for what, a, b in (("params", p, card_out["params"]),
+                       ("shifts", s, card_out["state"])):
+        la, lb = tree.tree_leaves(a), tree.tree_leaves(b)
+        check(len(la) == len(lb) and all(same_bits(x, y)
+                                         for x, y in zip(la, lb)),
+              f"NCCL world size 1: the {what} differ from the run without "
+              f"a group")
+    log(f"phase 11: depth 2, {WORKERS_N} workers over NCCL at world size 1 "
+        f"x{WORKERS_DEPTH2_STEPS}: every param and shift leaf and the "
+        f"metrics bit for bit the run without a group")
+    return metrics
+
+
+def workers_full_m0(train, dl_flecs, cfg, params, fa_ops, d_ops, ops,
+                    n_leaves):
+    """Phase 11 (b): tinyllama-1.1b at full width, 22 layers, float32,
+    remat, global batch 8 x 1024: WORKERS_STEPS FLECS-CGD steps (m = 0) of
+    WORKERS_N workers (2 x 1024 each) on one batch through
+    ``launch/train.train``; the counters set to 0 just before and read
+    just after; losses, step ms, the split (``StepSplit``), peak."""
+    import itertools
+    import torch
+    batch = next(train.token_batches(cfg, *TRAIN_BATCH,
+                                     params["embed"].device))
+    split = StepSplit(dl_flecs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_train_counters(fa_ops, d_ops, ops)
+    try:
+        out = train.train(cfg, params, itertools.repeat(batch),
+                          WORKERS_STEPS, flecs=True, workers=WORKERS_N,
+                          log=lambda s: log(f"  n = {WORKERS_N} {s}"))
+        torch.cuda.synchronize()
+    finally:
+        split.close()
+    counts = train_counters(fa_ops, d_ops, ops)
+    peak = torch.cuda.max_memory_allocated()
+    parts = {k: v / WORKERS_STEPS for k, v in split.take().items()}
+    losses = [m["loss"] for m in out["metrics"]]
+    check_launches(f"full-width n = {WORKERS_N}", counts, workers_launches(
+        WORKERS_N, n_leaves, cfg.n_layers), WORKERS_STEPS)
+    check(all(map(math.isfinite, losses)),
+          f"full-width n = {WORKERS_N}: losses not finite: {losses}")
+    res = dict(batch=list(TRAIN_BATCH), workers=WORKERS_N, losses=losses,
+               step_ms=out["step_ms"], split_ms_per_step=parts,
+               peak_gib=peak / 2**30, launches=counts,
+               uplink_mbits=out["metrics"][-1]["uplink_mbits"])
+    log(f"phase 11: {TINYLLAMA} x{cfg.n_layers} f32 remat, batch "
+        f"{TRAIN_BATCH[0]} x {TRAIN_BATCH[1]}, FLECS-CGD m = 0, "
+        f"{WORKERS_N} workers x{WORKERS_STEPS}: losses {losses}; step ms "
+        f"{out['step_ms']}; split a step {parts}; peak {peak / 2**30!r} "
+        f"GiB; uplink {res['uplink_mbits']!r} Mbit; launches {counts}")
+    del out
+    torch.cuda.empty_cache()
+    return res
+
+
+def workers_full_m2(train, dl_flecs, cfg, params, fa_ops, d_ops, ops,
+                    n_leaves):
+    """Phase 11 (c): as (b) with m = 2 and WORKERS_M2_N workers,
+    WORKERS_M2_STEPS steps at global batch 8 x 1024 (cut to 4 x 1024 only
+    if 8 does not fit), the step split by ``StepSplit``."""
+    import torch
+    for rows in (TRAIN_BATCH[0], TRAIN_BATCH[0] // 2):
+        out = m2_full_steps(train, cfg, params, rows, dl_flecs, fa_ops,
+                            d_ops, ops, n=WORKERS_M2_N,
+                            steps=WORKERS_M2_STEPS)
+        torch.cuda.empty_cache()
+        if out is not None:
+            break
+    else:
+        fail(f"full-width m = 2 at n = {WORKERS_M2_N} does not fit even at "
+             f"batch 4 x 1024")
+    losses, step_ms, parts, uplink, counts = out
+    peak = torch.cuda.max_memory_allocated()
+    check_launches(f"full-width m = 2 n = {WORKERS_M2_N}", counts,
+                   workers_launches(WORKERS_M2_N, n_leaves, cfg.n_layers,
+                                    FLECS_M), WORKERS_M2_STEPS)
+    check(all(map(math.isfinite, losses)),
+          f"full-width m = 2 n = {WORKERS_M2_N}: losses not finite: "
+          f"{losses}")
+    res = dict(batch=[rows, TRAIN_BATCH[1]], workers=WORKERS_M2_N,
+               losses=losses, step_ms=step_ms, split_ms=parts,
+               peak_gib=peak / 2**30, launches=counts, uplink_mbits=uplink)
+    log(f"phase 11: {TINYLLAMA} x{cfg.n_layers} f32 remat, batch {rows} x "
+        f"{TRAIN_BATCH[1]}, FLECS-CGD m = {FLECS_M}, {WORKERS_M2_N} workers "
+        f"x{WORKERS_M2_STEPS}: losses {losses}; step ms {step_ms}; split "
+        f"{parts}; peak {peak / 2**30!r} GiB; uplink {uplink!r} Mbit")
+    return res
+
+
+def phase_flecs_workers(train, dl_flecs, fa_ops, d_ops, ops, tree):
+    """Phase 11: the multi-worker FLECS-CGD trainer.  (a)'s card side
+    first; (a)'s CPU side then runs in a spawned worker process with every
+    core while the card runs (d), (b) and (c); then (a)'s comparison:
+    losses within LOSS_REL and uplink equal every step, every card message
+    of every worker its CPU replay, the CPU's own step-0 levels differing
+    from the card's at no more than LEVEL_SHARE of the elements and by one
+    level."""
+    import multiprocessing
+    import shutil
+    import tempfile
+    import torch
+    from concurrent.futures import ProcessPoolExecutor
+    tmp = Path(tempfile.mkdtemp(prefix="_smoke_tmp_", dir=ROOT))
+    try:
+        cfg2, params2, card = workers_depth2_card(train, dl_flecs, tree,
+                                                  tmp / "workers.pt")
+        card_metrics, card_next = card["metrics"], card["loss_next"]
+        with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context(
+                "spawn")) as pool:
+            cpu_side = pool.submit(workers_cpu_job, str(tmp / "workers.pt"))
+            nccl = workers_nccl(dl_flecs, cfg2, params2, card, tree)
+            del params2, card
+            torch.cuda.empty_cache()
+            cfg, params = train.setup(TINYLLAMA, smoke=False, device="cuda")
+            n_leaves = len(tree.tree_leaves(params))
+            m0 = workers_full_m0(train, dl_flecs, cfg, params, fa_ops, d_ops,
+                                 ops, n_leaves)
+            m2 = workers_full_m2(train, dl_flecs, cfg, params, fa_ops, d_ops,
+                                 ops, n_leaves)
+            del params
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            cpu = cpu_side.result()
+            waited = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    card_losses = [m["loss"] for m in card_metrics] + [card_next]
+    cpu_losses = [m["loss"] for m in cpu["metrics"]] + [cpu["loss_next"]]
+    for i, (a, b) in enumerate(zip(card_losses, cpu_losses)):
+        check(abs(a - b) <= LOSS_REL * abs(b),
+              f"depth 2 n = {WORKERS_N} loss {i}: {a!r} (card) and {b!r} "
+              f"(CPU) beyond rtol {LOSS_REL}")
+    for i, (a, b) in enumerate(zip(card_metrics, cpu["metrics"])):
+        check(a["uplink_mbits"] == b["uplink_mbits"],
+              f"depth 2 n = {WORKERS_N} step {i}: uplink "
+              f"{a['uplink_mbits']!r} (card) and {b['uplink_mbits']!r} (CPU)")
+    check(cpu["replay_differ"] == 0,
+          f"depth 2 n = {WORKERS_N}: {cpu['replay_differ']} of "
+          f"{cpu['messages']} card messages are not their CPU replay")
+    check(cpu["max_flip"] <= 1 and cpu["flips"] <= LEVEL_SHARE * cpu["total"],
+          f"depth 2 n = {WORKERS_N}: step-0 levels differ at {cpu['flips']} "
+          f"of {cpu['total']} elements, by up to {cpu['max_flip']}")
+    log(f"phase 11: depth 2, {WORKERS_N} workers, card against CPU: losses "
+        f"and the next batch's {card_losses} / {cpu_losses}; uplink equal "
+        f"every step; "
+        f"{cpu['messages']} messages of {WORKERS_N} workers, each its CPU "
+        f"replay ({cpu['replay_s']!r} s); step-0 levels differ at "
+        f"{cpu['flips']} of {cpu['total']} elements, by at most "
+        f"{cpu['max_flip']}; the CPU run took {cpu['run_s']!r} s "
+        f"({waited!r} s waited for)")
+    return dict(depth2=dict(card=card_metrics, card_loss_next=card_next,
+                            cpu=cpu, waited_s=waited),
+                nccl=nccl, n4_m0=m0, n2_m2=m2)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4502,6 +4968,8 @@ def main():
     m2 = phase_flecs_m2(dev, train, dl_flecs, fa_ops, fa_ref, d_ops, ops,
                         tree)
     elapsed("phase 10")
+    workers = phase_flecs_workers(train, dl_flecs, fa_ops, d_ops, ops, tree)
+    elapsed("phase 11")
     prof = phase_profile(quickstart)
     elapsed("phase 7's profile")
     timing = phase_timing(dev, ops, ref, random, library=built[0])
@@ -4519,9 +4987,15 @@ def main():
                                         random)
     elapsed("phase 9's kernel timings")
 
-    # phase 10's two main paths: the m = 2 trainer and train_lm
-    m2_paths = {"train flecs m=2 x3": m2["full"]["launches"],
-                "train_lm --flecs-m 2 x3": m2["driver"]["launches"]}
+    # phase 10's two main paths (the m = 2 trainer and train_lm) and phase
+    # 11's two (n workers at m = 0 and at m = 2)
+    m2_paths = {
+        f"train flecs m=2 x{FLECS_M_STEPS}": m2["full"]["launches"],
+        "train_lm --flecs-m 2 x3": m2["driver"]["launches"],
+        f"train flecs n={WORKERS_N} x{WORKERS_STEPS}": workers["n4_m0"][
+            "launches"],
+        f"train flecs m=2 n={WORKERS_M2_N} x{WORKERS_M2_STEPS}": workers[
+            "n2_m2"]["launches"]}
     m2_launches = {name: sum(n.get(name, 0) for n in m2_paths.values())
                    for name in m2["full"]["launches"]}
     kernels = []
@@ -4678,6 +5152,7 @@ def main():
                     "train_depth2": train2, "train": trained}))
     log(json.dumps({"flecs_m2": {k: v for k, v in m2.items()
                                  if k != "timing"}}))
+    log(json.dumps({"flecs_workers": workers}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

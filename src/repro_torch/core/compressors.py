@@ -30,9 +30,11 @@ reference's traced ``lax.switch`` selects per grid point:
                                    ``omega(d)``; ``get_compressor``,
                                    ``as_spec`` and ``spec_from_name`` are
                                    deprecated aliases, as in the reference
-    shared_scale_levels(key, x, s) / decode_int8(levels, scale)
-                                 — the int8 wire format of the deep-learning
-                                   trainer (``core/dl_flecs.py``), through
+    shared_scale_levels(key, x, s, group) / sum_levels(levels, group) /
+    decode_int8(levels, scale)   — the int8 wire format of the deep-learning
+                                   trainer (``core/dl_flecs.py``): levels
+                                   against a norm shared by n workers,
+                                   their sum (f16 on the wire), through
                                    the dither codec kernels
 
 The six families, priced and bounded as the reference prices them:
@@ -851,7 +853,7 @@ def as_spec(c) -> CompressorSpec:
 
 
 # ---------------------------------------------------------------------------
-# int8 wire format of the deep-learning trainer (one worker)
+# int8 wire format of the deep-learning trainer
 # ---------------------------------------------------------------------------
 
 def psum_level_cap(s_levels, n_workers: int) -> float:
@@ -867,20 +869,57 @@ def _leaf_rows(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(-1, x.shape[-1])
 
 
-def shared_scale_levels(key, x: torch.Tensor, s):
-    """int8 dithering levels of x with one ∞-norm scale over the whole
-    tensor: (levels int8 of x's shape, scale float32 0-d).
+def shared_scale_levels(key, x, s, group=None):
+    """int8 dithering levels with one ∞-norm scale shared by the workers:
+    the reference's collective quantizer, whose norm is a ``pmax`` over
+    the workers.  ``x`` is one worker's tensor or a sequence of this
+    process's workers' tensors (of one shape); ``group`` a
+    ``driver.WorkerGroup`` whose ranks hold the other workers.  Returns
+    (levels int8 of x's shape, or a list of them in x's order; scale
+    float32 0-d, the same for every worker).
 
-    The reference agrees the norm across the workers with a ``pmax``; on
-    one worker that is the identity, so this is ``dither_encode`` over x
-    as a single block, with the uniforms ``uniform(key, x.shape)`` of the
-    reference, bit for bit.  On a CUDA tensor the keyed encode kernel draws
-    them in registers (``dither_encode_keyed``); a later sharded slice puts
-    an all-reduce of the norm between its two passes."""
-    rows = _leaf_rows(x)
-    levels, scale = dither_ops.dither_encode_keyed(
-        rows.contiguous(), key, s=s, block_rows=rows.shape[0])
-    return levels.reshape(x.shape), scale[0]
+    Every worker draws the same uniforms, ``uniform(key, x.shape)`` (the
+    reference folds no worker index into the key), bit for bit.  One
+    tensor without a group takes the fused keyed encode kernel
+    (``dither_encode_keyed``, each tensor as one block).  Otherwise the
+    norm pass (``dither_absmax_into``) runs over every local worker's
+    tensor into one int32 norm, an ``all_reduce(MAX)`` widens it over the
+    group, and each worker's levels come from it (``dither_levels_keyed``);
+    the norm never leaves the device."""
+    single = isinstance(x, torch.Tensor)
+    xs = [x] if single else list(x)
+    rows = [_leaf_rows(t).contiguous() for t in xs]
+    if len(rows) == 1 and group is None:
+        levels, scale = dither_ops.dither_encode_keyed(
+            rows[0], key, s=s, block_rows=rows[0].shape[0])
+        out = [levels]
+    else:
+        norm_bits = torch.zeros(1, dtype=torch.int32, device=rows[0].device)
+        for r in rows:
+            dither_ops.dither_absmax_into(r, norm_bits,
+                                          block_rows=r.shape[0])
+        if group is not None:
+            from repro_torch.core.driver import max_workers
+            norm_bits = max_workers(norm_bits, group)
+        out, scale = dither_ops.dither_levels_keyed(
+            rows, key, norm_bits, s=s, block_rows=rows[0].shape[0])
+    out = [lv.reshape(t.shape) for lv, t in zip(out, xs)]
+    return (out[0] if single else out), scale[0]
+
+
+def sum_levels(levels, group=None) -> torch.Tensor:
+    """The sum of every worker's int8 levels, float32 (the reference's f16
+    ``psum`` of the levels): this process's workers' levels summed exactly
+    in int16, in their order, then summed over ``group``'s ranks with
+    float16 on the wire (``driver.sum_levels_workers``).  Exact while the
+    levels were capped by ``psum_level_cap(s, n)``."""
+    total = levels[0].to(torch.int16)
+    for lv in levels[1:]:
+        total += lv
+    if group is not None:
+        from repro_torch.core.driver import sum_levels_workers
+        return sum_levels_workers(total, group).float()
+    return total.float()
 
 
 def decode_int8(levels: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

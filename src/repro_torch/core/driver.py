@@ -591,11 +591,44 @@ def sum_workers(x: torch.Tensor, group: WorkerGroup) -> torch.Tensor:
     return out
 
 
+def max_workers(x: torch.Tensor, group: WorkerGroup) -> torch.Tensor:
+    """The maximum over the ranks (``pmax``; ``all_reduce(MAX)``), exact in
+    any order: the dither norms' int32 bits in the trainer."""
+    import torch.distributed as dist
+    out = x.clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group.group)
+    return out
+
+
+def sum_levels_workers(levels: torch.Tensor,
+                       group: WorkerGroup) -> torch.Tensor:
+    """Each rank's integer level sums, summed over the ranks with float16
+    on the wire (the reference's f16 ``psum``: 2 bytes an element).  Exact
+    while every partial and total stays within ±2048, which
+    ``compressors.psum_level_cap`` ensures; returns float16."""
+    import torch.distributed as dist
+    wire = levels.to(torch.float16)
+    dist.all_reduce(wire, group=group.group)
+    return wire
+
+
+def worker_block(group: Optional[WorkerGroup], n_total: int) -> range:
+    """The global ids of this rank's workers, [r·n_local, (r+1)·n_local)
+    (all of them without a group).  A count that does not divide over the
+    ranks raises."""
+    if group is None:
+        return range(n_total)
+    if n_total % group.size:
+        raise ValueError(f"{n_total} workers do not divide over "
+                         f"{group.size} rank(s)")
+    n_loc = n_total // group.size
+    return range(group.rank * n_loc, (group.rank + 1) * n_loc)
+
+
 def shard_rows(group: WorkerGroup, n_total: int, device) -> torch.Tensor:
     """This rank's global worker ids, int64 [n_total // size]."""
-    n_loc = n_total // group.size
-    return torch.arange(group.rank * n_loc, (group.rank + 1) * n_loc,
-                        device=device)
+    ids = worker_block(group, n_total)
+    return torch.arange(ids.start, ids.stop, device=device)
 
 
 def run_sharded_sweep(sweep_step: Callable, hparams, state,

@@ -27,6 +27,12 @@ LIBRARY = CudaLibrary(
         # scale, stream
         "repro_dither_encode_keyed": (_P, _I, _P, _F, _L, _L, _L, _P, _P, _P,
                                       _P),
+        # x, dtype, rows, cols, block_rows, norm_bits, stream
+        "repro_dither_absmax": (_P, _I, _L, _L, _L, _P, _P),
+        # x, dtype, key, s, rows, cols, block_rows, norm_bits, levels,
+        # scale, stream
+        "repro_dither_levels_keyed": (_P, _I, _P, _F, _L, _L, _L, _P, _P, _P,
+                                      _P),
         # levels, scale, rows, cols, block_rows, out, stream
         "repro_dither_decode": (_P, _P, _L, _L, _L, _P, _P),
     })

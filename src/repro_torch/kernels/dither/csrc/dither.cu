@@ -34,7 +34,13 @@
 //      vectors of four (16 bytes of float32) and stores four levels at once
 //      where the block's length and x's address allow it.
 // A small block (the 8 x 512 default of `quantize`) is one chunk: one CTA
-// per block in each pass.
+// per block in each pass.  The keyed encode's passes are also entries of
+// their own (repro_dither_absmax, repro_dither_levels_keyed): n federated
+// workers quantize their leaves against one norm, the maximum over all of
+// them (the reference's `pmax`, compressors.py `shared_scale_levels`), so
+// pass 1 runs over every worker's leaf into one norm, which an all-reduce
+// may then widen across processes, before any worker's pass 2.  The norm
+// stays in device memory between the passes.
 //
 // What bounds it on this card.  The u-taking encode: bytes; it must read x
 // and u and write the levels, 9 B an element for float32 x (7 B for
@@ -288,44 +294,74 @@ decode_scalar_kernel(const int8_t* __restrict__ levels,
                        __ldg(scale + i / block_elems));
 }
 
-// Both encodes: pass 1, then pass 2 from u (key null) or drawn from key.
+// The launch shape of both passes over x [rows, cols] in blocks of
+// block_rows rows: a CTA a (block, chunk of CHUNK elements).
+struct Grid {
+  long long nb, block_elems, chunks;
+  bool ok() const { return nb >= 1 && nb * chunks <= 0x7fffffffLL; }
+  unsigned ctas() const { return static_cast<unsigned>(nb * chunks); }
+};
+
+Grid grid_of(long long rows, long long cols, long long block_rows) {
+  Grid g{block_rows < 1 ? 0 : rows / block_rows, block_rows * cols, 0};
+  g.chunks = (g.block_elems + CHUNK - 1) / CHUNK;
+  return g;
+}
+
+// Pass 1: max |x| of each block into norm_bits, which the caller zeroes
+// (or holds the maxima of other workers' leaves, merged by atomicMax).
+template <typename T>
+cudaError_t absmax_pass(const void* x, const Grid& g, unsigned* norm_bits,
+                        cudaStream_t stream) {
+  absmax_kernel<T><<<g.ctas(), THREADS, 0, stream>>>(
+      static_cast<const T*>(x), g.block_elems, static_cast<int>(g.chunks),
+      norm_bits);
+  return cudaGetLastError();
+}
+
+// Pass 2 of the keyed encode from the norms in norm_bits.
+template <typename T>
+cudaError_t keyed_levels_pass(const void* x, const void* key, float s,
+                              const Grid& g, const unsigned* norm_bits,
+                              void* levels, void* scale,
+                              cudaStream_t stream) {
+  const T* xt = static_cast<const T*>(x);
+  const long long* k = static_cast<const long long*>(key);
+  int8_t* lv = static_cast<int8_t*>(levels);
+  float* sc = static_cast<float*>(scale);
+  const int c = static_cast<int>(g.chunks);
+  const bool vec = g.block_elems % 4 == 0
+                   && reinterpret_cast<uintptr_t>(x) % (4 * sizeof(T)) == 0
+                   && reinterpret_cast<uintptr_t>(levels) % 4 == 0;
+  if (vec)
+    encode_keyed_kernel<T, true><<<g.ctas(), THREADS, 0, stream>>>(
+        xt, k, s, g.block_elems, c, norm_bits, lv, sc);
+  else
+    encode_keyed_kernel<T, false><<<g.ctas(), THREADS, 0, stream>>>(
+        xt, k, s, g.block_elems, c, norm_bits, lv, sc);
+  return cudaGetLastError();
+}
+
+// Both fused encodes: zeroed norms, pass 1, then pass 2 from u (key null)
+// or drawn from key.
 template <typename T>
 cudaError_t encode(const void* x, const void* u, const void* key, float s,
                    long long rows, long long cols, long long block_rows,
                    unsigned* norm_bits, void* levels, void* scale,
                    cudaStream_t stream) {
-  const long long nb = rows / block_rows;
-  const long long block_elems = block_rows * cols;
-  const long long chunks = (block_elems + CHUNK - 1) / CHUNK;
-  if (nb < 1 || nb * chunks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const Grid g = grid_of(rows, cols, block_rows);
+  if (!g.ok()) return cudaErrorInvalidValue;
   cudaError_t err =
-      cudaMemsetAsync(norm_bits, 0, nb * sizeof(unsigned), stream);
+      cudaMemsetAsync(norm_bits, 0, g.nb * sizeof(unsigned), stream);
+  if (err == cudaSuccess) err = absmax_pass<T>(x, g, norm_bits, stream);
   if (err != cudaSuccess) return err;
-  const unsigned grid = static_cast<unsigned>(nb * chunks);
-  const T* xt = static_cast<const T*>(x);
-  absmax_kernel<T><<<grid, THREADS, 0, stream>>>(
-      xt, block_elems, static_cast<int>(chunks), norm_bits);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  int8_t* lv = static_cast<int8_t*>(levels);
-  float* sc = static_cast<float*>(scale);
-  const int c = static_cast<int>(chunks);
-  if (key == nullptr) {
-    encode_kernel<T><<<grid, THREADS, 0, stream>>>(
-        xt, static_cast<const float*>(u), s, block_elems, c, norm_bits, lv,
-        sc);
-  } else {
-    const long long* k = static_cast<const long long*>(key);
-    const bool vec = block_elems % 4 == 0
-                     && reinterpret_cast<uintptr_t>(x) % (4 * sizeof(T)) == 0
-                     && reinterpret_cast<uintptr_t>(levels) % 4 == 0;
-    if (vec)
-      encode_keyed_kernel<T, true><<<grid, THREADS, 0, stream>>>(
-          xt, k, s, block_elems, c, norm_bits, lv, sc);
-    else
-      encode_keyed_kernel<T, false><<<grid, THREADS, 0, stream>>>(
-          xt, k, s, block_elems, c, norm_bits, lv, sc);
-  }
+  if (key != nullptr)
+    return keyed_levels_pass<T>(x, key, s, g, norm_bits, levels, scale,
+                                stream);
+  encode_kernel<T><<<g.ctas(), THREADS, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(u), s,
+      g.block_elems, static_cast<int>(g.chunks), norm_bits,
+      static_cast<int8_t*>(levels), static_cast<float*>(scale));
   return cudaGetLastError();
 }
 
@@ -369,6 +405,45 @@ int repro_dither_encode_keyed(const void* x, int dtype, const void* key,
       : dtype == 1 ? encode<__nv_bfloat16>(x, nullptr, key, s, rows, cols,
                                            block_rows, nbits, levels, scale,
                                            st)
+                   : cudaErrorInvalidValue;
+  return static_cast<int>(err);
+}
+
+// The keyed encode's two passes as entries of their own, for norms shared
+// by several workers: repro_dither_absmax merges max |x| of each block of x
+// into norm_bits (uint32 bits of non-negative floats, zeroed by the caller
+// before the first worker's leaf; not zeroed here), so successive workers'
+// leaves give the maximum over the workers without being stacked, and an
+// all-reduce of norm_bits (MAX) gives it across processes;
+// repro_dither_levels_keyed then writes the levels and scales from those
+// norms.  The two in a row are repro_dither_encode_keyed.
+int repro_dither_absmax(const void* x, int dtype, long long rows,
+                        long long cols, long long block_rows,
+                        void* norm_bits, void* stream) {
+  const Grid g = grid_of(rows, cols, block_rows);
+  if (!g.ok()) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  unsigned* nbits = static_cast<unsigned*>(norm_bits);
+  cudaError_t err = dtype == 0 ? absmax_pass<float>(x, g, nbits, st)
+                    : dtype == 1 ? absmax_pass<__nv_bfloat16>(x, g, nbits, st)
+                                 : cudaErrorInvalidValue;
+  return static_cast<int>(err);
+}
+
+int repro_dither_levels_keyed(const void* x, int dtype, const void* key,
+                              float s, long long rows, long long cols,
+                              long long block_rows, const void* norm_bits,
+                              void* levels, void* scale, void* stream) {
+  const Grid g = grid_of(rows, cols, block_rows);
+  if (!g.ok() || key == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned* nbits = static_cast<const unsigned*>(norm_bits);
+  cudaError_t err =
+      dtype == 0 ? keyed_levels_pass<float>(x, key, s, g, nbits, levels,
+                                            scale, st)
+      : dtype == 1 ? keyed_levels_pass<__nv_bfloat16>(x, key, s, g, nbits,
+                                                      levels, scale, st)
                    : cudaErrorInvalidValue;
   return static_cast<int>(err);
 }

@@ -8,7 +8,13 @@ takes the plain version in ``ref.py``.  ``dither_encode`` takes the
 uniforms as a tensor, as the Pallas wrapper does; ``dither_encode_keyed``
 takes a key and draws them in the kernel, ``random.uniform(key, x.shape)``
 bit for bit, so they never reach device memory.  There is no fallback
-from the card to the plain version.  The Pallas wrappers' ``interpret``
+from the card to the plain version.  ``dither_absmax_into`` and
+``dither_levels_keyed`` are the keyed encode's two passes apart, for a norm
+shared by several workers (``core/compressors.shared_scale_levels``): the
+first merges each block's max |x| into a caller's int32 buffer, the second
+quantizes from the norms it holds (one worker's tensor, or several
+workers' under one key: a launch each on the card, one draw of the
+uniforms for all on the CPU).  The Pallas wrappers' ``interpret``
 flag has no counterpart, and the kernel takes any C (the Pallas one needs
 C % 128 == 0).
 
@@ -26,6 +32,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import random
 from repro_torch.kernels.dither import ref
 from repro_torch.kernels.dither.build import LIBRARY
 from repro_torch.kernels.dual import refuse_duals
@@ -34,7 +41,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: Kernel launches since the last :func:`reset_launches`.
 launches = {"dither_encode": 0, "dither_encode_keyed": 0,
-            "dither_decode": 0}
+            "dither_absmax": 0, "dither_levels_keyed": 0, "dither_decode": 0}
 
 
 def reset_launches() -> None:
@@ -119,6 +126,89 @@ def dither_encode_keyed(x, key, *, s=127, block_rows: int = 256):
         return ref.dither_encode_keyed_ref(x, key, s, block_rows)
     return _encode("dither_encode_keyed", "repro_dither_encode_keyed", x,
                    key.contiguous(), s, block_rows)
+
+
+def _check_norm_bits(name, x, norm_bits, block_rows) -> None:
+    nb = x.shape[0] // block_rows
+    if (norm_bits.dtype != torch.int32 or tuple(norm_bits.shape) != (nb,)
+            or norm_bits.device != x.device
+            or not norm_bits.is_contiguous()):
+        raise ValueError(f"{name}: a contiguous int32 [{nb}] norm_bits on "
+                         f"x's device required, got {norm_bits.dtype} "
+                         f"{tuple(norm_bits.shape)} on {norm_bits.device}")
+
+
+def dither_absmax_into(x, norm_bits, *, block_rows: int = 256):
+    """Pass 1 of the keyed encode: ``norm_bits[b] = max(norm_bits[b], bits
+    of max |x| over block b)`` in place, for x [R, C] float32 or bfloat16
+    and norm_bits int32 [R // block_rows] (the bits of non-negative
+    floats, which order as their values do).  Zero norm_bits before the
+    first leaf; each further leaf widens the maximum (several workers'
+    leaves, one norm).  Returns norm_bits."""
+    _check_blocks("dither_absmax", x, block_rows)
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"dither_absmax: x float32 or bfloat16 required, "
+                        f"got {x.dtype}")
+    _check_norm_bits("dither_absmax", x, norm_bits, block_rows)
+    if not _on_card(x):
+        return ref.dither_absmax_into_ref(x, norm_bits, block_rows)
+    refuse_duals("dither_absmax", x)
+    R, C = x.shape
+    _launch("dither_absmax", "repro_dither_absmax", x.device, x.data_ptr(),
+            _DTYPES[x.dtype], R, C, block_rows, norm_bits.data_ptr())
+    return norm_bits
+
+
+def dither_levels_keyed(x, key, norm_bits, *, s=127, block_rows: int = 256):
+    """Pass 2 of the keyed encode from the norms in ``norm_bits`` (int32
+    [R // block_rows], as :func:`dither_absmax_into` leaves them; a zero
+    norm quantizes against 1): (levels int8 [R, C], scale float32
+    [R // block_rows] = norm / s), with ``random.uniform(key, x.shape)``
+    drawn in the kernel.  After ``dither_absmax_into`` on x alone it is
+    ``dither_encode_keyed(x, key, ...)`` bit for bit.
+
+    x may also be a sequence of tensors of one shape, dtype and device
+    (several workers' leaves under one key and one norm): then (a list of
+    levels, scale), a launch a tensor on the card, the uniforms drawn once
+    for all of them by the plain version."""
+    xs = [x] if isinstance(x, torch.Tensor) else list(x)
+    for t in xs:
+        _check_blocks("dither_levels_keyed", t, block_rows)
+        if t.dtype not in _DTYPES:
+            raise TypeError(f"dither_levels_keyed: x float32 or bfloat16 "
+                            f"required, got {t.dtype}")
+        if (t.shape, t.dtype, t.device) != (xs[0].shape, xs[0].dtype,
+                                            xs[0].device):
+            raise ValueError("dither_levels_keyed: the tensors must share "
+                             "one shape, dtype and device")
+    if (key.dtype != torch.int64 or tuple(key.shape) != (2,)
+            or key.device != xs[0].device):
+        raise ValueError(f"dither_levels_keyed: an int64 [2] key on x's "
+                         f"device required, got {key.dtype} "
+                         f"{tuple(key.shape)} on {key.device}")
+    _check_norm_bits("dither_levels_keyed", xs[0], norm_bits, block_rows)
+    if not _on_card(xs[0]):
+        u = random.uniform(key, tuple(xs[0].shape))
+        out = [ref.dither_levels_ref(t, u, norm_bits, s, block_rows)
+               for t in xs]
+    else:
+        out = [_levels_keyed(t, key, norm_bits, s, block_rows) for t in xs]
+    if isinstance(x, torch.Tensor):
+        return out[0]
+    return [lv for lv, _ in out], out[-1][1]
+
+
+def _levels_keyed(x, key, norm_bits, s, block_rows):
+    refuse_duals("dither_levels_keyed", x, key)
+    R, C = x.shape
+    levels = torch.empty((R, C), dtype=torch.int8, device=x.device)
+    scale = torch.empty(R // block_rows, dtype=torch.float32,
+                        device=x.device)
+    _launch("dither_levels_keyed", "repro_dither_levels_keyed", x.device,
+            x.data_ptr(), _DTYPES[x.dtype], key.contiguous().data_ptr(),
+            float(s), R, C, block_rows, norm_bits.data_ptr(),
+            levels.data_ptr(), scale.data_ptr())
+    return levels, scale
 
 
 def dither_decode(levels, scale, *, block_rows: int = 256):

@@ -3,6 +3,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 10
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --flecs
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --flecs \\
+        --workers 4
     PYTHONPATH=src python -m repro_torch.launch.train --no-smoke \\
         --batch 8 --seq 1024 --steps 5 [--flecs]
 
@@ -15,7 +17,10 @@ in the reference, whose flag cannot be turned off) runs the reduced config;
 ``--no-smoke`` the full width.  ``--checkpoint DIR`` saves the last params
 there (``checkpoint/store.py``, the reference's format) with step
 ``--steps``.  There is no mesh: ``--mesh debug`` is the
-one device.  Prints loss and grad norm every 5 steps and at the last, with
+one device, and ``--workers N`` (with ``--flecs``) runs N federated
+workers on it, each on its block of the batch, the counterpart of the
+reference's debug mesh data axis (forced host devices); the model axis
+inside a worker is not ported.  Prints loss and grad norm every 5 steps and at the last, with
 the step's time (host clock around a synchronize) and, on the card, the
 peak memory.
 """
@@ -65,11 +70,12 @@ def _sync(device):
 
 
 def train(cfg, params, batches, steps: int, *, flecs=False,
-          optimizer="adam", lr=3e-3, microbatches=1, log=None):
+          optimizer="adam", lr=3e-3, microbatches=1, workers=1, log=None):
     """``steps`` steps of the standard trainer (``optimizer``) or of
-    FLECS-CGD (alpha = 30 · lr, m = 0) from ``params``, one batch of the
-    iterator ``batches`` a step, with remat on, as the reference's launcher
-    runs them.  ``params`` is not changed.
+    FLECS-CGD (alpha = 30 · lr, m = 0, ``workers`` federated workers in
+    this process) from ``params``, one batch of the iterator ``batches`` a
+    step, with remat on, as the reference's launcher runs them.  ``params``
+    is not changed.
 
     Returns a dict: ``params`` (the last), ``state`` (optimizer state or
     shifts), ``metrics`` (a list of each step's metrics as floats), and
@@ -78,8 +84,10 @@ def train(cfg, params, batches, steps: int, *, flecs=False,
     dev = next(iter(params.values())).device
     if flecs:
         step = make_flecs_train_step(cfg, FlecsDLConfig(alpha=lr * 30),
-                                     remat=True)
-        state = init_shifts(params)
+                                     remat=True, n_workers=workers)
+        state = init_shifts(params, workers)
+    elif workers != 1:
+        raise ValueError("workers: more than one worker needs flecs")
     else:
         opt = get_optimizer(optimizer, lr)
         step_fn = make_train_step(cfg, opt, microbatches=microbatches,
@@ -122,6 +130,8 @@ def main(argv=None):
     ap.add_argument("--optimizer", default="adam")
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--flecs", action="store_true")
+    ap.add_argument("--workers", type=int, default=1,
+                    help="FLECS-CGD's federated workers (with --flecs)")
     ap.add_argument("--checkpoint", default=None)
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
@@ -132,7 +142,9 @@ def main(argv=None):
     cfg, params = setup(args.arch, args.smoke, args.device, seed=args.seed)
     dev = next(iter(params.values())).device
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    mode = ("FLECS-CGD (m = 0)" if args.flecs
+    if args.workers != 1 and not args.flecs:
+        ap.error("--workers needs --flecs")
+    mode = (f"FLECS-CGD (m = 0, {args.workers} workers)" if args.flecs
             else f"{args.optimizer} x{args.microbatches} microbatches")
     print(f"{cfg.arch_id} on {where}: {mode}, batch {args.batch} x "
           f"{args.seq}")
@@ -140,7 +152,8 @@ def main(argv=None):
     next(batches)      # the reference's launcher spends its first draw
     out = train(cfg, params, batches, args.steps, flecs=args.flecs,
                 optimizer=args.optimizer, lr=args.lr,
-                microbatches=args.microbatches, log=print)
+                microbatches=args.microbatches, workers=args.workers,
+                log=print)
     if args.flecs:
         print(f"uplink {out['metrics'][-1]['uplink_mbits']:.3f} Mbit a step")
     if args.checkpoint:

@@ -218,6 +218,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     ops.dither_decode(lv, sc, block_rows=8)
     ops.dither_encode_keyed(x, key, block_rows=8)
     assert ops.launches == {"dither_encode": 0, "dither_encode_keyed": 0,
+                            "dither_absmax": 0, "dither_levels_keyed": 0,
                             "dither_decode": 0}
 
 

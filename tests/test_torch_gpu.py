@@ -525,6 +525,7 @@ def test_dither_codec_bit_identical(cuda, R, C, br, s, dtype):
     lv, sc = d_ops.dither_encode(x.to(cuda), u.to(cuda), s=s, block_rows=br)
     out = d_ops.dither_decode(lv, sc, block_rows=br)
     assert d_ops.launches == {"dither_encode": 1, "dither_encode_keyed": 0,
+                              "dither_absmax": 0, "dither_levels_keyed": 0,
                               "dither_decode": 1}
     want_lv, want_sc = d_ref.dither_encode_ref(x, u, s, br)
     _same_exact(lv, want_lv)
@@ -632,6 +633,7 @@ def _keyed_against_plain(cuda, x, s, br, seed):
     lv, sc = d_ops.dither_encode_keyed(x.to(cuda), key.to(cuda), s=s,
                                        block_rows=br)
     assert d_ops.launches == {"dither_encode": 0, "dither_encode_keyed": 1,
+                              "dither_absmax": 0, "dither_levels_keyed": 0,
                               "dither_decode": 0}
     want_lv, want_sc = d_ref.dither_encode_keyed_ref(x, key, s, br)
     _same_exact(lv, want_lv)
@@ -640,6 +642,44 @@ def _keyed_against_plain(cuda, x, s, br, seed):
     u_lv, u_sc = d_ops.dither_encode(x.to(cuda), u, s=s, block_rows=br)
     _same_exact(lv, u_lv)
     _same_exact(sc, u_sc)
+
+
+@pytest.mark.parametrize("workers", [1, 3])
+@pytest.mark.parametrize("R,C,br,s", DITHER_SHAPES + [(24, 77, 3, 255),
+                                                     (1, 4099, 1, 127)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dither_split_entries_bit_identical(cuda, R, C, br, s, dtype,
+                                            workers):
+    """The keyed encode's split entries on the card: the norm pass over
+    each worker's x into zeroed norms, then each worker's levels, against
+    their plain versions on the CPU, and at one worker against the fused
+    keyed encode, bit for bit; one launch of each a worker."""
+    g = np.random.default_rng(R * C + workers)
+    xs = [torch.as_tensor((g.normal(size=(R, C)) * (10 + j)).astype(
+        np.float32)).to(dtype) for j in range(workers)]
+    key = random.fold_in(random.key(R + C, "cpu"), 5)
+    nb = R // br
+    bits = torch.zeros(nb, dtype=torch.int32, device=cuda)
+    want_bits = torch.zeros(nb, dtype=torch.int32)
+    d_ops.reset_launches()
+    for x in xs:
+        d_ops.dither_absmax_into(x.to(cuda), bits, block_rows=br)
+        d_ref.dither_absmax_into_ref(x, want_bits, br)
+    _same_exact(bits, want_bits)
+    for x in xs:
+        lv, sc = d_ops.dither_levels_keyed(x.to(cuda), key.to(cuda), bits,
+                                           s=s, block_rows=br)
+        want_lv, want_sc = d_ref.dither_levels_keyed_ref(x, key, want_bits,
+                                                         s, br)
+        _same_exact(lv, want_lv)
+        _same_exact(sc, want_sc)
+    assert d_ops.launches["dither_absmax"] == workers
+    assert d_ops.launches["dither_levels_keyed"] == workers
+    if workers == 1:
+        f_lv, f_sc = d_ops.dither_encode_keyed(xs[0].to(cuda), key.to(cuda),
+                                               s=s, block_rows=br)
+        _same_exact(lv, f_lv.cpu())
+        _same_exact(sc, f_sc.cpu())
 
 
 @pytest.mark.parametrize("R,C,br,s", DITHER_SHAPES)
@@ -819,6 +859,8 @@ def test_train_on_the_card_matches_the_cpu(cuda, flecs):
             n = len(tree_leaves(params)) * 3 if dev.type == "cuda" else 0
             assert d_ops.launches == {"dither_encode": 0,
                                       "dither_encode_keyed": n,
+                                      "dither_absmax": 0,
+                                      "dither_levels_keyed": 0,
                                       "dither_decode": n}
     for a, b in zip(runs["cuda"]["metrics"], runs["cpu"]["metrics"]):
         assert abs(a["loss"] - b["loss"]) <= 1e-5 * abs(b["loss"])
@@ -1506,6 +1548,39 @@ def test_flecs_m2_step_on_the_card_matches_the_cpu(cuda):
     (l0, l1, up), (c0, c1, cup) = res["cuda"], res["cpu"]
     assert up == cup
     assert abs(l0 - c0) <= 1e-5 * abs(c0) and abs(l1 - c1) <= 1e-5 * abs(c1)
+
+
+def test_flecs_workers_step_on_the_card_matches_the_cpu(cuda):
+    """Two FLECS-CGD steps of 4 workers (m = 0; smoke tinyllama widths at
+    depth 2, remat, batch 8 x 32) on the card and on the CPU from the same
+    weights: losses rtol 1e-5, uplink equal; on the card the split encode
+    entries launch once a leaf and worker, the fused one never."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import uniform_plan
+    from repro_torch.models.model import init_params
+    cfg = get_config("tinyllama-1.1b", smoke=True)
+    cfg = dataclasses.replace(cfg, n_layers=2,
+                              layer_plan=uniform_plan(2, *cfg.layer_plan[0]))
+    params = init_params(cfg, random.key(0, cuda), torch.float32)
+    n_leaves = len(tree_leaves(params))
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        p = tree_map(lambda t: t.to(dev), params)
+        d_ops.reset_launches()
+        runs[dev.type] = train_launch.train(
+            cfg, p, train_launch.token_batches(cfg, 8, 32, dev), 2,
+            flecs=True, workers=4)
+        if dev.type == "cuda":
+            n = 2 * 4 * n_leaves
+            assert d_ops.launches == {"dither_encode": 0,
+                                      "dither_encode_keyed": 0,
+                                      "dither_absmax": n,
+                                      "dither_levels_keyed": n,
+                                      "dither_decode": n}
+    for a, b in zip(runs["cuda"]["metrics"], runs["cpu"]["metrics"]):
+        assert abs(a["loss"] - b["loss"]) <= 1e-5 * abs(b["loss"])
+        assert a["uplink_mbits"] == b["uplink_mbits"]
 
 
 def test_dual_remat_gives_torch_checkpoints_bits_on_the_card(cuda,

@@ -137,17 +137,12 @@ back to the CPU):
    bit, and each method under ``plan_drift.verdict`` (F logged only for
    FedNL, and for a run that diverges on the CPU too); a cutoff of 0 at
    tau 0 is the synchronous plan on the card bit for bit, at tau 2 it
-   leaves w and every ledger at zero.  At gisette width, 10 rounds a run
-   as phase 4b takes them: async FLECS-CGD over taus {0,
-   2, 4} × buffer_k 5 (G = 3), and each method of the diurnal traffic plan
-   at tau 2 (FedNL's linalg_eigh of 5000 × 5000 apart; FLECS's are m × m):
-   ms, kernels and busy ms a round, peak memory, bits a round, and for
-   DIANA and GD the routing's share (``traffic.route_round``: its host
-   ms, its host read's copy and synchronize, its kernels).  Only the
-   grouped compressor entries launch.  The CPU side of every comparison
-   (and the grid's ulp envelope, a run a job) runs in seven spawned
-   worker processes after the gisette cells are timed, while the card
-   runs its own side.
+   leaves w and every ledger at zero.  Only the grouped compressor
+   entries launch.  The CPU side of every comparison (and the grid's ulp
+   envelope, a run a job) runs in seven spawned worker processes while
+   the card runs its own side.  The gisette cells (async FLECS-CGD G = 3
+   and the diurnal traffic plan at d = 5000, ``phase_async_gisette``)
+   were cut to make room for phase 12.
 3e. Hierarchy, cohort and sharding.  With the host quiet: gisette width
    (d = 5000, n = 20, r = 300, m = 4) with an edge tier of 4 aggregators
    over a [3] grid of edge specs (identity, dither64, count_sketch64), and
@@ -272,7 +267,27 @@ back to the CPU):
    FedSONIA, norm pass, norm all-reduce, levels pass, level sum,
    decode), peak memory.  (a)'s CPU side runs while the card runs (d),
    (b) and (c).
-12. Print the kernels line (eighteen kernels: the ten of slices 1–6, the
+12. The other model families through ``launch/serve.py``: (a) at smoke
+   width, card against this machine's CPU fed the card's tokens (mamba2,
+   recurrentgemma, deepseek-v3, qwen3-moe, llava with image embeds,
+   musicgen's 4 codebooks, gemma2 at head dim 256): logits within 1e-4 ·
+   max |logits|, greedy ids and every MoE layer's routing ids equal where
+   the margin is clear, one flash launch an attention layer; (b) at full
+   width (``FAMILY_FULL``: mamba2-1.3b's 48 layers and musicgen-large's
+   48 in float32 at 8 x 1024; recurrentgemma-9b's first 3 layers at 4 x
+   3072, past its 2048 window; gemma2-9b's first 2; llava's first 2 at 4
+   x 3072 with 2304 image embeds; deepseek-v3's first 4 (3 dense MLA, 1
+   MoE of 256 experts) and qwen3-moe's first 2 in bfloat16 at 8 x 1024):
+   weights from seed 0 (init seconds), 2 warm-up steps, then the prefill
+   and greedy steps with the flash counter set to 0 just before and read
+   just after (one launch an attention layer), prefill and decode ms, peak
+   memory, row 0's ids, and one more prefill split by module (the SSD, the
+   RG-LRU scan, the MoE dispatch, flash; synchronized); deepseek's MoE
+   layer on 4 tokens against the plain gather formula.  Phase 2 holds the
+   flash forward's new instances ((256, 256), MLA's (192, 128); float32
+   and bf16) against their plain version at the families' shapes
+   (``FAMILY_FLASH_SHAPES``) and ragged lengths, and times them.
+13. Print the kernels line (eighteen kernels: the ten of slices 1–6, the
    four grouped entries, whose launches add phase 3e's, the two tangent
    kernels and the keyed encode's two split entries), then the device
    line as the last line.
@@ -2511,9 +2526,11 @@ def route_cost(run_n) -> dict:
 
 
 def phase_async_gisette(ops, counts) -> dict:
-    """Phase 3d (d): gisette width, 10 rounds a run: async FLECS-CGD over
-    taus {0, 2, 4} × buffer_k 5 (G = 3), and each method of the diurnal
-    traffic plan at tau 2 (FedNL's linalg_eigh apart)."""
+    """Gisette width, 10 rounds a run: async FLECS-CGD over taus {0, 2, 4}
+    × buffer_k 5 (G = 3), and each method of the diurnal traffic plan at
+    tau 2 (FedNL's linalg_eigh apart).  Phase 3d (d) until it was cut to
+    make room for phase 12; call it from a script of its own (with the
+    host quiet: its rounds are host-bound)."""
     import dataclasses
     import numpy as np
     import torch
@@ -2600,11 +2617,12 @@ def phase_async_gisette(ops, counts) -> dict:
 
 
 def phase_async(ops, counts) -> dict:
-    """Phase 3d: the async engine and its traffic model.  The gisette
-    cells are timed first, with the host quiet (their rounds are
-    host-bound); then the CPU side of every card-against-CPU comparison
-    runs in worker processes while the card runs its own side (whose
-    times are logged, not measured: the host is shared)."""
+    """Phase 3d: the async engine and its traffic model.  The CPU side of
+    every card-against-CPU comparison runs in worker processes while the
+    card runs its own side (whose times are logged, not measured: the
+    host is shared).  The gisette cells (``phase_async_gisette``, ~50-106
+    s) were cut from the script to make room for phase 12; a script of
+    its own still runs them."""
     from repro_torch import experiments
     # the longest runs first; the card's side takes the shortest first
     jobs = ([("grid",)] + envelope_jobs("async", ASYNC_ITERS, ASYNC_SIZE)
@@ -2612,9 +2630,6 @@ def phase_async(ops, counts) -> dict:
             + [("legacy", m, k) for m in experiments.LEGACY_METHODS
                for k in ("fixed", "uniform", "geometric")])
     out, seconds = {}, {}
-    t0 = time.perf_counter()
-    out["gisette"] = phase_async_gisette(ops, counts)
-    seconds["gisette"] = time.perf_counter() - t0
     with cpu_pool() as pool:
         cpu = {job: pool.submit(cpu_job, job) for job in jobs}
         for name, fn in (("legacy", phase_async_legacy),
@@ -4859,6 +4874,366 @@ def phase_flecs_workers(train, dl_flecs, fa_ops, d_ops, ops, tree):
                 nccl=nccl, n4_m0=m0, n2_m2=m2)
 
 
+# ---------------------------------------------------------------------------
+# Slice 15: the other model families (MLA, MoE, SSD, RG-LRU, VLM, audio)
+# ---------------------------------------------------------------------------
+
+#: The flash forward's instances at the families' shapes: B, H, KV, S, Dk,
+#: Dv, window, cap; gemma2-9b's local layer (window 4096, cap 50),
+#: recurrentgemma-9b's (KV 1, window 2048, past it at S = 3072) and
+#: deepseek-v3's MLA (192 / 128), then ragged lengths of each pair.
+FAMILY_FLASH_SHAPES = [(8, 16, 8, 1024, 256, 256, 4096, 50.0),
+                       (4, 16, 1, 3072, 256, 256, 2048, 0.0),
+                       (8, 128, 128, 1024, 192, 128, 0, 0.0)]
+FAMILY_FLASH_RAGGED = [(2, 4, 2, 200, 256, 256, 0, 50.0),
+                       (1, 4, 1, 300, 256, 256, 70, 0.0),
+                       (2, 4, 4, 200, 192, 128, 0, 0.0)]
+#: Phase 12 (a): the families at smoke width, card against CPU; gemma2 at
+#: the (256, 256) pair.  (arch, config overrides).
+FAMILY_SMOKE = (("mamba2-1.3b", {}), ("recurrentgemma-9b", {}),
+                ("deepseek-v3-671b", {}), ("qwen3-moe-235b-a22b", {}),
+                ("llava-next-mistral-7b", {}), ("musicgen-large", {}),
+                ("gemma2-9b", {"head_dim": 256}))
+#: Phase 12 (b): full width, the depth cut where the card or the time limit
+#: forces one: (arch, layers (0: all), dtype, batch, prompt, decode steps).
+FAMILY_FULL = (("mamba2-1.3b", 0, "float32", 8, 1024, 32),
+               ("recurrentgemma-9b", 3, "float32", 4, 3072, 32),
+               ("gemma2-9b", 2, "float32", 8, 1024, 32),
+               ("deepseek-v3-671b", 4, "bfloat16", 8, 1024, 16),
+               ("qwen3-moe-235b-a22b", 2, "bfloat16", 8, 1024, 16),
+               ("llava-next-mistral-7b", 2, "float32", 4, 3072, 16),
+               ("musicgen-large", 0, "float32", 8, 1024, 32))
+
+
+def flash_pair_inputs(shape, dtype, dev, seed=0):
+    """q, k, v of a (Dk, Dv) shape, drawn on the card (a CPU draw of
+    MLA's 200 M-element q takes seconds)."""
+    import torch
+    B, H, KV, S, Dk, Dv, _, _ = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(s, generator=g, device=dev).to(dtype)
+            for s in ((B, H, S, Dk), (B, KV, S, Dk), (B, KV, S, Dv))]
+
+
+def live_pairs(S: int, window: int) -> int:
+    """(query, key) pairs the causal mask, and the window, leave."""
+    if not window or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def phase_flash_families(dev, fa_ops, fa_ref):
+    """Phase 2, the flash forward's new instances: (256, 256) and MLA's
+    (192, 128), float32 (3xTF32) and bfloat16, against the plain version
+    on the card on the same inputs (rtol = atol = 2e-5 / 2e-2, row 7's),
+    bitwise over two runs, at the families' shapes and ragged lengths;
+    then each family shape timed by CUDA events beside the plain version
+    and SDPA, with its bound (the live pairs' products as 3xTF32 or bf16,
+    against q, k, v and the output read or written once)."""
+    import torch
+    import torch.nn.functional as F
+    res = []
+    for shape in FAMILY_FLASH_SHAPES + FAMILY_FLASH_RAGGED:
+        B, H, KV, S, Dk, Dv, window, cap = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = flash_pair_inputs(shape, dtype, dev)
+            got = fa_ops.flash_attention(q, k, v, window, cap)
+            again = fa_ops.flash_attention(q, k, v, window, cap)
+            torch.cuda.synchronize()
+            check(same_bits(got, again), f"flash_attention differs between "
+                  f"two runs at {shape} {dtype}")
+            want = fa_ref.attention_ref(q, k, v, window, cap)
+            check(got.dtype == dtype and got.shape == (B, H, S, Dv),
+                  f"flash_attention returned {got.dtype} {tuple(got.shape)}")
+            tol = 2e-5 if dtype == torch.float32 else 2e-2
+            gf, wf = got.float(), want.float()
+            e = max_abs_err(gf, wf)
+            check(bool(((gf - wf).abs() <= tol + tol * wf.abs()).all()),
+                  f"flash_attention differs from its plain version at "
+                  f"{shape} {dtype}: max |Δ| {e!r} beyond rtol=atol={tol}")
+            name = str(dtype).replace("torch.", "")
+            r = dict(shape=list(shape), dtype=name, max_abs_err=e)
+            del got, again, want, gf, wf
+            if shape in FAMILY_FLASH_SHAPES:
+                r["ms"] = cuda_ms(lambda: fa_ops.flash_attention(
+                    q, k, v, window, cap), 10)
+                r["plain_ms"] = cuda_ms(lambda: fa_ref.attention_ref(
+                    q, k, v, window, cap), 3)
+                if cap:
+                    r["library_ms"] = None      # SDPA has no soft-cap
+                else:
+                    mask = None
+                    if window and window < S:
+                        i = torch.arange(S, device=dev)
+                        mask = ((i[:, None] >= i[None, :])
+                                & (i[:, None] - i[None, :] < window))
+                    try:
+                        r["library_ms"] = cuda_ms(
+                            lambda: F.scaled_dot_product_attention(
+                                q, k, v, attn_mask=mask,
+                                is_causal=mask is None, enable_gqa=True), 10)
+                    except (TypeError, RuntimeError) as exc:
+                        log(f"timing: scaled_dot_product_attention at "
+                            f"{shape} {name} unavailable: {exc}")
+                        r["library_ms"] = None
+                ops = 2 * B * H * live_pairs(S, window) * (Dk + Dv)
+                nbytes = q.element_size() * (B * H * S * (Dk + Dv)
+                                              + B * KV * S * (Dk + Dv))
+                tensor_ops, rate = ((3 * ops, TF32_OPS_PER_S)
+                                    if dtype == torch.float32
+                                    else (ops, BF16_OPS_PER_S))
+                t_ops = 1e3 * tensor_ops / rate
+                t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+                r.update(bound_ms=max(t_ops, t_bytes),
+                         bound_by="operations" if t_ops >= t_bytes
+                         else "bytes", ops=ops, bytes=nbytes)
+                log(f"timing flash_attention {shape} {name}: {r['ms']!r} ms "
+                    f"(plain {r['plain_ms']!r} ms, SDPA {r['library_ms']!r} "
+                    f"ms; bound {r['bound_ms']!r} ms by {r['bound_by']})")
+            log(f"phase 2: flash_attention {shape} {name}: max |Δ| {e!r}; "
+                f"bitwise equal over two runs")
+            res.append(r)
+            del q, k, v
+            torch.cuda.empty_cache()
+    return res
+
+
+def _attention_layers(cfg) -> int:
+    return sum(m in ("attn_global", "attn_local", "attn_mla")
+               for m, _ in cfg.layer_plan)
+
+
+class RouteRecorder:
+    """Records every MoE layer's routing ids (``models/moe.route``) while
+    it is entered: (ids, the top k + 1 probabilities) a layer call."""
+
+    def __init__(self, moe):
+        self.moe, self.calls = moe, []
+
+    def __enter__(self):
+        import torch
+        route = self.route = self.moe.route
+
+        def recording(params, x, cfg):
+            w, ids, aux = route(params, x, cfg)
+            probs = torch.softmax(x.float() @ params["router"], -1)
+            top = probs.topk(cfg.moe.top_k + 1, dim=-1).values
+            self.calls.append((ids.cpu(), top.cpu()))
+            return w, ids, aux
+
+        self.moe.route = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+
+
+def family_smoke(serve, moe, arch, overrides):
+    """One family at smoke width (``overrides`` replace config fields):
+    the card's prefill and 8 greedy steps against the CPU's fed the card's
+    tokens, from the same weights; logits within 1e-4 · max |logits|, ids
+    and every MoE layer's routing equal where the margin is clear."""
+    import dataclasses
+    import torch
+    from repro_torch import random
+    from repro_torch.models.model import init_params
+    cfg, params, tokens = serve.setup(arch, smoke=True, batch=2,
+                                      prompt_len=40, device="cuda")
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+        params = init_params(cfg, random.key(0, "cuda"), torch.float32)
+    img = serve.image_embeds(cfg, 2, 40, "cuda")
+    with RouteRecorder(moe) as card_routes:
+        card = serve.generate(cfg, params, tokens, gen=8, image_embeds=img)
+    with RouteRecorder(moe) as cpu_routes:
+        cpu = serve.generate(cfg, to_cpu(params), tokens.cpu(), gen=8,
+                             feed=card["generated"].cpu(),
+                             image_embeds=None if img is None else img.cpu())
+    got, want = card["logits"].cpu(), cpu["logits"]
+    bound = 1e-4 * float(want.abs().max())
+    err = float((got - want).abs().max())
+    check(bool(torch.isfinite(got).all()), f"{arch} smoke: logits not finite")
+    check(err <= bound, f"{arch} smoke: card logits {err!r} from the CPU's, "
+          f"beyond 1e-4 · max |logits| = {bound!r}")
+    top2 = want.topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > 2 * bound
+    check(bool((got.argmax(-1) == want.argmax(-1))[sure].all()),
+          f"{arch} smoke: greedy ids differ where the margin is clear")
+    check(card["prefill_flash_launches"] == _attention_layers(cfg),
+          f"{arch} smoke: {card['prefill_flash_launches']} flash launches "
+          f"in the prefill, expected {_attention_layers(cfg)}")
+    routed = clear = 0
+    check(len(card_routes.calls) == len(cpu_routes.calls),
+          f"{arch} smoke: {len(card_routes.calls)} MoE calls on the card, "
+          f"{len(cpu_routes.calls)} on the CPU")
+    for (ids_a, top), (ids_b, _) in zip(card_routes.calls, cpu_routes.calls):
+        ok = ((top[:, :-1] - top[:, 1:]) > 1e-5).all(-1)
+        check(bool((ids_a == ids_b)[ok].all()), f"{arch} smoke: routing "
+              f"ids differ where the probabilities part by more than 1e-5")
+        routed += ok.numel()
+        clear += int(ok.sum())
+    log(f"phase 12: {cfg.arch_id} (smoke{', ' + str(overrides) if overrides else ''}), "
+        f"prompt 40, 8 steps, card against CPU: logits max |Δ| {err!r} "
+        f"(bound {bound!r}); greedy ids equal at the {int(sure.sum())} of "
+        f"{sure.numel()} positions with a clear margin; routing ids equal "
+        f"at the {clear} of {routed} token routings with a clear margin; "
+        f"flash launches "
+        f"{card['prefill_flash_launches']}")
+    del params
+    torch.cuda.empty_cache()
+    return dict(max_abs_logit_diff=err, bound=bound,
+                clear_positions=int(sure.sum()), routed_clear=clear)
+
+
+class Split:
+    """Adds each wrapped function's synchronized wall time (ms) under its
+    name while entered: where a prefill's time goes by module."""
+
+    def __init__(self, targets):
+        self.targets, self.ms, self.saved = targets, {}, []
+
+    def __enter__(self):
+        import torch
+        for module, attr, label in self.targets:
+            fn = getattr(module, attr)
+            self.saved.append((module, attr, fn))
+
+            def timed(*a, _fn=fn, _label=label, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _fn(*a, **kw)
+                torch.cuda.synchronize()
+                self.ms[_label] = (self.ms.get(_label, 0.0)
+                                   + 1e3 * (time.perf_counter() - t0))
+                return out
+
+            setattr(module, attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for module, attr, fn in reversed(self.saved):
+            setattr(module, attr, fn)
+
+
+def family_full(serve, fa_ops, moe, arch, layers, dtype_name, B, S, gen):
+    """One family at full width: weights from seed 0 (timed), 2 warm-up
+    steps, then the prefill and ``gen`` greedy steps with the flash
+    counter set to 0 just before and read just after; then one more
+    prefill split by module (``Split``: the SSD, the RG-LRU scan, the MoE
+    dispatch, the attention mixers; a synchronize around each call)."""
+    import torch
+    from repro_torch.models import rglru as rglru_mod
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.train.step import make_prefill_step
+    from repro_torch.tree import tree_leaves
+    dtype = serve.DTYPES[dtype_name]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cfg, params, tokens = serve.setup(arch, smoke=False, batch=B,
+                                      prompt_len=S, device="cuda",
+                                      n_layers=layers, dtype=dtype)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    img = serve.image_embeds(cfg, B, S, "cuda")
+    serve.generate(cfg, params, tokens, gen=2, image_embeds=img)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa_ops.reset_launches()
+    out = serve.generate(cfg, params, tokens, gen=gen, image_embeds=img)
+    launches = fa_ops.launches["flash_attention"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_attn = _attention_layers(cfg)
+    check(out["prefill_flash_launches"] == n_attn == launches,
+          f"{arch} full width: flash_attention launched {launches} times "
+          f"({out['prefill_flash_launches']} in the prefill), expected "
+          f"{n_attn}")
+    check(bool(torch.isfinite(out["logits"]).all()),
+          f"{arch} full width: logits not finite")
+    # attention and MLA reach the kernel through the one ``ops.attention``
+    targets = [(ssm_mod, "ssd_scan", "ssd_scan"),
+               (rglru_mod, "linear_scan", "rglru scan"),
+               (moe, "moe_forward", "moe dispatch"),
+               (fa_ops, "attention", "flash forward")]
+    batch = {"tokens": tokens}
+    if img is not None:
+        batch["image_embeds"] = img
+    step = make_prefill_step(cfg, max_len=S + gen)
+    with Split(targets) as split:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step(params, batch)
+        torch.cuda.synchronize()
+        split_ms = 1e3 * (time.perf_counter() - t1)
+    ids = out["generated"][0, :8].tolist()
+    res = dict(arch=cfg.arch_id, layers=cfg.n_layers, dtype=dtype_name,
+               batch=B, prompt=S, steps=gen, params=n_params,
+               init_s=init_s, prefill_ms=out["prefill_ms"],
+               decode_ms=out["decode_ms"], tokens_per_s=out["tokens_per_s"],
+               peak_gib=peak, flash_launches=launches,
+               split_prefill_ms=split_ms, split=split.ms, row0_ids=ids)
+    log(f"phase 12: {cfg.arch_id} x{cfg.n_layers} {dtype_name}, "
+        f"{n_params / 1e9:.3f} B params, batch {B} x {S}"
+        f"{' with ' + str(img.shape[1]) + ' image embeds' if img is not None else ''}"
+        f", {gen} steps: init {init_s!r} s, prefill {out['prefill_ms']!r} "
+        f"ms, decode {out['decode_ms']!r} ms/step, peak {peak!r} GiB; "
+        f"flash launches {launches} (attention layers {n_attn}); split "
+        f"prefill {split_ms!r} ms: {split.ms}; row 0 ids {ids}")
+    return cfg, params, res
+
+
+def deepseek_moe_layer(moe, cfg, params):
+    """deepseek-v3's first MoE layer at full width: its dispatch (the main
+    path's function) against the plain gather formula on the card, on 4
+    tokens, bf16: max |Δ| <= 2e-2 · max |out|."""
+    import torch
+    gi = next(i for i, (plan, _) in enumerate(cfg.layer_groups())
+              if plan[0][1] == "moe")
+    p = {k: (v[0] if not isinstance(v, dict) else v)
+         for k, v in params["blocks"][gi][0]["moe"].items()
+         if k != "shared"}
+    g = torch.Generator(device="cpu").manual_seed(3)
+    x = torch.randn((1, 4, cfg.d_model), generator=g).to("cuda",
+                                                          torch.bfloat16)
+    got, aux = moe.moe_forward(p, x, cfg)
+    want, want_aux = moe.moe_ref(p, x, cfg)
+    e = max_abs_err(got.float(), want.float())
+    bound = 2e-2 * float(want.float().abs().max())
+    check(e <= bound and torch.equal(aux, want_aux),
+          f"deepseek MoE layer: dispatch {e!r} from the gather formula "
+          f"(bound {bound!r}) or router loss {float(aux)!r} against "
+          f"{float(want_aux)!r}")
+    log(f"phase 12: deepseek-v3 MoE layer (256 experts, top 8), 4 tokens, "
+        f"bf16: sorted dispatch against the gather formula max |Δ| {e!r} "
+        f"(bound {bound!r}); router loss equal")
+    return dict(max_abs_err=e, bound=bound)
+
+
+def phase_families(serve, fa_ops):
+    """Phase 12: the other model families through ``launch/serve.py``:
+    (a) each at smoke width, card against CPU; (b) each at full width
+    (FAMILY_FULL), memory freed between models; deepseek's MoE layer
+    against the gather formula."""
+    import gc
+    import torch
+    from repro_torch.models import moe
+    out = {"smoke": {}, "full": {}}
+    for arch, overrides in FAMILY_SMOKE:
+        label = arch + ("@" + ",".join(f"{k}={v}" for k, v in
+                                       overrides.items()) if overrides else "")
+        out["smoke"][label] = family_smoke(serve, moe, arch, overrides)
+    for arch, layers, dtype, B, S, gen in FAMILY_FULL:
+        cfg, params, r = family_full(serve, fa_ops, moe, arch, layers, dtype,
+                                     B, S, gen)
+        if cfg.moe is not None and cfg.is_mla:
+            r["moe_layer"] = deepseek_moe_layer(moe, cfg, params)
+        out["full"][arch] = r
+        del params
+        gc.collect()           # a model's weights must not reach the next
+        torch.cuda.empty_cache()
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4910,6 +5285,7 @@ def main():
     grouped_err = phase_grouped_kernels(dev, ops, ref, random, compressors)
     phase_row_ids(dev, ops, ref, random, driver, grouped_err)
     flash_err = phase_flash_kernel(dev, fa_ops, fa_ref)
+    fam_flash = phase_flash_families(dev, fa_ops, fa_ref)
     dither_err = phase_dither_kernels(dev, d_ops, d_ref, random)
     bwd_err, bwd_rel = phase_flash_backward(dev, fa_ops, fa_ref)
     elapsed("phase 2")
@@ -4970,6 +5346,8 @@ def main():
     elapsed("phase 10")
     workers = phase_flecs_workers(train, dl_flecs, fa_ops, d_ops, ops, tree)
     elapsed("phase 11")
+    families = phase_families(serve, fa_ops)
+    elapsed("phase 12")
     prof = phase_profile(quickstart)
     elapsed("phase 7's profile")
     timing = phase_timing(dev, ops, ref, random, library=built[0])
@@ -5072,16 +5450,23 @@ def main():
     by_path = {"serve prefill": full["launches"],
                "train adam x5": trained["adam"]["launches"],
                "train flecs x5": trained["flecs"]["launches"], **m2_paths}
+    family_paths = {f"serve {r['arch']} x{r['layers']} prefill":
+                    r["flash_launches"]
+                    for r in families["full"].values()}
+    for r in fam_flash:
+        flash_err[r["dtype"]] = max(flash_err[r["dtype"]], r["max_abs_err"])
     kernels.append({
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES,
         "launches": full["launches"]
         + trained["adam"]["launches"]["flash_attention"]
         + trained["flecs"]["launches"]["flash_attention"]
-        + m2_launches["flash_attention"],
-        "launches_by_path": {k: (v if isinstance(v, int)
-                                 else v["flash_attention"])
-                             for k, v in by_path.items()},
+        + m2_launches["flash_attention"] + sum(family_paths.values()),
+        "launches_by_path": {**{k: (v if isinstance(v, int)
+                                    else v["flash_attention"])
+                                for k, v in by_path.items()},
+                             **family_paths},
+        "instances": fam_flash,
         "max_abs_err": max(flash_err.values()), "ms": flash["float32"]["ms"],
         "plain_ms": flash["float32"]["plain_ms"],
         "bound_ms": flash["float32"]["bound_ms"],
@@ -5153,6 +5538,7 @@ def main():
     log(json.dumps({"flecs_m2": {k: v for k, v in m2.items()
                                  if k != "timing"}}))
     log(json.dumps({"flecs_workers": workers}))
+    log(json.dumps({"families": families}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -53,6 +53,15 @@
 //     two CTAs an SM.
 //   * bfloat16: m16n8k16, P rounded to bf16 as the A operand (as FA2 does);
 //     the row sums l are taken from the float32 P.
+//   * Head dims: the kernel is a template on Q's and K's head dim DK and
+//     V's and O's DV (the scale stays 1/sqrt(DK)), built for (32, 32),
+//     (64, 64), (128, 128), (256, 256) (gemma2, recurrentgemma) and MLA's
+//     (192, 128) (deepseek-v3: qk_nope 128 + qk_rope 64 against
+//     v_head_dim 128, V never padded to 192).  From max(DK, DV) = 128 on,
+//     32-key tiles; at DV = 256 the P V pass sums 64 output columns apart
+//     at a time (fwd_pv_tiles), so O's 128 float32 accumulators a thread
+//     leave room for the pass's own; at DK = 256 in float32 Q, K and V
+//     take 195 KB of shared memory, one CTA an SM.
 // The optional float32 log-sum-exp output m + log(l) ([B, H, S]) feeds the
 // backward; given a null pointer the forward writes nothing else.
 //
@@ -187,38 +196,51 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
 
 constexpr int FWD_BQ = 64;     // query rows per CTA
 
-// keys a KV tile
-template <int D>
+// keys a KV tile: Q's and K's head dim DK, V's and O's DV
+template <int DK, int DV>
 __host__ __device__ constexpr int fwd_bk() {
-  return D <= 64 ? REPRO_FWD_BK : 32;
+  return (DK > DV ? DK : DV) <= 64 ? REPRO_FWD_BK : 32;
 }
 
 // Q's A fragments held in registers across the KV loop
-template <typename T, int D>
+template <typename T, int DK>
 __host__ __device__ constexpr bool fwd_q_regs() {
-  return sizeof(T) == 2 || D <= 64;
+  return sizeof(T) == 2 ? DK <= 128 : DK <= 64;
 }
 
-template <typename T, int D>
+// n-tiles of O a P V pass sums apart before adding them to O: all of them
+// up to DV = 128; at DV = 256 eight (64 columns) at a time, so the pass's
+// own accumulators take 32 registers a thread beside O's 128.  Each output
+// column sees the same products in the same order either way.
+template <int DV>
+__host__ __device__ constexpr int fwd_pv_tiles() {
+  return DV <= 128 ? DV / 8 : 8;
+}
+
+template <typename T, int DK, int DV>
 constexpr size_t fwd_smem_bytes() {
   // Q; K and V twice
-  return (size_t)(FWD_BQ + 4 * fwd_bk<D>()) * row_ld<T, D>() * sizeof(T);
+  constexpr int BK = fwd_bk<DK, DV>();
+  return ((size_t)(FWD_BQ + 2 * BK) * row_ld<T, DK>()
+          + (size_t)2 * BK * row_ld<T, DV>()) * sizeof(T);
 }
 
-template <typename T, int D>
+template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(TC_THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int H, int KV, int S, int window,
                  float cap, float scale, Strides st) {
   using O = Tc<T>;
-  constexpr int BQ = FWD_BQ, BK = fwd_bk<D>(), LD = row_ld<T, D>();
-  constexpr int NK = BK / 8, ND = D / 8, NS = D / O::KS;
-  constexpr bool QREG = fwd_q_regs<T, D>();
+  constexpr int BQ = FWD_BQ, BK = fwd_bk<DK, DV>();
+  constexpr int LDK = row_ld<T, DK>(), LDV = row_ld<T, DV>();
+  constexpr int NK = BK / 8, ND = DV / 8, NS = DK / O::KS;
+  constexpr int NC = fwd_pv_tiles<DV>();
+  constexpr bool QREG = fwd_q_regs<T, DK>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Qs = reinterpret_cast<T*>(smem_raw);   // [BQ][LD]
-  T* Ks = Qs + BQ * LD;                     // [2][BK][LD]
-  T* Vs = Ks + 2 * BK * LD;                 // [2][BK][LD]
+  T* Qs = reinterpret_cast<T*>(smem_raw);   // [BQ][LDK]
+  T* Ks = Qs + BQ * LDK;                    // [2][BK][LDK]
+  T* Vs = Ks + 2 * BK * LDK;                // [2][BK][LDV]
 
   const int nq = (S + BQ - 1) / BQ;
   const int nb = gridDim.x / (nq * H);                       // batch size
@@ -237,10 +259,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int j_hi = q_hi / BK;
   auto stage = [&](int jt) {
     const int buf = (jt - j_lo) & 1;
-    stage_rows<T, D, BK>(Ks + buf * BK * LD, kb, st.k[2], jt * BK, S);
-    stage_rows<T, D, BK>(Vs + buf * BK * LD, vb, st.v[2], jt * BK, S);
+    stage_rows<T, DK, BK>(Ks + buf * BK * LDK, kb, st.k[2], jt * BK, S);
+    stage_rows<T, DV, BK>(Vs + buf * BK * LDV, vb, st.v[2], jt * BK, S);
   };
-  stage_rows<T, D, BQ>(Qs, q + b * st.q[0] + h * st.q[1], st.q[2], q_lo, S);
+  stage_rows<T, DK, BQ>(Qs, q + b * st.q[0] + h * st.q[1], st.q[2], q_lo,
+                        S);
   stage(j_lo);
   cp_async_commit();
 
@@ -256,13 +279,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     cp_async_wait_one();   // this step's tiles (and Q) have landed
     __syncthreads();
     const int buf = (jt - j_lo) & 1, k_lo = jt * BK;
-    const T* Kb = Ks + buf * BK * LD;
-    const T* Vb = Vs + buf * BK * LD;
+    const T* Kb = Ks + buf * BK * LDK;
+    const T* Vb = Vs + buf * BK * LDV;
     if constexpr (QREG) {
       if (jt == j_lo) {
 #pragma unroll
         for (int i = 0; i < NS; ++i)
-          qf[i] = O::load_a(Qs, LD, m, i * O::KS, g, t);
+          qf[i] = O::load_a(Qs, LDK, m, i * O::KS, g, t);
       }
     }
 
@@ -272,10 +295,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < NS; ++i) {
       typename O::A a;
       if constexpr (QREG) a = qf[i];
-      else a = O::load_a(Qs, LD, m, i * O::KS, g, t);
+      else a = O::load_a(Qs, LDK, m, i * O::KS, g, t);
 #pragma unroll
       for (int j = 0; j < NK; ++j)
-        O::mma(s[j], a, O::load_b_nk(Kb, LD, 8 * j, i * O::KS, g, t));
+        O::mma(s[j], a, O::load_b_nk(Kb, LDK, 8 * j, i * O::KS, g, t));
     }
 
     // scale, cap, mask (only where the warp's 16 rows do not see the whole
@@ -323,31 +346,38 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       l_r[r] = l_r[r] * corr[r] + sum[r];
     }
 
-    // O = O * corr + P V, the tile's P V summed apart
+    // O = O * corr + P V, the tile's P V summed apart, NC n-tiles a pass
 #pragma unroll
     for (int j = 0; j < ND; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[j][e] *= corr[e >> 1];
-    float part[ND][4];
-    zero(part);
 #pragma unroll
-    for (int i = 0; i < BK; i += O::KS) {
-      const typename O::A a = O::a_from_acc(s, i / O::KS);
-      if constexpr (sizeof(T) == 2) {       // two n-tiles an ldmatrix
+    for (int jc = 0; jc < ND; jc += NC) {
+      float part[NC][4];
+      zero(part);
 #pragma unroll
-        for (int j = 0; j < ND; j += 2) {
-          typename O::B b0, b1;
-          O::load_b_kn2(Vb, LD, i, 8 * j, lane, b0, b1);
-          O::mma(part[j], a, b0);
-          O::mma(part[j + 1], a, b1);
+      for (int i = 0; i < BK; i += O::KS) {
+        const typename O::A a = O::a_from_acc(s, i / O::KS);
+        if constexpr (sizeof(T) == 2) {       // two n-tiles an ldmatrix
+#pragma unroll
+          for (int j = 0; j < NC; j += 2) {
+            typename O::B b0, b1;
+            O::load_b_kn2(Vb, LDV, i, 8 * (jc + j), lane, b0, b1);
+            O::mma(part[j], a, b0);
+            O::mma(part[j + 1], a, b1);
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < NC; ++j)
+            O::mma(part[j], a, O::load_b_kn(Vb, LDV, i, 8 * (jc + j), g,
+                                            t));
         }
-      } else {
-#pragma unroll
-        for (int j = 0; j < ND; ++j)
-          O::mma(part[j], a, O::load_b_kn(Vb, LD, i, 8 * j, g, t));
       }
+#pragma unroll
+      for (int j = 0; j < NC; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[jc + j][e] += part[j][e];
     }
-    add_to(acc, part);
     __syncthreads();   // every warp is done with this buffer: it refills
   }
 
@@ -374,17 +404,17 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <typename T, int DK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, int B, int H, int KV, int S, int window,
                    float cap, const Strides& st, cudaStream_t stream) {
-  const size_t bytes = fwd_smem_bytes<T, D>();
-  auto kernel = flash_fwd_kernel<T, D>;
+  const size_t bytes = fwd_smem_bytes<T, DK, DV>();
+  auto kernel = flash_fwd_kernel<T, DK, DV>;
   // above 48 KB of shared memory a launch is refused unless allowed more
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
-  const float scale = (float)(1.0 / sqrt((double)D));
+  const float scale = (float)(1.0 / sqrt((double)DK));
   const unsigned ctas = (S + FWD_BQ - 1) / FWD_BQ * H * B;
   kernel<<<ctas, TC_THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -393,24 +423,25 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// The (DK, DV) pairs built: the square ones of the model's heads, and
+// MLA's (qk_nope + qk_rope, v_head_dim) = (192, 128).  ops.FWD_HEAD_DIMS
+// lists the same pairs.
 template <typename T>
-cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
-                     void* o, float* lse, int B, int H, int KV, int S,
-                     int window, float cap, const Strides& st,
+cudaError_t dispatch(int DK, int DV, const void* q, const void* k,
+                     const void* v, void* o, float* lse, int B, int H,
+                     int KV, int S, int window, float cap, const Strides& st,
                      cudaStream_t stream) {
-  switch (D) {
-    case 32:
-      return launch<T, 32>(q, k, v, o, lse, B, H, KV, S, window, cap, st,
-                           stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, lse, B, H, KV, S, window, cap, st,
-                           stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, lse, B, H, KV, S, window, cap, st,
-                            stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+#define REPRO_FWD_CASE(dk, dv)                                             \
+  if (DK == dk && DV == dv)                                                \
+    return launch<T, dk, dv>(q, k, v, o, lse, B, H, KV, S, window, cap, st, \
+                             stream);
+  REPRO_FWD_CASE(32, 32)
+  REPRO_FWD_CASE(64, 64)
+  REPRO_FWD_CASE(128, 128)
+  REPRO_FWD_CASE(256, 256)
+  REPRO_FWD_CASE(192, 128)
+#undef REPRO_FWD_CASE
+  return cudaErrorInvalidValue;
 }
 
 
@@ -1520,14 +1551,15 @@ cudaError_t dispatch_backward(int D, const void* q, const void* k,
 
 extern "C" {
 
-// q, o: [B, H, S, D]; k, v: [B, KV, S, D], addressed through `strides`
+// q: [B, H, S, D]; k: [B, KV, S, D]; v: [B, KV, S, Dv]; o: [B, H, S, Dv],
+// (D, Dv) one of the pairs `dispatch` lists; addressed through `strides`
 // (12 int64: batch, head and sequence strides of q, k, v, o, in elements;
 // the head dimension is contiguous).  dtype 0 = float32, 1 = bfloat16.
 // lse: null, or float32 [B, H, S] (contiguous) for each row's log-sum-exp.
 // Returns the launch's cudaGetLastError() (0 on success).
 int repro_flash_attention(const void* q, const void* k, const void* v,
                           void* o, void* lse, int dtype, int B, int H, int KV,
-                          int S, int D, int window, float cap,
+                          int S, int D, int Dv, int window, float cap,
                           const long long* strides, void* stream) {
   Strides st;
   for (int i = 0; i < 3; ++i) {
@@ -1540,9 +1572,10 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
   float* l = static_cast<float*>(lse);
   cudaError_t err =
       dtype == 0
-          ? dispatch<float>(D, q, k, v, o, l, B, H, KV, S, window, cap, st, s)
-          : dtype == 1 ? dispatch<__nv_bfloat16>(D, q, k, v, o, l, B, H, KV,
-                                                 S, window, cap, st, s)
+          ? dispatch<float>(D, Dv, q, k, v, o, l, B, H, KV, S, window, cap,
+                            st, s)
+          : dtype == 1 ? dispatch<__nv_bfloat16>(D, Dv, q, k, v, o, l, B, H,
+                                                 KV, S, window, cap, st, s)
                        : cudaErrorInvalidValue;
   return (int)err;
 }

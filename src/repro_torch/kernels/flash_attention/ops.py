@@ -4,7 +4,11 @@
 Dispatch is by the tensor's device and nothing else: a CUDA tensor launches
 the kernel of ``csrc/flash_attention.cu`` (or the wrapper raises), a CPU
 tensor takes the plain version in ``ref.py``.  There is no fallback from
-the card to the plain version.  The checks below hold on both devices.
+the card to the plain version.  The checks below hold on both devices,
+but for the head dims: the plain version takes any (Dk, Dv), the card's
+forward the pairs of ``FWD_HEAD_DIMS`` (the value head dim may differ from
+the key's: MLA's (192, 128)), and its backward and tangent kernels
+``HEAD_DIMS`` with Dk == Dv (``check_training_dims``).
 
 Queries sit at key positions 0..S-1, so Sq must equal Sk: the Pallas
 kernel's docstring says queries align to the end of the KV sequence, but
@@ -43,7 +47,10 @@ from repro_torch.kernels.dual import refuse_duals, tangent
 from repro_torch.kernels.flash_attention import ref
 from repro_torch.kernels.flash_attention.build import JVP_LIBRARY, LIBRARY
 
-#: Head dimensions the kernel is built for.
+#: (Dk, Dv) head-dim pairs the forward kernel is built for: q's and k's
+#: head dim, v's and the output's.  The plain version takes any pair.
+FWD_HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (256, 256), (192, 128))
+#: Head dims the backward and tangent kernels are built for (Dk == Dv).
 HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -53,6 +60,9 @@ launches = {"flash_attention": 0, "flash_attention_backward": 0,
 
 #: Where tangents in bfloat16 come from (ROADMAP.md).
 _LATER_BF16_TANGENTS = "ROADMAP.md queue 1, 'bf16 attention tangents'"
+#: Where the backward and tangent kernels at the forward's other head dims
+#: come from (ROADMAP.md).
+_LATER_FAMILY_TRAINING = "ROADMAP.md queue 1, 'family training'"
 
 
 def reset_launches() -> None:
@@ -60,11 +70,33 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
+def check_forward_dims(dk: int, dv: int) -> None:
+    """Raise unless the forward kernel is built for q/k head dim ``dk`` and
+    v head dim ``dv`` (``FWD_HEAD_DIMS``); CUDA operands only."""
+    if (dk, dv) not in FWD_HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dims ({dk}, {dv}) not "
+                         f"built for the card (the forward is built for "
+                         f"(Dk, Dv) in {FWD_HEAD_DIMS})")
+
+
+def check_training_dims(dk: int, dv: int) -> None:
+    """Raise unless the backward and tangent kernels are built for these
+    head dims (``HEAD_DIMS``, Dk == Dv); CUDA operands only: on the CPU the
+    plain version serves every dim."""
+    if dk != dv or dk not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: the backward and tangent "
+                         f"kernels are built for head dims {HEAD_DIMS} with "
+                         f"Dk == Dv, got ({dk}, {dv}); the others come with "
+                         f"{_LATER_FAMILY_TRAINING}")
+
+
 def _check(q, k, v, window, cap) -> None:
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"flash_attention: q [B, H, S, D] and k, v "
-                         f"[B, KV, S, D] required, got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
+            or v.shape[:3] != k.shape[:3]:
+        raise ValueError(f"flash_attention: q [B, H, S, Dk], k [B, KV, S, "
+                         f"Dk] and v [B, KV, S, Dv] required, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
     B, H, Sq, D = q.shape
     _, KV, Sk, Dk = k.shape
     if k.shape[0] != B or Dk != D or KV < 1 or H % KV:
@@ -73,9 +105,6 @@ def _check(q, k, v, window, cap) -> None:
     if Sq != Sk:
         raise ValueError(f"flash_attention: Sq == Sk required (queries sit "
                          f"at key positions 0..S-1), got {Sq} and {Sk}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {D} not supported "
-                         f"(built for {HEAD_DIMS})")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: float32 or bfloat16 operands of "
                         f"one type required, got {q.dtype}, {k.dtype}, "
@@ -88,6 +117,8 @@ def _check(q, k, v, window, cap) -> None:
     if window < 0 or cap < 0:
         raise ValueError(f"flash_attention: window >= 0 and cap >= 0 "
                          f"required, got {window}, {cap}")
+    if q.device.type == "cuda":
+        check_forward_dims(D, v.shape[-1])
 
 
 def _strides(*tensors):
@@ -118,8 +149,8 @@ def _rows_aligned(t):
 
 def _launch(q, k, v, out, window, cap, lse=None) -> None:
     """The forward kernel on [B, H, S, D] views of any batch/head/sequence
-    strides; writes ``out`` (q's shape and type) and, if given, ``lse``
-    (float32 [B, H, S], contiguous)."""
+    strides (v and ``out`` of head dim Dv); writes ``out`` (q's type) and,
+    if given, ``lse`` (float32 [B, H, S], contiguous)."""
     refuse_duals("flash_attention", q, k, v, out, lse)
     q, k, v = map(_rows_aligned, (q, k, v))
     strides = _strides(q, k, v, out)
@@ -129,7 +160,7 @@ def _launch(q, k, v, out, window, cap, lse=None) -> None:
         rc = LIBRARY.load().repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(), _DTYPES[q.dtype], B, H,
-            k.shape[1], S, D, int(window), float(cap),
+            k.shape[1], S, D, v.shape[-1], int(window), float(cap),
             ctypes.addressof(strides), stream)
     LIBRARY.check("flash_attention", rc)
     launches["flash_attention"] += 1
@@ -141,6 +172,7 @@ def _launch_backward(q, k, v, out, dout, lse, dq, dk, dv, window,
     heads): write dq, dk and dv from the forward's out and lse."""
     refuse_duals("flash_attention_backward", q, k, v, out, dout, lse, dq, dk,
                  dv)
+    check_training_dims(q.shape[-1], v.shape[-1])
     q, k, v, dout = map(_rows_aligned, (q, k, v, dout))
     strides = _strides(q, k, v, out, dout, dq, dk, dv)
     B, H, S, D = q.shape
@@ -163,6 +195,7 @@ def _launch_jvp(q, k, v, out, lse, tq, tk, tv, tout, tlse, window,
     contiguous) from the forward's output ``out`` and its lse."""
     refuse_duals("flash_attention_jvp", q, k, v, out, lse, tq, tk, tv, tout,
                  tlse)
+    check_training_dims(q.shape[-1], v.shape[-1])
     q, k, v, tq, tk, tv = map(_rows_aligned, (q, k, v, tq, tk, tv))
     strides = _strides(q, k, v, out, tq, tk, tv, tout)
     B, H, S, D = q.shape
@@ -184,6 +217,7 @@ def _launch_backward_jvp(q, k, v, out, dout, lse, tq, tk, tv, tout, tdout,
     dk and dv from the forward's out and lse and their tangents."""
     refuse_duals("flash_attention_backward_jvp", q, k, v, out, dout, lse,
                  tq, tk, tv, tout, tdout, tlse, tdq, tdk, tdv)
+    check_training_dims(q.shape[-1], v.shape[-1])
     q, k, v, dout, tq, tk, tv, tdout = map(
         _rows_aligned, (q, k, v, dout, tq, tk, tv, tdout))
     strides = _strides(q, k, v, out, dout, tq, tk, tv, tout, tdout, tdq,
@@ -234,7 +268,8 @@ class FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, window, cap, model_layout):
         given = (q, k, v)
         q, k, v = map(_primal, given)
-        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        out = torch.empty(q.shape[:-1] + v.shape[-1:], dtype=q.dtype,
+                          device=q.device)
         qt = _kernel_layout(q, model_layout)
         lse = torch.empty(qt.shape[:3], dtype=torch.float32, device=q.device)
         _launch(qt, *(_kernel_layout(t, model_layout) for t in (k, v, out)),
@@ -323,29 +358,36 @@ def _needs_grad(*tensors) -> bool:
 
 
 def flash_attention(q, k, v, window: int = 0, cap: float = 0.0):
-    """q: [B, H, S, D]; k/v: [B, KV, S, D] (kernel layout).  Causal GQA
-    attention with an optional sliding window and tanh soft-cap; float32
-    arithmetic, result [B, H, S, D] in q's type."""
+    """q: [B, H, S, Dk]; k: [B, KV, S, Dk]; v: [B, KV, S, Dv] (kernel
+    layout).  Causal GQA attention with an optional sliding window and tanh
+    soft-cap, scaled by 1/sqrt(Dk); float32 arithmetic, result
+    [B, H, S, Dv] in q's type.  On the card (Dk, Dv) is one of
+    ``FWD_HEAD_DIMS``, and with gradients or tangents one of
+    ``HEAD_DIMS``."""
     _check(q, k, v, window, cap)
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, window, cap)
     if _needs_grad(q, k, v):
+        check_training_dims(q.shape[-1], v.shape[-1])
         return FlashAttention.apply(q, k, v, window, cap, False)
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    out = torch.empty(q.shape[:-1] + v.shape[-1:], dtype=q.dtype,
+                      device=q.device)
     _launch(q, k, v, out, window, cap)
     return out
 
 
 def attention(q, k, v, window: int = 0, cap: float = 0.0):
-    """q: [B, S, H, D]; k/v: [B, S, KV, D] (model layout).  The kernel reads
-    and writes the model layout in place through strides: no transposed
-    copy is made on the card."""
+    """q: [B, S, H, Dk]; k: [B, S, KV, Dk]; v: [B, S, KV, Dv] (model
+    layout).  The kernel reads and writes the model layout in place through
+    strides: no transposed copy is made on the card."""
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     _check(qt, kt, vt, window, cap)
     if q.device.type == "cpu":
         return ref.attention_ref(qt, kt, vt, window, cap).transpose(1, 2)
     if _needs_grad(q, k, v):
+        check_training_dims(q.shape[-1], v.shape[-1])
         return FlashAttention.apply(q, k, v, window, cap, True)
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    out = torch.empty(q.shape[:-1] + v.shape[-1:], dtype=q.dtype,
+                      device=q.device)
     _launch(qt, kt, vt, out.transpose(1, 2), window, cap)
     return out

@@ -21,9 +21,10 @@ NEG = -1e30
 
 
 def attention_ref(q, k, v, window: int = 0, cap: float = 0.0):
-    """q: [B, H, S, D]; k/v: [B, KV, S, D] (kernel layout), causal with query
-    i at key position i; optional sliding window and tanh soft-cap.  Float32
-    arithmetic; the result is in q's type."""
+    """q: [B, H, S, Dk]; k: [B, KV, S, Dk]; v: [B, KV, S, Dv] (kernel
+    layout), causal with query i at key position i, scaled by 1/sqrt(Dk);
+    optional sliding window and tanh soft-cap.  Float32 arithmetic; the
+    result [B, H, S, Dv] is in q's type."""
     B, H, Sq, D = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     G = H // KV
@@ -40,7 +41,7 @@ def attention_ref(q, k, v, window: int = 0, cap: float = 0.0):
     s = torch.where(mask, s, NEG)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bksd->bkgqd", p, v.float())
-    return o.reshape(B, H, Sq, D).to(q.dtype)
+    return o.reshape(B, H, Sq, v.shape[-1]).to(q.dtype)
 
 
 def _pairs(q, k, tq, tk, window, cap):

@@ -20,20 +20,20 @@ import torch
 from repro_torch import random
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.ref import NEG
-from repro_torch.models.layers import apply_rope, softcap
+from repro_torch.models.layers import apply_rope, init_normal, softcap
 
 
 def init_attn(key, cfg, dtype):
     """The reference's ``init_attn`` key tree (``split(key, 4)``)."""
     D, H, KV, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     ks = random.split(key, 4)
-    s = np.float32(1.0 / np.sqrt(D))
-    so = np.float32(1.0 / np.sqrt(H * Dh))
+    s = 1.0 / np.sqrt(D)
+    so = 1.0 / np.sqrt(H * Dh)
     return {
-        "wq": (random.normal(ks[0], (D, H, Dh)) * s).to(dtype),
-        "wk": (random.normal(ks[1], (D, KV, Dh)) * s).to(dtype),
-        "wv": (random.normal(ks[2], (D, KV, Dh)) * s).to(dtype),
-        "wo": (random.normal(ks[3], (H, Dh, D)) * so).to(dtype),
+        "wq": init_normal(ks[0], (D, H, Dh), s, dtype),
+        "wk": init_normal(ks[1], (D, KV, Dh), s, dtype),
+        "wv": init_normal(ks[2], (D, KV, Dh), s, dtype),
+        "wo": init_normal(ks[3], (H, Dh, D), so, dtype),
     }
 
 

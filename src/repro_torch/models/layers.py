@@ -1,8 +1,7 @@
 """Shared building blocks (counterpart of ``repro.models.layers``).
 
 Parameters are plain dictionaries of tensors with the reference's keys and
-shapes.  ``causal_conv1d`` (SSM and RG-LRU mixers) comes with those layer
-kinds in a later slice.
+shapes.
 """
 from __future__ import annotations
 
@@ -105,19 +104,49 @@ def apply_rope(x, positions, base: float):
 
 
 # ---------------------------------------------------------------------------
+# Depthwise causal conv (mamba2 / RG-LRU temporal conv)
+# ---------------------------------------------------------------------------
+
+def causal_conv1d(x, w, state=None):
+    """Depthwise causal conv.  x: [B, S, C]; w: [K, C]; ``state`` [B, K-1,
+    C] the trailing inputs of the previous segment (zeros if None).
+    Returns (y [B, S, C] in x's type, the new state: the trailing K-1
+    inputs).  The taps are summed as the reference sums them, from 0, then
+    tap 0, 1, ... in x's type, so a bfloat16 x rounds where it rounds."""
+    K = w.shape[0]
+    S = x.shape[-2]
+    if state is None:
+        state = torch.zeros(x.shape[:-2] + (K - 1, x.shape[-1]),
+                            dtype=x.dtype, device=x.device)
+    xp = torch.cat([state.to(x.dtype), x], dim=-2)        # [B, S+K-1, C]
+    y = 0
+    for i in range(K):
+        y = y + xp[..., i:i + S, :] * w[i]
+    return y.to(x.dtype), xp[..., S:, :]
+
+
+# ---------------------------------------------------------------------------
 # Dense (gated) FFN
 # ---------------------------------------------------------------------------
+
+def init_normal(key, shape, scale, dtype):
+    """``(normal(key, shape) * scale).astype(dtype)``, the reference's
+    init of a leaf (scale taken in float32), drawn and cast a slice at a
+    time (:func:`repro_torch.random.normal_cast`)."""
+    s = np.float32(scale)
+    return random.normal_cast(key, shape, dtype, lambda z: z * s)
+
 
 def init_ffn(key, d_model, d_ff, dtype):
     """The reference's ``init_ffn`` key tree (``split(key, 3)``) through
     :func:`repro_torch.random.normal`."""
     k1, k2, k3 = random.split(key, 3)
-    s_in = np.float32(1.0 / np.sqrt(d_model))
-    s_out = np.float32(1.0 / np.sqrt(d_ff))
+    s_in = 1.0 / np.sqrt(d_model)
+    s_out = 1.0 / np.sqrt(d_ff)
     return {
-        "w_gate": (random.normal(k1, (d_model, d_ff)) * s_in).to(dtype),
-        "w_up": (random.normal(k2, (d_model, d_ff)) * s_in).to(dtype),
-        "w_down": (random.normal(k3, (d_ff, d_model)) * s_out).to(dtype),
+        "w_gate": init_normal(k1, (d_model, d_ff), s_in, dtype),
+        "w_up": init_normal(k2, (d_model, d_ff), s_in, dtype),
+        "w_down": init_normal(k3, (d_ff, d_model), s_out, dtype),
     }
 
 

@@ -84,16 +84,18 @@ def _counters(key: torch.Tensor, lo: int, hi: int):
                         idx & _MASK)
 
 
-def _draw(key: torch.Tensor, count: int, dtype, finish) -> torch.Tensor:
-    """``finish(y0 ^ y1)`` over the flat counters 0..count-1 of every key
-    row, as a ``key.shape[:-1] + (count,)`` tensor of ``dtype``, computed
-    in passes of ``_CHUNK`` counters (the result does not depend on it)."""
+def _draw(key: torch.Tensor, count: int, dtype, finish,
+          start: int = 0) -> torch.Tensor:
+    """``finish(y0 ^ y1)`` over the flat counters start..start+count-1 of
+    every key row, as a ``key.shape[:-1] + (count,)`` tensor of ``dtype``,
+    computed in passes of ``_CHUNK`` counters (the result does not depend
+    on it)."""
     out = torch.empty(key.shape[:-1] + (count,), dtype=dtype,
                       device=key.device)
     step = _CHUNK[key.device.type]
     for lo in range(0, count, step):
         hi = min(count, lo + step)
-        y0, y1 = _counters(key, lo, hi)
+        y0, y1 = _counters(key, start + lo, start + hi)
         out[..., lo:hi] = finish(y0.bitwise_xor_(y1))
     return out
 
@@ -132,6 +134,24 @@ def bits(key: torch.Tensor, shape=()) -> torch.Tensor:
     return out.reshape(key.shape[:-1] + shape)
 
 
+def _uniform_flat(key: torch.Tensor, start: int, count: int, minval=0.0,
+                  maxval=1.0) -> torch.Tensor:
+    """``uniform``'s draws at the flat counters start..start+count-1: each
+    element depends on its counter alone."""
+
+    def finish(b):
+        mant = b.bitwise_right_shift_(9).bitwise_or_(0x3F800000)
+        return mant.to(torch.int32).view(torch.float32) - 1.0
+
+    out = _draw(key, count, torch.float32, finish, start)
+    if minval == 0.0 and maxval == 1.0:
+        return out
+    f32 = dict(dtype=torch.float32, device=key.device)
+    lo, hi = torch.tensor(minval, **f32), torch.tensor(maxval, **f32)
+    scaled = (out.double() * (hi - lo).double() + lo.double()).float()
+    return torch.maximum(lo, scaled)
+
+
 def uniform(key: torch.Tensor, shape=(), minval=0.0,
             maxval=1.0) -> torch.Tensor:
     """``jax.random.uniform`` on [minval, maxval), float32: the floats on
@@ -141,19 +161,8 @@ def uniform(key: torch.Tensor, shape=(), minval=0.0,
     while the product and minval lie within 29 binary orders of each
     other (on [0, 1) the floats themselves)."""
     shape = tuple(shape)
-
-    def finish(b):
-        mant = b.bitwise_right_shift_(9).bitwise_or_(0x3F800000)
-        return mant.to(torch.int32).view(torch.float32) - 1.0
-
-    out = _draw(key, math.prod(shape), torch.float32, finish)
-    out = out.reshape(key.shape[:-1] + shape)
-    if minval == 0.0 and maxval == 1.0:
-        return out
-    f32 = dict(dtype=torch.float32, device=key.device)
-    lo, hi = torch.tensor(minval, **f32), torch.tensor(maxval, **f32)
-    scaled = (out.double() * (hi - lo).double() + lo.double()).float()
-    return torch.maximum(lo, scaled)
+    out = _uniform_flat(key, 0, math.prod(shape), minval, maxval)
+    return out.reshape(key.shape[:-1] + shape)
 
 
 #: Giles' single-precision erfinv ("Approximating the erfinv function",
@@ -182,6 +191,14 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1, x * math.inf, p * x)
 
 
+def _normal_flat(key: torch.Tensor, start: int, count: int) -> torch.Tensor:
+    """``normal``'s draws at the flat counters start..start+count-1."""
+    u = _uniform_flat(key, start, count,
+                      minval=-(1 - 2**-24))          # nextafter(-1, 0)
+    return erfinv(u) * torch.tensor(math.sqrt(2), dtype=torch.float32,
+                                    device=key.device)
+
+
 def normal(key: torch.Tensor, shape=()) -> torch.Tensor:
     """``jax.random.normal`` (float32): ``sqrt(2) * erfinv(u)`` with u
     uniform on (nextafter(-1, 0), 1), scaled as ``jax.random.uniform``
@@ -190,9 +207,34 @@ def normal(key: torch.Tensor, shape=()) -> torch.Tensor:
     The uniforms are the reference's bit for bit; ``erfinv`` holds the
     result to within a few ulps of the reference (relative error below
     5e-7, ``tests/test_torch_random.py``)."""
-    u = uniform(key, shape, minval=-(1 - 2**-24))    # nextafter(-1, 0)
-    return erfinv(u) * torch.tensor(math.sqrt(2), dtype=torch.float32,
-                                    device=key.device)
+    shape = tuple(shape)
+    out = _normal_flat(key, 0, math.prod(shape))
+    return out.reshape(key.shape[:-1] + shape)
+
+
+#: Elements of a leaf :func:`normal_cast` draws a slice, by device type.
+_SLICE = {"cpu": 1 << 22, "cuda": 1 << 26}
+
+
+def normal_cast(key: torch.Tensor, shape, dtype, finish=None) -> torch.Tensor:
+    """``finish(normal(key, shape)).to(dtype)`` (a [2] key), drawn a slice
+    of the flat counter range at a time (``_SLICE`` elements) and cast
+    slice by slice: element i depends only on counter i and ``finish`` is
+    elementwise, so the result is the whole-leaf draw's, without the whole
+    leaf in float32 and the draw's temporaries beside it (a [256, 7168,
+    2048] expert leaf is 15 GB in float32).  On the CPU, torch takes the
+    last few elements of a loop through ``log1p``'s scalar path, which may
+    differ from its vector path in the last ulp: where the slices and the
+    whole leaf put an element apart, it may differ by that."""
+    shape = tuple(shape)
+    count = math.prod(shape)
+    out = torch.empty(count, dtype=dtype, device=key.device)
+    step = _SLICE[key.device.type]
+    for lo in range(0, count, step):
+        hi = min(count, lo + step)
+        z = _normal_flat(key, lo, hi - lo)
+        out[lo:hi] = (z if finish is None else finish(z)).to(dtype)
+    return out.reshape(shape)
 
 
 def bernoulli(key: torch.Tensor, p=0.5, shape=()) -> torch.Tensor:

@@ -16,15 +16,16 @@ from repro_torch.tree import tree_flatten, tree_leaves, tree_map, \
 
 
 def _loss_fn(params, batch, cfg: ModelConfig, remat: bool = False):
-    hidden, _ = forward(params, batch, cfg, remat=remat)
+    hidden, aux = forward(params, batch, cfg, remat=remat)
     mask = None
     if cfg.family == "vlm":                      # loss on text positions only
         S = hidden.shape[1]
         text = torch.arange(S, device=hidden.device) >= cfg.n_img_tokens
         mask = text[None, :].float().expand(hidden.shape[:2])
-    # MoE layers (and their router loss) raise in ``forward``: ROADMAP.md,
-    # queue 1: 'other model families'
-    return lm_loss(params, hidden, batch["labels"], cfg, mask=mask)
+    loss = lm_loss(params, hidden, batch["labels"], cfg, mask=mask)
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.router_aux_weight * aux
+    return loss
 
 
 def value_and_grad(params, batch, cfg: ModelConfig, remat: bool = False):

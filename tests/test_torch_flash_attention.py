@@ -143,9 +143,15 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     q, k, v = _port(_inputs(1, 4, 2, 64, 64), torch.float32)
     with pytest.raises(ValueError, match="Sq == Sk"):
         ops.flash_attention(q, k[:, :, :32], v[:, :, :32])
+    # the card's forward takes its built (Dk, Dv) pairs only; on the CPU
+    # the plain version takes any, v's apart from k's
+    with pytest.raises(ValueError, match=r"head dims \(48, 48\)"):
+        ops.check_forward_dims(48, 48)
     q48, k48, v48 = _port(_inputs(1, 4, 2, 64, 48), torch.float32)
-    with pytest.raises(ValueError, match="head dim 48"):
-        ops.flash_attention(q48, k48, v48)
+    assert ops.flash_attention(q48, k48, v48[..., :32]).shape == (1, 4, 64,
+                                                                  32)
+    with pytest.raises(ValueError, match="k/v"):
+        ops.flash_attention(q48, k, v)
     with pytest.raises(ValueError, match="multiple of KV"):
         ops.flash_attention(q[:, :3], k, v)
     with pytest.raises(TypeError):

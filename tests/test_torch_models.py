@@ -208,24 +208,6 @@ def test_serve_runs_on_the_cpu():
     assert out["prefill_flash_launches"] == 0
 
 
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "deepseek-v3-671b",
-                                  "qwen3-moe-235b-a22b", "recurrentgemma-9b",
-                                  "musicgen-large"])
-def test_layer_kinds_outside_the_slice_raise(arch):
-    cfg = get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="other model families"):
-        init_params(cfg, random.key(0, "cpu"), torch.float32)
-
-
-def test_image_embeds_raise():
-    cfg = get_config("llava-next-mistral-7b", smoke=True)
-    params = init_params(cfg, random.key(0, "cpu"), torch.float32)
-    batch = {"tokens": torch.zeros((1, 8), dtype=torch.long),
-             "image_embeds": torch.zeros((1, 8, cfg.d_model))}
-    with pytest.raises(NotImplementedError, match="image embeds"):
-        prefill(params, batch, cfg)
-
-
 def test_params_from_reference_keeps_structure_and_bf16_bits():
     tree = {"a": [np.arange(3, dtype=np.float32)],
             "b": np.asarray(jnp.asarray([1.5, -2.25, 3e-3], jnp.bfloat16))}

@@ -79,7 +79,7 @@ back to the CPU):
    rtol 1e-4, frozen tails bit-stable; only grouped entries launched.
    The paper's remaining figures (``experiments.fig3_iterate_updates``,
    ``comm_table``, ``ablation_dither_levels``, ``vmapped_grid``,
-   ``ablation_grid``; 30 rounds each, the cut) on the card against the
+   ``ablation_grid``; 20 rounds each, the cut) on the card against the
    CPU (worker processes): ledger columns and the communication table
    equal, F within rtol 1e-4 at every row but for a run whose F climbs 5%
    past its start on the CPU too (fig3's L-SR1 run: logged).
@@ -92,7 +92,8 @@ back to the CPU):
    exact-k p = 0.5, alpha 0.2; 50 rounds) on the card against the CPU:
    ledgers, every round's masks and rows equal, 10 workers a round, the
    full-batch round's compressor launches, and the round ms of both;
-   ``sketch_families_plan`` at quickstart size (200 rounds): round_bits,
+   ``sketch_families_plan`` at quickstart size (100 rounds, the cut):
+   round_bits,
    omega and ledgers equal, one grouped launch a kernel family a round.
    Both runs record every compressor call (``plan_drift``) and are held
    by ``plan_drift.verdict``: every card message is the plain
@@ -112,7 +113,7 @@ back to the CPU):
    model, at quickstart size on the card against the port on the CPU,
    every compressor call and every round's routing recorded
    (``plan_drift``): ``experiments.async_grid`` (FLECS-CGD m = 2, exact-k
-   p = 0.5, taus {0, 2, 4} × buffer_k {1, 5, 20}, alpha auto-damped, 300
+   p = 0.5, taus {0, 2, 4} × buffer_k {1, 5, 20}, alpha auto-damped, 200
    rounds (the cut), G = 9 in one batched run): ledgers, sends, arrivals, flushes
    and buffered counts equal every round, and every point held by
    ``plan_drift.verdict`` (card messages their CPU replays, the first
@@ -123,7 +124,8 @@ back to the CPU):
    legacy async step at tau = 0, buffer_k = the cohort (FLECS-CGD, DIANA,
    FedNL topk0.25, GD; state, ledgers and aux); each legacy async step
    under a fixed, a uniform and a geometric (q 0.5) schedule at tau 2,
-   buffer_k 5, 40 rounds (the cut): ledgers and routing equal, a geometric delay
+   buffer_k 5, 25 rounds (the cut): ledgers and routing equal, a
+   geometric delay
    that differs must lie within 4 ulps of an integer log(u) / log(q) (and
    is logged), and ``plan_drift.verdict`` with F held at rtol 1e-4 (F
    logged only for FedNL, whose eigh parts the sides before a top-k tie
@@ -153,15 +155,16 @@ back to the CPU):
    the last round's peak above the allocation before it agrees within 2
    MiB over the three N; DIANA and GD at N = 102,400 logged.  Then, the
    CPU side in worker processes meanwhile: the sharded engine at world
-   size 1 (NCCL) equal to ``run_sweep`` on the card bit for bit over 50
+   size 1 (NCCL) equal to ``run_sweep`` on the card bit for bit over 25
    rounds (FLECS FedSONIA, FLECS truncated inverse, hierarchical
    FLECS-CGD, DIANA); the cohort runs (FLECS-CGD at N = 1,024, DIANA and
    GD at 102,400; 10 rounds) against the CPU: every round's ids and mask,
    the ledgers equal, F held by ``plan_drift.verdict``; the hierarchy grid
-   at quickstart size (100 rounds) against the CPU: edge_bits and
+   at quickstart size (50 rounds, the cut) against the CPU: edge_bits
+   and
    bits_per_node equal every round, each point held by ``verdict``, the
    identity point within rtol 1e-5 of the flat server over 6 rounds (the
-   reference's own contract; its gap over 100 rounds logged).  Only the
+   reference's own contract; its gap over the run logged).  Only the
    grouped compressor entries launch.
 4. Gisette width (d=5000, n=20, r=300, m=4): 10 rounds with each Hessian
    compressor on the card, with exact ledgers; the dither run's objective
@@ -193,14 +196,16 @@ back to the CPU):
    shapes, [1, 3e6], FedNL's rows), each instance forced beside the one
    the plan takes; the flash forward in float32 (bound: 3xTF32) and
    bfloat16.
-8. Training, tinyllama-1.1b at full width and depth 2, batch 2 x 256, on
+8. Training, tinyllama-1.1b at full width and depth 2, batch 2 x 128, on
    the card against this machine's CPU: first-step gradients per leaf
    within 1e-4 · max |g|, the first FLECS-CGD step's int8 levels at no more
-   than 1e-3 of the elements and by one level at most; then 3 adam steps
-   and 3 FLECS-CGD steps from the same weights: losses within rtol 1e-4,
+   than 1e-3 of the elements and by one level at most; then 2 adam steps
+   and 2 FLECS-CGD steps (the cut) from the same weights: losses within
+   rtol 1e-4,
    ``uplink_mbits`` equal.
 9. Training, tinyllama-1.1b at full width, all 22 layers (float32, remat),
-   batch 8 x 1024: 5 adam steps and 5 FLECS-CGD steps on one batch through
+   batch 8 x 1024: 3 adam steps and 3 FLECS-CGD steps (the cut) on one
+   batch through
    ``launch/train.py``'s functions, the counters set to 0 just before each
    run and read after it: flash_attention 44 a step (remat recomputes it),
    flash_attention_backward 22, and on FLECS steps dither_encode_keyed,
@@ -223,7 +228,7 @@ back to the CPU):
    D = 32 and 128, S = 1): max |Δ| <= 1e-5 · max |t|, bitwise the same
    over two runs; the forward-, dK/dV- and dQ-tangent kernels' SASS at
    D = 32, 64 and 128 must hold HMMA (3xTF32 on the tensor cores).  (b)
-   tinyllama-1.1b at full width and depth 2, batch 2 x 256: one m = 2
+   tinyllama-1.1b at full width and depth 2, batch 2 x 128: one m = 2
    step on the card and, in a
    spawned worker process with every core, on this machine's CPU from the
    card's weights, then each side's loss of its new weights on the next
@@ -231,19 +236,19 @@ back to the CPU):
    message (each leaf's compressed HVP column) its replay through the
    plain encode on the CPU, the Y levels differing at no more than 1e-3
    of the elements and by one level at most.  (c) 22 layers, float32,
-   remat, batch 8 x 1024 (cut to 4 only if 8 does not fit): 2 m = 2 steps
+   remat, batch 8 x 1024 (cut to 4 only if 8 does not fit): 1 m = 2 step
    (the cut),
    the counters set to 0 just before and read just after (per step 6 L
    forwards, 3 L backwards, 4 L forward tangents, 2 L backward tangents,
    and 3 codec launches of each kind per parameter leaf); losses, step ms
    split into the gradient pass, the HVP passes, the sketch draws and
-   FedSONIA, peak memory.  (d) ``train_lm --flecs --flecs-m 2 --steps 3
-   --checkpoint DIR`` at its defaults, every kernel of the path launched,
+   FedSONIA, peak memory.  (d) ``train_lm --flecs --flecs-m 2 --steps 2
+   --checkpoint DIR`` (the cut) at its defaults, every kernel of the path launched,
    the checkpoint restored bit for bit.  Then both tangent kernels timed
    at the training shape beside their plain versions and bounds.  (b)'s
    CPU side runs while the card runs (a), (c) and (d).
 11. The multi-worker FLECS-CGD trainer (alpha = 30 · lr).  (a)
-   tinyllama-1.1b at full width and depth 2, global batch 4 x 256, one
+   tinyllama-1.1b at full width and depth 2, global batch 4 x 128, one
    step of 4 workers (m = 0) through ``launch/train.train`` and the new
    weights' loss on the next batch, on the card and, in a spawned worker
    process with every core, on this machine's CPU from the card's
@@ -257,7 +262,8 @@ back to the CPU):
    ``all_reduce``): every param and shift leaf and the metrics bit for
    bit the run without a group.  (b) 22 layers, float32, remat, global
    batch 8 x 1024: 3 steps of 4 workers (2 x 1024 each), m = 0, through
-   ``launch/train.train``; (c) 2 steps of 2 workers (4 x 1024 each) at
+   ``launch/train.train``; (c) 1 step (the cut) of 2 workers (4 x 1024
+   each) at
    m = 2 (cut to 4 x 1024 globally only if 8 does not fit); for each the
    counters set to 0 just before and read just after (per step and
    worker 2 L (1 + m) forwards, L (1 + m) backwards, 2 L m and L m
@@ -287,10 +293,29 @@ back to the CPU):
    flash forward's new instances ((256, 256), MLA's (192, 128); float32
    and bf16) against their plain version at the families' shapes
    (``FAMILY_FLASH_SHAPES``) and ragged lengths, and times them.
-13. Print the kernels line (eighteen kernels: the ten of slices 1–6, the
+13. Training the other families through ``launch/train.py``: (a) the
+   float32 flash backward's (256, 256) and (192, 128) instances against
+   the plain version under autograd on the card, max |Δ| <= 1e-5 · max
+   |grad| over dq, dk, dv and the same bits over two runs, at gemma2-9b's
+   local layer (window 4096, cap 50), recurrentgemma-9b's MQA band (KV 1,
+   window 2048, S = 3072) and deepseek-v3's MLA [8, 128, KV 128, 1024]
+   (timed by CUDA events beside the plain version's backward and SDPA's,
+   with the bound), and at ragged lengths through the model layout; the
+   build log shows no spill in the new kernels.  (b) Each family of
+   ``FAMILY_SMOKE`` at smoke width, one adam and one FLECS-CGD (m = 0)
+   step, card against this machine's CPU: losses within 1e-5 relative,
+   ``uplink_mbits`` equal, the params held, the backward launched once an
+   attention layer at the layer's pair.  (c) Each family at full width and
+   the depth of ``FAMILY_TRAIN`` (on phase 12's float32 weights where the
+   depth matches): 1 warm-up and 2 timed steps of adam (adafactor for
+   deepseek-v3 and qwen3-moe), then of FLECS-CGD (m = 0), counters set to
+   0 just before each run and read just after: step ms, peak memory, flash
+   launches (the backward's by pair), codec launches.
+14. Print the kernels line (eighteen kernels: the ten of slices 1–6, the
    four grouped entries, whose launches add phase 3e's, the two tangent
-   kernels and the keyed encode's two split entries), then the device
-   line as the last line.
+   kernels and the keyed encode's two split entries; the backward's entry
+   with its family instances and launches by pair), then the device line
+   as the last line.
 """
 from __future__ import annotations
 
@@ -2095,11 +2120,12 @@ def phase_gisette_stochastic(quickstart, api, experiments, make_problem, ops,
 # ---------------------------------------------------------------------------
 
 ASYNC_SIZE = dict(d=123, n_workers=20, r=64)
-# rounds, cut from 600, 100 and 100 to make room for phase 11; the traffic
-# runs that diverge on the CPU pass twice their first F by round 29, so
-# 40 rounds keep which runs have their F held
-ASYNC_ITERS = 300
-LEGACY_ITERS = 40
+# rounds, cut from 600, 100 and 100 to make room for phase 11 (and 300 and
+# 40 to 200 and 25 for phase 13); the traffic runs that diverge on the CPU
+# pass twice their first F by round 29, so 40 rounds keep which runs have
+# their F held
+ASYNC_ITERS = 200
+LEGACY_ITERS = 25
 TRAFFIC_ITERS = 40
 CUTOFF_ITERS = 30
 
@@ -2114,7 +2140,8 @@ ASYNC_EXACT = ("bits_per_node", "n_active", "n_arrived", "flushed",
 #: machine has 8 cores; one drives the card).
 CPU_WORKERS = 7
 STOCHASTIC_ITERS = 50
-FAMILIES_ITERS = 200
+# sketch_families_plan's rounds, cut from 200 for phase 13
+FAMILIES_ITERS = 100
 
 
 def cpu_pool():
@@ -2766,19 +2793,20 @@ def phase_stochastic(dev, quickstart, random, driver, compressors, api,
 
 #: Phase 3e's sizes: the quickstart's federation, the edge tier of four
 #: aggregators, the cohort of 64 clients of a virtual population of shards
-#: of 16 rows.
+#: of 16 rows; the hierarchy's and the sharded engine's rounds (cut from
+#: 100 and 50 for phase 13).
 POP_SIZE = dict(d=123, n_workers=20, r=64)
-HIER_ITERS = 100
+HIER_ITERS = 50
 HIER_EDGES = ("identity", "dither64", "count_sketch64")
 HIER_E = 4
 COHORT_K = 64
 COHORT_R = 16
 COHORT_NS = (1024, 102_400, 1_048_576)
 COHORT_ITERS = 10
-SHARDED_ITERS = 50
+SHARDED_ITERS = 25
 #: Rounds of each of phase 3b's paper figures (the reference's 200-300,
-#: cut so the CPU side fits the time limit).
-FIGURE_ITERS = 30
+#: cut so the CPU side fits the time limit; 30 until phase 13).
+FIGURE_ITERS = 20
 
 
 def hierarchy_setup(dev, d=123, n_workers=20, r=64, seed=0):
@@ -3619,17 +3647,25 @@ def reset_train_counters(fa_ops, d_ops, ops):
 #: GRAD_REL · max |g|; the first FLECS step's int8 levels at no more than
 #: LEVEL_SHARE of the elements, by one level at most; uplink_mbits equal.
 LOSS_REL, GRAD_REL, LEVEL_SHARE = 1e-5, 1e-4, 1e-3
+#: Phase 8's steps of each mode (cut from 3 for phase 13: the second step's
+#: loss still holds the first step's update), and the depth-2 batch of
+#: phases 8 and 10 (cut from 2 x 256 for phase 13: their CPU sides bound
+#: both phases on a slow host).
+DEPTH2_STEPS = 2
+DEPTH2_BATCH = (2, 128)
 
 
 def phase_train_depth2(train, value_and_grad, compressors, random, tree):
-    """Phase 8: tinyllama-1.1b at full width and depth 2, batch 2 x 256:
-    first-step gradients and int8 levels, then 3 adam steps and 3 FLECS-CGD
-    steps from the same weights, on the card and on this machine's CPU."""
+    """Phase 8: tinyllama-1.1b at full width and depth 2, batch DEPTH2_BATCH:
+    first-step gradients and int8 levels, then DEPTH2_STEPS adam steps and
+    as many FLECS-CGD steps from the same weights, on the card and on this
+    machine's CPU."""
     import torch
     cfg, params = train.setup(TINYLLAMA, smoke=False, device="cuda",
                               n_layers=2)
     cpu_params = to_cpu(params)
-    batch = next(train.token_batches(cfg, 2, 256, params["embed"].device))
+    batch = next(train.token_batches(cfg, *DEPTH2_BATCH,
+                                     params["embed"].device))
     cpu_batch = to_cpu(batch)
     loss_g, g_card = value_and_grad(params, batch, cfg, remat=True)
     loss_c, g_cpu = value_and_grad(cpu_params, cpu_batch, cfg, remat=True)
@@ -3664,8 +3700,9 @@ def phase_train_depth2(train, value_and_grad, compressors, random, tree):
     for mode in ("adam", "flecs"):
         for name, p, dev in (("cuda", params, batch["tokens"].device),
                              ("cpu", cpu_params, torch.device("cpu"))):
-            batches = train.token_batches(cfg, 2, 256, dev)
-            out = train.train(cfg, p, batches, 3, flecs=mode == "flecs")
+            batches = train.token_batches(cfg, *DEPTH2_BATCH, dev)
+            out = train.train(cfg, p, batches, DEPTH2_STEPS,
+                              flecs=mode == "flecs")
             runs[(mode, name)] = out["metrics"]
             del out
         for a, b in zip(runs[(mode, "cuda")], runs[(mode, "cpu")]):
@@ -3676,7 +3713,7 @@ def phase_train_depth2(train, value_and_grad, compressors, random, tree):
                 check(a["uplink_mbits"] == b["uplink_mbits"],
                       f"depth 2 flecs: uplink {a['uplink_mbits']!r} (card) "
                       f"and {b['uplink_mbits']!r} (CPU)")
-        log(f"phase 8: depth 2 {mode} x3: losses card "
+        log(f"phase 8: depth 2 {mode} x{DEPTH2_STEPS}: losses card "
             f"{[m['loss'] for m in runs[(mode, 'cuda')]]} cpu "
             f"{[m['loss'] for m in runs[(mode, 'cpu')]]}")
     del params, cpu_params
@@ -3687,9 +3724,14 @@ def phase_train_depth2(train, value_and_grad, compressors, random, tree):
                 uplink_mbits=runs[("flecs", "cuda")][0]["uplink_mbits"])
 
 
+#: Phase 9's steps of each mode (cut from 5 for phase 13).
+FULL_STEPS = 3
+
+
 def phase_train_full(train, fa_ops, d_ops, ops, tree):
     """Phase 9: tinyllama-1.1b at full width (22 layers, float32, remat),
-    batch 8 x 1024, 5 adam steps and 5 FLECS-CGD steps (alpha = 30 · lr)
+    batch 8 x 1024, FULL_STEPS adam steps and as many FLECS-CGD steps
+    (alpha = 30 · lr)
     on one batch through ``launch/train.py``'s own functions; the counters
     are set to 0 just before each run and read just after.  Then a profile
     of one step of each mode."""
@@ -3701,7 +3743,7 @@ def phase_train_full(train, fa_ops, d_ops, ops, tree):
                                      params["embed"].device))
     L = cfg.n_layers
     n_leaves = len(tree.tree_leaves(params))
-    steps = 5
+    steps = FULL_STEPS
     res = {}
     for mode in ("adam", "flecs"):
         flecs = mode == "flecs"
@@ -4005,7 +4047,11 @@ JVP_REL = 1e-5
 #: FLECS-CGD with m = 2 sketch columns at launch/train.py's alpha (30 · lr).
 FLECS_M, FLECS_M_ALPHA = 2, 3e-3 * 30
 # full-width m = 2 steps of phase 10, cut from 3 to make room for phase 11
-FLECS_M_STEPS = 2
+# and from 2 for phase 13
+FLECS_M_STEPS = 1
+#: Steps of phase 10's ``train_lm --flecs-m 2`` run (cut from 3 for phase
+#: 13).
+TRAIN_LM_STEPS = 2
 
 
 def jvp_inputs(shape, dev, seed=0):
@@ -4224,7 +4270,7 @@ def m2_depth2_cfg():
 
 def phase_m2_depth2_card(train, dl_flecs, tree, path):
     """Phase 10 (b), the card's side: tinyllama-1.1b at full width and
-    depth 2, batch 2 x 256, one FLECS-CGD step with m = 2 (remat) from the
+    depth 2, batch DEPTH2_BATCH, one FLECS-CGD step with m = 2 (remat) from the
     weights of phase 8, then the loss of the new weights on the next batch;
     every Y message's key, input and int8 levels recorded.  Writes the
     weights, the batches and the messages to ``path`` (the CPU's side reads
@@ -4232,7 +4278,7 @@ def phase_m2_depth2_card(train, dl_flecs, tree, path):
     import torch
     cfg, params = train.setup(TINYLLAMA, smoke=False, device="cuda",
                               n_layers=2)
-    batches = train.token_batches(cfg, 2, 256, params["embed"].device)
+    batches = train.token_batches(cfg, *DEPTH2_BATCH, params["embed"].device)
     b0, b1 = next(batches), next(batches)
     n_leaves = len(tree.tree_leaves(params))
     messages = []
@@ -4450,10 +4496,11 @@ def phase_m2_full(train, dl_flecs, fa_ops, d_ops, ops, tree):
 
 def phase_m2_driver(dl_flecs, fa_ops, d_ops, ops, tmp):
     """Phase 10 (d): ``python -m repro_torch.train_lm --flecs --flecs-m 2
-    --steps 3 --checkpoint DIR`` at its defaults (tinyllama-1.1b at full
-    width, batch 8 x 128, no remat), DIR under ``tmp``; the counters set to
-    0 just before and read just after; then the checkpoint restored onto
-    the card, bit for bit the run's last weights, at step 3."""
+    --steps TRAIN_LM_STEPS --checkpoint DIR`` at its defaults
+    (tinyllama-1.1b at full width, batch 8 x 128, no remat), DIR under
+    ``tmp``; the counters set to 0 just before and read just after; then
+    the checkpoint restored onto the card, bit for bit the run's last
+    weights, at step TRAIN_LM_STEPS."""
     import torch
     from repro_torch import train_lm
     from repro_torch.checkpoint import store
@@ -4462,7 +4509,7 @@ def phase_m2_driver(dl_flecs, fa_ops, d_ops, ops, tmp):
     reset_train_counters(fa_ops, d_ops, ops)
     t0 = time.perf_counter()
     out = train_lm.main(["--flecs", "--flecs-m", str(FLECS_M), "--steps",
-                         "3", "--checkpoint", str(ckpt)])
+                         str(TRAIN_LM_STEPS), "--checkpoint", str(ckpt)])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = train_counters(fa_ops, d_ops, ops)
@@ -4477,12 +4524,14 @@ def phase_m2_driver(dl_flecs, fa_ops, d_ops, ops, tmp):
     t1 = time.perf_counter()
     restored, step = store.restore(ckpt, out["params"])
     restore_s = time.perf_counter() - t1
-    check(step == 3, f"train_lm checkpoint: step {step}, expected 3")
+    check(step == TRAIN_LM_STEPS, f"train_lm checkpoint: step {step}, "
+          f"expected {TRAIN_LM_STEPS}")
     check(all(a.device == b.device and same_bits(a, b) for a, b in zip(
         tree_leaves(restored), tree_leaves(out["params"]))),
         "train_lm checkpoint: the restored weights are not the saved ones")
     nbytes = sum(f.stat().st_size for f in ckpt.iterdir())
-    log(f"phase 10: train_lm --flecs --flecs-m 2 --steps 3 --checkpoint: "
+    log(f"phase 10: train_lm --flecs --flecs-m 2 --steps {TRAIN_LM_STEPS} "
+        f"--checkpoint: "
         f"losses {losses}, {seconds!r} s with the save; checkpoint "
         f"{nbytes / 2**30!r} GiB restored bit for bit in {restore_s!r} s; "
         f"launches {counts}")
@@ -4497,11 +4546,13 @@ def phase_m2_driver(dl_flecs, fa_ops, d_ops, ops, tmp):
 Y_LEVEL_SHARE = LEVEL_SHARE
 
 
-def phase_flecs_m2(dev, train, dl_flecs, fa_ops, fa_ref, d_ops, ops, tree):
+def phase_flecs_m2(dev, train, dl_flecs, fa_ops, fa_ref, d_ops, ops, tree,
+                   meanwhile=None):
     """Phase 10: the sketched-Hessian FLECS-CGD trainer, m = 2.  (b)'s
     card side first; its CPU side then runs in a spawned worker process
-    with every core while the card runs (a), (c) and (d) and times the
-    tangent kernels; then (b)'s comparison: losses within LOSS_REL, uplink
+    with every core while the card runs (a), (c) and (d), times the
+    tangent kernels and runs ``meanwhile()`` (card work of other phases
+    that does not read the host clock); then (b)'s comparison: losses within LOSS_REL, uplink
     equal, every card Y message its CPU replay, the Y levels' flips at no
     more than Y_LEVEL_SHARE of the elements and by one level."""
     import multiprocessing
@@ -4519,6 +4570,8 @@ def phase_flecs_m2(dev, train, dl_flecs, fa_ops, fa_ref, d_ops, ops, tree):
             full = phase_m2_full(train, dl_flecs, fa_ops, d_ops, ops, tree)
             drv = phase_m2_driver(dl_flecs, fa_ops, d_ops, ops, tmp)
             timing = flash_jvp_timing(dev, fa_ops, fa_ref)
+            if meanwhile is not None:
+                meanwhile()
             t0 = time.perf_counter()
             cpu2 = cpu_side.result()
             waited = time.perf_counter() - t0
@@ -4556,10 +4609,11 @@ def phase_flecs_m2(dev, train, dl_flecs, fa_ops, fa_ref, d_ops, ops, tree):
 # ---------------------------------------------------------------------------
 
 #: Phase 11's federations: n workers at m = 0 (and its steps), at m = 2
-#: (and its steps), and the depth-2 card-against-CPU run's batch and steps.
+#: (and its steps, cut from 2 for phase 13), and the depth-2
+#: card-against-CPU run's batch (cut from 4 x 256 for phase 13) and steps.
 WORKERS_N, WORKERS_STEPS = 4, 3
-WORKERS_M2_N, WORKERS_M2_STEPS = 2, 2
-WORKERS_DEPTH2_BATCH, WORKERS_DEPTH2_STEPS = (4, 256), 1
+WORKERS_M2_N, WORKERS_M2_STEPS = 2, 1
+WORKERS_DEPTH2_BATCH, WORKERS_DEPTH2_STEPS = (4, 128), 1
 
 
 def workers_launches(n, n_leaves, L, m=0) -> dict:
@@ -4596,7 +4650,7 @@ def workers_run(train, cfg, params, batch):
 
 def workers_depth2_card(train, dl_flecs, tree, path):
     """Phase 11 (a), the card's side: tinyllama-1.1b at full width and
-    depth 2, batch 4 x 256, WORKERS_DEPTH2_STEPS FLECS-CGD steps of 4
+    depth 2, batch WORKERS_DEPTH2_BATCH, WORKERS_DEPTH2_STEPS FLECS-CGD steps of 4
     workers (m = 0) through ``launch/train.train``, then the new weights'
     loss on the next batch (``workers_run``); step 0's gradient messages
     (key, every worker's input, levels and the shared scale) recorded.  Writes the config, the batch shape, the initial weights and
@@ -4808,10 +4862,12 @@ def workers_full_m2(train, dl_flecs, cfg, params, fa_ops, d_ops, ops,
     return res
 
 
-def phase_flecs_workers(train, dl_flecs, fa_ops, d_ops, ops, tree):
+def phase_flecs_workers(train, dl_flecs, fa_ops, d_ops, ops, tree,
+                        meanwhile=None):
     """Phase 11: the multi-worker FLECS-CGD trainer.  (a)'s card side
     first; (a)'s CPU side then runs in a spawned worker process with every
-    core while the card runs (d), (b) and (c); then (a)'s comparison:
+    core while the card runs (d), (b), (c) and ``meanwhile()`` (card work
+    of another phase); then (a)'s comparison:
     losses within LOSS_REL and uplink equal every step, every card message
     of every worker its CPU replay, the CPU's own step-0 levels differing
     from the card's at no more than LEVEL_SHARE of the elements and by one
@@ -4840,6 +4896,8 @@ def phase_flecs_workers(train, dl_flecs, fa_ops, d_ops, ops, tree):
                                  ops, n_leaves)
             del params
             torch.cuda.empty_cache()
+            if meanwhile is not None:
+                meanwhile()
             t0 = time.perf_counter()
             cpu = cpu_side.result()
             waited = time.perf_counter() - t0
@@ -4895,14 +4953,15 @@ FAMILY_SMOKE = (("mamba2-1.3b", {}), ("recurrentgemma-9b", {}),
                 ("llava-next-mistral-7b", {}), ("musicgen-large", {}),
                 ("gemma2-9b", {"head_dim": 256}))
 #: Phase 12 (b): full width, the depth cut where the card or the time limit
-#: forces one: (arch, layers (0: all), dtype, batch, prompt, decode steps).
-FAMILY_FULL = (("mamba2-1.3b", 0, "float32", 8, 1024, 32),
-               ("recurrentgemma-9b", 3, "float32", 4, 3072, 32),
-               ("gemma2-9b", 2, "float32", 8, 1024, 32),
-               ("deepseek-v3-671b", 4, "bfloat16", 8, 1024, 16),
-               ("qwen3-moe-235b-a22b", 2, "bfloat16", 8, 1024, 16),
-               ("llava-next-mistral-7b", 2, "float32", 4, 3072, 16),
-               ("musicgen-large", 0, "float32", 8, 1024, 32))
+#: forces one: (arch, layers (0: all), dtype, batch, prompt, decode steps;
+#: the steps halved from 32 and 16 for phase 13).
+FAMILY_FULL = (("mamba2-1.3b", 0, "float32", 8, 1024, 16),
+               ("recurrentgemma-9b", 3, "float32", 4, 3072, 16),
+               ("gemma2-9b", 2, "float32", 8, 1024, 16),
+               ("deepseek-v3-671b", 4, "bfloat16", 8, 1024, 8),
+               ("qwen3-moe-235b-a22b", 2, "bfloat16", 8, 1024, 8),
+               ("llava-next-mistral-7b", 2, "float32", 4, 3072, 8),
+               ("musicgen-large", 0, "float32", 8, 1024, 16))
 
 
 def flash_pair_inputs(shape, dtype, dev, seed=0):
@@ -5209,11 +5268,12 @@ def deepseek_moe_layer(moe, cfg, params):
     return dict(max_abs_err=e, bound=bound)
 
 
-def phase_families(serve, fa_ops):
+def phase_families(serve, fa_ops, then=None):
     """Phase 12: the other model families through ``launch/serve.py``:
     (a) each at smoke width, card against CPU; (b) each at full width
     (FAMILY_FULL), memory freed between models; deepseek's MoE layer
-    against the gather formula."""
+    against the gather formula.  ``then(arch, cfg, params)`` is called on
+    each model's weights before they are freed (phase 13 trains on them)."""
     import gc
     import torch
     from repro_torch.models import moe
@@ -5228,11 +5288,461 @@ def phase_families(serve, fa_ops):
         if cfg.moe is not None and cfg.is_mla:
             r["moe_layer"] = deepseek_moe_layer(moe, cfg, params)
         out["full"][arch] = r
+        if then is not None:
+            then(arch, cfg, params)
         del params
         gc.collect()           # a model's weights must not reach the next
         torch.cuda.empty_cache()
     return out
 
+
+# ---------------------------------------------------------------------------
+# Phase 13: training the other families
+# ---------------------------------------------------------------------------
+
+#: Phase 13 (a): the float32 backward at the families' head-dim pairs
+#: against the plain version under autograd: B, H, KV, S, Dk, Dv, window,
+#: cap; gemma2-9b's local layer (window 4096, cap 50), recurrentgemma-9b's
+#: MQA band (KV 1, window 2048 at S = 3072) and deepseek-v3's MLA
+#: (phase 2's forward shapes), timed; then ragged lengths, in the model
+#: layout (strided views).
+FAMILY_BWD_SHAPES = FAMILY_FLASH_SHAPES
+FAMILY_BWD_RAGGED = [(2, 4, 2, 200, 256, 256, 0, 50.0),
+                     (1, 16, 1, 300, 256, 256, 70, 0.0),
+                     (2, 4, 4, 200, 192, 128, 0, 0.0)]
+#: The float32 backward's kernels at the new pairs, as their mangled names
+#: begin in the build log (dK/dV passes and dQ).
+FAMILY_BWD_KERNELS = ("flash_bwd_dkdv_kernelIfLi256ELi256E",
+                      "flash_bwd_dq_kernelIfLi256ELi256E",
+                      "flash_bwd_dkdv_kernelIfLi192ELi128E",
+                      "flash_bwd_dq_kernelIfLi192ELi128E")
+#: Phase 13 (b): a smoke-width batch, its length past a 64-row tile.
+FAMILY_TRAIN_SMOKE_BATCH = (2, 80)
+#: Phase 13 (c): full width, the depth cut the card or the time limit
+#: forces: (arch, layers (0: all), batch, seq, optimizer).  deepseek-v3 and
+#: qwen3-moe take adafactor, as the reference's dryrun does for models
+#: past 20 B parameters: adam's functional update holds eight copies of
+#: their 3.0 and 3.7 B float32 weights (97 and 119 GB).  recurrentgemma-9b
+#: at 2 x 3072 (past its 2,048 window): at 4 x 3072 a step took 7.4 s.
+FAMILY_TRAIN = (("mamba2-1.3b", 0, 8, 1024, "adam"),
+                ("recurrentgemma-9b", 3, 2, 3072, "adam"),
+                ("gemma2-9b", 2, 8, 1024, "adam"),
+                ("deepseek-v3-671b", 2, 8, 1024, "adafactor"),
+                ("qwen3-moe-235b-a22b", 1, 4, 1024, "adafactor"),
+                ("llava-next-mistral-7b", 2, 4, 3072, "adam"),
+                ("musicgen-large", 12, 8, 1024, "adam"))
+#: Steps of each full-width run: the first a warm-up, the others timed.
+FAMILY_TRAIN_STEPS = 3
+#: Families whose full-width runs each get fresh weights, handed over: the
+#: caller's weights, the step's, its gradients, the shifts and the new
+#: weights of deepseek-v3's 12.1 GB and qwen3-moe's 14.9 GB do not fit the
+#: card beside the step's temporaries (deepseek's FLECS-CGD step ran out
+#: of memory with its first weights held).
+FAMILY_TRAIN_HANDOVER = ("deepseek-v3-671b", "qwen3-moe-235b-a22b")
+
+
+def ptxas_report(log_text: str) -> dict:
+    """Each entry function of an nvcc build log (``-Xptxas -v``): its
+    registers and spill stores and loads in bytes."""
+    import re
+    out, name = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name].update(spill_stores=int(m.group(1)),
+                             spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def family_bwd_ptxas(fa_ops) -> dict:
+    """The new instances' registers and spills from the flash library's
+    build log; fails on a spill or a missing kernel."""
+    report = ptxas_report(fa_ops.LIBRARY.build_log())
+    res = {}
+    for frag in FAMILY_BWD_KERNELS:
+        found = {n: r for n, r in report.items() if frag in n}
+        check(found, f"no kernel {frag} in the flash library's build log")
+        for name, r in found.items():
+            check(r.get("spill_stores", 1) == 0
+                  and r.get("spill_loads", 1) == 0,
+                  f"{name} spills: {r}")
+            res[name[name.index("flash_bwd"):][:60]] = r
+    return res
+
+
+def family_bwd_bound(shape) -> dict:
+    """The backward's least time at a (Dk, Dv) shape: the five products
+    over the live pairs (S and dQ, dK at Dk; dP, dV at Dv: 2 (3 Dk + 2 Dv)
+    operations a pair) as 3xTF32, against q, k, v, o, dO, dQ, dK, dV and
+    the lse read or written once."""
+    B, H, KV, S, Dk, Dv, window, _ = shape
+    ops = 2 * B * H * live_pairs(S, window) * (3 * Dk + 2 * Dv)
+    nbytes = 4 * (2 * B * H * S * Dk + 2 * B * KV * S * Dk
+                  + 2 * B * KV * S * Dv + 2 * B * H * S * Dv + B * H * S)
+    t_ops = 1e3 * 3 * ops / TF32_OPS_PER_S
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    return dict(ops=ops, bytes=nbytes, bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_flash_bwd_families(dev, fa_ops, fa_ref):
+    """Phase 13 (a): the float32 backward at (256, 256) and (192, 128)
+    against the plain version under autograd on the card (max |Δ| <=
+    BWD_REL · max |grad| over dq, dk, dv), the same bits over two runs, at
+    the family shapes (kernel layout) and ragged lengths (model layout,
+    strided views); launches counted by pair; each family shape timed by
+    CUDA events beside the plain version's backward and SDPA's (its
+    ``is_causal`` or explicit band-mask form; null under a soft-cap), with
+    its bound; the build log's registers and spills of the new kernels."""
+    import torch
+    import torch.nn.functional as F
+    ptx = family_bwd_ptxas(fa_ops)
+    log(f"phase 13: the new backward kernels' ptxas report: {ptx}")
+    res, err_worst = [], 0.0
+    for shape in FAMILY_BWD_SHAPES + FAMILY_BWD_RAGGED:
+        B, H, KV, S, Dk, Dv, window, cap = shape
+        model = shape in FAMILY_BWD_RAGGED
+        q, k, v = flash_pair_inputs(shape, torch.float32, dev, seed=4)
+        g = torch.Generator(device=dev).manual_seed(5)
+        dout = torch.randn((B, H, S, Dv), generator=g, device=dev)
+        if model:           # [B, S, H, D] tensors: the kernels get strides
+            q, k, v, dout = (t.transpose(1, 2).contiguous()
+                             for t in (q, k, v, dout))
+
+        def grads(fn):
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            out = fn(*leaves)
+            return torch.autograd.grad(out, leaves, dout)
+
+        if model:
+            card = lambda a, b, c: fa_ops.attention(a, b, c, window, cap)  # noqa: E731
+            plain = lambda a, b, c: fa_ref.attention_ref(             # noqa: E731
+                a.transpose(1, 2), b.transpose(1, 2), c.transpose(1, 2),
+                window, cap).transpose(1, 2)
+        else:
+            card = lambda a, b, c: fa_ops.flash_attention(a, b, c, window, cap)  # noqa: E731
+            plain = lambda a, b, c: fa_ref.attention_ref(a, b, c, window, cap)  # noqa: E731
+        got = grads(card)
+        again = grads(card)
+        check(all(same_bits(a, b) for a, b in zip(got, again)),
+              f"flash backward differs between two runs at {shape}")
+        want = grads(plain)
+        scale = max(float(w.abs().max()) for w in want)
+        e = max(abs_err(a, w) for a, w in zip(got, want))
+        check(all(a.shape == w.shape and a.dtype == torch.float32
+                  for a, w in zip(got, want)),
+              f"flash backward returned {[tuple(a.shape) for a in got]}")
+        check(e <= BWD_REL["float32"] * scale,
+              f"flash backward at {shape} differs from the plain autograd: "
+              f"max |Δ| {e!r} beyond {BWD_REL['float32']} · {scale!r}")
+        err_worst = max(err_worst, e / scale)
+        r = dict(shape=list(shape), layout="model" if model else "kernel",
+                 max_abs_err=e, rel_err=e / scale)
+        del got, again, want
+        if not model:
+            out = torch.empty((B, H, S, Dv), device=dev)
+            lse = torch.empty((B, H, S), device=dev)
+            fa_ops._launch(q, k, v, out, window, cap, lse)
+            dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+            r["ms"] = cuda_ms(lambda: fa_ops._launch_backward(
+                q, k, v, out, dout, lse, dq, dk, dv, window, cap), 5)
+
+            def fwd_bwd(fn):
+                def run():
+                    leaves = [t.detach().requires_grad_(True)
+                              for t in (q, k, v)]
+                    torch.autograd.grad(fn(*leaves), leaves, dout)
+                return run
+
+            r["plain_ms"] = (cuda_ms(fwd_bwd(plain), 2)
+                             - cuda_ms(lambda: plain(q, k, v), 2))
+            if cap:
+                r["library_ms"] = None        # SDPA has no soft-cap
+            else:
+                mask = None
+                if window and window < S:
+                    i = torch.arange(S, device=dev)
+                    mask = ((i[:, None] >= i[None, :])
+                            & (i[:, None] - i[None, :] < window))
+
+                def sdpa(a, b, c):
+                    return F.scaled_dot_product_attention(
+                        a, b, c, attn_mask=mask, is_causal=mask is None,
+                        enable_gqa=True)
+                try:
+                    r["library_ms"] = (cuda_ms(fwd_bwd(sdpa), 5)
+                                       - cuda_ms(lambda: sdpa(q, k, v), 5))
+                except (TypeError, RuntimeError) as exc:
+                    log(f"timing: SDPA's backward at {shape} unavailable: "
+                        f"{exc}")
+                    r["library_ms"] = None
+            r.update(family_bwd_bound(shape))
+            log(f"timing flash_attention_backward {shape}: {r['ms']!r} ms "
+                f"(plain {r['plain_ms']!r} ms, SDPA {r['library_ms']!r} ms; "
+                f"bound {r['bound_ms']!r} ms by {r['bound_by']})")
+            del out, lse, dq, dk, dv
+        log(f"phase 13: flash backward {shape} float32 ({r['layout']} "
+            f"layout): max |Δ| {e!r} ({e / scale!r} of max |grad| "
+            f"{scale!r}); bitwise equal over two runs")
+        res.append(r)
+        del q, k, v, dout
+        torch.cuda.empty_cache()
+    return dict(instances=res, rel_err_worst=err_worst, ptxas=ptx)
+
+
+#: Phase 13 (b)'s modes: (label, FLECS-CGD, workers); 2 workers at smoke
+#: width are held card against CPU in ``tests/test_torch_gpu.py``.
+FAMILY_TRAIN_SMOKE_MODES = (("adam", False, 1), ("flecs", True, 1))
+
+
+def family_train_smoke_card(train, fa_ops, arch, overrides) -> dict:
+    """Phase 13 (b), the card's side of one family at smoke width: one
+    step of each of FAMILY_TRAIN_SMOKE_MODES through ``launch/train.train``
+    (adam, FLECS-CGD m = 0); the weights and
+    batch on the host for the CPU's side, each mode's metrics, new params
+    and flash launches (the backward's by pair)."""
+    import dataclasses
+    import torch
+    from repro_torch import random
+    from repro_torch.models.model import init_params
+    cfg, params = train.setup(arch, smoke=True, device="cuda")
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+        params = init_params(cfg, random.key(0, "cuda"), torch.float32)
+    batch = next(train.token_batches(cfg, *FAMILY_TRAIN_SMOKE_BATCH,
+                                     "cuda"))
+    out = dict(arch=arch, overrides=overrides, cfg=cfg,
+               params=to_cpu(params), batch=to_cpu(batch), modes={})
+    for mode, flecs, n in FAMILY_TRAIN_SMOKE_MODES:
+        fa_ops.reset_launches()
+        run = train.train(cfg, params, iter([batch]), 1, flecs=flecs,
+                          workers=n)
+        out["modes"][mode] = dict(
+            metrics=run["metrics"][0], params=to_cpu(run["params"]),
+            launches=dict(fa_ops.launches),
+            by_pair=dict(fa_ops.backward_launches_by_pair))
+        del run
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def family_train_smoke_cpu(train, card) -> dict:
+    """Phase 13 (b), the CPU's side: the same steps from the same weights
+    and batch on this machine's CPU (``launch/train.train``), each mode's
+    metrics, new params and new mean shift."""
+    out = {}
+    for mode, flecs, n in FAMILY_TRAIN_SMOKE_MODES:
+        run = train.train(card["cfg"], card["params"], iter([card["batch"]]),
+                          1, flecs=flecs, workers=n)
+        out[mode] = dict(metrics=run["metrics"][0], params=run["params"],
+                         mean=run["state"]["mean"] if flecs else None)
+    return out
+
+
+def family_train_smoke_held(card, cpu) -> dict:
+    """Phase 13 (b), one family card against CPU: losses within LOSS_REL,
+    ``uplink_mbits`` equal, the new params as ``test_torch_family_
+    training.py`` holds them against the reference (adam: at most 1e-3 of
+    the elements more than 1e-6 apart, none more than 2 lr; FLECS-CGD:
+    within a level step's move, alpha · 2 · max |h̄| / 127 + 1e-6), the
+    card's flash forward launched twice an attention layer and worker
+    (remat) and the backward once, at the layer's (Dk, Dv) pair."""
+    import torch
+    from repro_torch.tree import tree_leaves
+    arch, cfg, lr = card["arch"], card["cfg"], 3e-3
+    n_attn = _attention_layers(cfg)
+    pair = ((cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim)
+            if cfg.is_mla else (cfg.head_dim, cfg.head_dim))
+    res = {}
+    for mode, flecs, n in FAMILY_TRAIN_SMOKE_MODES:
+        c, p = card["modes"][mode], cpu[mode]
+        a, b = c["metrics"], p["metrics"]
+        launches, by_pair = c["launches"], c["by_pair"]
+        check(abs(a["loss"] - b["loss"]) <= LOSS_REL * abs(b["loss"]),
+              f"{arch} smoke {mode}: loss {a['loss']!r} (card) and "
+              f"{b['loss']!r} (CPU)")
+        check(launches["flash_attention"] == 2 * n_attn * n
+              and launches["flash_attention_backward"] == n_attn * n
+              and by_pair == ({pair: n_attn * n} if n_attn else {}),
+              f"{arch} smoke {mode}: launches {launches}, backward by pair "
+              f"{by_pair}, expected {n_attn} attention layers at {pair}")
+        got = torch.cat([t.float().reshape(-1)
+                         for t in tree_leaves(c["params"])])
+        want = torch.cat([t.float().reshape(-1)
+                          for t in tree_leaves(p["params"])])
+        diff = (got - want).abs()
+        if flecs:
+            check(a["uplink_mbits"] == b["uplink_mbits"],
+                  f"{arch} smoke {mode}: uplink {a['uplink_mbits']!r} (card) "
+                  f"and {b['uplink_mbits']!r} (CPU)")
+            h = max(float(t.float().abs().max())
+                    for t in tree_leaves(p["mean"]))
+            bound = lr * 30 * 2 * h / 127 + 1e-6
+            check(float(diff.max()) <= bound,
+                  f"{arch} smoke {mode}: params {float(diff.max())!r} apart, "
+                  f"beyond {bound!r}")
+        else:
+            share = float((diff > 1e-6).float().mean())
+            check(share <= 1e-3 and float(diff.max()) <= 2 * lr,
+                  f"{arch} smoke adam: params differ past 1e-6 at {share!r} "
+                  f"of the elements, by up to {float(diff.max())!r}")
+        res[mode] = dict(loss_card=a["loss"], loss_cpu=b["loss"],
+                         max_param_diff=float(diff.max()),
+                         flash=launches["flash_attention"],
+                         backward_by_pair={str(k): v
+                                           for k, v in by_pair.items()})
+        if flecs:
+            res[mode]["uplink_mbits"] = a["uplink_mbits"]
+    overrides = card["overrides"]
+    log(f"phase 13: {cfg.arch_id} (smoke{', ' + str(overrides) if overrides else ''}), "
+        f"batch {FAMILY_TRAIN_SMOKE_BATCH}, one adam and one FLECS-CGD step, "
+        f"card against CPU: {res}")
+    return res
+
+
+def family_train_full(train, fa_ops, d_ops, arch, cfg, make_params, B, S,
+                      optimizer) -> dict:
+    """Phase 13 (c), one family at full width: FAMILY_TRAIN_STEPS steps of
+    ``optimizer`` and then of FLECS-CGD (m = 0) through ``launch/train.
+    train`` on one batch, each from ``make_params()`` (handed over, so the
+    first weights are freed after the first step where nothing else holds
+    them), the counters set to 0 just before each run and read just after:
+    step ms (the first a warm-up), peak GiB, flash launches (the forward
+    twice a layer a step under remat, the backward once) by pair, the dither
+    codec's (a leaf a step)."""
+    import itertools
+    import torch
+    t_start = time.perf_counter()
+    batch = next(train.token_batches(cfg, B, S, "cuda"))
+    n_attn = _attention_layers(cfg)
+    steps = FAMILY_TRAIN_STEPS
+    res = {}
+    for mode in (optimizer, "flecs"):
+        flecs = mode == "flecs"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa_ops.reset_launches()
+        d_ops.reset_launches()
+        out = train.train(cfg, make_params(), itertools.repeat(batch), steps,
+                          flecs=flecs, optimizer=optimizer)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launches = dict(fa_ops.launches)
+        by_pair = dict(fa_ops.backward_launches_by_pair)
+        losses = [m["loss"] for m in out["metrics"]]
+        check(all(map(math.isfinite, losses)),
+              f"{arch} full width {mode}: losses not finite: {losses}")
+        check(launches["flash_attention"] == 2 * n_attn * steps
+              and launches["flash_attention_backward"] == n_attn * steps,
+              f"{arch} full width {mode}: flash launches {launches}, "
+              f"expected {2 * n_attn} and {n_attn} a step")
+        leaves = d_ops.launches["dither_encode_keyed"]
+        check(not flecs or (leaves > 0 and leaves
+                            == d_ops.launches["dither_decode"]),
+              f"{arch} full width flecs: codec launches {d_ops.launches}")
+        res[mode] = dict(
+            losses=losses, step_ms=out["step_ms"],
+            timed_step_ms=out["step_ms"][1:], peak_gib=peak,
+            flash_launches=launches["flash_attention"],
+            backward_launches=launches["flash_attention_backward"],
+            backward_by_pair={str(k): v for k, v in by_pair.items()},
+            codec_launches=leaves)
+        if flecs:
+            res[mode]["uplink_mbits"] = out["metrics"][-1]["uplink_mbits"]
+        log(f"phase 13: {cfg.arch_id} x{cfg.n_layers} f32, batch {B} x {S}, "
+            f"{mode} x{steps}: losses {losses}; step ms {out['step_ms']}; "
+            f"peak {peak!r} GiB; flash {launches['flash_attention']}, "
+            f"backward {by_pair}; codec {leaves}")
+        del out
+        torch.cuda.empty_cache()
+    return dict(arch=cfg.arch_id, layers=cfg.n_layers, batch=B, seq=S,
+                optimizer=optimizer, seconds=time.perf_counter() - t_start,
+                **res)
+
+
+def reuses_serving_weights(arch) -> bool:
+    """Whether phase 13 (c) trains ``arch`` on phase 12's weights: float32
+    at FAMILY_TRAIN's depth (init is ~1.3 ns a weight)."""
+    served = {a: (layers, dtype) for a, layers, dtype, *_ in FAMILY_FULL}
+    trained = {a: layers for a, layers, *_ in FAMILY_TRAIN}
+    return (arch in served and arch in trained
+            and served[arch] == (trained[arch], "float32"))
+
+
+def train_on_serving_weights(train, fa_ops, d_ops, arch, cfg, params,
+                             done) -> None:
+    """Phase 13 (c) on phase 12's weights where ``reuses_serving_weights``:
+    the run goes into ``done`` by arch."""
+    if not reuses_serving_weights(arch):
+        return
+    _, _, B, S, optimizer = next(r for r in FAMILY_TRAIN if r[0] == arch)
+    done[arch] = family_train_full(train, fa_ops, d_ops, arch, cfg,
+                                   lambda: params, B, S, optimizer)
+
+
+def family_train_rest(train, fa_ops, d_ops) -> dict:
+    """Phase 13 (c) of the families phase 12 leaves no float32 weights for,
+    by arch.  A family of FAMILY_TRAIN_HANDOVER gets fresh weights for each
+    run, handed over, so no caller holds a step's first weights; the
+    others' weights are drawn once."""
+    import gc
+    import torch
+    out = {}
+    for arch, layers, B, S, optimizer in FAMILY_TRAIN:
+        if reuses_serving_weights(arch):
+            continue
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cfg, params = train.setup(arch, smoke=False, device="cuda",
+                                  n_layers=layers)
+        held = [params]
+        del params
+        if arch in FAMILY_TRAIN_HANDOVER:
+            def make(arch=arch, layers=layers, held=held):
+                return held.pop() if held else train.setup(
+                    arch, smoke=False, device="cuda", n_layers=layers)[1]
+        else:
+            def make(held=held):
+                return held[0]
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        out[arch] = family_train_full(train, fa_ops, d_ops, arch, cfg, make,
+                                      B, S, optimizer)
+        out[arch]["init_s"] = init_s
+        del make, held
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_family_training(train, fa_ops, d_ops, done) -> dict:
+    """Phase 13 (b), each family card against CPU, with (c)'s full-width
+    runs (``done``, by arch: made on phase 12's weights and, while phase
+    11's CPU side ran, on fresh ones) in FAMILY_TRAIN's order."""
+    out = {"smoke": {}}
+    t0 = time.perf_counter()
+    for arch, overrides in FAMILY_SMOKE:
+        label = arch + ("@" + ",".join(f"{k}={v}" for k, v in
+                                       overrides.items()) if overrides else "")
+        card = family_train_smoke_card(train, fa_ops, arch, overrides)
+        out["smoke"][label] = family_train_smoke_held(
+            card, family_train_smoke_cpu(train, card))
+    out["smoke_s"] = time.perf_counter() - t0
+    log(f"phase 13 (b): {out['smoke_s']:.1f} s")
+    out["full"] = {arch: done[arch] for arch, *_ in FAMILY_TRAIN}
+    return out
 
 def main():
     import torch
@@ -5341,35 +5851,57 @@ def main():
     elapsed("phase 8")
     trained = phase_train_full(train, fa_ops, d_ops, ops, tree)
     elapsed("phase 9")
+    # the kernel timings that read no host clock run on the card while
+    # phase 10's CPU side runs, and phase 13 (c)'s runs on fresh weights
+    # while phase 11's does (both sides are CPU-bound on a slow host)
+    timed = {}
+
+    def kernel_timings():
+        timed["ttopk"] = topk_shape_timing(dev, ops, ref)
+        timed["gtiming"] = grouped_timing(dev, ops, ref, random,
+                                          library=built[0])
+        timed["flash"] = phase_flash_timing(dev, fa_ops, fa_ref)
+        timed["ttiming"] = phase_train_kernel_timing(dev, d_ops, d_ref,
+                                                     fa_ops, fa_ref, random)
+        elapsed("phase 7's and 9's kernel timings")
+
     m2 = phase_flecs_m2(dev, train, dl_flecs, fa_ops, fa_ref, d_ops, ops,
-                        tree)
+                        tree, meanwhile=kernel_timings)
     elapsed("phase 10")
-    workers = phase_flecs_workers(train, dl_flecs, fa_ops, d_ops, ops, tree)
+    fam_bwd = phase_flash_bwd_families(dev, fa_ops, fa_ref)
+    elapsed("phase 13 (a)")
+    fresh = {}
+
+    def family_training_fresh():
+        fresh.update(family_train_rest(train, fa_ops, d_ops))
+        elapsed("phase 13 (c) on fresh weights")
+
+    workers = phase_flecs_workers(train, dl_flecs, fa_ops, d_ops, ops, tree,
+                                  meanwhile=family_training_fresh)
     elapsed("phase 11")
-    families = phase_families(serve, fa_ops)
-    elapsed("phase 12")
+    on_serving = {}
+    families = phase_families(
+        serve, fa_ops, then=lambda arch, cfg, params: train_on_serving_weights(
+            train, fa_ops, d_ops, arch, cfg, params, on_serving))
+    elapsed("phase 12 (and phase 13 (c) on its float32 weights)")
+    fam_train = phase_family_training(train, fa_ops, d_ops,
+                                      {**on_serving, **fresh})
+    elapsed("phase 13")
     prof = phase_profile(quickstart)
     elapsed("phase 7's profile")
     timing = phase_timing(dev, ops, ref, random, library=built[0])
     elapsed("phase 7's compressor timing")
-    ttopk = topk_shape_timing(dev, ops, ref)
-    elapsed("phase 7's top-k shapes")
-    gtiming = grouped_timing(dev, ops, ref, random, library=built[0])
-    elapsed("phase 7's grouped entries")
+    ttopk, gtiming = timed["ttopk"], timed["gtiming"]
     floor_ms = empty_launch_ms()
     log(f"timing an empty kernel (torch.cuda._sleep(0)) back to back: "
         f"{floor_ms!r} ms a launch")
-    flash = phase_flash_timing(dev, fa_ops, fa_ref)
-    elapsed("phase 7's flash timing")
-    ttiming = phase_train_kernel_timing(dev, d_ops, d_ref, fa_ops, fa_ref,
-                                        random)
-    elapsed("phase 9's kernel timings")
+    flash, ttiming = timed["flash"], timed["ttiming"]
 
     # phase 10's two main paths (the m = 2 trainer and train_lm) and phase
     # 11's two (n workers at m = 0 and at m = 2)
     m2_paths = {
         f"train flecs m=2 x{FLECS_M_STEPS}": m2["full"]["launches"],
-        "train_lm --flecs-m 2 x3": m2["driver"]["launches"],
+        f"train_lm --flecs-m 2 x{TRAIN_LM_STEPS}": m2["driver"]["launches"],
         f"train flecs n={WORKERS_N} x{WORKERS_STEPS}": workers["n4_m0"][
             "launches"],
         f"train flecs m=2 n={WORKERS_M2_N} x{WORKERS_M2_STEPS}": workers[
@@ -5388,8 +5920,8 @@ def main():
                  "launches_by_path": {
                      "quickstart, gisette": counts[name],
                      "plans": plan_counts[name],
-                     "train flecs x5": trained["flecs"]["launches"].get(
-                         name, 0),
+                     f"train flecs x{FULL_STEPS}": trained["flecs"][
+                         "launches"].get(name, 0),
                      **{path: n.get(name, 0)
                         for path, n in m2_paths.items()}},
                  "max_abs_err": err[name], "ms": r["ms"],
@@ -5448,8 +5980,9 @@ def main():
                     name]}
         kernels.append(entry)
     by_path = {"serve prefill": full["launches"],
-               "train adam x5": trained["adam"]["launches"],
-               "train flecs x5": trained["flecs"]["launches"], **m2_paths}
+               f"train adam x{FULL_STEPS}": trained["adam"]["launches"],
+               f"train flecs x{FULL_STEPS}": trained["flecs"]["launches"],
+               **m2_paths}
     family_paths = {f"serve {r['arch']} x{r['layers']} prefill":
                     r["flash_launches"]
                     for r in families["full"].values()}
@@ -5484,7 +6017,7 @@ def main():
             "replaces": DITHER_REPLACES[name],
             "launches": trained["flecs"]["launches"][name]
             + m2_launches[name],
-            "launches_by_path": {"train flecs x5": trained["flecs"][
+            "launches_by_path": {f"train flecs x{FULL_STEPS}": trained["flecs"][
                 "launches"][name], **{path: n[name]
                                       for path, n in m2_paths.items()}},
             "max_abs_err": dither_err[name], "ms": r["ms"],
@@ -5497,15 +6030,27 @@ def main():
             kernels[-1]["draw_ms"] = r["draw_ms"]
     r = ttiming[("flash_attention_backward", torch.float32)]
     r16 = ttiming[("flash_attention_backward", torch.bfloat16)]
+    # phase 13 (c)'s main paths: each family's two full-width runs
+    fam_paths, fam_pairs = {}, {}
+    for run in fam_train["full"].values():
+        for mode in (run["optimizer"], "flecs"):
+            fam_paths[f"train {run['arch']} x{run['layers']} {mode} "
+                      f"x{FAMILY_TRAIN_STEPS}"] = run[mode][
+                          "backward_launches"]
+            for pair, n in run[mode]["backward_by_pair"].items():
+                fam_pairs[pair] = fam_pairs.get(pair, 0) + n
     kernels.append({
         "name": "flash_attention_backward", "route": "cuda",
         "source": FLASH_SOURCE, "replaces": BWD_REPLACES,
         "launches": trained["adam"]["launches"]["flash_attention_backward"]
         + trained["flecs"]["launches"]["flash_attention_backward"]
-        + m2_launches["flash_attention_backward"],
-        "launches_by_path": {k: v["flash_attention_backward"]
-                             for k, v in by_path.items()
-                             if k != "serve prefill"},
+        + m2_launches["flash_attention_backward"]
+        + sum(fam_paths.values()),
+        "launches_by_path": {**{k: v["flash_attention_backward"]
+                                for k, v in by_path.items()
+                                if k != "serve prefill"}, **fam_paths},
+        "family_launches_by_pair": fam_pairs,
+        "instances": fam_bwd["instances"],
         "max_abs_err": max(bwd_err.values()), "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -5539,6 +6084,9 @@ def main():
                                  if k != "timing"}}))
     log(json.dumps({"flecs_workers": workers}))
     log(json.dumps({"families": families}))
+    log(json.dumps({"family_training": fam_train,
+                    "family_backward": {k: v for k, v in fam_bwd.items()
+                                        if k != "instances"}}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

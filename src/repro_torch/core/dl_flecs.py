@@ -271,31 +271,45 @@ def make_flecs_train_step(cfg: ModelConfig,
         n_t = torch.full((), float(n), dtype=torch.float32, device=dev)
         key0 = random.fold_in(random.key(29, dev), int(step_idx))
         payload_bits = torch.zeros((), dtype=torch.float32, device=dev)
-        g_tilde, new_own, new_mean = [], [], []
-        for i, (ho, hm) in enumerate(zip(h_own, h_mean)):
+        # at m = 0 each leaf steps as soon as its g̃ is known, so no float32
+        # copy of the whole g̃ is held (qwen3-moe's one full-width layer is
+        # 14.9 GB of it); the squares of g̃ are summed in leaf order either
+        # way, as the reference's norm sums them
+        g_tilde, new_own, new_mean, new_leaves = [], [], [], []
+        sq = 0
+        for i, (p, ho, hm) in enumerate(zip(tree_leaves(params), h_own,
+                                            h_mean)):
             gs = [gw[i].float() for gw in grads]
             for gw in grads:                 # free each gradient leaf
                 gw[i] = None
             if not fcfg.compress:
-                g_tilde.append(mean_over_workers(gs, n_t))
+                g = mean_over_workers(gs, n_t)
                 new_own.append(ho)
                 new_mean.append(hm)
                 payload_bits = payload_bits + spec_bits(identity_spec(),
                                                         gs[0].numel(), dev)
-                continue
-            deltas = [g - h.float() for g, h in zip(gs, ho)]
-            del gs
-            levels, scale, q_mean, payload_bits = quantized_mean(
-                random.fold_in(key0, i), deltas, n_t, payload_bits)  # c̄
-            del deltas
-            own = []
-            for h, lv in zip(ho, levels):
-                q_own = q_mean if lone else decode_int8(lv, scale)  # Q(δ_j)
-                own.append((h.float() + fcfg.gamma * q_own).to(h.dtype))
-            del levels
-            g_tilde.append(q_mean + hm.float())
-            new_own.append(torch.stack(own))
-            new_mean.append((hm.float() + fcfg.gamma * q_mean).to(hm.dtype))
+            else:
+                deltas = [g - h.float() for g, h in zip(gs, ho)]
+                del gs
+                levels, scale, q_mean, payload_bits = quantized_mean(
+                    random.fold_in(key0, i), deltas, n_t, payload_bits)  # c̄
+                del deltas
+                own = []
+                for h, lv in zip(ho, levels):
+                    q_own = (q_mean if lone
+                             else decode_int8(lv, scale))  # Q(δ_j)
+                    own.append((h.float() + fcfg.gamma * q_own).to(h.dtype))
+                del levels
+                g = q_mean + hm.float()
+                new_own.append(torch.stack(own))
+                new_mean.append((hm.float() + fcfg.gamma * q_mean).to(
+                    hm.dtype))
+            sq = sq + torch.sum(torch.square(g))
+            if fcfg.m > 0:
+                g_tilde.append(g)
+            else:
+                new_leaves.append((p.float() + fcfg.alpha * -g).to(p.dtype))
+            del g
         new_shifts = {"own": tree_unflatten(treedef, new_own),
                       "mean": tree_unflatten(treedef, new_mean)}
         if fcfg.m > 0:
@@ -305,10 +319,8 @@ def make_flecs_train_step(cfg: ModelConfig,
                 lambda p, u: (p.float() + fcfg.alpha * u).to(p.dtype),
                 params, tree_unflatten(treedef, directions))
         else:
-            new_params = tree_map(
-                lambda p, g: (p.float() + fcfg.alpha * -g).to(p.dtype),
-                params, tree_unflatten(treedef, g_tilde))
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in g_tilde))
+            new_params = tree_unflatten(treedef, new_leaves)
+        gnorm = torch.sqrt(sq)
         metrics = {"loss": mean_over_workers(losses, n_t),
                    "grad_norm": gnorm, "uplink_mbits": payload_bits / 1e6}
         return new_params, new_shifts, metrics

@@ -24,8 +24,8 @@ LIBRARY = CudaLibrary(
         "repro_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                   _I, _I, _I, _F, _P, _P),
         # q, k, v, o, dout, lse, delta, dq, dk, dv, dtype, B, H, KV, S, D,
-        # window, cap, strides, stream
-        "repro_flash_attention_backward": (_P,) * 10 + (_I,) * 7 + (
+        # Dv, window, cap, strides, stream
+        "repro_flash_attention_backward": (_P,) * 10 + (_I,) * 8 + (
             _F, _P, _P),
     })
 

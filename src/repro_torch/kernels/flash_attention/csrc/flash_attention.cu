@@ -514,6 +514,47 @@ cudaError_t dispatch(int DK, int DV, const void* q, const void* k,
 // CTAs an SM; 64 keys: 3.31 ms); for D = 128 the dK/dV step takes 32 q
 // rows.
 //
+// Head dims.  The kernels are templates on Q's and K's head dim DK and V's,
+// O's and dO's DV, as the forward is: S = Q K^T, dK = dS^T Q and dQ = dS K
+// run at DK, dP = dO V^T and dV = P^T dO at DV, Delta = rowsum(dO o O) over
+// DV, the scale 1/sqrt(DK).  Built for (32, 32), (64, 64) and (128, 128) in
+// both types (those instances run the code above unchanged: one dK/dV
+// launch, every product summed in one pass) and, in float32 only, for
+// (256, 256) (gemma2-9b, recurrentgemma-9b) and MLA's (192, 128)
+// (deepseek-v3).  The D <= 128 plan does not fit there: at D = 256 the
+// dK/dV kernel would stage (2 * 64 + 4 * 32) rows of 260 floats, 266 KB
+// against the 227 KB a CTA may opt into, and hold dK and dV, 64 keys x
+// 256 x 2 floats over 128 threads, 256 registers a thread before anything
+// else.  The plan above D = 128 (rows padded as above: 260 floats at 256,
+// 196 and 132 at (192, 128)):
+//   * dK/dV: still 64 keys a CTA, a warp 16 keys, but two launches: one
+//     accumulates dV (S^T and P^T dO), the next dK (S^T, dP^T and dS^T Q),
+//     so a thread holds one accumulator, 128 registers at 256 (dK 96, dV 64
+//     at (192, 128)); 8 q rows a step, so S^T and dP^T take 4 registers
+//     each; each step's product is summed 32 output columns at a time, 16
+//     registers (add_product).  Shared memory: K (and V in the dK pass)
+//     once, Q and dO twice, 8-row steps: at (256, 256) the dV pass 99,968
+//     bytes (two CTAs an SM), the dK pass 166,528 (one); at (192, 128)
+//     71,296 (three) and 105,088 (two).
+//   * dQ: 64 q rows a CTA, 16 keys a step: Q and dO once, K and V twice,
+//     199,680 bytes at (256, 256) and 125,952 at (192, 128), one CTA an
+//     SM.  At DK = 256 the 64 x 256 accumulator is two launches of 128
+//     columns each (dq_cols), each computing S and dP again: with one, it
+//     spilled at 255 registers.
+//   * S and dP are taken 64 columns of depth at a time in a loop ptxas does
+//     not unroll (gemm_nt_bwd): fully unrolled, its fragment loads ahead
+//     spilled.  Registers (ptxas, sm_90a): dV pass 167 and 96, dK pass 252
+//     and 166, dQ 198 and 168 at (256, 256) and (192, 128), no spill
+//     (chip_smoke.py checks the build log).  Built as variants on the card,
+//     16 q rows a dK/dV step spilled as well, with 64, 32 or 8 columns
+//     summed at a time and 64 or 32 columns of depth a step.
+// S^T is computed in both dK/dV launches (and at DK = 256 S and dP in both
+// dQ launches), so these instances run eight products (ten) where the
+// bound counts five, on four to twelve warps an SM: they are far from
+// their bound and behind the plain autograd (PERF.md), and right first.
+// bfloat16 operands at these pairs are on no path (training weights are
+// float32): the wrapper raises.
+//
 // What bounds it: operations.  The five causal products (QK^T, dV, dP, dQ,
 // dK) are 5 * 2*B*H*S^2*D/2 = 8.6e10 operations at B=8, H=32, S=1024,
 // D=64; as 3xTF32 they are three times that at 495 TFLOP/s, 0.52 ms (the
@@ -539,23 +580,54 @@ constexpr int BWD_BK = 64;         // keys per dK/dV CTA
 constexpr int BWD_BQ = 64;         // query rows per dQ CTA
 constexpr int BWD_DQ_BK = REPRO_BWD_DQ_BK;   // keys a step of the dQ kernel
 
+template <int DK, int DV>
+__host__ __device__ constexpr int bwd_dmax() { return DK > DV ? DK : DV; }
+
 // q rows a step of the dK/dV kernel
-template <int D>
+template <int DK, int DV>
 __host__ __device__ constexpr int dkdv_bq() {
-  return D <= 64 ? REPRO_BWD_DKDV_BQ : 32;
+  return bwd_dmax<DK, DV>() <= 64 ? REPRO_BWD_DKDV_BQ
+         : bwd_dmax<DK, DV>() <= 128 ? 32 : 8;
 }
 
-template <typename T, int D>
+// keys a step of the dQ kernel
+template <int DK, int DV>
+__host__ __device__ constexpr int dq_bk() {
+  return bwd_dmax<DK, DV>() <= 128 ? BWD_DQ_BK : 16;
+}
+
+// dQ columns a dQ launch accumulates: all of them up to DK = 192 (96
+// registers), half above (a launch a half, each computing S and dP again).
+template <int DK>
+__host__ __device__ constexpr int dq_cols() {
+  return DK <= 192 ? DK : DK / 2;
+}
+
+// What a dK/dV launch accumulates: both (up to D = 128), or, above it, dV
+// in one launch and dK in a second (the large-D plan in the header).
+enum BwdPass { BWD_BOTH, BWD_DV, BWD_DK };
+
+template <int DK, int DV>
+__host__ __device__ constexpr bool dkdv_split() {
+  return bwd_dmax<DK, DV>() > 128;
+}
+
+template <typename T, int DK, int DV, int PASS>
 constexpr size_t dkdv_smem_bytes() {
-  // K, V; Q and dO twice; lse and Delta twice
-  return (size_t)(2 * BWD_BK + 4 * dkdv_bq<D>()) * row_ld<T, D>() * sizeof(T)
-         + 4 * dkdv_bq<D>() * sizeof(float);
+  // K, V (not in the dV pass); Q and dO twice; lse and Delta twice
+  constexpr int BQ = dkdv_bq<DK, DV>();
+  constexpr int VROWS = PASS == BWD_DV ? 0 : BWD_BK;
+  return ((size_t)(BWD_BK + 2 * BQ) * row_ld<T, DK>()
+          + (size_t)(VROWS + 2 * BQ) * row_ld<T, DV>()) * sizeof(T)
+         + 4 * BQ * sizeof(float);
 }
 
-template <typename T, int D>
+template <typename T, int DK, int DV>
 constexpr size_t dq_smem_bytes() {
   // Q, dO; K and V twice
-  return (size_t)(2 * BWD_BQ + 4 * BWD_DQ_BK) * row_ld<T, D>() * sizeof(T);
+  constexpr int BK = dq_bk<DK, DV>();
+  return ((size_t)(BWD_BQ + 2 * BK) * row_ld<T, DK>()
+          + (size_t)(BWD_BQ + 2 * BK) * row_ld<T, DV>()) * sizeof(T);
 }
 
 // From the raw score s and dP: s becomes P (0 where masked), dp becomes dS.
@@ -573,8 +645,59 @@ __device__ __forceinline__ void p_and_ds(float& s, float& dp, float lse,
   dp = p * (dp - dl) * dcap;
 }
 
-// Delta[b, h, s] = sum_d dO * O, one warp a row.
-template <typename T, int D>
+// n-tiles of a backward product summed apart at a time: all of them up to
+// 128 columns, 32 columns above (16 registers a thread beside the
+// accumulator's 96 or 128: with 64, as the forward's P V pass takes them,
+// ptxas spilled the (256, 256) dK pass and both new dQ instances at 255
+// registers).
+template <int N>
+__host__ __device__ constexpr int bwd_sum_tiles() {
+  return N <= 16 ? N : 4;
+}
+
+// acc[j] += A B_j (j < NT) as gemm_nt over KD columns; above KD = 128 in
+// a loop over 64 columns at a time that is not unrolled, so ptxas does not
+// load the fragments of the whole depth ahead (at KD = 256 that spilled
+// every new instance at 255 registers).  The products meet each
+// accumulator in the same order either way.
+template <typename T, int KD, int NT>
+__device__ __forceinline__ void gemm_nt_bwd(float (&acc)[NT][4],
+                                            const T* As, const T* Bs, int ld,
+                                            int m, int g, int t) {
+  if constexpr (KD <= 128) {
+    gemm_nt<T, KD, NT>(acc, As, Bs, ld, m, g, t);
+  } else {
+    static_assert(KD % 64 == 0, "gemm_nt_bwd: KD a multiple of 64");
+#pragma unroll 1
+    for (int k = 0; k < KD; k += 64)
+      gemm_nt<T, 64, NT>(acc, As + k, Bs + k, ld, m, g, t);
+  }
+}
+
+// acc[j] += A B_j (j < N) as gemm_rn, each product summed apart and added
+// to acc (add_to), bwd_sum_tiles<N> n-tiles a pass: all of them up to 128
+// columns (one pass, gemm_rn then add_to as such).  Each output column
+// sees the same products in the same order either way.
+template <typename T, int N, int NA>
+__device__ __forceinline__ void add_product(float (&acc)[N][4],
+                                            const float (&a)[NA][4],
+                                            const T* Bs, int ld, int g,
+                                            int t) {
+  constexpr int NC = bwd_sum_tiles<N>();
+#pragma unroll
+  for (int jc = 0; jc < N; jc += NC) {
+    float part[NC][4];
+    zero(part);
+    gemm_rn<T, NC, NA>(part, a, Bs + 8 * jc, ld, g, t);
+#pragma unroll
+    for (int j = 0; j < NC; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[jc + j][e] += part[j][e];
+  }
+}
+
+// Delta[b, h, s] = sum over V's head dim DV of dO * O, one warp a row.
+template <typename T, int DV>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
                        float* __restrict__ delta, int H, int S,
@@ -587,16 +710,19 @@ flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
   const T* orow = o + b * st.o[0] + h * st.o[1] + s * st.o[2];
   const T* grow = dout + b * st.dout[0] + h * st.dout[1] + s * st.dout[2];
   float sum = 0.f;
-  for (int d = lane; d < D; d += 32) sum += to_f32(orow[d]) * to_f32(grow[d]);
+  for (int d = lane; d < DV; d += 32)
+    sum += to_f32(orow[d]) * to_f32(grow[d]);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     sum += __shfl_xor_sync(0xffffffffu, sum, off);
   if (lane == 0) delta[w] = sum;
 }
 
-// dK and dV of one 64-key tile of one KV head, summed over the group's
-// heads.  Warp w owns keys 16w..16w+15 of the tile.
-template <typename T, int D>
+// dK and dV (or, as PASS says, one of them) of one 64-key tile of one KV
+// head, summed over the group's heads.  Warp w owns keys 16w..16w+15 of the
+// tile.  S^T = K Q^T runs at DK, dP^T = V dO^T at DV, dV += P^T dO at DV
+// and dK += dS^T Q at DK.
+template <typename T, int DK, int DV, int PASS>
 __global__ void __launch_bounds__(TC_THREADS)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dout,
@@ -604,14 +730,16 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const float* __restrict__ delta, T* __restrict__ dk,
                       T* __restrict__ dv, int H, int KV, int S, int window,
                       float cap, float scale, BwdStrides st) {
-  constexpr int BQ = dkdv_bq<D>(), BK = BWD_BK, LD = row_ld<T, D>();
-  constexpr int NQ = BQ / 8, ND = D / 8;
+  constexpr int BQ = dkdv_bq<DK, DV>(), BK = BWD_BK;
+  constexpr int LDK = row_ld<T, DK>(), LDV = row_ld<T, DV>();
+  constexpr int NQ = BQ / 8, NDK = DK / 8, NDV = DV / 8;
+  constexpr bool DO_DV = PASS != BWD_DK, DO_DK = PASS != BWD_DV;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Ks = reinterpret_cast<T*>(smem_raw);   // [BK][LD]
-  T* Vs = Ks + BK * LD;                     // [BK][LD]
-  T* Qs = Vs + BK * LD;                     // [2][BQ][LD]
-  T* dOs = Qs + 2 * BQ * LD;                // [2][BQ][LD]
-  float* lse_s = reinterpret_cast<float*>(dOs + 2 * BQ * LD);   // [2][BQ]
+  T* Ks = reinterpret_cast<T*>(smem_raw);   // [BK][LDK]
+  T* Vs = Ks + BK * LDK;                    // [BK][LDV], not in the dV pass
+  T* Qs = Vs + (DO_DK ? BK * LDV : 0);      // [2][BQ][LDK]
+  T* dOs = Qs + 2 * BQ * LDK;               // [2][BQ][LDV]
+  float* lse_s = reinterpret_cast<float*>(dOs + 2 * BQ * LDV);  // [2][BQ]
   float* dl_s = lse_s + 2 * BQ;                                 // [2][BQ]
 
   // one linear grid, key tile slowest: the tiles that the most q tiles
@@ -635,23 +763,24 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   auto stage = [&](int step) {
     const int h = kvh * G + step / n_it, q_lo = (i_lo + step % n_it) * BQ;
     const int buf = step & 1;
-    stage_rows<T, D, BQ>(Qs + buf * BQ * LD, q + b * st.q[0] + h * st.q[1],
-                         st.q[2], q_lo, S);
-    stage_rows<T, D, BQ>(dOs + buf * BQ * LD,
-                         dout + b * st.dout[0] + h * st.dout[1], st.dout[2],
-                         q_lo, S);
+    stage_rows<T, DK, BQ>(Qs + buf * BQ * LDK, q + b * st.q[0] + h * st.q[1],
+                          st.q[2], q_lo, S);
+    stage_rows<T, DV, BQ>(dOs + buf * BQ * LDV,
+                          dout + b * st.dout[0] + h * st.dout[1], st.dout[2],
+                          q_lo, S);
     const long long off = ((long long)b * H + h) * S;
     stage_vec<BQ>(lse_s + buf * BQ, lse + off, q_lo, S);
-    stage_vec<BQ>(dl_s + buf * BQ, delta + off, q_lo, S);
+    if constexpr (DO_DK) stage_vec<BQ>(dl_s + buf * BQ, delta + off, q_lo, S);
   };
-  stage_rows<T, D, BK>(Ks, k + b * st.k[0] + kvh * st.k[1], st.k[2], k_lo,
-                       S);
-  stage_rows<T, D, BK>(Vs, v + b * st.v[0] + kvh * st.v[1], st.v[2], k_lo,
-                       S);
+  stage_rows<T, DK, BK>(Ks, k + b * st.k[0] + kvh * st.k[1], st.k[2], k_lo,
+                        S);
+  if constexpr (DO_DK)
+    stage_rows<T, DV, BK>(Vs, v + b * st.v[0] + kvh * st.v[1], st.v[2], k_lo,
+                          S);
   stage(0);
   cp_async_commit();
 
-  float dk_acc[ND][4], dv_acc[ND][4];
+  float dk_acc[DO_DK ? NDK : 1][4], dv_acc[DO_DV ? NDV : 1][4];
   zero(dk_acc);
   zero(dv_acc);
 
@@ -661,68 +790,72 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     cp_async_wait_one();   // this step's tiles have landed
     __syncthreads();
     const int buf = step & 1, q_lo = (i_lo + step % n_it) * BQ;
-    const T* Qb = Qs + buf * BQ * LD;
-    const T* dOb = dOs + buf * BQ * LD;
+    const T* Qb = Qs + buf * BQ * LDK;
+    const T* dOb = dOs + buf * BQ * LDV;
     const float* lb = lse_s + buf * BQ;
     const float* db = dl_s + buf * BQ;
 
     float s[NQ][4], dp[NQ][4];
     zero(s);
     zero(dp);
-    gemm_nt<T, D, NQ>(s, Ks, Qb, LD, m, g, t);     // S^T = K Q^T
-    gemm_nt<T, D, NQ>(dp, Vs, dOb, LD, m, g, t);   // dP^T = V dO^T
+    gemm_nt_bwd<T, DK, NQ>(s, Ks, Qb, LDK, m, g, t);     // S^T = K Q^T
+    if constexpr (DO_DK)
+      gemm_nt_bwd<T, DV, NQ>(dp, Vs, dOb, LDV, m, g, t);   // dP^T = V dO^T
 #pragma unroll
     for (int j = 0; j < NQ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int kpos = k_lo + m + g + (e & 2 ? 8 : 0);
         const int c = 8 * j + 2 * t + (e & 1);     // q row in the tile
-        p_and_ds(s[j][e], dp[j][e], lb[c], db[c],
+        p_and_ds(s[j][e], dp[j][e], lb[c], DO_DK ? db[c] : 0.f,
                  visible(q_lo + c, kpos, S, window), cap, scale);
       }
     // dV += P^T dO, then dK += dS^T Q, each step's product summed apart
-    float part[ND][4];
-    zero(part);
-    gemm_rn<T, ND, NQ>(part, s, dOb, LD, g, t);
-    add_to(dv_acc, part);
-    zero(part);
-    gemm_rn<T, ND, NQ>(part, dp, Qb, LD, g, t);
-    add_to(dk_acc, part);
+    if constexpr (DO_DV) add_product<T, NDV, NQ>(dv_acc, s, dOb, LDV, g, t);
+    if constexpr (DO_DK) add_product<T, NDK, NQ>(dk_acc, dp, Qb, LDK, g, t);
     __syncthreads();   // every warp is done with this buffer: it refills
   }
 
   T* dkb = dk + b * st.dk[0] + kvh * st.dk[1];
   T* dvb = dv + b * st.dv[0] + kvh * st.dv[1];
 #pragma unroll
-  for (int j = 0; j < ND; ++j)
+  for (int e = 0; e < 4; ++e) {
+    const int key = k_lo + m + g + (e & 2 ? 8 : 0);
+    if (key >= S) continue;
+    if constexpr (DO_DK) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int key = k_lo + m + g + (e & 2 ? 8 : 0);
-      const int c = 8 * j + 2 * t + (e & 1);
-      if (key < S) {
-        store(&dkb[key * st.dk[2] + c], dk_acc[j][e] * scale);
-        store(&dvb[key * st.dv[2] + c], dv_acc[j][e]);
-      }
+      for (int j = 0; j < NDK; ++j)
+        store(&dkb[key * st.dk[2] + 8 * j + 2 * t + (e & 1)],
+              dk_acc[j][e] * scale);
     }
+    if constexpr (DO_DV) {
+#pragma unroll
+      for (int j = 0; j < NDV; ++j)
+        store(&dvb[key * st.dv[2] + 8 * j + 2 * t + (e & 1)], dv_acc[j][e]);
+    }
+  }
 }
 
 // dQ of one 64-row q tile of one head, over the KV tiles the forward
-// visits.  Warp w owns rows 16w..16w+15 of the tile.
-template <typename T, int D>
+// visits: its dq_cols<DK> columns from col0 on.  Warp w owns rows
+// 16w..16w+15 of the tile.  S = Q K^T runs at DK, dP = dO V^T at DV, dQ +=
+// dS K at DK.
+template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(TC_THREADS)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
                     int H, int KV, int S, int window, float cap, float scale,
-                    BwdStrides st) {
-  constexpr int BQ = BWD_BQ, BK = BWD_DQ_BK, LD = row_ld<T, D>();
-  constexpr int NK = BK / 8, ND = D / 8;
+                    int col0, BwdStrides st) {
+  constexpr int BQ = BWD_BQ, BK = dq_bk<DK, DV>();
+  constexpr int LDK = row_ld<T, DK>(), LDV = row_ld<T, DV>();
+  constexpr int NK = BK / 8, NDK = dq_cols<DK>() / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Qs = reinterpret_cast<T*>(smem_raw);   // [BQ][LD]
-  T* dOs = Qs + BQ * LD;                    // [BQ][LD]
-  T* Ks = dOs + BQ * LD;                    // [2][BK][LD]
-  T* Vs = Ks + 2 * BK * LD;                 // [2][BK][LD]
+  T* Qs = reinterpret_cast<T*>(smem_raw);   // [BQ][LDK]
+  T* dOs = Qs + BQ * LDK;                   // [BQ][LDV]
+  T* Ks = dOs + BQ * LDV;                   // [2][BK][LDK]
+  T* Vs = Ks + 2 * BK * LDK;                // [2][BK][LDV]
 
   const int nq = (S + BQ - 1) / BQ;
   // one linear grid, q tile slowest: the last q tiles (the most KV tiles)
@@ -741,12 +874,12 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int j_hi = q_hi / BK;
   auto stage = [&](int jt) {
     const int buf = (jt - j_lo) & 1;
-    stage_rows<T, D, BK>(Ks + buf * BK * LD, kb, st.k[2], jt * BK, S);
-    stage_rows<T, D, BK>(Vs + buf * BK * LD, vb, st.v[2], jt * BK, S);
+    stage_rows<T, DK, BK>(Ks + buf * BK * LDK, kb, st.k[2], jt * BK, S);
+    stage_rows<T, DV, BK>(Vs + buf * BK * LDV, vb, st.v[2], jt * BK, S);
   };
-  stage_rows<T, D, BQ>(Qs, q + b * st.q[0] + h * st.q[1], st.q[2], q_lo, S);
-  stage_rows<T, D, BQ>(dOs, dout + b * st.dout[0] + h * st.dout[1],
-                       st.dout[2], q_lo, S);
+  stage_rows<T, DK, BQ>(Qs, q + b * st.q[0] + h * st.q[1], st.q[2], q_lo, S);
+  stage_rows<T, DV, BQ>(dOs, dout + b * st.dout[0] + h * st.dout[1],
+                        st.dout[2], q_lo, S);
   stage(j_lo);
   cp_async_commit();
 
@@ -760,7 +893,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     dl_r[r] = row < S ? delta[off + row] : 0.f;
   }
 
-  float acc[ND][4];
+  float acc[NDK][4];
   zero(acc);
 
   for (int jt = j_lo; jt <= j_hi; ++jt) {
@@ -769,14 +902,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     cp_async_wait_one();   // this step's tiles (and Q, dO) have landed
     __syncthreads();
     const int buf = (jt - j_lo) & 1, k_lo = jt * BK;
-    const T* Kb = Ks + buf * BK * LD;
-    const T* Vb = Vs + buf * BK * LD;
+    const T* Kb = Ks + buf * BK * LDK;
+    const T* Vb = Vs + buf * BK * LDV;
 
     float s[NK][4], dp[NK][4];
     zero(s);
     zero(dp);
-    gemm_nt<T, D, NK>(s, Qs, Kb, LD, m, g, t);     // S = Q K^T
-    gemm_nt<T, D, NK>(dp, dOs, Vb, LD, m, g, t);   // dP = dO V^T
+    gemm_nt_bwd<T, DK, NK>(s, Qs, Kb, LDK, m, g, t);     // S = Q K^T
+    gemm_nt_bwd<T, DV, NK>(dp, dOs, Vb, LDV, m, g, t);   // dP = dO V^T
 #pragma unroll
     for (int j = 0; j < NK; ++j)
 #pragma unroll
@@ -786,16 +919,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         p_and_ds(s[j][e], dp[j][e], lse_r[r], dl_r[r],
                  visible(q_lo + m + g + 8 * r, kpos, S, window), cap, scale);
       }
-    float part[ND][4];                          // dQ += dS K
-    zero(part);
-    gemm_rn<T, ND, NK>(part, dp, Kb, LD, g, t);
-    add_to(acc, part);
+    add_product<T, NDK, NK>(acc, dp, Kb + col0, LDK, g, t);   // dQ += dS K
     __syncthreads();   // every warp is done with this buffer: it refills
   }
 
-  T* dqb = dq + b * st.dq[0] + h * st.dq[1];
+  T* dqb = dq + b * st.dq[0] + h * st.dq[1] + col0;
 #pragma unroll
-  for (int j = 0; j < ND; ++j)
+  for (int j = 0; j < NDK; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int row = q_lo + m + g + (e & 2 ? 8 : 0);
@@ -1475,76 +1605,106 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v,
 
 }  // namespace wg
 
-template <typename T, int D>
-cudaError_t launch_backward(const void* q, const void* k, const void* v,
-                            const void* o, const void* dout, const float* lse,
-                            float* delta, void* dq, void* dk, void* dv,
-                            int B, int H, int KV, int S, int window,
-                            float cap, const BwdStrides& st,
-                            cudaStream_t stream) {
+template <typename T, int DK, int DV, int PASS>
+cudaError_t launch_dkdv(const T* q, const T* k, const T* v, const T* dout,
+                        const float* lse, const float* delta, T* dk, T* dv,
+                        int B, int H, int KV, int S, int window, float cap,
+                        float scale, const BwdStrides& st,
+                        cudaStream_t stream) {
+  const size_t bytes = dkdv_smem_bytes<T, DK, DV, PASS>();
+  auto kernel = flash_bwd_dkdv_kernel<T, DK, DV, PASS>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  const unsigned ctas = (S + BWD_BK - 1) / BWD_BK * KV * B;
+  kernel<<<ctas, TC_THREADS, bytes, stream>>>(q, k, v, dout, lse, delta, dk,
+                                              dv, H, KV, S, window, cap,
+                                              scale, st);
+  return cudaGetLastError();
+}
+
+template <typename T, int DK, int DV>
+cudaError_t launch_backward(const void* q_, const void* k_, const void* v_,
+                            const void* o, const void* dout_,
+                            const float* lse, float* delta, void* dq_,
+                            void* dk_, void* dv_, int B, int H, int KV,
+                            int S, int window, float cap,
+                            const BwdStrides& st, cudaStream_t stream) {
+  const T* q = static_cast<const T*>(q_);
+  const T* k = static_cast<const T*>(k_);
+  const T* v = static_cast<const T*>(v_);
+  const T* dout = static_cast<const T*>(dout_);
+  T* dq = static_cast<T*>(dq_);
+  T* dk = static_cast<T*>(dk_);
+  T* dv = static_cast<T*>(dv_);
   const long long rows = (long long)B * H * S;
   const unsigned delta_blocks =
       static_cast<unsigned>((rows * 32 + THREADS - 1) / THREADS);
-  flash_bwd_delta_kernel<T, D><<<delta_blocks, THREADS, 0, stream>>>(
-      static_cast<const T*>(o), static_cast<const T*>(dout), delta, H, S,
-      rows, st);
+  flash_bwd_delta_kernel<T, DV><<<delta_blocks, THREADS, 0, stream>>>(
+      static_cast<const T*>(o), dout, delta, H, S, rows, st);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const float scale = (float)(1.0 / sqrt((double)D));
+  const float scale = (float)(1.0 / sqrt((double)DK));
   if constexpr (sizeof(T) == 2) {       // bf16: the wgmma kernels above
-    return wg::launch<D>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-        static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), B, H,
-        KV, S, window, cap, scale, st, stream);
+    static_assert(DK == DV && DK <= 128, "bf16 backward: D <= 128, Dk == Dv");
+    return wg::launch<DK>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, KV, S,
+                          window, cap, scale, st, stream);
   } else {     // float32: 3xTF32 on mma.sync
-    const size_t kv_bytes = dkdv_smem_bytes<T, D>();
-    const size_t q_bytes = dq_smem_bytes<T, D>();
-    auto dkdv = flash_bwd_dkdv_kernel<T, D>;
-    auto dqk = flash_bwd_dq_kernel<T, D>;
-    err = cudaFuncSetAttribute(
-        dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kv_bytes);
+    if constexpr (dkdv_split<DK, DV>()) {
+      err = launch_dkdv<T, DK, DV, BWD_DV>(q, k, v, dout, lse, delta, dk, dv,
+                                           B, H, KV, S, window, cap, scale,
+                                           st, stream);
+      if (err != cudaSuccess) return err;
+      err = launch_dkdv<T, DK, DV, BWD_DK>(q, k, v, dout, lse, delta, dk, dv,
+                                           B, H, KV, S, window, cap, scale,
+                                           st, stream);
+    } else {
+      err = launch_dkdv<T, DK, DV, BWD_BOTH>(q, k, v, dout, lse, delta, dk,
+                                             dv, B, H, KV, S, window, cap,
+                                             scale, st, stream);
+    }
     if (err != cudaSuccess) return err;
+    const size_t q_bytes = dq_smem_bytes<T, DK, DV>();
+    auto dqk = flash_bwd_dq_kernel<T, DK, DV>;
     err = cudaFuncSetAttribute(
         dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)q_bytes);
     if (err != cudaSuccess) return err;
-    const unsigned kv_ctas = (S + BWD_BK - 1) / BWD_BK * KV * B;
     const unsigned q_ctas = (S + BWD_BQ - 1) / BWD_BQ * H * B;
-    dkdv<<<kv_ctas, TC_THREADS, kv_bytes, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-        static_cast<T*>(dk), static_cast<T*>(dv), H, KV, S, window, cap,
-        scale, st);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    dqk<<<q_ctas, TC_THREADS, q_bytes, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-        static_cast<T*>(dq), H, KV, S, window, cap, scale, st);
-    return cudaGetLastError();
+    for (int col0 = 0; col0 < DK; col0 += dq_cols<DK>()) {
+      dqk<<<q_ctas, TC_THREADS, q_bytes, stream>>>(
+          q, k, v, dout, lse, delta, dq, H, KV, S, window, cap, scale, col0,
+          st);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+    }
+    return cudaSuccess;
   }
 }
 
+// The (DK, DV) pairs the backward is built for: the square ones up to 128
+// in both types, and in float32 also (256, 256) and MLA's (192, 128).
+// ops.BWD_HEAD_DIMS lists the same float32 pairs.
 template <typename T>
-cudaError_t dispatch_backward(int D, const void* q, const void* k,
+cudaError_t dispatch_backward(int DK, int DV, const void* q, const void* k,
                               const void* v, const void* o, const void* dout,
                               const float* lse, float* delta, void* dq,
                               void* dk, void* dv, int B, int H, int KV, int S,
                               int window, float cap, const BwdStrides& st,
                               cudaStream_t stream) {
-  switch (D) {
-    case 32:
-      return launch_backward<T, 32>(q, k, v, o, dout, lse, delta, dq, dk, dv,
-                                    B, H, KV, S, window, cap, st, stream);
-    case 64:
-      return launch_backward<T, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv,
-                                    B, H, KV, S, window, cap, st, stream);
-    case 128:
-      return launch_backward<T, 128>(q, k, v, o, dout, lse, delta, dq, dk,
-                                     dv, B, H, KV, S, window, cap, st, stream);
-    default:
-      return cudaErrorInvalidValue;
+#define REPRO_BWD_CASE(dk_, dv_)                                            \
+  if (DK == dk_ && DV == dv_)                                               \
+    return launch_backward<T, dk_, dv_>(q, k, v, o, dout, lse, delta, dq,   \
+                                        dk, dv, B, H, KV, S, window, cap,   \
+                                        st, stream);
+  REPRO_BWD_CASE(32, 32)
+  REPRO_BWD_CASE(64, 64)
+  REPRO_BWD_CASE(128, 128)
+  if constexpr (sizeof(T) == 4) {
+    REPRO_BWD_CASE(256, 256)
+    REPRO_BWD_CASE(192, 128)
   }
+#undef REPRO_BWD_CASE
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -1580,18 +1740,20 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
   return (int)err;
 }
 
-// q, o, dout, dq: [B, H, S, D]; k, v, dk, dv: [B, KV, S, D], addressed
-// through `strides` (24 int64: batch, head and sequence strides of q, k, v,
-// o, dout, dq, dk, dv, in elements; the head dimension is contiguous).
-// lse: the forward's float32 [B, H, S]; delta: float32 scratch [B, H, S].
-// dtype 0 = float32, 1 = bfloat16 (every operand; lse and delta float32).
-// Returns the last launch's cudaGetLastError() (0 on success).
+// q, dq: [B, H, S, D]; k, dk: [B, KV, S, D]; v, dv: [B, KV, S, Dv]; o,
+// dout: [B, H, S, Dv], (D, Dv) one of the pairs `dispatch_backward` lists
+// for the dtype; addressed through `strides` (24 int64: batch, head and
+// sequence strides of q, k, v, o, dout, dq, dk, dv, in elements; the head
+// dimension is contiguous).  lse: the forward's float32 [B, H, S]; delta:
+// float32 scratch [B, H, S].  dtype 0 = float32, 1 = bfloat16 (every
+// operand; lse and delta float32).  Returns the last launch's
+// cudaGetLastError() (0 on success).
 int repro_flash_attention_backward(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, const void* lse,
                                    void* delta, void* dq, void* dk, void* dv,
                                    int dtype, int B, int H, int KV, int S,
-                                   int D, int window, float cap,
+                                   int D, int Dv, int window, float cap,
                                    const long long* strides, void* stream) {
   BwdStrides st;
   long long* dst[8] = {st.q, st.k, st.v, st.o, st.dout, st.dq, st.dk, st.dv};
@@ -1601,12 +1763,12 @@ int repro_flash_attention_backward(const void* q, const void* k,
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   cudaError_t err =
-      dtype == 0 ? dispatch_backward<float>(D, q, k, v, o, dout, l, dl, dq,
-                                            dk, dv, B, H, KV, S, window, cap,
-                                            st, s)
+      dtype == 0 ? dispatch_backward<float>(D, Dv, q, k, v, o, dout, l, dl,
+                                            dq, dk, dv, B, H, KV, S, window,
+                                            cap, st, s)
       : dtype == 1 ? dispatch_backward<__nv_bfloat16>(
-                         D, q, k, v, o, dout, l, dl, dq, dk, dv, B, H, KV, S,
-                         window, cap, st, s)
+                         D, Dv, q, k, v, o, dout, l, dl, dq, dk, dv, B, H, KV,
+                         S, window, cap, st, s)
                    : cudaErrorInvalidValue;
   return (int)err;
 }

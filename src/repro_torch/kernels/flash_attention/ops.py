@@ -5,10 +5,17 @@ Dispatch is by the tensor's device and nothing else: a CUDA tensor launches
 the kernel of ``csrc/flash_attention.cu`` (or the wrapper raises), a CPU
 tensor takes the plain version in ``ref.py``.  There is no fallback from
 the card to the plain version.  The checks below hold on both devices,
-but for the head dims: the plain version takes any (Dk, Dv), the card's
-forward the pairs of ``FWD_HEAD_DIMS`` (the value head dim may differ from
-the key's: MLA's (192, 128)), and its backward and tangent kernels
-``HEAD_DIMS`` with Dk == Dv (``check_training_dims``).
+but for the head dims (q's and k's Dk, v's and the output's Dv): the plain
+version takes any (Dk, Dv); on the card
+  * the forward kernel takes the pairs of ``FWD_HEAD_DIMS``: (32, 32),
+    (64, 64), (128, 128), (256, 256) and MLA's (192, 128)
+    (``check_forward_dims``);
+  * the backward kernels take the same pairs in float32, and the square
+    ones up to 128 in bfloat16 (``BWD_HEAD_DIMS``,
+    ``check_backward_dims``);
+  * the tangent kernels take ``HEAD_DIMS`` with Dk == Dv, float32 only
+    (``check_tangent_dims``): FLECS-CGD with m > 0 at the other pairs
+    comes with ROADMAP.md's 'family HVPs'.
 
 Queries sit at key positions 0..S-1, so Sq must equal Sk: the Pallas
 kernel's docstring says queries align to the end of the KV sequence, but
@@ -32,7 +39,8 @@ float32 only; a bfloat16 dual raises.  A dual tensor that reaches a raw
 launch raises (``kernels/dual.py``): no tangent is ever dropped.
 
 Every forward launch adds one to ``launches["flash_attention"]``, every
-backward one to ``launches["flash_attention_backward"]``, and the tangent
+backward one to ``launches["flash_attention_backward"]`` (and to its pair's
+count in ``backward_launches_by_pair``), and the tangent
 kernels to ``launches["flash_attention_jvp"]`` and
 ``launches["flash_attention_backward_jvp"]``.
 """
@@ -50,24 +58,34 @@ from repro_torch.kernels.flash_attention.build import JVP_LIBRARY, LIBRARY
 #: (Dk, Dv) head-dim pairs the forward kernel is built for: q's and k's
 #: head dim, v's and the output's.  The plain version takes any pair.
 FWD_HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (256, 256), (192, 128))
-#: Head dims the backward and tangent kernels are built for (Dk == Dv).
+#: (Dk, Dv) pairs the backward kernels are built for, by dtype.
+BWD_HEAD_DIMS = {torch.float32: FWD_HEAD_DIMS,
+                 torch.bfloat16: ((32, 32), (64, 64), (128, 128))}
+#: Head dims the tangent kernels are built for (Dk == Dv).
 HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: Kernel launches since the last :func:`reset_launches`.
 launches = {"flash_attention": 0, "flash_attention_backward": 0,
             "flash_attention_jvp": 0, "flash_attention_backward_jvp": 0}
+#: The backward's launches since the last :func:`reset_launches` by (Dk,
+#: Dv) pair (their sum is ``launches["flash_attention_backward"]``).
+backward_launches_by_pair = {}
 
 #: Where tangents in bfloat16 come from (ROADMAP.md).
 _LATER_BF16_TANGENTS = "ROADMAP.md queue 1, 'bf16 attention tangents'"
-#: Where the backward and tangent kernels at the forward's other head dims
-#: come from (ROADMAP.md).
-_LATER_FAMILY_TRAINING = "ROADMAP.md queue 1, 'family training'"
+#: Where the tangent kernels at the forward's other head dims come from
+#: (ROADMAP.md).
+_LATER_FAMILY_HVPS = "ROADMAP.md queue 1, 'family HVPs'"
+#: Where the bfloat16 backward at (256, 256) and (192, 128) comes from.
+_LATER_BF16_FAMILY_BACKWARD = ("ROADMAP.md queue 1, 'bf16 family "
+                               "backward'")
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+    backward_launches_by_pair.clear()
 
 
 def check_forward_dims(dk: int, dv: int) -> None:
@@ -79,15 +97,30 @@ def check_forward_dims(dk: int, dv: int) -> None:
                          f"(Dk, Dv) in {FWD_HEAD_DIMS})")
 
 
-def check_training_dims(dk: int, dv: int) -> None:
-    """Raise unless the backward and tangent kernels are built for these
-    head dims (``HEAD_DIMS``, Dk == Dv); CUDA operands only: on the CPU the
-    plain version serves every dim."""
+def check_backward_dims(dk: int, dv: int, dtype=torch.float32) -> None:
+    """Raise unless the backward kernels are built for these head dims in
+    ``dtype`` (``BWD_HEAD_DIMS``); CUDA operands only: on the CPU the plain
+    version serves every dim."""
+    if (dk, dv) in BWD_HEAD_DIMS.get(dtype, ()):
+        return
+    if dtype == torch.bfloat16 and (dk, dv) in FWD_HEAD_DIMS:
+        raise ValueError(f"flash_attention: the bfloat16 backward is built "
+                         f"for {BWD_HEAD_DIMS[dtype]}, got ({dk}, {dv}) "
+                         f"(float32 takes it); it comes with "
+                         f"{_LATER_BF16_FAMILY_BACKWARD}")
+    raise ValueError(f"flash_attention: the backward kernels are built for "
+                     f"head dims (Dk, Dv) in {FWD_HEAD_DIMS}, got "
+                     f"({dk}, {dv})")
+
+
+def check_tangent_dims(dk: int, dv: int) -> None:
+    """Raise unless the tangent kernels are built for these head dims
+    (``HEAD_DIMS``, Dk == Dv); CUDA operands only."""
     if dk != dv or dk not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: the backward and tangent "
-                         f"kernels are built for head dims {HEAD_DIMS} with "
-                         f"Dk == Dv, got ({dk}, {dv}); the others come with "
-                         f"{_LATER_FAMILY_TRAINING}")
+        raise ValueError(f"flash_attention: the tangent kernels are built "
+                         f"for head dims {HEAD_DIMS} with Dk == Dv, got "
+                         f"({dk}, {dv}); the others come with "
+                         f"{_LATER_FAMILY_HVPS}")
 
 
 def _check(q, k, v, window, cap) -> None:
@@ -169,10 +202,11 @@ def _launch(q, k, v, out, window, cap, lse=None) -> None:
 def _launch_backward(q, k, v, out, dout, lse, dq, dk, dv, window,
                      cap) -> None:
     """The backward kernels on [B, H, S, D] views (k, v, dk, dv with KV
-    heads): write dq, dk and dv from the forward's out and lse."""
+    heads; v, out, dout and dv of head dim Dv): write dq, dk and dv from
+    the forward's out and lse."""
     refuse_duals("flash_attention_backward", q, k, v, out, dout, lse, dq, dk,
                  dv)
-    check_training_dims(q.shape[-1], v.shape[-1])
+    check_backward_dims(q.shape[-1], v.shape[-1], q.dtype)
     q, k, v, dout = map(_rows_aligned, (q, k, v, dout))
     strides = _strides(q, k, v, out, dout, dq, dk, dv)
     B, H, S, D = q.shape
@@ -183,9 +217,13 @@ def _launch_backward(q, k, v, out, dout, lse, dq, dk, dv, window,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype], B, H, k.shape[1],
-            S, D, int(window), float(cap), ctypes.addressof(strides), stream)
+            S, D, v.shape[-1], int(window), float(cap),
+            ctypes.addressof(strides), stream)
     LIBRARY.check("flash_attention_backward", rc)
     launches["flash_attention_backward"] += 1
+    pair = (D, v.shape[-1])
+    backward_launches_by_pair[pair] = backward_launches_by_pair.get(pair,
+                                                                    0) + 1
 
 
 def _launch_jvp(q, k, v, out, lse, tq, tk, tv, tout, tlse, window,
@@ -195,7 +233,7 @@ def _launch_jvp(q, k, v, out, lse, tq, tk, tv, tout, tlse, window,
     contiguous) from the forward's output ``out`` and its lse."""
     refuse_duals("flash_attention_jvp", q, k, v, out, lse, tq, tk, tv, tout,
                  tlse)
-    check_training_dims(q.shape[-1], v.shape[-1])
+    check_tangent_dims(q.shape[-1], v.shape[-1])
     q, k, v, tq, tk, tv = map(_rows_aligned, (q, k, v, tq, tk, tv))
     strides = _strides(q, k, v, out, tq, tk, tv, tout)
     B, H, S, D = q.shape
@@ -217,7 +255,7 @@ def _launch_backward_jvp(q, k, v, out, dout, lse, tq, tk, tv, tout, tdout,
     dk and dv from the forward's out and lse and their tangents."""
     refuse_duals("flash_attention_backward_jvp", q, k, v, out, dout, lse,
                  tq, tk, tv, tout, tdout, tlse, tdq, tdk, tdv)
-    check_training_dims(q.shape[-1], v.shape[-1])
+    check_tangent_dims(q.shape[-1], v.shape[-1])
     q, k, v, dout, tq, tk, tv, tdout = map(
         _rows_aligned, (q, k, v, dout, tq, tk, tv, tdout))
     strides = _strides(q, k, v, out, dout, tq, tk, tv, tout, tdout, tdq,
@@ -351,6 +389,16 @@ class FlashAttentionBackward(torch.autograd.Function):
         return tdq, tdk, tdv
 
 
+def _check_training(q, k, v) -> None:
+    """The head-dim checks of a call with gradients or tangents, before its
+    forward launches: the backward's pair in q's dtype, and where an
+    operand is a forward-AD dual, the tangent kernels' head dims."""
+    dk, dv = q.shape[-1], v.shape[-1]
+    check_backward_dims(dk, dv, q.dtype)
+    if any(tangent(t) is not None for t in (q, k, v)):
+        check_tangent_dims(dk, dv)
+
+
 def _needs_grad(*tensors) -> bool:
     return ((torch.is_grad_enabled() and any(t.requires_grad
                                              for t in tensors))
@@ -362,13 +410,13 @@ def flash_attention(q, k, v, window: int = 0, cap: float = 0.0):
     layout).  Causal GQA attention with an optional sliding window and tanh
     soft-cap, scaled by 1/sqrt(Dk); float32 arithmetic, result
     [B, H, S, Dv] in q's type.  On the card (Dk, Dv) is one of
-    ``FWD_HEAD_DIMS``, and with gradients or tangents one of
-    ``HEAD_DIMS``."""
+    ``FWD_HEAD_DIMS``, with gradients one of ``BWD_HEAD_DIMS`` and with
+    tangents one of ``HEAD_DIMS``."""
     _check(q, k, v, window, cap)
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, window, cap)
     if _needs_grad(q, k, v):
-        check_training_dims(q.shape[-1], v.shape[-1])
+        _check_training(q, k, v)
         return FlashAttention.apply(q, k, v, window, cap, False)
     out = torch.empty(q.shape[:-1] + v.shape[-1:], dtype=q.dtype,
                       device=q.device)
@@ -385,7 +433,7 @@ def attention(q, k, v, window: int = 0, cap: float = 0.0):
     if q.device.type == "cpu":
         return ref.attention_ref(qt, kt, vt, window, cap).transpose(1, 2)
     if _needs_grad(q, k, v):
-        check_training_dims(q.shape[-1], v.shape[-1])
+        _check_training(q, k, v)
         return FlashAttention.apply(q, k, v, window, cap, True)
     out = torch.empty(q.shape[:-1] + v.shape[-1:], dtype=q.dtype,
                       device=q.device)

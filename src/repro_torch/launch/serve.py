@@ -32,8 +32,10 @@ import torch
 
 from repro_torch import random
 from repro_torch.configs import get_config
+from repro_torch.configs.base import InputShape
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import ops
+from repro_torch.launch import inputs
 from repro_torch.models.model import init_params
 from repro_torch.train.step import make_prefill_step, make_serve_step
 
@@ -65,16 +67,18 @@ def setup(arch="tinyllama-1.1b", smoke=True, batch=4, prompt_len=32,
 
 
 def image_embeds(cfg, batch, prompt_len, device=None):
-    """A VLM's image embeds [batch, min(n_img_tokens, prompt_len), D],
-    float32, drawn from ``default_rng(0)`` after :func:`setup`'s prompt;
-    None for another family."""
+    """A VLM's image embeds in the shape ``inputs.input_specs`` gives a
+    prefill, their count cut to the prompt: [batch, min(n_img_tokens,
+    prompt_len), D], float32, drawn from ``default_rng(0)`` after
+    :func:`setup`'s prompt; None for another family."""
     if cfg.family != "vlm":
         return None
+    (B, n, D), _ = inputs.input_specs(cfg, InputShape(
+        "prefill", prompt_len, batch, "prefill"))["image_embeds"]
     rng = np.random.default_rng(0)
     _prompt(cfg, batch, prompt_len, rng)
-    n = min(cfg.n_img_tokens, prompt_len)
     return torch.as_tensor(
-        rng.normal(size=(batch, n, cfg.d_model)).astype(np.float32),
+        rng.normal(size=(B, min(n, prompt_len), D)).astype(np.float32),
         device=resolve_device(device))
 
 

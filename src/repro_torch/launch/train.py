@@ -7,14 +7,21 @@
         --workers 4
     PYTHONPATH=src python -m repro_torch.launch.train --no-smoke \\
         --batch 8 --seq 1024 --steps 5 [--flecs]
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --arch musicgen-large --steps 1 [--flecs]
+    PYTHONPATH=src python -m repro_torch.launch.train --no-smoke \\
+        --arch gemma2-9b --layers 2 --batch 8 --seq 1024 --steps 3 [--flecs]
 
 As in the reference's launcher: float32 weights drawn from key ``--seed``
 (0) by the reference's key tree, ``remat`` on, a synthetic token stream
 from ``numpy.random.default_rng(--seed)`` (a fresh batch a step, the first
-draw spent on shapes as the reference spends it), adam at lr 3e-3, and
-FLECS-CGD with ``alpha = 30 · lr`` and m = 0.  ``--smoke`` (the default, as
-in the reference, whose flag cannot be turned off) runs the reduced config;
-``--no-smoke`` the full width.  ``--checkpoint DIR`` saves the last params
+draw spent on shapes as the reference spends it) in the shapes of
+``launch/inputs.input_specs``, as the reference's dryrun takes them for
+every family (codebook tokens ``[B, S, C]``, a VLM's image embeds), adam
+at lr 3e-3, and FLECS-CGD with ``alpha = 30 · lr`` and m = 0.  ``--smoke``
+(the default, as in the reference, whose flag cannot be turned off) runs
+the reduced config; ``--no-smoke`` the full width, and ``--layers N``
+keeps its first N layers.  ``--checkpoint DIR`` saves the last params
 there (``checkpoint/store.py``, the reference's format) with step
 ``--steps``.  There is no mesh: ``--mesh debug`` is the
 one device, and ``--workers N`` (with ``--flecs``) runs N federated
@@ -36,12 +43,15 @@ import torch
 from repro_torch import random
 from repro_torch.checkpoint import store
 from repro_torch.configs import get_config
+from repro_torch.configs.base import InputShape
 from repro_torch.core.dl_flecs import (FlecsDLConfig, init_shifts,
                                        make_flecs_train_step)
 from repro_torch.device import resolve_device
+from repro_torch.launch import inputs
 from repro_torch.models.model import init_params
 from repro_torch.optim.optimizers import get_optimizer
 from repro_torch.train.step import make_train_step
+from repro_torch.tree import tree_leaves
 
 def setup(arch="tinyllama-1.1b", smoke=True, device=None, n_layers=0,
           seed=0):
@@ -56,12 +66,27 @@ def setup(arch="tinyllama-1.1b", smoke=True, device=None, n_layers=0,
 
 
 def token_batches(cfg, batch: int, seq: int, device, seed=0):
-    """The launcher's synthetic stream: {"tokens", "labels"} [batch, seq]
-    int64 on ``device``, labels the tokens shifted by one."""
+    """The launcher's synthetic stream, a batch a draw in the shapes and
+    dtypes of ``inputs.input_specs`` (kind ``train``) on ``device``:
+    "tokens" and "labels" [batch, seq] (or [batch, seq, C] for the audio
+    codebooks), labels the tokens shifted by one along the sequence; a
+    VLM's "image_embeds" [batch, min(n_img_tokens, seq), d_model], standard
+    normal, drawn from the same generator after the tokens.  A family
+    without codebooks or image embeds draws [batch, seq + 1] a batch, as
+    the launcher always has."""
+    specs = inputs.input_specs(cfg, InputShape("train", seq, batch,
+                                               "train"))
+    shape, dtype = specs["tokens"]
     rng = np.random.default_rng(seed)
     while True:
-        t = torch.as_tensor(rng.integers(0, cfg.vocab, (batch, seq + 1)))
-        yield {"tokens": t[:, :-1].to(device), "labels": t[:, 1:].to(device)}
+        t = torch.as_tensor(rng.integers(
+            0, cfg.vocab, (shape[0], shape[1] + 1, *shape[2:]))).to(dtype)
+        out = {"tokens": t[:, :-1].to(device), "labels": t[:, 1:].to(device)}
+        if "image_embeds" in specs:
+            (B, n, D), img_dtype = specs["image_embeds"]
+            img = rng.normal(size=(B, min(n, seq), D)).astype(np.float32)
+            out["image_embeds"] = torch.as_tensor(img).to(device, img_dtype)
+        yield out
 
 
 def _sync(device):
@@ -81,7 +106,7 @@ def train(cfg, params, batches, steps: int, *, flecs=False,
     shifts), ``metrics`` (a list of each step's metrics as floats), and
     ``step_ms`` (each step's time, host clock around work that ends in a
     synchronize)."""
-    dev = next(iter(params.values())).device
+    dev = tree_leaves(params)[0].device
     if flecs:
         step = make_flecs_train_step(cfg, FlecsDLConfig(alpha=lr * 30),
                                      remat=True, n_workers=workers)
@@ -120,6 +145,8 @@ def main(argv=None):
     ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--smoke", action=argparse.BooleanOptionalAction,
                     default=True)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="keep the first N layers (0: all)")
     ap.add_argument("--mesh", choices=["debug"], default="debug",
                     help="one device; the production meshes need the "
                          "sharded slice")
@@ -139,8 +166,9 @@ def main(argv=None):
                     help="weights key and token stream seed")
     args = ap.parse_args(argv)
 
-    cfg, params = setup(args.arch, args.smoke, args.device, seed=args.seed)
-    dev = next(iter(params.values())).device
+    cfg, params = setup(args.arch, args.smoke, args.device,
+                        n_layers=args.layers, seed=args.seed)
+    dev = tree_leaves(params)[0].device
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     if args.workers != 1 and not args.flecs:
         ap.error("--workers needs --flecs")

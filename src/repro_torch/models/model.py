@@ -44,7 +44,7 @@ from repro_torch.models.layers import ffn, init_ffn, rms_norm, softcap
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 #: Where the router loss under forward AD comes from (ROADMAP.md).
-_LATER_FAMILY_TRAINING = "ROADMAP.md queue 1, 'family training'"
+_LATER_FAMILY_HVPS = "ROADMAP.md queue 1, 'family HVPs'"
 
 
 # ---------------------------------------------------------------------------
@@ -320,7 +320,7 @@ def _block_remat(sp, x, kind, cfg, positions):
         raise NotImplementedError(
             f"{cfg.arch_id}: remat under forward AD (a Hessian-vector "
             f"product) would drop the MoE router loss; it comes with "
-            f"{_LATER_FAMILY_TRAINING}")
+            f"{_LATER_FAMILY_HVPS}")
 
     def run(*ts):
         return apply_block(tree_unflatten(treedef, list(ts[:-1])), ts[-1],

@@ -23,6 +23,17 @@ from repro_torch.optim.optimizers import get_optimizer
 from repro_torch.train.step import make_train_step
 from repro_torch.tree import tree_leaves, tree_map, tree_paths
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The module's torch work on one thread: the suite runs its files in
+    six parallel processes on a few cores, where eight threads a process
+    spend their time waiting on each other."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 
 def _tree(seed=0):
     """Dicts, lists, float32, bfloat16, int32 and 0-d leaves."""

@@ -31,6 +31,17 @@ from repro_torch import convert
 from repro_torch.convert import key_from_reference
 from repro_torch.core import compressors as tc
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The module's torch work on one thread: the suite runs its files in
+    six parallel processes on a few cores, where eight threads a process
+    spend their time waiting on each other."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ROOT = Path(__file__).resolve().parent.parent
 
 

@@ -18,11 +18,23 @@ import functools
 
 import numpy as np
 import pytest
+import torch
 
 from benchmarks import paper_experiments as pe
 from repro.data import logreg as jl
 from repro_torch import convert
 from repro_torch import experiments as ex
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The module's torch work on one thread: the suite runs its files in
+    six parallel processes on a few cores, where eight threads a process
+    spend their time waiting on each other."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 ITERS = 6
 

@@ -26,6 +26,17 @@ from repro.kernels.flash_attention.ref import attention_ref as jax_ref
 from repro.models.attention import chunked_attention
 from repro_torch.kernels.flash_attention import ops, ref
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The module's torch work on one thread: the suite runs its files in
+    six parallel processes on a few cores, where eight threads a process
+    spend their time waiting on each other."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # the shapes of tests/test_kernels.py's flash-attention test
 SHAPES = [
     (1, 4, 2, 256, 64, 0, 0.0),
@@ -230,7 +241,7 @@ def _backward_by_products(q, k, v, dout, window, cap, mm):
     under a cap), dQ = dS K scale, dK = dS^T Q scale (P and dS split like
     any operand), the GQA sum over each group."""
     B, H, S, D = q.shape
-    KV = k.shape[1]
+    KV, Dv = k.shape[1], v.shape[-1]
     G = H // KV
     scale = float(np.float32(1.0 / np.sqrt(D)))
     kk, vv = (t.repeat_interleave(G, dim=1) for t in (k, v))
@@ -256,10 +267,15 @@ def _backward_by_products(q, k, v, dout, window, cap, mm):
     dq = mm(ds, kk) * scale
     dk = mm(ds.transpose(-1, -2), q) * scale
     return (dq, dk.reshape(B, KV, G, S, D).sum(2),
-            dv.reshape(B, KV, G, S, D).sum(2))
+            dv.reshape(B, KV, G, S, Dv).sum(2))
 
 
-@pytest.mark.parametrize("B,H,KV,S,D,window,cap", SHAPES[:4])
+@pytest.mark.parametrize("B,H,KV,S,D,window,cap", SHAPES[:4] + [
+    # the float32-only pairs (D as (Dk, Dv)): gemma2's window and cap under
+    # MQA with a ragged length, and MLA's (192, 128)
+    pytest.param(1, 4, 1, 80, (256, 256), 24, 50.0, id="256-256-mqa"),
+    pytest.param(1, 4, 4, 72, (192, 128), 0, 0.0, id="192-128"),
+])
 def test_3xtf32_backward_plan_within_float32_tolerance(B, H, KV, S, D,
                                                        window, cap):
     """The backward kernel computes float32 products as 3xTF32 on the
@@ -267,9 +283,16 @@ def test_3xtf32_backward_plan_within_float32_tolerance(B, H, KV, S, D,
     stay within the float32 tolerance, 1e-5 · max |grad| over dq, dk and
     dv, of the plain version's autograd and of jax.grad of the model's
     chunked_attention; one TF32 product a step does worse (its error is
-    printed for the record)."""
-    arrays = _inputs(B, H, KV, S, D, seed=8)
-    g = np.random.default_rng(9).normal(size=(B, H, S, D)).astype(np.float32)
+    printed for the record).  The same holds at the head-dim pairs the
+    float32 backward alone takes, whose five products run at Dk (S, dQ, dK)
+    and Dv (dP, dV)."""
+    dk, dv = D if isinstance(D, tuple) else (D, D)
+    arrays = _inputs(B, H, KV, S, dk, seed=8)
+    if dv != dk:
+        arrays[2] = np.random.default_rng(10).normal(
+            size=(B, KV, S, dv)).astype(np.float32)
+    g = np.random.default_rng(9).normal(size=(B, H, S, dv)).astype(
+        np.float32)
     q, k, v = _port(arrays, torch.float32)
     dout = torch.as_tensor(g)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]

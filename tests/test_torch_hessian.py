@@ -51,6 +51,17 @@ from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
 
 import test_torch_train as tt
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The module's torch work on one thread: the suite runs its files in
+    six parallel processes on a few cores, where eight threads a process
+    spend their time waiting on each other."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 
 # ---------------------------------------------------------------------------
 # hvp, sketched_hessian on a small function

@@ -42,7 +42,8 @@ def test_no_jax_or_reference_import(path):
     "kernels/dither/build.py", "models/loss.py", "optim/optimizers.py",
     "core/dl_flecs.py", "launch/train.py", "core/hessian.py",
     "checkpoint/store.py", "train_lm.py", "kernels/dual.py",
-    "kernels/flash_attention/ops.py", "models/layers.py"])
+    "kernels/flash_attention/ops.py", "models/layers.py",
+    "launch/inputs.py"])
 def test_training_slice_modules_are_checked(module):
     """The training slice's modules are among the files held above."""
     assert ROOT / "src" / "repro_torch" / module in FILES

@@ -294,8 +294,9 @@ def test_attention_ref_at_new_head_dims_matches_chunked_attention(
 
 def test_card_checks_name_the_head_dims_they_take():
     """On the card the forward takes its built (Dk, Dv) pairs, gemma2's
-    (256, 256) and MLA's (192, 128) among them; the backward and the
-    tangents refuse those two, naming the queue item that brings them.
+    (256, 256) and MLA's (192, 128) among them; the float32 backward takes
+    the same pairs, the bfloat16 backward refuses the two new ones, and the
+    tangents refuse them, each naming the queue item that brings them.
     Called on the shapes alone (on the CPU the plain version serves every
     dim)."""
     for dk, dv in ((256, 256), (192, 128), (64, 64)):
@@ -304,11 +305,18 @@ def test_card_checks_name_the_head_dims_they_take():
         fa_ops.check_forward_dims(48, 48)
     with pytest.raises(ValueError, match=r"head dims \(192, 192\)"):
         fa_ops.check_forward_dims(192, 192)
+    for dk, dv in fa_ops.FWD_HEAD_DIMS:
+        fa_ops.check_backward_dims(dk, dv, torch.float32)
+    with pytest.raises(ValueError, match=r"\(192, 192\)"):
+        fa_ops.check_backward_dims(192, 192, torch.float32)
     for dk, dv in ((256, 256), (192, 128)):
-        with pytest.raises(ValueError, match="'family training'"):
-            fa_ops.check_training_dims(dk, dv)
+        with pytest.raises(ValueError, match="'bf16 family backward'"):
+            fa_ops.check_backward_dims(dk, dv, torch.bfloat16)
+        with pytest.raises(ValueError, match="'family HVPs'"):
+            fa_ops.check_tangent_dims(dk, dv)
     for d in fa_ops.HEAD_DIMS:
-        fa_ops.check_training_dims(d, d)
+        fa_ops.check_backward_dims(d, d, torch.bfloat16)
+        fa_ops.check_tangent_dims(d, d)
 
 
 def test_dual_remat_refuses_a_moe_layer():
@@ -321,7 +329,7 @@ def test_dual_remat_refuses_a_moe_layer():
     pos = torch.arange(6)[None, :]
     with fwAD.dual_level():
         xd = fwAD.make_dual(x, torch.ones_like(x))
-        with pytest.raises(NotImplementedError, match="'family training'"):
+        with pytest.raises(NotImplementedError, match="'family HVPs'"):
             model._block_remat(sp, xd, cfg.layer_plan[0], cfg, pos)
 
 

@@ -41,6 +41,17 @@ from repro_torch.models import layers
 from repro_torch.models.model import (decode_step, forward, head_logits,
                                       init_cache, init_params, prefill)
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The module's torch work on one thread: the suite runs its files in
+    six parallel processes on a few cores, where eight threads a process
+    spend their time waiting on each other."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 MODELS = ("tinyllama3", "gemma2")
 
 

@@ -31,6 +31,17 @@ from repro_torch.core import flecs as tf
 from repro_torch.core import sketch as ts
 from repro_torch.optim import baselines as tb
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The module's torch work on one thread: the suite runs its files in
+    six parallel processes on a few cores, where eight threads a process
+    spend their time waiting on each other."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TOL = dict(rtol=1e-4, atol=1e-6)
 
 

@@ -43,6 +43,17 @@ from repro_torch.core import driver as tdr
 from repro_torch.core import traffic as tt
 from repro_torch.data import logreg as tl
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The module's torch work on one thread: the suite runs its files in
+    six parallel processes on a few cores, where eight threads a process
+    spend their time waiting on each other."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ROOT = Path(__file__).resolve().parent.parent
 TRANS = ((0.8, 0.15, 0.05), (0.6, 0.4, 0.0), (0.3, 0.0, 0.7))
 

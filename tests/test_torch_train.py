@@ -65,6 +65,17 @@ from repro_torch.optim import optimizers
 from repro_torch.train.step import make_train_step, value_and_grad
 from repro_torch.tree import tree_leaves, tree_map
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The module's torch work on one thread: the suite runs its files in
+    six parallel processes on a few cores, where eight threads a process
+    spend their time waiting on each other."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 LR = 3e-3
 ALPHA = LR * 30
 

@@ -25,6 +25,17 @@ from repro_torch.checkpoint import store
 from repro_torch.configs import get_config
 from repro_torch.tree import tree_leaves
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The module's torch work on one thread: the suite runs its files in
+    six parallel processes on a few cores, where eight threads a process
+    spend their time waiting on each other."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ROOT = Path(__file__).resolve().parents[1]
 
 

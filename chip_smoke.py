@@ -291,8 +291,11 @@ back to the CPU):
    RG-LRU scan, the MoE dispatch, flash; synchronized); deepseek's MoE
    layer on 4 tokens against the plain gather formula.  Phase 2 holds the
    flash forward's new instances ((256, 256), MLA's (192, 128); float32
-   and bf16) against their plain version at the families' shapes
-   (``FAMILY_FLASH_SHAPES``) and ragged lengths, and times them.
+   and bf16, the bf16 (192, 128) one on the wgmma forward, whose SASS
+   must hold HGMMA) against their plain version at the families' shapes
+   (``FAMILY_FLASH_SHAPES``) and ragged lengths, and times them; phase 12
+   (b) checks each family's prefill launched ``ops.forward_plan``'s
+   kernel.
 13. Training the other families through ``launch/train.py``: (a) the
    float32 flash backward's (256, 256) and (192, 128) instances against
    the plain version under autograd on the card, max |Δ| <= 1e-5 · max
@@ -300,8 +303,10 @@ back to the CPU):
    local layer (window 4096, cap 50), recurrentgemma-9b's MQA band (KV 1,
    window 2048, S = 3072) and deepseek-v3's MLA [8, 128, KV 128, 1024]
    (timed by CUDA events beside the plain version's backward and SDPA's,
-   with the bound), and at ragged lengths through the model layout; the
-   build log shows no spill in the new kernels.  (b) Each family of
+   with the bound, and each kernel's device ms from a profile: one dK/dV
+   launch a call), and at ragged lengths through the model layout; the
+   build log shows no spill in the wide backward's kernels and the wgmma
+   forward at (192, 128) (``FAMILY_BWD_KERNELS``).  (b) Each family of
    ``FAMILY_SMOKE`` at smoke width, one adam and one FLECS-CGD (m = 0)
    step, card against this machine's CPU: losses within 1e-5 relative,
    ``uplink_mbits`` equal, the params held, the backward launched once an
@@ -619,6 +624,10 @@ def opcode_counts(funcs: dict, fragment: str, prefix: str) -> dict:
 #: Mangled-name fragment of the bf16 backward's wgmma kernels
 #: (flash_attention.cu, namespace wg).
 WGMMA_BWD_SASS = "2wg"
+#: Mangled-name fragment of the bf16 forward's wgmma kernels
+#: (flash_attention.cu, namespace wgf; one a ``ops.WGMMA_FWD_HEAD_DIMS``
+#: pair).
+WGMMA_FWD_SASS = "3wgf"
 
 
 def max_abs_err(a, b) -> float:
@@ -3571,6 +3580,17 @@ def bwd_wgmma_sass(fa_ops, required=True) -> dict:
     return counts
 
 
+def fwd_wgmma_sass(fa_ops, required=True) -> dict:
+    """HGMMA instructions in the SASS of each instance of the bf16 forward
+    on wgmma (cuobjdump of the flash library built); ``required``: fail
+    unless each of the four holds some."""
+    counts = opcode_counts(sass_functions(fa_ops.LIBRARY.build()),
+                           WGMMA_FWD_SASS, "HGMMA")
+    check(not required or (len(counts) == 4 and all(counts.values())),
+          f"the bf16 forward's wgmma kernels hold no HGMMA: {counts}")
+    return counts
+
+
 def phase_flash_backward(dev, fa_ops, fa_ref, need_wgmma=True):
     """Phase 2, flash-attention backward: dq, dk, dv of the kernels against
     the plain version's autograd on the card, same inputs and output
@@ -4981,74 +5001,127 @@ def live_pairs(S: int, window: int) -> int:
     return window * (window + 1) // 2 + (S - window) * window
 
 
-def phase_flash_families(dev, fa_ops, fa_ref):
-    """Phase 2, the flash forward's new instances: (256, 256) and MLA's
-    (192, 128), float32 (3xTF32) and bfloat16, against the plain version
-    on the card on the same inputs (rtol = atol = 2e-5 / 2e-2, row 7's),
-    bitwise over two runs, at the families' shapes and ragged lengths;
-    then each family shape timed by CUDA events beside the plain version
-    and SDPA, with its bound (the live pairs' products as 3xTF32 or bf16,
-    against q, k, v and the output read or written once)."""
+def family_fwd_timing(dev, fa_ops, fa_ref, shape, q, k, v,
+                      kernel=None) -> dict:
+    """One family shape's forward timed by CUDA events (``kernel``: the
+    ``ops.FWD_KERNELS`` name to force, else the route's own) beside the
+    plain version and SDPA (null under a soft-cap), with its bound: the
+    live pairs' products as 3xTF32 or bf16 against q, k, v and the output
+    read or written once."""
     import torch
     import torch.nn.functional as F
+    B, H, KV, S, Dk, Dv, window, cap = shape
+    name = str(q.dtype).replace("torch.", "")
+    r = {}
+    if kernel is None:
+        r["ms"] = cuda_ms(lambda: fa_ops.flash_attention(
+            q, k, v, window, cap), 10)
+    else:
+        out = torch.empty((B, H, S, Dv), dtype=q.dtype, device=dev)
+        r["ms"] = cuda_ms(lambda: fa_ops._launch(
+            q, k, v, out, window, cap, kernel=kernel), 10)
+        del out
+    r["plain_ms"] = cuda_ms(lambda: fa_ref.attention_ref(
+        q, k, v, window, cap), 3)
+    if cap:
+        r["library_ms"] = None      # SDPA has no soft-cap
+    else:
+        mask = None
+        if window and window < S:
+            i = torch.arange(S, device=dev)
+            mask = ((i[:, None] >= i[None, :])
+                    & (i[:, None] - i[None, :] < window))
+        try:
+            r["library_ms"] = cuda_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask,
+                    is_causal=mask is None, enable_gqa=True), 10)
+        except (TypeError, RuntimeError) as exc:
+            log(f"timing: scaled_dot_product_attention at "
+                f"{shape} {name} unavailable: {exc}")
+            r["library_ms"] = None
+    ops = 2 * B * H * live_pairs(S, window) * (Dk + Dv)
+    nbytes = q.element_size() * (B * H * S * (Dk + Dv)
+                                  + B * KV * S * (Dk + Dv))
+    tensor_ops, rate = ((3 * ops, TF32_OPS_PER_S)
+                        if q.dtype == torch.float32
+                        else (ops, BF16_OPS_PER_S))
+    t_ops = 1e3 * tensor_ops / rate
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    r.update(bound_ms=max(t_ops, t_bytes),
+             bound_by="operations" if t_ops >= t_bytes else "bytes",
+             ops=ops, bytes=nbytes)
+    log(f"timing flash_attention {shape} {name}"
+        f"{'' if kernel is None else ' on ' + kernel}: {r['ms']!r} ms "
+        f"(plain {r['plain_ms']!r} ms, SDPA {r['library_ms']!r} "
+        f"ms; bound {r['bound_ms']!r} ms by {r['bound_by']})")
+    return r
+
+
+def check_forward(fa_ops, fa_ref, shape, q, k, v, kernel=None) -> float:
+    """The forward (``kernel`` forced, else the route's own) against its
+    plain version on the same inputs: rtol = atol = 2e-5 in float32, 2e-2
+    in bf16 (row 7's), the same bits over two runs, q's type and [B, H, S,
+    Dv]; where the checkout routes by ``forward_plan``, the launch went
+    to the kernel named.  Returns max |Δ|."""
+    import torch
+    B, H, KV, S, Dk, Dv, window, cap = shape
+    dtype = q.dtype
+
+    def run():
+        if kernel is None:
+            return fa_ops.flash_attention(q, k, v, window, cap)
+        out = torch.empty((B, H, S, Dv), dtype=dtype, device=q.device)
+        fa_ops._launch(q, k, v, out, window, cap, kernel=kernel)
+        return out
+
+    counts = getattr(fa_ops, "forward_launches_by_kernel", None)
+    before = dict(counts) if counts is not None else None
+    got = run()
+    again = run()
+    torch.cuda.synchronize()
+    if counts is not None:
+        want_kernel = kernel or fa_ops.forward_plan(dtype, Dk, Dv)
+        check(counts[want_kernel] - before[want_kernel] == 2,
+              f"flash_attention at {shape} {dtype}: {counts} launches by "
+              f"kernel (before {before}), expected 2 more on {want_kernel}")
+    check(same_bits(got, again), f"flash_attention differs between "
+          f"two runs at {shape} {dtype}")
+    want = fa_ref.attention_ref(q, k, v, window, cap)
+    check(got.dtype == dtype and got.shape == (B, H, S, Dv),
+          f"flash_attention returned {got.dtype} {tuple(got.shape)}")
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    gf, wf = got.float(), want.float()
+    e = max_abs_err(gf, wf)
+    check(bool(((gf - wf).abs() <= tol + tol * wf.abs()).all()),
+          f"flash_attention differs from its plain version at "
+          f"{shape} {dtype}: max |Δ| {e!r} beyond rtol=atol={tol}")
+    return e
+
+
+def phase_flash_families(dev, fa_ops, fa_ref, need_wgmma=True):
+    """Phase 2, the flash forward's family instances: (256, 256) and MLA's
+    (192, 128), float32 (3xTF32) and bfloat16 (at (192, 128) the wgmma
+    kernel, ``ops.forward_plan``), against the plain version on the card
+    (``check_forward``) at the families' shapes and ragged lengths; then
+    each family shape timed (``family_fwd_timing``).  With ``need_wgmma``
+    the wgmma forward's SASS must hold HGMMA (``fwd_wgmma_sass``; an
+    earlier checkout timed beside this one has no such kernel)."""
+    import torch
+    if need_wgmma:
+        log(f"phase 2: HGMMA instructions of the bf16 forward on wgmma "
+            f"(SASS): {fwd_wgmma_sass(fa_ops)}")
     res = []
     for shape in FAMILY_FLASH_SHAPES + FAMILY_FLASH_RAGGED:
-        B, H, KV, S, Dk, Dv, window, cap = shape
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = flash_pair_inputs(shape, dtype, dev)
-            got = fa_ops.flash_attention(q, k, v, window, cap)
-            again = fa_ops.flash_attention(q, k, v, window, cap)
-            torch.cuda.synchronize()
-            check(same_bits(got, again), f"flash_attention differs between "
-                  f"two runs at {shape} {dtype}")
-            want = fa_ref.attention_ref(q, k, v, window, cap)
-            check(got.dtype == dtype and got.shape == (B, H, S, Dv),
-                  f"flash_attention returned {got.dtype} {tuple(got.shape)}")
-            tol = 2e-5 if dtype == torch.float32 else 2e-2
-            gf, wf = got.float(), want.float()
-            e = max_abs_err(gf, wf)
-            check(bool(((gf - wf).abs() <= tol + tol * wf.abs()).all()),
-                  f"flash_attention differs from its plain version at "
-                  f"{shape} {dtype}: max |Δ| {e!r} beyond rtol=atol={tol}")
+            e = check_forward(fa_ops, fa_ref, shape, q, k, v)
             name = str(dtype).replace("torch.", "")
             r = dict(shape=list(shape), dtype=name, max_abs_err=e)
-            del got, again, want, gf, wf
+            torch.cuda.empty_cache()
             if shape in FAMILY_FLASH_SHAPES:
-                r["ms"] = cuda_ms(lambda: fa_ops.flash_attention(
-                    q, k, v, window, cap), 10)
-                r["plain_ms"] = cuda_ms(lambda: fa_ref.attention_ref(
-                    q, k, v, window, cap), 3)
-                if cap:
-                    r["library_ms"] = None      # SDPA has no soft-cap
-                else:
-                    mask = None
-                    if window and window < S:
-                        i = torch.arange(S, device=dev)
-                        mask = ((i[:, None] >= i[None, :])
-                                & (i[:, None] - i[None, :] < window))
-                    try:
-                        r["library_ms"] = cuda_ms(
-                            lambda: F.scaled_dot_product_attention(
-                                q, k, v, attn_mask=mask,
-                                is_causal=mask is None, enable_gqa=True), 10)
-                    except (TypeError, RuntimeError) as exc:
-                        log(f"timing: scaled_dot_product_attention at "
-                            f"{shape} {name} unavailable: {exc}")
-                        r["library_ms"] = None
-                ops = 2 * B * H * live_pairs(S, window) * (Dk + Dv)
-                nbytes = q.element_size() * (B * H * S * (Dk + Dv)
-                                              + B * KV * S * (Dk + Dv))
-                tensor_ops, rate = ((3 * ops, TF32_OPS_PER_S)
-                                    if dtype == torch.float32
-                                    else (ops, BF16_OPS_PER_S))
-                t_ops = 1e3 * tensor_ops / rate
-                t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-                r.update(bound_ms=max(t_ops, t_bytes),
-                         bound_by="operations" if t_ops >= t_bytes
-                         else "bytes", ops=ops, bytes=nbytes)
-                log(f"timing flash_attention {shape} {name}: {r['ms']!r} ms "
-                    f"(plain {r['plain_ms']!r} ms, SDPA {r['library_ms']!r} "
-                    f"ms; bound {r['bound_ms']!r} ms by {r['bound_by']})")
+                r.update(family_fwd_timing(dev, fa_ops, fa_ref, shape, q, k,
+                                           v))
             log(f"phase 2: flash_attention {shape} {name}: max |Δ| {e!r}; "
                 f"bitwise equal over two runs")
             res.append(r)
@@ -5057,9 +5130,81 @@ def phase_flash_families(dev, fa_ops, fa_ref):
     return res
 
 
+#: The bf16 forward on wgmma beside the mma.sync kernel at the pairs it is
+#: built for but not routed at (``kernel_timing.py flash-families``): the
+#: serving shape (D 64), the same at D 128, and the (256, 256) family
+#: shapes.
+WGMMA_FWD_TIMED = [SERVE_SHAPE[:4] + (64, 64) + SERVE_SHAPE[5:],
+                   SERVE_SHAPE[:4] + (128, 128) + SERVE_SHAPE[5:],
+                   FAMILY_FLASH_SHAPES[0], FAMILY_FLASH_SHAPES[1]]
+
+
+def wgmma_forward_beside(dev, fa_ops, fa_ref) -> list:
+    """``WGMMA_FWD_TIMED`` in bfloat16: the wgmma forward and the mma.sync
+    kernel each forced, held to the plain version and timed in turns
+    (mma.sync, wgmma), with SDPA and the bound."""
+    import torch
+    res = []
+    for shape in WGMMA_FWD_TIMED:
+        q, k, v = flash_pair_inputs(shape, torch.bfloat16, dev)
+        r = dict(shape=list(shape))
+        for kernel in ("mma_sync", "wgmma"):
+            r[kernel] = family_fwd_timing(dev, fa_ops, fa_ref, shape, q, k,
+                                          v, kernel=kernel)
+            r[kernel]["max_abs_err"] = check_forward(fa_ops, fa_ref, shape,
+                                                     q, k, v, kernel)
+        res.append(r)
+        del q, k, v
+        torch.cuda.empty_cache()
+    return res
+
+
+#: The instances a redesign of the wide backward and the (192, 128) bf16
+#: forward leaves alone, digested by ``flash_digest``: the forward (with
+#: its log-sum-exp) in float32 at every pair, in bf16 at the square pairs;
+#: (dtype, Dk, Dv, window, cap).
+FWD_DIGEST_CASES = [("float32", 32, 32, 0, 30.0), ("float32", 64, 64, 100, 0.0),
+                    ("float32", 128, 128, 0, 0.0),
+                    ("float32", 256, 256, 70, 50.0),
+                    ("float32", 192, 128, 0, 0.0),
+                    ("bfloat16", 32, 32, 0, 30.0),
+                    ("bfloat16", 64, 64, 100, 0.0),
+                    ("bfloat16", 128, 128, 0, 0.0),
+                    ("bfloat16", 256, 256, 70, 50.0)]
+
+
+def flash_digest(fa_ops, case) -> str:
+    """sha256 of the forward's output and log-sum-exp at one
+    ``FWD_DIGEST_CASES`` case (B 2, H 4, KV 2, S 333; inputs from numpy's
+    generator seeded with Dk + Dv) on the card."""
+    import hashlib
+    import numpy as np
+    import torch
+    name, dk, dv, window, cap = case
+    B, H, KV, S = 2, 4, 2, 333
+    g = np.random.default_rng(dk + dv)
+    q, k, v = (torch.as_tensor(g.normal(size=s).astype(np.float32)).to(
+        "cuda", getattr(torch, name))
+        for s in ((B, H, S, dk), (B, KV, S, dk), (B, KV, S, dv)))
+    out = torch.empty((B, H, S, dv), dtype=q.dtype, device="cuda")
+    lse = torch.empty((B, H, S), device="cuda")
+    fa_ops._launch(q, k, v, out, window, cap, lse)
+    h = hashlib.sha256()
+    for t in (out, lse):
+        h.update(t.cpu().contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
 def _attention_layers(cfg) -> int:
     return sum(m in ("attn_global", "attn_local", "attn_mla")
                for m, _ in cfg.layer_plan)
+
+
+def _attention_pair(cfg) -> tuple:
+    """The (Dk, Dv) head dims a config's attention layers launch at."""
+    if cfg.is_mla:
+        return (cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim)
+    return (cfg.head_dim, cfg.head_dim)
 
 
 class RouteRecorder:
@@ -5201,12 +5346,17 @@ def family_full(serve, fa_ops, moe, arch, layers, dtype_name, B, S, gen):
     fa_ops.reset_launches()
     out = serve.generate(cfg, params, tokens, gen=gen, image_embeds=img)
     launches = fa_ops.launches["flash_attention"]
+    by_kernel = dict(fa_ops.forward_launches_by_kernel)
     peak = torch.cuda.max_memory_allocated() / 2**30
     n_attn = _attention_layers(cfg)
     check(out["prefill_flash_launches"] == n_attn == launches,
           f"{arch} full width: flash_attention launched {launches} times "
           f"({out['prefill_flash_launches']} in the prefill), expected "
           f"{n_attn}")
+    plan = fa_ops.forward_plan(dtype, *_attention_pair(cfg))
+    check(by_kernel[plan] == launches,
+          f"{arch} full width: {by_kernel} forward launches by kernel, "
+          f"expected all {launches} on {plan}")
     check(bool(torch.isfinite(out["logits"]).all()),
           f"{arch} full width: logits not finite")
     # attention and MLA reach the kernel through the one ``ops.attention``
@@ -5230,6 +5380,7 @@ def family_full(serve, fa_ops, moe, arch, layers, dtype_name, B, S, gen):
                init_s=init_s, prefill_ms=out["prefill_ms"],
                decode_ms=out["decode_ms"], tokens_per_s=out["tokens_per_s"],
                peak_gib=peak, flash_launches=launches,
+               flash_launches_by_kernel=by_kernel,
                split_prefill_ms=split_ms, split=split.ms, row0_ids=ids)
     log(f"phase 12: {cfg.arch_id} x{cfg.n_layers} {dtype_name}, "
         f"{n_params / 1e9:.3f} B params, batch {B} x {S}"
@@ -5310,12 +5461,15 @@ FAMILY_BWD_SHAPES = FAMILY_FLASH_SHAPES
 FAMILY_BWD_RAGGED = [(2, 4, 2, 200, 256, 256, 0, 50.0),
                      (1, 16, 1, 300, 256, 256, 70, 0.0),
                      (2, 4, 4, 200, 192, 128, 0, 0.0)]
-#: The float32 backward's kernels at the new pairs, as their mangled names
-#: begin in the build log (dK/dV passes and dQ).
-FAMILY_BWD_KERNELS = ("flash_bwd_dkdv_kernelIfLi256ELi256E",
-                      "flash_bwd_dq_kernelIfLi256ELi256E",
-                      "flash_bwd_dkdv_kernelIfLi192ELi128E",
-                      "flash_bwd_dq_kernelIfLi192ELi128E")
+#: The float32 backward's kernels at the wide pairs (one dK/dV and one dQ
+#: launch, eight warps a CTA) and the bf16 forward on wgmma at (192, 128),
+#: as their mangled names hold them in the build log: ptxas must report no
+#: spill in any.
+FAMILY_BWD_KERNELS = ("flash_bwd_dkdv_wide_kernelILi256ELi256E",
+                      "flash_bwd_dq_wide_kernelILi256ELi256E",
+                      "flash_bwd_dkdv_wide_kernelILi192ELi128E",
+                      "flash_bwd_dq_wide_kernelILi192ELi128E",
+                      "3wgf10fwd_kernelILi192ELi128E")
 #: Phase 13 (b): a smoke-width batch, its length past a 64-row tile.
 FAMILY_TRAIN_SMOKE_BATCH = (2, 80)
 #: Phase 13 (c): full width, the depth cut the card or the time limit
@@ -5366,19 +5520,45 @@ def ptxas_report(log_text: str) -> dict:
 
 
 def family_bwd_ptxas(fa_ops) -> dict:
-    """The new instances' registers and spills from the flash library's
-    build log; fails on a spill or a missing kernel."""
+    """The registers and spills of ``FAMILY_BWD_KERNELS`` from the flash
+    library's build log, by fragment; fails on a spill or a missing
+    kernel."""
     report = ptxas_report(fa_ops.LIBRARY.build_log())
     res = {}
     for frag in FAMILY_BWD_KERNELS:
         found = {n: r for n, r in report.items() if frag in n}
-        check(found, f"no kernel {frag} in the flash library's build log")
+        check(len(found) == 1,
+              f"{len(found)} kernels {frag} in the flash library's build log")
         for name, r in found.items():
             check(r.get("spill_stores", 1) == 0
                   and r.get("spill_loads", 1) == 0,
                   f"{name} spills: {r}")
-            res[name[name.index("flash_bwd"):][:60]] = r
+            res[frag] = r
     return res
+
+
+def kernel_split(fn, calls: int = 2) -> dict:
+    """Each kernel ``fn`` launches: device ms and launches a call, from
+    torch.profiler over ``calls`` calls after one warm-up, by its name
+    without the argument list."""
+    import re
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    # CPU and CUDA, as the other profiles here: after those, a CUDA-only
+    # session in the same process reported no device events
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for us, count, name in device_rows(prof):
+        short = re.sub(r"^void |\(.*$", "",
+                       name.replace("(anonymous namespace)::", ""))
+        split[short] = dict(ms=us / 1e3 / calls, launches=count / calls)
+    return split
 
 
 def family_bwd_bound(shape) -> dict:
@@ -5396,7 +5576,7 @@ def family_bwd_bound(shape) -> dict:
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
-def phase_flash_bwd_families(dev, fa_ops, fa_ref):
+def phase_flash_bwd_families(dev, fa_ops, fa_ref, new=True):
     """Phase 13 (a): the float32 backward at (256, 256) and (192, 128)
     against the plain version under autograd on the card (max |Δ| <=
     BWD_REL · max |grad| over dq, dk, dv), the same bits over two runs, at
@@ -5404,11 +5584,14 @@ def phase_flash_bwd_families(dev, fa_ops, fa_ref):
     strided views); launches counted by pair; each family shape timed by
     CUDA events beside the plain version's backward and SDPA's (its
     ``is_causal`` or explicit band-mask form; null under a soft-cap), with
-    its bound; the build log's registers and spills of the new kernels."""
+    its bound, and its kernels' device ms from a profile
+    (``kernel_split``).  With ``new`` (an earlier checkout timed beside
+    this one has other kernels): the build log's registers and spills of
+    ``FAMILY_BWD_KERNELS``, and one dK/dV launch a call."""
     import torch
     import torch.nn.functional as F
-    ptx = family_bwd_ptxas(fa_ops)
-    log(f"phase 13: the new backward kernels' ptxas report: {ptx}")
+    ptx = family_bwd_ptxas(fa_ops) if new else None
+    log(f"phase 13: the new kernels' ptxas report: {ptx}")
     res, err_worst = [], 0.0
     for shape in FAMILY_BWD_SHAPES + FAMILY_BWD_RAGGED:
         B, H, KV, S, Dk, Dv, window, cap = shape
@@ -5488,9 +5671,25 @@ def phase_flash_bwd_families(dev, fa_ops, fa_ref):
                         f"{exc}")
                     r["library_ms"] = None
             r.update(family_bwd_bound(shape))
+            r["split"] = kernel_split(lambda: fa_ops._launch_backward(
+                q, k, v, out, dout, lse, dq, dk, dv, window, cap))
+            dkdv = [n for n in r["split"] if "dkdv" in n]
+            # after phase 10 the profiler reports no device events in this
+            # process (a fresh one does: kernel_timing.py flash-families,
+            # and tests/test_torch_gpu.py holds the one dK/dV launch)
+            check(not new or not r["split"] or (
+                len(dkdv) == 1 and r["split"][dkdv[0]]["launches"] == 1),
+                  f"flash backward at {shape}: dK/dV kernels {dkdv} "
+                  f"({r['split']}), expected one launch of one")
+            if not r["split"]:
+                log(f"phase 13: the profiler reported no device events at "
+                    f"{shape}: no split by kernel")
             log(f"timing flash_attention_backward {shape}: {r['ms']!r} ms "
                 f"(plain {r['plain_ms']!r} ms, SDPA {r['library_ms']!r} ms; "
-                f"bound {r['bound_ms']!r} ms by {r['bound_by']})")
+                f"bound {r['bound_ms']!r} ms by {r['bound_by']}); device ms "
+                f"a call by kernel: " + ", ".join(
+                    f"{n} {v['ms']!r} (x{v['launches']!r})"
+                    for n, v in r["split"].items()))
             del out, lse, dq, dk, dv
         log(f"phase 13: flash backward {shape} float32 ({r['layout']} "
             f"layout): max |Δ| {e!r} ({e / scale!r} of max |grad| "
@@ -5986,6 +6185,10 @@ def main():
     family_paths = {f"serve {r['arch']} x{r['layers']} prefill":
                     r["flash_launches"]
                     for r in families["full"].values()}
+    family_by_kernel = {}
+    for r in families["full"].values():
+        for name, n in r["flash_launches_by_kernel"].items():
+            family_by_kernel[name] = family_by_kernel.get(name, 0) + n
     for r in fam_flash:
         flash_err[r["dtype"]] = max(flash_err[r["dtype"]], r["max_abs_err"])
     kernels.append({
@@ -5999,6 +6202,7 @@ def main():
                                     else v["flash_attention"])
                                 for k, v in by_path.items()},
                              **family_paths},
+        "family_launches_by_kernel": family_by_kernel,
         "instances": fam_flash,
         "max_abs_err": max(flash_err.values()), "ms": flash["float32"]["ms"],
         "plain_ms": flash["float32"]["plain_ms"],

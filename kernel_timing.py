@@ -4,6 +4,7 @@
     python3 kernel_timing.py flash-forward [--root DIR] [-D NAME=VALUE ...]
     python3 kernel_timing.py flash-backward [--root DIR] [-D NAME=VALUE ...]
     python3 kernel_timing.py flash-jvp [--root DIR] [-D NAME=VALUE ...]
+    python3 kernel_timing.py flash-families [--root DIR] [-D NAME=VALUE ...]
     python3 kernel_timing.py topk [--root DIR] [--topk-chunk N]
     python3 kernel_timing.py fednl [--root DIR]
     python3 kernel_timing.py dither [--root DIR]
@@ -56,6 +57,22 @@ each of their kernels' device ms a call from a profile.  With
 ``--root`` it times DIR's kernels and this checkout's in one call, each run
 in a process of its own (one package cannot be imported twice), in the
 order DIR, this, this, DIR.
+
+``flash-families`` builds the flash-attention library with the extra nvcc
+``-D`` flags given (the wide backward's step ``REPRO_BWD_WIDE_STEP``, the
+``wgmma`` forward's warpgroups ``REPRO_FWD_WG_GROUPS``; see
+``flash_attention.cu``), prints ptxas's registers and spills of the
+kernels at (256, 256) and (192, 128), then holds and times the forward at
+``chip_smoke.FAMILY_FLASH_SHAPES`` in float32 and bfloat16 (rows 7b-7c of
+PERF.md; ``chip_smoke.phase_flash_families``) and the float32 backward
+there (rows 8b-8c; ``chip_smoke.phase_flash_bwd_families``: the plain
+autograd, SDPA where it applies, the bound and each kernel's device ms
+from a profile), and, where the checkout has it, the bf16 forward on
+``wgmma`` beside the ``mma.sync`` kernel at
+``chip_smoke.WGMMA_FWD_TIMED`` (``chip_smoke.wgmma_forward_beside``); last
+the sha256 digests of the forward's untouched instances
+(``chip_smoke.FWD_DIGEST_CASES``).  ``--root`` runs DIR, this, this, DIR
+as ``flash-jvp`` does.
 
 ``dither`` times the codec kernels at the trainer's leaf shapes
 (``chip_smoke.LEAF_SHAPES``): the u-taking encode, the keyed encode beside
@@ -159,28 +176,68 @@ def jvp_kernel_split(dev, ops, ref) -> dict:
     return split
 
 
-def flash_jvp_beside(args) -> None:
-    """``flash-jvp --root DIR``: DIR's tangent kernels and this checkout's,
-    each run a ``flash-jvp --alone`` process of its own, in the order DIR,
-    this, this, DIR; the runs' output as it comes, then each kernel's
-    times side by side, and the four runs' JSON as the last line."""
+def beside(args) -> None:
+    """``flash-jvp`` or ``flash-families`` with ``--root DIR``: DIR's
+    kernels and this checkout's, each run an ``--alone`` process of its
+    own, in the order DIR, this, this, DIR; the runs' output as it comes,
+    then each timing's ms side by side, and the four runs' JSON as the last
+    line."""
     import subprocess
     runs = []
     for root in (args.root, chip_smoke.ROOT, chip_smoke.ROOT, args.root):
-        cmd = [sys.executable, str(Path(__file__).resolve()), "flash-jvp",
+        cmd = [sys.executable, str(Path(__file__).resolve()), args.what,
                "--alone", "--root", str(root),
                *(f"-D{d}" for d in args.defines)]
         proc = subprocess.run(cmd, stdout=subprocess.PIPE, text=True,
                               check=False, timeout=1200)
         print(proc.stdout, end="", flush=True)
         chip_smoke.check(proc.returncode == 0,
-                         f"flash-jvp of {root} failed ({proc.returncode})")
+                         f"{args.what} of {root} failed ({proc.returncode})")
         runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
-    for name in runs[0]["times"]:
+    names = dict.fromkeys(n for run in runs for n in run["times"])
+    for name in names:
         chip_smoke.log(f"{name}: ms " + ", ".join(
             f"{run['root']} {run['times'][name]['ms']!r} (plain "
-            f"{run['times'][name]['plain_ms']!r})" for run in runs))
-    print(json.dumps({"what": "flash-jvp", "runs": runs}), flush=True)
+            f"{run['times'][name]['plain_ms']!r})" for run in runs
+            if name in run["times"]))
+    if "digests" in runs[0]:
+        chip_smoke.log("digests equal in the four runs: " + repr(
+            len({json.dumps(run["digests"], sort_keys=True)
+                 for run in runs}) == 1))
+    print(json.dumps({"what": args.what, "runs": runs}), flush=True)
+
+
+def flash_families(dev, ops, ref, this: bool) -> dict:
+    """``flash-families`` of one checkout (``this``: the checkout running
+    the script, whose new kernels are checked too)."""
+    import torch
+    out = {"ptxas": {n: r for n, r in chip_smoke.ptxas_report(
+        ops.LIBRARY.build_log()).items() if "Li256E" in n or "Li192E" in n}}
+    for name, r in out["ptxas"].items():
+        chip_smoke.log(f"  ptxas: {name}: {r}")
+    fwd = chip_smoke.phase_flash_families(dev, ops, ref, need_wgmma=this)
+    bwd = chip_smoke.phase_flash_bwd_families(dev, ops, ref, new=this)
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    out["times"] = {
+        f"forward {r['shape']} {r['dtype']}": {k: r[k] for k in keys}
+        for r in fwd if "ms" in r}
+    out["times"].update({
+        f"backward {r['shape']}": {k: r[k] for k in keys + ("split",)}
+        for r in bwd["instances"] if "ms" in r})
+    out["rel_err_backward"] = bwd["rel_err_worst"]
+    out["max_abs_err_forward"] = {
+        f"{r['shape']} {r['dtype']}": r["max_abs_err"] for r in fwd}
+    if hasattr(ops, "forward_plan"):
+        for r in chip_smoke.wgmma_forward_beside(dev, ops, ref):
+            for kernel in ("mma_sync", "wgmma"):
+                out["times"][f"forward {r['shape']} bfloat16 on {kernel}"] = {
+                    k: r[kernel][k] for k in keys + ("max_abs_err",)}
+    out["digests"] = {" ".join(map(str, case)): chip_smoke.flash_digest(
+        ops, case) for case in chip_smoke.FWD_DIGEST_CASES}
+    for case, digest in out["digests"].items():
+        chip_smoke.log(f"digest of the forward at {case}: {digest}")
+    torch.cuda.synchronize()
+    return out
 
 
 def main(argv=None) -> None:
@@ -188,8 +245,8 @@ def main(argv=None) -> None:
         description="Time one checkout's kernels on the card.")
     parser.add_argument("what", choices=("compressor", "topk", "fednl",
                                          "flash-forward", "flash-backward",
-                                         "flash-jvp", "dither",
-                                         "quickstart", "remat"))
+                                         "flash-jvp", "flash-families",
+                                         "dither", "quickstart", "remat"))
     parser.add_argument("--root", type=Path, default=chip_smoke.ROOT,
                         help="checkout whose src/repro_torch is timed")
     parser.add_argument("-D", dest="defines", action="append", default=[],
@@ -198,11 +255,12 @@ def main(argv=None) -> None:
     parser.add_argument("--topk-chunk", type=int, default=None,
                         help="elements a CTA of the grid-wide top-k reads")
     parser.add_argument("--alone", action="store_true",
-                        help="flash-jvp: time --root's kernels only")
+                        help="flash-jvp, flash-families: time --root's "
+                             "kernels only")
     args = parser.parse_args(argv)
-    if args.what == "flash-jvp" and not args.alone and (
+    if args.what in ("flash-jvp", "flash-families") and not args.alone and (
             args.root.resolve() != chip_smoke.ROOT):
-        return flash_jvp_beside(args)
+        return beside(args)
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("kernel_timing: no CUDA device")
@@ -278,7 +336,11 @@ def main(argv=None) -> None:
                 signatures=build.LIBRARY.signatures,
                 headers=build.LIBRARY.headers)
         out["times"] = {}
-        if args.what == "flash-forward":
+        if args.what == "flash-families":
+            chip_smoke.log(f"built {ops.LIBRARY.build().name}")
+            out.update(flash_families(
+                dev, ops, ref, args.root.resolve() == chip_smoke.ROOT))
+        elif args.what == "flash-forward":
             out["max_abs_err_by_dtype"] = chip_smoke.phase_flash_kernel(
                 dev, ops, ref)
             for name, r in chip_smoke.phase_flash_timing(dev, ops,

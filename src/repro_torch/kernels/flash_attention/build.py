@@ -20,9 +20,9 @@ LIBRARY = CudaLibrary(
     headers=(_CSRC / "tensor_core.cuh",),
     signatures={
         # q, k, v, o, lse, dtype, B, H, KV, S, D, Dv, window, cap,
-        # strides, stream
+        # kernel, strides, stream
         "repro_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                  _I, _I, _I, _F, _P, _P),
+                                  _I, _I, _I, _F, _I, _P, _P),
         # q, k, v, o, dout, lse, delta, dq, dk, dv, dtype, B, H, KV, S, D,
         # Dv, window, cap, strides, stream
         "repro_flash_attention_backward": (_P,) * 10 + (_I,) * 8 + (

@@ -1,7 +1,8 @@
 // Causal GQA flash attention for Hopper (sm_90a): the forward kernel and,
 // below it, the backward kernels, all on the tensor cores: float32 as
-// 3xTF32 on mma.sync, the bf16 forward on mma.sync, the bf16 backward on
-// wgmma (its own section, namespace wg).
+// 3xTF32 on mma.sync, the bf16 forward on mma.sync (on wgmma at MLA's
+// (192, 128): namespace wgf), the bf16 backward on wgmma (its own
+// section, namespace wg).
 //
 // Replaces the Pallas TPU kernel `_kernel` of
 // src/repro/kernels/flash_attention/flash_attention.py:28 (`flash_attention`):
@@ -76,8 +77,45 @@
 // 0.781 ms, 3.75x the bound (SDPA in float32: 5.21 ms).  bf16: 0.290 ms
 // with V's B fragments loaded by ldmatrix.trans, 0.335 ms with 16-bit
 // loads, against SDPA's bf16 0.106 ms (kernel_timing.py flash-forward, the
-// two versions in turns in one call; NVIDIA H100 80GB HBM3, 700 W).  wgmma
-// and TMA are the next step.
+// two versions in turns in one call; NVIDIA H100 80GB HBM3, 700 W).
+//
+// The bfloat16 forward on wgmma (namespace wgf, below the wg section;
+// ops.forward_plan routes bf16 at MLA's (192, 128) to it, where the
+// mma.sync kernel lost most to SDPA; built at (64, 64), (128, 128) and
+// (256, 256) too, timed there, not routed).  A CTA of three warpgroups
+// (two at DV = 256), each 64 q rows, on a head-major grid: a head's q tiles
+// run side by side and share its K and V tiles in L2, and the CTA's
+// warpgroups share each staged tile.  Per KV tile of 64 keys (32 at DV =
+// 256), each warpgroup: S = Q K^T as wgmma m64nBKk16 from shared memory
+// (Q and K K-major, 128-byte swizzle, the wg section's descriptors); the
+// online softmax in the accumulator's row layout, base 2 (the score scale
+// and log2 e folded in; on tiles every row sees whole and uncapped, the
+// exponent's argument one FFMA of the raw score), the mask only on tiles
+// the warpgroup does not see whole, a tile it sees none of skipped; then
+// O = O corr + P V a 64-wide panel of O at a time, P rounded to bf16 in
+// registers (the register-A form) and V read MN-major with the transpose
+// flag.  K and V are double-buffered by cp.async.  Each product lands in
+// a fresh accumulator and is added to O in float32 (as the backward's
+// wgmma kernels do): with O itself the accumulator of P V, rescaled
+// between products, ptxas serialized every wgmma of the kernel (C7515,
+// "non wgmma instructions defining accumulator registers").  What was
+// timed at deepseek-v3's [8, 128, KV 128, 1024] (CUDA events, the
+// mma.sync kernel 2.26-2.32 ms in the same calls; NVIDIA H100 80GB HBM3,
+// 700 W; the bytes bound 0.401 ms, SDPA 0.73): one warpgroup a CTA, two
+// CTAs an SM, q-tile-major grid, O as the accumulator: 2.10 ms; two and
+// three warpgroups sharing K and V, head-major: 1.71 and 1.50 (cutting
+// the softmax, the S product or the K and V loads from that one each
+// saved 0.3-0.4 ms: they run one after the other); S of the next tile
+// issued before the softmax (FA3's overlap), serialized by C7515: 1.85;
+// fresh accumulators (this version): 1.43-1.45 (two warpgroups 1.60);
+// with a three-slot ring staged two tiles ahead and one barrier a tile:
+// 1.50; with fresh accumulators and the overlap (two warpgroups, 255
+// registers, spilling): 1.77; the warpgroups' S issued in turn (named
+// barriers, FA3's ping-pong; spilling): 1.87.  Three warpgroups hold 168
+// registers a thread, no spill; the (256, 256) instance spills 172 bytes
+// (not routed).  Still 3.6x its bound: the warpgroups wait on their
+// products, the tensor cores idle through the softmax; TMA and a producer
+// warp, freeing the registers an overlap needs, are the next step.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -522,36 +560,49 @@ cudaError_t dispatch(int DK, int DV, const void* q, const void* k,
 // launch, every product summed in one pass) and, in float32 only, for
 // (256, 256) (gemma2-9b, recurrentgemma-9b) and MLA's (192, 128)
 // (deepseek-v3).  The D <= 128 plan does not fit there: at D = 256 the
-// dK/dV kernel would stage (2 * 64 + 4 * 32) rows of 260 floats, 266 KB
-// against the 227 KB a CTA may opt into, and hold dK and dV, 64 keys x
-// 256 x 2 floats over 128 threads, 256 registers a thread before anything
-// else.  The plan above D = 128 (rows padded as above: 260 floats at 256,
-// 196 and 132 at (192, 128)):
-//   * dK/dV: still 64 keys a CTA, a warp 16 keys, but two launches: one
-//     accumulates dV (S^T and P^T dO), the next dK (S^T, dP^T and dS^T Q),
-//     so a thread holds one accumulator, 128 registers at 256 (dK 96, dV 64
-//     at (192, 128)); 8 q rows a step, so S^T and dP^T take 4 registers
-//     each; each step's product is summed 32 output columns at a time, 16
-//     registers (add_product).  Shared memory: K (and V in the dK pass)
-//     once, Q and dO twice, 8-row steps: at (256, 256) the dV pass 99,968
-//     bytes (two CTAs an SM), the dK pass 166,528 (one); at (192, 128)
-//     71,296 (three) and 105,088 (two).
-//   * dQ: 64 q rows a CTA, 16 keys a step: Q and dO once, K and V twice,
-//     199,680 bytes at (256, 256) and 125,952 at (192, 128), one CTA an
-//     SM.  At DK = 256 the 64 x 256 accumulator is two launches of 128
-//     columns each (dq_cols), each computing S and dP again: with one, it
-//     spilled at 255 registers.
-//   * S and dP are taken 64 columns of depth at a time in a loop ptxas does
-//     not unroll (gemm_nt_bwd): fully unrolled, its fragment loads ahead
-//     spilled.  Registers (ptxas, sm_90a): dV pass 167 and 96, dK pass 252
-//     and 166, dQ 198 and 168 at (256, 256) and (192, 128), no spill
-//     (chip_smoke.py checks the build log).  Built as variants on the card,
-//     16 q rows a dK/dV step spilled as well, with 64, 32 or 8 columns
-//     summed at a time and 64 or 32 columns of depth a step.
-// S^T is computed in both dK/dV launches (and at DK = 256 S and dP in both
-// dQ launches), so these instances run eight products (ten) where the
-// bound counts five, on four to twelve warps an SM: they are far from
-// their bound and behind the plain autograd (PERF.md), and right first.
+// dK/dV kernel would stage 266 KB against the 227 KB a CTA may opt into,
+// and hold dK and dV over four warps, 256 registers a thread.  The wide
+// plan (section "The float32 backward at (256, 256) and (192, 128)"):
+//   * one dK/dV launch, eight warps a CTA in two roles of four: each step
+//     role 0 computes S^T = K Q^T over DK and turns it into P^T, role 1
+//     dP^T = V dO^T over DV and, from role 0's P dcap (shared memory),
+//     dS^T; P^T and dS^T are staged in shared memory split into hi and lo
+//     once (their columns paired, wide_col, so an A fragment is one 8-byte
+//     load); then each role-0 warp adds P^T dO into DV / 4 columns of dV
+//     and each role-1 warp dS^T Q into DK / 4 columns of dK, all the
+//     tile's keys.  The split balances: at (192, 128) role 0's deeper S^T
+//     (192) goes with dV's 4 n tiles a warp, role 1's dP^T (128) with
+//     dK's 6.  32 keys a CTA and 32 q rows a step (227,840 and 154,112 B
+//     of shared memory, 233 and 205 registers at (256, 256) and (192,
+//     128)): with 64 keys dK and dV take 128 registers a thread at (256,
+//     256) and ptxas spilled 624 bytes; at (192, 128) 64 keys and 16 rows
+//     a step took 36.88-37.21 ms, 32 and 32 36.20-36.21 (the same call);
+//   * one dQ launch (at DK = 256 too), eight warps a CTA of 64 q rows: role
+//     0 computes S = Q K^T and P dcap, role 1 dP = dO V^T and dS (staged
+//     split); then every warp adds dS K into DK / 8 columns of dQ.  16
+//     keys a step at (256, 256) (219,136 B, 204 registers), 32 at (192,
+//     128) (the tiles fit; 194 registers);
+//   * S and dP are read two depth columns at a time (8-byte loads, rows
+//     padded by 8 floats: 32 banks a half warp), their three 3xTF32 terms
+//     in accumulators of their own (three independent mma.sync chains an
+//     n tile: gemma2's dK/dV 5.34 -> 4.77 ms, then 3.95 with the 32-key
+//     tiles); each step's product is summed apart and added in float32,
+//     as above;
+//   * the staging code reads the thread index afresh at each step
+//     (fresh_tid): the addresses ptxas hoisted out of the step loop spilled
+//     the (192, 128) dK/dV kernel.
+// No spill (chip_smoke.py checks the build log).  What was timed
+// (kernel_timing.py flash-families, the parent, this, this, the parent in
+// one call; CUDA events; NVIDIA H100 80GB HBM3, 700 W; PERF.md rows
+// 8b-8c): the two launches took gemma2's [8, 16, KV 8, 1024] from 14.93 to
+// 7.09 ms, recurrentgemma's band from 61.43-61.50 to 24.50-24.51 and
+// deepseek's [8, 128, KV 128, 1024] from 58.39-58.59 to 36.44-36.63
+// (dK/dV 21.1, dQ 14.9: behind SDPA's 32.8).  Not kept: 16 q rows a step
+// at (256, 256) with 32 keys (7.77 ms against 7.10), 32 q rows with 64
+// keys at (192, 128) (700 bytes of spill); the depth loop unrolled 1 and
+// the product's B held two n tiles at a time (both slower, neither
+// removed the spill); a compiler fence between m tiles (ptxas reorders
+// past it).
 // bfloat16 operands at these pairs are on no path (training weights are
 // float32): the wrapper raises.
 //
@@ -562,6 +613,8 @@ cudaError_t dispatch(int DK, int DV, const void* q, const void* k,
 // computes seven products (the score and dP tiles in both kernels), and in
 // float32 the instruction issue bounds it: each operand element costs three
 // integer and float operations to split beside its share of three mma.sync.
+// The wide plan also computes seven (S^T and dP^T once a dK/dV step, S and
+// dP once a dQ step), on eight warps an SM.
 // ---------------------------------------------------------------------------
 
 struct BwdStrides {            // in elements; batch, head, sequence
@@ -586,48 +639,23 @@ __host__ __device__ constexpr int bwd_dmax() { return DK > DV ? DK : DV; }
 // q rows a step of the dK/dV kernel
 template <int DK, int DV>
 __host__ __device__ constexpr int dkdv_bq() {
-  return bwd_dmax<DK, DV>() <= 64 ? REPRO_BWD_DKDV_BQ
-         : bwd_dmax<DK, DV>() <= 128 ? 32 : 8;
+  return bwd_dmax<DK, DV>() <= 64 ? REPRO_BWD_DKDV_BQ : 32;
 }
 
-// keys a step of the dQ kernel
-template <int DK, int DV>
-__host__ __device__ constexpr int dq_bk() {
-  return bwd_dmax<DK, DV>() <= 128 ? BWD_DQ_BK : 16;
-}
-
-// dQ columns a dQ launch accumulates: all of them up to DK = 192 (96
-// registers), half above (a launch a half, each computing S and dP again).
-template <int DK>
-__host__ __device__ constexpr int dq_cols() {
-  return DK <= 192 ? DK : DK / 2;
-}
-
-// What a dK/dV launch accumulates: both (up to D = 128), or, above it, dV
-// in one launch and dK in a second (the large-D plan in the header).
-enum BwdPass { BWD_BOTH, BWD_DV, BWD_DK };
-
-template <int DK, int DV>
-__host__ __device__ constexpr bool dkdv_split() {
-  return bwd_dmax<DK, DV>() > 128;
-}
-
-template <typename T, int DK, int DV, int PASS>
+template <typename T, int DK, int DV>
 constexpr size_t dkdv_smem_bytes() {
-  // K, V (not in the dV pass); Q and dO twice; lse and Delta twice
+  // K, V; Q and dO twice; lse and Delta twice
   constexpr int BQ = dkdv_bq<DK, DV>();
-  constexpr int VROWS = PASS == BWD_DV ? 0 : BWD_BK;
   return ((size_t)(BWD_BK + 2 * BQ) * row_ld<T, DK>()
-          + (size_t)(VROWS + 2 * BQ) * row_ld<T, DV>()) * sizeof(T)
+          + (size_t)(BWD_BK + 2 * BQ) * row_ld<T, DV>()) * sizeof(T)
          + 4 * BQ * sizeof(float);
 }
 
 template <typename T, int DK, int DV>
 constexpr size_t dq_smem_bytes() {
   // Q, dO; K and V twice
-  constexpr int BK = dq_bk<DK, DV>();
-  return ((size_t)(BWD_BQ + 2 * BK) * row_ld<T, DK>()
-          + (size_t)(BWD_BQ + 2 * BK) * row_ld<T, DV>()) * sizeof(T);
+  return ((size_t)(BWD_BQ + 2 * BWD_DQ_BK) * row_ld<T, DK>()
+          + (size_t)(BWD_BQ + 2 * BWD_DQ_BK) * row_ld<T, DV>()) * sizeof(T);
 }
 
 // From the raw score s and dP: s becomes P (0 where masked), dp becomes dS.
@@ -645,55 +673,17 @@ __device__ __forceinline__ void p_and_ds(float& s, float& dp, float lse,
   dp = p * (dp - dl) * dcap;
 }
 
-// n-tiles of a backward product summed apart at a time: all of them up to
-// 128 columns, 32 columns above (16 registers a thread beside the
-// accumulator's 96 or 128: with 64, as the forward's P V pass takes them,
-// ptxas spilled the (256, 256) dK pass and both new dQ instances at 255
-// registers).
-template <int N>
-__host__ __device__ constexpr int bwd_sum_tiles() {
-  return N <= 16 ? N : 4;
-}
-
-// acc[j] += A B_j (j < NT) as gemm_nt over KD columns; above KD = 128 in
-// a loop over 64 columns at a time that is not unrolled, so ptxas does not
-// load the fragments of the whole depth ahead (at KD = 256 that spilled
-// every new instance at 255 registers).  The products meet each
-// accumulator in the same order either way.
-template <typename T, int KD, int NT>
-__device__ __forceinline__ void gemm_nt_bwd(float (&acc)[NT][4],
-                                            const T* As, const T* Bs, int ld,
-                                            int m, int g, int t) {
-  if constexpr (KD <= 128) {
-    gemm_nt<T, KD, NT>(acc, As, Bs, ld, m, g, t);
-  } else {
-    static_assert(KD % 64 == 0, "gemm_nt_bwd: KD a multiple of 64");
-#pragma unroll 1
-    for (int k = 0; k < KD; k += 64)
-      gemm_nt<T, 64, NT>(acc, As + k, Bs + k, ld, m, g, t);
-  }
-}
-
-// acc[j] += A B_j (j < N) as gemm_rn, each product summed apart and added
-// to acc (add_to), bwd_sum_tiles<N> n-tiles a pass: all of them up to 128
-// columns (one pass, gemm_rn then add_to as such).  Each output column
-// sees the same products in the same order either way.
+// acc[j] += A B_j (j < N) as gemm_rn, the product summed apart and added
+// to acc (add_to).
 template <typename T, int N, int NA>
 __device__ __forceinline__ void add_product(float (&acc)[N][4],
                                             const float (&a)[NA][4],
                                             const T* Bs, int ld, int g,
                                             int t) {
-  constexpr int NC = bwd_sum_tiles<N>();
-#pragma unroll
-  for (int jc = 0; jc < N; jc += NC) {
-    float part[NC][4];
-    zero(part);
-    gemm_rn<T, NC, NA>(part, a, Bs + 8 * jc, ld, g, t);
-#pragma unroll
-    for (int j = 0; j < NC; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[jc + j][e] += part[j][e];
-  }
+  float part[N][4];
+  zero(part);
+  gemm_rn<T, N, NA>(part, a, Bs, ld, g, t);
+  add_to(acc, part);
 }
 
 // Delta[b, h, s] = sum over V's head dim DV of dO * O, one warp a row.
@@ -718,11 +708,10 @@ flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
   if (lane == 0) delta[w] = sum;
 }
 
-// dK and dV (or, as PASS says, one of them) of one 64-key tile of one KV
-// head, summed over the group's heads.  Warp w owns keys 16w..16w+15 of the
-// tile.  S^T = K Q^T runs at DK, dP^T = V dO^T at DV, dV += P^T dO at DV
-// and dK += dS^T Q at DK.
-template <typename T, int DK, int DV, int PASS>
+// dK and dV of one 64-key tile of one KV head, summed over the group's
+// heads.  Warp w owns keys 16w..16w+15 of the tile.  S^T = K Q^T runs at
+// DK, dP^T = V dO^T at DV, dV += P^T dO at DV and dK += dS^T Q at DK.
+template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(TC_THREADS)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dout,
@@ -733,11 +722,10 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int BQ = dkdv_bq<DK, DV>(), BK = BWD_BK;
   constexpr int LDK = row_ld<T, DK>(), LDV = row_ld<T, DV>();
   constexpr int NQ = BQ / 8, NDK = DK / 8, NDV = DV / 8;
-  constexpr bool DO_DV = PASS != BWD_DK, DO_DK = PASS != BWD_DV;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Ks = reinterpret_cast<T*>(smem_raw);   // [BK][LDK]
-  T* Vs = Ks + BK * LDK;                    // [BK][LDV], not in the dV pass
-  T* Qs = Vs + (DO_DK ? BK * LDV : 0);      // [2][BQ][LDK]
+  T* Vs = Ks + BK * LDK;                    // [BK][LDV]
+  T* Qs = Vs + BK * LDV;                    // [2][BQ][LDK]
   T* dOs = Qs + 2 * BQ * LDK;               // [2][BQ][LDV]
   float* lse_s = reinterpret_cast<float*>(dOs + 2 * BQ * LDV);  // [2][BQ]
   float* dl_s = lse_s + 2 * BQ;                                 // [2][BQ]
@@ -770,17 +758,16 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           q_lo, S);
     const long long off = ((long long)b * H + h) * S;
     stage_vec<BQ>(lse_s + buf * BQ, lse + off, q_lo, S);
-    if constexpr (DO_DK) stage_vec<BQ>(dl_s + buf * BQ, delta + off, q_lo, S);
+    stage_vec<BQ>(dl_s + buf * BQ, delta + off, q_lo, S);
   };
   stage_rows<T, DK, BK>(Ks, k + b * st.k[0] + kvh * st.k[1], st.k[2], k_lo,
                         S);
-  if constexpr (DO_DK)
-    stage_rows<T, DV, BK>(Vs, v + b * st.v[0] + kvh * st.v[1], st.v[2], k_lo,
-                          S);
+  stage_rows<T, DV, BK>(Vs, v + b * st.v[0] + kvh * st.v[1], st.v[2], k_lo,
+                        S);
   stage(0);
   cp_async_commit();
 
-  float dk_acc[DO_DK ? NDK : 1][4], dv_acc[DO_DV ? NDV : 1][4];
+  float dk_acc[NDK][4], dv_acc[NDV][4];
   zero(dk_acc);
   zero(dv_acc);
 
@@ -798,21 +785,20 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float s[NQ][4], dp[NQ][4];
     zero(s);
     zero(dp);
-    gemm_nt_bwd<T, DK, NQ>(s, Ks, Qb, LDK, m, g, t);     // S^T = K Q^T
-    if constexpr (DO_DK)
-      gemm_nt_bwd<T, DV, NQ>(dp, Vs, dOb, LDV, m, g, t);   // dP^T = V dO^T
+    gemm_nt<T, DK, NQ>(s, Ks, Qb, LDK, m, g, t);     // S^T = K Q^T
+    gemm_nt<T, DV, NQ>(dp, Vs, dOb, LDV, m, g, t);   // dP^T = V dO^T
 #pragma unroll
     for (int j = 0; j < NQ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int kpos = k_lo + m + g + (e & 2 ? 8 : 0);
         const int c = 8 * j + 2 * t + (e & 1);     // q row in the tile
-        p_and_ds(s[j][e], dp[j][e], lb[c], DO_DK ? db[c] : 0.f,
+        p_and_ds(s[j][e], dp[j][e], lb[c], db[c],
                  visible(q_lo + c, kpos, S, window), cap, scale);
       }
     // dV += P^T dO, then dK += dS^T Q, each step's product summed apart
-    if constexpr (DO_DV) add_product<T, NDV, NQ>(dv_acc, s, dOb, LDV, g, t);
-    if constexpr (DO_DK) add_product<T, NDK, NQ>(dk_acc, dp, Qb, LDK, g, t);
+    add_product<T, NDV, NQ>(dv_acc, s, dOb, LDV, g, t);
+    add_product<T, NDK, NQ>(dk_acc, dp, Qb, LDK, g, t);
     __syncthreads();   // every warp is done with this buffer: it refills
   }
 
@@ -822,24 +808,19 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int e = 0; e < 4; ++e) {
     const int key = k_lo + m + g + (e & 2 ? 8 : 0);
     if (key >= S) continue;
-    if constexpr (DO_DK) {
 #pragma unroll
-      for (int j = 0; j < NDK; ++j)
-        store(&dkb[key * st.dk[2] + 8 * j + 2 * t + (e & 1)],
-              dk_acc[j][e] * scale);
-    }
-    if constexpr (DO_DV) {
+    for (int j = 0; j < NDK; ++j)
+      store(&dkb[key * st.dk[2] + 8 * j + 2 * t + (e & 1)],
+            dk_acc[j][e] * scale);
 #pragma unroll
-      for (int j = 0; j < NDV; ++j)
-        store(&dvb[key * st.dv[2] + 8 * j + 2 * t + (e & 1)], dv_acc[j][e]);
-    }
+    for (int j = 0; j < NDV; ++j)
+      store(&dvb[key * st.dv[2] + 8 * j + 2 * t + (e & 1)], dv_acc[j][e]);
   }
 }
 
 // dQ of one 64-row q tile of one head, over the KV tiles the forward
-// visits: its dq_cols<DK> columns from col0 on.  Warp w owns rows
-// 16w..16w+15 of the tile.  S = Q K^T runs at DK, dP = dO V^T at DV, dQ +=
-// dS K at DK.
+// visits.  Warp w owns rows 16w..16w+15 of the tile.  S = Q K^T runs at
+// DK, dP = dO V^T at DV, dQ += dS K at DK.
 template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(TC_THREADS)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -847,10 +828,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
                     int H, int KV, int S, int window, float cap, float scale,
-                    int col0, BwdStrides st) {
-  constexpr int BQ = BWD_BQ, BK = dq_bk<DK, DV>();
+                    BwdStrides st) {
+  constexpr int BQ = BWD_BQ, BK = BWD_DQ_BK;
   constexpr int LDK = row_ld<T, DK>(), LDV = row_ld<T, DV>();
-  constexpr int NK = BK / 8, NDK = dq_cols<DK>() / 8;
+  constexpr int NK = BK / 8, NDK = DK / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Qs = reinterpret_cast<T*>(smem_raw);   // [BQ][LDK]
   T* dOs = Qs + BQ * LDK;                   // [BQ][LDV]
@@ -908,8 +889,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float s[NK][4], dp[NK][4];
     zero(s);
     zero(dp);
-    gemm_nt_bwd<T, DK, NK>(s, Qs, Kb, LDK, m, g, t);     // S = Q K^T
-    gemm_nt_bwd<T, DV, NK>(dp, dOs, Vb, LDV, m, g, t);   // dP = dO V^T
+    gemm_nt<T, DK, NK>(s, Qs, Kb, LDK, m, g, t);     // S = Q K^T
+    gemm_nt<T, DV, NK>(dp, dOs, Vb, LDV, m, g, t);   // dP = dO V^T
 #pragma unroll
     for (int j = 0; j < NK; ++j)
 #pragma unroll
@@ -919,11 +900,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         p_and_ds(s[j][e], dp[j][e], lse_r[r], dl_r[r],
                  visible(q_lo + m + g + 8 * r, kpos, S, window), cap, scale);
       }
-    add_product<T, NDK, NK>(acc, dp, Kb + col0, LDK, g, t);   // dQ += dS K
+    add_product<T, NDK, NK>(acc, dp, Kb, LDK, g, t);   // dQ += dS K
     __syncthreads();   // every warp is done with this buffer: it refills
   }
 
-  T* dqb = dq + b * st.dq[0] + h * st.dq[1] + col0;
+  T* dqb = dq + b * st.dq[0] + h * st.dq[1];
 #pragma unroll
   for (int j = 0; j < NDK; ++j)
 #pragma unroll
@@ -933,6 +914,562 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         store(&dqb[row * st.dq[2] + 8 * j + 2 * t + (e & 1)],
               acc[j][e] * scale);
     }
+}
+
+// ---------------------------------------------------------------------------
+// The float32 backward at (256, 256) and (192, 128): eight warps a CTA in
+// two roles of four (plan in the header above).
+// ---------------------------------------------------------------------------
+
+constexpr int WIDE_THREADS = 256;           // eight warps
+
+// keys a dK/dV CTA: with 64, dK and dV take 128 registers a thread at
+// (256, 256) and the kernel spilled
+constexpr int DKDV_KEYS = 32;
+
+// q rows a dK/dV step; may be set with -D to time another
+// (kernel_timing.py flash-families)
+#ifndef REPRO_BWD_WIDE_STEP
+#define REPRO_BWD_WIDE_STEP 32
+#endif
+constexpr int DKDV_STEP = REPRO_BWD_WIDE_STEP;
+
+// keys a dQ step: 32 where the tiles fit the shared memory ((192, 128)),
+// 16 at (256, 256)
+template <int DK, int DV>
+__host__ __device__ constexpr int dq_step() {
+  return DK + DV <= 320 ? 32 : 16;
+}
+
+// row of a staged P^T, dS^T or dS tile of a step of `step` columns
+__host__ __device__ constexpr int wide_ldp(int step) { return step + 8; }
+
+template <int DK, int DV>
+__host__ __device__ constexpr bool wide_pair() {
+  return bwd_dmax<DK, DV>() > 128;
+}
+
+// Padded row of a wide [rows, D] float tile: 8 more floats, so that the
+// two-column fragment loads below touch 32 distinct banks a half warp.
+template <int D>
+__host__ __device__ constexpr int wide_ld() { return D + 8; }
+
+// The thread's index, read afresh at each call: staging code built on it
+// is not hoisted out of the step loop (its addresses, held across the
+// loop, spilled the dK/dV kernels).
+__device__ __forceinline__ int fresh_tid() {
+  int tid;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(tid));
+  return tid;
+}
+
+// R rows of a [.., S, D] operand (row `lo` on) into a [R][wide_ld<D>]
+// tile, zeros past S, by the CTA's 256 threads.
+template <int D, int R>
+__device__ __forceinline__ void stage_wide(float* dst, const float* src,
+                                           long long stride, int lo,
+                                           int S) {
+  constexpr int CPR = D / 4, LD = wide_ld<D>();
+  for (int c = fresh_tid(); c < R * CPR; c += WIDE_THREADS) {
+    const int r = c / CPR, col = (c % CPR) * 4, row = lo + r;
+    const bool in = row < S;
+    cp_async16(dst + r * LD + col, in ? src + row * stride + col : src, in);
+  }
+}
+
+// R floats of a row vector (element `lo` on), zeros past S.
+template <int R>
+__device__ __forceinline__ void stage_vec_wide(float* dst, const float* src,
+                                               int lo, int S) {
+  for (int r = fresh_tid(); r < R; r += WIDE_THREADS) {
+    const bool in = lo + r < S;
+    cp_async4(dst + r, in ? src + lo + r : src, in);
+  }
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The four warps of role 1 (threads 128..255) meet, apart from role 0.
+__device__ __forceinline__ void role1_barrier() {
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+}
+
+// 3xTF32 fragments read along the depth two columns at a time: k slot t
+// is column 2t of the eight, slot t + 4 column 2t + 1, in A and B alike
+// (a product meets each pair of depths once either way).
+__device__ __forceinline__ Tc<float>::A load_a_pairs(const float* s, int ld,
+                                                     int m, int k, int g,
+                                                     int t) {
+  const float2 x = *reinterpret_cast<const float2*>(s + (m + g) * ld + k
+                                                    + 2 * t);
+  const float2 y = *reinterpret_cast<const float2*>(s + (m + g + 8) * ld
+                                                    + k + 2 * t);
+  return Tc<float>::a_of(x.x, y.x, x.y, y.y);
+}
+__device__ __forceinline__ Tc<float>::B load_b_pairs(const float* s, int ld,
+                                                     int n, int k, int g,
+                                                     int t) {
+  const float2 x = *reinterpret_cast<const float2*>(s + (n + g) * ld + k
+                                                    + 2 * t);
+  return Tc<float>::b_of(x.x, x.y);
+}
+// B[kk][nn] = s[k + kk][n + nn], k in its natural order (slot t is row
+// k + t, slot t + 4 row k + t + 4)
+__device__ __forceinline__ Tc<float>::B load_b_rows(const float* s, int ld,
+                                                    int k, int n, int g,
+                                                    int t) {
+  const float* p = s + (k + t) * ld + n + g;
+  return Tc<float>::b_of(p[0], p[4 * ld]);
+}
+
+// Where column c of a step's P^T or dS tile is stored: within each eight,
+// c and c + 4 side by side (c % 4 at 2 (c % 4), the upper four one on), so
+// that an A fragment's slots t and t + 4 are one 8-byte load.
+__device__ __forceinline__ int wide_col(int c) {
+  return (c & ~7) + 2 * (c & 3) + ((c >> 2) & 1);
+}
+
+// A fragment of k step k from a split tile: hi (TF32 bits) and lo, rows m..
+// of a [rows][LDP] pair stored as wide_col places them.
+template <int LDP>
+__device__ __forceinline__ Tc<float>::A load_a_split(const unsigned* hi,
+                                                     const float* lo, int m,
+                                                     int k, int g, int t) {
+  const int r0 = (m + g) * LDP + k + 2 * t, r1 = r0 + 8 * LDP;
+  const uint2 h0 = *reinterpret_cast<const uint2*>(hi + r0);
+  const uint2 h1 = *reinterpret_cast<const uint2*>(hi + r1);
+  const float2 l0 = *reinterpret_cast<const float2*>(lo + r0);
+  const float2 l1 = *reinterpret_cast<const float2*>(lo + r1);
+  Tc<float>::A f;
+  f.hi[0] = h0.x;
+  f.hi[1] = h1.x;
+  f.hi[2] = h0.y;
+  f.hi[3] = h1.y;
+  f.lo[0] = __float_as_uint(l0.x);
+  f.lo[1] = __float_as_uint(l1.x);
+  f.lo[2] = __float_as_uint(l0.y);
+  f.lo[3] = __float_as_uint(l1.y);
+  return f;
+}
+
+// x split once, stored at [row][wide_col(c)] of a split tile of rows LDP.
+template <int LDP>
+__device__ __forceinline__ void store_split(unsigned* hi, float* lo, int row,
+                                            int c, float x) {
+  unsigned h, l;
+  Tc<float>::split(x, h, l);
+  const int i = row * LDP + wide_col(c);
+  hi[i] = h;
+  lo[i] = __uint_as_float(l);
+}
+
+// c[j] (j < NJ) = rows m..m+15 of As times rows 8j.. of Bs over their D
+// columns (one warp's 16 x 8 NJ scores), depth pairs two at a time; the
+// three 3xTF32 terms in accumulators of their own (three independent
+// mma.sync chains an n tile), added at the end.
+template <int D, int NJ>
+__device__ __forceinline__ void wide_scores(float (&c)[NJ][4],
+                                            const float* As,
+                                            const float* Bs, int m, int g,
+                                            int t) {
+  constexpr int LD = wide_ld<D>();
+  float hl[NJ][4], lh[NJ][4];
+  zero(c);
+  zero(hl);
+  zero(lh);
+#pragma unroll 2
+  for (int k = 0; k < D; k += 8) {
+    const Tc<float>::A a = load_a_pairs(As, LD, m, k, g, t);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const Tc<float>::B b = load_b_pairs(Bs, LD, 8 * j, k, g, t);
+      mma_tf32(hl[j], a.hi, b.lo);
+      mma_tf32(lh[j], a.lo, b.hi);
+      mma_tf32(c[j], a.hi, b.hi);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[j][e] += hl[j][e] + lh[j][e];
+}
+
+// acc[NT i + j] over m tile i of MT (16 MT rows) and n tile j of NT: += A_i
+// B_j over a STEP deep product, A the split tile (hi, lo; rows of
+// wide_ldp(STEP)), B_j columns c0 + 8j.. of the [STEP][LD] tile Bs.  Each
+// m tile's product is summed apart and added in float32; B is held NC n
+// tiles at a time (4, or 3 of 6), split once; a compiler fence between m
+// tiles keeps ptxas from loading every tile's A ahead (at (256, 256) that
+// spilled).
+template <int NT, int LD, int STEP, int MT = 4>
+__device__ __forceinline__ void wide_product(float (&acc)[MT * NT][4],
+                                             const unsigned* hi,
+                                             const float* lo,
+                                             const float* Bs, int c0, int g,
+                                             int t) {
+  constexpr int KS = STEP / 8, LDP = wide_ldp(STEP);
+  constexpr int NC = NT % 4 == 0 ? 4 : NT % 3 == 0 ? 3 : NT;
+#pragma unroll
+  for (int jc = 0; jc < NT; jc += NC) {
+    Tc<float>::B b[KS][NC];
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+      for (int j = 0; j < NC; ++j)
+        b[ks][j] = load_b_rows(Bs, LD, 8 * ks, c0 + 8 * (jc + j), g, t);
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      float part[NC][4];
+      zero(part);
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        const Tc<float>::A a = load_a_split<LDP>(hi, lo, 16 * i, 8 * ks, g,
+                                                 t);
+#pragma unroll
+        for (int j = 0; j < NC; ++j) Tc<float>::mma(part[j], a, b[ks][j]);
+      }
+#pragma unroll
+      for (int j = 0; j < NC; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i * NT + jc + j][e] += part[j][e];
+      asm volatile("" ::: "memory");
+    }
+  }
+}
+
+template <int N, int M>
+__device__ __forceinline__ float (&first_tiles(float (&a)[M][4]))[N][4] {
+  static_assert(N <= M, "first_tiles");
+  return *reinterpret_cast<float(*)[N][4]>(&a[0][0]);
+}
+
+// Rows row0 + 16 i .. (i < MT; none past S) and columns c0 + 8 j .. (j <
+// NT) of a [rs-strided] output from wide_product's tiles, times f.
+template <int NT, int MT, int M>
+__device__ __forceinline__ void store_wide(float* out, long long rs,
+                                           const float (&acc)[M][4],
+                                           int row0, int c0, int S, float f,
+                                           int g, int t) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + 16 * i + g + (e & 2 ? 8 : 0);
+        if (row < S)
+          out[row * rs + c0 + 8 * j + 2 * t + (e & 1)] =
+              acc[i * NT + j][e] * f;
+      }
+}
+
+template <int DK, int DV>
+constexpr size_t dkdv_wide_smem_bytes() {
+  // K, V; Q and dO twice; P^T and dS^T, each hi and lo; P dcap; lse and
+  // Delta twice
+  constexpr int BK = DKDV_KEYS, ST = DKDV_STEP;
+  return ((size_t)(BK + 2 * ST) * (wide_ld<DK>() + wide_ld<DV>())
+          + 4 * BK * wide_ldp(ST) + BK * ST + 4 * ST) * sizeof(float);
+}
+
+template <int DK, int DV>
+constexpr size_t dq_wide_smem_bytes() {
+  // Q, dO; K and V twice; dS hi and lo; P dcap
+  constexpr int ST = dq_step<DK, DV>();
+  return ((size_t)(BWD_BQ + 2 * ST) * (wide_ld<DK>() + wide_ld<DV>())
+          + 2 * BWD_BQ * wide_ldp(ST) + 2 * ST * 32) * sizeof(float);
+}
+
+// dK and dV of one tile of DKDV_KEYS keys of one KV head at a wide pair,
+// summed over the group's heads (flash_bwd_dkdv_kernel's grid and steps,
+// DKDV_STEP q rows a step).  Warp w: role w / 4; its 16 keys and 8 NJW q
+// rows of the step's scores (MT = keys / 16 m tiles, the four warps of a
+// role over them and the step's n tiles).  Each step: role 0 takes S^T =
+// K Q^T over DK, turns it into P^T (staged split for dV, and P dcap for
+// role 1); role 1 takes dP^T = V dO^T over DV and, once P is there, dS^T
+// (staged split).  Then role 0 adds P^T dO into DV / 4 columns of dV a
+// warp, role 1 dS^T Q into DK / 4 columns of dK, all the tile's keys.
+template <int DK, int DV>
+__global__ void __launch_bounds__(WIDE_THREADS, 1)
+flash_bwd_dkdv_wide_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           const float* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           float* __restrict__ dk, float* __restrict__ dv,
+                           int H, int KV, int S, int window, float cap,
+                           float scale, BwdStrides st) {
+  constexpr int BQ = DKDV_STEP, BK = DKDV_KEYS;
+  constexpr int MT = BK / 16, NJW = BQ / 8 * MT / 4;   // a warp's n tiles
+  constexpr int LDK = wide_ld<DK>(), LDV = wide_ld<DV>(), LDP = wide_ldp(BQ);
+  constexpr int NTV = DV / 32, NTK = DK / 32;
+  constexpr int NTM = NTV > NTK ? NTV : NTK;
+  static_assert(NJW >= 1, "dK/dV step: a warp's n tiles");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Ks = reinterpret_cast<float*>(smem_raw);   // [BK][LDK]
+  float* Vs = Ks + BK * LDK;                        // [BK][LDV]
+  float* Qs = Vs + BK * LDV;                        // [2][BQ][LDK]
+  float* dOs = Qs + 2 * BQ * LDK;                   // [2][BQ][LDV]
+  unsigned* Ph = reinterpret_cast<unsigned*>(dOs + 2 * BQ * LDV);
+  float* Pl = reinterpret_cast<float*>(Ph + BK * LDP);        // P^T
+  unsigned* Dh = reinterpret_cast<unsigned*>(Pl + BK * LDP);
+  float* Dl = reinterpret_cast<float*>(Dh + BK * LDP);        // dS^T
+  float* pd = Dl + BK * LDP;                 // [4][NJW * 4][32] P dcap
+  float* lse_s = pd + 4 * NJW * 4 * 32;      // [2][BQ]
+  float* dl_s = lse_s + 2 * BQ;              // [2][BQ]
+
+  const int nb = gridDim.x / (((S + BK - 1) / BK) * KV);   // batch size
+  const int k_lo = (blockIdx.x / (KV * nb)) * BK;
+  const int kvh = blockIdx.x % KV, b = (blockIdx.x / KV) % nb;
+  const int G = H / KV;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int role = warp / 4, mt = warp % 4;
+  const int m = 16 * (mt % MT), n0 = 8 * NJW * (mt / MT);  // its scores
+
+  const int nq = (S + BQ - 1) / BQ;
+  const int k_hi = min(k_lo + BK - 1, S - 1);
+  const int i_lo = k_lo / BQ;
+  const int i_hi = window ? min(nq - 1, (k_hi + window - 1) / BQ) : nq - 1;
+  const int n_it = i_hi - i_lo + 1, steps = G * n_it;
+
+  auto stage = [&](int step) {
+    const int h = kvh * G + step / n_it, q_lo = (i_lo + step % n_it) * BQ;
+    const int buf = step & 1;
+    stage_wide<DK, BQ>(Qs + buf * BQ * LDK, q + b * st.q[0] + h * st.q[1],
+                       st.q[2], q_lo, S);
+    stage_wide<DV, BQ>(dOs + buf * BQ * LDV,
+                       dout + b * st.dout[0] + h * st.dout[1], st.dout[2],
+                       q_lo, S);
+    const long long off = ((long long)b * H + h) * S;
+    stage_vec_wide<BQ>(lse_s + buf * BQ, lse + off, q_lo, S);
+    stage_vec_wide<BQ>(dl_s + buf * BQ, delta + off, q_lo, S);
+  };
+  stage_wide<DK, BK>(Ks, k + b * st.k[0] + kvh * st.k[1], st.k[2], k_lo, S);
+  stage_wide<DV, BK>(Vs, v + b * st.v[0] + kvh * st.v[1], st.v[2], k_lo, S);
+  stage(0);
+  cp_async_commit();
+
+  float acc[MT * NTM][4];    // dV (role 0) or dK (role 1): MT m x NT n tiles
+  zero(acc);
+  float* pdw = pd + mt * NJW * 4 * 32 + lane;  // this lane's P dcap
+
+  for (int step = 0; step < steps; ++step) {
+    cp_async_wait_all();   // this step's tiles have landed ...
+    __syncthreads();       // ... for every thread; the last step is done
+    if (step + 1 < steps) {
+      stage(step + 1);
+      cp_async_commit();
+    }
+    const int buf = step & 1, q_lo = (i_lo + step % n_it) * BQ;
+    const float* Qb = Qs + buf * BQ * LDK;
+    const float* dOb = dOs + buf * BQ * LDV;
+    const float* lb = lse_s + buf * BQ;
+    const float* db = dl_s + buf * BQ;
+
+    float c[NJW][4];
+    if (role == 0) {
+      wide_scores<DK, NJW>(c, Ks, Qb + n0 * LDK, m, g, t);   // S^T = K Q^T
+#pragma unroll
+      for (int j = 0; j < NJW; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = m + g + (e & 2 ? 8 : 0);        // key in the tile
+          const int col = n0 + 8 * j + 2 * t + (e & 1); // q row in the step
+          float x = c[j][e] * scale, dcap = 1.f;
+          if (cap != 0.f) {
+            const float th = tanhf(x / cap);
+            x = cap * th;
+            dcap = 1.f - th * th;
+          }
+          const float p = visible(q_lo + col, k_lo + r, S, window)
+                              ? expf(x - lb[col]) : 0.f;
+          store_split<LDP>(Ph, Pl, r, col, p);
+          pdw[(4 * j + e) * 32] = p * dcap;
+        }
+    } else {
+      wide_scores<DV, NJW>(c, Vs, dOb + n0 * LDV, m, g, t);  // dP^T = V dO^T
+    }
+    __syncthreads();       // P^T and P dcap are staged
+    if (role == 0) {
+      wide_product<NTV, LDV, BQ, MT>(first_tiles<MT * NTV>(acc), Ph, Pl, dOb,
+                                     8 * NTV * mt, g, t);   // dV += P^T dO
+    } else {
+#pragma unroll
+      for (int j = 0; j < NJW; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = n0 + 8 * j + 2 * t + (e & 1);
+          store_split<LDP>(Dh, Dl, m + g + (e & 2 ? 8 : 0), col,
+                           pdw[(4 * j + e) * 32] * (c[j][e] - db[col]));
+        }
+      role1_barrier();     // dS^T is staged, all the tile's keys
+      wide_product<NTK, LDK, BQ, MT>(first_tiles<MT * NTK>(acc), Dh, Dl, Qb,
+                                     8 * NTK * mt, g, t);   // dK += dS^T Q
+    }
+  }
+
+  // role 0 stores dV, role 1 dK (times the scale)
+  if (role == 0)
+    store_wide<NTV, MT>(dv + b * st.dv[0] + kvh * st.dv[1], st.dv[2], acc,
+                        k_lo, 8 * NTV * mt, S, 1.f, g, t);
+  else
+    store_wide<NTK, MT>(dk + b * st.dk[0] + kvh * st.dk[1], st.dk[2], acc,
+                        k_lo, 8 * NTK * mt, S, scale, g, t);
+}
+
+// dQ of one 64-row q tile of one head at a wide pair, over the KV tiles the
+// forward visits, dq_step keys a step (flash_bwd_dq_kernel's grid).
+// Warp w: role w / 4, q rows 16 (w % 4).. of the tile.  Each step: role 0
+// takes S = Q K^T over DK and P dcap; role 1 dP = dO V^T over DV and then
+// dS (staged split); then every warp adds dS K into DK / 8 columns of dQ,
+// all 64 rows.
+template <int DK, int DV>
+__global__ void __launch_bounds__(WIDE_THREADS, 1)
+flash_bwd_dq_wide_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         float* __restrict__ dq, int H, int KV, int S,
+                         int window, float cap, float scale,
+                         BwdStrides st) {
+  constexpr int BQ = BWD_BQ, BK = dq_step<DK, DV>(), NJ = BK / 8;
+  constexpr int LDK = wide_ld<DK>(), LDV = wide_ld<DV>(), LDP = wide_ldp(BK);
+  constexpr int NT = DK / 64;                 // dQ n tiles a warp
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);   // [BQ][LDK]
+  float* dOs = Qs + BQ * LDK;                       // [BQ][LDV]
+  float* Ks = dOs + BQ * LDV;                       // [2][BK][LDK]
+  float* Vs = Ks + 2 * BK * LDK;                    // [2][BK][LDV]
+  unsigned* Dh = reinterpret_cast<unsigned*>(Vs + 2 * BK * LDV);
+  float* Dl = reinterpret_cast<float*>(Dh + BQ * LDP);        // dS
+  float* pd = Dl + BQ * LDP;                 // [4][NJ * 4][32] P dcap
+
+  const int nq = (S + BQ - 1) / BQ;
+  const int nb = gridDim.x / (nq * H);                       // batch size
+  const int q_lo = (nq - 1 - (int)(blockIdx.x / (H * nb))) * BQ;
+  const int h = blockIdx.x % H, b = (blockIdx.x / H) % nb;
+  const int kvh = h / (H / KV);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int role = warp / 4, mt = warp % 4, m = 16 * mt;
+
+  const float* kb = k + b * st.k[0] + kvh * st.k[1];
+  const float* vb = v + b * st.v[0] + kvh * st.v[1];
+  const int q_hi = min(q_lo + BQ - 1, S - 1);
+  const int j_lo = window ? max(0, q_lo - window + 1) / BK : 0;
+  const int j_hi = q_hi / BK;
+  auto stage = [&](int jt) {
+    const int buf = (jt - j_lo) & 1;
+    stage_wide<DK, BK>(Ks + buf * BK * LDK, kb, st.k[2], jt * BK, S);
+    stage_wide<DV, BK>(Vs + buf * BK * LDV, vb, st.v[2], jt * BK, S);
+  };
+  stage_wide<DK, BQ>(Qs, q + b * st.q[0] + h * st.q[1], st.q[2], q_lo, S);
+  stage_wide<DV, BQ>(dOs, dout + b * st.dout[0] + h * st.dout[1],
+                     st.dout[2], q_lo, S);
+  stage(j_lo);
+  cp_async_commit();
+
+  // this thread's rows g and g + 8 of its warp's 16: lse (role 0) or
+  // Delta (role 1)
+  float row_v[2];
+  const long long off = ((long long)b * H + h) * S;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q_lo + m + g + 8 * r;
+    row_v[r] = row < S ? (role == 0 ? lse : delta)[off + row] : 0.f;
+  }
+  float acc[4 * NT][4];
+  zero(acc);
+  float* pdw = pd + mt * NJ * 4 * 32 + lane;
+
+  for (int jt = j_lo; jt <= j_hi; ++jt) {
+    cp_async_wait_all();
+    __syncthreads();
+    if (jt < j_hi) {
+      stage(jt + 1);
+      cp_async_commit();
+    }
+    const int buf = (jt - j_lo) & 1, k_lo = jt * BK;
+    const float* Kb = Ks + buf * BK * LDK;
+    const float* Vb = Vs + buf * BK * LDV;
+
+    float c[NJ][4];
+    if (role == 0) {
+      wide_scores<DK, NJ>(c, Qs, Kb, m, g, t);          // S = Q K^T
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const int kpos = k_lo + 8 * j + 2 * t + (e & 1);
+          float x = c[j][e] * scale, dcap = 1.f;
+          if (cap != 0.f) {
+            const float th = tanhf(x / cap);
+            x = cap * th;
+            dcap = 1.f - th * th;
+          }
+          const float p = visible(q_lo + m + g + 8 * r, kpos, S, window)
+                              ? expf(x - row_v[r]) : 0.f;
+          pdw[(4 * j + e) * 32] = p * dcap;
+        }
+    } else {
+      wide_scores<DV, NJ>(c, dOs, Vb, m, g, t);         // dP = dO V^T
+    }
+    __syncthreads();       // P dcap is staged
+    if (role == 1) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          store_split<LDP>(Dh, Dl, m + g + (e & 2 ? 8 : 0),
+                           8 * j + 2 * t + (e & 1),
+                           pdw[(4 * j + e) * 32] * (c[j][e] - row_v[e >> 1]));
+    }
+    __syncthreads();       // dS is staged, all 64 rows
+    wide_product<NT, LDK, BK>(acc, Dh, Dl, Kb, 8 * NT * warp, g,
+                              t);                        // dQ += dS K
+  }
+
+  store_wide<NT, 4>(dq + b * st.dq[0] + h * st.dq[1], st.dq[2], acc, q_lo,
+                    8 * NT * warp, S, scale, g, t);
+}
+
+// The dK/dV and dQ kernels at a wide pair, after the Delta kernel.
+template <int DK, int DV>
+cudaError_t launch_backward_wide(const float* q, const float* k,
+                                 const float* v, const float* dout,
+                                 const float* lse, const float* delta,
+                                 float* dq, float* dk, float* dv, int B,
+                                 int H, int KV, int S, int window, float cap,
+                                 float scale, const BwdStrides& st,
+                                 cudaStream_t stream) {
+  const size_t kv_bytes = dkdv_wide_smem_bytes<DK, DV>();
+  const size_t q_bytes = dq_wide_smem_bytes<DK, DV>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkdv_wide_kernel<DK, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kv_bytes);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_dq_wide_kernel<DK, DV>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)q_bytes);
+  if (err != cudaSuccess) return err;
+  const unsigned kv_ctas = (S + DKDV_KEYS - 1) / DKDV_KEYS * KV * B;
+  const unsigned q_ctas = (S + BWD_BQ - 1) / BWD_BQ * H * B;
+  flash_bwd_dkdv_wide_kernel<DK, DV>
+      <<<kv_ctas, WIDE_THREADS, kv_bytes, stream>>>(
+          q, k, v, dout, lse, delta, dk, dv, H, KV, S, window, cap, scale,
+          st);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_wide_kernel<DK, DV><<<q_ctas, WIDE_THREADS, q_bytes, stream>>>(
+      q, k, v, dout, lse, delta, dq, H, KV, S, window, cap, scale, st);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -1192,13 +1729,13 @@ __device__ __forceinline__ int tile_off(int r, int c16) {
 }
 
 // R rows of a [.., S, D] operand (row `lo` on) into a swizzled tile, zeros
-// past S.
-template <int D, int R>
+// past S, by the CTA's NT threads.
+template <int D, int R, int NT = TC_THREADS>
 __device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src,
                                            long long stride, int lo, int S) {
   constexpr int CPR = D / 8;
   unsigned char* base = reinterpret_cast<unsigned char*>(dst);
-  for (int c = threadIdx.x; c < R * CPR; c += TC_THREADS) {
+  for (int c = threadIdx.x; c < R * CPR; c += NT) {
     const int r = c / CPR, col = c % CPR, row = lo + r;
     const bool in = row < S;
     cp_async16(base + tile_off<D, R>(r, col),
@@ -1605,23 +2142,282 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v,
 
 }  // namespace wg
 
-template <typename T, int DK, int DV, int PASS>
-cudaError_t launch_dkdv(const T* q, const T* k, const T* v, const T* dout,
-                        const float* lse, const float* delta, T* dk, T* dv,
-                        int B, int H, int KV, int S, int window, float cap,
-                        float scale, const BwdStrides& st,
-                        cudaStream_t stream) {
-  const size_t bytes = dkdv_smem_bytes<T, DK, DV, PASS>();
-  auto kernel = flash_bwd_dkdv_kernel<T, DK, DV, PASS>;
+// ---------------------------------------------------------------------------
+// The bfloat16 forward on wgmma (design in the header): warpgroups of 64 q
+// rows sharing K and V, a head-major grid, flash_fwd_kernel's tile skip,
+// mask, cap and NEG; on the wg section's instructions, staging and
+// descriptors.  A namespace of its own, so that the backward's kernels
+// stay those whose mangled names hold "2wg" (chip_smoke.WGMMA_BWD_SASS).
+// ---------------------------------------------------------------------------
+
+namespace wgf {
+
+using namespace wg;
+
+// keys a KV tile of the wgmma forward: 64, 32 where Q, K and V at 64
+// would leave room for one CTA an SM
+template <int DK, int DV>
+__host__ __device__ constexpr int fwd_bk() { return DK + DV > 384 ? 32 : 64; }
+
+// Warpgroups a CTA of the wgmma forward, 64 q rows each, sharing the K and
+// V tiles (three: 1.43 ms at deepseek-v3's shape, two: 1.60; see the
+// header); may be set with -D to time another count (kernel_timing.py
+// flash-families); two at DV = 256, where three would not fit the
+// registers.
+#ifndef REPRO_FWD_WG_GROUPS
+#define REPRO_FWD_WG_GROUPS 3
+#endif
+
+template <int DK, int DV>
+__host__ __device__ constexpr int fwd_groups() {
+  return DV > 128 ? 2 : REPRO_FWD_WG_GROUPS;
+}
+
+template <int DK, int DV>
+constexpr size_t fwd_smem_bytes() {
+  // 1 KB to align; Q; K and V twice
+  return 1024 + ((size_t)fwd_groups<DK, DV>() * FWD_BQ * DK
+                 + 2 * (size_t)fwd_bk<DK, DV>() * (DK + DV)) * 2;
+}
+
+constexpr float LN2 = 0.6931471805599453f;
+
+template <int DK, int DV>
+__global__ void __launch_bounds__(TC_THREADS * fwd_groups<DK, DV>())
+fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+           const bf16* __restrict__ v, bf16* __restrict__ o,
+           float* __restrict__ lse, int H, int KV, int S, int window,
+           float cap, float scale, Strides st) {
+  constexpr int NWG = fwd_groups<DK, DV>(), NTHR = TC_THREADS * NWG;
+  constexpr int BQ = FWD_BQ * NWG, BK = fwd_bk<DK, DV>();
+  constexpr int NK = BK / 8, ND = DV / 8, NP = DV / 64, KS = DK / 16;
+  constexpr int BS = BK / 16;
+  static_assert(DK % 64 == 0 && DV % 64 == 0, "wgmma forward: 64-wide");
+  extern __shared__ unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(align1k(smem_raw));   // [BQ, DK]
+  bf16* Ks = Qs + BQ * DK;                                 // [2][BK, DK]
+  bf16* Vs = Ks + 2 * BK * DK;                             // [2][BK, DV]
+
+  // one linear grid, head-major: a head's q tiles (the last, longest,
+  // first) run side by side and share its K and V tiles in L2
+  const int nq = (S + BQ - 1) / BQ;
+  const int q_lo = (nq - 1 - (int)(blockIdx.x % nq)) * BQ;
+  const int h = (blockIdx.x / nq) % H, b = blockIdx.x / (nq * H);
+  const int kvh = h / (H / KV);
+  const int wgi = threadIdx.x / TC_THREADS;     // this thread's warpgroup
+  const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4, m = 16 * warp;
+  const int wq_lo = q_lo + FWD_BQ * wgi;        // its first q row
+  const int wq_hi = min(wq_lo + FWD_BQ - 1, S - 1);
+  // the warpgroup's rows of Q: panel 0 of the [BQ, DK] tile, row 64 wgi
+  const bf16* Qw = Qs + FWD_BQ * wgi * 64;
+
+  const bf16* kb = k + b * st.k[0] + kvh * st.k[1];
+  const bf16* vb = v + b * st.v[0] + kvh * st.v[1];
+  const int q_hi = min(q_lo + BQ - 1, S - 1);
+  const int j_lo = window ? max(0, q_lo - window + 1) / BK : 0;
+  const int j_hi = q_hi / BK;
+  auto stage = [&](int jt) {
+    const int buf = (jt - j_lo) & 1;
+    stage_tile<DK, BK, NTHR>(Ks + buf * BK * DK, kb, st.k[2], jt * BK, S);
+    stage_tile<DV, BK, NTHR>(Vs + buf * BK * DV, vb, st.v[2], jt * BK, S);
+  };
+  stage_tile<DK, BQ, NTHR>(Qs, q + b * st.q[0] + h * st.q[1], st.q[2], q_lo,
+                           S);
+  stage(j_lo);
+  cp_async_commit();
+
+  // this thread's rows g and g + 8 of its warp's 16: the running max (of
+  // the scores times log2 e) and sum
+  float m_r[2] = {NEG, NEG}, l_r[2] = {0.f, 0.f};
+  float acc[NP][8][4];       // O by 64-wide panels
+#pragma unroll
+  for (int p = 0; p < NP; ++p) zero(acc[p]);
+  const float scale_l2 = scale * LOG2E;
+
+  for (int jt = j_lo; jt <= j_hi; ++jt) {
+    if (jt < j_hi) stage(jt + 1);
+    cp_async_commit();
+    cp_async_wait_one();   // this step's tiles (and Q) have landed
+    fence_async_smem();
+    __syncthreads();
+    const int buf = (jt - j_lo) & 1, k_lo = jt * BK;
+    const bf16* Kb = Ks + buf * BK * DK;
+    const bf16* Vb = Vs + buf * BK * DV;
+    // a tile no row of this warpgroup sees is skipped by it whole
+    if (wq_lo < S && k_lo <= wq_hi
+        && (!window || k_lo + BK - 1 > wq_lo - window)) {
+      // Every product lands in a fresh accumulator (zeroed, or discarded
+      // by its first k step) and is added to O in float32: O is never a
+      // wgmma accumulator, so no other instruction defines one between a
+      // product's issue and its wait (which makes ptxas serialize the
+      // products, C7515).
+      float s[NK][4];                                // S = Q K^T
+      zero(s);
+      hold(s);
+      fence();
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+        mma_ss<BK, 0>(s, desc_k<DK, BQ>(Qw, ks), desc_k<DK, BK>(Kb, ks),
+                      ks);
+      commit();
+      wait_all();
+      hold(s);
+
+      // a tile every row of the warpgroup sees whole skips the mask
+      const bool seen = k_lo + BK - 1 <= wq_lo
+                        && (!window || wq_lo + FWD_BQ - 1 - k_lo < window);
+      float corr[2];
+      with_flags(seen, cap != 0.f, [&](auto all_seen, auto capped) {
+        constexpr bool kPlain = decltype(all_seen)::value
+                                && !decltype(capped)::value;
+        float mx[2] = {NEG, NEG};
+#pragma unroll
+        for (int j = 0; j < NK; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1;
+            float y;         // the score times log2 e (kPlain: the raw one)
+            if constexpr (kPlain)
+              y = s[j][e];
+            else if constexpr (decltype(capped)::value)
+              y = cap * tanhf(s[j][e] * scale / cap) * LOG2E;
+            else
+              y = s[j][e] * scale_l2;
+            if constexpr (!decltype(all_seen)::value) {
+              const int qpos = wq_lo + m + g + 8 * r;
+              const int kpos = k_lo + 8 * j + 2 * t + (e & 1);
+              bool keep = qpos >= kpos;
+              if (window) keep = keep && (qpos - kpos) < window;
+              y = keep ? y : NEG;
+            }
+            s[j][e] = y;
+            mx[r] = fmaxf(mx[r], y);
+          }
+        float sum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          if constexpr (kPlain) mx[r] *= scale_l2;   // scale_l2 > 0
+          const float m_new = fmaxf(m_r[r], mx[r]);
+          asm("ex2.approx.ftz.f32 %0, %1;"
+              : "=f"(corr[r]) : "f"(m_r[r] - m_new));
+          m_r[r] = m_new;
+        }
+#pragma unroll
+        for (int j = 0; j < NK; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            // kPlain: 2^(s scale log2 e - m) as one FFMA
+            const float x = kPlain ? fmaf(s[j][e], scale_l2, -m_r[e >> 1])
+                                   : s[j][e] - m_r[e >> 1];
+            float p;
+            asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(p) : "f"(x));
+            s[j][e] = p;
+            sum[e >> 1] += p;
+          }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+          sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+          l_r[r] = l_r[r] * corr[r] + sum[r];
+        }
+      });
+
+      // O = O corr + P V, a 64-wide panel at a time: P rounded to bf16 in
+      // registers, V read MN-major
+      unsigned pa[BS][4];
+      to_a(pa, s);
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        float part[8][4];
+        zero(part);
+        hold(part);
+        fence();
+#pragma unroll
+        for (int i = 0; i < BS; ++i)
+          mma_rs<64, 1>(part, pa[i], desc_mn<DV, BK>(Vb, i, p), i);
+        commit();
+        wait_all();
+        hold(part);
+        hold(pa);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[p][j][e] = fmaf(acc[p][j][e], corr[e >> 1], part[j][e]);
+      }
+    }
+    __syncthreads();   // every warp is done with this buffer: it refills
+  }
+
+  bf16* ob = o + b * st.o[0] + h * st.o[1];
+  float l[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l_r[r] == 0.f ? 1.f : l_r[r];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; e += 2) {
+      const int row = wq_lo + m + g + (e & 2 ? 8 : 0);
+      if (row < S)
+        *reinterpret_cast<__nv_bfloat162*>(
+            &ob[row * st.o[2] + 8 * j + 2 * t]) =
+            __floats2bfloat162_rn(acc[j / 8][j % 8][e] / l[e >> 1],
+                                  acc[j / 8][j % 8][e + 1] / l[e >> 1]);
+    }
+  if (lse != nullptr && t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = wq_lo + m + g + 8 * r;
+      if (row < S)
+        lse[((long long)b * H + h) * S + row] = m_r[r] * LN2 + logf(l[r]);
+    }
+  }
+}
+
+template <int DK, int DV>
+cudaError_t launch_forward(const void* q, const void* k, const void* v,
+                           void* o, float* lse, int B, int H, int KV, int S,
+                           int window, float cap, const Strides& st,
+                           cudaStream_t stream) {
+  const size_t bytes = fwd_smem_bytes<DK, DV>();
+  auto kernel = fwd_kernel<DK, DV>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
-  const unsigned ctas = (S + BWD_BK - 1) / BWD_BK * KV * B;
-  kernel<<<ctas, TC_THREADS, bytes, stream>>>(q, k, v, dout, lse, delta, dk,
-                                              dv, H, KV, S, window, cap,
-                                              scale, st);
+  const float scale = (float)(1.0 / sqrt((double)DK));
+  constexpr int NTHR = TC_THREADS * fwd_groups<DK, DV>();
+  constexpr int BQ = FWD_BQ * fwd_groups<DK, DV>();
+  const unsigned ctas = (S + BQ - 1) / BQ * H * B;
+  kernel<<<ctas, NTHR, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, H, KV, S,
+      window, cap, scale, st);
   return cudaGetLastError();
 }
+
+// The pairs the wgmma forward is built for (ops.WGMMA_FWD_HEAD_DIMS):
+// MLA's (192, 128), which ops.forward_plan routes here, and the square
+// ones it is timed at beside the mma.sync kernel.
+cudaError_t dispatch_forward(int DK, int DV, const void* q, const void* k,
+                             const void* v, void* o, float* lse, int B,
+                             int H, int KV, int S, int window, float cap,
+                             const Strides& st, cudaStream_t stream) {
+#define REPRO_WG_FWD_CASE(dk, dv)                                          \
+  if (DK == dk && DV == dv)                                                \
+    return launch_forward<dk, dv>(q, k, v, o, lse, B, H, KV, S, window, cap, \
+                                  st, stream);
+  REPRO_WG_FWD_CASE(64, 64)
+  REPRO_WG_FWD_CASE(128, 128)
+  REPRO_WG_FWD_CASE(192, 128)
+  REPRO_WG_FWD_CASE(256, 256)
+#undef REPRO_WG_FWD_CASE
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace wgf
 
 template <typename T, int DK, int DV>
 cudaError_t launch_backward(const void* q_, const void* k_, const void* v_,
@@ -1649,20 +2445,20 @@ cudaError_t launch_backward(const void* q_, const void* k_, const void* v_,
     static_assert(DK == DV && DK <= 128, "bf16 backward: D <= 128, Dk == Dv");
     return wg::launch<DK>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, KV, S,
                           window, cap, scale, st, stream);
-  } else {     // float32: 3xTF32 on mma.sync
-    if constexpr (dkdv_split<DK, DV>()) {
-      err = launch_dkdv<T, DK, DV, BWD_DV>(q, k, v, dout, lse, delta, dk, dv,
-                                           B, H, KV, S, window, cap, scale,
-                                           st, stream);
-      if (err != cudaSuccess) return err;
-      err = launch_dkdv<T, DK, DV, BWD_DK>(q, k, v, dout, lse, delta, dk, dv,
-                                           B, H, KV, S, window, cap, scale,
-                                           st, stream);
-    } else {
-      err = launch_dkdv<T, DK, DV, BWD_BOTH>(q, k, v, dout, lse, delta, dk,
-                                             dv, B, H, KV, S, window, cap,
-                                             scale, st, stream);
-    }
+  } else if constexpr (wide_pair<DK, DV>()) {   // eight warps a CTA
+    return launch_backward_wide<DK, DV>(q, k, v, dout, lse, delta, dq, dk,
+                                        dv, B, H, KV, S, window, cap, scale,
+                                        st, stream);
+  } else {     // float32: 3xTF32 on mma.sync, four warps a CTA
+    const size_t kv_bytes = dkdv_smem_bytes<T, DK, DV>();
+    auto dkdv = flash_bwd_dkdv_kernel<T, DK, DV>;
+    err = cudaFuncSetAttribute(
+        dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kv_bytes);
+    if (err != cudaSuccess) return err;
+    const unsigned kv_ctas = (S + BWD_BK - 1) / BWD_BK * KV * B;
+    dkdv<<<kv_ctas, TC_THREADS, kv_bytes, stream>>>(
+        q, k, v, dout, lse, delta, dk, dv, H, KV, S, window, cap, scale, st);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     const size_t q_bytes = dq_smem_bytes<T, DK, DV>();
     auto dqk = flash_bwd_dq_kernel<T, DK, DV>;
@@ -1670,14 +2466,9 @@ cudaError_t launch_backward(const void* q_, const void* k_, const void* v_,
         dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)q_bytes);
     if (err != cudaSuccess) return err;
     const unsigned q_ctas = (S + BWD_BQ - 1) / BWD_BQ * H * B;
-    for (int col0 = 0; col0 < DK; col0 += dq_cols<DK>()) {
-      dqk<<<q_ctas, TC_THREADS, q_bytes, stream>>>(
-          q, k, v, dout, lse, delta, dq, H, KV, S, window, cap, scale, col0,
-          st);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return err;
-    }
-    return cudaSuccess;
+    dqk<<<q_ctas, TC_THREADS, q_bytes, stream>>>(
+        q, k, v, dout, lse, delta, dq, H, KV, S, window, cap, scale, st);
+    return cudaGetLastError();
   }
 }
 
@@ -1712,15 +2503,19 @@ cudaError_t dispatch_backward(int DK, int DV, const void* q, const void* k,
 extern "C" {
 
 // q: [B, H, S, D]; k: [B, KV, S, D]; v: [B, KV, S, Dv]; o: [B, H, S, Dv],
-// (D, Dv) one of the pairs `dispatch` lists; addressed through `strides`
-// (12 int64: batch, head and sequence strides of q, k, v, o, in elements;
-// the head dimension is contiguous).  dtype 0 = float32, 1 = bfloat16.
-// lse: null, or float32 [B, H, S] (contiguous) for each row's log-sum-exp.
-// Returns the launch's cudaGetLastError() (0 on success).
+// addressed through `strides` (12 int64: batch, head and sequence strides
+// of q, k, v, o, in elements; the head dimension is contiguous).  dtype 0 =
+// float32, 1 = bfloat16.  kernel 0: flash_fwd_kernel (mma.sync), (D, Dv)
+// one of the pairs `dispatch` lists; kernel 1: the bf16 wgmma forward
+// (bfloat16 only, the pairs `wgf::dispatch_forward` lists; o's strides even
+// and o 4-byte aligned: it stores bf16 pairs).  lse: null, or float32
+// [B, H, S] (contiguous) for each row's log-sum-exp.  Returns the launch's
+// cudaGetLastError() (0 on success).
 int repro_flash_attention(const void* q, const void* k, const void* v,
                           void* o, void* lse, int dtype, int B, int H, int KV,
                           int S, int D, int Dv, int window, float cap,
-                          const long long* strides, void* stream) {
+                          int kernel, const long long* strides,
+                          void* stream) {
   Strides st;
   for (int i = 0; i < 3; ++i) {
     st.q[i] = strides[i];
@@ -1730,6 +2525,15 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
+  if (kernel == 1) {
+    if (dtype != 1) return (int)cudaErrorInvalidValue;
+    if (((st.o[0] | st.o[1] | st.o[2]) & 1)
+        || (reinterpret_cast<unsigned long long>(o) & 3))
+      return (int)cudaErrorMisalignedAddress;
+    return (int)wgf::dispatch_forward(D, Dv, q, k, v, o, l, B, H, KV, S,
+                                      window, cap, st, s);
+  }
+  if (kernel != 0) return (int)cudaErrorInvalidValue;
   cudaError_t err =
       dtype == 0
           ? dispatch<float>(D, Dv, q, k, v, o, l, B, H, KV, S, window, cap,

@@ -9,7 +9,9 @@ but for the head dims (q's and k's Dk, v's and the output's Dv): the plain
 version takes any (Dk, Dv); on the card
   * the forward kernel takes the pairs of ``FWD_HEAD_DIMS``: (32, 32),
     (64, 64), (128, 128), (256, 256) and MLA's (192, 128)
-    (``check_forward_dims``);
+    (``check_forward_dims``); ``forward_plan`` names the kernel a
+    (dtype, pair) launches: the bfloat16 forward on ``wgmma`` at (192, 128),
+    the ``mma.sync`` one everywhere else;
   * the backward kernels take the same pairs in float32, and the square
     ones up to 128 in bfloat16 (``BWD_HEAD_DIMS``,
     ``check_backward_dims``);
@@ -38,7 +40,8 @@ held to.  The tangent kernels (``csrc/flash_attention_jvp.cu``) take
 float32 only; a bfloat16 dual raises.  A dual tensor that reaches a raw
 launch raises (``kernels/dual.py``): no tangent is ever dropped.
 
-Every forward launch adds one to ``launches["flash_attention"]``, every
+Every forward launch adds one to ``launches["flash_attention"]`` (and to
+its kernel's count in ``forward_launches_by_kernel``), every
 backward one to ``launches["flash_attention_backward"]`` (and to its pair's
 count in ``backward_launches_by_pair``), and the tangent
 kernels to ``launches["flash_attention_jvp"]`` and
@@ -61,6 +64,13 @@ FWD_HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (256, 256), (192, 128))
 #: (Dk, Dv) pairs the backward kernels are built for, by dtype.
 BWD_HEAD_DIMS = {torch.float32: FWD_HEAD_DIMS,
                  torch.bfloat16: ((32, 32), (64, 64), (128, 128))}
+#: (Dk, Dv) pairs the bfloat16 forward on ``wgmma`` is built for: MLA's
+#: (192, 128), which ``forward_plan`` routes to it, and the square pairs it
+#: is timed at beside the ``mma.sync`` kernel (``kernel_timing.py
+#: flash-families``).
+WGMMA_FWD_HEAD_DIMS = ((64, 64), (128, 128), (192, 128), (256, 256))
+#: The forward kernels, as the C entry numbers them.
+FWD_KERNELS = {"mma_sync": 0, "wgmma": 1}
 #: Head dims the tangent kernels are built for (Dk == Dv).
 HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -71,6 +81,9 @@ launches = {"flash_attention": 0, "flash_attention_backward": 0,
 #: The backward's launches since the last :func:`reset_launches` by (Dk,
 #: Dv) pair (their sum is ``launches["flash_attention_backward"]``).
 backward_launches_by_pair = {}
+#: The forward's launches since the last :func:`reset_launches` by kernel
+#: (their sum is ``launches["flash_attention"]``).
+forward_launches_by_kernel = {name: 0 for name in FWD_KERNELS}
 
 #: Where tangents in bfloat16 come from (ROADMAP.md).
 _LATER_BF16_TANGENTS = "ROADMAP.md queue 1, 'bf16 attention tangents'"
@@ -85,7 +98,19 @@ _LATER_BF16_FAMILY_BACKWARD = ("ROADMAP.md queue 1, 'bf16 family "
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+    for name in forward_launches_by_kernel:
+        forward_launches_by_kernel[name] = 0
     backward_launches_by_pair.clear()
+
+
+def forward_plan(dtype, dk: int, dv: int) -> str:
+    """The forward kernel a CUDA call of ``dtype`` at head dims (dk, dv)
+    launches: "wgmma" (``wgf::fwd_kernel``) for bfloat16 at MLA's (192,
+    128), where the ``mma.sync`` kernel lost most to SDPA; "mma_sync"
+    (``flash_fwd_kernel``) for every other pair and for float32."""
+    if dtype == torch.bfloat16 and (dk, dv) == (192, 128):
+        return "wgmma"
+    return "mma_sync"
 
 
 def check_forward_dims(dk: int, dv: int) -> None:
@@ -180,23 +205,32 @@ def _rows_aligned(t):
     return t.contiguous()
 
 
-def _launch(q, k, v, out, window, cap, lse=None) -> None:
+def _launch(q, k, v, out, window, cap, lse=None, kernel=None) -> None:
     """The forward kernel on [B, H, S, D] views of any batch/head/sequence
     strides (v and ``out`` of head dim Dv); writes ``out`` (q's type) and,
-    if given, ``lse`` (float32 [B, H, S], contiguous)."""
+    if given, ``lse`` (float32 [B, H, S], contiguous).  ``kernel``: the
+    ``FWD_KERNELS`` name to launch, by default ``forward_plan``'s; the
+    ``wgmma`` one takes bfloat16 at ``WGMMA_FWD_HEAD_DIMS``."""
     refuse_duals("flash_attention", q, k, v, out, lse)
+    B, H, S, D = q.shape
+    kernel = kernel or forward_plan(q.dtype, D, v.shape[-1])
+    if kernel == "wgmma" and (q.dtype != torch.bfloat16 or (
+            D, v.shape[-1]) not in WGMMA_FWD_HEAD_DIMS):
+        raise ValueError(f"flash_attention: the wgmma forward takes "
+                         f"bfloat16 at {WGMMA_FWD_HEAD_DIMS}, got {q.dtype} "
+                         f"({D}, {v.shape[-1]})")
     q, k, v = map(_rows_aligned, (q, k, v))
     strides = _strides(q, k, v, out)
-    B, H, S, D = q.shape
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = LIBRARY.load().repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(), _DTYPES[q.dtype], B, H,
             k.shape[1], S, D, v.shape[-1], int(window), float(cap),
-            ctypes.addressof(strides), stream)
+            FWD_KERNELS[kernel], ctypes.addressof(strides), stream)
     LIBRARY.check("flash_attention", rc)
     launches["flash_attention"] += 1
+    forward_launches_by_kernel[kernel] += 1
 
 
 def _launch_backward(q, k, v, out, dout, lse, dq, dk, dv, window,

@@ -1747,6 +1747,131 @@ def test_flash_backward_keeps_its_bits_at_square_dims(cuda, case):
     assert h.hexdigest() == BWD_DIGESTS[case]
 
 
+# ---------------------------------------------------------------------------
+# The bf16 forward on wgmma at (192, 128) and the wide backward's one dK/dV
+# launch
+# ---------------------------------------------------------------------------
+
+def _chip_smoke():
+    """chip_smoke.py as a module (its SASS, profile and digest helpers)."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+#: B, H, KV, S, window, cap at MLA's (192, 128): deepseek-v3's prefill, a
+#: ragged last tile, window and cap under MQA, one tile.
+WGMMA_FWD_SHAPES = [(8, 128, 128, 1024, 0, 0.0), (2, 4, 4, 200, 0, 0.0),
+                    (1, 4, 1, 130, 40, 20.0), (1, 2, 2, 64, 0, 0.0)]
+
+
+@pytest.mark.parametrize("B,H,KV,S,window,cap", WGMMA_FWD_SHAPES)
+@pytest.mark.parametrize("model_layout", [False, True])
+def test_flash_forward_bf16_mla_runs_on_wgmma_and_matches(cuda, B, H, KV, S,
+                                                          window, cap,
+                                                          model_layout):
+    """bf16 at (192, 128) launches the wgmma forward (``forward_plan``),
+    within rtol = atol = 2e-2 of the plain version, the same bits over two
+    runs, in the kernel and the model layout."""
+    g = torch.Generator(device=cuda).manual_seed(S + H)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+               for s in ((B, H, S, 192), (B, KV, S, 192), (B, KV, S, 128)))
+    if model_layout:
+        run = lambda: fa_ops.attention(                      # noqa: E731
+            *(t.transpose(1, 2) for t in (q, k, v)), window,
+            cap).transpose(1, 2)
+    else:
+        run = lambda: fa_ops.flash_attention(q, k, v, window, cap)  # noqa: E731
+    fa_ops.reset_launches()
+    got, again = run(), run()
+    assert fa_ops.forward_launches_by_kernel == {"mma_sync": 0, "wgmma": 2}
+    _same(got.float(), again.float())
+    want = fa_ref.attention_ref(q, k, v, window, cap)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, H, S, 128)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+def test_flash_forward_wgmma_lse_matches_the_mma_sync_kernel(cuda):
+    """The wgmma forward's log-sum-exp (base 2 inside) agrees with the
+    mma.sync kernel's within 1e-4."""
+    B, H, KV, S = 2, 4, 2, 150
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+               for s in ((B, H, S, 192), (B, KV, S, 192), (B, KV, S, 128)))
+    lse = {}
+    for kernel in ("wgmma", "mma_sync"):
+        out = torch.empty((B, H, S, 128), dtype=torch.bfloat16, device=cuda)
+        lse[kernel] = torch.empty((B, H, S), device=cuda)
+        fa_ops._launch(q, k, v, out, 30, 0.0, lse[kernel], kernel=kernel)
+    torch.testing.assert_close(lse["wgmma"], lse["mma_sync"], rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_flash_forward_bf16_mla_runs_on_wgmma(cuda):
+    """Each instance of the bf16 forward on wgmma holds HGMMA in the SASS of
+    the library built (cuobjdump), as the bf16 backward's do."""
+    counts = _chip_smoke().fwd_wgmma_sass(fa_ops)
+    assert len(counts) == 4 and all(counts.values()), counts
+
+
+@pytest.mark.parametrize("dk,dv", [(256, 256), (192, 128)])
+def test_flash_backward_wide_pairs_launch_one_dkdv_kernel(cuda, dk, dv):
+    """The float32 backward at the wide pairs launches one dK/dV kernel and
+    one dQ kernel (eight warps a CTA) beside the Delta kernel."""
+    shape = (1, 4, 2, 130, dk, dv, 0, 0.0)
+    q, k, v, dout = (t.to(cuda) for t in _pair_inputs(shape, False, 3))
+    out = torch.empty_like(dout)
+    lse = torch.empty((1, 4, 130), device=cuda)
+    fa_ops._launch(q, k, v, out, 0, 0.0, lse)
+    dq, dk_, dv_ = (torch.empty_like(t) for t in (q, k, v))
+    split = _chip_smoke().kernel_split(lambda: fa_ops._launch_backward(
+        q, k, v, out, dout, lse, dq, dk_, dv_, 0, 0.0))
+    names = sorted(n for n in split if "flash_bwd" in n)
+    assert [n.split("<")[0] for n in names] == [
+        "flash_bwd_delta_kernel", "flash_bwd_dkdv_wide_kernel",
+        "flash_bwd_dq_wide_kernel"], split
+    assert all(split[n]["launches"] == 1 for n in names), split
+
+
+#: sha256 of the forward's output and log-sum-exp at each
+#: ``chip_smoke.FWD_DIGEST_CASES`` case (``chip_smoke.flash_digest``), as
+#: the parent of the wgmma forward and the wide backward gave them on an
+#: NVIDIA H100 80GB HBM3 (``kernel_timing.py flash-families``): the
+#: instances those kernels leave alone keep their bits.
+FWD_DIGESTS = {
+    "float32 32 32 0 30.0":
+        "e4d9929a1af2f765889e2fbccc6d3ac95ffcccd759c5c43653033aff1801167b",
+    "float32 64 64 100 0.0":
+        "568ba70b6072bade8ef9faab286a0976254102b6958193b8a6a1d20699b3fada",
+    "float32 128 128 0 0.0":
+        "01407391081fc1070f117e5a2d20b8434cc9897bca35105f476fb1ff9386d19b",
+    "float32 256 256 70 50.0":
+        "c9cca2c3418796f76cb3aae5b24a4254098d325f2531e9b9d5b811865311445f",
+    "float32 192 128 0 0.0":
+        "30ce8c7698e2f6f990e5862f262c2b295c41aa73842ce0c56ec6ac79306ae2e8",
+    "bfloat16 32 32 0 30.0":
+        "b3757bd1080ac9b9ebf643b2cea224149a4fb3f60d4b022ed9f7c37e645545e1",
+    "bfloat16 64 64 100 0.0":
+        "d105d4d42b2233b38100cb9679666477a7ab4467c941bb4d919e60d76913dafb",
+    "bfloat16 128 128 0 0.0":
+        "f9219a89e323e971f59ecb67d3b79c752369496469af585c4994489215e27210",
+    "bfloat16 256 256 70 50.0":
+        "a0260ed0be8d54386b97db5f2e6c5f0de60a3f16ba8fdf24ad0c7d41a55c7666"}
+
+
+@pytest.mark.parametrize("case", list(range(9)))
+def test_flash_forward_keeps_its_bits_where_untouched(cuda, case):
+    chip_smoke = _chip_smoke()
+    key = " ".join(map(str, chip_smoke.FWD_DIGEST_CASES[case]))
+    assert chip_smoke.flash_digest(fa_ops, chip_smoke.FWD_DIGEST_CASES[
+        case]) == FWD_DIGESTS[key]
+
+
 #: Each family's depth-2 plan at smoke width (indices into its smoke
 #: plan), as ``test_torch_family_training.py`` takes it.
 FAMILY_DEPTH2 = {"mamba2-1.3b": (0, 0), "recurrentgemma-9b": (0, 2),

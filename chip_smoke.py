@@ -293,9 +293,13 @@ back to the CPU):
    flash forward's new instances ((256, 256), MLA's (192, 128); float32
    and bf16, the bf16 (192, 128) one on the wgmma forward, whose SASS
    must hold HGMMA) against their plain version at the families' shapes
-   (``FAMILY_FLASH_SHAPES``) and ragged lengths, and times them; phase 12
-   (b) checks each family's prefill launched ``ops.forward_plan``'s
-   kernel.
+   (``FAMILY_FLASH_SHAPES``) and ragged lengths, each launch counted on
+   ``ops.forward_plan``'s kernel (float32: the eight-warp
+   ``mma_sync_wide`` of ``FAMILY_FWD_KERNELS``, whose ptxas report it
+   logs, no spill), and times them (the float32 ones also by kernel from
+   a profile, logged); phase 12 (b) checks each family's prefill launched
+   ``ops.forward_plan``'s kernel and counts its launches by kernel and by
+   (dtype, Dk, Dv), as phase 13 (c) does for each training run.
 13. Training the other families through ``launch/train.py``: (a) the
    float32 flash backward's (256, 256) and (192, 128) instances against
    the plain version under autograd on the card, max |Δ| <= 1e-5 · max
@@ -315,12 +319,14 @@ back to the CPU):
    depth matches): 1 warm-up and 2 timed steps of adam (adafactor for
    deepseek-v3 and qwen3-moe), then of FLECS-CGD (m = 0), counters set to
    0 just before each run and read just after: step ms, peak memory, flash
-   launches (the backward's by pair), codec launches.
+   launches (the forward's and the backward's by pair), codec launches.
 14. Print the kernels line (eighteen kernels: the ten of slices 1–6, the
    four grouped entries, whose launches add phase 3e's, the two tangent
-   kernels and the keyed encode's two split entries; the backward's entry
-   with its family instances and launches by pair), then the device line
-   as the last line.
+   kernels and the keyed encode's two split entries; the forward's and
+   the backward's entries with their family instances and the family
+   paths' launches by kernel and by pair, phase 13 (c)'s included),
+   then the device
+   line as the last line.
 """
 from __future__ import annotations
 
@@ -5077,6 +5083,9 @@ def check_forward(fa_ops, fa_ref, shape, q, k, v, kernel=None) -> float:
 
     counts = getattr(fa_ops, "forward_launches_by_kernel", None)
     before = dict(counts) if counts is not None else None
+    pairs = getattr(fa_ops, "forward_launches_by_pair", None)
+    pair = (str(dtype).replace("torch.", ""), Dk, Dv)
+    pair_before = pairs.get(pair, 0) if pairs is not None else None
     got = run()
     again = run()
     torch.cuda.synchronize()
@@ -5085,6 +5094,10 @@ def check_forward(fa_ops, fa_ref, shape, q, k, v, kernel=None) -> float:
         check(counts[want_kernel] - before[want_kernel] == 2,
               f"flash_attention at {shape} {dtype}: {counts} launches by "
               f"kernel (before {before}), expected 2 more on {want_kernel}")
+    if pairs is not None:
+        check(pairs.get(pair, 0) - pair_before == 2,
+              f"flash_attention at {shape} {dtype}: {pairs} launches by "
+              f"pair, expected 2 more at {pair}")
     check(same_bits(got, again), f"flash_attention differs between "
           f"two runs at {shape} {dtype}")
     want = fa_ref.attention_ref(q, k, v, window, cap)
@@ -5099,18 +5112,25 @@ def check_forward(fa_ops, fa_ref, shape, q, k, v, kernel=None) -> float:
     return e
 
 
-def phase_flash_families(dev, fa_ops, fa_ref, need_wgmma=True):
+def phase_flash_families(dev, fa_ops, fa_ref, new=True):
     """Phase 2, the flash forward's family instances: (256, 256) and MLA's
-    (192, 128), float32 (3xTF32) and bfloat16 (at (192, 128) the wgmma
-    kernel, ``ops.forward_plan``), against the plain version on the card
-    (``check_forward``) at the families' shapes and ragged lengths; then
-    each family shape timed (``family_fwd_timing``).  With ``need_wgmma``
-    the wgmma forward's SASS must hold HGMMA (``fwd_wgmma_sass``; an
-    earlier checkout timed beside this one has no such kernel)."""
+    (192, 128), float32 (3xTF32; eight warps a CTA, ``FAMILY_FWD_KERNELS``)
+    and bfloat16 (at (192, 128) the wgmma kernel, ``ops.forward_plan``),
+    against the plain version on the card (``check_forward``) at the
+    families' shapes and ragged lengths; then each family shape timed
+    (``family_fwd_timing``), the float32 ones also by kernel from a profile
+    (``kernel_split``, logged).  ``check_forward`` holds each call to
+    ``ops.forward_plan``'s kernel by its launch count ("mma_sync_wide" for
+    float32).  With ``new`` (an earlier checkout timed beside this one has
+    other kernels): the wgmma forward's SASS must hold HGMMA
+    (``fwd_wgmma_sass``), and the build log's registers and spills of
+    ``FAMILY_FWD_KERNELS`` are logged (no spill)."""
     import torch
-    if need_wgmma:
+    if new:
         log(f"phase 2: HGMMA instructions of the bf16 forward on wgmma "
             f"(SASS): {fwd_wgmma_sass(fa_ops)}")
+        log(f"phase 2: ptxas report of the float32 forward at the wide "
+            f"pairs: {family_ptxas(fa_ops, FAMILY_FWD_KERNELS)}")
     res = []
     for shape in FAMILY_FLASH_SHAPES + FAMILY_FLASH_RAGGED:
         for dtype in (torch.float32, torch.bfloat16):
@@ -5122,6 +5142,12 @@ def phase_flash_families(dev, fa_ops, fa_ref, need_wgmma=True):
             if shape in FAMILY_FLASH_SHAPES:
                 r.update(family_fwd_timing(dev, fa_ops, fa_ref, shape, q, k,
                                            v))
+            if shape in FAMILY_FLASH_SHAPES and dtype == torch.float32:
+                window, cap = shape[6], shape[7]
+                r["split"] = kernel_split(lambda: fa_ops.flash_attention(
+                    q, k, v, window, cap))
+                log(f"phase 2: flash_attention {shape} float32 by kernel "
+                    f"(profile): {r['split']}")
             log(f"phase 2: flash_attention {shape} {name}: max |Δ| {e!r}; "
                 f"bitwise equal over two runs")
             res.append(r)
@@ -5159,14 +5185,14 @@ def wgmma_forward_beside(dev, fa_ops, fa_ref) -> list:
     return res
 
 
-#: The instances a redesign of the wide backward and the (192, 128) bf16
-#: forward leaves alone, digested by ``flash_digest``: the forward (with
-#: its log-sum-exp) in float32 at every pair, in bf16 at the square pairs;
-#: (dtype, Dk, Dv, window, cap).
+#: The forward's instances that the redesigns at the wide pairs leave
+#: alone, digested by ``flash_digest``: the forward (with its log-sum-exp)
+#: in float32 at the square pairs up to 128, in bf16 at the square pairs;
+#: (dtype, Dk, Dv, window, cap).  The float32 forward at (256, 256) and
+#: (192, 128) runs its own kernel (``FAMILY_FWD_KERNELS``): its bits are
+#: not the old template's.
 FWD_DIGEST_CASES = [("float32", 32, 32, 0, 30.0), ("float32", 64, 64, 100, 0.0),
                     ("float32", 128, 128, 0, 0.0),
-                    ("float32", 256, 256, 70, 50.0),
-                    ("float32", 192, 128, 0, 0.0),
                     ("bfloat16", 32, 32, 0, 30.0),
                     ("bfloat16", 64, 64, 100, 0.0),
                     ("bfloat16", 128, 128, 0, 0.0),
@@ -5347,12 +5373,16 @@ def family_full(serve, fa_ops, moe, arch, layers, dtype_name, B, S, gen):
     out = serve.generate(cfg, params, tokens, gen=gen, image_embeds=img)
     launches = fa_ops.launches["flash_attention"]
     by_kernel = dict(fa_ops.forward_launches_by_kernel)
+    by_pair = dict(fa_ops.forward_launches_by_pair)
     peak = torch.cuda.max_memory_allocated() / 2**30
     n_attn = _attention_layers(cfg)
     check(out["prefill_flash_launches"] == n_attn == launches,
           f"{arch} full width: flash_attention launched {launches} times "
           f"({out['prefill_flash_launches']} in the prefill), expected "
           f"{n_attn}")
+    check(sum(by_pair.values()) == launches,
+          f"{arch} full width: {by_pair} forward launches by pair, "
+          f"expected {launches} in all")
     plan = fa_ops.forward_plan(dtype, *_attention_pair(cfg))
     check(by_kernel[plan] == launches,
           f"{arch} full width: {by_kernel} forward launches by kernel, "
@@ -5381,13 +5411,16 @@ def family_full(serve, fa_ops, moe, arch, layers, dtype_name, B, S, gen):
                decode_ms=out["decode_ms"], tokens_per_s=out["tokens_per_s"],
                peak_gib=peak, flash_launches=launches,
                flash_launches_by_kernel=by_kernel,
+               flash_launches_by_pair={" ".join(map(str, k)): n
+                                       for k, n in by_pair.items()},
                split_prefill_ms=split_ms, split=split.ms, row0_ids=ids)
     log(f"phase 12: {cfg.arch_id} x{cfg.n_layers} {dtype_name}, "
         f"{n_params / 1e9:.3f} B params, batch {B} x {S}"
         f"{' with ' + str(img.shape[1]) + ' image embeds' if img is not None else ''}"
         f", {gen} steps: init {init_s!r} s, prefill {out['prefill_ms']!r} "
         f"ms, decode {out['decode_ms']!r} ms/step, peak {peak!r} GiB; "
-        f"flash launches {launches} (attention layers {n_attn}); split "
+        f"flash launches {launches} (attention layers {n_attn}; by "
+        f"pair {by_pair}); split "
         f"prefill {split_ms!r} ms: {split.ms}; row 0 ids {ids}")
     return cfg, params, res
 
@@ -5470,6 +5503,12 @@ FAMILY_BWD_KERNELS = ("flash_bwd_dkdv_wide_kernelILi256ELi256E",
                       "flash_bwd_dkdv_wide_kernelILi192ELi128E",
                       "flash_bwd_dq_wide_kernelILi192ELi128E",
                       "3wgf10fwd_kernelILi192ELi128E")
+#: The float32 forward's kernel at the wide pairs (eight warps a CTA), as
+#: its mangled names hold it in the build log: ptxas must report no spill.
+FAMILY_FWD_KERNELS = ("flash_fwd_wide_kernelILi256ELi256E",
+                      "flash_fwd_wide_kernelILi192ELi128E")
+
+
 #: Phase 13 (b): a smoke-width batch, its length past a 64-row tile.
 FAMILY_TRAIN_SMOKE_BATCH = (2, 80)
 #: Phase 13 (c): full width, the depth cut the card or the time limit
@@ -5519,13 +5558,13 @@ def ptxas_report(log_text: str) -> dict:
     return out
 
 
-def family_bwd_ptxas(fa_ops) -> dict:
-    """The registers and spills of ``FAMILY_BWD_KERNELS`` from the flash
-    library's build log, by fragment; fails on a spill or a missing
-    kernel."""
+def family_ptxas(fa_ops, kernels) -> dict:
+    """The registers and spills of ``kernels`` (mangled-name fragments)
+    from the flash library's build log, by fragment; fails on a spill or a
+    missing kernel."""
     report = ptxas_report(fa_ops.LIBRARY.build_log())
     res = {}
-    for frag in FAMILY_BWD_KERNELS:
+    for frag in kernels:
         found = {n: r for n, r in report.items() if frag in n}
         check(len(found) == 1,
               f"{len(found)} kernels {frag} in the flash library's build log")
@@ -5590,7 +5629,7 @@ def phase_flash_bwd_families(dev, fa_ops, fa_ref, new=True):
     ``FAMILY_BWD_KERNELS``, and one dK/dV launch a call."""
     import torch
     import torch.nn.functional as F
-    ptx = family_bwd_ptxas(fa_ops) if new else None
+    ptx = family_ptxas(fa_ops, FAMILY_BWD_KERNELS) if new else None
     log(f"phase 13: the new kernels' ptxas report: {ptx}")
     res, err_worst = [], 0.0
     for shape in FAMILY_BWD_SHAPES + FAMILY_BWD_RAGGED:
@@ -5840,6 +5879,8 @@ def family_train_full(train, fa_ops, d_ops, arch, cfg, make_params, B, S,
         peak = torch.cuda.max_memory_allocated() / 2**30
         launches = dict(fa_ops.launches)
         by_pair = dict(fa_ops.backward_launches_by_pair)
+        fwd_by_pair = dict(fa_ops.forward_launches_by_pair)
+        fwd_by_kernel = dict(fa_ops.forward_launches_by_kernel)
         losses = [m["loss"] for m in out["metrics"]]
         check(all(map(math.isfinite, losses)),
               f"{arch} full width {mode}: losses not finite: {losses}")
@@ -5847,6 +5888,15 @@ def family_train_full(train, fa_ops, d_ops, arch, cfg, make_params, B, S,
               and launches["flash_attention_backward"] == n_attn * steps,
               f"{arch} full width {mode}: flash launches {launches}, "
               f"expected {2 * n_attn} and {n_attn} a step")
+        check(sum(fwd_by_pair.values()) == launches["flash_attention"],
+              f"{arch} full width {mode}: {fwd_by_pair} forward launches "
+              f"by pair, expected {launches['flash_attention']} in all")
+        planned = dict.fromkeys(fwd_by_kernel, 0)
+        for (dname, dk, dv), n in fwd_by_pair.items():
+            planned[fa_ops.forward_plan(getattr(torch, dname), dk, dv)] += n
+        check(fwd_by_kernel == planned,
+              f"{arch} full width {mode}: {fwd_by_kernel} forward launches "
+              f"by kernel, expected {planned} (ops.forward_plan)")
         leaves = d_ops.launches["dither_encode_keyed"]
         check(not flecs or (leaves > 0 and leaves
                             == d_ops.launches["dither_decode"]),
@@ -5857,13 +5907,17 @@ def family_train_full(train, fa_ops, d_ops, arch, cfg, make_params, B, S,
             flash_launches=launches["flash_attention"],
             backward_launches=launches["flash_attention_backward"],
             backward_by_pair={str(k): v for k, v in by_pair.items()},
+            forward_by_pair={" ".join(map(str, k)): v
+                             for k, v in fwd_by_pair.items()},
+            forward_by_kernel=fwd_by_kernel,
             codec_launches=leaves)
         if flecs:
             res[mode]["uplink_mbits"] = out["metrics"][-1]["uplink_mbits"]
         log(f"phase 13: {cfg.arch_id} x{cfg.n_layers} f32, batch {B} x {S}, "
             f"{mode} x{steps}: losses {losses}; step ms {out['step_ms']}; "
-            f"peak {peak!r} GiB; flash {launches['flash_attention']}, "
-            f"backward {by_pair}; codec {leaves}")
+            f"peak {peak!r} GiB; flash {launches['flash_attention']} (by "
+            f"pair {fwd_by_pair}, by kernel {fwd_by_kernel}), backward "
+            f"{by_pair}; codec {leaves}")
         del out
         torch.cuda.empty_cache()
     return dict(arch=cfg.arch_id, layers=cfg.n_layers, batch=B, seq=S,
@@ -6185,24 +6239,41 @@ def main():
     family_paths = {f"serve {r['arch']} x{r['layers']} prefill":
                     r["flash_launches"]
                     for r in families["full"].values()}
-    family_by_kernel = {}
-    for r in families["full"].values():
-        for name, n in r["flash_launches_by_kernel"].items():
-            family_by_kernel[name] = family_by_kernel.get(name, 0) + n
     for r in fam_flash:
         flash_err[r["dtype"]] = max(flash_err[r["dtype"]], r["max_abs_err"])
+    # phase 13 (c)'s main paths: each family's two full-width runs, the
+    # forward twice a layer a step (remat); the family paths' (phase 12
+    # (b)'s and 13 (c)'s) forward launches by kernel and by (dtype, Dk, Dv)
+    fam_fwd_paths, family_by_kernel, fam_fwd_pairs = {}, {}, {}
+
+    def add(into, counts):
+        for key, n in counts.items():
+            into[key] = into.get(key, 0) + n
+
+    for r in families["full"].values():
+        add(family_by_kernel, r["flash_launches_by_kernel"])
+        add(fam_fwd_pairs, r["flash_launches_by_pair"])
+    for run in fam_train["full"].values():
+        for mode in (run["optimizer"], "flecs"):
+            fam_fwd_paths[f"train {run['arch']} x{run['layers']} {mode} "
+                          f"x{FAMILY_TRAIN_STEPS}"] = run[mode][
+                              "flash_launches"]
+            add(family_by_kernel, run[mode]["forward_by_kernel"])
+            add(fam_fwd_pairs, run[mode]["forward_by_pair"])
     kernels.append({
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES,
         "launches": full["launches"]
         + trained["adam"]["launches"]["flash_attention"]
         + trained["flecs"]["launches"]["flash_attention"]
-        + m2_launches["flash_attention"] + sum(family_paths.values()),
+        + m2_launches["flash_attention"] + sum(family_paths.values())
+        + sum(fam_fwd_paths.values()),
         "launches_by_path": {**{k: (v if isinstance(v, int)
                                     else v["flash_attention"])
                                 for k, v in by_path.items()},
-                             **family_paths},
+                             **family_paths, **fam_fwd_paths},
         "family_launches_by_kernel": family_by_kernel,
+        "family_launches_by_pair": fam_fwd_pairs,
         "instances": fam_flash,
         "max_abs_err": max(flash_err.values()), "ms": flash["float32"]["ms"],
         "plain_ms": flash["float32"]["plain_ms"],

@@ -10,6 +10,7 @@
     python3 kernel_timing.py dither [--root DIR]
     python3 kernel_timing.py quickstart [--root DIR]
     python3 kernel_timing.py remat
+    python3 kernel_timing.py mma-rate
 
 ``--root`` names the checkout whose ``src/repro_torch`` is timed (default:
 this one), so that a parent unpacked with ``git archive`` beside a change is
@@ -63,8 +64,9 @@ order DIR, this, this, DIR.
 ``wgmma`` forward's warpgroups ``REPRO_FWD_WG_GROUPS``; see
 ``flash_attention.cu``), prints ptxas's registers and spills of the
 kernels at (256, 256) and (192, 128), then holds and times the forward at
-``chip_smoke.FAMILY_FLASH_SHAPES`` in float32 and bfloat16 (rows 7b-7c of
-PERF.md; ``chip_smoke.phase_flash_families``) and the float32 backward
+``chip_smoke.FAMILY_FLASH_SHAPES`` in float32 and bfloat16, the float32
+one also by kernel from a profile (rows 7b-7c of PERF.md;
+``chip_smoke.phase_flash_families``) and the float32 backward
 there (rows 8b-8c; ``chip_smoke.phase_flash_bwd_families``: the plain
 autograd, SDPA where it applies, the bound and each kernel's device ms
 from a profile), and, where the checkout has it, the bf16 forward on
@@ -94,6 +96,14 @@ each layer's remat through ``torch.utils.checkpoint`` (the gradient pass's)
 and through ``models/model._dual_remat`` (the Hessian-vector products'),
 in the order checkpoint, dual, dual, checkpoint: step ms, peak GiB, and
 whether the two routes' losses are the same bits.
+
+``mma-rate`` measures the issue rate of ``mma.sync`` m16n8k8 TF32, the
+instruction of every float32 flash kernel (3xTF32), on one CTA an SM of
+4, 8, 12 and 16 warps: alone, and with the three integer and float
+operations of one operand element's split beside each (the float32 flash
+forward issues about three an ``mma.sync``); ``tools/csrc/mma_rate.cu``,
+which runs on no path of the port, ``clock64`` cycles a CTA
+(``mma_rate``).
 
 Each prints the card's name and power limit, the timing lines, and as its
 last line one JSON object of the times.  Needs one card.
@@ -176,6 +186,49 @@ def jvp_kernel_split(dev, ops, ref) -> dict:
     return split
 
 
+def mma_rate(dev) -> list:
+    """``mma-rate``: mma.sync m16n8k8 TF32 a cycle an SM at 4, 8, 12 and
+    16 warps a CTA, one CTA an SM, alone and with a split's three
+    operations beside each; TFLOP/s from CUDA events."""
+    import ctypes
+    import torch
+    from repro_torch.kernels.flash_attention import build
+    from repro_torch.kernels.nvcc import CudaLibrary
+    P, I = ctypes.c_void_p, ctypes.c_int
+    csrc = build.LIBRARY.source.parent           # tensor_core.cuh
+    lib = CudaLibrary(chip_smoke.ROOT / "tools" / "csrc" / "mma_rate.cu",
+                      flags=(f"-I{csrc}",), headers=build.LIBRARY.headers,
+                      signatures={"repro_mma_rate": (I, I, I, I, P, P, P)})
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    iters, res = 4096, []
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for mixed in (0, 1):
+        for warps in (4, 8, 12, 16):
+            cycles = torch.zeros(sms, dtype=torch.int64, device=dev)
+            sink = torch.zeros(1, device=dev)
+
+            def run():
+                lib.check("mma_rate", lib.load().repro_mma_rate(
+                    sms, 32 * warps, iters, mixed, cycles.data_ptr(),
+                    sink.data_ptr(), stream))
+
+            ms = chip_smoke.cuda_ms(run, 1)
+            n = warps * iters * 8                    # mma.sync a CTA
+            per_cycle = n / float(cycles.double().mean())
+            r = dict(mixed=bool(mixed), warps=warps,
+                     mma_per_sm_cycle=per_cycle,
+                     cycles_per_mma_a_scheduler=4 / per_cycle,
+                     tflops=sms * n * 2 * 16 * 8 * 8 / (ms * 1e-3) / 1e12)
+            chip_smoke.log(
+                f"mma.sync m16n8k8 tf32, {warps} warps an SM"
+                f"{', a split beside each' if mixed else ''}: "
+                f"{per_cycle!r} a cycle an SM "
+                f"({r['cycles_per_mma_a_scheduler']!r} cycles each a "
+                f"scheduler), {r['tflops']!r} TFLOP/s")
+            res.append(r)
+    return res
+
+
 def beside(args) -> None:
     """``flash-jvp`` or ``flash-families`` with ``--root DIR``: DIR's
     kernels and this checkout's, each run an ``--alone`` process of its
@@ -215,11 +268,12 @@ def flash_families(dev, ops, ref, this: bool) -> dict:
         ops.LIBRARY.build_log()).items() if "Li256E" in n or "Li192E" in n}}
     for name, r in out["ptxas"].items():
         chip_smoke.log(f"  ptxas: {name}: {r}")
-    fwd = chip_smoke.phase_flash_families(dev, ops, ref, need_wgmma=this)
+    fwd = chip_smoke.phase_flash_families(dev, ops, ref, new=this)
     bwd = chip_smoke.phase_flash_bwd_families(dev, ops, ref, new=this)
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
     out["times"] = {
-        f"forward {r['shape']} {r['dtype']}": {k: r[k] for k in keys}
+        f"forward {r['shape']} {r['dtype']}": {
+            k: r[k] for k in keys + ("split",) if k in r}
         for r in fwd if "ms" in r}
     out["times"].update({
         f"backward {r['shape']}": {k: r[k] for k in keys + ("split",)}
@@ -246,7 +300,8 @@ def main(argv=None) -> None:
     parser.add_argument("what", choices=("compressor", "topk", "fednl",
                                          "flash-forward", "flash-backward",
                                          "flash-jvp", "flash-families",
-                                         "dither", "quickstart", "remat"))
+                                         "dither", "quickstart", "remat",
+                                         "mma-rate"))
     parser.add_argument("--root", type=Path, default=chip_smoke.ROOT,
                         help="checkout whose src/repro_torch is timed")
     parser.add_argument("-D", dest="defines", action="append", default=[],
@@ -317,6 +372,8 @@ def main(argv=None) -> None:
         out["split_ms"] = jvp_kernel_split(dev, ops, ref)
     elif args.what == "remat":
         out["runs"] = remat_timing(dev)
+    elif args.what == "mma-rate":
+        out["rates"] = mma_rate(dev)
     elif args.what == "dither":
         from repro_torch import random
         from repro_torch.kernels.dither import ops, ref

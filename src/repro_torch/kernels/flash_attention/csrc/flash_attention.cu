@@ -56,15 +56,88 @@
 //     the row sums l are taken from the float32 P.
 //   * Head dims: the kernel is a template on Q's and K's head dim DK and
 //     V's and O's DV (the scale stays 1/sqrt(DK)), built for (32, 32),
-//     (64, 64), (128, 128), (256, 256) (gemma2, recurrentgemma) and MLA's
-//     (192, 128) (deepseek-v3: qk_nope 128 + qk_rope 64 against
-//     v_head_dim 128, V never padded to 192).  From max(DK, DV) = 128 on,
-//     32-key tiles; at DV = 256 the P V pass sums 64 output columns apart
-//     at a time (fwd_pv_tiles), so O's 128 float32 accumulators a thread
-//     leave room for the pass's own; at DK = 256 in float32 Q, K and V
-//     take 195 KB of shared memory, one CTA an SM.
+//     (64, 64), (128, 128) in both types and, in bfloat16, for (256, 256)
+//     (gemma2, recurrentgemma) and MLA's (192, 128) (deepseek-v3: qk_nope
+//     128 + qk_rope 64 against v_head_dim 128, V never padded to 192);
+//     float32 at those two pairs takes the wide kernel below.  From
+//     max(DK, DV) = 128 on, 32-key tiles; at DV = 256 the P V pass sums 64
+//     output columns apart at a time (fwd_pv_tiles), so O's 128 float32
+//     accumulators a thread leave room for the pass's own.
 // The optional float32 log-sum-exp output m + log(l) ([B, H, S]) feeds the
 // backward; given a null pointer the forward writes nothing else.
+//
+// The float32 forward at (256, 256) and (192, 128): flash_fwd_wide_kernel
+// (below the backward's wide section, whose helpers it shares), kernel 2
+// of the C entry, which ops.forward_plan names for float32 at those pairs
+// ("mma_sync_wide").  The plan above does not
+// carry there: Q 64 x 196 floats and 32-key K and V tiles double-buffered
+// take 134 KB at (192, 128) and 195 KB at (256, 256), so one CTA of four
+// warps an SM, one warp a scheduler, with nothing to hide mma.sync's
+// latency; and above DK = 64 each warp split its Q fragments again at
+// every tile.  The wide kernel, the same arithmetic (NEG, l == 0 -> 1,
+// GQA, window, dead tiles skipped):
+//   * one CTA of eight warps (WIDE_THREADS) per (128-row q tile, head,
+//     batch), 16 rows a warp, so each staged K and V byte serves twice the
+//     rows; the q-tile-slowest grid above;
+//   * KV tiles of 32 keys at (192, 128) and 16 at (256, 256) (187,392 and
+//     202,240 B of shared memory with Q's 128 rows), double-buffered by
+//     cp.async (stage_wide, its addresses from fresh_tid), one barrier a
+//     tile;
+//   * each warp owns its rows' online softmax (no row statistic crosses
+//     warps) and skips a tile none of its 16 rows sees (past their
+//     diagonal, before their window, past S); the CTA stages it once for
+//     all eight;
+//   * S = Q K^T is the backward's wide_scores (rows padded by 8 floats,
+//     the depth read two columns at a time, the three 3xTF32 terms in
+//     accumulators of their own, so that no n tile waits on its own
+//     previous mma.sync), its depth loop unrolled 4 (FWD_WIDE_UNROLL);
+//     P V takes P from the S accumulators (a_from_acc) and V across rows
+//     (rows padded by 4 floats: conflict-free for load_b_kn), 64 columns
+//     of O a pass summed apart and added in float32 (add_product), a
+//     compiler fence between passes.  load_b_rows, load_a_split and
+//     wide_product read a staged split P: here P never leaves registers.
+//   About 230 and 255 registers at (192, 128) and (256, 256), no spill
+//   (chip_smoke.py phase 2 logs ptxas's report).  wgmma
+//   with TF32 operands was not built: they must be K-major, so V would be
+//   staged transposed, and Q's hi and lo for 64 rows alone take 96 KB at
+//   DK = 192 and 128 KB at DK = 256, beside which double-buffered K and V
+//   hi and lo tiles do not fit at 256.
+// What bounds it: the issue of mma.sync beside the split instructions
+// (three an operand element).  On this card mma.sync m16n8k8 TF32 alone
+// issues ~0.66 a cycle an SM from eight warps on (~320 TFLOP/s, 65% of
+// 495), and with a split's three operations beside each ~0.38 (~185
+// TFLOP/s) (kernel_timing.py mma-rate).  The kernel issues 480 mma.sync a
+// warp a 32-key tile at (192, 128) beside ~1,300 split instructions, and
+// 768 beside ~1,970 a 32 keys at (256, 256), so at those rates its best
+// is ~2.7x 3xTF32's bound (the bound takes 495 TFLOP/s), ~1.55x were the
+// splits free.  The times against the parent's kernel, SDPA and the
+// bound: PERF.md rows 7b-7c (kernel_timing.py flash-families --root).
+// Variants timed at the family shapes (copies of this source with one
+// change each, built side by side and timed in turns in one call, CUDA
+// events; deepseek-v3's [8, 128, KV 128, 1024] at (192, 128), gemma2's
+// [8, 16, KV 8, 1024] and recurrentgemma's [4, 16, KV 1, 3072] band at
+// (256, 256); NVIDIA H100 80GB HBM3, 700 W):
+//   * K and V split once a tile by the CTA, hi in place and lo in tiles
+//     of their own, B fragments read from both, a second barrier a tile
+//     (229,888 B: it fits at (192, 128) only; at (256, 256) it takes
+//     235,776): deepseek 7.80 ms against this kernel's 7.61 (depth
+//     unrolled 2);
+//   * the same with the split tiles interleaved (a depth pair's hi, hi,
+//     lo, lo; a key pair's for V), so that a B fragment is one 16-byte
+//     load as here, one raw tile: 255 registers with 48 bytes of spill,
+//     7.69-7.84 against 7.44-7.46.  Neither is in this source: their
+//     times cannot be taken again from the tree (PERF.md keeps them);
+//   * S's depth loop unrolled 2 / 4 / 8: deepseek 7.41-7.61 / 7.27-7.39 /
+//     7.24-7.35, gemma2 2.05 / 1.99 / 1.97-2.00, recurrentgemma 6.72-6.88
+//     / 6.48-6.64 / 6.44-6.64 (unrolled 1, in another call: 7.80-7.85
+//     against 7.50-7.59 unrolled 2);
+//   * P V 128 columns a pass at (192, 128) (210 registers) or 32 at (256,
+//     256): within 1%;
+//   * a head-major grid (a head's q tiles side by side, sharing its K and
+//     V in L2): deepseek 7.43-7.55, gemma2 2.22, recurrentgemma 6.90-6.95
+//     against 7.27-7.39, 1.99 and 6.48-6.64;
+//   * the softmax on __expf: 1-2% faster, not kept (expf, as the other
+//     kernels here).
 //
 // What bounds the forward on this card: operations.  At the serving shape
 // (B=8, H=32, KV=4, S=1024, D=64) the causal work is 4*B*H*S^2*D/2 =
@@ -263,6 +336,93 @@ constexpr size_t fwd_smem_bytes() {
           + (size_t)2 * BK * row_ld<T, DV>()) * sizeof(T);
 }
 
+// One KV tile's online softmax for a warp's 16 rows (row0..): the raw
+// scores s (NK n tiles of 8 keys from k_lo) scaled, capped and masked (the
+// mask only where the rows do not see the whole tile), the row max over
+// the quad, then s = P = exp(s - m_new) and this thread's running max m_r
+// and sum l_r (rows g and g + 8) updated; corr is the factor O is
+// rescaled by.
+template <int NK>
+__device__ __forceinline__ void online_softmax(float (&s)[NK][4],
+                                               float (&m_r)[2],
+                                               float (&l_r)[2],
+                                               float (&corr)[2], int row0,
+                                               int k_lo, int window,
+                                               float cap, float scale,
+                                               int g, int t) {
+  const bool seen = k_lo + 8 * NK - 1 <= row0
+                    && (!window || row0 + 15 - k_lo < window);
+  float mx[2] = {NEG, NEG};
+#pragma unroll
+  for (int j = 0; j < NK; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1;
+      float x = s[j][e] * scale;
+      if (cap != 0.f) x = cap * tanhf(x / cap);
+      if (!seen) {
+        const int qpos = row0 + g + 8 * r;
+        const int kpos = k_lo + 8 * j + 2 * t + (e & 1);
+        bool keep = qpos >= kpos;
+        if (window) keep = keep && (qpos - kpos) < window;
+        x = keep ? x : NEG;
+      }
+      s[j][e] = x;
+      mx[r] = fmaxf(mx[r], x);
+    }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m_r[r], mx[r]);
+    corr[r] = expf(m_r[r] - m_new);
+    m_r[r] = m_new;
+  }
+#pragma unroll
+  for (int j = 0; j < NK; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = expf(s[j][e] - m_r[e >> 1]);
+      sum[e >> 1] += s[j][e];
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+    l_r[r] = l_r[r] * corr[r] + sum[r];
+  }
+}
+
+// A warp's 16 rows (row0..; none past S) of O = acc / l into ob (rows rs
+// apart) and, where lse is given (the head's [S] row), m + log(l); l == 0
+// becomes 1.
+template <typename T, int ND>
+__device__ __forceinline__ void store_rows(T* ob, long long rs, float* lse,
+                                           const float (&acc)[ND][4],
+                                           const float (&m_r)[2],
+                                           const float (&l_r)[2], int row0,
+                                           int S, int g, int t) {
+  float l[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l_r[r] == 0.f ? 1.f : l_r[r];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = row0 + g + (e & 2 ? 8 : 0);
+      if (row < S)
+        store(&ob[row * rs + 8 * j + 2 * t + (e & 1)], acc[j][e] / l[e >> 1]);
+    }
+  if (lse != nullptr && t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + g + 8 * r;
+      if (row < S) lse[row] = m_r[r] + logf(l[r]);
+    }
+  }
+}
+
 template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(TC_THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -339,50 +499,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         O::mma(s[j], a, O::load_b_nk(Kb, LDK, 8 * j, i * O::KS, g, t));
     }
 
-    // scale, cap, mask (only where the warp's 16 rows do not see the whole
-    // tile); the tile's row max over the quad
-    const bool seen = k_lo + BK - 1 <= q_lo + m
-                      && (!window || q_lo + m + 15 - k_lo < window);
-    float mx[2] = {NEG, NEG};
-#pragma unroll
-    for (int j = 0; j < NK; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        float x = s[j][e] * scale;
-        if (cap != 0.f) x = cap * tanhf(x / cap);
-        if (!seen) {
-          const int qpos = q_lo + m + g + 8 * r;
-          const int kpos = k_lo + 8 * j + 2 * t + (e & 1);
-          bool keep = qpos >= kpos;
-          if (window) keep = keep && (qpos - kpos) < window;
-          x = keep ? x : NEG;
-        }
-        s[j][e] = x;
-        mx[r] = fmaxf(mx[r], x);
-      }
-    float corr[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m_r[r], mx[r]);
-      corr[r] = expf(m_r[r] - m_new);
-      m_r[r] = m_new;
-    }
-#pragma unroll
-    for (int j = 0; j < NK; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = expf(s[j][e] - m_r[e >> 1]);
-        sum[e >> 1] += s[j][e];
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-      l_r[r] = l_r[r] * corr[r] + sum[r];
-    }
+    float corr[2];
+    online_softmax(s, m_r, l_r, corr, q_lo + m, k_lo, window, cap, scale, g,
+                   t);
 
     // O = O * corr + P V, the tile's P V summed apart, NC n-tiles a pass
 #pragma unroll
@@ -419,46 +538,34 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();   // every warp is done with this buffer: it refills
   }
 
-  T* ob = o + b * st.o[0] + h * st.o[1];
-  float l[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) l[r] = l_r[r] == 0.f ? 1.f : l_r[r];
-#pragma unroll
-  for (int j = 0; j < ND; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = q_lo + m + g + (e & 2 ? 8 : 0);
-      if (row < S)
-        store(&ob[row * st.o[2] + 8 * j + 2 * t + (e & 1)],
-              acc[j][e] / l[e >> 1]);
-    }
-  if (lse != nullptr && t == 0) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = q_lo + m + g + 8 * r;
-      if (row < S)
-        lse[((long long)b * H + h) * S + row] = m_r[r] + logf(l[r]);
-    }
-  }
+  store_rows(o + b * st.o[0] + h * st.o[1], st.o[2],
+             lse == nullptr ? nullptr : lse + ((long long)b * H + h) * S,
+             acc, m_r, l_r, q_lo + m, S, g, t);
 }
 
 template <typename T, int DK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, int B, int H, int KV, int S, int window,
                    float cap, const Strides& st, cudaStream_t stream) {
-  const size_t bytes = fwd_smem_bytes<T, DK, DV>();
-  auto kernel = flash_fwd_kernel<T, DK, DV>;
-  // above 48 KB of shared memory a launch is refused unless allowed more
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
-  const float scale = (float)(1.0 / sqrt((double)DK));
-  const unsigned ctas = (S + FWD_BQ - 1) / FWD_BQ * H * B;
-  kernel<<<ctas, TC_THREADS, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, H, KV, S, window,
-      cap, scale, st);
-  return cudaGetLastError();
+  if constexpr (std::is_same_v<T, float> && (DK > 128 || DV > 128)) {
+    // float32 at (256, 256) and (192, 128) is flash_fwd_wide_kernel's
+    // (kernel 2 of the C entry): this template is not built there
+    return cudaErrorInvalidValue;
+  } else {
+    const size_t bytes = fwd_smem_bytes<T, DK, DV>();
+    auto kernel = flash_fwd_kernel<T, DK, DV>;
+    // above 48 KB of shared memory a launch is refused unless allowed more
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return err;
+    const float scale = (float)(1.0 / sqrt((double)DK));
+    const unsigned ctas = (S + FWD_BQ - 1) / FWD_BQ * H * B;
+    kernel<<<ctas, TC_THREADS, bytes, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(o), lse, H, KV, S, window,
+        cap, scale, st);
+    return cudaGetLastError();
+  }
 }
 
 // The (DK, DV) pairs built: the square ones of the model's heads, and
@@ -963,13 +1070,13 @@ __device__ __forceinline__ int fresh_tid() {
   return tid;
 }
 
-// R rows of a [.., S, D] operand (row `lo` on) into a [R][wide_ld<D>]
-// tile, zeros past S, by the CTA's 256 threads.
-template <int D, int R>
+// R rows of a [.., S, D] operand (row `lo` on) into a [R][LD] tile (rows
+// of wide_ld<D> unless named), zeros past S, by the CTA's 256 threads.
+template <int D, int R, int LD = wide_ld<D>()>
 __device__ __forceinline__ void stage_wide(float* dst, const float* src,
                                            long long stride, int lo,
                                            int S) {
-  constexpr int CPR = D / 4, LD = wide_ld<D>();
+  constexpr int CPR = D / 4;
   for (int c = fresh_tid(); c < R * CPR; c += WIDE_THREADS) {
     const int r = c / CPR, col = (c % CPR) * 4, row = lo + r;
     const bool in = row < S;
@@ -1066,10 +1173,11 @@ __device__ __forceinline__ void store_split(unsigned* hi, float* lo, int row,
 }
 
 // c[j] (j < NJ) = rows m..m+15 of As times rows 8j.. of Bs over their D
-// columns (one warp's 16 x 8 NJ scores), depth pairs two at a time; the
-// three 3xTF32 terms in accumulators of their own (three independent
-// mma.sync chains an n tile), added at the end.
-template <int D, int NJ>
+// columns (one warp's 16 x 8 NJ scores), depth pairs two at a time, the
+// depth loop unrolled UNROLL times; the three 3xTF32 terms in accumulators
+// of their own (three independent mma.sync chains an n tile), added at the
+// end.
+template <int D, int NJ, int UNROLL = 2>
 __device__ __forceinline__ void wide_scores(float (&c)[NJ][4],
                                             const float* As,
                                             const float* Bs, int m, int g,
@@ -1079,7 +1187,7 @@ __device__ __forceinline__ void wide_scores(float (&c)[NJ][4],
   zero(c);
   zero(hl);
   zero(lh);
-#pragma unroll 2
+#pragma unroll (UNROLL)
   for (int k = 0; k < D; k += 8) {
     const Tc<float>::A a = load_a_pairs(As, LD, m, k, g, t);
 #pragma unroll
@@ -1469,6 +1577,137 @@ cudaError_t launch_backward_wide(const float* q, const float* k,
   if (err != cudaSuccess) return err;
   flash_bwd_dq_wide_kernel<DK, DV><<<q_ctas, WIDE_THREADS, q_bytes, stream>>>(
       q, k, v, dout, lse, delta, dq, H, KV, S, window, cap, scale, st);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The float32 forward at (256, 256) and (192, 128): eight warps a CTA share
+// each staged KV tile (design in the header above).
+// ---------------------------------------------------------------------------
+
+constexpr int FWD_WIDE_BQ = 128;   // q rows a CTA: 16 a warp
+constexpr int FWD_WIDE_PASS = 8;   // n tiles of O a P V pass sums apart
+constexpr int FWD_WIDE_UNROLL = 4; // S's depth loop unrolled (wide_scores)
+
+// keys a KV tile: 32 at (192, 128), 16 at (256, 256), where Q's 128 rows
+// leave room for no more
+template <int DK, int DV>
+__host__ __device__ constexpr int fwd_wide_bk() {
+  return DK + DV <= 320 ? 32 : 16;
+}
+
+template <int DK, int DV>
+__host__ __device__ constexpr size_t fwd_wide_smem_bytes() {
+  // Q; K and V twice
+  constexpr int BK = fwd_wide_bk<DK, DV>();
+  return ((size_t)(FWD_WIDE_BQ + 2 * BK) * wide_ld<DK>()
+          + (size_t)2 * BK * row_ld<float, DV>()) * sizeof(float);
+}
+
+// O (rows q_lo.., 128 a CTA, 16 a warp) of one head at a wide pair, over
+// the live KV tiles of fwd_wide_bk keys (flash_fwd_kernel's grid and
+// arithmetic).  Each tile: S = Q K^T over DK (wide_scores: depth pairs,
+// three accumulators an n tile), the online softmax of the warp's rows,
+// then O = O corr + P V, P from the S accumulators (a_from_acc), V read
+// across rows (rows of DV + 4 floats: conflict-free), FWD_WIDE_PASS n
+// tiles of O a pass summed apart and added in float32.
+template <int DK, int DV>
+__global__ void __launch_bounds__(WIDE_THREADS, 1)
+flash_fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o,
+                      float* __restrict__ lse, int H, int KV, int S,
+                      int window, float cap, float scale, Strides st) {
+  constexpr int BQ = FWD_WIDE_BQ, BK = fwd_wide_bk<DK, DV>();
+  constexpr int LDK = wide_ld<DK>(), LDV = row_ld<float, DV>();
+  constexpr int NK = BK / 8, ND = DV / 8, NC = FWD_WIDE_PASS;
+  static_assert(ND % NC == 0, "P V passes");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);   // [BQ][LDK]
+  float* Ks = Qs + BQ * LDK;                        // [2][BK][LDK]
+  float* Vs = Ks + 2 * BK * LDK;                    // [2][BK][LDV]
+
+  const int nq = (S + BQ - 1) / BQ;
+  const int nb = gridDim.x / (nq * H);                       // batch size
+  const int q_lo = (nq - 1 - (int)(blockIdx.x / (H * nb))) * BQ;
+  const int h = blockIdx.x % H, b = (blockIdx.x / H) % nb;
+  const int kvh = h / (H / KV);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4, m = 16 * warp;
+  const int r0 = q_lo + m;                        // the warp's first row
+
+  const float* kb = k + b * st.k[0] + kvh * st.k[1];
+  const float* vb = v + b * st.v[0] + kvh * st.v[1];
+  const int q_hi = min(q_lo + BQ - 1, S - 1);
+  const int j_lo = window ? max(0, q_lo - window + 1) / BK : 0;
+  const int j_hi = q_hi / BK;
+  auto stage = [&](int jt) {
+    const int buf = (jt - j_lo) & 1;
+    stage_wide<DK, BK>(Ks + buf * BK * LDK, kb, st.k[2], jt * BK, S);
+    stage_wide<DV, BK, LDV>(Vs + buf * BK * LDV, vb, st.v[2], jt * BK, S);
+  };
+  stage_wide<DK, BQ>(Qs, q + b * st.q[0] + h * st.q[1], st.q[2], q_lo, S);
+  stage(j_lo);
+  cp_async_commit();
+
+  // this thread's rows g and g + 8 of the warp's 16: running max and sum
+  float m_r[2] = {NEG, NEG}, l_r[2] = {0.f, 0.f};
+  float acc[ND][4];
+  zero(acc);
+
+  for (int jt = j_lo; jt <= j_hi; ++jt) {
+    cp_async_wait_all();   // this tile (and Q) has landed ...
+    __syncthreads();       // ... for every thread; the last tile is done
+    if (jt < j_hi) {
+      stage(jt + 1);
+      cp_async_commit();
+    }
+    const int buf = (jt - j_lo) & 1, k_lo = jt * BK;
+    const float* Kb = Ks + buf * BK * LDK;
+    const float* Vb = Vs + buf * BK * LDV;
+    // a warp whose 16 rows see none of the tile (all past S, the tile past
+    // their diagonal or before their window) skips it
+    if (r0 >= S || k_lo > r0 + 15
+        || (window && k_lo + BK - 1 <= r0 - window))
+      continue;
+
+    float s[NK][4];                                  // S = Q K^T
+    wide_scores<DK, NK, FWD_WIDE_UNROLL>(s, Qs, Kb, m, g, t);
+
+    float corr[2];
+    online_softmax(s, m_r, l_r, corr, r0, k_lo, window, cap, scale, g, t);
+
+    // O = O corr + P V, NC n tiles a pass summed apart
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] *= corr[e >> 1];
+#pragma unroll
+    for (int jc = 0; jc < ND; jc += NC) {
+      auto& o_pass = *reinterpret_cast<float(*)[NC][4]>(&acc[jc][0]);
+      add_product<float, NC, NK>(o_pass, s, Vb + 8 * jc, LDV, g, t);
+      asm volatile("" ::: "memory");
+    }
+  }
+
+  store_rows(o + b * st.o[0] + h * st.o[1], st.o[2],
+             lse == nullptr ? nullptr : lse + ((long long)b * H + h) * S,
+             acc, m_r, l_r, r0, S, g, t);
+}
+
+template <int DK, int DV>
+cudaError_t launch_forward_wide(const float* q, const float* k,
+                                const float* v, float* o, float* lse, int B,
+                                int H, int KV, int S, int window, float cap,
+                                const Strides& st, cudaStream_t stream) {
+  const size_t bytes = fwd_wide_smem_bytes<DK, DV>();
+  auto kernel = flash_fwd_wide_kernel<DK, DV>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  const float scale = (float)(1.0 / sqrt((double)DK));
+  const unsigned ctas = (S + FWD_WIDE_BQ - 1) / FWD_WIDE_BQ * H * B;
+  kernel<<<ctas, WIDE_THREADS, bytes, stream>>>(q, k, v, o, lse, H, KV, S,
+                                                window, cap, scale, st);
   return cudaGetLastError();
 }
 
@@ -2506,9 +2745,11 @@ extern "C" {
 // addressed through `strides` (12 int64: batch, head and sequence strides
 // of q, k, v, o, in elements; the head dimension is contiguous).  dtype 0 =
 // float32, 1 = bfloat16.  kernel 0: flash_fwd_kernel (mma.sync), (D, Dv)
-// one of the pairs `dispatch` lists; kernel 1: the bf16 wgmma forward
-// (bfloat16 only, the pairs `wgf::dispatch_forward` lists; o's strides even
-// and o 4-byte aligned: it stores bf16 pairs).  lse: null, or float32
+// one of the pairs `dispatch` lists, but not float32 at (256, 256) or
+// (192, 128); kernel 1: the bf16 wgmma forward (bfloat16 only, the pairs
+// `wgf::dispatch_forward` lists; o's strides even and o 4-byte aligned: it
+// stores bf16 pairs); kernel 2: flash_fwd_wide_kernel (float32 only, at
+// (256, 256) and (192, 128)).  lse: null, or float32
 // [B, H, S] (contiguous) for each row's log-sum-exp.  Returns the launch's
 // cudaGetLastError() (0 on success).
 int repro_flash_attention(const void* q, const void* k, const void* v,
@@ -2532,6 +2773,20 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
       return (int)cudaErrorMisalignedAddress;
     return (int)wgf::dispatch_forward(D, Dv, q, k, v, o, l, B, H, KV, S,
                                       window, cap, st, s);
+  }
+  if (kernel == 2) {
+    if (dtype != 0) return (int)cudaErrorInvalidValue;
+    const float* qf = static_cast<const float*>(q);
+    const float* kf = static_cast<const float*>(k);
+    const float* vf = static_cast<const float*>(v);
+    float* of = static_cast<float*>(o);
+    if (D == 256 && Dv == 256)
+      return (int)launch_forward_wide<256, 256>(qf, kf, vf, of, l, B, H, KV,
+                                                S, window, cap, st, s);
+    if (D == 192 && Dv == 128)
+      return (int)launch_forward_wide<192, 128>(qf, kf, vf, of, l, B, H, KV,
+                                                S, window, cap, st, s);
+    return (int)cudaErrorInvalidValue;
   }
   if (kernel != 0) return (int)cudaErrorInvalidValue;
   cudaError_t err =

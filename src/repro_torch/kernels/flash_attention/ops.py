@@ -11,7 +11,8 @@ version takes any (Dk, Dv); on the card
     (64, 64), (128, 128), (256, 256) and MLA's (192, 128)
     (``check_forward_dims``); ``forward_plan`` names the kernel a
     (dtype, pair) launches: the bfloat16 forward on ``wgmma`` at (192, 128),
-    the ``mma.sync`` one everywhere else;
+    the eight-warp ``mma.sync`` one in float32 at (256, 256) and (192,
+    128), the ``mma.sync`` one everywhere else;
   * the backward kernels take the same pairs in float32, and the square
     ones up to 128 in bfloat16 (``BWD_HEAD_DIMS``,
     ``check_backward_dims``);
@@ -41,7 +42,8 @@ float32 only; a bfloat16 dual raises.  A dual tensor that reaches a raw
 launch raises (``kernels/dual.py``): no tangent is ever dropped.
 
 Every forward launch adds one to ``launches["flash_attention"]`` (and to
-its kernel's count in ``forward_launches_by_kernel``), every
+its kernel's count in ``forward_launches_by_kernel`` and its (dtype, Dk,
+Dv) count in ``forward_launches_by_pair``), every
 backward one to ``launches["flash_attention_backward"]`` (and to its pair's
 count in ``backward_launches_by_pair``), and the tangent
 kernels to ``launches["flash_attention_jvp"]`` and
@@ -69,8 +71,11 @@ BWD_HEAD_DIMS = {torch.float32: FWD_HEAD_DIMS,
 #: is timed at beside the ``mma.sync`` kernel (``kernel_timing.py
 #: flash-families``).
 WGMMA_FWD_HEAD_DIMS = ((64, 64), (128, 128), (192, 128), (256, 256))
+#: (Dk, Dv) pairs whose float32 forward is the eight-warp kernel
+#: (``flash_fwd_wide_kernel``), which ``forward_plan`` routes there.
+WIDE_FWD_HEAD_DIMS = ((256, 256), (192, 128))
 #: The forward kernels, as the C entry numbers them.
-FWD_KERNELS = {"mma_sync": 0, "wgmma": 1}
+FWD_KERNELS = {"mma_sync": 0, "wgmma": 1, "mma_sync_wide": 2}
 #: Head dims the tangent kernels are built for (Dk == Dv).
 HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -84,6 +89,10 @@ backward_launches_by_pair = {}
 #: The forward's launches since the last :func:`reset_launches` by kernel
 #: (their sum is ``launches["flash_attention"]``).
 forward_launches_by_kernel = {name: 0 for name in FWD_KERNELS}
+#: The forward's launches since the last :func:`reset_launches` by (dtype
+#: name, Dk, Dv), e.g. ``("float32", 256, 256)`` (their sum is
+#: ``launches["flash_attention"]``).
+forward_launches_by_pair = {}
 
 #: Where tangents in bfloat16 come from (ROADMAP.md).
 _LATER_BF16_TANGENTS = "ROADMAP.md queue 1, 'bf16 attention tangents'"
@@ -100,16 +109,21 @@ def reset_launches() -> None:
         launches[name] = 0
     for name in forward_launches_by_kernel:
         forward_launches_by_kernel[name] = 0
+    forward_launches_by_pair.clear()
     backward_launches_by_pair.clear()
 
 
 def forward_plan(dtype, dk: int, dv: int) -> str:
     """The forward kernel a CUDA call of ``dtype`` at head dims (dk, dv)
     launches: "wgmma" (``wgf::fwd_kernel``) for bfloat16 at MLA's (192,
-    128), where the ``mma.sync`` kernel lost most to SDPA; "mma_sync"
-    (``flash_fwd_kernel``) for every other pair and for float32."""
+    128), where the ``mma.sync`` kernel lost most to SDPA; "mma_sync_wide"
+    (``flash_fwd_wide_kernel``, eight warps a CTA) for float32 at
+    ``WIDE_FWD_HEAD_DIMS``; "mma_sync" (``flash_fwd_kernel``) for every
+    other (dtype, pair)."""
     if dtype == torch.bfloat16 and (dk, dv) == (192, 128):
         return "wgmma"
+    if dtype == torch.float32 and (dk, dv) in WIDE_FWD_HEAD_DIMS:
+        return "mma_sync_wide"
     return "mma_sync"
 
 
@@ -210,7 +224,9 @@ def _launch(q, k, v, out, window, cap, lse=None, kernel=None) -> None:
     strides (v and ``out`` of head dim Dv); writes ``out`` (q's type) and,
     if given, ``lse`` (float32 [B, H, S], contiguous).  ``kernel``: the
     ``FWD_KERNELS`` name to launch, by default ``forward_plan``'s; the
-    ``wgmma`` one takes bfloat16 at ``WGMMA_FWD_HEAD_DIMS``."""
+    ``wgmma`` one takes bfloat16 at ``WGMMA_FWD_HEAD_DIMS``, the
+    ``mma_sync_wide`` one float32 at ``WIDE_FWD_HEAD_DIMS`` and no other
+    kernel does."""
     refuse_duals("flash_attention", q, k, v, out, lse)
     B, H, S, D = q.shape
     kernel = kernel or forward_plan(q.dtype, D, v.shape[-1])
@@ -219,6 +235,12 @@ def _launch(q, k, v, out, window, cap, lse=None, kernel=None) -> None:
         raise ValueError(f"flash_attention: the wgmma forward takes "
                          f"bfloat16 at {WGMMA_FWD_HEAD_DIMS}, got {q.dtype} "
                          f"({D}, {v.shape[-1]})")
+    wide = q.dtype == torch.float32 and (D, v.shape[-1]) in WIDE_FWD_HEAD_DIMS
+    if (kernel == "mma_sync_wide") != wide and kernel != "wgmma":
+        raise ValueError(f"flash_attention: float32 at {WIDE_FWD_HEAD_DIMS} "
+                         f"takes the mma_sync_wide forward and nothing else "
+                         f"does, got {kernel} for {q.dtype} ({D}, "
+                         f"{v.shape[-1]})")
     q, k, v = map(_rows_aligned, (q, k, v))
     strides = _strides(q, k, v, out)
     with torch.cuda.device(q.device):
@@ -231,6 +253,8 @@ def _launch(q, k, v, out, window, cap, lse=None, kernel=None) -> None:
     LIBRARY.check("flash_attention", rc)
     launches["flash_attention"] += 1
     forward_launches_by_kernel[kernel] += 1
+    pair = (str(q.dtype).removeprefix("torch."), D, v.shape[-1])
+    forward_launches_by_pair[pair] = forward_launches_by_pair.get(pair, 0) + 1
 
 
 def _launch_backward(q, k, v, out, dout, lse, dq, dk, dv, window,

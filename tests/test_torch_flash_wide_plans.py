@@ -212,10 +212,12 @@ def test_wgmma_forward_plan_within_bf16_tolerance(B, H, KV, S, window, cap):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("pair", ops.FWD_HEAD_DIMS)
 def test_forward_plan_routes_only_bf16_mla_to_wgmma(dtype, pair):
-    """bf16 at (192, 128) takes the wgmma forward; every other (dtype,
-    pair) keeps the mma.sync kernel."""
+    """bf16 at (192, 128) takes the wgmma forward; float32 at the wide
+    pairs the eight-warp mma.sync kernel; every other (dtype, pair) keeps
+    the mma.sync kernel."""
     want = ("wgmma" if dtype == torch.bfloat16 and pair == (192, 128)
-            else "mma_sync")
+            else "mma_sync_wide" if dtype == torch.float32
+            and pair in ((256, 256), (192, 128)) else "mma_sync")
     assert ops.forward_plan(dtype, *pair) == want
     assert want in ops.FWD_KERNELS
     if want == "wgmma":
@@ -236,4 +238,5 @@ def test_wgmma_forward_takes_bf16_at_its_pairs_only():
         ops._launch(q32, k32, k32, out[..., :32].bfloat16(), 0, 0.0,
                     kernel="wgmma")
     ops.reset_launches()
-    assert ops.forward_launches_by_kernel == {"mma_sync": 0, "wgmma": 0}
+    assert ops.forward_launches_by_kernel == {"mma_sync": 0, "wgmma": 0,
+                                              "mma_sync_wide": 0}

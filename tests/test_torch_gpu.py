@@ -1788,7 +1788,8 @@ def test_flash_forward_bf16_mla_runs_on_wgmma_and_matches(cuda, B, H, KV, S,
         run = lambda: fa_ops.flash_attention(q, k, v, window, cap)  # noqa: E731
     fa_ops.reset_launches()
     got, again = run(), run()
-    assert fa_ops.forward_launches_by_kernel == {"mma_sync": 0, "wgmma": 2}
+    assert fa_ops.forward_launches_by_kernel == {"mma_sync": 0, "wgmma": 2,
+                                                 "mma_sync_wide": 0}
     _same(got.float(), again.float())
     want = fa_ref.attention_ref(q, k, v, window, cap)
     assert got.dtype == torch.bfloat16 and got.shape == (B, H, S, 128)
@@ -1842,7 +1843,8 @@ def test_flash_backward_wide_pairs_launch_one_dkdv_kernel(cuda, dk, dv):
 #: ``chip_smoke.FWD_DIGEST_CASES`` case (``chip_smoke.flash_digest``), as
 #: the parent of the wgmma forward and the wide backward gave them on an
 #: NVIDIA H100 80GB HBM3 (``kernel_timing.py flash-families``): the
-#: instances those kernels leave alone keep their bits.
+#: instances those kernels and the float32 forward's eight-warp kernel at
+#: (256, 256) and (192, 128) leave alone keep their bits.
 FWD_DIGESTS = {
     "float32 32 32 0 30.0":
         "e4d9929a1af2f765889e2fbccc6d3ac95ffcccd759c5c43653033aff1801167b",
@@ -1850,10 +1852,6 @@ FWD_DIGESTS = {
         "568ba70b6072bade8ef9faab286a0976254102b6958193b8a6a1d20699b3fada",
     "float32 128 128 0 0.0":
         "01407391081fc1070f117e5a2d20b8434cc9897bca35105f476fb1ff9386d19b",
-    "float32 256 256 70 50.0":
-        "c9cca2c3418796f76cb3aae5b24a4254098d325f2531e9b9d5b811865311445f",
-    "float32 192 128 0 0.0":
-        "30ce8c7698e2f6f990e5862f262c2b295c41aa73842ce0c56ec6ac79306ae2e8",
     "bfloat16 32 32 0 30.0":
         "b3757bd1080ac9b9ebf643b2cea224149a4fb3f60d4b022ed9f7c37e645545e1",
     "bfloat16 64 64 100 0.0":
@@ -1864,12 +1862,90 @@ FWD_DIGESTS = {
         "a0260ed0be8d54386b97db5f2e6c5f0de60a3f16ba8fdf24ad0c7d41a55c7666"}
 
 
-@pytest.mark.parametrize("case", list(range(9)))
+@pytest.mark.parametrize("case", list(range(7)))
 def test_flash_forward_keeps_its_bits_where_untouched(cuda, case):
     chip_smoke = _chip_smoke()
     key = " ".join(map(str, chip_smoke.FWD_DIGEST_CASES[case]))
     assert chip_smoke.flash_digest(fa_ops, chip_smoke.FWD_DIGEST_CASES[
         case]) == FWD_DIGESTS[key]
+
+
+# ---------------------------------------------------------------------------
+# The float32 forward at (256, 256) and (192, 128): eight warps a CTA
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", FAMILY_BWD_SHAPES)
+@pytest.mark.parametrize("model_layout", [False, True])
+def test_flash_forward_wide_float32_matches_plain_version(cuda, shape,
+                                                          model_layout):
+    """The float32 forward at the wide pairs against the plain version on
+    the same card: rtol = atol = 2e-5, the same bits over two runs, in the
+    kernel layout and through ``ops.attention`` on model-layout tensors;
+    two launches counted at the (dtype, Dk, Dv) pair."""
+    window, cap = shape[6], shape[7]
+    q, k, v, _ = (t.to(cuda) for t in _pair_inputs(shape, model_layout,
+                                                   sum(shape[:6]) + 1))
+    if model_layout:
+        run = lambda: fa_ops.attention(q, k, v, window, cap)  # noqa: E731
+        want = fa_ref.attention_ref(*(t.transpose(1, 2) for t in (q, k, v)),
+                                    window, cap).transpose(1, 2)
+    else:
+        run = lambda: fa_ops.flash_attention(q, k, v, window, cap)  # noqa: E731
+        want = fa_ref.attention_ref(q, k, v, window, cap)
+    fa_ops.reset_launches()
+    got, again = run(), run()
+    assert fa_ops.forward_launches_by_pair == {("float32",) + shape[4:6]: 2}
+    _same(got, again)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dk,dv", [(256, 256), (192, 128)])
+def test_flash_forward_wide_pairs_launch_the_wide_kernel(cuda, dk, dv):
+    """The float32 forward at the wide pairs launches
+    ``flash_fwd_wide_kernel`` and nothing else: counted as
+    "mma_sync_wide", and alone in a profile."""
+    chip_smoke = _chip_smoke()
+    shape = (1, 4, 2, 130, dk, dv, 0, 0.0)
+    q, k, v, _ = (t.to(cuda) for t in _pair_inputs(shape, False, 5))
+    fa_ops.reset_launches()
+    split = chip_smoke.kernel_split(lambda: fa_ops.flash_attention(q, k, v))
+    assert fa_ops.forward_launches_by_kernel == {
+        "mma_sync": 0, "wgmma": 0, "mma_sync_wide": 3}   # warm-up and 2
+    assert list(split) == [f"flash_fwd_wide_kernel<{dk}, {dv}>"], split
+    assert all(r["launches"] == 1 for r in split.values()), split
+
+
+def test_flash_forward_wide_kernels_do_not_spill(cuda):
+    """ptxas reports no spill in the wide forward's two instances (the
+    build log of the library built)."""
+    chip_smoke = _chip_smoke()
+    report = chip_smoke.family_ptxas(fa_ops, chip_smoke.FAMILY_FWD_KERNELS)
+    assert len(report) == 2, report
+    assert all(r["registers"] <= 255 for r in report.values()), report
+
+
+def test_flash_forward_launches_by_pair_sum_to_its_launches(cuda):
+    """``ops.forward_launches_by_pair`` counts every forward launch, by
+    (dtype, Dk, Dv), through every entry: the kernel layout, the model
+    layout, the autograd function and the bf16 wgmma route."""
+    calls = [((1, 2, 1, 40, 64, 64, 0, 0.0), torch.float32, False, False),
+             ((1, 2, 1, 40, 256, 256, 16, 30.0), torch.float32, True, False),
+             ((1, 2, 2, 40, 192, 128, 0, 0.0), torch.float32, False, True),
+             ((1, 2, 2, 40, 192, 128, 0, 0.0), torch.bfloat16, True, False)]
+    fa_ops.reset_launches()
+    for shape, dtype, model_layout, grad in calls:
+        q, k, v, _ = (t.to(cuda, dtype).requires_grad_(grad)
+                      for t in _pair_inputs(shape, model_layout, 9))
+        if model_layout:
+            fa_ops.attention(q, k, v, shape[6], shape[7])
+        else:
+            fa_ops.flash_attention(q, k, v, shape[6], shape[7])
+    assert fa_ops.forward_launches_by_pair == {
+        ("float32", 64, 64): 1, ("float32", 256, 256): 1,
+        ("float32", 192, 128): 1, ("bfloat16", 192, 128): 1}
+    assert sum(fa_ops.forward_launches_by_pair.values()) == fa_ops.launches[
+        "flash_attention"] == 4
 
 
 #: Each family's depth-2 plan at smoke width (indices into its smoke
